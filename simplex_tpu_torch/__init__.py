@@ -1,0 +1,33 @@
+"""simplex_tpu_torch -- the dense revised simplex solver on PyTorch + CUDA.
+
+The port of ``simplex_tpu`` (JAX on a TPU) to one NVIDIA H100: the pivot
+loop runs in PyTorch, and its hot ops -- Dantzig pricing, the fused ratio
+test and the rank-1 update of the basis inverse -- run through CUDA kernels
+written for Hopper (``simplex_tpu_torch/csrc``). This package never imports
+jax; ``simplex_tpu`` stays the reference it is tested against.
+
+    from simplex_tpu_torch import solve, load_lp
+    A, b, c = load_lp("tests/data/sample.txt")
+    result = solve(A, b, c, device="cuda")      # max c.x s.t. Ax=b, x>=0
+
+Subpackages:
+    core     state, pivot step, host-driven solve loop, Newton inversion
+    kernels  plain torch ops, the Hopper kernel wrappers and their build
+    io       the reference text format
+    oracle   instance generators and the HiGHS oracle
+"""
+
+from simplex_tpu_torch.config import DEFAULT_OPTIONS, SimplexOptions
+from simplex_tpu_torch.core.solver import SolveResult, solve
+from simplex_tpu_torch.io.text import load_lp, loads_lp
+from simplex_tpu_torch.status import SolveStatus
+
+__all__ = [
+    "DEFAULT_OPTIONS",
+    "SimplexOptions",
+    "SolveResult",
+    "SolveStatus",
+    "load_lp",
+    "loads_lp",
+    "solve",
+]

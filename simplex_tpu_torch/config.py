@@ -1,0 +1,124 @@
+"""Solver configuration.
+
+``SimplexOptions`` keeps the fields and defaults of
+``simplex_tpu.config.SimplexOptions`` so that one option set means the same
+solve in both packages. Two fields change meaning:
+
+  * ``dtype`` is a ``torch.dtype``;
+  * ``backend`` names the op set of the pivot step: ``"hopper"`` (the
+    default) runs pricing, the ratio test and the B_inv update through the
+    hand-written CUDA kernels of :mod:`simplex_tpu_torch.kernels.hopper`,
+    ``"torch"`` runs plain PyTorch ops everywhere.
+
+This port covers the dense canonical path (Dantzig pricing, eager rank-1
+update, Harris or classic ratio test). Options that select another path
+raise ``NotImplementedError`` from :func:`check_supported`, naming the
+ROADMAP item that ports them; none is silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+BACKENDS = ("hopper", "torch")
+
+
+@dataclasses.dataclass(frozen=True)
+class SimplexOptions:
+    """Options for the simplex solver (see ``simplex_tpu.config`` for the
+    rationale behind each default)."""
+
+    # optimality tolerance on reduced costs; None resolves by dtype
+    eps: Optional[float] = None
+    # ratio-test pivot tolerance: alpha_i must exceed it to be eligible
+    pivot_tol: float = 1e-7
+    # Harris pass-1 feasibility relaxation
+    feas_tol: float = 1e-6
+    # pivot limit; 0 means 50 * (m + n)
+    max_iter: int = 0
+    # re-invert the basis every K pivots (0 = never)
+    refactor_every: int = 0
+    # recompute x_b and y from the current inverse every K pivots (0 = never)
+    recompute_every: int = 0
+    # re-check every terminal decision against a re-inverted basis
+    verify_terminal: bool = True
+    # switch to Bland's rule after this many consecutive degenerate pivots
+    bland_after: int = 64
+    # degenerate-step threshold on theta
+    degen_tol: float = 1e-9
+    # arm the rhs perturbation after this many degenerate pivots (0 = off)
+    perturb_after: int = 48
+    perturb_scale: float = 1e-4
+    perturb_grow: float = 2.0
+    # arithmetic dtype of A, B_inv and the vectors
+    dtype: torch.dtype = torch.float32
+    # op set of the pivot step: "hopper" (CUDA kernels) or "torch" (plain)
+    backend: str = "hopper"
+    # "dantzig" only in this port (devex / steepest: ROADMAP item 9)
+    pricing: str = "dantzig"
+    # "float32" only in this port (bf16 shadow: ROADMAP item 8)
+    pricing_dtype: str = "float32"
+    # "harris" (default) or "classic"
+    ratio: str = "harris"
+    # options of later slices, kept so an option set reads the same in both
+    # packages; check_supported rejects any value that would select them
+    update_defer: int = 0
+    partial_pricing: int = 0
+    partial_min_segment: int = 512
+    multi_price: int = 0
+    multi_price_stale: float = 0.05
+    multi_price_degen: int = 4
+    pricing_sparse: bool = False
+    fallback_shadow: bool = True
+    dual_flip: bool = True
+    checkpoint_every: int = 0
+    # f64 refinement of the returned basis (when m <= polish_max_m)
+    polish: bool = True
+    polish_max_m: int = 16384
+
+    def resolve_max_iter(self, m: int, n: int) -> int:
+        return self.max_iter if self.max_iter > 0 else 50 * (m + n)
+
+    def resolve_eps(self) -> float:
+        if self.eps is not None:
+            return self.eps
+        return 1e-9 if self.dtype.itemsize >= 8 else 1e-5
+
+    def resolve_defer(self) -> int:
+        if self.multi_price > 0:
+            return max(self.update_defer, self.multi_price)
+        return self.update_defer
+
+
+DEFAULT_OPTIONS = SimplexOptions()
+
+
+def check_supported(opts: SimplexOptions) -> None:
+    """Raise for an option value this port does not run yet."""
+    if opts.backend not in BACKENDS:
+        raise ValueError(
+            f"unknown kernel backend: {opts.backend!r} (want one of {BACKENDS})"
+        )
+    if opts.ratio not in ("harris", "classic"):
+        raise ValueError(f"unknown ratio test: {opts.ratio!r}")
+    if opts.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be float32 or float64, got {opts.dtype}")
+    unported = [
+        (opts.pricing != "dantzig", f"pricing={opts.pricing!r}", 9),
+        (opts.pricing_dtype != "float32",
+         f"pricing_dtype={opts.pricing_dtype!r}", 8),
+        (opts.partial_pricing > 1,
+         f"partial_pricing={opts.partial_pricing}", 8),
+        (opts.update_defer > 0, f"update_defer={opts.update_defer}", 8),
+        (opts.multi_price > 0, f"multi_price={opts.multi_price}", 8),
+        (opts.pricing_sparse, "pricing_sparse=True", 15),
+    ]
+    for hit, what, item in unported:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported to simplex_tpu_torch yet "
+                f"(ROADMAP.md, open item {item})"
+            )

@@ -1,0 +1,286 @@
+"""The solve loop: a host loop around the pivot step.
+
+The counterpart of ``simplex_tpu.core.solver``, whose pivot loop is one
+``lax.while_loop`` on the device. Here the loop runs in Python and reads
+the control scalars (status, iters, degen, last_refac and the perturbation
+state) back from the device once per pivot, as one small tensor. Between
+pivots it arms the rhs perturbation and runs the optional periodic
+recompute / refactorization; after the loop, the verify-terminal rounds
+re-check every terminal decision against a re-inverted basis. The returned
+basis is then polished in float64 on the same device.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from simplex_tpu_torch.config import DEFAULT_OPTIONS, SimplexOptions, check_supported
+from simplex_tpu_torch.core.state import (
+    Problem,
+    SolverState,
+    initial_state,
+    initial_state_slack,
+    problem_from_numpy,
+)
+from simplex_tpu_torch.core.step import (
+    perturb_activate,
+    perturb_clear,
+    perturb_scale,
+    pivot_step,
+    recompute_xy,
+    refactorize,
+)
+from simplex_tpu_torch.kernels.dispatch import get_backend
+from simplex_tpu_torch.status import SolveStatus
+
+MAX_VERIFY_ROUNDS = 4
+MAX_PERTURB_ROUNDS = 16
+
+_log = logging.getLogger("simplex_tpu_torch.solver")
+
+
+class SolveResult(NamedTuple):
+    """Host-side result; the same fields as ``simplex_tpu.SolveResult``."""
+
+    z: float
+    x: np.ndarray  # (n,) full primal solution
+    x_b: np.ndarray  # (m,)
+    basis: np.ndarray  # (m,) int32
+    status: SolveStatus
+    iters: int
+    # worst primal infeasibility max(0, -min x_b) of the returned basis
+    # (exact f64 when the polish ran)
+    feas_err: float = 0.0
+    y: Optional[np.ndarray] = None  # (m,) simplex multipliers
+    at_upper: Optional[np.ndarray] = None  # bounded solves only (not ported)
+
+
+class _Control(NamedTuple):
+    status: int
+    iters: int
+    degen: int
+    last_refac: int
+    pert_rounds: int = 0
+    pert_on: bool = False
+
+
+def _control(s: SolverState) -> _Control:
+    """The loop's control scalars in ONE device-to-host read."""
+    parts = [s.status, s.iters, s.degen, s.last_refac]
+    if s.pert is not None:
+        parts += [s.pert.rounds, s.pert.on.to(torch.int32)]
+    vals = torch.stack(parts).tolist()
+    if s.pert is not None:
+        vals[5] = bool(vals[5])
+    return _Control(*vals)
+
+
+def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
+    perturb = opts.perturb_after > 0 and s.pert is not None
+    pa = opts.perturb_after
+    while ctl.status == SolveStatus.RUNNING and ctl.iters < max_iter:
+        s = pivot_step(prob, s, opts, backend)
+        ctl = _control(s)
+        running = ctl.status == SolveStatus.RUNNING
+        if (
+            perturb
+            and running
+            and ctl.pert_rounds < MAX_PERTURB_ROUNDS
+            and ctl.degen >= pa
+            and ctl.degen % pa == 0
+        ):
+            s = perturb_activate(prob, s, backend, perturb_scale(opts, ctl.pert_rounds))
+            ctl = ctl._replace(degen=0, pert_on=True, pert_rounds=ctl.pert_rounds + 1)
+        if (
+            opts.recompute_every > 0
+            and running
+            and ctl.iters > 0
+            and ctl.iters % opts.recompute_every == 0
+        ):
+            s = recompute_xy(prob, s)
+        if (
+            opts.refactor_every > 0
+            and running
+            and ctl.iters > 0
+            and ctl.iters % opts.refactor_every == 0
+        ):
+            s = refactorize(prob, s, backend)
+            ctl = ctl._replace(last_refac=ctl.iters)
+    return s, ctl
+
+
+def solve_state(
+    prob: Problem,
+    state0: SolverState,
+    opts: SimplexOptions,
+    max_iter: int,
+    backend=None,
+) -> SolverState:
+    """Run the pivot loop to termination, then the verify rounds; maps a
+    still-running status to MAX_ITER."""
+    if backend is None:
+        backend = get_backend(opts.backend)
+    perturb = opts.perturb_after > 0 and state0.pert is not None
+    s, ctl = _pivot_loop(prob, state0, _control(state0), opts, max_iter, backend)
+
+    if opts.verify_terminal:
+        # a terminal decision made from a drifted product-form inverse (or
+        # for the perturbed rhs) is re-checked from an exact inverse
+        rounds = 0
+        while (
+            rounds < MAX_VERIFY_ROUNDS
+            and ctl.status != SolveStatus.RUNNING
+            and ctl.iters < max_iter
+            and (ctl.iters > ctl.last_refac or (perturb and ctl.pert_on))
+        ):
+            if perturb and ctl.pert_on:
+                s = perturb_clear(s)
+            s = refactorize(prob, s, backend)
+            s.status = torch.full_like(s.status, int(SolveStatus.RUNNING))
+            s, ctl = _pivot_loop(prob, s, _control(s), opts, max_iter, backend)
+            rounds += 1
+
+    if perturb and ctl.pert_on:
+        # exits that leave the shift armed (MAX_ITER, verify off, rounds
+        # exhausted): re-derive x_b / y from the true rhs
+        s = recompute_xy(prob, perturb_clear(s))
+
+    if ctl.status == SolveStatus.RUNNING:
+        s.status = torch.full_like(s.status, int(SolveStatus.MAX_ITER))
+    return s
+
+
+def _is_sparse(A) -> bool:
+    if isinstance(A, torch.Tensor):
+        return A.layout != torch.strided
+    try:
+        import scipy.sparse as sps
+    except ImportError:  # pragma: no cover - scipy is a test dependency
+        return False
+    return sps.issparse(A)
+
+
+def solve(
+    A,
+    b,
+    c,
+    *,
+    u=None,
+    basis0: Optional[np.ndarray] = None,
+    options: SimplexOptions = DEFAULT_OPTIONS,
+    device="cuda",
+) -> SolveResult:
+    """Solve  max c.x  s.t.  A x = b, x >= 0  from a feasible basis, on
+    ``device`` (default ``"cuda"``; there is no fallback to the CPU).
+
+    ``basis0=None`` starts from the trailing identity slack block. ``A``
+    (a dense numpy array or tensor) is moved to ``device`` and cast to
+    ``options.dtype``; ``u`` (native upper bounds) is not ported yet.
+    """
+    if u is not None:
+        raise NotImplementedError(
+            "upper bounds (u=) are not ported to simplex_tpu_torch yet "
+            "(ROADMAP.md, open item 10)"
+        )
+    if _is_sparse(A):
+        raise NotImplementedError(
+            "sparse A is not ported to simplex_tpu_torch yet (ROADMAP.md, open item 15)"
+        )
+    check_supported(options)
+    if not isinstance(A, torch.Tensor):
+        A = np.asarray(A)
+    b, c = (np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v) for v in (b, c))
+    if A.ndim != 2:
+        raise ValueError(f"A must be a matrix, got shape {A.shape}")
+    m, n = A.shape
+    if m > n:
+        raise ValueError(f"m > n ({m} > {n}): not a canonical-form LP")
+    if b.shape != (m,) or c.shape != (n,):
+        raise ValueError(f"shape mismatch: A {A.shape}, b {b.shape}, c {c.shape}")
+
+    # full fp32 everywhere: the counterpart of the JAX package's HIGHEST pins
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    dtype = options.dtype
+    prob = problem_from_numpy(A, b, c, device, dtype)
+    perturb = options.perturb_after > 0
+    if basis0 is None:
+        state0 = initial_state_slack(prob, dtype, perturb=perturb)
+    else:
+        state0 = initial_state(prob, basis0, dtype, perturb=perturb)
+    final = solve_state(prob, state0, options, options.resolve_max_iter(m, n))
+    return finalize_result(prob, b, c, final, options)
+
+
+def _polish_refine(A, b64, basis, x_b0, B_inv, iters: int = 4):
+    """f64 x_b for the final basis by iterative refinement on the device:
+    r = b - A_B x in float64, x += B_inv r with the solve's fp32 inverse as
+    the preconditioner. Keeps the best iterate. Returns (x64, residual)."""
+    A_B = A.index_select(1, basis).double()
+    x = x_b0.double()
+    best_x, best_nr = x, torch.full((), float("inf"), dtype=torch.float64, device=x.device)
+    for it in range(iters + 1):
+        r = b64 - A_B @ x
+        nr = r.abs().max()
+        better = nr < best_nr
+        best_x = torch.where(better, x, best_x)
+        best_nr = torch.where(better, nr, best_nr)
+        if it < iters:
+            x = x + (B_inv @ r.to(B_inv.dtype)).double()
+    return best_x, best_nr.item(), A_B
+
+
+def finalize_result(
+    prob: Problem, b, c, final: SolverState, options: SimplexOptions
+) -> SolveResult:
+    """Pull the result to the host and polish the returned basis in f64."""
+    x_b_np = final.x_b.cpu().numpy()
+    basis_np = final.basis.cpu().numpy()
+    c_b_np = final.c_b.cpu().numpy()
+    y_np = final.y.cpu().numpy()
+    status = SolveStatus(int(final.status))
+    iters = int(final.iters)
+    m, n = len(basis_np), np.asarray(c).shape[0]
+    c64 = np.asarray(c, np.float64)
+
+    z = float(np.dot(c_b_np, x_b_np))
+    feas_err = max(0.0, float(-x_b_np.min())) if m else 0.0
+    if options.polish and m <= options.polish_max_m:
+        # exact values for the returned basis, no clamping: a violation is
+        # reported as feas_err, not zeroed
+        b64 = torch.as_tensor(np.asarray(b, np.float64), device=prob.A.device)
+        x64, nr, A_B = _polish_refine(prob.A, b64, final.basis, final.x_b, final.B_inv)
+        scale = max(1.0, float(np.abs(np.asarray(b, np.float64)).max()))
+        ok = np.isfinite(nr) and nr <= 1e-7 * scale
+        if not ok:
+            _log.warning(
+                "polish refinement stalled (ill-conditioned basis); "
+                "falling back to an f64 LU solve"
+            )
+            try:
+                x64 = torch.linalg.solve(A_B, b64)
+                ok = True
+            except torch.linalg.LinAlgError:
+                ok = False
+        if ok:
+            x_b64 = x64.cpu().numpy()
+            feas_err = max(0.0, float(-x_b64.min()))
+            x_b_np = x_b64.astype(x_b_np.dtype)
+            z = float(c64[basis_np] @ x_b64)
+    x = np.zeros(n, dtype=x_b_np.dtype)
+    x[basis_np] = x_b_np
+    return SolveResult(
+        z=z,
+        x=x,
+        x_b=x_b_np,
+        basis=basis_np,
+        status=status,
+        iters=iters,
+        feas_err=feas_err,
+        y=y_np,
+    )

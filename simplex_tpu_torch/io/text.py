@@ -1,0 +1,41 @@
+"""The reference text format: ``m n``, then A (m x n), b (m), c (n),
+whitespace separated. A numpy-only copy of ``simplex_tpu.io.text``'s
+readers: that package imports jax, this one must not.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+import numpy as np
+
+
+def loads_lp(text: str, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Parse the text format from a string. Returns (A, b, c)."""
+    tokens = text.split()
+    if len(tokens) < 2:
+        raise ValueError("LP text: missing header 'm n'")
+    m, n = int(tokens[0]), int(tokens[1])
+    if m > n:
+        raise ValueError(f"LP text: m > n ({m} > {n})")
+    need = 2 + m * n + m + n
+    if len(tokens) < need:
+        raise ValueError(f"LP text: expected {need} tokens, got {len(tokens)}")
+    vals = np.asarray(tokens[2:need], dtype=np.float64)
+    A = vals[: m * n].reshape(m, n).astype(dtype)
+    b = vals[m * n : m * n + m].astype(dtype)
+    c = vals[m * n + m :].astype(dtype)
+    return A, b, c
+
+
+def load_lp(path: str | os.PathLike, dtype=np.float32):
+    """Load (A, b, c) from a file in the text format. Prose after the numbers
+    (the sample file's explanation block) is ignored."""
+    with open(path, "r") as f:
+        tokens = f.read().split()
+    if len(tokens) < 2:
+        raise ValueError(f"{path}: missing header")
+    m, n = int(tokens[0]), int(tokens[1])
+    need = 2 + m * n + m + n
+    return loads_lp(" ".join(tokens[:need]), dtype=dtype)

@@ -1,0 +1,107 @@
+"""Build and load the Hopper kernels.
+
+The three CUDA sources in ``simplex_tpu_torch/csrc`` compile with nvcc into
+one shared library with a plain C interface, loaded through ``ctypes``: no
+PyTorch headers, so the build takes seconds. It happens at first use, into
+``build/kernels/`` beside the package, under a name that hashes the sources
+and flags, so an edited source never loads a stale library.
+
+Environment: ``CUDA_HOME`` (default ``/usr/local/cuda``) locates nvcc when
+it is not on ``PATH``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional, Tuple
+
+SOURCES = ("pricing_scan.cu", "ratio_eta.cu", "rank1_update.cu")
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "simplex_pricing_scan": (
+        _I, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+    ),
+    "simplex_ratio_eta": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P, _P),
+    "simplex_rank1_update": (_P, _P, _P, _I, _I, _P),
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (not on PATH, nor under $CUDA_HOME/bin): the Hopper "
+        "kernels cannot be built"
+    )
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libsimplex_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Tuple[Path, str]:
+    """Compile the kernels unless this exact build exists. Returns the
+    library's path and the compiler's messages (with ``verbose``, ptxas's
+    register and shared-memory report for each kernel)."""
+    out = library_path()
+    if out.exists() and not verbose:
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.simplex_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.simplex_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = load_library().simplex_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err} ({msg})")

@@ -1,0 +1,36 @@
+"""Backend selection for the pivot step's hot ops.
+
+``SimplexOptions.backend`` picks the op namespace the step calls:
+
+  * ``"hopper"`` -- pricing, the fused ratio test and the rank-1 update run
+    through the CUDA kernels (:mod:`simplex_tpu_torch.kernels.hopper`);
+  * ``"torch"``  -- plain PyTorch ops everywhere
+    (:mod:`simplex_tpu_torch.kernels.ops`), the kernels' reference.
+
+Both expose the functions of ``simplex_tpu.kernels.dispatch``'s namespaces
+that the dense Dantzig path uses, so the step is backend-agnostic.
+"""
+
+from __future__ import annotations
+
+import types
+
+from simplex_tpu_torch.config import BACKENDS
+from simplex_tpu_torch.kernels import hopper as _hopper
+from simplex_tpu_torch.kernels import ops as _ops
+
+
+def get_backend(name: str) -> types.SimpleNamespace:
+    if name not in BACKENDS:
+        raise ValueError(f"unknown kernel backend: {name!r} (want one of {BACKENDS})")
+    fast = name == "hopper"
+    return types.SimpleNamespace(
+        name=name,
+        choose_entering=_hopper.choose_entering if fast else _ops.choose_entering,
+        ratio_eta=_hopper.ratio_eta if fast else _ops.ratio_eta,
+        rank1_update=_hopper.rank1_update if fast else _ops.rank1_update,
+        mask_basic=_ops.mask_basic,
+        gather_column=_ops.gather_column,
+        gather_cost=_ops.gather_cost,
+        gather_basis_matrix=_ops.gather_basis_matrix,
+    )

@@ -1,0 +1,174 @@
+"""Plain PyTorch versions of the solver's hot ops.
+
+The counterpart of ``simplex_tpu.kernels.xla``: the same functions with the
+same contracts, written as ordinary torch ops that run on any device. The
+``"torch"`` backend runs the pivot step on these alone; the ``"hopper"``
+backend replaces pricing, the ratio test and the B_inv update with the CUDA
+kernels of :mod:`simplex_tpu_torch.kernels.hopper`, which hold themselves
+against these functions.
+
+Every index a later op needs stays a device tensor: columns and rows are
+picked with ``index_select`` (never ``t[p]`` with a tensor ``p``, which would
+read ``p`` back to the host), so a pivot step runs without a host sync.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+INT_MAX = 2**31 - 1
+BASIC_PENALTY = 1e30
+
+
+def reduced_costs(y: torch.Tensor, A: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """e_j = y . A_j - c_j, accumulated in c's dtype (A may be a bf16 shadow,
+    which is upcast)."""
+    return y.to(c.dtype) @ A.to(c.dtype) - c
+
+
+def choose_entering(
+    y: torch.Tensor,
+    A: torch.Tensor,
+    c: torch.Tensor,
+    eps: float,
+    use_bland: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Entering column ``(p, min_e)``: the lowest-index argmin of e (Dantzig),
+    or under Bland's rule the first j with e_j < -eps (0 when none; the
+    caller's optimality test ``min_e >= -eps`` fires first then)."""
+    e = reduced_costs(y, A, c)
+    p_dantzig = torch.argmin(e)
+    # argmax over a 0/1 vector = first 1 (torch.argmax returns the first max)
+    p_bland = torch.argmax((e < -eps).to(torch.int32))
+    p = torch.where(use_bland, p_bland, p_dantzig)
+    return p.to(torch.int32), e.min()
+
+
+def mask_basic(c: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """c - 1e30 at the basic columns, so a drifted basic reduced cost can
+    never win pricing and the optimality test ranges over nonbasic columns."""
+    penalty = torch.full(basis.shape, -BASIC_PENALTY, dtype=c.dtype, device=c.device)
+    return c.index_add(0, basis, penalty)
+
+
+def gather_column(A: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A[:, p] for a 0-d device index p."""
+    return A.index_select(1, p.view(1)).view(-1)
+
+
+def gather_cost(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """c[p] as a 0-d tensor."""
+    return c.index_select(0, p.view(1)).view(())
+
+
+def gather_basis_matrix(A: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """A[:, basis], the basis matrix."""
+    return A.index_select(1, basis)
+
+
+def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A @ x in x's dtype."""
+    return A.to(x.dtype) @ x
+
+
+def ratio_argmin(
+    x_b: torch.Tensor,
+    alpha: torch.Tensor,
+    basis: torch.Tensor,
+    pivot_tol: float,
+    use_bland: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Classic masked ratio test ``(q, theta_q, unbounded)``: theta_i =
+    max(x_b_i, 0) / alpha_i over alpha_i > pivot_tol, q its lowest-index
+    argmin; under Bland's rule the smallest basis index among rows attaining
+    the exact minimum."""
+    mask = alpha > pivot_tol
+    unbounded = ~mask.any()
+    theta = torch.where(
+        mask, x_b.clamp_min(0) / torch.where(mask, alpha, 1), math.inf
+    )
+    tmin = theta.min()
+    q_plain = torch.argmin(theta)
+    q_bland = torch.argmin(torch.where(theta == tmin, basis, INT_MAX))
+    q = torch.where(use_bland, q_bland, q_plain).to(torch.int32)
+    theta_q = torch.where(unbounded, math.inf, tmin)
+    return q, theta_q, unbounded
+
+
+def ratio_argmin_harris(
+    x_b: torch.Tensor,
+    alpha: torch.Tensor,
+    basis: torch.Tensor,
+    pivot_tol: float,
+    use_bland: torch.Tensor,
+    feas_tol: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Harris two-pass ratio test; same contract as :func:`ratio_argmin`.
+
+    Pass 1 bounds the step by theta_max = min (max(x_b, 0) + feas_tol) /
+    alpha; pass 2 takes the largest alpha (lowest index on ties) among rows
+    whose true ratio is within theta_max, and theta_q is that row's own
+    ratio. Bland's rule keeps the classic exact-minimum tie-break.
+    """
+    mask = alpha > pivot_tol
+    unbounded = ~mask.any()
+    safe_alpha = torch.where(mask, alpha, 1)
+    x_pos = x_b.clamp_min(0)
+    theta_max = torch.where(mask, (x_pos + feas_tol) / safe_alpha, math.inf).min()
+    theta = torch.where(mask, x_pos / safe_alpha, math.inf)
+    ok = mask & (theta <= theta_max)
+    q_harris = torch.argmax(torch.where(ok, alpha, -math.inf))
+    tmin = theta.min()
+    q_bland = torch.argmin(torch.where(theta == tmin, basis, INT_MAX))
+    q = torch.where(use_bland, q_bland, q_harris).to(torch.int32)
+    theta_at_q = theta.index_select(0, q.view(1)).view(())
+    theta_q = torch.where(
+        unbounded, math.inf, torch.where(use_bland, tmin, theta_at_q)
+    )
+    return q, theta_q, unbounded
+
+
+def ratio_eta(
+    x_b: torch.Tensor,
+    alpha: torch.Tensor,
+    basis: torch.Tensor,
+    pivot_tol: float,
+    use_bland: torch.Tensor,
+    harris: bool,
+    feas_tol: float = 1e-6,
+):
+    """``(q, theta_q, unbounded, eta, x_b_new)``: the ratio test, then the
+    product-form eta vector and the stepped x_b as if the pivot on row q
+    proceeds (``simplex_tpu.kernels.pallas_ops.ratio_eta``'s epilogue):
+    eta_i = -alpha_i / alpha_q, eta_q = 1/alpha_q - 1; x_b_i - theta_q
+    alpha_i, with theta_q at row q. A step that cannot proceed (unbounded,
+    non-finite theta_q) uses alpha_q = 1, theta_q = 0; the caller discards
+    it. The plain version of the fused CUDA kernel."""
+    if harris:
+        q, theta_q, unbounded = ratio_argmin_harris(
+            x_b, alpha, basis, pivot_tol, use_bland, feas_tol
+        )
+    else:
+        q, theta_q, unbounded = ratio_argmin(x_b, alpha, basis, pivot_tol, use_bland)
+    live = ~unbounded & torch.isfinite(theta_q)
+    alpha_q = alpha.index_select(0, q.view(1)).view(())
+    inv_aq = 1 / torch.where(live, alpha_q, 1)
+    th = torch.where(live, theta_q, 0)
+    sel = torch.arange(alpha.shape[0], device=alpha.device) == q
+    eta = torch.where(sel, inv_aq - 1, -alpha * inv_aq)
+    x_b_new = torch.where(sel, th, x_b - th * alpha)
+    return q, theta_q, unbounded, eta, x_b_new
+
+
+def rank1_update(
+    B_inv: torch.Tensor, eta: torch.Tensor, binv_q: torch.Tensor
+) -> torch.Tensor:
+    """``B_inv += eta (x) binv_q`` IN PLACE (one BLAS ger); returns B_inv.
+
+    In place, unlike the JAX version, so the m^2 inverse is never copied.
+    ``binv_q`` must therefore not be a view of B_inv (pass a copy of row q).
+    """
+    return B_inv.addr_(eta, binv_q)
