@@ -7,25 +7,37 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
-  1. print the card's name and power limit; build the three CUDA kernels
+  1. print the card's name and power limit; build the four CUDA kernels
      from ``simplex_tpu_torch/csrc`` with nvcc for sm_90a;
   2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes (8192 x 16384, m = 8192) and at odd shapes, timed with
-     CUDA events beside the plain version;
-  3. ``simplex_tpu_torch.solve`` through its normal entry point: the sample
-     LP (z = 9), a 2048 x 4096 random LP against HiGHS, and the benchmark's
-     8192 x 16384 instance over its 512-pivot window, where every pivot step
-     must launch each kernel once;
-  4. the same 8192 x 16384 instance solved to OPTIMAL, checked in f64
-     without an oracle (HiGHS needs minutes at this size).
+     paths' shapes (8192 x 16384, m = 8192; the bf16 shadow and a strided
+     column segment of it for pricing) and at odd shapes, timed with CUDA
+     events beside the plain version;
+  3. ``simplex_tpu_torch.solve`` through its normal entry point with the
+     default options: the sample LP (z = 9), a 2048 x 4096 random LP
+     against HiGHS, and the benchmark's 8192 x 16384 instance over its
+     512-pivot window, where every pivot step must launch each of its
+     kernels once; then the same instance solved to OPTIMAL, checked in
+     f64 without an oracle (HiGHS needs minutes at this size);
+  4. the flagship option set ``bench.py`` runs (bf16 shadow, partial
+     pricing 8, deferred updates 16, multiple pricing 64, and the same with
+     multiple pricing off) over the 512-pivot window, with launch counts
+     and host reads per pivot; then flagship solves to OPTIMAL: 2048 x 4096
+     against HiGHS and 8192 x 16384 with an f64 check;
+  5. the per-op bench (``simplex_tpu_torch.bench.kernels``) on both
+     backends, which is the path that runs ``ratio_argmin``.
 
-The last lines are the kernels' JSON record, the card's ``nvidia-smi``
-line and ``{"ok": true, "device": {...}}``. Without a CUDA device, or run
-outside a checkout of the repository, the script exits non-zero at once.
+Each path runs with the launch counters set to 0 just before it and read
+just after; a kernel's ``launches`` in the JSON record is its total over
+the paths (each path's counts are printed on their own line). The last
+lines are the kernels' JSON record, the card's ``nvidia-smi`` line and
+``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
+checkout of the repository, the script exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -34,21 +46,28 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BENCH_M, BENCH_N = 8192, 16384  # bench.py's instance: random_dense_lp(m, n, seed=0)
+SMALL_M, SMALL_N = 2048, 4096  # the instance HiGHS checks within seconds
 BENCH_WINDOW = 512  # bench.py's pivot budget
+# bench.py's option set (its argparse defaults), and its full-solve cadence
+FLAGSHIP = dict(pricing_dtype="bfloat16", partial_pricing=8, update_defer=16, multi_price=64)
+FLAGSHIP_REFACTOR = 2048
 
 # tolerances, each with its reason
 PRICING_RTOL = 1e-5  # fp32 sums of 8192 terms taken in another order
 RANK1_ATOL = 1e-5  # the plain ger may fuse multiply-add; the kernel does not
 RATIO_ATOL = 0.0  # same IEEE ops in the same order: bitwise equal
 GAP_TOL = 1e-5  # fp32 solve against HiGHS in f64 (the JAX package's gate)
+KKT_TOL = 1e-5  # min reduced cost of the f64 duals: dual feasibility at eps
 
 SOURCES = {
     "pricing_scan": "simplex_tpu_torch/csrc/pricing_scan.cu",
+    "ratio_argmin": "simplex_tpu_torch/csrc/ratio_argmin.cu",
     "ratio_eta": "simplex_tpu_torch/csrc/ratio_eta.cu",
     "rank1_update": "simplex_tpu_torch/csrc/rank1_update.cu",
 }
 REPLACES = {
     "pricing_scan": "simplex_tpu/kernels/pallas_ops.py:140",
+    "ratio_argmin": "simplex_tpu/kernels/pallas_ops.py:212",
     "ratio_eta": "simplex_tpu/kernels/pallas_ops.py:323",
     "rank1_update": "simplex_tpu/kernels/pallas_ops.py:374",
 }
@@ -222,84 +241,152 @@ def phase_rank1(dev) -> dict:
     return rec
 
 
-def phase_solve(dev) -> dict:
+def phase_pricing_bf16(dev) -> dict:
+    """pricing_scan on the bf16 shadow of the bench's shape and on a strided
+    column segment of it (the segmented path's view, priced in place)."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    m, n = BENCH_M, BENCH_N
+    w = n // FLAGSHIP["partial_pricing"]
+    y = torch.randn(m, generator=g, device=dev)
+    A = torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)
+    c = torch.randn(n, generator=g, device=dev)
+    eps = 1e-5
+    rec = {}
+    views = [("full", A, c), ("segment", A[:, 3 * w : 4 * w], c[3 * w : 4 * w])]
+    for tag, Av, cv in views:
+        check((tag == "segment") != Av.is_contiguous(), f"pricing bf16 {tag}: layout")
+        min_k, p_k, neg_k = hopper.pricing_scan(y, Av, cv, eps)
+        min_p, p_p, neg_p = hopper.pricing_scan_plain(y, Av, cv, eps)
+        e = y @ Av.float() - cv
+        torch.cuda.synchronize()
+        min_k, p_k, neg_k, min_p = float(min_k), int(p_k), int(neg_k), float(min_p)
+        err = abs(min_k - min_p)
+        check(err <= PRICING_RTOL * abs(min_p), f"pricing bf16 {tag}: min {min_k} vs {min_p}")
+        check(
+            abs(float(e[p_k]) - min_p) <= PRICING_RTOL * abs(min_p),
+            f"pricing bf16 {tag}: e[p_kernel={p_k}] = {float(e[p_k])} vs min {min_p}",
+        )
+        check(neg_k == int(neg_p), f"pricing bf16 {tag}: first negative {neg_k} vs {int(neg_p)}")
+        ms = time_ms(lambda: hopper.pricing_scan(y, Av, cv, eps))
+        plain_ms = time_ms(lambda: hopper.pricing_scan_plain(y, Av, cv, eps))
+        rec[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        print(
+            f"pricing_scan bf16 {tag} {tuple(Av.shape)} strides {Av.stride()}: min_e {min_k:.6f} "
+            f"(plain {min_p:.6f}) p {p_k} abs err {err:.3e}; {ms:.4f} ms vs plain {plain_ms:.4f} ms"
+        )
+    return rec
+
+
+def phase_ratio_argmin(dev) -> dict:
+    """The classic ratio test against its plain version, bit for bit:
+    Bland on and off, degenerate rows (exact theta = 0 ties), an unbounded
+    column, m = 8192 and 8191."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    rec = {}
+    for m in (BENCH_M, BENCH_M - 1):
+        x_b = torch.rand(m, generator=g, device=dev) * 2
+        x_b[::7] = 0.0
+        alpha = torch.randn(m, generator=g, device=dev)
+        basis = torch.randperm(m, generator=g, device=dev).to(torch.int32)
+        for bland in (False, True):
+            for unbounded, a in ((False, alpha), (True, -alpha.abs() - 1)):
+                flag = torch.tensor(bland, device=dev)
+                got = hopper.ratio_argmin(x_b, a, basis, 1e-7, flag)
+                want = hopper.ratio_argmin_plain(x_b, a, basis, 1e-7, flag)
+                torch.cuda.synchronize()
+                tag = f"ratio_argmin m={m} bland={bland} unbounded-case={unbounded}"
+                check(int(got[0]) == int(want[0]), f"{tag}: q {int(got[0])} vs {int(want[0])}")
+                check(float(got[1]) == float(want[1]), f"{tag}: theta_q {float(got[1])} vs {float(want[1])}")
+                check(bool(got[2]) == bool(want[2]) == unbounded, f"{tag}: unbounded flag")
+                print(f"{tag}: q {int(got[0])} theta_q {float(got[1]):.6g} ok")
+        if m == BENCH_M:
+            flag = torch.tensor(False, device=dev)
+            rec = {
+                "max_abs_err": 0.0,
+                "ms": time_ms(lambda: hopper.ratio_argmin(x_b, alpha, basis, 1e-7, flag), 200),
+                "plain_ms": time_ms(
+                    lambda: hopper.ratio_argmin_plain(x_b, alpha, basis, 1e-7, flag), 200
+                ),
+            }
+    return rec
+
+
+@functools.lru_cache(maxsize=None)
+def instance(m: int, n: int):
+    """``random_dense_lp(m, n, seed=0)``, made once."""
+    from simplex_tpu_torch.oracle.generator import random_dense_lp
+
+    return random_dense_lp(m, n, seed=0)
+
+
+@functools.lru_cache(maxsize=None)
+def highs(m: int, n: int):
+    from simplex_tpu_torch.oracle.reference import solve_scipy
+
+    return solve_scipy(*instance(m, n))
+
+
+def timed_solve(dev, m, n, opts):
+    """``solve`` on ``instance(m, n)`` from a synchronized start, with the
+    kernels' launch counts, the pivot steps taken and the host reads of
+    that run alone. Returns (result, wall seconds, counts, steps, reads)."""
+    import torch
+
+    from simplex_tpu_torch import solve
+    from simplex_tpu_torch.core import solver, step
+    from simplex_tpu_torch.kernels import hopper
+
+    steps = [0]
+    inner = solver.pivot_step
+
+    def counted(*a, **k):
+        steps[0] += 1
+        return inner(*a, **k)
+
+    A, b, c = instance(m, n)
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    step.reset_host_reads()
+    solver.pivot_step = counted
+    try:
+        t0 = time.perf_counter()
+        res = solve(A, b, c, options=opts, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        solver.pivot_step = inner
+    return res, wall, dict(hopper.launches), steps[0], dict(step.host_reads)
+
+
+def residual64(dev, m, n, res) -> float:
+    """|A_B x_b - b|_inf in float64 for the returned basis."""
     import numpy as np
     import torch
 
-    from simplex_tpu_torch import SolveStatus, load_lp, solve
-    from simplex_tpu_torch.kernels import hopper
-    from simplex_tpu_torch.oracle.generator import random_dense_lp
-    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy
-
-    A, b, c = load_lp(ROOT / "tests" / "data" / "sample.txt")
-    res = solve(A, b, c, device=dev)
-    check(res.status == SolveStatus.OPTIMAL, f"sample: {res.status!r}")
-    check(abs(res.z - 9.0) < 1e-5, f"sample: z = {res.z}")
-    check(np.allclose(res.x, [1, 3, 0, 0], atol=1e-5), f"sample: x = {res.x}")
-    print(f"sample.txt: OPTIMAL z {res.z} x {res.x.tolist()} pivots {res.iters}")
-
-    A, b, c = random_dense_lp(2048, 4096, seed=0)
-    t0 = time.perf_counter()
-    res = solve(A, b, c, device=dev)
-    wall = time.perf_counter() - t0
-    ref = solve_scipy(A, b, c)
-    gap = relative_gap(res.z, ref.z)
-    check(res.status == SolveStatus.OPTIMAL, f"2048x4096: {res.status!r}")
-    check(gap <= GAP_TOL, f"2048x4096: rel gap {gap:.3e} vs HiGHS")
-    print(
-        f"random_dense_lp(2048, 4096, seed=0): OPTIMAL z {res.z!r} HiGHS {ref.z!r} "
-        f"rel_gap {gap:.3e} feas_err {res.feas_err:.3e} pivots {res.iters} wall {wall:.2f} s"
-    )
-
-    A, b, c = random_dense_lp(BENCH_M, BENCH_N, seed=0)
-    from simplex_tpu_torch import SimplexOptions
-
-    opts = SimplexOptions(max_iter=BENCH_WINDOW)
-    torch.cuda.synchronize()
-    hopper.reset_launches()
-    t0 = time.perf_counter()
-    res = solve(A, b, c, options=opts, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(hopper.launches)
-    check(res.status == SolveStatus.MAX_ITER, f"{BENCH_M}x{BENCH_N}: {res.status!r}")
-    check(res.iters == BENCH_WINDOW, f"{BENCH_M}x{BENCH_N}: {res.iters} pivots")
-    for name, n_launch in counts.items():
-        check(n_launch == BENCH_WINDOW, f"{name}: {n_launch} launches in {BENCH_WINDOW} pivot steps")
+    A, b, _ = instance(m, n)
     A_d = torch.as_tensor(A, device=dev)
     basis = torch.as_tensor(res.basis.astype(np.int64), device=dev)
     x_b = torch.as_tensor(res.x_b, device=dev).double()
-    resid = float(
-        (A_d.index_select(1, basis).double() @ x_b - torch.as_tensor(b, device=dev).double())
-        .abs()
-        .max()
-    )
-    print(
-        f"random_dense_lp({BENCH_M}, {BENCH_N}, seed=0), max_iter={BENCH_WINDOW}: "
-        f"{res.status.name} after {res.iters} pivots in {wall:.3f} s "
-        f"({res.iters / wall:.1f} pivots/s end to end, setup and polish included); "
-        f"z {res.z!r}; f64 residual |A_B x_b - b|_inf {resid:.3e}; launches {counts}"
-    )
-    return counts
+    r = A_d.index_select(1, basis).double() @ x_b - torch.as_tensor(b, device=dev).double()
+    return float(r.abs().max())
 
 
-def phase_full_solve(dev) -> None:
-    """The benchmark instance solved to OPTIMAL, checked in f64 without an
-    oracle: primal residual and sign, dual feasibility (reduced costs of
-    the f64 duals of the returned basis) and the duality gap."""
+def kkt64(dev, m, n, res) -> str:
+    """An f64 check of the returned basis without an oracle: primal
+    residual and sign, dual feasibility (reduced costs of the f64 duals)
+    and the duality gap. Raises when the duals are infeasible."""
     import numpy as np
     import torch
 
-    from simplex_tpu_torch import SolveStatus, solve
-    from simplex_tpu_torch.oracle.generator import random_dense_lp
-
-    A, b, c = random_dense_lp(BENCH_M, BENCH_N, seed=0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = solve(A, b, c, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    check(res.status == SolveStatus.OPTIMAL, f"full solve: {res.status!r}")
+    A, b, c = instance(m, n)
     A64 = torch.as_tensor(A, device=dev).double()
     b64 = torch.as_tensor(b, device=dev).double()
     c64 = torch.as_tensor(c, device=dev).double()
@@ -309,19 +396,148 @@ def phase_full_solve(dev) -> None:
     y = torch.linalg.solve(A_B.T, c64.index_select(0, basis))
     d = y @ A64 - c64  # reduced costs; optimal iff all >= -eps
     resid = float((A_B @ torch.as_tensor(res.x_b, device=dev).double() - b64).abs().max())
-    cx = float(c64.index_select(0, basis) @ x_b)
-    yb = float(y @ b64)
+    gap = float(y @ b64) - float(c64.index_select(0, basis) @ x_b)
     min_d = float(d.min())
     # dual feasibility is the optimality test the solve certified; primal
     # infeasibility of order feas_tol and above is reported, not refused
     # (the Harris ratio test trades it for pivot size)
-    check(min_d >= -1e-5, f"full solve: min reduced cost {min_d}")
+    check(min_d >= -KKT_TOL, f"{m}x{n}: min reduced cost {min_d}")
+    return (
+        f"f64 KKT: |A_B x_b - b|_inf {resid:.3e}, min x_b {float(x_b.min()):.3e}, "
+        f"min reduced cost {min_d:.3e}, y.b - c.x {gap:.3e}, feas_err {res.feas_err:.3e}"
+    )
+
+
+def phase_solve(dev) -> dict:
+    """The default path: sample, 2048 x 4096 against HiGHS, and the bench
+    instance's 512-pivot window, where every step launches each of its
+    three kernels once."""
+    import numpy as np
+
+    from simplex_tpu_torch import SimplexOptions, SolveStatus, load_lp, solve
+    from simplex_tpu_torch.oracle.reference import relative_gap
+
+    A, b, c = load_lp(ROOT / "tests" / "data" / "sample.txt")
+    res = solve(A, b, c, device=dev)
+    check(res.status == SolveStatus.OPTIMAL, f"sample: {res.status!r}")
+    check(abs(res.z - 9.0) < 1e-5, f"sample: z = {res.z}")
+    check(np.allclose(res.x, [1, 3, 0, 0], atol=1e-5), f"sample: x = {res.x}")
+    print(f"sample.txt: OPTIMAL z {res.z} x {res.x.tolist()} pivots {res.iters}")
+
+    res, wall, _, _, _ = timed_solve(dev, SMALL_M, SMALL_N, SimplexOptions())
+    ref = highs(SMALL_M, SMALL_N)
+    gap = relative_gap(res.z, ref.z)
+    check(res.status == SolveStatus.OPTIMAL, f"{SMALL_M}x{SMALL_N}: {res.status!r}")
+    check(gap <= GAP_TOL, f"{SMALL_M}x{SMALL_N}: rel gap {gap:.3e} vs HiGHS")
+    print(
+        f"random_dense_lp({SMALL_M}, {SMALL_N}, seed=0): OPTIMAL z {res.z!r} HiGHS {ref.z!r} "
+        f"rel_gap {gap:.3e} feas_err {res.feas_err:.3e} pivots {res.iters} wall {wall:.2f} s"
+    )
+
+    opts = SimplexOptions(max_iter=BENCH_WINDOW)
+    res, wall, counts, steps, reads = timed_solve(dev, BENCH_M, BENCH_N, opts)
+    check(res.status == SolveStatus.MAX_ITER, f"{BENCH_M}x{BENCH_N}: {res.status!r}")
+    check(res.iters == BENCH_WINDOW, f"{BENCH_M}x{BENCH_N}: {res.iters} pivots")
+    for name in ("pricing_scan", "ratio_eta", "rank1_update"):
+        check(counts[name] == BENCH_WINDOW, f"{name}: {counts[name]} launches in {BENCH_WINDOW} pivot steps")
+    check(counts["ratio_argmin"] == 0, f"ratio_argmin: {counts['ratio_argmin']} launches")
+    resid = residual64(dev, BENCH_M, BENCH_N, res)
+    print(
+        f"random_dense_lp({BENCH_M}, {BENCH_N}, seed=0), max_iter={BENCH_WINDOW}: "
+        f"{res.status.name} after {res.iters} pivots in {wall:.3f} s "
+        f"({res.iters / wall:.1f} pivots/s end to end, setup and polish included); "
+        f"z {res.z!r}; f64 residual |A_B x_b - b|_inf {resid:.3e}; launches {counts}; "
+        f"host reads {reads}"
+    )
+    return counts
+
+
+def phase_full_solve(dev) -> None:
+    """The benchmark instance solved to OPTIMAL with the default options."""
+    from simplex_tpu_torch import SimplexOptions, SolveStatus
+
+    res, wall, _, _, _ = timed_solve(dev, BENCH_M, BENCH_N, SimplexOptions())
+    check(res.status == SolveStatus.OPTIMAL, f"full solve: {res.status!r}")
     print(
         f"full solve random_dense_lp({BENCH_M}, {BENCH_N}, seed=0): OPTIMAL z {res.z!r} "
         f"after {res.iters} pivots in {wall:.2f} s ({res.iters / wall:.1f} pivots/s); "
-        f"f64 KKT: |A_B x_b - b|_inf {resid:.3e}, min x_b {float(x_b.min()):.3e}, "
-        f"min reduced cost {min_d:.3e}, y.b - c.x {yb - cx:.3e}, feas_err {res.feas_err:.3e}"
+        + kkt64(dev, BENCH_M, BENCH_N, res)
     )
+
+
+def phase_flagship_window(dev) -> dict:
+    """bench.py's option set over the 512-pivot window, with multiple
+    pricing on (64) and off. Every step launches ratio_eta once; without
+    multiple pricing every pivot prices through pricing_scan at least once;
+    the deferred update never launches rank1_update."""
+    from simplex_tpu_torch import SimplexOptions, SolveStatus
+
+    paths = {}
+    for mp in (FLAGSHIP["multi_price"], 0):
+        opts = SimplexOptions(max_iter=BENCH_WINDOW, **{**FLAGSHIP, "multi_price": mp})
+        res, wall, counts, steps, reads = timed_solve(dev, BENCH_M, BENCH_N, opts)
+        tag = f"flagship multi_price={mp}"
+        check(res.status == SolveStatus.MAX_ITER, f"{tag}: {res.status!r}")
+        check(res.iters == BENCH_WINDOW, f"{tag}: {res.iters} pivots")
+        check(counts["ratio_eta"] == steps, f"{tag}: ratio_eta {counts['ratio_eta']} launches in {steps} steps")
+        check(counts["rank1_update"] == 0, f"{tag}: rank1_update {counts['rank1_update']} launches")
+        if mp == 0:
+            check(counts["pricing_scan"] >= res.iters, f"{tag}: pricing_scan {counts['pricing_scan']} launches")
+        resid = residual64(dev, BENCH_M, BENCH_N, res)
+        check(resid <= 1e-4, f"{tag}: f64 residual {resid}")
+        per_pivot = (reads["control"] + reads["branch"]) / res.iters
+        print(
+            f"{tag} on random_dense_lp({BENCH_M}, {BENCH_N}, seed=0), max_iter={BENCH_WINDOW}: "
+            f"{res.status.name} after {res.iters} pivots ({steps} steps) in {wall:.3f} s "
+            f"({res.iters / wall:.1f} pivots/s end to end, setup and polish included); "
+            f"z {res.z!r}; f64 residual |A_B x_b - b|_inf {resid:.3e}; launches {counts}; "
+            f"host reads {reads} ({per_pivot:.3f} per pivot)"
+        )
+        paths[tag] = counts
+    return paths
+
+
+def phase_flagship_full(dev) -> None:
+    """bench.py's option set solved to OPTIMAL: 2048 x 4096 against HiGHS,
+    and the bench instance with bench.py's full-solve refactor cadence."""
+    from simplex_tpu_torch import SimplexOptions, SolveStatus
+    from simplex_tpu_torch.oracle.reference import relative_gap
+
+    opts = SimplexOptions(refactor_every=FLAGSHIP_REFACTOR, **FLAGSHIP)
+    res, wall, counts, _, reads = timed_solve(dev, SMALL_M, SMALL_N, opts)
+    ref = highs(SMALL_M, SMALL_N)
+    gap = relative_gap(res.z, ref.z)
+    check(res.status == SolveStatus.OPTIMAL, f"flagship {SMALL_M}x{SMALL_N}: {res.status!r}")
+    check(gap <= GAP_TOL, f"flagship {SMALL_M}x{SMALL_N}: rel gap {gap:.3e} vs HiGHS")
+    print(
+        f"flagship random_dense_lp({SMALL_M}, {SMALL_N}, seed=0): OPTIMAL z {res.z!r} HiGHS {ref.z!r} "
+        f"rel_gap {gap:.3e} feas_err {res.feas_err:.3e} pivots {res.iters} wall {wall:.2f} s; "
+        f"launches {counts}; host reads {reads}"
+    )
+    res, wall, counts, _, reads = timed_solve(dev, BENCH_M, BENCH_N, opts)
+    check(res.status == SolveStatus.OPTIMAL, f"flagship full solve: {res.status!r}")
+    print(
+        f"flagship full solve random_dense_lp({BENCH_M}, {BENCH_N}, seed=0), "
+        f"refactor_every={FLAGSHIP_REFACTOR}: OPTIMAL z {res.z!r} after {res.iters} pivots "
+        f"in {wall:.2f} s ({res.iters / wall:.1f} pivots/s); launches {counts}; "
+        f"host reads {reads}; " + kkt64(dev, BENCH_M, BENCH_N, res)
+    )
+
+
+def phase_bench_ops(dev) -> dict:
+    """The per-op bench on both backends: the path that runs ratio_argmin."""
+    from simplex_tpu_torch.bench.kernels import bench_ops, record_line
+    from simplex_tpu_torch.kernels import hopper
+
+    counts = {}
+    for backend in ("hopper", "torch"):
+        hopper.reset_launches()
+        ops = bench_ops(BENCH_M, BENCH_N, k=32, backend=backend, device=dev)
+        counts[backend] = dict(hopper.launches)
+        print(record_line(BENCH_M, BENCH_N, backend, dev, ops))
+    check(counts["hopper"]["ratio_argmin"] > 0, "per-op bench: ratio_argmin never launched")
+    check(not any(counts["torch"].values()), f"per-op bench, torch backend: launches {counts['torch']}")
+    return counts["hopper"]
 
 
 def main() -> int:
@@ -340,15 +556,25 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
+    t_start = time.perf_counter()
     phase_build()
     recs = {
         "pricing_scan": phase_pricing(dev),
+        "ratio_argmin": phase_ratio_argmin(dev),
         "ratio_eta": phase_ratio_eta(dev),
         "rank1_update": phase_rank1(dev),
     }
+    phase_pricing_bf16(dev)
     torch.cuda.empty_cache()
-    counts = phase_solve(dev)
+    paths = {"default window": phase_solve(dev)}
     phase_full_solve(dev)
+    paths.update(phase_flagship_window(dev))
+    phase_flagship_full(dev)
+    torch.cuda.empty_cache()
+    paths["per-op bench (hopper)"] = phase_bench_ops(dev)
+    for tag, counts in paths.items():
+        print(f"launches on path '{tag}': {counts}")
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {
@@ -356,7 +582,7 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": counts[name],
+            "launches": sum(counts[name] for counts in paths.values()),
             **recs[name],
         }
         for name in SOURCES

@@ -1,0 +1,153 @@
+"""Per-op kernel benchmarks: the counterpart of ``simplex_tpu.bench.kernels``.
+
+Each op runs k times in a row, every application's input depending on the
+previous one's output (as the JAX package's scans do), and the run is timed
+with CUDA events; ``ms`` is the best of three runs over k. ``gbps`` is the
+bytes the op must move (from its shapes) over that time. The ops, under the
+JAX package's names:
+
+  pricing_argmin         choose_entering over A (m, n) fp32: reads A once
+  ftran                  B_inv @ a: reads B_inv once
+  ratio_argmin           the classic ratio test, (m,) vectors
+  rank1_update           B_inv += eta (x) row, in place: reads + writes B_inv
+  pricing_segment_bf16   choose_entering over one of 8 column segments of
+                         the bf16 shadow, a view priced in place
+  flush_rankL_amortized  B_inv += U.T R with L = 16 pending pairs, divided
+                         by L (one flush per L pivots)
+
+``backend`` is ``"hopper"`` (the CUDA kernels) or ``"torch"`` (plain
+PyTorch). The JAX package's two block-sparse ops wait for the port of
+``sparse.py``. Inputs are random, from a fixed seed, made on the device.
+
+    python -m simplex_tpu_torch.bench.kernels [--m 8192 --n 16384 --k 32]
+        [--backend hopper|torch] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Callable, Dict
+
+import torch
+
+from simplex_tpu_torch.bench.timing import elapsed_ms
+from simplex_tpu_torch.kernels.dispatch import get_backend
+
+SEGMENTS = 8  # bench.py's partial_pricing
+PENDING = 16  # bench.py's update_defer
+
+
+def bench_ops(
+    m: int, n: int, k: int = 32, backend: str = "hopper", device="cuda"
+) -> Dict[str, dict]:
+    """Time the pivot's ops at (m, n). Returns ``{op: {"ms", "gbps"}}``,
+    ``ms`` per application."""
+    be = get_backend(backend)
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn(m, n, generator=g, device=dev)
+    B = torch.randn(m, m, generator=g, device=dev) * 0.01
+    c = torch.randn(n, generator=g, device=dev)
+    y0 = torch.randn(m, generator=g, device=dev)
+    basis = torch.arange(m, dtype=torch.int32, device=dev)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    results: Dict[str, dict] = {}
+
+    def record(name: str, loop: Callable[[], object], nbytes: float, per: int = k):
+        loop()  # warm-up (and the kernels' build)
+        ms = min(elapsed_ms(loop, dev) for _ in range(3)) / per
+        results[name] = {"ms": round(ms, 4), "gbps": round(nbytes / ms / 1e6, 1)}
+
+    def pricing_loop(Aa, ca, segments=1):
+        w = Aa.shape[1] // segments
+        yc = y0
+        for i in range(k):
+            lo = (i % segments) * w
+            p, min_e = be.choose_entering(yc, Aa[:, lo : lo + w], ca[lo : lo + w], 1e-6, no)
+            # fold the result back into y: each pass waits for the last
+            yc = yc + min_e * 1e-20 + p.to(torch.float32) * 0
+        return yc
+
+    record("pricing_argmin", lambda: pricing_loop(A, c), 4 * m * n)
+
+    def ftran_loop():
+        cc = y0
+        for _ in range(k):
+            alpha = B @ cc
+            cc = alpha / (alpha.abs().max() + 1)
+        return cc
+
+    record("ftran", ftran_loop, 4 * m * m)
+
+    def ratio_loop():
+        xc, al = y0.abs(), y0
+        for _ in range(k):
+            q, theta, _ = be.ratio_argmin(xc, al, basis, 1e-7, no)
+            xc = xc + theta * 1e-20 + q.to(torch.float32) * 0
+        return xc
+
+    record("ratio_argmin", ratio_loop, 12 * m)
+
+    def rank1_loop():
+        for _ in range(k):
+            # row as a copy: the update is in place
+            be.rank1_update(B, B[0] * 1e-6, B[1].clone())
+        return B
+
+    record("rank1_update", rank1_loop, 8 * m * m)
+
+    if n % SEGMENTS == 0:
+        Ab = A.to(torch.bfloat16)
+        record(
+            "pricing_segment_bf16",
+            lambda: pricing_loop(Ab, c, SEGMENTS),
+            2 * m * (n // SEGMENTS),
+        )
+        del Ab
+
+    U = torch.randn(PENDING, m, generator=g, device=dev) * 1e-3
+    R = torch.randn(PENDING, m, generator=g, device=dev) * 1e-3
+
+    def flush_loop():
+        for _ in range(k):
+            B.addmm_(U.T, R, alpha=1e-20)
+        return B
+
+    # amortized: one flush per PENDING pivots
+    record("flush_rankL_amortized", flush_loop, 8 * m * m / PENDING, per=k * PENDING)
+    return results
+
+
+def record_line(m: int, n: int, backend: str, device, ops: Dict[str, dict]) -> str:
+    """The bench's JSON line: shape, backend, the card's name, the ops and
+    their summed per-pivot milliseconds."""
+    dev = torch.device(device)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    total_ms = round(sum(v["ms"] for v in ops.values()), 3)
+    return json.dumps(
+        {"m": m, "n": n, "backend": backend, "device": name, "ops": ops,
+         "total_pivot_ms": total_ms}
+    )
+
+
+def main(argv=None) -> None:
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(prog="python -m simplex_tpu_torch.bench.kernels")
+    ap.add_argument("--m", type=int, default=8192)
+    ap.add_argument("--n", type=int, default=16384)
+    ap.add_argument("--k", type=int, default=32)
+    ap.add_argument("--backend", default="hopper", choices=["hopper", "torch"])
+    ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    args = ap.parse_args(argv)
+    # full fp32 products, as in solve()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = bench_ops(args.m, args.n, args.k, args.backend, args.device)
+    print(record_line(args.m, args.n, args.backend, args.device, res))
+    total_ms = sum(v["ms"] for v in res.values())
+    print(f"-> {1000.0 / total_ms:.0f} pivots/s roofline from phases", file=sys.stderr)
+
+
+if __name__ == "__main__":
+    main()

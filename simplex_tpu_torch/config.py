@@ -10,10 +10,13 @@ solve in both packages. Two fields change meaning:
     hand-written CUDA kernels of :mod:`simplex_tpu_torch.kernels.hopper`,
     ``"torch"`` runs plain PyTorch ops everywhere.
 
-This port covers the dense canonical path (Dantzig pricing, eager rank-1
-update, Harris or classic ratio test). Options that select another path
-raise ``NotImplementedError`` from :func:`check_supported`, naming the
-ROADMAP item that ports them; none is silently ignored.
+This port covers the dense canonical path under the Dantzig rule: full,
+segmented (``partial_pricing``) or multiple (``multi_price``) pricing, on
+A or on its bfloat16 shadow (``pricing_dtype``) with an exact recheck; the
+eager rank-1 or the deferred rank-L (``update_defer``) update of B_inv; the
+Harris or the classic ratio test. Options that select another path raise
+``NotImplementedError`` from :func:`check_supported`, naming the ROADMAP
+item that ports them; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -59,20 +62,28 @@ class SimplexOptions:
     backend: str = "hopper"
     # "dantzig" only in this port (devex / steepest: ROADMAP item 9)
     pricing: str = "dantzig"
-    # "float32" only in this port (bf16 shadow: ROADMAP item 8)
+    # "float32" (exact) or "bfloat16": price against a bf16 shadow of A and
+    # recheck the winner in fp32; termination is always decided exactly
     pricing_dtype: str = "float32"
     # "harris" (default) or "classic"
     ratio: str = "harris"
-    # options of later slices, kept so an option set reads the same in both
-    # packages; check_supported rejects any value that would select them
+    # keep up to L pending (eta, row) pairs and apply them to B_inv as one
+    # rank-L GEMM every L pivots (0 = eager rank-1 update)
     update_defer: int = 0
+    # price only segment (iters mod S) of the columns (0 / 1 = off); active
+    # when S divides n and n / S >= partial_min_segment
     partial_pricing: int = 0
     partial_min_segment: int = 512
+    # multiple pricing: a buffer of the K most improving columns, refilled
+    # when no candidate still improves enough (0 = off)
     multi_price: int = 0
     multi_price_stale: float = 0.05
     multi_price_degen: int = 4
-    pricing_sparse: bool = False
+    # a dry segment retries over the full shadow before the exact pass
     fallback_shadow: bool = True
+    # options of later slices, kept so an option set reads the same in both
+    # packages; check_supported rejects any value that would select them
+    pricing_sparse: bool = False
     dual_flip: bool = True
     checkpoint_every: int = 0
     # f64 refinement of the returned basis (when m <= polish_max_m)
@@ -106,14 +117,15 @@ def check_supported(opts: SimplexOptions) -> None:
         raise ValueError(f"unknown ratio test: {opts.ratio!r}")
     if opts.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64, got {opts.dtype}")
+    if opts.pricing_dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"pricing_dtype must be 'float32' or 'bfloat16', got {opts.pricing_dtype!r}"
+        )
+    # simplex_tpu.solve's own rules (core/solver.py:596-617) concern the
+    # devex / steepest rules with multi_price only: steepest raises, devex
+    # drops multi_price. Both rules are unported, so they raise here first.
     unported = [
         (opts.pricing != "dantzig", f"pricing={opts.pricing!r}", 9),
-        (opts.pricing_dtype != "float32",
-         f"pricing_dtype={opts.pricing_dtype!r}", 8),
-        (opts.partial_pricing > 1,
-         f"partial_pricing={opts.partial_pricing}", 8),
-        (opts.update_defer > 0, f"update_defer={opts.update_defer}", 8),
-        (opts.multi_price > 0, f"multi_price={opts.multi_price}", 8),
         (opts.pricing_sparse, "pricing_sparse=True", 15),
     ]
     for hit, what, item in unported:

@@ -2,12 +2,15 @@
 
 The counterpart of ``simplex_tpu.core.solver``, whose pivot loop is one
 ``lax.while_loop`` on the device. Here the loop runs in Python and reads
-the control scalars (status, iters, degen, last_refac and the perturbation
-state) back from the device once per pivot, as one small tensor. Between
-pivots it arms the rhs perturbation and runs the optional periodic
-recompute / refactorization; after the loop, the verify-terminal rounds
-re-check every terminal decision against a re-inverted basis. The returned
-basis is then polished in float64 on the same device.
+the control scalars (status, iters, degen, last_refac, the perturbation
+state and the next step's branch flags, :func:`step.read_control`) back
+from the device once per pivot, as one small tensor; a step may add
+explicit reads of its own (``step.host_reads``). Between pivots it arms the
+rhs perturbation and runs the optional periodic recompute /
+refactorization, re-reading the control after any of them; after the loop,
+the verify-terminal rounds re-check every terminal decision against a
+re-inverted basis. The returned basis is then polished in float64 on the
+same device.
 """
 
 from __future__ import annotations
@@ -25,12 +28,14 @@ from simplex_tpu_torch.core.state import (
     initial_state,
     initial_state_slack,
     problem_from_numpy,
+    with_pricing_shadow,
 )
 from simplex_tpu_torch.core.step import (
     perturb_activate,
     perturb_clear,
     perturb_scale,
     pivot_step,
+    read_control,
     recompute_xy,
     refactorize,
 )
@@ -59,33 +64,15 @@ class SolveResult(NamedTuple):
     at_upper: Optional[np.ndarray] = None  # bounded solves only (not ported)
 
 
-class _Control(NamedTuple):
-    status: int
-    iters: int
-    degen: int
-    last_refac: int
-    pert_rounds: int = 0
-    pert_on: bool = False
-
-
-def _control(s: SolverState) -> _Control:
-    """The loop's control scalars in ONE device-to-host read."""
-    parts = [s.status, s.iters, s.degen, s.last_refac]
-    if s.pert is not None:
-        parts += [s.pert.rounds, s.pert.on.to(torch.int32)]
-    vals = torch.stack(parts).tolist()
-    if s.pert is not None:
-        vals[5] = bool(vals[5])
-    return _Control(*vals)
-
-
 def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
     perturb = opts.perturb_after > 0 and s.pert is not None
     pa = opts.perturb_after
+    defer = opts.resolve_defer() > 0
     while ctl.status == SolveStatus.RUNNING and ctl.iters < max_iter:
-        s = pivot_step(prob, s, opts, backend)
-        ctl = _control(s)
+        s = pivot_step(prob, s, opts, backend, ctl)
+        ctl = read_control(s, opts)
         running = ctl.status == SolveStatus.RUNNING
+        touched = False
         if (
             perturb
             and running
@@ -94,22 +81,26 @@ def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
             and ctl.degen % pa == 0
         ):
             s = perturb_activate(prob, s, backend, perturb_scale(opts, ctl.pert_rounds))
-            ctl = ctl._replace(degen=0, pert_on=True, pert_rounds=ctl.pert_rounds + 1)
+            touched = True
         if (
             opts.recompute_every > 0
             and running
             and ctl.iters > 0
             and ctl.iters % opts.recompute_every == 0
         ):
-            s = recompute_xy(prob, s)
+            s = recompute_xy(prob, s, defer)
+            touched = True
         if (
             opts.refactor_every > 0
             and running
             and ctl.iters > 0
             and ctl.iters % opts.refactor_every == 0
         ):
-            s = refactorize(prob, s, backend)
-            ctl = ctl._replace(last_refac=ctl.iters)
+            s = refactorize(prob, s, backend, defer)
+            touched = True
+        if touched:
+            # the next step branches on the state as it is now
+            ctl = read_control(s, opts)
     return s, ctl
 
 
@@ -125,7 +116,9 @@ def solve_state(
     if backend is None:
         backend = get_backend(opts.backend)
     perturb = opts.perturb_after > 0 and state0.pert is not None
-    s, ctl = _pivot_loop(prob, state0, _control(state0), opts, max_iter, backend)
+    defer = opts.resolve_defer() > 0
+    ctl = read_control(state0, opts)
+    s, ctl = _pivot_loop(prob, state0, ctl, opts, max_iter, backend)
 
     if opts.verify_terminal:
         # a terminal decision made from a drifted product-form inverse (or
@@ -139,15 +132,16 @@ def solve_state(
         ):
             if perturb and ctl.pert_on:
                 s = perturb_clear(s)
-            s = refactorize(prob, s, backend)
+            s = refactorize(prob, s, backend, defer)
             s.status = torch.full_like(s.status, int(SolveStatus.RUNNING))
-            s, ctl = _pivot_loop(prob, s, _control(s), opts, max_iter, backend)
+            ctl = read_control(s, opts)
+            s, ctl = _pivot_loop(prob, s, ctl, opts, max_iter, backend)
             rounds += 1
 
     if perturb and ctl.pert_on:
         # exits that leave the shift armed (MAX_ITER, verify off, rounds
         # exhausted): re-derive x_b / y from the true rhs
-        s = recompute_xy(prob, perturb_clear(s))
+        s = recompute_xy(prob, perturb_clear(s), defer)
 
     if ctl.status == SolveStatus.RUNNING:
         s.status = torch.full_like(s.status, int(SolveStatus.MAX_ITER))
@@ -179,7 +173,9 @@ def solve(
 
     ``basis0=None`` starts from the trailing identity slack block. ``A``
     (a dense numpy array or tensor) is moved to ``device`` and cast to
-    ``options.dtype``; ``u`` (native upper bounds) is not ported yet.
+    ``options.dtype``, with its bfloat16 pricing shadow beside it when
+    ``options.pricing_dtype`` asks for one; ``u`` (native upper bounds) is
+    not ported yet.
     """
     if u is not None:
         raise NotImplementedError(
@@ -208,11 +204,16 @@ def solve(
     device = torch.device(device)
     dtype = options.dtype
     prob = problem_from_numpy(A, b, c, device, dtype)
-    perturb = options.perturb_after > 0
+    prob = with_pricing_shadow(prob, options.pricing_dtype, options.pricing)
+    extras = dict(
+        perturb=options.perturb_after > 0,
+        update_defer=options.resolve_defer(),
+        multi_price=options.multi_price,
+    )
     if basis0 is None:
-        state0 = initial_state_slack(prob, dtype, perturb=perturb)
+        state0 = initial_state_slack(prob, dtype, **extras)
     else:
-        state0 = initial_state(prob, basis0, dtype, perturb=perturb)
+        state0 = initial_state(prob, basis0, dtype, **extras)
     final = solve_state(prob, state0, options, options.resolve_max_iter(m, n))
     return finalize_result(prob, b, c, final, options)
 
@@ -254,7 +255,11 @@ def finalize_result(
         # exact values for the returned basis, no clamping: a violation is
         # reported as feas_err, not zeroed
         b64 = torch.as_tensor(np.asarray(b, np.float64), device=prob.A.device)
-        x64, nr, A_B = _polish_refine(prob.A, b64, final.basis, final.x_b, final.B_inv)
+        B_inv = final.B_inv
+        if final.U is not None:
+            # precondition with the true inverse, pending pairs folded in
+            B_inv = torch.addmm(B_inv, final.U.T, final.R)
+        x64, nr, A_B = _polish_refine(prob.A, b64, final.basis, final.x_b, B_inv)
         scale = max(1.0, float(np.abs(np.asarray(b, np.float64)).max()))
         ok = np.isfinite(nr) and nr <= 1e-7 * scale
         if not ok:

@@ -12,11 +12,20 @@ pytrees. Leaves for an m x n problem:
   status     ()      SolveStatus code (int32)
   degen      ()      consecutive degenerate pivots (int32)
   last_refac ()      pivot count at the last exact inverse (int32)
-  pert               the rhs perturbation, or None when it is off
+  U, R       (L, m)  pending (eta, true-inverse row) pairs of the deferred
+                     update; the true inverse is B_inv + U.T @ R
+  npend      ()      number of pending pairs (int32)
+  cand               the multiple-pricing candidate buffer
+  pert               the rhs perturbation
+
+U, R and npend are None when updates are eager, cand when multiple pricing
+is off, pert when the perturbation is off (the JAX package carries dummy
+leaves there instead).
 
 Scalars stay 0-d device tensors so a pivot step never waits on the host.
-The pivot step updates ``B_inv`` in place (the rank-1 update); every other
-leaf of the state it returns is a new tensor.
+The pivot step updates ``B_inv`` (the rank-1 update, the rank-L flush) and
+the rows of ``U`` / ``R`` in place; every other leaf of the state it
+returns is a new tensor.
 """
 
 from __future__ import annotations
@@ -33,11 +42,27 @@ from simplex_tpu_torch.status import SolveStatus
 
 @dataclasses.dataclass
 class Problem:
-    """A canonical-form LP: maximize c.x  s.t.  A x = b, x >= 0."""
+    """A canonical-form LP: maximize c.x  s.t.  A x = b, x >= 0.
+
+    ``A_price`` is the optional bfloat16 shadow of A that pricing reads in
+    place of A; every candidate it yields is rechecked against A."""
 
     A: torch.Tensor  # (m, n)
     b: torch.Tensor  # (m,)
     c: torch.Tensor  # (n,)
+    A_price: Optional[torch.Tensor] = None  # (m, n) bfloat16
+
+
+def with_pricing_shadow(
+    prob: Problem, pricing_dtype: str, pricing: str = "dantzig"
+) -> Problem:
+    """Attach the reduced-precision pricing shadow of A when requested (one
+    cast pass at solve start; ``"float32"``, devex and steepest edge leave
+    the problem as it is)."""
+    if pricing_dtype == "float32" or pricing in ("devex", "steepest"):
+        return prob
+    shadow = prob.A.to(getattr(torch, pricing_dtype)).contiguous()
+    return dataclasses.replace(prob, A_price=shadow)
 
 
 @dataclasses.dataclass
@@ -51,6 +76,24 @@ class PertState:
 
 
 @dataclasses.dataclass
+class CandBuffer:
+    """The multiple-pricing candidate buffer, frozen-base form (see
+    ``simplex_tpu.core.state.CandBuffer``): ``alpha[j]`` is candidate j's
+    ftran against the base inverse at refill time, never updated; the
+    current column is ``alpha[j] + U.T (R A_j)``. ``e`` is updated exactly
+    each pivot from the cached columns ``acols``; ``valid`` clears when a
+    candidate enters, fails its exact recheck, or the inverse is rebuilt."""
+
+    idx: torch.Tensor  # (K,) int32 column indices
+    alpha: torch.Tensor  # (K, m) refill-time base ftrans
+    acols: torch.Tensor  # (K, m) gathered A columns
+    e: torch.Tensor  # (K,) reduced costs
+    valid: torch.Tensor  # (K,) bool
+    e0: torch.Tensor  # () refill-time best improvement (<= 0)
+    seg: torch.Tensor  # () int32 refill counter (segment rotation)
+
+
+@dataclasses.dataclass
 class SolverState:
     B_inv: torch.Tensor
     x_b: torch.Tensor
@@ -61,6 +104,10 @@ class SolverState:
     status: torch.Tensor
     degen: torch.Tensor
     last_refac: torch.Tensor
+    U: Optional[torch.Tensor] = None
+    R: Optional[torch.Tensor] = None
+    npend: Optional[torch.Tensor] = None
+    cand: Optional[CandBuffer] = None
     pert: Optional[PertState] = None
 
 
@@ -78,9 +125,45 @@ def _pert_extras(m: int, dtype, device, perturb: bool) -> Optional[PertState]:
     )
 
 
-def initial_state_slack(prob: Problem, dtype, perturb: bool = False) -> SolverState:
+def _defer_extras(m: int, dtype, device, update_defer: int) -> dict:
+    """Zeroed (U, R, npend) for L = update_defer pending pairs; None when
+    updates are eager."""
+    if update_defer <= 0:
+        return {}
+    return {
+        "U": torch.zeros((update_defer, m), dtype=dtype, device=device),
+        "R": torch.zeros((update_defer, m), dtype=dtype, device=device),
+        "npend": _int(0, device),
+    }
+
+
+def _cand_extras(m: int, n: int, dtype, device, multi_price: int) -> Optional[CandBuffer]:
+    """An empty candidate buffer of K = min(multi_price, n) slots; None when
+    multiple pricing is off."""
+    if multi_price <= 0:
+        return None
+    K = min(multi_price, n)
+    return CandBuffer(
+        idx=torch.zeros(K, dtype=torch.int32, device=device),
+        alpha=torch.zeros((K, m), dtype=dtype, device=device),
+        acols=torch.zeros((K, m), dtype=dtype, device=device),
+        e=torch.zeros(K, dtype=dtype, device=device),
+        valid=torch.zeros(K, dtype=torch.bool, device=device),
+        e0=torch.zeros((), dtype=dtype, device=device),
+        seg=_int(0, device),
+    )
+
+
+def initial_state_slack(
+    prob: Problem,
+    dtype,
+    perturb: bool = False,
+    update_defer: int = 0,
+    multi_price: int = 0,
+) -> SolverState:
     """The trailing-identity slack basis: B_inv = I, x_b = b, y = c_b =
-    c[n-m:], basis = [n-m, ..., n-1]."""
+    c[n-m:], basis = [n-m, ..., n-1]. ``update_defer`` is the number of
+    pending-pair rows (``SimplexOptions.resolve_defer()``)."""
     m, n = prob.A.shape
     dev = prob.A.device
     c_b = prob.c[n - m :].to(dtype).clone()
@@ -94,16 +177,23 @@ def initial_state_slack(prob: Problem, dtype, perturb: bool = False) -> SolverSt
         status=_int(SolveStatus.RUNNING, dev),
         degen=_int(0, dev),
         last_refac=_int(0, dev),
+        **_defer_extras(m, dtype, dev, update_defer),
+        cand=_cand_extras(m, n, dtype, dev, multi_price),
         pert=_pert_extras(m, dtype, dev, perturb),
     )
 
 
 def initial_state(
-    prob: Problem, basis0, dtype, perturb: bool = False
+    prob: Problem,
+    basis0,
+    dtype,
+    perturb: bool = False,
+    update_defer: int = 0,
+    multi_price: int = 0,
 ) -> SolverState:
     """Starting state for a given feasible basis: B_inv by one dense solve
     (an O(m^3) set-up cost), x_b = B_inv b, y = c_b B_inv."""
-    m, _ = prob.A.shape
+    m, n = prob.A.shape
     dev = prob.A.device
     basis = torch.as_tensor(np.asarray(basis0), dtype=torch.int32, device=dev)
     B = _ops.gather_basis_matrix(prob.A, basis).to(dtype)
@@ -119,6 +209,8 @@ def initial_state(
         status=_int(SolveStatus.RUNNING, dev),
         degen=_int(0, dev),
         last_refac=_int(0, dev),
+        **_defer_extras(m, dtype, dev, update_defer),
+        cand=_cand_extras(m, n, dtype, dev, multi_price),
         pert=_pert_extras(m, dtype, dev, perturb),
     )
 
@@ -142,22 +234,44 @@ def state_from_numpy(leaves: Mapping[str, object], device) -> SolverState:
     state's leaves (``{f: np.asarray(getattr(s, f))}``), so both packages
     can start from one mid-solve state.
 
-    ``leaves["pert"]`` is None or the (w, on, rounds) triple. Leaves of
-    options outside this port (devex weights, deferred-update buffers) are
-    ignored; their values are the JAX package's dummies on this path.
+    ``leaves["U"]``, ``["R"]`` and ``["npend"]`` (optional) are the
+    deferred-update buffers; ``leaves["cand"]`` (optional) is None or the
+    candidate buffer's (idx, alpha, acols, e, valid, e0, seg) in
+    ``CandBuffer`` order; ``leaves["pert"]`` is None or the (w, on, rounds)
+    triple. Devex weights are ignored (their values are the JAX package's
+    dummies on the Dantzig path), and so are the JAX package's (1, 1)
+    deferred-update dummies when ``update_defer`` is 0: pass ``U`` only
+    when the state has real buffers.
     """
-    st = {}
-    for f in _LEAVES:
-        t = torch.as_tensor(np.array(leaves[f]), device=device)
-        st[f] = t.to(torch.int32) if f == "basis" else t.contiguous()
-    for f in _SCALARS:
-        st[f] = torch.as_tensor(np.array(leaves[f]), device=device).to(torch.int32).reshape(())
+
+    def put(v, dtype=None):
+        t = torch.as_tensor(np.array(v), device=device)
+        return t.contiguous() if dtype is None else t.to(dtype)
+
+    def scalar(v, dtype=torch.int32):
+        return put(v, dtype).reshape(())
+
+    st = {f: put(leaves[f]) for f in _LEAVES}
+    st["basis"] = st["basis"].to(torch.int32)
+    st.update({f: scalar(leaves[f]) for f in _SCALARS})
+    if leaves.get("U") is not None:
+        st.update(U=put(leaves["U"]), R=put(leaves["R"]), npend=scalar(leaves["npend"]))
+    cand = leaves.get("cand")
+    if cand is not None:
+        idx, alpha, acols, e, valid, e0, seg = cand
+        st["cand"] = CandBuffer(
+            idx=put(idx, torch.int32),
+            alpha=put(alpha),
+            acols=put(acols),
+            e=put(e),
+            valid=put(valid, torch.bool),
+            e0=put(e0).reshape(()),
+            seg=scalar(seg),
+        )
     pert = leaves.get("pert")
     if pert is not None:
-        w, on, rounds = (np.array(v) for v in pert)
-        pert = PertState(
-            w=torch.as_tensor(w, device=device),
-            on=torch.as_tensor(on, device=device).to(torch.bool).reshape(()),
-            rounds=torch.as_tensor(rounds, device=device).to(torch.int32).reshape(()),
+        w, on, rounds = pert
+        st["pert"] = PertState(
+            w=put(w), on=scalar(on, torch.bool), rounds=scalar(rounds)
         )
-    return SolverState(**st, pert=pert)
+    return SolverState(**st)

@@ -1,21 +1,38 @@
 """One revised-simplex pivot on device tensors.
 
-The dense Dantzig path of ``simplex_tpu.core.step.pivot_step`` with the
-eager product-form update:
+The Dantzig paths of ``simplex_tpu.core.step.pivot_step``:
 
   pricing      e = y.A - c_eff (basic columns masked); p = argmin e;
-               optimal iff min e >= -eps
-  ftran        alpha = B_inv @ A_p
+               optimal iff min e >= -eps. Either over all of A, or over the
+               bfloat16 shadow (``A_price``) with an exact recheck of the
+               winner, or over one column segment (``partial_pricing``) with
+               the two-stage fallback (full shadow, then exact), or from the
+               multiple-pricing candidate buffer (``multi_price``)
+  ftran        alpha = B_inv @ A_p, plus U.T (R A_p) for pending pairs; from
+               the buffered base column under multiple pricing
   ratio test   Harris (default) or classic; q, theta_q; unbounded iff no
                alpha_i > pivot_tol; eta and the stepped x_b from the same
                launch on the hopper backend
-  update       B_inv += eta (x) B_inv[q]   (in place)
+  update       eager: B_inv += eta (x) B_inv[q] (in place); deferred: append
+               (eta, true row q) to U / R and flush B_inv += U.T R (one
+               fp32 GEMM, in place) when L pairs are pending
                y -= (e_p / alpha_q) B_inv_old[q];  c_b[q] = c_p;  basis[q] = p
 
-Every decision is a device tensor: a step that does not pivot (a terminal
-status) leaves the state as it was through ``torch.where`` selects and a
-zeroed update, so the step never reads a value back to the host. The
-solver reads the control scalars once per pivot.
+Every decision that picks a value is a device tensor: a step that does not
+pivot (a terminal status) leaves the state as it was through
+``torch.where`` selects and a zeroed update. Where the JAX step picks a
+whole branch with ``lax.cond``, this step decides on the host, so that the
+branch not taken costs nothing:
+
+  * from :class:`Control`, the scalars the solver reads once per pivot
+    (``read_control``): the segment (``iters mod S``), whether the
+    candidate buffer needs a refill, whether pending pairs must be flushed,
+    whether Bland's rule is on;
+  * by one explicit read (:func:`read_flag`) where the branch depends on a
+    value the step itself computed: whether a shadow or segment winner
+    failed its exact recheck (then the fallback pass runs).
+
+``host_reads`` counts both kinds of read.
 
 Matrix products run in full fp32 (the solver turns TF32 off), the
 counterpart of the JAX package's ``Precision.HIGHEST`` pins.
@@ -24,38 +41,322 @@ counterpart of the JAX package's ``Precision.HIGHEST`` pins.
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from simplex_tpu_torch.config import SimplexOptions
 from simplex_tpu_torch.core.linalg import inverse_newton
-from simplex_tpu_torch.core.state import Problem, SolverState
+from simplex_tpu_torch.core.state import CandBuffer, Problem, SolverState
+from simplex_tpu_torch.kernels import ops as _ops
 from simplex_tpu_torch.status import SolveStatus
+
+# device-to-host reads since the last reset: "control" (one per pivot, by
+# read_control) and "branch" (read_flag, inside a step)
+host_reads = {"control": 0, "branch": 0}
+
+
+def reset_host_reads() -> None:
+    for k in host_reads:
+        host_reads[k] = 0
+
+
+def read_flag(t: torch.Tensor) -> bool:
+    """A device bool on the host: one explicit, counted sync."""
+    host_reads["branch"] += 1
+    return bool(t)
+
+
+class Control(NamedTuple):
+    """Host copies of the device scalars the solve loop and the next pivot
+    step branch on, from one read."""
+
+    status: int
+    iters: int
+    degen: int
+    last_refac: int
+    pert_rounds: int = 0
+    pert_on: bool = False
+    npend: int = 0  # pending deferred pairs
+    seg: int = 0  # candidate-buffer refill counter
+    need_refill: bool = False  # the next step refills the candidate buffer
+
+
+def _multi_active(opts: SimplexOptions, state: SolverState) -> bool:
+    return opts.multi_price > 0 and opts.pricing == "dantzig" and state.cand is not None
+
+
+def _use_bland(opts: SimplexOptions, degen: torch.Tensor) -> torch.Tensor:
+    if opts.bland_after > 0:
+        return degen >= opts.bland_after
+    return torch.zeros((), dtype=torch.bool, device=degen.device)
+
+
+def _need_refill(state: SolverState, opts: SimplexOptions) -> torch.Tensor:
+    """Whether the next multiple-pricing step refills its buffer
+    (``simplex_tpu.core.step._multi_pricing``): no candidate still delivers
+    ``multi_price_stale`` of the refill-time best improvement, Bland's rule
+    is on, a degenerate streak reached ``multi_price_degen``, or the
+    pending-pair buffer is full."""
+    cand = state.cand
+    eps = opts.resolve_eps()
+    best_now = torch.where(cand.valid, cand.e, math.inf).min()
+    thresh = torch.clamp_max(cand.e0 * opts.multi_price_stale, -eps)
+    need = (
+        (best_now > thresh)
+        | _use_bland(opts, state.degen)
+        | (state.degen >= max(opts.multi_price_degen, 1))
+    )
+    if opts.resolve_defer() > 0:
+        need = need | (state.npend >= opts.resolve_defer())
+    return need
+
+
+def read_control(state: SolverState, opts: Optional[SimplexOptions] = None) -> Control:
+    """The loop's control scalars and the next step's branch flags in ONE
+    device-to-host read. ``need_refill`` needs ``opts``."""
+    fields = {
+        "status": state.status,
+        "iters": state.iters,
+        "degen": state.degen,
+        "last_refac": state.last_refac,
+    }
+    if state.pert is not None:
+        fields.update(pert_rounds=state.pert.rounds, pert_on=state.pert.on)
+    if state.npend is not None:
+        fields["npend"] = state.npend
+    if state.cand is not None:
+        fields["seg"] = state.cand.seg
+        if opts is not None and _multi_active(opts, state):
+            fields["need_refill"] = _need_refill(state, opts)
+    vals = torch.stack([v.to(torch.int32) for v in fields.values()]).tolist()
+    host_reads["control"] += 1
+    ctl = dict(zip(fields, vals))
+    for k in ("pert_on", "need_refill"):
+        if k in ctl:
+            ctl[k] = bool(ctl[k])
+    return Control(**ctl)
+
+
+def _partial_active(opts: SimplexOptions, prob: Problem) -> bool:
+    """Segmented pricing needs S | n and segments of at least
+    ``partial_min_segment`` columns (tiny segments cost more than they
+    save)."""
+    S, n = opts.partial_pricing, prob.A.shape[1]
+    return S > 1 and n % S == 0 and n // S >= opts.partial_min_segment
+
+
+def _exact_e(prob: Problem, state: SolverState, p: torch.Tensor, backend) -> torch.Tensor:
+    """The exact reduced cost y.A_p - c_p of column p (O(m))."""
+    dtype = state.B_inv.dtype
+    A_p = backend.gather_column(prob.A, p).to(dtype)
+    return torch.dot(state.y, A_p) - backend.gather_cost(prob.c, p).to(dtype)
+
+
+def _price_shadow(prob, state, opts, c_eff, use_bland, bland, backend):
+    """Dantzig over the bfloat16 shadow, the winner rechecked exactly; one
+    exact pass when it does not improve or Bland's rule is on."""
+    eps = opts.resolve_eps()
+    if not bland:
+        p1, _ = backend.choose_entering(state.y, prob.A_price, c_eff, eps, use_bland)
+        e_p1 = _exact_e(prob, state, p1, backend)
+        if not read_flag(e_p1 >= -eps):
+            return p1, e_p1
+    return backend.choose_entering(state.y, prob.A, c_eff, eps, use_bland)
+
+
+def _price_segment(prob, state, opts, c_eff, use_bland, bland, ctl, backend):
+    """Dantzig over column segment ``iters mod S`` (of the shadow when there
+    is one), a view priced in place. A dry segment retries over the full
+    shadow (``fallback_shadow``), then runs one exact pass; so does Bland's
+    rule at once."""
+    eps = opts.resolve_eps()
+    exact = (state.y, prob.A, c_eff, eps, use_bland)
+    if bland:
+        return backend.choose_entering(*exact)
+    S, n = opts.partial_pricing, prob.A.shape[1]
+    w = n // S
+    lo = (ctl.iters % S) * w
+    A_src = prob.A_price if prob.A_price is not None else prob.A
+    p_loc, _ = backend.choose_entering(
+        state.y, A_src[:, lo : lo + w], c_eff[lo : lo + w], eps, use_bland
+    )
+    p1 = p_loc + lo
+    e_p1 = _exact_e(prob, state, p1, backend)
+    if not read_flag(e_p1 >= -eps):
+        return p1, e_p1
+    if prob.A_price is None or not opts.fallback_shadow:
+        return backend.choose_entering(*exact)
+    p2, _ = backend.choose_entering(state.y, prob.A_price, c_eff, eps, use_bland)
+    e_p2 = _exact_e(prob, state, p2, backend)
+    if not read_flag(e_p2 >= -eps):
+        return p2, e_p2
+    return backend.choose_entering(*exact)
+
+
+def _add_penalty(s: torch.Tensor, basis: torch.Tensor, lo: int = 0) -> torch.Tensor:
+    """s + BASIC_PENALTY at the basic columns that fall in the column range
+    [lo, lo + len(s)) that s covers."""
+    w = s.shape[0]
+    loc = (basis - lo).clamp(0, w - 1)
+    pen = torch.where((basis >= lo) & (basis < lo + w), _ops.BASIC_PENALTY, 0.0)
+    return s.index_add(0, loc, pen.to(s.dtype))
+
+
+def _refill(prob, state, opts, ctl, bland):
+    """Refill the multiple-pricing buffer (``simplex_tpu.core.step.
+    _multi_pricing``'s ``_fill``): the K most improving columns of one
+    pricing pass -- a shadow segment (rotating per refill), else the full
+    shadow, else exact fp32, each stage taken when the one before found no
+    candidate that improves exactly -- then one (m, m) x (m, K) ftran
+    against the base inverse, flushed first when the pending pairs are at
+    capacity. Returns ``(min_exact, state, npend)`` with the new buffer in
+    ``state.cand``; ``min_exact`` is the exact minimum reduced cost when the
+    exact pass ran, else -inf."""
+    cand = state.cand
+    K = cand.idx.shape[0]
+    n = prob.A.shape[1]
+    dtype = state.B_inv.dtype
+    eps = opts.resolve_eps()
+    y = state.y
+
+    def recheck(negv, idx):
+        # exact reduced costs of the chosen columns (O(K m)); the masked
+        # selection values veto penalized basics (half-penalty cut)
+        A_c = _ops.gather_columns(prob.A, idx).to(dtype)
+        e1 = y @ A_c - prob.c.index_select(0, idx).to(dtype)
+        valid = (e1 < -eps) & (-negv.to(dtype) < 0.5 * _ops.BASIC_PENALTY)
+        return idx, e1, valid, A_c
+
+    def shadow_pick(lo, hi):
+        # top-K of the shadow's masked reduced costs over columns [lo, hi)
+        e_sh = _ops.reduced_costs(y, prob.A_price[:, lo:hi], prob.c[lo:hi]).to(dtype)
+        negv, loc = _ops.top_k(-_add_penalty(e_sh, state.basis, lo), K)
+        return recheck(negv, loc + lo)
+
+    fill, min_exact = None, -math.inf
+    if prob.A_price is not None and not bland:
+        S = opts.partial_pricing
+        if S > 1 and n % S == 0 and n // S >= max(opts.partial_min_segment, K):
+            w = n // S
+            lo = (ctl.seg % S) * w
+            fill = shadow_pick(lo, lo + w)
+            if not read_flag(fill[2].any()):
+                fill = None
+        if fill is None:
+            fill = shadow_pick(0, n)
+            if not read_flag(fill[2].any()):
+                fill = None
+    if fill is None:
+        e_all = _ops.reduced_costs(y, prob.A, prob.c).to(dtype)
+        s_all = _add_penalty(e_all, state.basis)
+        min_exact = s_all.min()
+        if bland:
+            # Bland's rule needs the LOWEST improving index: a buffer of that
+            # one candidate (the refill then recurs every pivot)
+            imp = s_all < -eps
+            p_b = torch.argmax(imp.to(torch.int32)).to(torch.int32)
+            idx = p_b.view(1).expand(K).contiguous()
+            e_sel = e_all.index_select(0, idx)
+            valid = torch.zeros(K, dtype=torch.bool, device=y.device)
+            valid[0] = imp.any()
+        else:
+            negv, idx = _ops.top_k(-s_all, K)
+            e_sel = e_all.index_select(0, idx)
+            valid = -negv < -eps
+        fill = (idx, e_sel, valid, _ops.gather_columns(prob.A, idx).to(dtype))
+    idx, e_sel, valid, A_cols = fill
+
+    B_inv, U, R, npend_t = state.B_inv, state.U, state.R, state.npend
+    npend = ctl.npend
+    if npend >= opts.resolve_defer():
+        # the pending buffer is full: fold it into the base first
+        B_inv.addmm_(U.T, R)
+        U, R, npend = torch.zeros_like(U), torch.zeros_like(R), 0
+        npend_t = torch.zeros_like(npend_t)
+    alpha = B_inv @ A_cols  # (m, K) base ftrans, full fp32
+    cand = CandBuffer(
+        idx=idx,
+        alpha=alpha.T,
+        acols=A_cols.T,
+        e=e_sel,
+        valid=valid,
+        e0=torch.where(valid, e_sel, 0.0).min(),
+        seg=cand.seg + 1,
+    )
+    state = dataclasses.replace(state, B_inv=B_inv, U=U, R=R, npend=npend_t, cand=cand)
+    return min_exact, state, npend
+
+
+def _multi_pricing(prob, state, opts, ctl, bland):
+    """The entering column from the candidate buffer, refilled first when
+    ``ctl.need_refill``. Returns ``(p, min_e, alpha0_p, state, npend)``:
+    ``min_e`` is the chosen candidate's reduced cost, or the exact minimum
+    when an exact refill found none improving; ``alpha0_p`` its base
+    ftran."""
+    min_exact, npend = math.inf, ctl.npend
+    if ctl.need_refill:
+        min_exact, state, npend = _refill(prob, state, opts, ctl, bland)
+    cand = state.cand
+    s2 = torch.where(cand.valid, cand.e, math.inf)
+    j = torch.argmin(s2).view(1)
+    s_j = s2.index_select(0, j).view(())
+    min_e = torch.where(torch.isfinite(s_j), s_j, min_exact)
+    p = cand.idx.index_select(0, j).view(())
+    return p, min_e, cand.alpha.index_select(0, j).view(-1), state, npend
 
 
 def pivot_step(
-    prob: Problem, state: SolverState, opts: SimplexOptions, backend
+    prob: Problem,
+    state: SolverState,
+    opts: SimplexOptions,
+    backend,
+    ctl: Optional[Control] = None,
 ) -> SolverState:
-    """Apply one pivot, or set a terminal status. Updates ``state.B_inv`` in
-    place and returns the new state."""
+    """Apply one pivot, or set a terminal status. ``ctl`` is this state's
+    :func:`read_control` (read here when not given). Updates
+    ``state.B_inv``, ``state.U`` and ``state.R`` in place and returns the
+    new state."""
+    if ctl is None:
+        ctl = read_control(state, opts)
     dtype = state.B_inv.dtype
     eps = opts.resolve_eps()
-    if opts.bland_after > 0:
-        use_bland = state.degen >= opts.bland_after
-    else:
-        use_bland = torch.zeros((), dtype=torch.bool, device=state.degen.device)
+    bland = opts.bland_after > 0 and ctl.degen >= opts.bland_after
+    use_bland = _use_bland(opts, state.degen)
+    multi = _multi_active(opts, state)
+    defer = opts.update_defer > 0 or multi
+    npend = ctl.npend
 
     # ---- pricing over basic-masked costs ----
-    c_eff = backend.mask_basic(prob.c, state.basis)
-    p, min_e = backend.choose_entering(state.y, prob.A, c_eff, eps, use_bland)
+    if multi:
+        p, min_e, alpha0_p, state, npend = _multi_pricing(prob, state, opts, ctl, bland)
+        cand_mid = state.cand
+    else:
+        c_eff = backend.mask_basic(prob.c, state.basis)
+        if prob.A_price is not None and not _partial_active(opts, prob):
+            p, min_e = _price_shadow(prob, state, opts, c_eff, use_bland, bland, backend)
+        elif _partial_active(opts, prob):
+            p, min_e = _price_segment(
+                prob, state, opts, c_eff, use_bland, bland, ctl, backend
+            )
+        else:
+            p, min_e = backend.choose_entering(state.y, prob.A, c_eff, eps, use_bland)
     optimal = min_e >= -eps
 
     # ---- ftran + ratio test (+ eta and the stepped x_b) ----
     A_p = backend.gather_column(prob.A, p).to(dtype)
     c_p = backend.gather_cost(prob.c, p).to(dtype)
     e_p = torch.dot(state.y, A_p) - c_p  # == min_e under Dantzig
-    alpha = torch.mv(state.B_inv, A_p)
+    if multi:
+        # the buffered base column plus every pending pair: O(L m), no m^2 read
+        alpha = alpha0_p + state.U.T @ (state.R @ A_p)
+    elif defer:
+        # the true inverse is B_inv + U.T R
+        alpha = torch.mv(state.B_inv, A_p) + state.U.T @ (state.R @ A_p)
+    else:
+        alpha = torch.mv(state.B_inv, A_p)
     q, theta_q, unbounded, eta, x_b_new = backend.ratio_eta(
         state.x_b, alpha, state.basis, opts.pivot_tol, use_bland,
         opts.ratio == "harris", opts.feas_tol,
@@ -66,19 +367,43 @@ def pivot_step(
     # taken with a non-finite ratio
     bad = ~torch.isfinite(min_e) | (take & ~torch.isfinite(theta_q))
     take = take & ~bad
+    if multi:
+        # exact entry recheck at eps/2 (looser than the refill's eps, so a
+        # candidate straddling -eps cannot livelock refill and rejection);
+        # a rejected skip counts toward the degenerate streak below
+        cand_fresh = e_p < -(eps * 0.5)
+        take = take & (cand_fresh | use_bland)
 
     alpha_q = alpha.index_select(0, q.view(1)).view(())
     inv_aq = 1 / torch.where(take, alpha_q, 1)
     theta_safe = torch.where(take, theta_q, 0)
     # row q of the OLD inverse, as a copy: the update below rewrites B_inv
     binv_q = state.B_inv.index_select(0, q.view(1)).view(-1)
+    if defer:
+        # row q of the TRUE inverse: base row + pending corrections
+        binv_q = binv_q + state.U.index_select(1, q.view(1)).view(-1) @ state.R
 
-    # ---- product-form rank-1 update, a no-op when not pivoting ----
-    B_inv = backend.rank1_update(
-        state.B_inv,
-        torch.where(take, eta, 0),
-        torch.where(take, binv_q, 0),
-    )
+    # ---- B_inv update, a no-op when not pivoting ----
+    U, R, npend_new = state.U, state.R, state.npend
+    if defer:
+        # append (eta, row) at slot npend; a zero pair when not pivoting
+        U[npend] = torch.where(take, eta, 0)
+        R[npend] = torch.where(take, binv_q, 0)
+        npend_new = state.npend + take.to(torch.int32)
+        B_inv = state.B_inv
+        if not multi and npend + 1 >= opts.resolve_defer():
+            # flush B_inv += U.T R (the JAX step flushes when the append
+            # filled the buffer; a step that does not pivot is terminal,
+            # and its zero pair leaves the true inverse unchanged)
+            B_inv.addmm_(U.T, R)
+            U, R = torch.zeros_like(U), torch.zeros_like(R)
+            npend_new = torch.zeros_like(npend_new)
+    else:
+        B_inv = backend.rank1_update(
+            state.B_inv,
+            torch.where(take, eta, 0),
+            torch.where(take, binv_q, 0),
+        )
 
     # ---- O(m) updates ----
     y_new = state.y - (e_p * inv_aq) * binv_q
@@ -95,6 +420,21 @@ def pivot_step(
             torch.where(bad, int(SolveStatus.SINGULAR), int(SolveStatus.RUNNING)),
         ),
     ).to(torch.int32)
+    degen_keep = state.degen
+    cand_new = state.cand
+    if multi:
+        degen_keep = torch.where(
+            ~cand_fresh & (status == int(SolveStatus.RUNNING)), state.degen + 1, state.degen
+        )
+        # exact reduced-cost update of every candidate from the true row q;
+        # the entering candidate, and one that failed its recheck, drop out
+        w_c = cand_mid.acols @ binv_q
+        drop = take | (~cand_fresh & ~optimal)
+        cand_new = dataclasses.replace(
+            cand_mid,
+            e=torch.where(take, cand_mid.e - (e_p * inv_aq) * w_c, cand_mid.e),
+            valid=torch.where(drop, cand_mid.valid & (cand_mid.idx != p), cand_mid.valid),
+        )
     return SolverState(
         B_inv=B_inv,
         x_b=torch.where(take, x_b_new, state.x_b),
@@ -103,8 +443,12 @@ def pivot_step(
         basis=torch.where(at_q, p, state.basis),
         iters=state.iters + take.to(torch.int32),
         status=status,
-        degen=torch.where(take, degen_new, state.degen),
+        degen=torch.where(take, degen_new, degen_keep),
         last_refac=state.last_refac,
+        U=U,
+        R=R,
+        npend=npend_new,
+        cand=cand_new,
         pert=state.pert,
     )
 
@@ -173,13 +517,28 @@ def perturb_clear(state: SolverState) -> SolverState:
     )
 
 
-def refactorize(prob: Problem, state: SolverState, backend) -> SolverState:
+def _invalidate_candidates(state: SolverState) -> SolverState:
+    """Empty the candidate buffer: its columns and reduced costs were taken
+    against the old representation, so the next pivot refills."""
+    if state.cand is None:
+        return state
+    cand = dataclasses.replace(state.cand, valid=torch.zeros_like(state.cand.valid))
+    return dataclasses.replace(state, cand=cand)
+
+
+def refactorize(
+    prob: Problem, state: SolverState, backend, defer: bool = False
+) -> SolverState:
     """Re-invert the true basis (Newton-Schulz seeded with the drifted
-    inverse) and re-derive x_b and y from it."""
+    inverse, the pending pairs folded in when ``defer``), re-derive x_b and
+    y from it, drop the pending pairs and empty the candidate buffer."""
     dtype = state.B_inv.dtype
     B = backend.gather_basis_matrix(prob.A, state.basis).to(dtype)
-    B_inv, _ = inverse_newton(B, seed=state.B_inv)
-    return dataclasses.replace(
+    seed = state.B_inv
+    if defer:
+        seed = torch.addmm(seed, state.U.T, state.R)
+    B_inv, _ = inverse_newton(B, seed=seed)
+    new = dataclasses.replace(
         state,
         B_inv=B_inv,
         # no clamp: x_b must stay the exact basic solution
@@ -187,13 +546,21 @@ def refactorize(prob: Problem, state: SolverState, backend) -> SolverState:
         y=state.c_b @ B_inv,
         last_refac=state.iters.clone(),
     )
+    if defer:
+        new.U, new.R = torch.zeros_like(state.U), torch.zeros_like(state.R)
+        new.npend = torch.zeros_like(state.npend)
+    return _invalidate_candidates(new)
 
 
-def recompute_xy(prob: Problem, state: SolverState) -> SolverState:
-    """Refresh x_b and y from the current inverse (two O(m^2) products)."""
+def recompute_xy(prob: Problem, state: SolverState, defer: bool = False) -> SolverState:
+    """Refresh x_b and y from the current inverse (two O(m^2) products,
+    plus the O(L m) pending corrections when ``defer``); empties the
+    candidate buffer, whose reduced costs ride on y."""
     dtype = state.B_inv.dtype
-    return dataclasses.replace(
-        state,
-        x_b=state.B_inv @ _effective_rhs(prob, state, dtype),
-        y=state.c_b @ state.B_inv,
-    )
+    b = _effective_rhs(prob, state, dtype)
+    x_b = state.B_inv @ b
+    y = state.c_b @ state.B_inv
+    if defer:
+        x_b = x_b + state.U.T @ (state.R @ b)
+        y = y + (state.c_b @ state.U.T) @ state.R
+    return _invalidate_candidates(dataclasses.replace(state, x_b=x_b, y=y))

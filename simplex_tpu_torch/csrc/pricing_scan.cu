@@ -25,7 +25,11 @@
 // Every sum runs in a fixed order and every reduction breaks ties to the
 // lowest index, so the result is deterministic; no float atomics. A NaN in
 // e wins the min (with its lowest index), as jnp.argmin / torch.argmin do.
-// A may be fp32 or bf16 (upcast per element, accumulated in fp32).
+// A may be fp32 or bf16 (upcast per element, accumulated in fp32), and a
+// column range of a wider matrix: rows are lda elements apart, so segmented
+// pricing scans a view of the shadow in place, without an O(mn/S) copy. The
+// row chunks are a function of the range's (m, n) alone (the wrapper picks
+// them), so a segment's result does not depend on the matrix around it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,7 +64,7 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kPartialThreads)
 pricing_partial_kernel(const float* __restrict__ y, const T* __restrict__ A,
-                       int m, int n, int rows_per_chunk,
+                       int m, int n, size_t lda, int rows_per_chunk,
                        float* __restrict__ partial) {
   const int chunk = blockIdx.y;
   const int r0 = chunk * rows_per_chunk;
@@ -74,7 +78,7 @@ pricing_partial_kernel(const float* __restrict__ y, const T* __restrict__ A,
     for (int i = r0; i < r1; ++i) {
       const float yi = y[i];
       float a[4];
-      load4(A + (size_t)i * n + j, a);
+      load4(A + i * lda + j, a);
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[k] = fmaf(yi, a[k], acc[k]);
     }
@@ -87,7 +91,7 @@ pricing_partial_kernel(const float* __restrict__ y, const T* __restrict__ A,
 #pragma unroll 4
     for (int i = r0; i < r1; ++i) {
       const float yi = y[i];
-      const T* row = A + (size_t)i * n;
+      const T* row = A + i * lda;
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         if (cols[k] < n) acc[k] = fmaf(yi, to_float(row[cols[k]]), acc[k]);
@@ -185,17 +189,17 @@ pricing_final_kernel(const float* __restrict__ blk_min,
 }
 
 template <typename T>
-int launch(const float* y, const T* A, const float* c, int m, int n, float eps,
-           int rows_per_chunk, int chunks, int vec, float* partial,
-           float* blk_min, int* blk_arg, int* blk_neg, float* out_min,
+int launch(const float* y, const T* A, const float* c, int m, int n,
+           size_t lda, float eps, int rows_per_chunk, int chunks, int vec,
+           float* partial, float* blk_min, int* blk_arg, int* blk_neg, float* out_min,
            int* out_arg, int* out_neg, cudaStream_t stream) {
   const dim3 grid1((n + kColsPerBlock - 1) / kColsPerBlock, chunks);
   if (vec)
     pricing_partial_kernel<T, true><<<grid1, kPartialThreads, 0, stream>>>(
-        y, A, m, n, rows_per_chunk, partial);
+        y, A, m, n, lda, rows_per_chunk, partial);
   else
     pricing_partial_kernel<T, false><<<grid1, kPartialThreads, 0, stream>>>(
-        y, A, m, n, rows_per_chunk, partial);
+        y, A, m, n, lda, rows_per_chunk, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nblk = (n + kReduceThreads - 1) / kReduceThreads;
@@ -210,11 +214,14 @@ int launch(const float* y, const T* A, const float* c, int m, int n, float eps,
 
 }  // namespace
 
-// a_dtype: 0 = fp32 A, 1 = bf16 A. Scratch: partial (chunks, n) fp32;
+// a_dtype: 0 = fp32 A, 1 = bf16 A; lda: elements between rows of A (>= n).
+// vec (16-byte fp32 / 8-byte bf16 loads) needs n % 4 == 0, lda % 4 == 0 and
+// an aligned A; the wrapper checks. Scratch: partial (chunks, n) fp32;
 // blk_* (ceil(n / 256),). Returns the CUDA error code of the launches.
 extern "C" int simplex_pricing_scan(int a_dtype, const void* y, const void* A,
-                                    const void* c, int m, int n, float eps,
-                                    int rows_per_chunk, int chunks, int vec,
+                                    const void* c, int m, int n, long long lda,
+                                    float eps, int rows_per_chunk, int chunks,
+                                    int vec,
                                     void* partial, void* blk_min, void* blk_arg,
                                     void* blk_neg, void* out_min, void* out_arg,
                                     void* out_neg, void* stream) {
@@ -229,8 +236,8 @@ extern "C" int simplex_pricing_scan(int a_dtype, const void* y, const void* A,
   int* on = static_cast<int*>(out_neg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a_dtype == 0)
-    return launch(yf, static_cast<const float*>(A), cf, m, n, eps,
-                  rows_per_chunk, chunks, vec, pf, bm, ba, bn, om, oa, on, s);
-  return launch(yf, static_cast<const __nv_bfloat16*>(A), cf, m, n, eps,
-                rows_per_chunk, chunks, vec, pf, bm, ba, bn, om, oa, on, s);
+    return launch(yf, static_cast<const float*>(A), cf, m, n, (size_t)lda,
+                  eps, rows_per_chunk, chunks, vec, pf, bm, ba, bn, om, oa, on, s);
+  return launch(yf, static_cast<const __nv_bfloat16*>(A), cf, m, n,
+                (size_t)lda, eps, rows_per_chunk, chunks, vec, pf, bm, ba, bn, om, oa, on, s);
 }

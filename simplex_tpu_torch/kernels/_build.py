@@ -1,6 +1,6 @@
 """Build and load the Hopper kernels.
 
-The three CUDA sources in ``simplex_tpu_torch/csrc`` compile with nvcc into
+The CUDA sources in ``simplex_tpu_torch/csrc`` compile with nvcc into
 one shared library with a plain C interface, loaded through ``ctypes``: no
 PyTorch headers, so the build takes seconds. It happens at first use, into
 ``build/kernels/`` beside the package, under a name that hashes the sources
@@ -20,7 +20,7 @@ import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
-SOURCES = ("pricing_scan.cu", "ratio_eta.cu", "rank1_update.cu")
+SOURCES = ("pricing_scan.cu", "ratio_argmin.cu", "ratio_eta.cu", "rank1_update.cu")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -31,10 +31,13 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "simplex_pricing_scan": (
-        _I, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _P, _P, _P, _I, _I, _L, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+        _P,
     ),
+    "simplex_ratio_argmin": (_P, _P, _P, _P, _I, _F, _P, _P, _P, _P),
     "simplex_ratio_eta": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P, _P),
     "simplex_rank1_update": (_P, _P, _P, _I, _I, _P),
 }

@@ -2,13 +2,16 @@
 
 ``SimplexOptions.backend`` picks the op namespace the step calls:
 
-  * ``"hopper"`` -- pricing, the fused ratio test and the rank-1 update run
-    through the CUDA kernels (:mod:`simplex_tpu_torch.kernels.hopper`);
+  * ``"hopper"`` -- pricing, the ratio tests (fused with the eta / x_b
+    epilogue, and the classic one alone) and the rank-1 update run through
+    the CUDA kernels (:mod:`simplex_tpu_torch.kernels.hopper`);
   * ``"torch"``  -- plain PyTorch ops everywhere
     (:mod:`simplex_tpu_torch.kernels.ops`), the kernels' reference.
 
 Both expose the functions of ``simplex_tpu.kernels.dispatch``'s namespaces
-that the dense Dantzig path uses, so the step is backend-agnostic.
+that the dense Dantzig path uses, so the step is backend-agnostic. As in
+the JAX package's Pallas backend, the Harris ratio test without the eta
+epilogue has no kernel of its own.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ def get_backend(name: str) -> types.SimpleNamespace:
         name=name,
         choose_entering=_hopper.choose_entering if fast else _ops.choose_entering,
         ratio_eta=_hopper.ratio_eta if fast else _ops.ratio_eta,
+        ratio_argmin=_hopper.ratio_argmin if fast else _ops.ratio_argmin,
+        ratio_argmin_harris=_ops.ratio_argmin_harris,
         rank1_update=_hopper.rank1_update if fast else _ops.rank1_update,
         mask_basic=_ops.mask_basic,
         gather_column=_ops.gather_column,

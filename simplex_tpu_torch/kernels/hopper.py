@@ -6,6 +6,7 @@ Each wrapper stands beside its plain PyTorch version and a launch counter:
   wrapper            CUDA source                 replaces (Pallas)
   =================  ==========================  =============================
   pricing_scan       csrc/pricing_scan.cu        pallas_ops.pricing_scan
+  ratio_argmin       csrc/ratio_argmin.cu        pallas_ops.ratio_argmin
   ratio_eta          csrc/ratio_eta.cu           pallas_ops.ratio_eta
   rank1_update       csrc/rank1_update.cu        pallas_ops.rank1_update
   =================  ==========================  =============================
@@ -31,7 +32,9 @@ from simplex_tpu_torch.kernels import ops as _ops
 INT_MAX = _ops.INT_MAX
 
 # kernel launches per wrapper since the last reset_launches()
-launches = {"pricing_scan": 0, "ratio_eta": 0, "rank1_update": 0}
+launches = {
+    "pricing_scan": 0, "ratio_argmin": 0, "ratio_eta": 0, "rank1_update": 0,
+}
 
 # pricing pass 1 splits the rows into chunks so that about this many blocks
 # of 1024 columns are in flight (8 per SM on a 132-SM H100)
@@ -111,14 +114,20 @@ def pricing_scan(
     """One pass over A: ``(min_e, argmin_e, first index with e < -eps or
     INT_MAX)`` as 0-d device tensors, e = y.A - c never stored.
 
-    A is (m, n) float32 or bfloat16 (upcast per element); y (m,) and c (n,)
-    float32; all contiguous on one device.
+    A is (m, n) float32 or bfloat16 (upcast per element) with unit column
+    stride: a contiguous matrix or a column range of one
+    (``A_price[:, s*w:(s+1)*w]``), scanned in place. y (m,) and c (n,)
+    float32 contiguous; all on one device.
     """
     _require(A.dim() == 2, f"A: want a matrix, got {tuple(A.shape)}")
     m, n = A.shape
     _require(m > 0 and n > 0, f"A: empty shape {tuple(A.shape)}")
     _require(A.dtype in (torch.float32, torch.bfloat16), f"A: dtype {A.dtype}")
-    _require(A.is_contiguous(), "A: not contiguous")
+    lda = A.stride(0)
+    _require(
+        A.stride(1) == 1 and (m == 1 or lda >= n),
+        f"A: want unit column stride and rows at least n apart, got strides {A.stride()}",
+    )
     _vector(y, m, torch.float32, "y")
     _vector(c, n, torch.float32, "c")
     dev = _same_device(y, A, c)
@@ -133,10 +142,10 @@ def pricing_scan(
     out_min = torch.empty((), dtype=torch.float32, device=dev)
     out_idx = torch.empty(2, dtype=torch.int32, device=dev)
     align = 16 if A.dtype == torch.float32 else 8
-    vec = n % 4 == 0 and A.data_ptr() % align == 0
+    vec = n % 4 == 0 and lda % 4 == 0 and A.data_ptr() % align == 0
     err = lib.simplex_pricing_scan(
         0 if A.dtype == torch.float32 else 1,
-        y.data_ptr(), A.data_ptr(), c.data_ptr(), m, n, eps, rows, chunks,
+        y.data_ptr(), A.data_ptr(), c.data_ptr(), m, n, lda, eps, rows, chunks,
         int(vec), partial.data_ptr(), blk_min.data_ptr(),
         blk_idx[0].data_ptr(), blk_idx[1].data_ptr(), out_min.data_ptr(),
         out_idx[0].data_ptr(), out_idx[1].data_ptr(), _stream(dev),
@@ -152,6 +161,53 @@ def choose_entering(y, A, c, eps, use_bland) -> Tuple[torch.Tensor, torch.Tensor
     min_e, p_dantzig, p_neg = pricing_scan(y, A, c, eps)
     p_bland = torch.where(p_neg == INT_MAX, 0, p_neg)
     return torch.where(use_bland, p_bland, p_dantzig), min_e
+
+
+# --------------------------------------------------------------------------
+# classic masked ratio test
+# --------------------------------------------------------------------------
+
+
+def ratio_argmin_plain(x_b, alpha, basis, pivot_tol, use_bland):
+    """The classic ratio test
+    (:func:`simplex_tpu_torch.kernels.ops.ratio_argmin`)."""
+    return _ops.ratio_argmin(
+        x_b, alpha, basis, pivot_tol, use_bland.to(torch.bool).view(())
+    )
+
+
+def ratio_argmin(
+    x_b: torch.Tensor,
+    alpha: torch.Tensor,
+    basis: torch.Tensor,
+    pivot_tol: float,
+    use_bland: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(q, theta_q, unbounded)`` of the classic masked ratio test in one
+    launch, every result a 0-d device tensor. x_b, alpha (m,) float32;
+    basis (m,) int32; use_bland a one-element bool or int32 tensor. Any m."""
+    m = x_b.shape[0] if x_b.dim() == 1 else -1
+    _require(m > 0, f"x_b: want a non-empty vector, got {tuple(x_b.shape)}")
+    _vector(x_b, m, torch.float32, "x_b")
+    _vector(alpha, m, torch.float32, "alpha")
+    _vector(basis, m, torch.int32, "basis")
+    _flag(use_bland, "use_bland")
+    dev = _same_device(x_b, alpha, basis, use_bland)
+    if dev.type == "cpu":
+        return ratio_argmin_plain(x_b, alpha, basis, pivot_tol, use_bland)
+    lib = _build.load_library()
+    bland = use_bland.to(torch.int32).reshape(1)
+    q = torch.empty((), dtype=torch.int32, device=dev)
+    theta_q = torch.empty((), dtype=torch.float32, device=dev)
+    unbounded = torch.empty((), dtype=torch.bool, device=dev)
+    err = lib.simplex_ratio_argmin(
+        x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), bland.data_ptr(),
+        m, pivot_tol, q.data_ptr(), theta_q.data_ptr(), unbounded.data_ptr(),
+        _stream(dev),
+    )
+    _build.check(err, "ratio_argmin")
+    launches["ratio_argmin"] += 1
+    return q, theta_q, unbounded
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,87 @@
+"""The port's per-op bench and timing helpers, on the CPU at a tiny size.
+
+The numbers a CPU run gives are host times of PyTorch's CPU kernels; these
+tests check only the record's shape: the JAX package's op names, one
+``{"ms", "gbps"}`` record each, and the JSON line ``main`` prints. The
+Hopper backend given CPU tensors runs the plain versions and builds
+nothing.
+"""
+
+import json
+
+import pytest
+import torch
+
+from simplex_tpu_torch.bench import kernels as bk
+from simplex_tpu_torch.bench.timing import PhaseTimer, elapsed_ms, trace
+from simplex_tpu_torch.kernels import _build, hopper
+
+OPS = [
+    "pricing_argmin",
+    "ftran",
+    "ratio_argmin",
+    "rank1_update",
+    "pricing_segment_bf16",
+    "flush_rankL_amortized",
+]
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("a CPU tensor reached the CUDA library")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    hopper.reset_launches()
+    yield
+    assert not any(hopper.launches.values())
+
+
+@pytest.mark.parametrize("backend", ["torch", "hopper"])
+def test_bench_ops_records(backend, no_library):
+    res = bk.bench_ops(16, 64, k=2, backend=backend, device="cpu")
+    assert list(res) == OPS
+    for op, rec in res.items():
+        assert set(rec) == {"ms", "gbps"}, op
+        assert rec["ms"] >= 0 and rec["gbps"] >= 0, op
+
+
+def test_bench_ops_skips_segments_when_n_does_not_divide(no_library):
+    res = bk.bench_ops(8, 60, k=1, backend="torch", device="cpu")
+    assert "pricing_segment_bf16" not in res
+    assert list(res) == [op for op in OPS if op != "pricing_segment_bf16"]
+
+
+def test_main_prints_one_json_line(capsys, no_library):
+    bk.main(["--m", "16", "--n", "64", "--k", "2", "--backend", "torch", "--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    rec = json.loads(out[0])
+    assert set(rec) == {"m", "n", "backend", "device", "ops", "total_pivot_ms"}
+    assert (rec["m"], rec["n"], rec["backend"], rec["device"]) == (16, 64, "torch", "cpu")
+    assert list(rec["ops"]) == OPS
+    assert rec["total_pivot_ms"] == pytest.approx(sum(v["ms"] for v in rec["ops"].values()), abs=1e-3)
+
+
+def test_main_without_card_fails():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError):
+        bk.main(["--m", "8", "--n", "16", "--k", "1"])
+
+
+def test_timing_helpers_on_cpu(tmp_path):
+    t = PhaseTimer("cpu")
+    with t.phase("solve"):
+        torch.ones(8).sum()
+    with t.phase("solve"):
+        pass
+    assert list(t.durations) == ["solve"] and t.durations["solve"] >= 0
+    assert "solve" in t.report() and "Total" in t.report()
+    calls = []
+    assert elapsed_ms(lambda: calls.append(1), "cpu") >= 0 and calls == [1]
+    with trace(None) as prof:
+        assert prof is None
+    with trace(str(tmp_path)):
+        torch.ones(4) @ torch.ones(4)
+    assert (tmp_path / "trace.json").exists()

@@ -43,7 +43,8 @@ def no_library(monkeypatch):
     monkeypatch.setattr(_build, "build", refuse)
     hopper.reset_launches()
     yield
-    assert hopper.launches == {"pricing_scan": 0, "ratio_eta": 0, "rank1_update": 0}
+    assert set(hopper.launches) == {"pricing_scan", "ratio_argmin", "ratio_eta", "rank1_update"}
+    assert not any(hopper.launches.values()), hopper.launches
 
 
 @pytest.mark.parametrize("m,n", [(8, 128), (16, 256), (128, 1024)])
@@ -226,3 +227,99 @@ def test_wrappers_reject_unsupported_input(no_library):
         hopper.rank1_update(B, torch.ones(4), B[2])  # row aliases B_inv
     with pytest.raises(ValueError):
         hopper.rank1_update(B.double(), torch.ones(4).double(), torch.ones(4).double())
+
+
+@pytest.mark.parametrize("m", [128, 256])
+@pytest.mark.parametrize("bland", [False, True])
+@pytest.mark.parametrize("unbounded", [False, True])
+def test_ratio_argmin_matches_pallas(m, bland, unbounded, no_library):
+    (xj, xt), (aj, at), (bj, bt) = both(*ratio_inputs(m, 3 * m, unbounded))
+    q_j, t_j, u_j = pk.ratio_argmin(xj, aj, bj, 1e-7, jnp.asarray(bland))
+    for fn in (hopper.ratio_argmin_plain, hopper.ratio_argmin):
+        q_t, t_t, u_t = fn(xt, at, bt, 1e-7, torch.tensor(bland))
+        assert q_t.dtype == torch.int32 and int(q_t) == int(q_j)
+        assert bool(u_t) == bool(u_j) == unbounded
+        assert float(t_t) == float(t_j)  # one IEEE division each: bitwise
+
+
+@pytest.mark.parametrize("m", [1, 7, 300, 1001])
+def test_ratio_argmin_odd_m_matches_xla(m, no_library):
+    (xj, xt), (aj, at), (bj, bt) = both(*ratio_inputs(m, 5 * m))
+    for bland in (False, True):
+        q_j, t_j, u_j = xk.ratio_argmin(xj, aj, bj, 1e-7, jnp.asarray(bland))
+        q_t, t_t, u_t = hopper.ratio_argmin(
+            xt, at, bt, 1e-7, torch.tensor([int(bland)], dtype=torch.int32)
+        )
+        assert int(q_t) == int(q_j) and bool(u_t) == bool(u_j)
+        assert float(t_t) == float(t_j)
+
+
+def test_ratio_argmin_backends_and_rejects(no_library):
+    from simplex_tpu_torch.kernels.dispatch import get_backend
+
+    assert get_backend("hopper").ratio_argmin is hopper.ratio_argmin
+    assert get_backend("torch").ratio_argmin is ops.ratio_argmin
+    for name in ("hopper", "torch"):
+        assert get_backend(name).ratio_argmin_harris is ops.ratio_argmin_harris
+    x, a, b = torch.zeros(4), torch.ones(4), torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        hopper.ratio_argmin(x, a.double(), b, 1e-7, torch.tensor(False))
+    with pytest.raises(ValueError):
+        hopper.ratio_argmin(x, a, b[:3], 1e-7, torch.tensor(False))
+    with pytest.raises(ValueError):
+        hopper.ratio_argmin(x, a, b, 1e-7, torch.tensor([False, True]))
+
+
+def bf16_pair(shape, seed):
+    """One bf16 matrix in both packages, from the same rounded values."""
+    a = torch.from_numpy(rand(shape, seed)).to(torch.bfloat16)
+    return jnp.asarray(a.float().numpy()).astype(jnp.bfloat16), a
+
+
+@pytest.mark.parametrize(
+    "m,n,segments,s", [(16, 512, 4, 1), (32, 1024, 8, 5), (128, 1024, 4, 3)]
+)
+def test_pricing_scan_bf16_segment_view_matches_pallas(m, n, segments, s, no_library):
+    # a column segment of the bf16 shadow, priced as a strided view (no
+    # copy), against the Pallas kernel on the same segment
+    y, c = rand((m,), 20), rand((n,), 21)
+    Aj, At = bf16_pair((m, n), 22)
+    w = n // segments
+    view = At[:, s * w : (s + 1) * w]
+    assert view.stride() == (n, 1) and not view.is_contiguous()
+    eps = 1e-6
+    lo, hi = s * w, (s + 1) * w
+    want = pk.pricing_scan(jnp.asarray(y), Aj[:, lo:hi], jnp.asarray(c[lo:hi]), eps)
+    ct = torch.from_numpy(c)[lo:hi]
+    for fn in (hopper.pricing_scan_plain, hopper.pricing_scan):
+        got = fn(torch.from_numpy(y), view, ct, eps)
+        np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-5)
+        assert int(got[1]) == int(want[1]) and int(got[2]) == int(want[2])
+
+
+def test_pricing_scan_rejects_bad_strides(no_library):
+    y, c = torch.zeros(4), torch.zeros(4)
+    A = torch.zeros(4, 16)
+    with pytest.raises(ValueError):
+        hopper.pricing_scan(y, A[:, ::4], c, 1e-6)  # column stride 4
+    with pytest.raises(ValueError):
+        hopper.pricing_scan(y, A.T[:4], c, 1e-6)  # transposed: column stride 16
+    hopper.pricing_scan(y, A[:, 4:8], c, 1e-6)  # a column range: fine
+
+
+def test_gather_columns_and_top_k_match_jax():
+    import jax
+
+    m, n, K = 6, 40, 5
+    A = rand((m, n), 23)
+    x = rand((n,), 24)  # tie-free
+    idx = np.array([3, 39, 0, 17, 17], np.int32)
+    (Aj, At), (ij, it) = both(A, idx)
+    np.testing.assert_array_equal(
+        ops.gather_columns(At, it).numpy(), np.asarray(xk.gather_columns(Aj, ij))
+    )
+    v_j, i_j = jax.lax.approx_max_k(jnp.asarray(x), K)
+    v_t, i_t = ops.top_k(torch.from_numpy(x), K)
+    assert i_t.dtype == torch.int32
+    assert set(i_t.tolist()) == set(np.asarray(i_j).tolist())
+    np.testing.assert_array_equal(np.sort(v_t.numpy()), np.sort(np.asarray(v_j)))

@@ -115,10 +115,10 @@ def test_explicit_basis_matches_jax():
     "kwargs",
     [
         {"options": SimplexOptions(pricing="devex")},
-        {"options": SimplexOptions(pricing_dtype="bfloat16")},
-        {"options": SimplexOptions(partial_pricing=8)},
-        {"options": SimplexOptions(update_defer=16)},
-        {"options": SimplexOptions(multi_price=64)},
+        {"options": SimplexOptions(pricing="steepest")},
+        {"options": SimplexOptions(pricing="devex", multi_price=64)},
+        {"options": SimplexOptions(pricing="steepest", update_defer=16)},
+        {"options": SimplexOptions(pricing_sparse=True, partial_pricing=8)},
         {"options": SimplexOptions(pricing_sparse=True)},
         {"u": np.full(4, 5.0)},
     ],

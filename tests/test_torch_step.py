@@ -27,7 +27,7 @@ from simplex_tpu.kernels.dispatch import get_backend as jax_backend
 from simplex_tpu.oracle.generator import klee_minty_lp, random_dense_lp
 from simplex_tpu_torch.config import SimplexOptions
 from simplex_tpu_torch.core import linalg, step
-from simplex_tpu_torch.core.solver import _control
+from simplex_tpu_torch.core.step import read_control
 from simplex_tpu_torch.core.state import (
     initial_state_slack,
     problem_from_numpy,
@@ -143,7 +143,7 @@ def test_klee_minty_pivot_path_matches_jax():
     assert int(ts.status) == SolveStatus.OPTIMAL and int(ts.iters) == 63
     z = float(ts.c_b @ ts.x_b)
     assert abs(z - 15625.0) < 1e-3 * 15625.0
-    assert _control(ts).iters == 63
+    assert read_control(ts).iters == 63
 
 
 def test_refactorize_matches_jax():
