@@ -11,8 +11,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      from ``simplex_tpu_torch/csrc`` with nvcc for sm_90a;
   2. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes (8192 x 16384, m = 8192; the bf16 shadow and a strided
-     column segment of it for pricing) and at odd shapes, timed with CUDA
-     events beside the plain version;
+     column segment of it for pricing), at the general route's (1088 x
+     67648 for pricing, m = 1088 for ratio_eta, m = 1088 and 4352 for
+     rank1_update; pricing's signed mode, the bounded rule's, at 1088 x
+     4160 and 4352 x 16640 on fp32 A, the shadow and a segment) and at odd
+     shapes, timed with CUDA events beside the plain version;
   3. ``simplex_tpu_torch.solve`` through its normal entry point with the
      default options: the sample LP (z = 9), a 2048 x 4096 random LP
      against HiGHS, and the benchmark's 8192 x 16384 instance over its
@@ -25,7 +28,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and host reads per pivot; then flagship solves to OPTIMAL: 2048 x 4096
      against HiGHS and 8192 x 16384 with an f64 check;
   5. the per-op bench (``simplex_tpu_torch.bench.kernels``) on both
-     backends, which is the path that runs ``ratio_argmin``.
+     backends, which is the path that runs ``ratio_argmin``;
+  6. the general-form route: every ``tests/data/*.mps`` through the port's
+     CLI on the card; ``solve_general`` on ``multiperiod_production_lp``
+     at (64, 16) and (256, 16) (every column bounded: the native-bounds
+     rule in phase 2) under the default options and ``bench.py --mode
+     general``'s, each with and without presolve; and on
+     ``transportation_lp(64, 1024, balanced=False)`` (no bounds: the
+     kernels run in both phases). Each run is held against HiGHS and
+     prints its stage times and its launches per phase.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON record is its total over
@@ -37,7 +48,10 @@ checkout of the repository, the script exits non-zero at once.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
+import io
 import json
 import subprocess
 import sys
@@ -51,6 +65,15 @@ BENCH_WINDOW = 512  # bench.py's pivot budget
 # bench.py's option set (its argparse defaults), and its full-solve cadence
 FLAGSHIP = dict(pricing_dtype="bfloat16", partial_pricing=8, update_defer=16, multi_price=64)
 FLAGSHIP_REFACTOR = 2048
+# the general route: bench.py --mode general's instance (T=64, P=16) and
+# four times its rows, and an unbounded transportation LP
+GENERAL_SIZES = {"A": (64, 16), "B": (256, 16)}
+TRANSPORT_C = (64, 1024)
+# bench.py --mode general's options (its argparse defaults, bench.py:456-462)
+GENERAL_BENCH = dict(pricing_dtype="bfloat16", partial_pricing=8, update_defer=16, refactor_every=1024)
+# the shapes the general route gives the kernels: standardized A (rows,
+# columns) of A = (64, 16) and B = (256, 16), and C (no bounds)
+ROUTE_A, ROUTE_B, ROUTE_C = (1088, 4160), (4352, 16640), (1088, 67648)
 
 # tolerances, each with its reason
 PRICING_RTOL = 1e-5  # fp32 sums of 8192 terms taken in another order
@@ -58,6 +81,7 @@ RANK1_ATOL = 1e-5  # the plain ger may fuse multiply-add; the kernel does not
 RATIO_ATOL = 0.0  # same IEEE ops in the same order: bitwise equal
 GAP_TOL = 1e-5  # fp32 solve against HiGHS in f64 (the JAX package's gate)
 KKT_TOL = 1e-5  # min reduced cost of the f64 duals: dual feasibility at eps
+FEAS_TOL = 1e-5  # f64 bound / row violation of a general-route answer
 
 SOURCES = {
     "pricing_scan": "simplex_tpu_torch/csrc/pricing_scan.cu",
@@ -122,7 +146,7 @@ def phase_pricing(dev) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(0)
     rec = {}
-    for m, n in ((BENCH_M, BENCH_N), (BENCH_M - 1, BENCH_N - 1)):
+    for m, n in ((BENCH_M, BENCH_N), (BENCH_M - 1, BENCH_N - 1), ROUTE_C):
         y = torch.randn(m, generator=g, device=dev)
         A = torch.randn(m, n, generator=g, device=dev)
         c = torch.randn(n, generator=g, device=dev)
@@ -166,7 +190,7 @@ def phase_ratio_eta(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
     rec = {}
     worst = 0.0
-    for m in (BENCH_M, BENCH_M - 1):
+    for m in (BENCH_M, BENCH_M - 1, ROUTE_C[0]):
         x_b = torch.rand(m, generator=g, device=dev) * 2
         x_b[::7] = 0.0  # degenerate rows: exact ratio ties at theta = 0
         alpha = torch.randn(m, generator=g, device=dev)
@@ -214,7 +238,7 @@ def phase_rank1(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(2)
     rec = {}
     worst = 0.0
-    for m in (BENCH_M, BENCH_M - 1):
+    for m in (BENCH_M, BENCH_M - 1, ROUTE_A[0], ROUTE_B[0]):
         B = torch.randn(m, m, generator=g, device=dev)
         eta = torch.randn(m, generator=g, device=dev)
         row = B[m // 3].clone()
@@ -279,6 +303,67 @@ def phase_pricing_bf16(dev) -> dict:
             f"(plain {min_p:.6f}) p {p_k} abs err {err:.3e}; {ms:.4f} ms vs plain {plain_ms:.4f} ms"
         )
     return rec
+
+
+def phase_pricing_bounded(dev) -> None:
+    """pricing_scan's signed mode (the bounded rule's pricing,
+    ``hopper.choose_entering_bounded``) against its plain version at the
+    bounded route's shapes: fp32 A, the bf16 shadow, and a bf16 segment
+    view (8 segments), with 40% of the columns at their upper bound and
+    the basic columns penalized; Bland off and on. At B's shape it also
+    times the kernel on the shadow and on fp32 A beside the plain version,
+    which prices the shadow through an fp32 copy of it."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper, ops
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    eps = 1e-5
+    for m, n in (ROUTE_A, ROUTE_B):
+        w = n // GENERAL_BENCH["partial_pricing"]
+        y = torch.randn(m, generator=g, device=dev)
+        A = torch.randn(m, n, generator=g, device=dev)
+        Ab = A.to(torch.bfloat16)
+        c = torch.randn(n, generator=g, device=dev)
+        at_up = torch.rand(n, generator=g, device=dev) < 0.4
+        basis = torch.randperm(n, generator=g, device=dev)[:m].to(torch.int32)
+        views = [("fp32", A, 0, n), ("bf16", Ab, 0, n), ("bf16 segment", Ab[:, 3 * w : 4 * w], 3 * w, w)]
+        for tag, Av, lo, wv in views:
+            cv, uv = c[lo : lo + wv], at_up[lo : lo + wv]
+            pen = ops.add_basic_penalty(torch.zeros_like(cv), basis, lo)
+            s_ref = torch.where(uv, -(y @ Av.float() - cv), y @ Av.float() - cv) + pen
+            for bland in (False, True):
+                flag = torch.tensor(bland, device=dev)
+                args = (y, Av, cv, uv, basis, lo, eps, flag)
+                p_k, min_k = hopper.choose_entering_bounded(*args)
+                p_p, min_p = ops.choose_entering_bounded(*args)
+                torch.cuda.synchronize()
+                p_k, min_k, p_p, min_p = int(p_k), float(min_k), int(p_p), float(min_p)
+                name = f"bounded pricing {tag} {m}x{wv} (base {lo}) bland={bland}"
+                check(abs(min_k - min_p) <= PRICING_RTOL * abs(min_p), f"{name}: min {min_k} vs {min_p}")
+                if bland:
+                    check(p_k == p_p, f"{name}: first improving {p_k} vs {p_p}")
+                else:
+                    s_at = float(s_ref[p_k])
+                    check(abs(s_at - min_p) <= PRICING_RTOL * abs(min_p), f"{name}: s[p={p_k}] {s_at} vs {min_p}")
+                if min_k < -eps:  # an improving pick is never a basic column
+                    check(float(pen[p_k]) == 0.0, f"{name}: picked basic column {p_k + lo}")
+                print(f"{name}: p {p_k} (plain {p_p}) min_s {min_k:.6f} (plain {min_p:.6f}) ok")
+        if (m, n) == ROUTE_B:
+            no = torch.tensor(False, device=dev)
+            times = {}
+            for tag, Av in (("fp32", A), ("bf16", Ab)):
+                args = (y, Av, c, at_up, basis, 0, eps, no)
+                times[tag] = (
+                    time_ms(lambda: hopper.choose_entering_bounded(*args)),
+                    time_ms(lambda: ops.choose_entering_bounded(*args)),
+                )
+            print(
+                f"bounded pricing {m}x{n}, full pass, ms kernel / plain: fp32 A "
+                f"{times['fp32'][0]:.4f} / {times['fp32'][1]:.4f}; bf16 shadow "
+                f"{times['bf16'][0]:.4f} / {times['bf16'][1]:.4f} (plain upcasts the shadow)"
+            )
+        del A, Ab
 
 
 def phase_ratio_argmin(dev) -> dict:
@@ -540,6 +625,231 @@ def phase_bench_ops(dev) -> dict:
     return counts["hopper"]
 
 
+class RouteProbe:
+    """Times the general route's stages and counts kernel launches per
+    solver call, by wrapping the module functions the route calls (the
+    wrappers are removed on exit). ``calls`` holds one record per
+    ``solve`` call of the route, labelled by what it is: phase 2 (and its
+    penalty retries) starts from the phase-1 bounds state and so passes
+    ``at_upper0``; phase 1 does not."""
+
+    def __init__(self):
+        self.seconds = collections.Counter()
+        self.calls = []
+        self._undo = []
+
+    def _wrap(self, module, name, stage):
+        inner = getattr(module, name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **k)
+            finally:
+                self.seconds[stage] += time.perf_counter() - t0
+
+        setattr(module, name, timed)
+        self._undo.append((module, name, inner))
+
+    def __enter__(self):
+        import torch
+
+        from simplex_tpu_torch.core import solver, twophase
+        from simplex_tpu_torch.kernels import hopper
+
+        presolve_mod = sys.modules["simplex_tpu_torch.presolve"]
+        self._wrap(twophase, "_preprocess_bounds", "standardize")
+        self._wrap(twophase, "_standardize", "standardize")
+        self._wrap(twophase, "_drive_out_artificials", "driveout")
+        self._wrap(presolve_mod, "presolve", "presolve")
+        self._wrap(presolve_mod, "postsolve", "presolve")
+        self._wrap(solver, "finalize_result", "polish")
+        inner = twophase.solve
+
+        def solve(*a, **k):
+            before = dict(hopper.launches)
+            polish0 = self.seconds["polish"]
+            t0 = time.perf_counter()
+            r = inner(*a, **k)
+            torch.cuda.synchronize()
+            self.calls.append({
+                "phase": 2 if "at_upper0" in k else 1,
+                "seconds": time.perf_counter() - t0 - (self.seconds["polish"] - polish0),
+                "pivots": r.iters,
+                "status": r.status.name,
+                "feas_err": r.feas_err,
+                "launches": {n: hopper.launches[n] - before[n] for n in before},
+            })
+            return r
+
+        twophase.solve = solve
+        self._undo.append((twophase, "solve", inner))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, inner in reversed(self._undo):
+            setattr(module, name, inner)
+        return False
+
+    def phases(self, res):
+        """(phase 1 record or None, the phase-2 records) of the route's
+        result ``res``; raises unless the calls seen add up to it."""
+        p1 = [c for c in self.calls if c["phase"] == 1]
+        p2 = [c for c in self.calls if c["phase"] == 2]
+        check(len(p1) <= 1 and len(p2) >= 1, f"route probe: solver calls {[c['phase'] for c in self.calls]}")
+        got = (p1[0]["pivots"] if p1 else 0, sum(c["pivots"] for c in self.calls))
+        check(got == (res.phase1_iters, res.iters), f"route probe: pivots {got} vs the result's")
+        return (p1[0] if p1 else None), p2
+
+
+def general_violation(lp, x) -> float:
+    """The largest row or bound violation of x in the LP's own (f64)
+    terms, over max(1, |b|_inf)."""
+    import numpy as np
+
+    A = np.asarray(lp.A, np.float64)
+    r = A @ x - np.asarray(lp.b, np.float64)
+    sign = {"L": 1.0, "G": -1.0}
+    viol = [abs(ri) if t == "E" else max(0.0, sign[t] * ri) for ri, t in zip(r, lp.row_types)]
+    k = len(x)
+    lo = np.zeros(k) if lp.lower is None else np.asarray(lp.lower, np.float64)
+    up = np.full(k, np.inf) if lp.upper is None else np.asarray(lp.upper, np.float64)
+    worst = max(max(viol, default=0.0), float(np.max(lo - x, initial=0.0)),
+                float(np.max(x - up, initial=0.0)))
+    return worst / max(1.0, float(np.abs(lp.b).max()))
+
+
+def general_run(dev, tag, lp, ref, opts, presolve):
+    """``solve_general`` once from a synchronized start, with the launch
+    counts set to 0 just before; checks it against HiGHS (``ref``) and
+    returns (result, probe, launches)."""
+    import torch
+
+    from simplex_tpu_torch import SolveStatus, solve_general
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.reference import relative_gap
+
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    with RouteProbe() as probe:
+        t0 = time.perf_counter()
+        res = solve_general(lp, options=opts, presolve=presolve, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = dict(hopper.launches)
+    check(res.status == SolveStatus.OPTIMAL, f"{tag}: {res.status!r}")
+    p1, p2 = probe.phases(res)
+    gap = relative_gap(res.z, ref.z)
+    feas = max(c["feas_err"] for c in p2)
+    viol = general_violation(lp, res.x)
+    st = probe.seconds
+    print(
+        f"{tag}: {res.status.name} z {res.z!r} HiGHS {ref.z!r} rel_gap {gap:.3e} "
+        f"feas_err (f64, bounded) {feas:.3e} violation (original rows, bounds) {viol:.3e}; "
+        f"pivots phase 1 {res.phase1_iters} total {res.iters}; wall {wall:.3f} s: "
+        f"presolve {st['presolve']:.3f}, standardize {st['standardize']:.3f}, "
+        f"phase 1 {p1['seconds'] if p1 else 0.0:.3f}, driveout {st['driveout']:.3f}, "
+        f"phase 2 {sum(c['seconds'] for c in p2):.3f}, polish {st['polish']:.3f} s; "
+        f"launches phase 1 {p1['launches'] if p1 else {}}, "
+        f"phase 2 {[c['launches'] for c in p2]}"
+    )
+    check(gap <= GAP_TOL, f"{tag}: rel gap {gap:.3e} vs HiGHS")
+    check(feas <= FEAS_TOL, f"{tag}: feas_err {feas:.3e}")
+    check(viol <= FEAS_TOL, f"{tag}: violation {viol:.3e}")
+    return res, probe, counts
+
+
+def phase_mps_cli(dev) -> dict:
+    """Every tests/data/*.mps through ``python -m simplex_tpu_torch.cli
+    solve FILE`` (in process) on the card, against HiGHS on the same
+    instance: the exit code, and the printed optimum (instance sense,
+    %g) within GAP_TOL."""
+    import torch
+
+    from simplex_tpu_torch import SolveStatus, cli
+    from simplex_tpu_torch.core.twophase import GeneralLP
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy, solve_scipy_general
+
+    counts = collections.Counter()
+    for path in sorted((ROOT / "tests" / "data").glob("*.mps")):
+        loaded, c0, maximize = cli._load(str(path), True)
+        if isinstance(loaded, GeneralLP):
+            ref = solve_scipy_general(loaded)
+        else:
+            A, b, c, _ = loaded
+            ref = solve_scipy(A, b, c)
+        torch.cuda.synchronize()
+        hopper.reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["solve", str(path), "--device", str(dev)])
+        wall = time.perf_counter() - t0
+        counts.update(hopper.launches)
+        lines = out.getvalue().splitlines()
+        route = "general" if isinstance(loaded, GeneralLP) else "canonical"
+        note = f"mps {path.name} ({route} route): rc {rc}, '{lines[0]}', {lines[-1]}, wall {wall:.3f} s"
+        if ref.status == SolveStatus.OPTIMAL:
+            want = (ref.z if maximize else -ref.z) + c0
+            got = float(lines[0].split(":")[1])
+            gap = relative_gap(got, want)
+            print(f"{note}; HiGHS {want!r} rel_gap {gap:.3e} (6 printed digits)")
+            check(rc == 0 and gap <= GAP_TOL, f"mps {path.name}: rc {rc}, rel gap {gap:.3e}")
+        else:
+            print(f"{note}; HiGHS {ref.status.name}")
+            check(rc == 2 and lines[0] == ref.status.describe(), f"mps {path.name}: {lines[0]}")
+    return dict(counts)
+
+
+def phase_general(dev) -> dict:
+    """The general route at full width: A and B (bounded) under both option
+    sets, with and without presolve; C (no bounds) under the default
+    options. Returns the launch counts per path."""
+    import torch
+
+    from simplex_tpu_torch import SimplexOptions
+    from simplex_tpu_torch.oracle.generator import multiperiod_production_lp, transportation_lp
+    from simplex_tpu_torch.oracle.reference import solve_scipy_general
+
+    paths = {}
+    sets = {"default": SimplexOptions(), "bench-general": SimplexOptions(**GENERAL_BENCH)}
+    for size, (T, P) in GENERAL_SIZES.items():
+        lp = multiperiod_production_lp(T, P, seed=0)
+        t0 = time.perf_counter()
+        ref = solve_scipy_general(lp)
+        print(f"general {size} multiperiod_production_lp({T}, {P}, seed=0): {len(lp.b)} rows, "
+              f"{lp.A.shape[1]} bounded columns; HiGHS {ref.status.name} in {time.perf_counter() - t0:.2f} s")
+        for opt_name, opts in sets.items():
+            for presolve in (False, True):
+                tag = f"general {size} {opt_name} presolve={presolve}"
+                _, probe, counts = general_run(dev, tag, lp, ref, opts, presolve)
+                # signed pricing runs through pricing_scan under both option
+                # sets (on the bf16 shadow under bench.py --mode general's)
+                check(counts["pricing_scan"] > 0, f"{tag}: pricing_scan never launched")
+                if opt_name == "default":
+                    check(counts["rank1_update"] > 0, f"{tag}: rank1_update never launched")
+                paths[tag] = counts
+        del lp
+        torch.cuda.empty_cache()
+
+    ns, nd = TRANSPORT_C
+    lp = transportation_lp(ns, nd, seed=0, balanced=False)
+    t0 = time.perf_counter()
+    ref = solve_scipy_general(lp)
+    print(f"general C transportation_lp({ns}, {nd}, seed=0, balanced=False): {len(lp.b)} rows, "
+          f"{lp.A.shape[1]} columns, no bounds; HiGHS {ref.status.name} in {time.perf_counter() - t0:.2f} s")
+    tag = "general C default presolve=False"
+    res, probe, counts = general_run(dev, tag, lp, ref, SimplexOptions(), False)
+    p1, p2 = probe.phases(res)
+    check(p1 is not None, f"{tag}: no phase 1")
+    for phase, rec in (("phase 1", p1), ("phase 2", p2[0])):
+        for name in ("pricing_scan", "ratio_eta", "rank1_update"):
+            check(rec["launches"][name] > 0, f"{tag}: {name} never launched in {phase}")
+    paths[tag] = counts
+    return paths
+
+
 def main() -> int:
     if not (ROOT / "simplex_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -565,6 +875,7 @@ def main() -> int:
         "rank1_update": phase_rank1(dev),
     }
     phase_pricing_bf16(dev)
+    phase_pricing_bounded(dev)
     torch.cuda.empty_cache()
     paths = {"default window": phase_solve(dev)}
     phase_full_solve(dev)
@@ -572,6 +883,9 @@ def main() -> int:
     phase_flagship_full(dev)
     torch.cuda.empty_cache()
     paths["per-op bench (hopper)"] = phase_bench_ops(dev)
+    torch.cuda.empty_cache()
+    paths["mps files (cli)"] = phase_mps_cli(dev)
+    paths.update(phase_general(dev))
     for tag, counts in paths.items():
         print(f"launches on path '{tag}': {counts}")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")

@@ -8,26 +8,42 @@ jax; ``simplex_tpu`` stays the reference it is tested against.
 
     from simplex_tpu_torch import solve, load_lp
     A, b, c = load_lp("tests/data/sample.txt")
-    result = solve(A, b, c, device="cuda")      # max c.x s.t. Ax=b, x>=0
+    result = solve(A, b, c, device="cuda")      # max c.x s.t. Ax=b, 0<=x(<=u)
+
+    from simplex_tpu_torch import read_mps, solve_general, GeneralLP
+    p = read_mps("tests/data/prod_bounded.mps")  # >=/= rows, bounds
+    lp = GeneralLP(p.A, p.b, -p.c, p.row_types, p.lower, p.upper)
+    result = solve_general(lp, presolve=True, device="cuda")
 
 Subpackages:
-    core     state, pivot step, host-driven solve loop, Newton inversion
+    core     state, pivot step (native upper bounds too), host-driven solve
+             loop, Newton inversion, the two-phase route
     kernels  plain torch ops, the Hopper kernel wrappers and their build
-    io       the reference text format
+    io       the reference text format, MPS read/write, canonical form
     oracle   instance generators and the HiGHS oracle
 """
 
 from simplex_tpu_torch.config import DEFAULT_OPTIONS, SimplexOptions
 from simplex_tpu_torch.core.solver import SolveResult, solve
+from simplex_tpu_torch.core.twophase import GeneralLP, GeneralSolveResult, solve_general
+from simplex_tpu_torch.io.mps import read_mps
+from simplex_tpu_torch.io.mps_write import write_mps
 from simplex_tpu_torch.io.text import load_lp, loads_lp
+from simplex_tpu_torch.presolve import presolve
 from simplex_tpu_torch.status import SolveStatus
 
 __all__ = [
     "DEFAULT_OPTIONS",
+    "GeneralLP",
+    "GeneralSolveResult",
     "SimplexOptions",
     "SolveResult",
     "SolveStatus",
     "load_lp",
     "loads_lp",
+    "presolve",
+    "read_mps",
     "solve",
+    "solve_general",
+    "write_mps",
 ]

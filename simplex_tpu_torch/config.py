@@ -10,11 +10,13 @@ solve in both packages. Two fields change meaning:
     hand-written CUDA kernels of :mod:`simplex_tpu_torch.kernels.hopper`,
     ``"torch"`` runs plain PyTorch ops everywhere.
 
-This port covers the dense canonical path under the Dantzig rule: full,
-segmented (``partial_pricing``) or multiple (``multi_price``) pricing, on
-A or on its bfloat16 shadow (``pricing_dtype``) with an exact recheck; the
-eager rank-1 or the deferred rank-L (``update_defer``) update of B_inv; the
-Harris or the classic ratio test. Options that select another path raise
+This port covers the dense path under the Dantzig rule, with or without
+native upper bounds (``solve(u=)``, and the general-form route of
+``solve_general`` on top): full, segmented (``partial_pricing``) or
+multiple (``multi_price``) pricing, on A or on its bfloat16 shadow
+(``pricing_dtype``) with an exact recheck; the eager rank-1 or the
+deferred rank-L (``update_defer``) update of B_inv; the Harris or the
+classic ratio test. Options that select another path raise
 ``NotImplementedError`` from :func:`check_supported`, naming the ROADMAP
 item that ports them; none is silently ignored.
 """

@@ -15,7 +15,6 @@ same device.
 
 from __future__ import annotations
 
-import logging
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -40,12 +39,13 @@ from simplex_tpu_torch.core.step import (
     refactorize,
 )
 from simplex_tpu_torch.kernels.dispatch import get_backend
+from simplex_tpu_torch.logging import get_logger
 from simplex_tpu_torch.status import SolveStatus
 
 MAX_VERIFY_ROUNDS = 4
 MAX_PERTURB_ROUNDS = 16
 
-_log = logging.getLogger("simplex_tpu_torch.solver")
+_log = get_logger("solver")
 
 
 class SolveResult(NamedTuple):
@@ -57,11 +57,11 @@ class SolveResult(NamedTuple):
     basis: np.ndarray  # (m,) int32
     status: SolveStatus
     iters: int
-    # worst primal infeasibility max(0, -min x_b) of the returned basis
+    # worst primal infeasibility of the returned basis, below 0 or above u
     # (exact f64 when the polish ran)
     feas_err: float = 0.0
     y: Optional[np.ndarray] = None  # (m,) simplex multipliers
-    at_upper: Optional[np.ndarray] = None  # bounded solves only (not ported)
+    at_upper: Optional[np.ndarray] = None  # (n,) bounded solves only
 
 
 def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
@@ -165,23 +165,21 @@ def solve(
     *,
     u=None,
     basis0: Optional[np.ndarray] = None,
+    at_upper0: Optional[np.ndarray] = None,
     options: SimplexOptions = DEFAULT_OPTIONS,
     device="cuda",
 ) -> SolveResult:
-    """Solve  max c.x  s.t.  A x = b, x >= 0  from a feasible basis, on
-    ``device`` (default ``"cuda"``; there is no fallback to the CPU).
+    """Solve  max c.x  s.t.  A x = b, 0 <= x (<= u)  from a feasible basis,
+    on ``device`` (default ``"cuda"``; there is no fallback to the CPU).
 
     ``basis0=None`` starts from the trailing identity slack block. ``A``
     (a dense numpy array or tensor) is moved to ``device`` and cast to
     ``options.dtype``, with its bfloat16 pricing shadow beside it when
-    ``options.pricing_dtype`` asks for one; ``u`` (native upper bounds) is
-    not ported yet.
+    ``options.pricing_dtype`` asks for one. ``u`` ((n,), +inf for a column
+    without a bound) selects the bounded-variable rule; ``at_upper0`` marks
+    the nonbasic columns that start at their upper bound. A ``u`` with no
+    finite entry takes the unbounded path.
     """
-    if u is not None:
-        raise NotImplementedError(
-            "upper bounds (u=) are not ported to simplex_tpu_torch yet "
-            "(ROADMAP.md, open item 10)"
-        )
     if _is_sparse(A):
         raise NotImplementedError(
             "sparse A is not ported to simplex_tpu_torch yet (ROADMAP.md, open item 15)"
@@ -197,25 +195,35 @@ def solve(
         raise ValueError(f"m > n ({m} > {n}): not a canonical-form LP")
     if b.shape != (m,) or c.shape != (n,):
         raise ValueError(f"shape mismatch: A {A.shape}, b {b.shape}, c {c.shape}")
+    u_np = None
+    if u is not None:
+        u_np = np.asarray(u.cpu() if isinstance(u, torch.Tensor) else u, np.float64)
+        if u_np.shape != (n,):
+            raise ValueError(f"u shape {u_np.shape} != ({n},)")
+        if np.any(u_np < 0):
+            raise ValueError("negative upper bound (shift lowers to 0 first)")
+        if not np.any(np.isfinite(u_np)):
+            u_np = None  # all-inf bounds: the unbounded path
 
     # full fp32 everywhere: the counterpart of the JAX package's HIGHEST pins
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(device)
     dtype = options.dtype
-    prob = problem_from_numpy(A, b, c, device, dtype)
+    prob = problem_from_numpy(A, b, c, device, dtype, u=u_np)
     prob = with_pricing_shadow(prob, options.pricing_dtype, options.pricing)
     extras = dict(
         perturb=options.perturb_after > 0,
         update_defer=options.resolve_defer(),
         multi_price=options.multi_price,
+        at_upper0=at_upper0 if u_np is not None else None,
     )
     if basis0 is None:
         state0 = initial_state_slack(prob, dtype, **extras)
     else:
         state0 = initial_state(prob, basis0, dtype, **extras)
     final = solve_state(prob, state0, options, options.resolve_max_iter(m, n))
-    return finalize_result(prob, b, c, final, options)
+    return finalize_result(prob, b, c, final, options, u_np)
 
 
 def _polish_refine(A, b64, basis, x_b0, B_inv, iters: int = 4):
@@ -237,9 +245,13 @@ def _polish_refine(A, b64, basis, x_b0, B_inv, iters: int = 4):
 
 
 def finalize_result(
-    prob: Problem, b, c, final: SolverState, options: SimplexOptions
+    prob: Problem, b, c, final: SolverState, options: SimplexOptions, u_np=None
 ) -> SolveResult:
-    """Pull the result to the host and polish the returned basis in f64."""
+    """Pull the result to the host and polish the returned basis in f64.
+
+    Bounded solves (``u_np``) fold the nonbasic-at-upper columns in: the
+    basis solves against b_eff = b - A_up u_up, z gains c_up . u_up, x
+    carries u at those columns, and feas_err counts excess over u too."""
     x_b_np = final.x_b.cpu().numpy()
     basis_np = final.basis.cpu().numpy()
     c_b_np = final.c_b.cpu().numpy()
@@ -248,19 +260,37 @@ def finalize_result(
     iters = int(final.iters)
     m, n = len(basis_np), np.asarray(c).shape[0]
     c64 = np.asarray(c, np.float64)
+    b64 = torch.as_tensor(np.asarray(b, np.float64), device=prob.A.device)
 
-    z = float(np.dot(c_b_np, x_b_np))
-    feas_err = max(0.0, float(-x_b_np.min())) if m else 0.0
+    at_upper_np, up_cols, ub_basic, z_fixed = None, None, None, 0.0
+    if u_np is not None:
+        at_upper_np = final.at_upper.cpu().numpy().copy()
+        at_upper_np[basis_np] = False  # the invariant, restated
+        up_cols = np.flatnonzero(at_upper_np)
+        if len(up_cols):
+            idx = torch.as_tensor(up_cols, device=prob.A.device)
+            u_up = torch.as_tensor(u_np[up_cols], device=prob.A.device)
+            b64 = b64 - prob.A.index_select(1, idx).double() @ u_up
+            z_fixed = float(c64[up_cols] @ u_np[up_cols])
+        ub_basic = u_np[basis_np]
+
+    def bounded_feas(x_vals) -> float:
+        err = max(0.0, float(-x_vals.min())) if m else 0.0
+        if ub_basic is not None:
+            err = max(err, float(np.max(x_vals - ub_basic, initial=0.0)))
+        return err
+
+    z = float(np.dot(c_b_np, x_b_np)) + z_fixed
+    feas_err = bounded_feas(x_b_np)
     if options.polish and m <= options.polish_max_m:
         # exact values for the returned basis, no clamping: a violation is
         # reported as feas_err, not zeroed
-        b64 = torch.as_tensor(np.asarray(b, np.float64), device=prob.A.device)
         B_inv = final.B_inv
         if final.U is not None:
             # precondition with the true inverse, pending pairs folded in
             B_inv = torch.addmm(B_inv, final.U.T, final.R)
         x64, nr, A_B = _polish_refine(prob.A, b64, final.basis, final.x_b, B_inv)
-        scale = max(1.0, float(np.abs(np.asarray(b, np.float64)).max()))
+        scale = max(1.0, float(b64.abs().max())) if m else 1.0
         ok = np.isfinite(nr) and nr <= 1e-7 * scale
         if not ok:
             _log.warning(
@@ -274,10 +304,12 @@ def finalize_result(
                 ok = False
         if ok:
             x_b64 = x64.cpu().numpy()
-            feas_err = max(0.0, float(-x_b64.min()))
+            feas_err = bounded_feas(x_b64)
             x_b_np = x_b64.astype(x_b_np.dtype)
-            z = float(c64[basis_np] @ x_b64)
+            z = float(c64[basis_np] @ x_b64) + z_fixed
     x = np.zeros(n, dtype=x_b_np.dtype)
+    if up_cols is not None:
+        x[up_cols] = u_np[up_cols].astype(x_b_np.dtype)
     x[basis_np] = x_b_np
     return SolveResult(
         z=z,
@@ -288,4 +320,5 @@ def finalize_result(
         iters=iters,
         feas_err=feas_err,
         y=y_np,
+        at_upper=at_upper_np,
     )

@@ -15,12 +15,15 @@ pytrees. Leaves for an m x n problem:
   U, R       (L, m)  pending (eta, true-inverse row) pairs of the deferred
                      update; the true inverse is B_inv + U.T @ R
   npend      ()      number of pending pairs (int32)
+  at_upper   (n,)    bounded problems: nonbasic columns parked at their
+                     upper bound (never set on a basic column), so
+                     x_N = where(at_upper, u, 0) and B x_b = b - A x_N
   cand               the multiple-pricing candidate buffer
   pert               the rhs perturbation
 
-U, R and npend are None when updates are eager, cand when multiple pricing
-is off, pert when the perturbation is off (the JAX package carries dummy
-leaves there instead).
+U, R and npend are None when updates are eager, at_upper when the problem
+has no upper bounds, cand when multiple pricing is off, pert when the
+perturbation is off (the JAX package carries dummy leaves there instead).
 
 Scalars stay 0-d device tensors so a pivot step never waits on the host.
 The pivot step updates ``B_inv`` (the rank-1 update, the rank-L flush) and
@@ -42,15 +45,19 @@ from simplex_tpu_torch.status import SolveStatus
 
 @dataclasses.dataclass
 class Problem:
-    """A canonical-form LP: maximize c.x  s.t.  A x = b, x >= 0.
+    """A canonical-form LP: maximize c.x  s.t.  A x = b, 0 <= x (<= u).
 
     ``A_price`` is the optional bfloat16 shadow of A that pricing reads in
-    place of A; every candidate it yields is rechecked against A."""
+    place of A; every candidate it yields is rechecked against A. ``u``
+    (optional, +inf where a column has no bound) selects the
+    bounded-variable rule: nonbasic columns sit at 0 or at u, the ratio
+    test is two-sided and a step may flip a column between its bounds."""
 
     A: torch.Tensor  # (m, n)
     b: torch.Tensor  # (m,)
     c: torch.Tensor  # (n,)
     A_price: Optional[torch.Tensor] = None  # (m, n) bfloat16
+    u: Optional[torch.Tensor] = None  # (n,) upper bounds, +inf = none
 
 
 def with_pricing_shadow(
@@ -107,6 +114,7 @@ class SolverState:
     U: Optional[torch.Tensor] = None
     R: Optional[torch.Tensor] = None
     npend: Optional[torch.Tensor] = None
+    at_upper: Optional[torch.Tensor] = None
     cand: Optional[CandBuffer] = None
     pert: Optional[PertState] = None
 
@@ -154,22 +162,52 @@ def _cand_extras(m: int, n: int, dtype, device, multi_price: int) -> Optional[Ca
     )
 
 
+def _at_upper_extras(prob: Problem, at_upper0) -> Optional[torch.Tensor]:
+    """(n,) nonbasic-at-upper flags when the problem is bounded (all False
+    unless ``at_upper0`` says otherwise); None otherwise."""
+    if prob.u is None:
+        return None
+    n = prob.A.shape[1]
+    if at_upper0 is None:
+        return torch.zeros(n, dtype=torch.bool, device=prob.A.device)
+    return torch.as_tensor(np.asarray(at_upper0, bool), device=prob.A.device)
+
+
+def nonbasic_upper_values(prob: Problem, at_upper: torch.Tensor, dtype) -> torch.Tensor:
+    """x_N as a full (n,) vector: u at the nonbasic-at-upper columns, 0
+    elsewhere (``where``, never a product, so an infinite u meets no 0)."""
+    return torch.where(at_upper, prob.u, 0).to(dtype)
+
+
+def bounded_rhs(prob: Problem, at_upper: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """b - A x_N, the rhs the basic variables solve against (b when the
+    problem has no upper bounds)."""
+    b = prob.b.to(dtype)
+    if prob.u is None:
+        return b
+    return b - _ops.matvec(prob.A, nonbasic_upper_values(prob, at_upper, dtype))
+
+
 def initial_state_slack(
     prob: Problem,
     dtype,
     perturb: bool = False,
     update_defer: int = 0,
     multi_price: int = 0,
+    at_upper0=None,
 ) -> SolverState:
-    """The trailing-identity slack basis: B_inv = I, x_b = b, y = c_b =
-    c[n-m:], basis = [n-m, ..., n-1]. ``update_defer`` is the number of
-    pending-pair rows (``SimplexOptions.resolve_defer()``)."""
+    """The trailing-identity slack basis: B_inv = I, x_b = b (b - A x_N
+    when bounded), y = c_b = c[n-m:], basis = [n-m, ..., n-1].
+    ``update_defer`` is the number of pending-pair rows
+    (``SimplexOptions.resolve_defer()``); ``at_upper0`` marks the nonbasic
+    columns that start at their upper bound."""
     m, n = prob.A.shape
     dev = prob.A.device
     c_b = prob.c[n - m :].to(dtype).clone()
+    at_upper = _at_upper_extras(prob, at_upper0)
     return SolverState(
         B_inv=torch.eye(m, dtype=dtype, device=dev),
-        x_b=prob.b.to(dtype).clone(),
+        x_b=bounded_rhs(prob, at_upper, dtype).clone(),
         y=c_b.clone(),
         c_b=c_b,
         basis=torch.arange(n - m, n, dtype=torch.int32, device=dev),
@@ -178,6 +216,7 @@ def initial_state_slack(
         degen=_int(0, dev),
         last_refac=_int(0, dev),
         **_defer_extras(m, dtype, dev, update_defer),
+        at_upper=at_upper,
         cand=_cand_extras(m, n, dtype, dev, multi_price),
         pert=_pert_extras(m, dtype, dev, perturb),
     )
@@ -190,18 +229,21 @@ def initial_state(
     perturb: bool = False,
     update_defer: int = 0,
     multi_price: int = 0,
+    at_upper0=None,
 ) -> SolverState:
     """Starting state for a given feasible basis: B_inv by one dense solve
-    (an O(m^3) set-up cost), x_b = B_inv b, y = c_b B_inv."""
+    (an O(m^3) set-up cost), x_b = B_inv b (B_inv (b - A x_N) when
+    bounded), y = c_b B_inv."""
     m, n = prob.A.shape
     dev = prob.A.device
     basis = torch.as_tensor(np.asarray(basis0), dtype=torch.int32, device=dev)
     B = _ops.gather_basis_matrix(prob.A, basis).to(dtype)
     B_inv = torch.linalg.solve(B, torch.eye(m, dtype=dtype, device=dev)).contiguous()
     c_b = prob.c.index_select(0, basis).to(dtype)
+    at_upper = _at_upper_extras(prob, at_upper0)
     return SolverState(
         B_inv=B_inv,
-        x_b=B_inv @ prob.b.to(dtype),
+        x_b=B_inv @ bounded_rhs(prob, at_upper, dtype),
         y=c_b @ B_inv,
         c_b=c_b,
         basis=basis,
@@ -210,19 +252,20 @@ def initial_state(
         degen=_int(0, dev),
         last_refac=_int(0, dev),
         **_defer_extras(m, dtype, dev, update_defer),
+        at_upper=at_upper,
         cand=_cand_extras(m, n, dtype, dev, multi_price),
         pert=_pert_extras(m, dtype, dev, perturb),
     )
 
 
-def problem_from_numpy(A, b, c, device, dtype=torch.float32) -> Problem:
+def problem_from_numpy(A, b, c, device, dtype=torch.float32, u=None) -> Problem:
     """A Problem on ``device`` from host arrays (or tensors), cast to
-    ``dtype``."""
+    ``dtype``; ``u`` (optional) the upper bounds."""
 
     def put(v):
         return torch.as_tensor(v, device=device).to(dtype).contiguous()
 
-    return Problem(A=put(A), b=put(b), c=put(c))
+    return Problem(A=put(A), b=put(b), c=put(c), u=None if u is None else put(u))
 
 
 _LEAVES = ("B_inv", "x_b", "y", "c_b", "basis")
@@ -235,7 +278,8 @@ def state_from_numpy(leaves: Mapping[str, object], device) -> SolverState:
     can start from one mid-solve state.
 
     ``leaves["U"]``, ``["R"]`` and ``["npend"]`` (optional) are the
-    deferred-update buffers; ``leaves["cand"]`` (optional) is None or the
+    deferred-update buffers; ``leaves["at_upper"]`` (optional) the
+    bounded rule's flags; ``leaves["cand"]`` (optional) is None or the
     candidate buffer's (idx, alpha, acols, e, valid, e0, seg) in
     ``CandBuffer`` order; ``leaves["pert"]`` is None or the (w, on, rounds)
     triple. Devex weights are ignored (their values are the JAX package's
@@ -256,6 +300,8 @@ def state_from_numpy(leaves: Mapping[str, object], device) -> SolverState:
     st.update({f: scalar(leaves[f]) for f in _SCALARS})
     if leaves.get("U") is not None:
         st.update(U=put(leaves["U"]), R=put(leaves["R"]), npend=scalar(leaves["npend"]))
+    if leaves.get("at_upper") is not None:
+        st["at_upper"] = put(leaves["at_upper"], torch.bool)
     cand = leaves.get("cand")
     if cand is not None:
         idx, alpha, acols, e, valid, e0, seg = cand

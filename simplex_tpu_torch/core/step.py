@@ -18,6 +18,15 @@ The Dantzig paths of ``simplex_tpu.core.step.pivot_step``:
                fp32 GEMM, in place) when L pairs are pending
                y -= (e_p / alpha_q) B_inv_old[q];  c_b[q] = c_p;  basis[q] = p
 
+Under upper bounds (``prob.u``, the bounded-variable rule) pricing takes
+the signed reduced cost s_j = at_upper_j ? -e_j : e_j, the ratio test is
+two-sided over d = sigma alpha (sigma = -1 when the entering column leaves
+its upper bound) and plain torch (``ratio_eta`` is not used), and a step
+either pivots or flips the entering column to its other bound: a flip
+moves x_b and ``at_upper`` and leaves the basis, B_inv and y alone.
+Whether a problem is bounded is a Python bool, so the unbounded step
+launches what it launched before.
+
 Every decision that picks a value is a device tensor: a step that does not
 pivot (a terminal status) leaves the state as it was through
 ``torch.where`` selects and a zeroed update. Where the JAX step picks a
@@ -49,7 +58,7 @@ import torch
 
 from simplex_tpu_torch.config import SimplexOptions
 from simplex_tpu_torch.core.linalg import inverse_newton
-from simplex_tpu_torch.core.state import CandBuffer, Problem, SolverState
+from simplex_tpu_torch.core.state import CandBuffer, Problem, SolverState, bounded_rhs
 from simplex_tpu_torch.kernels import ops as _ops
 from simplex_tpu_torch.status import SolveStatus
 
@@ -99,10 +108,10 @@ def _need_refill(state: SolverState, opts: SimplexOptions) -> torch.Tensor:
     (``simplex_tpu.core.step._multi_pricing``): no candidate still delivers
     ``multi_price_stale`` of the refill-time best improvement, Bland's rule
     is on, a degenerate streak reached ``multi_price_degen``, or the
-    pending-pair buffer is full."""
+    pending-pair buffer is full. Under bounds every criterion is signed."""
     cand = state.cand
     eps = opts.resolve_eps()
-    best_now = torch.where(cand.valid, cand.e, math.inf).min()
+    best_now = torch.where(cand.valid, _signed(state, cand.e, cand.idx), math.inf).min()
     thresh = torch.clamp_max(cand.e0 * opts.multi_price_stale, -eps)
     need = (
         (best_now > thresh)
@@ -155,6 +164,57 @@ def _exact_e(prob: Problem, state: SolverState, p: torch.Tensor, backend) -> tor
     return torch.dot(state.y, A_p) - backend.gather_cost(prob.c, p).to(dtype)
 
 
+def _signed(state: SolverState, e: torch.Tensor, idx: Optional[torch.Tensor] = None):
+    """The bounded rule's improvement criterion: -e at the at-upper columns
+    (``idx`` the columns e belongs to; all of them when None); e itself
+    when the problem has no bounds."""
+    if state.at_upper is None:
+        return e
+    up = state.at_upper if idx is None else state.at_upper.index_select(0, idx.view(-1))
+    return torch.where(up.view(e.shape), -e, e)
+
+
+def _price_bounded(prob, state, opts, use_bland, bland, ctl, backend):
+    """Signed Dantzig pricing (``simplex_tpu.core.step.pivot_step``'s
+    bounded branch): over all of A, over the bf16 shadow, or over segment
+    ``iters mod S``, each winner rechecked exactly through its current
+    at_upper flag, with the same fallbacks as the unbounded rule. Returns
+    ``(p, min_s)``."""
+    eps = opts.resolve_eps()
+    no_bland = torch.zeros((), dtype=torch.bool, device=state.y.device)
+
+    def pick(A, lo=0, w=None, flag=use_bland):
+        hi = None if w is None else lo + w
+        p, min_s = backend.choose_entering_bounded(
+            state.y, A, prob.c[lo:hi], state.at_upper[lo:hi], state.basis, lo, eps, flag
+        )
+        return p + lo if lo else p, min_s
+
+    def rechecked(p):
+        # the winner's exact signed reduced cost; one counted read decides
+        s_p = _signed(state, _exact_e(prob, state, p, backend), p)
+        return None if read_flag(s_p >= -eps) else (p, s_p)
+
+    def exact():
+        return pick(prob.A)
+
+    if bland:
+        return exact()
+    if _partial_active(opts, prob):
+        S, n = opts.partial_pricing, prob.A.shape[1]
+        w = n // S
+        lo = (ctl.iters % S) * w
+        A_src = prob.A_price if prob.A_price is not None else prob.A
+        got = rechecked(pick(A_src[:, lo : lo + w], lo, w, no_bland)[0])
+        if got is None and prob.A_price is not None and opts.fallback_shadow:
+            got = rechecked(pick(prob.A_price, flag=no_bland)[0])
+        return got if got is not None else exact()
+    if prob.A_price is not None:
+        got = rechecked(pick(prob.A_price)[0])
+        return got if got is not None else exact()
+    return exact()
+
+
 def _price_shadow(prob, state, opts, c_eff, use_bland, bland, backend):
     """Dantzig over the bfloat16 shadow, the winner rechecked exactly; one
     exact pass when it does not improve or Bland's rule is on."""
@@ -196,15 +256,6 @@ def _price_segment(prob, state, opts, c_eff, use_bland, bland, ctl, backend):
     return backend.choose_entering(*exact)
 
 
-def _add_penalty(s: torch.Tensor, basis: torch.Tensor, lo: int = 0) -> torch.Tensor:
-    """s + BASIC_PENALTY at the basic columns that fall in the column range
-    [lo, lo + len(s)) that s covers."""
-    w = s.shape[0]
-    loc = (basis - lo).clamp(0, w - 1)
-    pen = torch.where((basis >= lo) & (basis < lo + w), _ops.BASIC_PENALTY, 0.0)
-    return s.index_add(0, loc, pen.to(s.dtype))
-
-
 def _refill(prob, state, opts, ctl, bland):
     """Refill the multiple-pricing buffer (``simplex_tpu.core.step.
     _multi_pricing``'s ``_fill``): the K most improving columns of one
@@ -214,7 +265,8 @@ def _refill(prob, state, opts, ctl, bland):
     against the base inverse, flushed first when the pending pairs are at
     capacity. Returns ``(min_exact, state, npend)`` with the new buffer in
     ``state.cand``; ``min_exact`` is the exact minimum reduced cost when the
-    exact pass ran, else -inf."""
+    exact pass ran, else -inf. Under bounds candidates are chosen, checked
+    and ranked by their signed reduced costs."""
     cand = state.cand
     K = cand.idx.shape[0]
     n = prob.A.shape[1]
@@ -227,13 +279,15 @@ def _refill(prob, state, opts, ctl, bland):
         # selection values veto penalized basics (half-penalty cut)
         A_c = _ops.gather_columns(prob.A, idx).to(dtype)
         e1 = y @ A_c - prob.c.index_select(0, idx).to(dtype)
-        valid = (e1 < -eps) & (-negv.to(dtype) < 0.5 * _ops.BASIC_PENALTY)
+        valid = (_signed(state, e1, idx) < -eps) & (-negv.to(dtype) < 0.5 * _ops.BASIC_PENALTY)
         return idx, e1, valid, A_c
 
     def shadow_pick(lo, hi):
-        # top-K of the shadow's masked reduced costs over columns [lo, hi)
+        # top-K of the shadow's masked signed reduced costs over [lo, hi)
         e_sh = _ops.reduced_costs(y, prob.A_price[:, lo:hi], prob.c[lo:hi]).to(dtype)
-        negv, loc = _ops.top_k(-_add_penalty(e_sh, state.basis, lo), K)
+        if state.at_upper is not None:
+            e_sh = torch.where(state.at_upper[lo:hi], -e_sh, e_sh)
+        negv, loc = _ops.top_k(-_ops.add_basic_penalty(e_sh, state.basis, lo), K)
         return recheck(negv, loc + lo)
 
     fill, min_exact = None, -math.inf
@@ -251,7 +305,7 @@ def _refill(prob, state, opts, ctl, bland):
                 fill = None
     if fill is None:
         e_all = _ops.reduced_costs(y, prob.A, prob.c).to(dtype)
-        s_all = _add_penalty(e_all, state.basis)
+        s_all = _ops.add_basic_penalty(_signed(state, e_all), state.basis)
         min_exact = s_all.min()
         if bland:
             # Bland's rule needs the LOWEST improving index: a buffer of that
@@ -283,7 +337,7 @@ def _refill(prob, state, opts, ctl, bland):
         acols=A_cols.T,
         e=e_sel,
         valid=valid,
-        e0=torch.where(valid, e_sel, 0.0).min(),
+        e0=torch.where(valid, _signed(state, e_sel, idx), 0.0).min(),
         seg=cand.seg + 1,
     )
     state = dataclasses.replace(state, B_inv=B_inv, U=U, R=R, npend=npend_t, cand=cand)
@@ -295,12 +349,12 @@ def _multi_pricing(prob, state, opts, ctl, bland):
     ``ctl.need_refill``. Returns ``(p, min_e, alpha0_p, state, npend)``:
     ``min_e`` is the chosen candidate's reduced cost, or the exact minimum
     when an exact refill found none improving; ``alpha0_p`` its base
-    ftran."""
+    ftran. Under bounds the criterion is the signed reduced cost."""
     min_exact, npend = math.inf, ctl.npend
     if ctl.need_refill:
         min_exact, state, npend = _refill(prob, state, opts, ctl, bland)
     cand = state.cand
-    s2 = torch.where(cand.valid, cand.e, math.inf)
+    s2 = torch.where(cand.valid, _signed(state, cand.e, cand.idx), math.inf)
     j = torch.argmin(s2).view(1)
     s_j = s2.index_select(0, j).view(())
     min_e = torch.where(torch.isfinite(s_j), s_j, min_exact)
@@ -327,12 +381,15 @@ def pivot_step(
     use_bland = _use_bland(opts, state.degen)
     multi = _multi_active(opts, state)
     defer = opts.update_defer > 0 or multi
+    bounded = prob.u is not None
     npend = ctl.npend
 
-    # ---- pricing over basic-masked costs ----
+    # ---- pricing over basic-masked costs (signed under bounds) ----
     if multi:
         p, min_e, alpha0_p, state, npend = _multi_pricing(prob, state, opts, ctl, bland)
         cand_mid = state.cand
+    elif bounded:
+        p, min_e = _price_bounded(prob, state, opts, use_bland, bland, ctl, backend)
     else:
         c_eff = backend.mask_basic(prob.c, state.basis)
         if prob.A_price is not None and not _partial_active(opts, prob):
@@ -357,10 +414,22 @@ def pivot_step(
         alpha = torch.mv(state.B_inv, A_p) + state.U.T @ (state.R @ A_p)
     else:
         alpha = torch.mv(state.B_inv, A_p)
-    q, theta_q, unbounded, eta, x_b_new = backend.ratio_eta(
-        state.x_b, alpha, state.basis, opts.pivot_tol, use_bland,
-        opts.ratio == "harris", opts.feas_tol,
-    )
+    if bounded:
+        # d = sigma alpha: an entering column that leaves its upper bound
+        # decreases, so every basic value moves the other way
+        from_upper = state.at_upper.index_select(0, p.view(1)).view(())
+        d_vec = torch.where(from_upper, -alpha, alpha)
+        u_p = backend.gather_cost(prob.u, p).to(dtype)
+        q, theta_q, unbounded, flip, leave_upper = backend.ratio_argmin_bounded(
+            state.x_b, d_vec, prob.u.index_select(0, state.basis).to(dtype), u_p,
+            state.basis, opts.pivot_tol, use_bland, opts.ratio == "harris",
+            opts.feas_tol,
+        )
+    else:
+        q, theta_q, unbounded, eta, x_b_new = backend.ratio_eta(
+            state.x_b, alpha, state.basis, opts.pivot_tol, use_bland,
+            opts.ratio == "harris", opts.feas_tol,
+        )
 
     take = ~optimal & ~unbounded
     # numerical failure: a non-finite pricing value, or a pivot about to be
@@ -371,12 +440,23 @@ def pivot_step(
         # exact entry recheck at eps/2 (looser than the refill's eps, so a
         # candidate straddling -eps cannot livelock refill and rejection);
         # a rejected skip counts toward the degenerate streak below
-        cand_fresh = e_p < -(eps * 0.5)
+        s_p = torch.where(from_upper, -e_p, e_p) if bounded else e_p
+        cand_fresh = s_p < -(eps * 0.5)
         take = take & (cand_fresh | use_bland)
+    # a bound flip changes no basis: the inverse, y, c_b and basis move
+    # only on do_pivot; x_b and at_upper also move on a flip
+    do_pivot = take & ~flip if bounded else take
 
     alpha_q = alpha.index_select(0, q.view(1)).view(())
-    inv_aq = 1 / torch.where(take, alpha_q, 1)
+    inv_aq = 1 / torch.where(do_pivot, alpha_q, 1)
     theta_safe = torch.where(take, theta_q, 0)
+    is_q = torch.arange(state.basis.shape[0], device=q.device) == q
+    if bounded:
+        eta = torch.where(is_q, inv_aq - 1, -alpha * inv_aq)
+        x_b_step = state.x_b - theta_safe * d_vec
+        # the entering value: theta above 0, or u_p - theta below u_p
+        x_p = torch.where(from_upper, u_p - theta_safe, theta_safe)
+        x_b_new = torch.where(is_q, x_p, x_b_step)
     # row q of the OLD inverse, as a copy: the update below rewrites B_inv
     binv_q = state.B_inv.index_select(0, q.view(1)).view(-1)
     if defer:
@@ -387,27 +467,43 @@ def pivot_step(
     U, R, npend_new = state.U, state.R, state.npend
     if defer:
         # append (eta, row) at slot npend; a zero pair when not pivoting
-        U[npend] = torch.where(take, eta, 0)
-        R[npend] = torch.where(take, binv_q, 0)
-        npend_new = state.npend + take.to(torch.int32)
+        U[npend] = torch.where(do_pivot, eta, 0)
+        R[npend] = torch.where(do_pivot, binv_q, 0)
+        npend_new = state.npend + do_pivot.to(torch.int32)
         B_inv = state.B_inv
         if not multi and npend + 1 >= opts.resolve_defer():
             # flush B_inv += U.T R (the JAX step flushes when the append
-            # filled the buffer; a step that does not pivot is terminal,
-            # and its zero pair leaves the true inverse unchanged)
+            # filled the buffer; a step that does not pivot is terminal or
+            # a bound flip, and its zero pair leaves the true inverse
+            # unchanged)
             B_inv.addmm_(U.T, R)
             U, R = torch.zeros_like(U), torch.zeros_like(R)
             npend_new = torch.zeros_like(npend_new)
     else:
         B_inv = backend.rank1_update(
             state.B_inv,
-            torch.where(take, eta, 0),
-            torch.where(take, binv_q, 0),
+            torch.where(do_pivot, eta, 0),
+            torch.where(do_pivot, binv_q, 0),
         )
 
     # ---- O(m) updates ----
     y_new = state.y - (e_p * inv_aq) * binv_q
-    at_q = (torch.arange(state.basis.shape[0], device=q.device) == q) & take
+    at_q = is_q & do_pivot
+    if bounded:
+        do_flip = take & flip
+        x_b_out = torch.where(do_pivot, x_b_new, torch.where(do_flip, x_b_step, state.x_b))
+        # p: cleared when it enters, toggled when it flips; the leaving
+        # column: at its upper bound when it left there
+        cols = torch.arange(prob.A.shape[1], device=q.device)
+        lv = state.basis.index_select(0, q.view(1))
+        at_upper = torch.where(
+            (cols == p) & take,
+            do_flip & ~from_upper,
+            torch.where((cols == lv) & do_pivot, leave_upper, state.at_upper),
+        )
+    else:
+        x_b_out = torch.where(take, x_b_new, state.x_b)
+        at_upper = None
     degen_new = torch.where(
         theta_safe <= opts.degen_tol, state.degen + 1, torch.zeros_like(state.degen)
     )
@@ -429,16 +525,16 @@ def pivot_step(
         # exact reduced-cost update of every candidate from the true row q;
         # the entering candidate, and one that failed its recheck, drop out
         w_c = cand_mid.acols @ binv_q
-        drop = take | (~cand_fresh & ~optimal)
+        drop = do_pivot | (~cand_fresh & ~optimal)
         cand_new = dataclasses.replace(
             cand_mid,
-            e=torch.where(take, cand_mid.e - (e_p * inv_aq) * w_c, cand_mid.e),
+            e=torch.where(do_pivot, cand_mid.e - (e_p * inv_aq) * w_c, cand_mid.e),
             valid=torch.where(drop, cand_mid.valid & (cand_mid.idx != p), cand_mid.valid),
         )
     return SolverState(
         B_inv=B_inv,
-        x_b=torch.where(take, x_b_new, state.x_b),
-        y=torch.where(take, y_new, state.y),
+        x_b=x_b_out,
+        y=torch.where(do_pivot, y_new, state.y),
         c_b=torch.where(at_q, c_p, state.c_b),
         basis=torch.where(at_q, p, state.basis),
         iters=state.iters + take.to(torch.int32),
@@ -448,15 +544,17 @@ def pivot_step(
         U=U,
         R=R,
         npend=npend_new,
+        at_upper=at_upper,
         cand=cand_new,
         pert=state.pert,
     )
 
 
 def _effective_rhs(prob: Problem, state: SolverState, dtype) -> torch.Tensor:
-    """The rhs the basic variables solve against: b, plus the active
-    perturbation shift w."""
-    b = prob.b.to(dtype)
+    """The rhs the basic variables solve against: b - A x_N (b when the
+    problem has no upper bounds; one O(mn) matvec otherwise), plus the
+    active perturbation shift w."""
+    b = bounded_rhs(prob, state.at_upper, dtype)
     if state.pert is not None:
         b = b + state.pert.w.to(dtype)
     return b
@@ -480,6 +578,15 @@ def perturb_activate(
         1.0,
     )
     delta = scale * (1 + state.x_b.abs()) * r
+    if prob.u is not None:
+        # toward the farther bound, at most a quarter of the room, so the
+        # shifted point never crosses a bound
+        u_b = prob.u.index_select(0, state.basis).to(dtype)
+        room_up = (u_b - state.x_b).clamp_min(0)  # inf when unbounded above
+        room_dn = state.x_b.clamp_min(0)
+        go_up = ~torch.isfinite(room_up) | (room_up >= room_dn)
+        delta = torch.minimum(delta, 0.25 * torch.where(go_up, room_up, room_dn))
+        delta = torch.where(go_up, delta, -delta)
     B = backend.gather_basis_matrix(prob.A, state.basis).to(dtype)
     w = B @ delta
     pert = state.pert

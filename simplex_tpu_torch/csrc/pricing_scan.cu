@@ -30,6 +30,15 @@
 // pricing scans a view of the shadow in place, without an O(mn/S) copy. The
 // row chunks are a function of the range's (m, n) alone (the wrapper picks
 // them), so a segment's result does not depend on the matrix around it.
+//
+// Signed mode (the bounded-variable rule, which the JAX package prices
+// through XLA): given flip (the at-upper flag of each column, one byte) and
+// the basis, pass 2 reduces s_j = (flip_j ? -e_j : e_j) + pen_j instead of
+// e_j, where pen_j = 1e30 at the basic columns that fall in the range
+// [base_col, base_col + n) and 0 elsewhere. pen is a scratch row, zeroed and
+// marked by one small launch before pass 2. The bounded step thus prices
+// fp32 A, the bf16 shadow or a segment view of either in one pass, without
+// an fp32 copy of a bf16 A, and with the penalty made in the same call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +53,8 @@ constexpr int kColsPerBlock = 4 * kPartialThreads;
 constexpr int kReduceThreads = 256;
 constexpr int kFinalThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kBasicPenalty = 1e30f;  // kernels/ops.py BASIC_PENALTY
+constexpr int kMarkThreads = 256;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -102,6 +113,16 @@ pricing_partial_kernel(const float* __restrict__ y, const T* __restrict__ A,
   }
 }
 
+// pen[basis_i - base_col] = 1e30 for the basic columns inside the range
+__global__ void __launch_bounds__(kMarkThreads)
+pricing_mark_basic_kernel(const int* __restrict__ basis, int m_basis,
+                          int base_col, int n, float* __restrict__ pen) {
+  const int i = blockIdx.x * kMarkThreads + threadIdx.x;
+  if (i >= m_basis) return;
+  const int j = basis[i] - base_col;
+  if (j >= 0 && j < n) pen[j] = kBasicPenalty;
+}
+
 // (value, index) order of the min: NaN first, then smaller value, then
 // lower index
 __device__ __forceinline__ bool min_before(float a, int ia, float b, int ib) {
@@ -144,7 +165,9 @@ __device__ __forceinline__ void block_reduce(float& v, int& arg, int& neg) {
 
 __global__ void __launch_bounds__(kReduceThreads)
 pricing_columns_kernel(const float* __restrict__ partial, int chunks,
-                       const float* __restrict__ c, int n, float eps,
+                       const float* __restrict__ c,
+                       const unsigned char* __restrict__ flip,
+                       const float* __restrict__ pen, int n, float eps,
                        float* __restrict__ blk_min, int* __restrict__ blk_arg,
                        int* __restrict__ blk_neg) {
   const int j = blockIdx.x * kReduceThreads + threadIdx.x;
@@ -155,6 +178,8 @@ pricing_columns_kernel(const float* __restrict__ partial, int chunks,
     float e = 0.f;
     for (int k = 0; k < chunks; ++k) e += partial[(size_t)k * n + j];
     e -= c[j];
+    if (flip != nullptr && flip[j]) e = -e;
+    if (pen != nullptr) e += pen[j];
     v = e;
     arg = j;
     if (e < -eps) neg = j;
@@ -189,10 +214,23 @@ pricing_final_kernel(const float* __restrict__ blk_min,
 }
 
 template <typename T>
-int launch(const float* y, const T* A, const float* c, int m, int n,
+int launch(const float* y, const T* A, const float* c,
+           const unsigned char* flip, const int* basis, int m_basis,
+           int base_col, float* pen, int m, int n,
            size_t lda, float eps, int rows_per_chunk, int chunks, int vec,
            float* partial, float* blk_min, int* blk_arg, int* blk_neg, float* out_min,
            int* out_arg, int* out_neg, cudaStream_t stream) {
+  cudaError_t err;
+  if (flip != nullptr) {
+    err = cudaMemsetAsync(pen, 0, (size_t)n * sizeof(float), stream);
+    if (err != cudaSuccess) return (int)err;
+    pricing_mark_basic_kernel<<<(m_basis + kMarkThreads - 1) / kMarkThreads,
+                                kMarkThreads, 0, stream>>>(basis, m_basis, base_col, n, pen);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    pen = nullptr;
+  }
   const dim3 grid1((n + kColsPerBlock - 1) / kColsPerBlock, chunks);
   if (vec)
     pricing_partial_kernel<T, true><<<grid1, kPartialThreads, 0, stream>>>(
@@ -200,11 +238,11 @@ int launch(const float* y, const T* A, const float* c, int m, int n,
   else
     pricing_partial_kernel<T, false><<<grid1, kPartialThreads, 0, stream>>>(
         y, A, m, n, lda, rows_per_chunk, partial);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nblk = (n + kReduceThreads - 1) / kReduceThreads;
   pricing_columns_kernel<<<nblk, kReduceThreads, 0, stream>>>(
-      partial, chunks, c, n, eps, blk_min, blk_arg, blk_neg);
+      partial, chunks, c, flip, pen, n, eps, blk_min, blk_arg, blk_neg);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   pricing_final_kernel<<<1, kFinalThreads, 0, stream>>>(
@@ -215,11 +253,15 @@ int launch(const float* y, const T* A, const float* c, int m, int n,
 }  // namespace
 
 // a_dtype: 0 = fp32 A, 1 = bf16 A; lda: elements between rows of A (>= n).
+// Signed mode: flip (n bytes), basis (m_basis int32, global column
+// indices), base_col and pen (n fp32 scratch); flip null for plain pricing.
 // vec (16-byte fp32 / 8-byte bf16 loads) needs n % 4 == 0, lda % 4 == 0 and
 // an aligned A; the wrapper checks. Scratch: partial (chunks, n) fp32;
 // blk_* (ceil(n / 256),). Returns the CUDA error code of the launches.
 extern "C" int simplex_pricing_scan(int a_dtype, const void* y, const void* A,
-                                    const void* c, int m, int n, long long lda,
+                                    const void* c, const void* flip,
+                                    const void* basis, int m_basis, int base_col,
+                                    void* pen, int m, int n, long long lda,
                                     float eps, int rows_per_chunk, int chunks,
                                     int vec,
                                     void* partial, void* blk_min, void* blk_arg,
@@ -227,6 +269,9 @@ extern "C" int simplex_pricing_scan(int a_dtype, const void* y, const void* A,
                                     void* out_neg, void* stream) {
   const float* yf = static_cast<const float*>(y);
   const float* cf = static_cast<const float*>(c);
+  const unsigned char* fl = static_cast<const unsigned char*>(flip);
+  const int* bs = static_cast<const int*>(basis);
+  float* pe = static_cast<float*>(pen);
   float* pf = static_cast<float*>(partial);
   float* bm = static_cast<float*>(blk_min);
   int* ba = static_cast<int*>(blk_arg);
@@ -236,8 +281,8 @@ extern "C" int simplex_pricing_scan(int a_dtype, const void* y, const void* A,
   int* on = static_cast<int*>(out_neg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a_dtype == 0)
-    return launch(yf, static_cast<const float*>(A), cf, m, n, (size_t)lda,
+    return launch(yf, static_cast<const float*>(A), cf, fl, bs, m_basis, base_col, pe, m, n, (size_t)lda,
                   eps, rows_per_chunk, chunks, vec, pf, bm, ba, bn, om, oa, on, s);
-  return launch(yf, static_cast<const __nv_bfloat16*>(A), cf, m, n,
+  return launch(yf, static_cast<const __nv_bfloat16*>(A), cf, fl, bs, m_basis, base_col, pe, m, n,
                 (size_t)lda, eps, rows_per_chunk, chunks, vec, pf, bm, ba, bn, om, oa, on, s);
 }

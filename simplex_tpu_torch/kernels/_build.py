@@ -34,8 +34,8 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "simplex_pricing_scan": (
-        _I, _P, _P, _P, _I, _I, _L, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-        _P,
+        _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _L, _F, _I, _I, _I, _P, _P,
+        _P, _P, _P, _P, _P, _P,
     ),
     "simplex_ratio_argmin": (_P, _P, _P, _P, _I, _F, _P, _P, _P, _P),
     "simplex_ratio_eta": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P, _P),

@@ -2,16 +2,22 @@
 
 ``SimplexOptions.backend`` picks the op namespace the step calls:
 
-  * ``"hopper"`` -- pricing, the ratio tests (fused with the eta / x_b
-    epilogue, and the classic one alone) and the rank-1 update run through
-    the CUDA kernels (:mod:`simplex_tpu_torch.kernels.hopper`);
+  * ``"hopper"`` -- pricing (signed, too, under the bounded rule), the
+    ratio tests (fused with the eta / x_b epilogue, and the classic one
+    alone) and the rank-1 update run through the CUDA kernels
+    (:mod:`simplex_tpu_torch.kernels.hopper`);
   * ``"torch"``  -- plain PyTorch ops everywhere
     (:mod:`simplex_tpu_torch.kernels.ops`), the kernels' reference.
 
 Both expose the functions of ``simplex_tpu.kernels.dispatch``'s namespaces
 that the dense Dantzig path uses, so the step is backend-agnostic. As in
 the JAX package's Pallas backend, the Harris ratio test without the eta
-epilogue has no kernel of its own.
+epilogue has no kernel of its own, and neither has the two-sided ratio
+test of the bounded rule: the JAX package runs it through XLA on both
+backends, so both namespaces here take the plain op. The bounded rule's
+signed pricing is XLA in JAX too; here the hopper backend runs it through
+``pricing_scan``'s signed mode, so the bf16 shadow is priced in place
+rather than through an fp32 copy of it.
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ def get_backend(name: str) -> types.SimpleNamespace:
         ratio_eta=_hopper.ratio_eta if fast else _ops.ratio_eta,
         ratio_argmin=_hopper.ratio_argmin if fast else _ops.ratio_argmin,
         ratio_argmin_harris=_ops.ratio_argmin_harris,
+        choose_entering_bounded=(
+            _hopper.choose_entering_bounded if fast else _ops.choose_entering_bounded
+        ),
+        ratio_argmin_bounded=_ops.ratio_argmin_bounded,
         rank1_update=_hopper.rank1_update if fast else _ops.rank1_update,
         mask_basic=_ops.mask_basic,
         gather_column=_ops.gather_column,

@@ -5,7 +5,9 @@ Each wrapper stands beside its plain PyTorch version and a launch counter:
   =================  ==========================  =============================
   wrapper            CUDA source                 replaces (Pallas)
   =================  ==========================  =============================
-  pricing_scan       csrc/pricing_scan.cu        pallas_ops.pricing_scan
+  pricing_scan       csrc/pricing_scan.cu        pallas_ops.pricing_scan;
+                                                 signed: the bounded rule's
+                                                 pricing (XLA in JAX)
   ratio_argmin       csrc/ratio_argmin.cu        pallas_ops.ratio_argmin
   ratio_eta          csrc/ratio_eta.cu           pallas_ops.ratio_eta
   rank1_update       csrc/rank1_update.cu        pallas_ops.rank1_update
@@ -22,7 +24,7 @@ kernels. The library is built at the first launch
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -89,11 +91,16 @@ def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def pricing_scan_plain(
-    y: torch.Tensor, A: torch.Tensor, c: torch.Tensor, eps: float
+    y: torch.Tensor, A: torch.Tensor, c: torch.Tensor, eps: float,
+    at_upper: Optional[torch.Tensor] = None, basis: Optional[torch.Tensor] = None,
+    base_col: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(min_e, argmin_e, first j with e_j < -eps or INT_MAX)`` for
-    e = y.A - c (lowest index on ties)."""
+    e = y.A - c (lowest index on ties); in the signed mode for s =
+    (at_upper ? -e : e) plus BASIC_PENALTY at the basic columns instead."""
     e = _ops.reduced_costs(y, A, c)
+    if at_upper is not None:
+        e = _ops.add_basic_penalty(torch.where(at_upper, -e, e), basis, base_col)
     idx = torch.arange(e.shape[0], device=e.device, dtype=torch.int32)
     p_neg = torch.where(e < -eps, idx, INT_MAX).min()
     return e.min(), torch.argmin(e).to(torch.int32), p_neg
@@ -109,7 +116,9 @@ def _pricing_chunks(m: int, n: int) -> Tuple[int, int]:
 
 
 def pricing_scan(
-    y: torch.Tensor, A: torch.Tensor, c: torch.Tensor, eps: float
+    y: torch.Tensor, A: torch.Tensor, c: torch.Tensor, eps: float,
+    at_upper: Optional[torch.Tensor] = None, basis: Optional[torch.Tensor] = None,
+    base_col: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One pass over A: ``(min_e, argmin_e, first index with e < -eps or
     INT_MAX)`` as 0-d device tensors, e = y.A - c never stored.
@@ -117,7 +126,10 @@ def pricing_scan(
     A is (m, n) float32 or bfloat16 (upcast per element) with unit column
     stride: a contiguous matrix or a column range of one
     (``A_price[:, s*w:(s+1)*w]``), scanned in place. y (m,) and c (n,)
-    float32 contiguous; all on one device.
+    float32 contiguous; all on one device. Signed mode (the bounded rule):
+    given ``at_upper`` (n,) bool and ``basis`` (m,) int32, both contiguous,
+    the scan runs over s = (at_upper ? -e : e) + BASIC_PENALTY at the basic
+    columns, A being columns [base_col, base_col + n) of the problem's.
     """
     _require(A.dim() == 2, f"A: want a matrix, got {tuple(A.shape)}")
     m, n = A.shape
@@ -130,9 +142,15 @@ def pricing_scan(
     )
     _vector(y, m, torch.float32, "y")
     _vector(c, n, torch.float32, "c")
-    dev = _same_device(y, A, c)
+    ins = (y, A, c)
+    _require((at_upper is None) == (basis is None), "at_upper and basis go together")
+    if at_upper is not None:
+        _vector(at_upper, n, torch.bool, "at_upper")
+        _vector(basis, m, torch.int32, "basis")
+        ins += (at_upper, basis)
+    dev = _same_device(*ins)
     if dev.type == "cpu":
-        return pricing_scan_plain(y, A, c, eps)
+        return pricing_scan_plain(y, A, c, eps, at_upper, basis, base_col)
     lib = _build.load_library()
     rows, chunks = _pricing_chunks(m, n)
     nblk = -(-n // _PRICING_REDUCE_THREADS)
@@ -141,11 +159,15 @@ def pricing_scan(
     blk_idx = torch.empty((2, nblk), dtype=torch.int32, device=dev)
     out_min = torch.empty((), dtype=torch.float32, device=dev)
     out_idx = torch.empty(2, dtype=torch.int32, device=dev)
+    pen = None if at_upper is None else torch.empty(n, dtype=torch.float32, device=dev)
     align = 16 if A.dtype == torch.float32 else 8
     vec = n % 4 == 0 and lda % 4 == 0 and A.data_ptr() % align == 0
     err = lib.simplex_pricing_scan(
         0 if A.dtype == torch.float32 else 1,
-        y.data_ptr(), A.data_ptr(), c.data_ptr(), m, n, lda, eps, rows, chunks,
+        y.data_ptr(), A.data_ptr(), c.data_ptr(),
+        None if at_upper is None else at_upper.data_ptr(),
+        None if basis is None else basis.data_ptr(), m, int(base_col),
+        None if pen is None else pen.data_ptr(), m, n, lda, eps, rows, chunks,
         int(vec), partial.data_ptr(), blk_min.data_ptr(),
         blk_idx[0].data_ptr(), blk_idx[1].data_ptr(), out_min.data_ptr(),
         out_idx[0].data_ptr(), out_idx[1].data_ptr(), _stream(dev),
@@ -161,6 +183,19 @@ def choose_entering(y, A, c, eps, use_bland) -> Tuple[torch.Tensor, torch.Tensor
     min_e, p_dantzig, p_neg = pricing_scan(y, A, c, eps)
     p_bland = torch.where(p_neg == INT_MAX, 0, p_neg)
     return torch.where(use_bland, p_bland, p_dantzig), min_e
+
+
+def choose_entering_bounded(
+    y, A, c, at_upper, basis, base_col, eps, use_bland
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as
+    :func:`simplex_tpu_torch.kernels.ops.choose_entering_bounded`, through
+    :func:`pricing_scan`'s signed mode: one pass over A (fp32, the bf16
+    shadow or a segment view of either), no fp32 copy of a bf16 A, and the
+    basic-column penalty made inside the same call."""
+    min_s, p_dantzig, p_neg = pricing_scan(y, A, c, eps, at_upper, basis, base_col)
+    p_bland = torch.where(p_neg == INT_MAX, 0, p_neg)
+    return torch.where(use_bland, p_bland, p_dantzig), min_s
 
 
 # --------------------------------------------------------------------------

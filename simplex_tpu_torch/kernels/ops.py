@@ -47,6 +47,39 @@ def choose_entering(
     return p.to(torch.int32), e.min()
 
 
+def add_basic_penalty(s: torch.Tensor, basis: torch.Tensor, lo: int = 0) -> torch.Tensor:
+    """s + BASIC_PENALTY at the basic columns that fall in the column range
+    [lo, lo + len(s)) that s covers."""
+    w = s.shape[0]
+    loc = (basis - lo).clamp(0, w - 1)
+    pen = torch.where((basis >= lo) & (basis < lo + w), BASIC_PENALTY, 0.0)
+    return s.index_add(0, loc, pen.to(s.dtype))
+
+
+def choose_entering_bounded(
+    y: torch.Tensor,
+    A: torch.Tensor,
+    c: torch.Tensor,
+    at_upper: torch.Tensor,
+    basis: torch.Tensor,
+    base_col: int,
+    eps: float,
+    use_bland: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Entering column under the bounded-variable rule: ``(p, min_s)`` over
+    the signed reduced costs s_j = at_upper_j ? -e_j : e_j (an at-upper
+    column improves by decreasing). Basic columns get +BASIC_PENALTY after
+    the sign flip. A, c and at_upper may be a column segment starting at
+    global column ``base_col``; ``basis`` stays global, and ``p`` is local
+    to the segment. Bland's rule takes the first s_j < -eps."""
+    e = reduced_costs(y, A, c)
+    s = add_basic_penalty(torch.where(at_upper, -e, e), basis, base_col)
+    p_dantzig = torch.argmin(s)
+    p_bland = torch.argmax((s < -eps).to(torch.int32))
+    p = torch.where(use_bland, p_bland, p_dantzig)
+    return p.to(torch.int32), s.min()
+
+
 def mask_basic(c: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     """c - 1e30 at the basic columns, so a drifted basic reduced cost can
     never win pricing and the optimality test ranges over nonbasic columns."""
@@ -143,6 +176,63 @@ def ratio_argmin_harris(
         unbounded, math.inf, torch.where(use_bland, tmin, theta_at_q)
     )
     return q, theta_q, unbounded
+
+
+def ratio_argmin_bounded(
+    x_b: torch.Tensor,
+    d: torch.Tensor,
+    u_basic: torch.Tensor,
+    u_p: torch.Tensor,
+    basis: torch.Tensor,
+    pivot_tol: float,
+    use_bland: torch.Tensor,
+    harris: bool,
+    feas_tol: float,
+):
+    """Two-sided ratio test of the bounded-variable rule,
+    ``(q, theta, unbounded, flip, leave_upper)``.
+
+    ``d = sigma * alpha`` is the rate at which each basic value decreases
+    per unit step (sigma = -1 when the entering column leaves its upper
+    bound). A row blocks at its lower bound 0 (d_i > tol) or at a finite
+    upper u_i (d_i < -tol); the entering column blocks itself at u_p, the
+    bound flip, preferred on ties. Harris relaxes both row bounds by
+    feas_tol in pass 1 and takes the largest |d| among rows within it;
+    Bland's rule takes the exact minimum, smallest basis index on ties.
+    ``leave_upper``: the leaving variable exits at its upper bound.
+    Unbounded iff no row blocks and u_p is infinite.
+    """
+    dec = d > pivot_tol
+    inc = (d < -pivot_tol) & torch.isfinite(u_basic)
+    x_pos = x_b.clamp_min(0)
+    gap_pos = (u_basic - x_b).clamp_min(0)
+    safe_dec = torch.where(dec, d, 1)
+    safe_inc = torch.where(inc, -d, 1)
+    theta_dec = torch.where(dec, x_pos / safe_dec, math.inf)
+    theta_inc = torch.where(inc, gap_pos / safe_inc, math.inf)
+    theta_row = torch.minimum(theta_dec, theta_inc)
+    blocks = dec | inc
+    any_row = blocks.any()
+    unbounded = ~any_row & ~torch.isfinite(u_p)
+    tmin = theta_row.min()
+    if harris:
+        rel_dec = torch.where(dec, (x_pos + feas_tol) / safe_dec, math.inf)
+        rel_inc = torch.where(inc, (gap_pos + feas_tol) / safe_inc, math.inf)
+        theta_max = torch.minimum(rel_dec, rel_inc).min()
+        ok = blocks & (theta_row <= theta_max)
+        q_harris = torch.argmax(torch.where(ok, d.abs(), -math.inf))
+    else:
+        theta_max = tmin
+        q_harris = torch.argmin(theta_row)
+    q_bland = torch.argmin(torch.where(theta_row == tmin, basis, INT_MAX))
+    q = torch.where(use_bland, q_bland, q_harris).to(torch.int32)
+    qv = q.view(1)
+    theta_q = torch.where(use_bland, tmin, theta_row.index_select(0, qv).view(()))
+    row_bound = torch.where(use_bland, tmin, theta_max)
+    flip = ~unbounded & (u_p <= row_bound)
+    theta = torch.where(flip, u_p, torch.where(any_row, theta_q, math.inf))
+    leave_upper = (theta_inc.index_select(0, qv) < theta_dec.index_select(0, qv)).view(())
+    return q, theta, unbounded, flip, leave_upper
 
 
 def ratio_eta(

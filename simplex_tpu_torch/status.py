@@ -18,7 +18,7 @@ class SolveStatus(enum.IntEnum):
     UNBOUNDED = 2
     MAX_ITER = 3
     SINGULAR = 4  # pivot element too small or a non-finite pricing value
-    INFEASIBLE = 5  # kept for code parity; the canonical slice never sets it
+    INFEASIBLE = 5  # the general-form route: phase 1 or presolve found no point
 
     def describe(self) -> str:
         return {

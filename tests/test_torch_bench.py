@@ -85,3 +85,19 @@ def test_timing_helpers_on_cpu(tmp_path):
     with trace(str(tmp_path)):
         torch.ones(4) @ torch.ones(4)
     assert (tmp_path / "trace.json").exists()
+
+
+def test_profile_general_rehearses_on_cpu(tmp_path, capsys, no_library):
+    # the general route's phase-1 profile: one record per instance, each
+    # from the phase-1 solver call alone (stopped at the window)
+    from simplex_tpu_torch.bench import profile_general as pg
+
+    out = tmp_path / "profile.json"
+    assert pg.main(["--device", "cpu", "--window", "5", "--out", str(out)]) == 0
+    recs = json.loads(out.read_text())
+    assert list(recs) == ["A default", "A bench-general", "B default", "B bench-general", "C default"]
+    for tag, rec in recs.items():
+        assert (rec["status"], rec["pivots"], rec["pivots_profiled"]) == ("MAX_ITER", 5, 5), tag
+        assert rec["phase1_wall_s"] > 0 and rec["device_ops_per_pivot"] >= 0, tag
+    printed = [ln for ln in capsys.readouterr().out.splitlines() if ln.split(" {")[0] in recs]
+    assert len(printed) == len(recs)

@@ -120,7 +120,7 @@ def test_explicit_basis_matches_jax():
         {"options": SimplexOptions(pricing="steepest", update_defer=16)},
         {"options": SimplexOptions(pricing_sparse=True, partial_pricing=8)},
         {"options": SimplexOptions(pricing_sparse=True)},
-        {"u": np.full(4, 5.0)},
+        {"u": np.full(4, 5.0), "options": SimplexOptions(pricing="devex")},
     ],
 )
 def test_unported_options_raise(kwargs):
