@@ -8,14 +8,20 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each of which raises (and so exits non-zero) on failure:
 
   1. print the card's name and power limit; build the four CUDA kernels
-     from ``simplex_tpu_torch/csrc`` with nvcc for sm_90a;
+     from ``simplex_tpu_torch/csrc`` with nvcc for sm_90a (one process per
+     source, side by side);
   2. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes (8192 x 16384, m = 8192; the bf16 shadow and a strided
      column segment of it for pricing), at the general route's (1088 x
-     67648 for pricing, m = 1088 for ratio_eta, m = 1088 and 4352 for
-     rank1_update; pricing's signed mode, the bounded rule's, at 1088 x
-     4160 and 4352 x 16640 on fp32 A, the shadow and a segment) and at odd
-     shapes, timed with CUDA events beside the plain version;
+     67648 for pricing, m = 1088 and 4352 for ratio_eta and rank1_update;
+     pricing's signed mode, the bounded rule's, at 1088 x 4160 and 4352 x
+     16640 on fp32 A, the shadow and a segment) and at odd shapes, timed
+     with CUDA events beside the plain version. Pricing is held in both
+     forms: the three-output scan, and the one-call form the step uses
+     (basic-column mask, choice and segment offset made by the kernel).
+     ratio_eta's cluster kernel is held with its tail off (the old
+     contract) and on (``pivot_tail``: eager, and deferred with pending
+     pairs), at one block, several, and beyond 8 x 1024 rows;
   3. ``simplex_tpu_torch.solve`` through its normal entry point with the
      default options: the sample LP (z = 9), a 2048 x 4096 random LP
      against HiGHS, and the benchmark's 8192 x 16384 instance over its
@@ -36,18 +42,33 @@ Phases, each of which raises (and so exits non-zero) on failure:
      general``'s, each with and without presolve; and on
      ``transportation_lp(64, 1024, balanced=False)`` (no bounds: the
      kernels run in both phases). Each run is held against HiGHS and
-     prints its stage times and its launches per phase.
+     prints its stage times and its launches per phase;
+  7. a profiled stretch of the default path's pivot loop on the 8192 x
+     16384 instance, which must stay under ``MAX_DEVICE_OPS_PER_PIVOT``
+     device operations a pivot and launch each solve-path kernel once a
+     pivot. It runs last: after a profiler run every later launch of
+     the process costs more host time.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON record is its total over
-the paths (each path's counts are printed on their own line). The last
+the paths (each path's counts are printed on their own line). Beside its
+measured times the record gives each kernel's ``bound_ms``: the bytes it
+must move at the main path's shape (each input read once, each output
+written once) over the card's 3.35 TB/s, or its operations over the fp32
+peak, whichever is larger; and ``library_ms``, the time of the one PyTorch
+call that computes the same function where there is one (``Tensor.addr_``
+for rank1_update), timed here and used nowhere in the port. The last
 lines are the kernels' JSON record, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
 checkout of the repository, the script exits non-zero at once.
+
+``--only kernels`` stops after phase 2 (a quick check of a changed kernel;
+it prints the kernels' measured times and no final ``ok`` line).
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import functools
@@ -79,6 +100,16 @@ ROUTE_A, ROUTE_B, ROUTE_C = (1088, 4160), (4352, 16640), (1088, 67648)
 PRICING_RTOL = 1e-5  # fp32 sums of 8192 terms taken in another order
 RANK1_ATOL = 1e-5  # the plain ger may fuse multiply-add; the kernel does not
 RATIO_ATOL = 0.0  # same IEEE ops in the same order: bitwise equal
+# the deferred tail's row q adds the pending pairs by fmaf in pair order, the
+# plain version through a matrix product: row and y agree to rounding
+TAIL_DEFER_RTOL = 1e-6
+# device operations (kernels, memsets, copies) a pivot of the default path
+# may issue: 13.02 measured on an H100 (78.01 before the tail and the mask
+# moved into the kernels), plus room for a perturbation round
+MAX_DEVICE_OPS_PER_PIVOT = 16.0
+# the card's published peaks (H100 SXM): HBM bytes/s and fp32 flop/s
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
 GAP_TOL = 1e-5  # fp32 solve against HiGHS in f64 (the JAX package's gate)
 KKT_TOL = 1e-5  # min reduced cost of the f64 duals: dual feasibility at eps
 FEAS_TOL = 1e-5  # f64 bound / row violation of a general-route answer
@@ -100,6 +131,16 @@ REPLACES = {
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for ``nbytes`` of traffic and
+    ``flops`` fp32 operations, and which of the two sets it."""
+    by_bytes, by_ops = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_FP32_S
+    return {
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+    }
 
 
 def card_line() -> str:
@@ -139,14 +180,68 @@ def phase_build() -> None:
             print("  ptxas:", line.strip())
 
 
-def phase_pricing(dev) -> dict:
+def masked_basis(e, m: int, g, n_total=None, lo: int = 0):
+    """A basis of m distinct columns out of ``n_total`` that holds the 50
+    (at most m / 2) most improving columns of e (the reduced costs of columns lo, lo + 1,
+    ...), so that the mask decides the pick."""
+    import torch
+
+    n_total = e.shape[0] if n_total is None else n_total
+    k = min(50, m // 2)
+    best = torch.argsort(e)[:k] + lo
+    rest = torch.randperm(n_total, generator=g, device=e.device)
+    rest = rest[~torch.isin(rest, best)][: m - k]
+    return torch.cat([best, rest])[torch.randperm(m, generator=g, device=e.device)].to(torch.int32)
+
+
+def check_choose(tag, dev, y, Av, cv, basis, lo, eps) -> float:
+    """The one-call form (mask, choice and offset in the kernel) against
+    its plain version, Bland off and on: the same column, min within
+    PRICING_RTOL, never a basic column. Returns the worst |min| error."""
     import torch
 
     from simplex_tpu_torch.kernels import hopper
 
+    e = y @ Av.float() - cv
+    is_basic = torch.zeros(Av.shape[1] + 1, dtype=torch.bool, device=dev)
+    loc = (basis.long() - lo).clamp(-1, Av.shape[1])
+    is_basic[loc] = True  # out-of-range entries land on the spare slot
+    worst = 0.0
+    for bland in (False, True):
+        flag = torch.tensor(bland, device=dev)
+        p_k, min_k = hopper.choose_entering(y, Av, cv, eps, flag, basis, lo)
+        p_p, min_p = hopper.choose_entering_plain(y, Av, cv, eps, flag, basis, lo)
+        torch.cuda.synchronize()
+        p_k, p_p, min_k, min_p = int(p_k), int(p_p), float(min_k), float(min_p)
+        name = f"choose_entering {tag} bland={bland}"
+        err = abs(min_k - min_p)
+        check(err <= PRICING_RTOL * abs(min_p), f"{name}: min {min_k} vs {min_p}")
+        check(lo <= p_k < lo + Av.shape[1], f"{name}: p {p_k} outside [{lo}, {lo + Av.shape[1]})")
+        if p_k != p_p:
+            # only a tie within the summation-order noise may move the pick
+            gap = abs(float(e[p_k - lo]) - float(e[p_p - lo]))
+            check(not bland and gap <= PRICING_RTOL * abs(min_p), f"{name}: p {p_k} vs plain {p_p}")
+            print(f"{name}: p {p_k} vs plain {p_p}, a tie within {gap:.3e}")
+        check(not bool(is_basic[p_k - lo]), f"{name}: picked basic column {p_k}")
+        check(min_k < -eps, f"{name}: no improving column in the test data")
+        worst = max(worst, err)
+        print(f"{name}: p {p_k} (plain {p_p}) min_e {min_k:.6f} (plain {min_p:.6f}) ok")
+    return worst
+
+
+def phase_pricing(dev) -> dict:
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper, ops
+
     g = torch.Generator(device=dev).manual_seed(0)
     rec = {}
-    for m, n in ((BENCH_M, BENCH_N), (BENCH_M - 1, BENCH_N - 1), ROUTE_C):
+    # (9000, 1001) is narrow enough for pass 2's shared-memory tiles and has
+    # more row chunks than one tile holds; the last shape takes one row
+    # chunk: the single-launch form
+    for m, n in ((BENCH_M, BENCH_N), (BENCH_M - 1, BENCH_N - 1), ROUTE_C, (9000, 1001), (24, 4099)):
+        check((hopper._pricing_chunks(m, n)[1] > 256) == (m == 9000), f"pricing {m}x{n}: row chunks")
+        check((hopper._pricing_chunks(m, n)[1] == 1) == (m == 24), f"pricing {m}x{n}: row chunks")
         y = torch.randn(m, generator=g, device=dev)
         A = torch.randn(m, n, generator=g, device=dev)
         c = torch.randn(n, generator=g, device=dev)
@@ -172,17 +267,107 @@ def phase_pricing(dev) -> dict:
         _, p_tie, neg_tie = hopper.pricing_scan(torch.zeros_like(y), A, c_tie, eps)
         check(int(p_tie) == 40 and int(neg_tie) == 40, f"pricing tie: {int(p_tie)}, {int(neg_tie)}")
         print(f"pricing_scan {m}x{n}: min_e {min_k:.6f} (plain {min_p:.6f}) p {p_k} abs err {err:.3e}")
+        # the one-call form the step uses: mask, choice, offset in the kernel
+        # (a range narrower than m is a column segment of a wider problem)
+        n_total, lo = (n, 0) if n >= m else (2 * m, m // 2)
+        basis = masked_basis(e, m, g, n_total, lo)
+        err = max(err, check_choose(f"fp32 {m}x{n}", dev, y, A, c, basis, lo, eps))
         if (m, n) == (BENCH_M, BENCH_N):
+            no = torch.tensor(False, device=dev)
+            # bytes: A, y, c, the basis; 2 flops per element of A
             rec = {
                 "max_abs_err": err,
-                "ms": time_ms(lambda: hopper.pricing_scan(y, A, c, eps)),
-                "plain_ms": time_ms(lambda: hopper.pricing_scan_plain(y, A, c, eps)),
+                "ms": time_ms(lambda: hopper.choose_entering(y, A, c, eps, no, basis)),
+                "plain_ms": time_ms(lambda: ops.choose_entering(y, A, c, eps, no, basis)),
+                "scan_ms": time_ms(lambda: hopper.pricing_scan(y, A, c, eps)),
+                "scan_plain_ms": time_ms(lambda: hopper.pricing_scan_plain(y, A, c, eps)),
+                **bound(4.0 * (m * n + 2 * m + n) + 16, 2.0 * m * n),
+                "library_ms": None,
             }
+            print(f"pricing_scan {m}x{n} fp32, ms: one-call {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}), "
+                  f"three-output scan {rec['scan_ms']:.4f} (plain {rec['scan_plain_ms']:.4f}), "
+                  f"bound {rec['bound_ms']:.4f}")
         del A
     return rec
 
 
+TAIL_OPTS = dict(eps=1e-5, pivot_tol=1e-7, feas_tol=1e-6, degen_tol=1e-9, bland_after=64)
+
+
+def tail_inputs(dev, g, m: int):
+    """Random inputs of the pivot's tail at m rows; x_b has exact ratio
+    ties at theta = 0."""
+    import torch
+
+    x_b = torch.rand(m, generator=g, device=dev) * 2
+    x_b[::7] = 0.0
+    t = {
+        "x_b": x_b,
+        "alpha": torch.randn(m, generator=g, device=dev),
+        "basis": torch.randperm(m, generator=g, device=dev).to(torch.int32),
+        "y": torch.randn(m, generator=g, device=dev),
+        "c_b": torch.randn(m, generator=g, device=dev),
+        "B_inv": torch.randn(m, m, generator=g, device=dev),
+        "min_e": torch.tensor(-0.75, device=dev),
+        "e_p": torch.tensor(-0.75, device=dev),
+        "c_p": torch.tensor(0.3, device=dev),
+        "p": torch.tensor(m + 17, dtype=torch.int32, device=dev),
+        "iters": torch.tensor(41, dtype=torch.int32, device=dev),
+        "degen": torch.tensor(3, dtype=torch.int32, device=dev),
+    }
+    return t
+
+
+def check_tail(tag, dev, t, harris, defer) -> float:
+    """``hopper.pivot_tail`` against its plain version on the same inputs:
+    every leaf bitwise equal, except row q and y under deferred updates
+    (TAIL_DEFER_RTOL). Returns the largest absolute difference seen."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    L, npend = 16, 5
+    g = torch.Generator(device=dev).manual_seed(7)
+    m = t["x_b"].shape[0]
+    outs = []
+    for fn in (hopper.pivot_tail, hopper.pivot_tail_plain):
+        extra = {}
+        if defer:
+            U = torch.zeros(L, m, device=dev)
+            R = torch.zeros(L, m, device=dev)
+            g.manual_seed(7)
+            U[:npend] = torch.randn(npend, m, generator=g, device=dev) * 0.1
+            R[:npend] = torch.randn(npend, m, generator=g, device=dev)
+            extra = dict(U=U, R=R, npend=npend, npend_t=torch.tensor(npend, dtype=torch.int32, device=dev))
+        outs.append(fn(*(t[k] for k in (
+            "x_b", "alpha", "basis", "y", "c_b", "B_inv", "min_e", "e_p", "c_p", "p", "iters", "degen"
+        )), harris=harris, **TAIL_OPTS, **extra))
+    torch.cuda.synchronize()
+    got, want = outs
+    worst = 0.0
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if a is None and b is None:
+            continue
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{tag}: {name} {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+        if defer and name in ("row", "y"):
+            scale = float(b.abs().max()) + 1e-30
+            err = float((a - b).abs().max())
+            check(err <= TAIL_DEFER_RTOL * max(scale, 1.0), f"{tag}: {name} differs by {err} (scale {scale})")
+        else:
+            err = 0.0 if torch.equal(a, b) else float((a.double() - b.double()).abs().max())
+            check(torch.equal(a, b), f"{tag}: {name} differs by {err}: {a} vs {b}")
+        worst = max(worst, err)
+    print(f"{tag}: q {int(got.q)} theta_q {float(got.theta_q):.6g} status {int(got.status)} "
+          f"take {bool(got.take)} iters {int(got.iters)} degen {int(got.degen)} ok")
+    return worst
+
+
 def phase_ratio_eta(dev) -> dict:
+    """The cluster kernel against its plain versions: the old contract
+    (``ratio_eta``: the tail off) and the pivot's whole tail
+    (``pivot_tail``: eager and deferred), at one block (m = 1088 takes
+    two), several, and beyond 8 x 1024 rows (the stride loop)."""
     import torch
 
     from simplex_tpu_torch.kernels import hopper
@@ -190,18 +375,18 @@ def phase_ratio_eta(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
     rec = {}
     worst = 0.0
-    for m in (BENCH_M, BENCH_M - 1, ROUTE_C[0]):
-        x_b = torch.rand(m, generator=g, device=dev) * 2
-        x_b[::7] = 0.0  # degenerate rows: exact ratio ties at theta = 0
-        alpha = torch.randn(m, generator=g, device=dev)
-        basis = torch.randperm(m, generator=g, device=dev).to(torch.int32)
+    for m in (BENCH_M, BENCH_M - 1, ROUTE_A[0], ROUTE_B[0], 1000, 5000, 9000, 17):
+        t = tail_inputs(dev, g, m)
+        x_b, alpha, basis = t["x_b"], t["alpha"], t["basis"]
         cases = [
             (harris, bland, alpha)
             for harris in (True, False)
             for bland in (False, True)
         ] + [(True, False, -alpha.abs() - 1), (False, True, -alpha.abs() - 1)]
         for harris, bland, a in cases:
+            # the flag as the step passes it (a bool) and as an int32
             flag = torch.tensor(bland, device=dev)
+            flag = flag.to(torch.int32) if harris else flag
             got = hopper.ratio_eta(x_b, a, basis, 1e-7, flag, harris, 1e-6)
             want = hopper.ratio_eta_plain(x_b, a, basis, 1e-7, flag, harris, 1e-6)
             torch.cuda.synchronize()
@@ -218,14 +403,46 @@ def phase_ratio_eta(dev) -> dict:
             check(err <= RATIO_ATOL, f"{tag}: eta / x_b_new differ by {err}")
             worst = max(worst, err)
             print(f"{tag}: q {int(got[0])} theta_q {tk:.6g} ok")
+        # the tail: a pivoting step (Harris and classic, Bland through
+        # degen >= bland_after), then the steps that must change nothing
+        for defer in (False, True):
+            kind = "deferred" if defer else "eager"
+            for harris in (True, False):
+                worst = max(worst, check_tail(f"pivot_tail m={m} {kind} harris={harris}", dev, t, harris, defer))
+            variants = {
+                # no exact ties: theta_q > 0, so x_b moves
+                "positive x_b": {"x_b": x_b + 0.25},
+                "positive x_b, classic": {"x_b": x_b + 0.25},
+                "bland": {"degen": torch.tensor(64, dtype=torch.int32, device=dev)},
+                "optimal": {"min_e": torch.tensor(0.0, device=dev)},
+                "unbounded": {"alpha": -alpha.abs() - 1},
+                "non-finite min_e": {"min_e": torch.tensor(float("nan"), device=dev)},
+                "non-finite theta": {"x_b": torch.full_like(x_b, float("inf"))},
+            }
+            for name, change in variants.items():
+                worst = max(worst, check_tail(
+                    f"pivot_tail m={m} {kind} {name}", dev, {**t, **change}, "classic" not in name, defer
+                ))
         if m == BENCH_M:
             flag = torch.tensor(False, device=dev)
+            args = tuple(t[k] for k in (
+                "x_b", "alpha", "basis", "y", "c_b", "B_inv", "min_e", "e_p", "c_p", "p", "iters", "degen"
+            ))
+            # bytes: x_b, alpha, basis, y, c_b and row q of B_inv in; eta,
+            # row, x_b, y, c_b, basis out; ~12 flops a row
             rec = {
-                "ms": time_ms(lambda: hopper.ratio_eta(x_b, alpha, basis, 1e-7, flag, True), 200),
-                "plain_ms": time_ms(
+                "ms": time_ms(lambda: hopper.pivot_tail(*args, harris=True, **TAIL_OPTS), 200),
+                "plain_ms": time_ms(lambda: hopper.pivot_tail_plain(*args, harris=True, **TAIL_OPTS), 50),
+                "ratio_only_ms": time_ms(lambda: hopper.ratio_eta(x_b, alpha, basis, 1e-7, flag, True), 200),
+                "ratio_only_plain_ms": time_ms(
                     lambda: hopper.ratio_eta_plain(x_b, alpha, basis, 1e-7, flag, True), 200
                 ),
+                **bound(4.0 * 12 * m + 64, 12.0 * m),
+                "library_ms": None,
             }
+            print(f"pivot_tail m={m}, ms: {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}); tail off "
+                  f"{rec['ratio_only_ms']:.4f} (plain {rec['ratio_only_plain_ms']:.4f}); bound {rec['bound_ms']:.6f}")
+        del t
     rec["max_abs_err"] = worst
     return rec
 
@@ -256,9 +473,13 @@ def phase_rank1(dev) -> dict:
         print(f"rank1_update m={m}: max abs err {err:.3e}")
         if m == BENCH_M:
             small = eta * 1e-6
+            # bytes: B_inv read and written, eta and row read; one multiply
+            # and one add an element. The library call is the plain version
             rec = {
                 "ms": time_ms(lambda: hopper.rank1_update(B, small, row)),
                 "plain_ms": time_ms(lambda: hopper.rank1_update_plain(B, small, row)),
+                **bound(8.0 * m * m + 8 * m, 2.0 * m * m),
+                "library_ms": time_ms(lambda: B.addr_(small, row)),
             }
         del B, got, want
     rec["max_abs_err"] = worst
@@ -270,7 +491,7 @@ def phase_pricing_bf16(dev) -> dict:
     column segment of it (the segmented path's view, priced in place)."""
     import torch
 
-    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.kernels import hopper, ops
 
     g = torch.Generator(device=dev).manual_seed(4)
     m, n = BENCH_M, BENCH_N
@@ -280,8 +501,9 @@ def phase_pricing_bf16(dev) -> dict:
     c = torch.randn(n, generator=g, device=dev)
     eps = 1e-5
     rec = {}
-    views = [("full", A, c), ("segment", A[:, 3 * w : 4 * w], c[3 * w : 4 * w])]
-    for tag, Av, cv in views:
+    views = [("full", A, c, 0), ("segment", A[:, 3 * w : 4 * w], c[3 * w : 4 * w], 3 * w)]
+    no = torch.tensor(False, device=dev)
+    for tag, Av, cv, lo in views:
         check((tag == "segment") != Av.is_contiguous(), f"pricing bf16 {tag}: layout")
         min_k, p_k, neg_k = hopper.pricing_scan(y, Av, cv, eps)
         min_p, p_p, neg_p = hopper.pricing_scan_plain(y, Av, cv, eps)
@@ -295,12 +517,22 @@ def phase_pricing_bf16(dev) -> dict:
             f"pricing bf16 {tag}: e[p_kernel={p_k}] = {float(e[p_k])} vs min {min_p}",
         )
         check(neg_k == int(neg_p), f"pricing bf16 {tag}: first negative {neg_k} vs {int(neg_p)}")
-        ms = time_ms(lambda: hopper.pricing_scan(y, Av, cv, eps))
-        plain_ms = time_ms(lambda: hopper.pricing_scan_plain(y, Av, cv, eps))
-        rec[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        # the one-call form: global basis, the view's first column lo
+        basis = masked_basis(e, m, g, n, lo)
+        err = max(err, check_choose(f"bf16 {tag} {tuple(Av.shape)} base {lo}", dev, y, Av, cv, basis, lo, eps))
+        ms = time_ms(lambda: hopper.choose_entering(y, Av, cv, eps, no, basis, lo), 100)
+        plain_ms = time_ms(lambda: ops.choose_entering(y, Av, cv, eps, no, basis, lo), 100)
+        scan_ms = time_ms(lambda: hopper.pricing_scan(y, Av, cv, eps), 100)
+        scan_plain_ms = time_ms(lambda: hopper.pricing_scan_plain(y, Av, cv, eps), 100)
+        rec[tag] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "scan_ms": scan_ms,
+            "scan_plain_ms": scan_plain_ms,
+            **bound(2.0 * m * Av.shape[1] + 4.0 * (2 * m + Av.shape[1]) + 16, 2.0 * m * Av.shape[1]),
+        }
         print(
             f"pricing_scan bf16 {tag} {tuple(Av.shape)} strides {Av.stride()}: min_e {min_k:.6f} "
-            f"(plain {min_p:.6f}) p {p_k} abs err {err:.3e}; {ms:.4f} ms vs plain {plain_ms:.4f} ms"
+            f"(plain {min_p:.6f}) p {p_k} abs err {err:.3e}; ms: one-call {ms:.4f} (plain {plain_ms:.4f}), "
+            f"three-output scan {scan_ms:.4f} (plain {scan_plain_ms:.4f}), bound {rec[tag]['bound_ms']:.4f}"
         )
     return rec
 
@@ -340,14 +572,15 @@ def phase_pricing_bounded(dev) -> None:
                 torch.cuda.synchronize()
                 p_k, min_k, p_p, min_p = int(p_k), float(min_k), int(p_p), float(min_p)
                 name = f"bounded pricing {tag} {m}x{wv} (base {lo}) bland={bland}"
+                check(lo <= p_k < lo + wv, f"{name}: p {p_k} outside [{lo}, {lo + wv})")
                 check(abs(min_k - min_p) <= PRICING_RTOL * abs(min_p), f"{name}: min {min_k} vs {min_p}")
                 if bland:
                     check(p_k == p_p, f"{name}: first improving {p_k} vs {p_p}")
                 else:
-                    s_at = float(s_ref[p_k])
+                    s_at = float(s_ref[p_k - lo])
                     check(abs(s_at - min_p) <= PRICING_RTOL * abs(min_p), f"{name}: s[p={p_k}] {s_at} vs {min_p}")
                 if min_k < -eps:  # an improving pick is never a basic column
-                    check(float(pen[p_k]) == 0.0, f"{name}: picked basic column {p_k + lo}")
+                    check(float(pen[p_k - lo]) == 0.0, f"{name}: picked basic column {p_k}")
                 print(f"{name}: p {p_k} (plain {p_p}) min_s {min_k:.6f} (plain {min_p:.6f}) ok")
         if (m, n) == ROUTE_B:
             no = torch.tensor(False, device=dev)
@@ -394,12 +627,15 @@ def phase_ratio_argmin(dev) -> dict:
                 print(f"{tag}: q {int(got[0])} theta_q {float(got[1]):.6g} ok")
         if m == BENCH_M:
             flag = torch.tensor(False, device=dev)
+            # bytes: x_b, alpha, basis in, three scalars out; ~3 flops a row
             rec = {
                 "max_abs_err": 0.0,
                 "ms": time_ms(lambda: hopper.ratio_argmin(x_b, alpha, basis, 1e-7, flag), 200),
                 "plain_ms": time_ms(
                     lambda: hopper.ratio_argmin_plain(x_b, alpha, basis, 1e-7, flag), 200
                 ),
+                **bound(12.0 * m + 12, 3.0 * m),
+                "library_ms": None,
             }
     return rec
 
@@ -535,6 +771,30 @@ def phase_solve(dev) -> dict:
         f"host reads {reads}"
     )
     return counts
+
+
+def phase_device_ops(dev) -> None:
+    """Device operations a pivot of the default path issues, from a
+    profiled stretch of the solver's pivot loop on the bench instance
+    (``simplex_tpu_torch.bench.profile_canonical``): every kernel, memset
+    and copy the card ran, over the pivots taken. Fails above
+    MAX_DEVICE_OPS_PER_PIVOT."""
+    from simplex_tpu_torch import SimplexOptions
+    from simplex_tpu_torch.bench.profile_canonical import profile_loop
+
+    A, b, c = instance(BENCH_M, BENCH_N)
+    rec = profile_loop(A, b, c, SimplexOptions(), dev, warm=32, window=128)
+    ops = rec["device_ops_per_pivot"]
+    print(
+        f"default path, {rec['pivots_traced']} profiled pivots: {ops:.2f} device ops a pivot "
+        f"(limit {MAX_DEVICE_OPS_PER_PIVOT}), {rec['device_us_per_pivot']:.1f} device us and "
+        f"{rec['wall_ms_per_pivot']:.3f} wall ms a pivot, busy {rec['device_busy']:.1%}; "
+        f"launches a pivot {rec['launches_per_pivot']}; largest items (us a pivot) {rec['top_us_per_pivot']}"
+    )
+    check(rec["device_us_per_pivot"] > 0, "the profiler saw no device time")
+    check(ops <= MAX_DEVICE_OPS_PER_PIVOT, f"{ops:.2f} device ops a pivot on the default path")
+    for name in ("pricing_scan", "ratio_eta", "rank1_update"):
+        check(rec["launches_per_pivot"][name] == 1.0, f"{name}: {rec['launches_per_pivot'][name]} launches a pivot")
 
 
 def phase_full_solve(dev) -> None:
@@ -850,7 +1110,11 @@ def phase_general(dev) -> dict:
     return paths
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=["kernels"], default=None,
+                    help="stop after the kernel checks (no final ok line)")
+    args = ap.parse_args(argv)
     if not (ROOT / "simplex_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
         return 1
@@ -874,9 +1138,15 @@ def main() -> int:
         "ratio_eta": phase_ratio_eta(dev),
         "rank1_update": phase_rank1(dev),
     }
-    phase_pricing_bf16(dev)
+    bf16 = phase_pricing_bf16(dev)
+    recs["pricing_scan"]["shapes"] = {f"bf16 {tag}": r for tag, r in bf16.items()}
     phase_pricing_bounded(dev)
     torch.cuda.empty_cache()
+    if args.only == "kernels":
+        print(f"kernel checks: {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": recs}))
+        print(card)
+        return 0
     paths = {"default window": phase_solve(dev)}
     phase_full_solve(dev)
     paths.update(phase_flagship_window(dev))
@@ -886,6 +1156,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["mps files (cli)"] = phase_mps_cli(dev)
     paths.update(phase_general(dev))
+    # last: a profiler run leaves every later launch of the process dearer
+    phase_device_ops(dev)
     for tag, counts in paths.items():
         print(f"launches on path '{tag}': {counts}")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")

@@ -84,6 +84,36 @@ def through_phase1(lp, opts, device, body):
     return out[0]
 
 
+def device_summary(prof, cuda: bool):
+    """``(self device time by item name in us, number of device activity
+    records, upload us)`` of a finished ``torch.profiler`` trace: every CUDA
+    activity record (kernels, memsets, copies) but the host-to-device
+    uploads, which are reported apart. On the CPU (a rehearsal) the records
+    are the CPU ops."""
+    dev_us = collections.Counter()
+    n_ops, upload_us = 0, 0.0
+    for evt in prof.key_averages():
+        if cuda and evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        if evt.key.startswith("Memcpy HtoD"):
+            upload_us += t
+            continue
+        dev_us[evt.key[:90]] += t
+        n_ops += evt.count
+    return dev_us, n_ops, upload_us
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip()
+
+
 def profile_case(lp, opts, device) -> dict:
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -103,19 +133,7 @@ def profile_case(lp, opts, device) -> dict:
 
     res, wall = through_phase1(lp, opts, device, timed)
     res2, prof = through_phase1(lp, opts, device, traced)
-    dev_us = collections.Counter()
-    n_ops, upload_us = 0, 0.0
-    for evt in prof.key_averages():
-        if cuda and evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = evt.self_cuda_time_total
-        if evt.key.startswith("Memcpy HtoD"):
-            upload_us += t
-            continue
-        dev_us[evt.key[:90]] += t
-        n_ops += evt.count
+    dev_us, n_ops, upload_us = device_summary(prof, cuda)
     total = sum(dev_us.values())
     piv = max(1, res2.iters)
     return {
@@ -153,10 +171,7 @@ def main(argv=None) -> int:
         if not small:
             torch.cuda.empty_cache()
     if not small:
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True,
-        ).stdout.strip())
+        print(card_line())
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -2,8 +2,9 @@
 
 The Dantzig paths of ``simplex_tpu.core.step.pivot_step``:
 
-  pricing      e = y.A - c_eff (basic columns masked); p = argmin e;
-               optimal iff min e >= -eps. Either over all of A, or over the
+  pricing      e = y.A - c with the basic columns masked; p = argmin e;
+               optimal iff min e >= -eps; mask, scan and choice in one
+               backend call. Either over all of A, or over the
                bfloat16 shadow (``A_price``) with an exact recheck of the
                winner, or over one column segment (``partial_pricing``) with
                the two-stage fallback (full shadow, then exact), or from the
@@ -17,6 +18,12 @@ The Dantzig paths of ``simplex_tpu.core.step.pivot_step``:
                (eta, true row q) to U / R and flush B_inv += U.T R (one
                fp32 GEMM, in place) when L pairs are pending
                y -= (e_p / alpha_q) B_inv_old[q];  c_b[q] = c_p;  basis[q] = p
+
+Without bounds and without multiple pricing, everything from the ratio test
+to the stored leaves (the O(m) selects, the scalars, the pair appended to
+U / R) is one backend call, ``pivot_tail``: one launch on the hopper
+backend. The multiple-pricing and the bounded step keep the op-by-op tail
+below.
 
 Under upper bounds (``prob.u``, the bounded-variable rule) pricing takes
 the signed reduced cost s_j = at_upper_j ? -e_j : e_j, the ratio test is
@@ -100,7 +107,18 @@ def _multi_active(opts: SimplexOptions, state: SolverState) -> bool:
 def _use_bland(opts: SimplexOptions, degen: torch.Tensor) -> torch.Tensor:
     if opts.bland_after > 0:
         return degen >= opts.bland_after
-    return torch.zeros((), dtype=torch.bool, device=degen.device)
+    return _const_flag(degen.device, False)
+
+
+_flags: dict = {}
+
+
+def _const_flag(device, value: bool) -> torch.Tensor:
+    """A 0-d bool constant on ``device``, made once (never written to)."""
+    key = (device, bool(value))
+    if key not in _flags:
+        _flags[key] = torch.tensor(bool(value), device=device)
+    return _flags[key]
 
 
 def _need_refill(state: SolverState, opts: SimplexOptions) -> torch.Tensor:
@@ -157,11 +175,18 @@ def _partial_active(opts: SimplexOptions, prob: Problem) -> bool:
     return S > 1 and n % S == 0 and n // S >= opts.partial_min_segment
 
 
-def _exact_e(prob: Problem, state: SolverState, p: torch.Tensor, backend) -> torch.Tensor:
-    """The exact reduced cost y.A_p - c_p of column p (O(m))."""
+def _entering_column(prob: Problem, state: SolverState, p: torch.Tensor, backend):
+    """``(A_p, c_p, e_p)``: column p of A, its cost, and its exact reduced
+    cost y.A_p - c_p (O(m))."""
     dtype = state.B_inv.dtype
     A_p = backend.gather_column(prob.A, p).to(dtype)
-    return torch.dot(state.y, A_p) - backend.gather_cost(prob.c, p).to(dtype)
+    c_p = backend.gather_cost(prob.c, p).to(dtype)
+    return A_p, c_p, torch.dot(state.y, A_p) - c_p
+
+
+def _exact_e(prob: Problem, state: SolverState, p: torch.Tensor, backend) -> torch.Tensor:
+    """The exact reduced cost y.A_p - c_p of column p (O(m))."""
+    return _entering_column(prob, state, p, backend)[2]
 
 
 def _signed(state: SolverState, e: torch.Tensor, idx: Optional[torch.Tensor] = None):
@@ -181,14 +206,13 @@ def _price_bounded(prob, state, opts, use_bland, bland, ctl, backend):
     at_upper flag, with the same fallbacks as the unbounded rule. Returns
     ``(p, min_s)``."""
     eps = opts.resolve_eps()
-    no_bland = torch.zeros((), dtype=torch.bool, device=state.y.device)
+    no_bland = _const_flag(state.y.device, False)
 
     def pick(A, lo=0, w=None, flag=use_bland):
         hi = None if w is None else lo + w
-        p, min_s = backend.choose_entering_bounded(
+        return backend.choose_entering_bounded(
             state.y, A, prob.c[lo:hi], state.at_upper[lo:hi], state.basis, lo, eps, flag
         )
-        return p + lo if lo else p, min_s
 
     def rechecked(p):
         # the winner's exact signed reduced cost; one counted read decides
@@ -215,45 +239,49 @@ def _price_bounded(prob, state, opts, use_bland, bland, ctl, backend):
     return exact()
 
 
-def _price_shadow(prob, state, opts, c_eff, use_bland, bland, backend):
+def _price_shadow(prob, state, opts, use_bland, bland, backend):
     """Dantzig over the bfloat16 shadow, the winner rechecked exactly; one
-    exact pass when it does not improve or Bland's rule is on."""
+    exact pass when it does not improve or Bland's rule is on. Returns
+    ``(p, min_e, col)``; ``col`` is the winner's ``_entering_column`` when
+    the recheck computed it, else None."""
     eps = opts.resolve_eps()
     if not bland:
-        p1, _ = backend.choose_entering(state.y, prob.A_price, c_eff, eps, use_bland)
-        e_p1 = _exact_e(prob, state, p1, backend)
-        if not read_flag(e_p1 >= -eps):
-            return p1, e_p1
-    return backend.choose_entering(state.y, prob.A, c_eff, eps, use_bland)
+        p1, _ = backend.choose_entering(state.y, prob.A_price, prob.c, eps, use_bland, state.basis)
+        col = _entering_column(prob, state, p1, backend)
+        if not read_flag(col[2] >= -eps):
+            return p1, col[2], col
+    return (*backend.choose_entering(state.y, prob.A, prob.c, eps, use_bland, state.basis), None)
 
 
-def _price_segment(prob, state, opts, c_eff, use_bland, bland, ctl, backend):
+def _price_segment(prob, state, opts, use_bland, bland, ctl, backend):
     """Dantzig over column segment ``iters mod S`` (of the shadow when there
     is one), a view priced in place. A dry segment retries over the full
     shadow (``fallback_shadow``), then runs one exact pass; so does Bland's
-    rule at once."""
+    rule at once. Returns ``(p, min_e, col)`` as :func:`_price_shadow`."""
     eps = opts.resolve_eps()
-    exact = (state.y, prob.A, c_eff, eps, use_bland)
+
+    def exact():
+        return (*backend.choose_entering(state.y, prob.A, prob.c, eps, use_bland, state.basis), None)
+
     if bland:
-        return backend.choose_entering(*exact)
+        return exact()
     S, n = opts.partial_pricing, prob.A.shape[1]
     w = n // S
     lo = (ctl.iters % S) * w
     A_src = prob.A_price if prob.A_price is not None else prob.A
-    p_loc, _ = backend.choose_entering(
-        state.y, A_src[:, lo : lo + w], c_eff[lo : lo + w], eps, use_bland
+    p1, _ = backend.choose_entering(
+        state.y, A_src[:, lo : lo + w], prob.c[lo : lo + w], eps, use_bland, state.basis, lo
     )
-    p1 = p_loc + lo
-    e_p1 = _exact_e(prob, state, p1, backend)
-    if not read_flag(e_p1 >= -eps):
-        return p1, e_p1
+    col = _entering_column(prob, state, p1, backend)
+    if not read_flag(col[2] >= -eps):
+        return p1, col[2], col
     if prob.A_price is None or not opts.fallback_shadow:
-        return backend.choose_entering(*exact)
-    p2, _ = backend.choose_entering(state.y, prob.A_price, c_eff, eps, use_bland)
-    e_p2 = _exact_e(prob, state, p2, backend)
-    if not read_flag(e_p2 >= -eps):
-        return p2, e_p2
-    return backend.choose_entering(*exact)
+        return exact()
+    p2, _ = backend.choose_entering(state.y, prob.A_price, prob.c, eps, use_bland, state.basis)
+    col = _entering_column(prob, state, p2, backend)
+    if not read_flag(col[2] >= -eps):
+        return p2, col[2], col
+    return exact()
 
 
 def _refill(prob, state, opts, ctl, bland):
@@ -362,6 +390,42 @@ def _multi_pricing(prob, state, opts, ctl, bland):
     return p, min_e, cand.alpha.index_select(0, j).view(-1), state, npend
 
 
+def _finish_unbounded(state, opts, backend, alpha, min_e, e_p, c_p, p, defer, npend):
+    """The unbounded step without multiple pricing, from its ftran on: the
+    whole O(m) tail in one backend call (``pivot_tail``: one launch on the
+    hopper backend), then the inverse's update -- the rank-1 kernel, or,
+    under deferred updates, the pair the tail wrote into slot ``npend`` and
+    the flush when that filled the buffer."""
+    extra = {}
+    if defer:
+        extra = dict(U=state.U, R=state.R, npend=npend, npend_t=state.npend)
+    t = backend.pivot_tail(
+        state.x_b, alpha, state.basis, state.y, state.c_b, state.B_inv,
+        min_e, e_p, c_p, p, state.iters, state.degen,
+        eps=opts.resolve_eps(), pivot_tol=opts.pivot_tol, feas_tol=opts.feas_tol,
+        harris=opts.ratio == "harris", degen_tol=opts.degen_tol,
+        bland_after=opts.bland_after, **extra,
+    )
+    U, R, npend_new = state.U, state.R, t.npend
+    if defer:
+        B_inv = state.B_inv
+        if npend + 1 >= opts.resolve_defer():
+            # flush B_inv += U.T R (the JAX step flushes when the append
+            # filled the buffer; a step that does not pivot is terminal and
+            # its zero pair leaves the true inverse unchanged)
+            B_inv.addmm_(U.T, R)
+            U, R = torch.zeros_like(U), torch.zeros_like(R)
+            npend_new = torch.zeros_like(npend_new)
+    else:
+        # a no-op when not pivoting: eta and row are zero then
+        B_inv = backend.rank1_update(state.B_inv, t.eta, t.row)
+    return SolverState(
+        B_inv=B_inv, x_b=t.x_b, y=t.y, c_b=t.c_b, basis=t.basis, iters=t.iters,
+        status=t.status, degen=t.degen, last_refac=state.last_refac,
+        U=U, R=R, npend=npend_new, at_upper=None, cand=state.cand, pert=state.pert,
+    )
+
+
 def pivot_step(
     prob: Problem,
     state: SolverState,
@@ -377,35 +441,33 @@ def pivot_step(
         ctl = read_control(state, opts)
     dtype = state.B_inv.dtype
     eps = opts.resolve_eps()
+    # the host's copy of the same comparison: ctl is this state's control
     bland = opts.bland_after > 0 and ctl.degen >= opts.bland_after
-    use_bland = _use_bland(opts, state.degen)
+    use_bland = _const_flag(state.degen.device, bland)
     multi = _multi_active(opts, state)
     defer = opts.update_defer > 0 or multi
     bounded = prob.u is not None
     npend = ctl.npend
 
-    # ---- pricing over basic-masked costs (signed under bounds) ----
+    # ---- pricing over the nonbasic columns (signed under bounds) ----
+    col = None
     if multi:
         p, min_e, alpha0_p, state, npend = _multi_pricing(prob, state, opts, ctl, bland)
         cand_mid = state.cand
     elif bounded:
         p, min_e = _price_bounded(prob, state, opts, use_bland, bland, ctl, backend)
+    elif prob.A_price is not None and not _partial_active(opts, prob):
+        p, min_e, col = _price_shadow(prob, state, opts, use_bland, bland, backend)
+    elif _partial_active(opts, prob):
+        p, min_e, col = _price_segment(prob, state, opts, use_bland, bland, ctl, backend)
     else:
-        c_eff = backend.mask_basic(prob.c, state.basis)
-        if prob.A_price is not None and not _partial_active(opts, prob):
-            p, min_e = _price_shadow(prob, state, opts, c_eff, use_bland, bland, backend)
-        elif _partial_active(opts, prob):
-            p, min_e = _price_segment(
-                prob, state, opts, c_eff, use_bland, bland, ctl, backend
-            )
-        else:
-            p, min_e = backend.choose_entering(state.y, prob.A, c_eff, eps, use_bland)
-    optimal = min_e >= -eps
+        p, min_e = backend.choose_entering(
+            state.y, prob.A, prob.c, eps, use_bland, state.basis
+        )
 
-    # ---- ftran + ratio test (+ eta and the stepped x_b) ----
-    A_p = backend.gather_column(prob.A, p).to(dtype)
-    c_p = backend.gather_cost(prob.c, p).to(dtype)
-    e_p = torch.dot(state.y, A_p) - c_p  # == min_e under Dantzig
+    # ---- ftran ----
+    # e_p == min_e under Dantzig
+    A_p, c_p, e_p = col if col is not None else _entering_column(prob, state, p, backend)
     if multi:
         # the buffered base column plus every pending pair: O(L m), no m^2 read
         alpha = alpha0_p + state.U.T @ (state.R @ A_p)
@@ -414,6 +476,14 @@ def pivot_step(
         alpha = torch.mv(state.B_inv, A_p) + state.U.T @ (state.R @ A_p)
     else:
         alpha = torch.mv(state.B_inv, A_p)
+
+    if not multi and not bounded:
+        return _finish_unbounded(
+            state, opts, backend, alpha, min_e, e_p, c_p, p, defer, npend
+        )
+
+    # ---- ratio test (+ eta and the stepped x_b) ----
+    optimal = min_e >= -eps
     if bounded:
         # d = sigma alpha: an entering column that leaves its upper bound
         # decreases, so every basic value moves the other way

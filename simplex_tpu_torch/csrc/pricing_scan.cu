@@ -1,27 +1,50 @@
-// Dantzig pricing scan: one pass over A giving min_j e_j, its lowest index,
-// and the first j with e_j < -eps, where e = y.A - c. e never reaches device
-// memory in full.
+// Dantzig pricing in one call: one pass over A giving min_j e_j, its lowest
+// index, the first j with e_j < -eps and the entering column chosen from
+// them, where e = y.A - c with the basic columns masked. e never reaches
+// device memory in full.
 //
 // Replaces: simplex_tpu/kernels/pallas_ops.py, pricing_scan / _pricing_kernel
-// (the pl.pallas_call at line 140).
+// (the pl.pallas_call at line 140) with choose_entering around it, and the
+// basic-column mask the step builds before it (mask_basic).
 //
-// Bound on the H100: device-memory bandwidth. The pass reads A once
-// (m * n * 4 bytes, 512 MiB at 8192 x 16384 fp32) and does 2 flops per
-// element read, far below the card's ops-per-byte ridge.
+// Bound on the H100: device-memory bandwidth for a full pass (A read once:
+// m * n * 4 bytes, 512 MiB at 8192 x 16384 fp32, 2 flops per element, far
+// below the card's ops-per-byte ridge); launch latency for a column segment
+// (32 MiB at 8192 x 2048 bf16 is 10 us of traffic, a launch costs a few).
+// So the design keeps the full pass's inner loop and spends as few launches
+// and host steps around it as it can: two launches a call (one where a
+// single row chunk covers m: the second launch then sums its own columns),
+// no memset, no scratch made per call, no torch op before or after.
 //
 // Design: the Pallas grid walks row tiles in order and carries a column
 // accumulator; Hopper blocks run in no order, so that carry is replaced by
 // a split over rows:
-//   pass 1  grid (column tiles of 1024, row chunks). Each thread owns 4
-//           neighbouring columns (one 16-byte load per row when aligned) and
-//           sums y_i A_ij over its chunk's rows in row order, writing one
-//           partial row of a (chunks, n) scratch. Splitting the rows gives
-//           ~8 blocks per SM at n = 16384, where one column per thread would
-//           fill only 64 blocks. Loads along A's rows are coalesced.
-//   pass 2  one thread per column adds the chunk partials in chunk order,
-//           subtracts c_j and reduces (min, lowest argmin, first index below
-//           -eps) over its block.
-//   pass 3  one block reduces the per-block results.
+//   launch 1  grid (column tiles of 1024, row chunks). Each thread owns 4
+//             neighbouring columns (one 16-byte load per row when aligned)
+//             and sums y_i A_ij over its chunk's rows in row order, writing
+//             one partial row of a (chunks, n) scratch. Splitting the rows
+//             gives ~8 blocks per SM at n = 16384, where one column per
+//             thread would fill only 64 blocks. Loads along A's rows are
+//             coalesced.
+//   launch 2  one thread adds each column's partials in chunk order (from
+//             device memory, a block owning 256 columns; up to 8192
+//             columns, where that would leave most SMs idle behind long
+//             dependent load chains, from a (chunks, 32) tile that the
+//             block's warps stage in shared memory with many loads in
+//             flight), subtracts c_j, flips the sign of an at-upper
+//             column (signed mode) and adds 1e30 at a basic column; the block
+//             reduces (min, lowest argmin, first index below -eps). Which
+//             columns are basic the block finds itself: it scans the basis
+//             (m int32, L2-resident) for entries in its own columns and
+//             flags them in shared memory, so no penalty row is zeroed and
+//             marked beforehand and nothing can go stale between calls.
+//             Then the block takes a ticket (atomicAdd after
+//             __threadfence()); the block that draws the last one reduces
+//             the per-block results, reads use_bland on the device, writes
+//             min, argmin, first-below and the chosen column (Dantzig's
+//             argmin, or Bland's first improving index, 0 when none; plus
+//             p_offset, so a segment's pick comes out as a global column),
+//             and resets the ticket for the next call.
 // Every sum runs in a fixed order and every reduction breaks ties to the
 // lowest index, so the result is deterministic; no float atomics. A NaN in
 // e wins the min (with its lowest index), as jnp.argmin / torch.argmin do.
@@ -30,15 +53,8 @@
 // pricing scans a view of the shadow in place, without an O(mn/S) copy. The
 // row chunks are a function of the range's (m, n) alone (the wrapper picks
 // them), so a segment's result does not depend on the matrix around it.
-//
-// Signed mode (the bounded-variable rule, which the JAX package prices
-// through XLA): given flip (the at-upper flag of each column, one byte) and
-// the basis, pass 2 reduces s_j = (flip_j ? -e_j : e_j) + pen_j instead of
-// e_j, where pen_j = 1e30 at the basic columns that fall in the range
-// [base_col, base_col + n) and 0 elsewhere. pen is a scratch row, zeroed and
-// marked by one small launch before pass 2. The bounded step thus prices
-// fp32 A, the bf16 shadow or a segment view of either in one pass, without
-// an fp32 copy of a bf16 A, and with the penalty made in the same call.
+// The scratch (partials, per-block results, ticket) belongs to the wrapper's
+// cached workspace; one stream orders the calls that share it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,10 +67,16 @@ constexpr int kIntMax = 0x7fffffff;
 constexpr int kPartialThreads = 256;
 constexpr int kColsPerBlock = 4 * kPartialThreads;
 constexpr int kReduceThreads = 256;
-constexpr int kFinalThreads = 1024;
+constexpr int kTileWarps = kReduceThreads / 32;
+constexpr int kTileCols = 32;     // columns a block of pass 2 owns when tiled
+constexpr int kTileChunks = 256;  // partial rows staged in shared memory at a time
+// pass 2 is tiled up to this many columns: 256-column blocks would then
+// occupy at most 32 of the card's 132 SMs
+constexpr int kTiledMaxCols = 8192;
+constexpr int kLoadBatch = 8;
+constexpr int kScanBatch = 8;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBasicPenalty = 1e30f;  // kernels/ops.py BASIC_PENALTY
-constexpr int kMarkThreads = 256;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -113,16 +135,6 @@ pricing_partial_kernel(const float* __restrict__ y, const T* __restrict__ A,
   }
 }
 
-// pen[basis_i - base_col] = 1e30 for the basic columns inside the range
-__global__ void __launch_bounds__(kMarkThreads)
-pricing_mark_basic_kernel(const int* __restrict__ basis, int m_basis,
-                          int base_col, int n, float* __restrict__ pen) {
-  const int i = blockIdx.x * kMarkThreads + threadIdx.x;
-  if (i >= m_basis) return;
-  const int j = basis[i] - base_col;
-  if (j >= 0 && j < n) pen[j] = kBasicPenalty;
-}
-
 // (value, index) order of the min: NaN first, then smaller value, then
 // lower index
 __device__ __forceinline__ bool min_before(float a, int ia, float b, int ib) {
@@ -163,23 +175,108 @@ __device__ __forceinline__ void block_reduce(float& v, int& arg, int& neg) {
   }
 }
 
+// words of the int32 output block (min as float bits)
+enum { kOutMin = 0, kOutArg, kOutNeg, kOutP, kOutWords };
+
+// Pass 2, in one of two layouts the launcher picks from n alone.
+// Wide ranges (``tiled`` false): a thread owns a column and adds its chunk
+// partials straight from device memory, 16 loads in flight; a block owns 256
+// columns. Narrow ranges (n <= kTiledMaxCols: a 2048-column segment has 256
+// chunks and would leave 8 such blocks on the card, each waiting out 16
+// rounds of L2 latency): a block owns 32 columns, its 8 warps stage the
+// (chunks, 32) tile of partials in shared memory, warp w taking chunk rows w,
+// w + 8, ... with 8 independent loads in flight a thread, and warp 0 adds
+// each column's partials from there. Either way a column's partials are
+// added by one thread in chunk order, so the result is the same to the bit.
+// A is null when the partial sums are in ``partial``; where one chunk covers
+// all m rows the launcher skips pass 1 and a column's thread sums over the
+// rows of A (the same fmaf chain in row order).
+template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-pricing_columns_kernel(const float* __restrict__ partial, int chunks,
-                       const float* __restrict__ c,
+pricing_columns_kernel(const float* __restrict__ partial, int chunks, int tiled,
+                       const float* __restrict__ y, const T* __restrict__ A,
+                       int m, size_t lda, const float* __restrict__ c,
                        const unsigned char* __restrict__ flip,
-                       const float* __restrict__ pen, int n, float eps,
-                       float* __restrict__ blk_min, int* __restrict__ blk_arg,
-                       int* __restrict__ blk_neg) {
-  const int j = blockIdx.x * kReduceThreads + threadIdx.x;
+                       const int* __restrict__ basis, int m_basis, int base_col,
+                       int n, float eps, const void* __restrict__ use_bland,
+                       int bland_is_byte, int p_offset, float* blk_min,
+                       int* blk_arg, int* blk_neg, unsigned int* ticket,
+                       int* __restrict__ out) {
+  __shared__ float s_part[kTileChunks][kTileCols];
+  __shared__ unsigned char s_basic[kReduceThreads];
+  __shared__ bool s_last;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cols = tiled ? kTileCols : kReduceThreads;  // this block's columns
+  const int j0 = blockIdx.x * cols;
+  const int k_own = tiled ? lane : threadIdx.x;  // this thread's column in the block
+  const int j = j0 + k_own;
+  const bool owner = (!tiled || warp == 0) && j < n;  // holds column j's value
+  float e = 0.f;
+  if (A != nullptr) {
+    if (owner) {
+#pragma unroll 4
+      for (int i = 0; i < m; ++i) e = fmaf(y[i], to_float(A[i * lda + j]), e);
+    }
+  } else if (!tiled) {
+    if (owner) {
+#pragma unroll 16
+      for (int k = 0; k < chunks; ++k) e += partial[(size_t)k * n + j];
+    }
+  } else {
+    for (int k0 = 0; k0 < chunks; k0 += kTileChunks) {
+      const int kn = min(kTileChunks, chunks - k0);
+      if (k0 > 0) __syncthreads();  // the previous tile is summed
+      if (j < n) {
+        for (int kk = warp; kk < kn; kk += kLoadBatch * kTileWarps) {
+          float v[kLoadBatch];
+#pragma unroll
+          for (int u = 0; u < kLoadBatch; ++u) {
+            const int k = kk + u * kTileWarps;
+            v[u] = k < kn ? partial[(size_t)(k0 + k) * n + j] : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < kLoadBatch; ++u) {
+            const int k = kk + u * kTileWarps;
+            if (k < kn) s_part[k][lane] = v[u];
+          }
+        }
+      }
+      __syncthreads();
+      if (owner) {
+#pragma unroll 8
+        for (int k = 0; k < kn; ++k) e += s_part[k][lane];
+      }
+    }
+  }
+  if (basis != nullptr) {
+    // flag the basic columns among this block's own
+    s_basic[threadIdx.x] = 0;
+    __syncthreads();
+    // kScanBatch independent loads in flight per thread, then the tests
+    const int first = base_col + j0;
+    for (int i0 = threadIdx.x; i0 < m_basis; i0 += kScanBatch * kReduceThreads) {
+      int col[kScanBatch];
+#pragma unroll
+      for (int u = 0; u < kScanBatch; ++u) {
+        const int i = i0 + u * kReduceThreads;
+        col[u] = i < m_basis ? basis[i] : first - 1;
+      }
+#pragma unroll
+      for (int u = 0; u < kScanBatch; ++u) {
+        const int k = col[u] - first;
+        if (k >= 0 && k < cols) s_basic[k] = 1;
+      }
+    }
+    __syncthreads();
+  }
   float v = INFINITY;
   int arg = kIntMax;
   int neg = kIntMax;
-  if (j < n) {
-    float e = 0.f;
-    for (int k = 0; k < chunks; ++k) e += partial[(size_t)k * n + j];
+  if (owner) {
     e -= c[j];
     if (flip != nullptr && flip[j]) e = -e;
-    if (pen != nullptr) e += pen[j];
+    if (basis != nullptr && s_basic[k_own]) e += kBasicPenalty;
     v = e;
     arg = j;
     if (e < -eps) neg = j;
@@ -189,100 +286,105 @@ pricing_columns_kernel(const float* __restrict__ partial, int chunks,
     blk_min[blockIdx.x] = v;
     blk_arg[blockIdx.x] = arg;
     blk_neg[blockIdx.x] = neg;
+    __threadfence();  // the results are visible before the ticket is
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
-}
-
-__global__ void __launch_bounds__(kFinalThreads)
-pricing_final_kernel(const float* __restrict__ blk_min,
-                     const int* __restrict__ blk_arg,
-                     const int* __restrict__ blk_neg, int nblk,
-                     float* __restrict__ out_min, int* __restrict__ out_arg,
-                     int* __restrict__ out_neg) {
-  float v = INFINITY;
-  int arg = kIntMax;
-  int neg = kIntMax;
-  for (int b = threadIdx.x; b < nblk; b += blockDim.x) {
-    if (min_before(blk_min[b], blk_arg[b], v, arg)) { v = blk_min[b]; arg = blk_arg[b]; }
-    neg = min(neg, blk_neg[b]);
+  __syncthreads();
+  if (!s_last) return;
+  // the last block to finish reduces the per-block results
+  __threadfence();
+  v = INFINITY;
+  arg = kIntMax;
+  neg = kIntMax;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += kReduceThreads) {
+    const float bv = __ldcg(blk_min + b);
+    const int ba = __ldcg(blk_arg + b);
+    if (min_before(bv, ba, v, arg)) { v = bv; arg = ba; }
+    neg = min(neg, __ldcg(blk_neg + b));
   }
+  __syncthreads();  // block_reduce's shared memory is free again
   block_reduce(v, arg, neg);
   if (threadIdx.x == 0) {
-    *out_min = v;
-    *out_arg = arg == kIntMax ? 0 : arg;
-    *out_neg = neg;
+    bool bland = false;
+    if (use_bland != nullptr)
+      bland = bland_is_byte ? *static_cast<const unsigned char*>(use_bland) != 0
+                            : *static_cast<const int*>(use_bland) != 0;
+    const int p_dantzig = arg == kIntMax ? 0 : arg;
+    const int p_bland = neg == kIntMax ? 0 : neg;
+    out[kOutMin] = __float_as_int(v);
+    out[kOutArg] = p_dantzig;
+    out[kOutNeg] = neg;
+    out[kOutP] = (bland ? p_bland : p_dantzig) + p_offset;
+    *ticket = 0;  // ready for the next call on this workspace
   }
 }
 
 template <typename T>
 int launch(const float* y, const T* A, const float* c,
            const unsigned char* flip, const int* basis, int m_basis,
-           int base_col, float* pen, int m, int n,
-           size_t lda, float eps, int rows_per_chunk, int chunks, int vec,
-           float* partial, float* blk_min, int* blk_arg, int* blk_neg, float* out_min,
-           int* out_arg, int* out_neg, cudaStream_t stream) {
-  cudaError_t err;
-  if (flip != nullptr) {
-    err = cudaMemsetAsync(pen, 0, (size_t)n * sizeof(float), stream);
+           int base_col, int m, int n, size_t lda, float eps,
+           int rows_per_chunk, int chunks, int vec, const void* use_bland,
+           int bland_is_byte, int p_offset, float* partial, float* blk_min,
+           int* blk_arg, int* blk_neg, unsigned int* ticket, int* out,
+           cudaStream_t stream) {
+  const bool direct = chunks == 1;  // one launch: no partial sums to add up
+  if (!direct) {
+    const dim3 grid1((n + kColsPerBlock - 1) / kColsPerBlock, chunks);
+    if (vec)
+      pricing_partial_kernel<T, true><<<grid1, kPartialThreads, 0, stream>>>(
+          y, A, m, n, lda, rows_per_chunk, partial);
+    else
+      pricing_partial_kernel<T, false><<<grid1, kPartialThreads, 0, stream>>>(
+          y, A, m, n, lda, rows_per_chunk, partial);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    pricing_mark_basic_kernel<<<(m_basis + kMarkThreads - 1) / kMarkThreads,
-                                kMarkThreads, 0, stream>>>(basis, m_basis, base_col, n, pen);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    pen = nullptr;
   }
-  const dim3 grid1((n + kColsPerBlock - 1) / kColsPerBlock, chunks);
-  if (vec)
-    pricing_partial_kernel<T, true><<<grid1, kPartialThreads, 0, stream>>>(
-        y, A, m, n, lda, rows_per_chunk, partial);
-  else
-    pricing_partial_kernel<T, false><<<grid1, kPartialThreads, 0, stream>>>(
-        y, A, m, n, lda, rows_per_chunk, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nblk = (n + kReduceThreads - 1) / kReduceThreads;
-  pricing_columns_kernel<<<nblk, kReduceThreads, 0, stream>>>(
-      partial, chunks, c, flip, pen, n, eps, blk_min, blk_arg, blk_neg);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  pricing_final_kernel<<<1, kFinalThreads, 0, stream>>>(
-      blk_min, blk_arg, blk_neg, nblk, out_min, out_arg, out_neg);
+  const int tiled = !direct && n <= kTiledMaxCols;
+  const int cols = tiled ? kTileCols : kReduceThreads;
+  pricing_columns_kernel<T><<<(n + cols - 1) / cols, kReduceThreads, 0, stream>>>(
+      partial, chunks, tiled, y, direct ? A : nullptr, m, lda, c, flip, basis, m_basis,
+      base_col, n, eps, use_bland, bland_is_byte, p_offset, blk_min, blk_arg,
+      blk_neg, ticket, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // a_dtype: 0 = fp32 A, 1 = bf16 A; lda: elements between rows of A (>= n).
-// Signed mode: flip (n bytes), basis (m_basis int32, global column
-// indices), base_col and pen (n fp32 scratch); flip null for plain pricing.
-// vec (16-byte fp32 / 8-byte bf16 loads) needs n % 4 == 0, lda % 4 == 0 and
-// an aligned A; the wrapper checks. Scratch: partial (chunks, n) fp32;
-// blk_* (ceil(n / 256),). Returns the CUDA error code of the launches.
+// basis (m_basis int32, global column indices; null for no mask) with
+// base_col, the global index of A's first column; flip (n bytes, the
+// at-upper flags; null outside the signed mode); use_bland (one bool byte or
+// one int32 on the device; null for Dantzig) and p_offset, added to the
+// chosen column. vec (16-byte fp32 / 8-byte bf16 loads) needs n % 4 == 0,
+// lda % 4 == 0 and an aligned A; the wrapper checks. Scratch: partial
+// (chunks, n) fp32; blk_* (ceil(n / 32), room for either layout of pass 2); ticket, one uint32 that is 0
+// between calls. out: 4 int32 words (min_e's bits, argmin, first below -eps
+// or INT_MAX, the chosen column). Returns the CUDA error code of the launches.
 extern "C" int simplex_pricing_scan(int a_dtype, const void* y, const void* A,
                                     const void* c, const void* flip,
                                     const void* basis, int m_basis, int base_col,
-                                    void* pen, int m, int n, long long lda,
-                                    float eps, int rows_per_chunk, int chunks,
-                                    int vec,
-                                    void* partial, void* blk_min, void* blk_arg,
-                                    void* blk_neg, void* out_min, void* out_arg,
-                                    void* out_neg, void* stream) {
+                                    int m, int n, long long lda, float eps,
+                                    int rows_per_chunk, int chunks, int vec,
+                                    const void* use_bland, int bland_is_byte,
+                                    int p_offset, void* partial, void* blk_min,
+                                    void* blk_arg, void* blk_neg, void* ticket,
+                                    void* out, void* stream) {
   const float* yf = static_cast<const float*>(y);
   const float* cf = static_cast<const float*>(c);
   const unsigned char* fl = static_cast<const unsigned char*>(flip);
   const int* bs = static_cast<const int*>(basis);
-  float* pe = static_cast<float*>(pen);
   float* pf = static_cast<float*>(partial);
   float* bm = static_cast<float*>(blk_min);
   int* ba = static_cast<int*>(blk_arg);
   int* bn = static_cast<int*>(blk_neg);
-  float* om = static_cast<float*>(out_min);
-  int* oa = static_cast<int*>(out_arg);
-  int* on = static_cast<int*>(out_neg);
+  unsigned int* tk = static_cast<unsigned int*>(ticket);
+  int* o = static_cast<int*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a_dtype == 0)
-    return launch(yf, static_cast<const float*>(A), cf, fl, bs, m_basis, base_col, pe, m, n, (size_t)lda,
-                  eps, rows_per_chunk, chunks, vec, pf, bm, ba, bn, om, oa, on, s);
-  return launch(yf, static_cast<const __nv_bfloat16*>(A), cf, fl, bs, m_basis, base_col, pe, m, n,
-                (size_t)lda, eps, rows_per_chunk, chunks, vec, pf, bm, ba, bn, om, oa, on, s);
+    return launch(yf, static_cast<const float*>(A), cf, fl, bs, m_basis, base_col, m, n,
+                  (size_t)lda, eps, rows_per_chunk, chunks, vec, use_bland, bland_is_byte,
+                  p_offset, pf, bm, ba, bn, tk, o, s);
+  return launch(yf, static_cast<const __nv_bfloat16*>(A), cf, fl, bs, m_basis, base_col, m, n,
+                (size_t)lda, eps, rows_per_chunk, chunks, vec, use_bland, bland_is_byte,
+                p_offset, pf, bm, ba, bn, tk, o, s);
 }

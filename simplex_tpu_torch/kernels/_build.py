@@ -1,8 +1,9 @@
 """Build and load the Hopper kernels.
 
-The CUDA sources in ``simplex_tpu_torch/csrc`` compile with nvcc into
-one shared library with a plain C interface, loaded through ``ctypes``: no
-PyTorch headers, so the build takes seconds. It happens at first use, into
+The CUDA sources in ``simplex_tpu_torch/csrc`` compile with nvcc (one
+process per source, side by side) into one shared library with a plain C
+interface, loaded through ``ctypes``: no PyTorch headers, so the build takes
+seconds. It happens at first use, into
 ``build/kernels/`` beside the package, under a name that hashes the sources
 and flags, so an edited source never loads a stale library.
 
@@ -34,11 +35,17 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "simplex_pricing_scan": (
-        _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _L, _F, _I, _I, _I, _P, _P,
-        _P, _P, _P, _P, _P, _P,
+        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _F, _I, _I, _I, _P, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P,
     ),
     "simplex_ratio_argmin": (_P, _P, _P, _P, _I, _F, _P, _P, _P, _P),
-    "simplex_ratio_eta": (_P, _P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P, _P),
+    "simplex_ratio_eta": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P, _P),
+    "simplex_pivot_tail": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I,  # vectors, B_inv, U, R, npend
+        _P, _P, _P, _P, _P, _P, _P,  # min_e, e_p, c_p, p, iters, degen, npend_in
+        _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I,  # m .. cluster_blocks
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs, stream
+    ),
     "simplex_rank1_update": (_P, _P, _P, _I, _I, _P),
 }
 
@@ -66,25 +73,45 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Tuple[Path, str]:
-    """Compile the kernels unless this exact build exists. Returns the
-    library's path and the compiler's messages (with ``verbose``, ptxas's
-    register and shared-memory report for each kernel)."""
+    """Compile the kernels unless this exact build exists: one nvcc per
+    source, all started together, then one link. Returns the library's path
+    and the compilers' messages (with ``verbose``, ptxas's register and
+    shared-memory report for each kernel)."""
     out = library_path()
     if out.exists() and not verbose:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
+        flags += ["-Xptxas", "-v"]
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *flags, "-c", "-o", str(obj), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        for src, proc, log in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} with code {proc.returncode}:\n{log}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True
+        )
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to link with code {link.returncode}:\n{link.stdout}{link.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, "".join(logs) + link.stdout + link.stderr
 
 
 def load_library() -> ctypes.CDLL:

@@ -2,9 +2,11 @@
 
 ``SimplexOptions.backend`` picks the op namespace the step calls:
 
-  * ``"hopper"`` -- pricing (signed, too, under the bounded rule), the
-    ratio tests (fused with the eta / x_b epilogue, and the classic one
-    alone) and the rank-1 update run through the CUDA kernels
+  * ``"hopper"`` -- pricing (the basic-column mask and the choice of the
+    entering column included; signed, too, under the bounded rule), the
+    ratio tests (fused with the eta / x_b epilogue or with the step's whole
+    O(m) tail, ``pivot_tail``; and the classic one alone) and the rank-1
+    update run through the CUDA kernels
     (:mod:`simplex_tpu_torch.kernels.hopper`);
   * ``"torch"``  -- plain PyTorch ops everywhere
     (:mod:`simplex_tpu_torch.kernels.ops`), the kernels' reference.
@@ -37,6 +39,7 @@ def get_backend(name: str) -> types.SimpleNamespace:
         name=name,
         choose_entering=_hopper.choose_entering if fast else _ops.choose_entering,
         ratio_eta=_hopper.ratio_eta if fast else _ops.ratio_eta,
+        pivot_tail=_hopper.pivot_tail if fast else _ops.pivot_tail,
         ratio_argmin=_hopper.ratio_argmin if fast else _ops.ratio_argmin,
         ratio_argmin_harris=_ops.ratio_argmin_harris,
         choose_entering_bounded=(
@@ -44,7 +47,6 @@ def get_backend(name: str) -> types.SimpleNamespace:
         ),
         ratio_argmin_bounded=_ops.ratio_argmin_bounded,
         rank1_update=_hopper.rank1_update if fast else _ops.rank1_update,
-        mask_basic=_ops.mask_basic,
         gather_column=_ops.gather_column,
         gather_cost=_ops.gather_cost,
         gather_basis_matrix=_ops.gather_basis_matrix,

@@ -9,7 +9,10 @@ Each wrapper stands beside its plain PyTorch version and a launch counter:
                                                  signed: the bounded rule's
                                                  pricing (XLA in JAX)
   ratio_argmin       csrc/ratio_argmin.cu        pallas_ops.ratio_argmin
-  ratio_eta          csrc/ratio_eta.cu           pallas_ops.ratio_eta
+  ratio_eta,         csrc/ratio_eta.cu           pallas_ops.ratio_eta; with
+  pivot_tail                                     the tail on, also the O(m)
+                                                 selects and scalar updates of
+                                                 the step around it
   rank1_update       csrc/rank1_update.cu        pallas_ops.rank1_update
   =================  ==========================  =============================
 
@@ -30,6 +33,7 @@ import torch
 
 from simplex_tpu_torch.kernels import _build
 from simplex_tpu_torch.kernels import ops as _ops
+from simplex_tpu_torch.status import SolveStatus
 
 INT_MAX = _ops.INT_MAX
 
@@ -43,7 +47,7 @@ launches = {
 _PRICING_TARGET_BLOCKS = 1056
 _PRICING_COLS_PER_BLOCK = 1024
 _PRICING_MIN_ROWS = 32
-_PRICING_REDUCE_THREADS = 256
+_PRICING_REDUCE_COLS = 32  # columns a block of pass 2 owns
 
 
 def reset_launches() -> None:
@@ -58,20 +62,37 @@ def _require(cond: bool, what: str) -> None:
 
 def _same_device(*ts: torch.Tensor) -> torch.device:
     dev = ts[0].device
-    _require(all(t.device == dev for t in ts), "inputs on different devices")
-    _require(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
+    for t in ts:
+        if t.device != dev:
+            raise ValueError("inputs on different devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
     return dev
 
 
+# The checks below run on every launch of a host-bound loop: they format
+# their message only when they fail.
+
+
 def _vector(t: torch.Tensor, n: int, dtype: torch.dtype, name: str) -> None:
-    _require(t.shape == (n,), f"{name}: shape {tuple(t.shape)} != ({n},)")
-    _require(t.dtype == dtype, f"{name}: dtype {t.dtype} != {dtype}")
-    _require(t.is_contiguous(), f"{name}: not contiguous")
+    if t.dim() != 1 or t.shape[0] != n:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != ({n},)")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype} != {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _scalar(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    if t.numel() != 1 or t.dtype != dtype:
+        raise ValueError(f"{name}: want one {dtype} element, got {tuple(t.shape)} {t.dtype}")
 
 
 def _flag(t: torch.Tensor, name: str) -> None:
-    _require(t.numel() == 1, f"{name}: want one element, got {tuple(t.shape)}")
-    _require(t.dtype in (torch.bool, torch.int32), f"{name}: dtype {t.dtype}")
+    if t.numel() != 1:
+        raise ValueError(f"{name}: want one element, got {tuple(t.shape)}")
+    if t.dtype not in (torch.bool, torch.int32):
+        raise ValueError(f"{name}: dtype {t.dtype}")
 
 
 def _stream(dev: torch.device) -> int:
@@ -96,11 +117,15 @@ def pricing_scan_plain(
     base_col: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(min_e, argmin_e, first j with e_j < -eps or INT_MAX)`` for
-    e = y.A - c (lowest index on ties); in the signed mode for s =
-    (at_upper ? -e : e) plus BASIC_PENALTY at the basic columns instead."""
+    e = y.A - c (lowest index on ties). Given ``basis``, BASIC_PENALTY is
+    added at the basic columns that fall in [base_col, base_col + n); given
+    ``at_upper`` too (the signed mode), e is negated at the at-upper columns
+    first."""
     e = _ops.reduced_costs(y, A, c)
     if at_upper is not None:
-        e = _ops.add_basic_penalty(torch.where(at_upper, -e, e), basis, base_col)
+        e = torch.where(at_upper, -e, e)
+    if basis is not None:
+        e = _ops.add_basic_penalty(e, basis, base_col)
     idx = torch.arange(e.shape[0], device=e.device, dtype=torch.int32)
     p_neg = torch.where(e < -eps, idx, INT_MAX).min()
     return e.min(), torch.argmin(e).to(torch.int32), p_neg
@@ -115,6 +140,99 @@ def _pricing_chunks(m: int, n: int) -> Tuple[int, int]:
     return rows, -(-m // rows)
 
 
+class _PricingWorkspace:
+    """The scratch of one pricing shape: the (chunks, n) partial sums, the
+    per-block results and the ticket (0 between calls)."""
+
+    def __init__(self, dev: torch.device, m: int, n: int):
+        self.rows, self.chunks = _pricing_chunks(m, n)
+        nblk = -(-n // _PRICING_REDUCE_COLS)
+        self.partial = torch.empty((self.chunks, n), dtype=torch.float32, device=dev)
+        self.blk_min = torch.empty(nblk, dtype=torch.float32, device=dev)
+        self.blk_idx = torch.empty((2, nblk), dtype=torch.int32, device=dev)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+
+
+# (device, stream, m, n) -> workspace; emptied when it outgrows its room
+_workspaces: dict = {}
+_WORKSPACES_MAX = 16
+
+
+def _pricing_workspace(dev: torch.device, stream: int, m: int, n: int) -> _PricingWorkspace:
+    key = (dev, stream, m, n)
+    ws = _workspaces.get(key)
+    if ws is None:
+        if len(_workspaces) >= _WORKSPACES_MAX:
+            _workspaces.clear()
+        ws = _workspaces[key] = _PricingWorkspace(dev, m, n)
+    return ws
+
+
+def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset):
+    """Checks, then the plain version (CPU tensors) or the two launches.
+    Returns ``(min_e, argmin, first_below, p)``; ``p`` is the entering
+    column chosen under ``use_bland`` plus ``p_offset`` (None when
+    ``use_bland`` is None)."""
+    if A.dim() != 2 or A.shape[0] == 0 or A.shape[1] == 0:
+        raise ValueError(f"A: want a non-empty matrix, got {tuple(A.shape)}")
+    m, n = A.shape
+    if A.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"A: dtype {A.dtype}")
+    lda = A.stride(0)
+    if A.stride(1) != 1 or (m > 1 and lda < n):
+        raise ValueError(
+            f"A: want unit column stride and rows at least n apart, got strides {A.stride()}"
+        )
+    _vector(y, m, torch.float32, "y")
+    _vector(c, n, torch.float32, "c")
+    ins = (y, A, c)
+    if at_upper is not None and basis is None:
+        raise ValueError("at_upper and basis go together (the signed mode needs both)")
+    if at_upper is not None:
+        _vector(at_upper, n, torch.bool, "at_upper")
+        ins += (at_upper,)
+    if basis is not None:
+        _vector(basis, m, torch.int32, "basis")
+        ins += (basis,)
+    if use_bland is not None:
+        _flag(use_bland, "use_bland")
+        ins += (use_bland,)
+    dev = _same_device(*ins)
+    if dev.type == "cpu":
+        min_e, p_dantzig, p_neg = pricing_scan_plain(y, A, c, eps, at_upper, basis, base_col)
+        p = None
+        if use_bland is not None:
+            p_bland = torch.where(p_neg == INT_MAX, 0, p_neg)
+            p = torch.where(use_bland.view(()).to(torch.bool), p_bland, p_dantzig)
+            p = p + p_offset if p_offset else p
+        return min_e, p_dantzig, p_neg, p
+    lib = _build.load_library()
+    stream = _stream(dev)
+    ws = _pricing_workspace(dev, stream, m, n)
+    out = torch.empty(4, dtype=torch.int32, device=dev)
+    align = 16 if A.dtype == torch.float32 else 8
+    vec = n % 4 == 0 and lda % 4 == 0 and A.data_ptr() % align == 0
+    err = lib.simplex_pricing_scan(
+        0 if A.dtype == torch.float32 else 1,
+        y.data_ptr(), A.data_ptr(), c.data_ptr(),
+        None if at_upper is None else at_upper.data_ptr(),
+        None if basis is None else basis.data_ptr(), m, int(base_col),
+        m, n, lda, eps, ws.rows, ws.chunks, int(vec),
+        None if use_bland is None else use_bland.data_ptr(),
+        int(use_bland is not None and use_bland.dtype == torch.bool),
+        int(p_offset), ws.partial.data_ptr(), ws.blk_min.data_ptr(),
+        ws.blk_idx[0].data_ptr(), ws.blk_idx[1].data_ptr(),
+        ws.ticket.data_ptr(), out.data_ptr(), stream,
+    )
+    if err != 0:
+        # a refused launch may leave the ticket taken: drop the workspace
+        _workspaces.pop((dev, stream, m, n), None)
+    _build.check(err, "pricing_scan")
+    launches["pricing_scan"] += 1
+    min_e, p_dantzig, p_neg, p = out.unbind(0)
+    return min_e.view(torch.float32), p_dantzig, p_neg, p
+
+
 def pricing_scan(
     y: torch.Tensor, A: torch.Tensor, c: torch.Tensor, eps: float,
     at_upper: Optional[torch.Tensor] = None, basis: Optional[torch.Tensor] = None,
@@ -126,63 +244,40 @@ def pricing_scan(
     A is (m, n) float32 or bfloat16 (upcast per element) with unit column
     stride: a contiguous matrix or a column range of one
     (``A_price[:, s*w:(s+1)*w]``), scanned in place. y (m,) and c (n,)
-    float32 contiguous; all on one device. Signed mode (the bounded rule):
-    given ``at_upper`` (n,) bool and ``basis`` (m,) int32, both contiguous,
-    the scan runs over s = (at_upper ? -e : e) + BASIC_PENALTY at the basic
-    columns, A being columns [base_col, base_col + n) of the problem's.
+    float32 contiguous; all on one device. Given ``basis`` (int32,
+    contiguous, global column indices), BASIC_PENALTY is added at the basic
+    columns, A being columns [base_col, base_col + n) of the problem's; given
+    ``at_upper`` (n,) bool too (the signed mode of the bounded rule, basis
+    (m,)), the scan runs over s = (at_upper ? -e : e) plus that penalty.
+
+    Two launches on the current stream (one where a single row chunk covers
+    m, as for m <= 32). The scratch (partial sums, per-block
+    results, the ticket that elects the reducing block) is kept per (device,
+    stream, m, n) and reused: the calls that share it are ordered by their
+    stream, and the second launch resets the ticket. Launching the same
+    shape on one stream from two host threads at once, or replaying a
+    captured call beside a live one, would break that; a launch error drops
+    the workspace. Only the 4-word output block is allocated per call.
     """
-    _require(A.dim() == 2, f"A: want a matrix, got {tuple(A.shape)}")
-    m, n = A.shape
-    _require(m > 0 and n > 0, f"A: empty shape {tuple(A.shape)}")
-    _require(A.dtype in (torch.float32, torch.bfloat16), f"A: dtype {A.dtype}")
-    lda = A.stride(0)
-    _require(
-        A.stride(1) == 1 and (m == 1 or lda >= n),
-        f"A: want unit column stride and rows at least n apart, got strides {A.stride()}",
-    )
-    _vector(y, m, torch.float32, "y")
-    _vector(c, n, torch.float32, "c")
-    ins = (y, A, c)
-    _require((at_upper is None) == (basis is None), "at_upper and basis go together")
-    if at_upper is not None:
-        _vector(at_upper, n, torch.bool, "at_upper")
-        _vector(basis, m, torch.int32, "basis")
-        ins += (at_upper, basis)
-    dev = _same_device(*ins)
-    if dev.type == "cpu":
-        return pricing_scan_plain(y, A, c, eps, at_upper, basis, base_col)
-    lib = _build.load_library()
-    rows, chunks = _pricing_chunks(m, n)
-    nblk = -(-n // _PRICING_REDUCE_THREADS)
-    partial = torch.empty((chunks, n), dtype=torch.float32, device=dev)
-    blk_min = torch.empty(nblk, dtype=torch.float32, device=dev)
-    blk_idx = torch.empty((2, nblk), dtype=torch.int32, device=dev)
-    out_min = torch.empty((), dtype=torch.float32, device=dev)
-    out_idx = torch.empty(2, dtype=torch.int32, device=dev)
-    pen = None if at_upper is None else torch.empty(n, dtype=torch.float32, device=dev)
-    align = 16 if A.dtype == torch.float32 else 8
-    vec = n % 4 == 0 and lda % 4 == 0 and A.data_ptr() % align == 0
-    err = lib.simplex_pricing_scan(
-        0 if A.dtype == torch.float32 else 1,
-        y.data_ptr(), A.data_ptr(), c.data_ptr(),
-        None if at_upper is None else at_upper.data_ptr(),
-        None if basis is None else basis.data_ptr(), m, int(base_col),
-        None if pen is None else pen.data_ptr(), m, n, lda, eps, rows, chunks,
-        int(vec), partial.data_ptr(), blk_min.data_ptr(),
-        blk_idx[0].data_ptr(), blk_idx[1].data_ptr(), out_min.data_ptr(),
-        out_idx[0].data_ptr(), out_idx[1].data_ptr(), _stream(dev),
-    )
-    _build.check(err, "pricing_scan")
-    launches["pricing_scan"] += 1
-    return out_min, out_idx[0], out_idx[1]
+    return _pricing_call(y, A, c, eps, at_upper, basis, base_col, None, 0)[:3]
 
 
-def choose_entering(y, A, c, eps, use_bland) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Same contract as :func:`simplex_tpu_torch.kernels.ops.choose_entering`,
-    through :func:`pricing_scan`."""
-    min_e, p_dantzig, p_neg = pricing_scan(y, A, c, eps)
-    p_bland = torch.where(p_neg == INT_MAX, 0, p_neg)
-    return torch.where(use_bland, p_bland, p_dantzig), min_e
+def choose_entering_plain(y, A, c, eps, use_bland, basis=None, base_col: int = 0):
+    """The masked choice of the entering column as plain torch ops
+    (:func:`simplex_tpu_torch.kernels.ops.choose_entering`)."""
+    return _ops.choose_entering(y, A, c, eps, use_bland, basis, base_col)
+
+
+def choose_entering(
+    y, A, c, eps, use_bland, basis: Optional[torch.Tensor] = None, base_col: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as :func:`simplex_tpu_torch.kernels.ops.choose_entering`
+    in one :func:`pricing_scan` call: the basic-column mask, the choice
+    between Dantzig's and Bland's column (``use_bland`` read on the device)
+    and the ``base_col`` offset are made by the kernel, so no torch op runs
+    before or after it."""
+    min_e, _, _, p = _pricing_call(y, A, c, eps, None, basis, base_col, use_bland, base_col)
+    return p, min_e
 
 
 def choose_entering_bounded(
@@ -192,10 +287,10 @@ def choose_entering_bounded(
     :func:`simplex_tpu_torch.kernels.ops.choose_entering_bounded`, through
     :func:`pricing_scan`'s signed mode: one pass over A (fp32, the bf16
     shadow or a segment view of either), no fp32 copy of a bf16 A, and the
-    basic-column penalty made inside the same call."""
-    min_s, p_dantzig, p_neg = pricing_scan(y, A, c, eps, at_upper, basis, base_col)
-    p_bland = torch.where(p_neg == INT_MAX, 0, p_neg)
-    return torch.where(use_bland, p_bland, p_dantzig), min_s
+    basic-column penalty, the choice and the segment offset made inside the
+    same call."""
+    min_s, _, _, p = _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, base_col)
+    return p, min_s
 
 
 # --------------------------------------------------------------------------
@@ -222,7 +317,8 @@ def ratio_argmin(
     launch, every result a 0-d device tensor. x_b, alpha (m,) float32;
     basis (m,) int32; use_bland a one-element bool or int32 tensor. Any m."""
     m = x_b.shape[0] if x_b.dim() == 1 else -1
-    _require(m > 0, f"x_b: want a non-empty vector, got {tuple(x_b.shape)}")
+    if m <= 0:
+        raise ValueError(f"x_b: want a non-empty vector, got {tuple(x_b.shape)}")
     _vector(x_b, m, torch.float32, "x_b")
     _vector(alpha, m, torch.float32, "alpha")
     _vector(basis, m, torch.int32, "basis")
@@ -246,8 +342,31 @@ def ratio_argmin(
 
 
 # --------------------------------------------------------------------------
-# fused ratio test + eta + x_b step
+# fused ratio test + eta + x_b step, and the pivot's whole O(m) tail
 # --------------------------------------------------------------------------
+
+_RATIO_BLOCK_ROWS = 1024
+_RATIO_MAX_CLUSTER = 8
+_SCAL_WORDS, _FLAG_BYTES = 6, 4  # csrc/ratio_eta.cu: the scalar block, the flags
+PivotTail = _ops.PivotTail
+
+
+def _ratio_cluster(m: int) -> int:
+    """Blocks of 1024 threads in the ratio kernel's cluster: one row a
+    thread up to 8 blocks, a stride loop beyond."""
+    return min(_RATIO_MAX_CLUSTER, -(-m // _RATIO_BLOCK_ROWS))
+
+
+def _scalar_views(scal: torch.Tensor, flags: torch.Tensor) -> dict:
+    """The scalar block's words and the flag bytes as 0-d tensors (theta_q
+    is stored as its float bits)."""
+    q, theta, iters, status, degen, npend = scal.unbind(0)
+    optimal, unbounded, bad, take = flags.unbind(0)
+    return {
+        "q": q, "theta_q": theta.view(torch.float32), "iters": iters, "status": status,
+        "degen": degen, "npend": npend, "optimal": optimal, "unbounded": unbounded,
+        "bad": bad, "take": take,
+    }
 
 
 def ratio_eta_plain(x_b, alpha, basis, pivot_tol, use_bland, harris, feas_tol=1e-6):
@@ -268,12 +387,16 @@ def ratio_eta(
     harris: bool,
     feas_tol: float = 1e-6,
 ):
-    """``(q, theta_q, unbounded, eta, x_b_new)`` in one launch, every result
-    on the device. x_b, alpha (m,) float32; basis (m,) int32; use_bland a
-    one-element bool or int32 tensor. eta and x_b_new are computed as if the
-    pivot proceeds; the caller discards them on a terminal step."""
+    """``(q, theta_q, unbounded, eta, x_b_new)`` in one launch of the
+    cluster kernel with its tail off, every result on the device. x_b, alpha
+    (m,) float32; basis (m,) int32; use_bland a one-element bool or int32
+    tensor, read on the device as it is. eta and x_b_new are computed as if
+    the pivot proceeds; the caller discards them on a terminal step. Two
+    small allocations for the scalars and flags, one (2, m) block for eta and
+    x_b_new."""
     m = x_b.shape[0] if x_b.dim() == 1 else -1
-    _require(m > 0, f"x_b: want a non-empty vector, got {tuple(x_b.shape)}")
+    if m <= 0:
+        raise ValueError(f"x_b: want a non-empty vector, got {tuple(x_b.shape)}")
     _vector(x_b, m, torch.float32, "x_b")
     _vector(alpha, m, torch.float32, "alpha")
     _vector(basis, m, torch.int32, "basis")
@@ -282,21 +405,132 @@ def ratio_eta(
     if dev.type == "cpu":
         return ratio_eta_plain(x_b, alpha, basis, pivot_tol, use_bland, harris, feas_tol)
     lib = _build.load_library()
-    bland = use_bland.to(torch.int32).reshape(1)
-    q = torch.empty((), dtype=torch.int32, device=dev)
-    theta_q = torch.empty((), dtype=torch.float32, device=dev)
-    unbounded = torch.empty((), dtype=torch.bool, device=dev)
-    eta = torch.empty(m, dtype=torch.float32, device=dev)
-    x_b_new = torch.empty(m, dtype=torch.float32, device=dev)
+    scal = torch.empty(_SCAL_WORDS, dtype=torch.int32, device=dev)
+    flags = torch.empty(_FLAG_BYTES, dtype=torch.bool, device=dev)
+    eta, x_b_new = torch.empty((2, m), dtype=torch.float32, device=dev).unbind(0)
     err = lib.simplex_ratio_eta(
-        x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), bland.data_ptr(),
-        m, pivot_tol, feas_tol, int(bool(harris)), q.data_ptr(),
-        theta_q.data_ptr(), unbounded.data_ptr(), eta.data_ptr(),
-        x_b_new.data_ptr(), _stream(dev),
+        x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), use_bland.data_ptr(),
+        int(use_bland.dtype == torch.bool), m, pivot_tol, feas_tol,
+        int(bool(harris)), _ratio_cluster(m), scal.data_ptr(), flags.data_ptr(),
+        eta.data_ptr(), x_b_new.data_ptr(), _stream(dev),
     )
     _build.check(err, "ratio_eta")
     launches["ratio_eta"] += 1
-    return q, theta_q, unbounded, eta, x_b_new
+    v = _scalar_views(scal, flags)
+    return v["q"], v["theta_q"], v["unbounded"], eta, x_b_new
+
+
+def pivot_tail_plain(
+    x_b, alpha, basis, y, c_b, B_inv, min_e, e_p, c_p, p, iters, degen, *,
+    eps, pivot_tol, feas_tol, harris, degen_tol, bland_after,
+    U=None, R=None, npend=0, npend_t=None,
+) -> PivotTail:
+    """The torch composition the tail kernel replaces
+    (:func:`simplex_tpu_torch.kernels.ops.pivot_tail`)."""
+    return _ops.pivot_tail(
+        x_b, alpha, basis, y, c_b, B_inv, min_e, e_p, c_p, p, iters, degen,
+        eps=eps, pivot_tol=pivot_tol, feas_tol=feas_tol, harris=harris,
+        degen_tol=degen_tol, bland_after=bland_after, U=U, R=R, npend=npend,
+        npend_t=npend_t,
+    )
+
+
+def pivot_tail(
+    x_b, alpha, basis, y, c_b, B_inv, min_e, e_p, c_p, p, iters, degen, *,
+    eps: float, pivot_tol: float, feas_tol: float, harris: bool,
+    degen_tol: float, bland_after: int,
+    U: Optional[torch.Tensor] = None, R: Optional[torch.Tensor] = None,
+    npend: int = 0, npend_t: Optional[torch.Tensor] = None,
+) -> PivotTail:
+    """Everything an unbounded pivot step does after the ftran, in ONE
+    launch: the ratio test on (x_b, alpha, basis) with Bland's rule on when
+    ``degen >= bland_after > 0`` (read on the device); the step's decisions
+    (optimal iff ``min_e >= -eps``, unbounded, bad, take); eta and the copy
+    of row q of the true inverse, both zero when the step does not pivot;
+    and x_b, y, c_b, basis, iters, status and degen as the step stores them
+    (unchanged when it does not pivot). See
+    :func:`simplex_tpu_torch.kernels.ops.pivot_tail` for each formula.
+
+    x_b, alpha, y, c_b (m,) float32 and basis (m,) int32, contiguous; B_inv
+    (m, m) float32 contiguous; min_e, e_p, c_p one-element float32 and p,
+    iters, degen one-element int32 tensors. Deferred updates: U, R (L, m)
+    float32 contiguous with ``npend`` < L pending pairs (the host's count)
+    and ``npend_t`` its device scalar; the kernel adds the pending pairs to
+    row q in pair order and writes the new pair straight into row ``npend``
+    of U and R (the returned ``eta`` and ``row`` are those rows). Against
+    the plain version's matrix product that sum differs in the last bits
+    (row and y to rtol 1e-6); every other result is bitwise equal.
+
+    Three allocations: one (k, m) block for the vector outputs, one block
+    for the int32 scalars and one for the four flags; every result is a
+    view of one of them."""
+    m = x_b.shape[0] if x_b.dim() == 1 else -1
+    if m <= 0:
+        raise ValueError(f"x_b: want a non-empty vector, got {tuple(x_b.shape)}")
+    _vector(x_b, m, torch.float32, "x_b")
+    _vector(alpha, m, torch.float32, "alpha")
+    _vector(y, m, torch.float32, "y")
+    _vector(c_b, m, torch.float32, "c_b")
+    _vector(basis, m, torch.int32, "basis")
+    if B_inv.shape != (m, m) or B_inv.dtype != torch.float32 or not B_inv.is_contiguous():
+        raise ValueError(f"B_inv: want contiguous float32 ({m}, {m}), got {tuple(B_inv.shape)} {B_inv.dtype}")
+    _scalar(min_e, torch.float32, "min_e")
+    _scalar(e_p, torch.float32, "e_p")
+    _scalar(c_p, torch.float32, "c_p")
+    _scalar(p, torch.int32, "p")
+    _scalar(iters, torch.int32, "iters")
+    _scalar(degen, torch.int32, "degen")
+    ins = [x_b, alpha, basis, y, c_b, B_inv, min_e, e_p, c_p, p, iters, degen]
+    defer = U is not None
+    if (R is not None) != defer or (npend_t is not None) != defer:
+        raise ValueError("U, R and npend_t go together")
+    if defer:
+        L = U.shape[0] if U.dim() == 2 else -1
+        for name, t in (("U", U), ("R", R)):
+            if t.shape != (L, m) or t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(f"{name}: want contiguous float32 ({L}, {m}), got {tuple(t.shape)} {t.dtype}")
+        if not 0 <= npend < L:
+            raise ValueError(f"npend {npend} outside [0, {L})")
+        _scalar(npend_t, torch.int32, "npend_t")
+        ins += [U, R, npend_t]
+    elif npend != 0:
+        raise ValueError("npend without U and R")
+    dev = _same_device(*ins)
+    if dev.type == "cpu":
+        return pivot_tail_plain(
+            x_b, alpha, basis, y, c_b, B_inv, min_e, e_p, c_p, p, iters, degen,
+            eps=eps, pivot_tol=pivot_tol, feas_tol=feas_tol, harris=harris,
+            degen_tol=degen_tol, bland_after=bland_after, U=U, R=R, npend=npend,
+            npend_t=npend_t,
+        )
+    lib = _build.load_library()
+    scal = torch.empty(_SCAL_WORDS, dtype=torch.int32, device=dev)
+    flags = torch.empty(_FLAG_BYTES, dtype=torch.bool, device=dev)
+    vecs = torch.empty((4 if defer else 6, m), dtype=torch.float32, device=dev).unbind(0)
+    eta, row = (U[npend], R[npend]) if defer else vecs[4:]
+    basis_out = vecs[3].view(torch.int32)
+    st = SolveStatus
+    err = lib.simplex_pivot_tail(
+        x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), y.data_ptr(),
+        c_b.data_ptr(), B_inv.data_ptr(),
+        U.data_ptr() if defer else None, R.data_ptr() if defer else None, int(npend),
+        min_e.data_ptr(), e_p.data_ptr(), c_p.data_ptr(), p.data_ptr(),
+        iters.data_ptr(), degen.data_ptr(), npend_t.data_ptr() if defer else None,
+        m, eps, pivot_tol, feas_tol, degen_tol, int(bool(harris)), int(bland_after),
+        int(st.RUNNING), int(st.OPTIMAL), int(st.UNBOUNDED), int(st.SINGULAR),
+        _ratio_cluster(m), eta.data_ptr(), row.data_ptr(), vecs[0].data_ptr(),
+        vecs[1].data_ptr(), vecs[2].data_ptr(), basis_out.data_ptr(),
+        scal.data_ptr(), flags.data_ptr(), _stream(dev),
+    )
+    _build.check(err, "ratio_eta")
+    launches["ratio_eta"] += 1
+    v = _scalar_views(scal, flags)
+    return PivotTail(
+        x_b=vecs[0], y=vecs[1], c_b=vecs[2], basis=basis_out, iters=v["iters"],
+        status=v["status"], degen=v["degen"], npend=v["npend"] if defer else None,
+        eta=eta, row=row, q=v["q"], theta_q=v["theta_q"], optimal=v["optimal"],
+        unbounded=v["unbounded"], bad=v["bad"], take=v["take"],
+    )
 
 
 # --------------------------------------------------------------------------

@@ -15,9 +15,11 @@ read ``p`` back to the host), so a pivot step runs without a host sync.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from simplex_tpu_torch.status import SolveStatus
 
 INT_MAX = 2**31 - 1
 BASIC_PENALTY = 1e30
@@ -35,15 +37,27 @@ def choose_entering(
     c: torch.Tensor,
     eps: float,
     use_bland: torch.Tensor,
+    basis: Optional[torch.Tensor] = None,
+    base_col: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Entering column ``(p, min_e)``: the lowest-index argmin of e (Dantzig),
     or under Bland's rule the first j with e_j < -eps (0 when none; the
-    caller's optimality test ``min_e >= -eps`` fires first then)."""
+    caller's optimality test ``min_e >= -eps`` fires first then).
+
+    Given ``basis`` (global column indices), the basic columns get
+    +BASIC_PENALTY, so a drifted basic reduced cost can never win and the
+    optimality test ranges over nonbasic columns. A and c may be a column
+    segment that starts at global column ``base_col``; ``p`` comes out
+    global (local index + ``base_col``)."""
     e = reduced_costs(y, A, c)
+    if basis is not None:
+        e = add_basic_penalty(e, basis, base_col)
     p_dantzig = torch.argmin(e)
     # argmax over a 0/1 vector = first 1 (torch.argmax returns the first max)
     p_bland = torch.argmax((e < -eps).to(torch.int32))
-    p = torch.where(use_bland, p_bland, p_dantzig)
+    p = torch.where(use_bland.view(()).to(torch.bool), p_bland, p_dantzig)
+    if base_col:
+        p = p + base_col
     return p.to(torch.int32), e.min()
 
 
@@ -70,13 +84,16 @@ def choose_entering_bounded(
     the signed reduced costs s_j = at_upper_j ? -e_j : e_j (an at-upper
     column improves by decreasing). Basic columns get +BASIC_PENALTY after
     the sign flip. A, c and at_upper may be a column segment starting at
-    global column ``base_col``; ``basis`` stays global, and ``p`` is local
-    to the segment. Bland's rule takes the first s_j < -eps."""
+    global column ``base_col``; ``basis`` is global, and so is ``p`` (the
+    segment's local index + ``base_col``, where the JAX function returns the
+    local index). Bland's rule takes the first s_j < -eps."""
     e = reduced_costs(y, A, c)
     s = add_basic_penalty(torch.where(at_upper, -e, e), basis, base_col)
     p_dantzig = torch.argmin(s)
     p_bland = torch.argmax((s < -eps).to(torch.int32))
     p = torch.where(use_bland, p_bland, p_dantzig)
+    if base_col:
+        p = p + base_col
     return p.to(torch.int32), s.min()
 
 
@@ -265,6 +282,136 @@ def ratio_eta(
     eta = torch.where(sel, inv_aq - 1, -alpha * inv_aq)
     x_b_new = torch.where(sel, th, x_b - th * alpha)
     return q, theta_q, unbounded, eta, x_b_new
+
+
+class PivotTail(NamedTuple):
+    """What an unbounded pivot step stores after its ftran
+    (:func:`pivot_tail`)."""
+
+    x_b: torch.Tensor  # (m,)
+    y: torch.Tensor  # (m,)
+    c_b: torch.Tensor  # (m,)
+    basis: torch.Tensor  # (m,) int32
+    iters: torch.Tensor  # () int32
+    status: torch.Tensor  # () int32
+    degen: torch.Tensor  # () int32
+    npend: Optional[torch.Tensor]  # () int32, deferred updates only
+    eta: torch.Tensor  # (m,), zero when the step does not pivot
+    row: torch.Tensor  # (m,) row q of the true inverse, zero likewise
+    q: torch.Tensor  # () int32
+    theta_q: torch.Tensor  # ()
+    optimal: torch.Tensor  # () bool
+    unbounded: torch.Tensor  # () bool
+    bad: torch.Tensor  # () bool
+    take: torch.Tensor  # () bool
+
+
+def pivot_tail(
+    x_b: torch.Tensor,
+    alpha: torch.Tensor,
+    basis: torch.Tensor,
+    y: torch.Tensor,
+    c_b: torch.Tensor,
+    B_inv: torch.Tensor,
+    min_e: torch.Tensor,
+    e_p: torch.Tensor,
+    c_p: torch.Tensor,
+    p: torch.Tensor,
+    iters: torch.Tensor,
+    degen: torch.Tensor,
+    *,
+    eps: float,
+    pivot_tol: float,
+    feas_tol: float,
+    harris: bool,
+    degen_tol: float,
+    bland_after: int,
+    U: Optional[torch.Tensor] = None,
+    R: Optional[torch.Tensor] = None,
+    npend: int = 0,
+    npend_t: Optional[torch.Tensor] = None,
+) -> PivotTail:
+    """The O(m) tail of an unbounded pivot step, from its ftran ``alpha`` on
+    (``simplex_tpu.core.step.pivot_step`` after the ftran; the plain version
+    of the CUDA tail kernel):
+
+      optimal    min_e >= -eps
+      ratio test :func:`ratio_eta` (Harris or classic; Bland's rule when
+                 ``degen >= bland_after > 0``): q, theta_q, unbounded
+      bad        min_e not finite, or a pivot about to be taken with a
+                 non-finite theta_q;  take = ~optimal & ~unbounded & ~bad
+      eta, row   the product-form eta vector and a copy of row q of the true
+                 inverse (``B_inv[q]``, plus ``U[:, q] @ R`` under deferred
+                 updates); both zero unless ``take``. Under deferred updates
+                 they are written into row ``npend`` (the host's count of
+                 pending pairs) of U and R in place, and ``npend_t + take``
+                 is returned
+      x_b        stepped by theta_q along alpha, theta_q at row q
+      y          y - (e_p / alpha_q) row;  c_b[q] = c_p;  basis[q] = p
+      iters + 1; degen + 1 when theta_q <= degen_tol, else 0; status
+
+    A step that does not ``take`` returns x_b, y, c_b, basis, iters and degen
+    as they were (new tensors) and its terminal status."""
+    optimal = min_e >= -eps
+    if bland_after > 0:
+        use_bland = degen >= bland_after
+    else:
+        use_bland = torch.zeros((), dtype=torch.bool, device=degen.device)
+    q, theta_q, unbounded, eta, x_b_new = ratio_eta(
+        x_b, alpha, basis, pivot_tol, use_bland, harris, feas_tol
+    )
+    take = ~optimal & ~unbounded
+    bad = ~torch.isfinite(min_e) | (take & ~torch.isfinite(theta_q))
+    take = take & ~bad
+    alpha_q = alpha.index_select(0, q.view(1)).view(())
+    inv_aq = 1 / torch.where(take, alpha_q, 1)
+    theta_safe = torch.where(take, theta_q, 0)
+    is_q = torch.arange(basis.shape[0], device=q.device) == q
+    # row q of the OLD inverse, as a copy: the update that follows rewrites
+    # B_inv in place
+    row = B_inv.index_select(0, q.view(1)).view(-1)
+    if U is not None:
+        # row q of the TRUE inverse: base row + pending corrections
+        row = row + U.index_select(1, q.view(1)).view(-1) @ R
+    eta = torch.where(take, eta, 0)
+    row_out = torch.where(take, row, 0)
+    npend_new = None
+    if U is not None:
+        # append (eta, row) at slot npend; a zero pair when not pivoting
+        U[npend] = eta
+        R[npend] = row_out
+        eta, row_out = U[npend], R[npend]
+        npend_new = npend_t + take.to(torch.int32)
+    y_new = y - (e_p * inv_aq) * row
+    at_q = is_q & take
+    degen_new = torch.where(theta_safe <= degen_tol, degen + 1, torch.zeros_like(degen))
+    status = torch.where(
+        optimal,
+        int(SolveStatus.OPTIMAL),
+        torch.where(
+            unbounded,
+            int(SolveStatus.UNBOUNDED),
+            torch.where(bad, int(SolveStatus.SINGULAR), int(SolveStatus.RUNNING)),
+        ),
+    ).to(torch.int32)
+    return PivotTail(
+        x_b=torch.where(take, x_b_new, x_b),
+        y=torch.where(take, y_new, y),
+        c_b=torch.where(at_q, c_p, c_b),
+        basis=torch.where(at_q, p, basis),
+        iters=iters + take.to(torch.int32),
+        status=status,
+        degen=torch.where(take, degen_new, degen),
+        npend=npend_new,
+        eta=eta,
+        row=row_out,
+        q=q,
+        theta_q=theta_q,
+        optimal=optimal,
+        unbounded=unbounded,
+        bad=bad,
+        take=take,
+    )
 
 
 def rank1_update(

@@ -101,3 +101,21 @@ def test_profile_general_rehearses_on_cpu(tmp_path, capsys, no_library):
         assert rec["phase1_wall_s"] > 0 and rec["device_ops_per_pivot"] >= 0, tag
     printed = [ln for ln in capsys.readouterr().out.splitlines() if ln.split(" {")[0] in recs]
     assert len(printed) == len(recs)
+
+
+def test_profile_canonical_rehearses_on_cpu(tmp_path, capsys, no_library):
+    # the canonical pivot loop's profile: one record per option set, each
+    # from a warm-up, a timed and a traced stretch of one solve's pivot loop
+    from simplex_tpu_torch.bench import profile_canonical as pc
+
+    out = tmp_path / "profile.json"
+    assert pc.main(["--device", "cpu", "--warm", "3", "--window", "5", "--out", str(out)]) == 0
+    recs = json.loads(out.read_text())
+    assert list(recs) == ["default", "flagship, multi-price 64", "flagship, multi-price off"]
+    for tag, rec in recs.items():
+        assert (rec["status"], rec["pivots_timed"], rec["pivots_traced"]) == (0, 5, 5), tag
+        assert rec["wall_ms_per_pivot"] > 0 and rec["device_ops_per_pivot"] > 0, tag
+        assert rec["steps_per_pivot"] >= 1.0, tag
+        assert set(rec["launches_per_pivot"]) == set(hopper.launches), tag
+    printed = [ln for ln in capsys.readouterr().out.splitlines() if ln.split(" {")[0] in recs]
+    assert len(printed) == len(recs)
