@@ -22,6 +22,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ratio_eta's cluster kernel is held with its tail off (the old
      contract) and on (``pivot_tail``: eager, and deferred with pending
      pairs), at one block, several, and beyond 8 x 1024 rows;
+     ``ratio_argmin``'s cluster kernel at the same row counts, bit for bit;
   3. ``simplex_tpu_torch.solve`` through its normal entry point with the
      default options: the sample LP (z = 9), a 2048 x 4096 random LP
      against HiGHS, and the benchmark's 8192 x 16384 instance over its
@@ -43,11 +44,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ``transportation_lp(64, 1024, balanced=False)`` (no bounds: the
      kernels run in both phases). Each run is held against HiGHS and
      prints its stage times and its launches per phase;
-  7. a profiled stretch of the default path's pivot loop on the 8192 x
+  7. the pricing rules: the 2048 x 4096 instance under devex and steepest
+     edge against HiGHS; the 8192 x 16384 instance under steepest edge,
+     eager and with ``update_defer=16``, over the 512-pivot window (the
+     tail launches ``ratio_eta`` once a pivot step, eager updates launch
+     ``rank1_update`` once a pivot step; reads a pivot) and to OPTIMAL with
+     the f64 KKT check (the final exact passes launch ``pricing_scan``);
+  8. warm restarts at both sizes from the default solve's result (the one
+     phase 3 already has): ``ranging``, then ``reoptimize`` with one b_i
+     moved inside its allowable range (0 dual pivots, the same basis) and
+     past it (dual pivots, OPTIMAL; z against HiGHS at 2048 x 4096, the
+     f64 KKT check at 8192 x 16384); the dual loop launches
+     ``rank1_update`` once a dual pivot. Where the cold basis is primal
+     infeasible beyond the dual loop's tolerance (the default path's Harris
+     test leaves 1e-4 at 8192 x 16384), one ``reoptimize`` on the unchanged
+     b repairs it first, and the ranges are those of the repaired basis;
+  9. the general route's warm restart: ``solve_general`` on
+     ``multiperiod_production_lp(256, 16)`` again with ``warm=`` the token of
+     phase 6's run and every b_i moved by up to 5%, against HiGHS;
+ 10. a profiled stretch of the default path's pivot loop on the 8192 x
      16384 instance, which must stay under ``MAX_DEVICE_OPS_PER_PIVOT``
      device operations a pivot and launch each solve-path kernel once a
-     pivot. It runs last: after a profiler run every later launch of
-     the process costs more host time.
+     pivot, and the ratio kernels' device time a launch from a trace of
+     the per-op bench's loop. It runs last: after a profiler run every
+     later launch of the process costs more host time.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON record is its total over
@@ -600,16 +620,20 @@ def phase_pricing_bounded(dev) -> None:
 
 
 def phase_ratio_argmin(dev) -> dict:
-    """The classic ratio test against its plain version, bit for bit:
-    Bland on and off, degenerate rows (exact theta = 0 ties), an unbounded
-    column, m = 8192 and 8191."""
+    """The classic ratio test's cluster kernel against its plain version,
+    bit for bit: Bland on and off (the flag as a bool and as an int32),
+    degenerate rows (exact theta = 0 ties), an unbounded column; at one
+    block, several (the general route's m = 1088 and 4352), 8 and beyond
+    8 x 1024 rows (the stride loop). At m = 8192 it is timed beside
+    ``ratio_eta`` with its tail off, which does strictly more work in the
+    same shape of kernel."""
     import torch
 
     from simplex_tpu_torch.kernels import hopper
 
     g = torch.Generator(device=dev).manual_seed(3)
     rec = {}
-    for m in (BENCH_M, BENCH_M - 1):
+    for m in (BENCH_M, BENCH_M - 1, ROUTE_A[0], ROUTE_B[0], 1000, 1024, 1025, 5000, 9000, 17):
         x_b = torch.rand(m, generator=g, device=dev) * 2
         x_b[::7] = 0.0
         alpha = torch.randn(m, generator=g, device=dev)
@@ -617,14 +641,18 @@ def phase_ratio_argmin(dev) -> dict:
         for bland in (False, True):
             for unbounded, a in ((False, alpha), (True, -alpha.abs() - 1)):
                 flag = torch.tensor(bland, device=dev)
+                flag = flag.to(torch.int32) if unbounded else flag
                 got = hopper.ratio_argmin(x_b, a, basis, 1e-7, flag)
                 want = hopper.ratio_argmin_plain(x_b, a, basis, 1e-7, flag)
                 torch.cuda.synchronize()
                 tag = f"ratio_argmin m={m} bland={bland} unbounded-case={unbounded}"
+                for k, name in enumerate(("q", "theta_q", "unbounded")):
+                    check(got[k].shape == want[k].shape and got[k].dtype == want[k].dtype,
+                          f"{tag}: {name} {got[k].shape} {got[k].dtype} vs {want[k].shape} {want[k].dtype}")
                 check(int(got[0]) == int(want[0]), f"{tag}: q {int(got[0])} vs {int(want[0])}")
                 check(float(got[1]) == float(want[1]), f"{tag}: theta_q {float(got[1])} vs {float(want[1])}")
                 check(bool(got[2]) == bool(want[2]) == unbounded, f"{tag}: unbounded flag")
-                print(f"{tag}: q {int(got[0])} theta_q {float(got[1]):.6g} ok")
+                print(f"{tag}: cluster of {hopper._ratio_cluster(m)}, q {int(got[0])} theta_q {float(got[1]):.6g} ok")
         if m == BENCH_M:
             flag = torch.tensor(False, device=dev)
             # bytes: x_b, alpha, basis in, three scalars out; ~3 flops a row
@@ -634,9 +662,14 @@ def phase_ratio_argmin(dev) -> dict:
                 "plain_ms": time_ms(
                     lambda: hopper.ratio_argmin_plain(x_b, alpha, basis, 1e-7, flag), 200
                 ),
+                "ratio_eta_tail_off_ms": time_ms(
+                    lambda: hopper.ratio_eta(x_b, alpha, basis, 1e-7, flag, False), 200
+                ),
                 **bound(12.0 * m + 12, 3.0 * m),
                 "library_ms": None,
             }
+            print(f"ratio_argmin m={m}, ms between events: {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}; "
+                  f"ratio_eta, classic, tail off {rec['ratio_eta_tail_off_ms']:.4f}); bound {rec['bound_ms']:.6f}")
     return rec
 
 
@@ -653,6 +686,11 @@ def highs(m: int, n: int):
     from simplex_tpu_torch.oracle.reference import solve_scipy
 
     return solve_scipy(*instance(m, n))
+
+
+# results a later phase starts from: the default solves by (m, n), and the
+# general route's run on B
+KEPT: dict = {}
 
 
 def timed_solve(dev, m, n, opts):
@@ -700,14 +738,16 @@ def residual64(dev, m, n, res) -> float:
     return float(r.abs().max())
 
 
-def kkt64(dev, m, n, res) -> str:
+def kkt64(dev, m, n, res, b=None) -> str:
     """An f64 check of the returned basis without an oracle: primal
     residual and sign, dual feasibility (reduced costs of the f64 duals)
-    and the duality gap. Raises when the duals are infeasible."""
+    and the duality gap. Raises when the duals are infeasible. ``b``
+    replaces the instance's rhs (a warm restart's)."""
     import numpy as np
     import torch
 
-    A, b, c = instance(m, n)
+    A, b0, c = instance(m, n)
+    b = b0 if b is None else b
     A64 = torch.as_tensor(A, device=dev).double()
     b64 = torch.as_tensor(b, device=dev).double()
     c64 = torch.as_tensor(c, device=dev).double()
@@ -746,6 +786,7 @@ def phase_solve(dev) -> dict:
     print(f"sample.txt: OPTIMAL z {res.z} x {res.x.tolist()} pivots {res.iters}")
 
     res, wall, _, _, _ = timed_solve(dev, SMALL_M, SMALL_N, SimplexOptions())
+    KEPT[(SMALL_M, SMALL_N)] = res
     ref = highs(SMALL_M, SMALL_N)
     gap = relative_gap(res.z, ref.z)
     check(res.status == SolveStatus.OPTIMAL, f"{SMALL_M}x{SMALL_N}: {res.status!r}")
@@ -773,6 +814,222 @@ def phase_solve(dev) -> dict:
     return counts
 
 
+def phase_pricing_rules(dev) -> dict:
+    """Devex and steepest edge: 2048 x 4096 against HiGHS; the bench
+    instance under steepest edge, eager and deferred, over the 512-pivot
+    window and to OPTIMAL. Returns the launch counts per path."""
+    from simplex_tpu_torch import SimplexOptions, SolveStatus
+    from simplex_tpu_torch.oracle.reference import relative_gap
+
+    paths = {}
+    ref = highs(SMALL_M, SMALL_N)
+    for rule in ("devex", "steepest"):
+        res, wall, counts, steps, reads = timed_solve(dev, SMALL_M, SMALL_N, SimplexOptions(pricing=rule))
+        gap = relative_gap(res.z, ref.z)
+        check(res.status == SolveStatus.OPTIMAL, f"{rule} {SMALL_M}x{SMALL_N}: {res.status!r}")
+        check(gap <= GAP_TOL, f"{rule} {SMALL_M}x{SMALL_N}: rel gap {gap:.3e} vs HiGHS")
+        check(counts["ratio_eta"] == steps, f"{rule}: ratio_eta {counts['ratio_eta']} launches in {steps} steps")
+        check(counts["rank1_update"] == steps, f"{rule}: rank1_update {counts['rank1_update']} launches in {steps} steps")
+        check(counts["pricing_scan"] > 0, f"{rule}: no exact pricing pass (the terminal step needs one)")
+        print(
+            f"{rule} random_dense_lp({SMALL_M}, {SMALL_N}, seed=0): OPTIMAL z {res.z!r} HiGHS {ref.z!r} "
+            f"rel_gap {gap:.3e} feas_err {res.feas_err:.3e} pivots {res.iters} (default path: "
+            f"{KEPT[(SMALL_M, SMALL_N)].iters}) wall {wall:.2f} s; launches {counts}; host reads {reads}"
+        )
+        paths[f"{rule} {SMALL_M}x{SMALL_N}"] = counts
+    cold = KEPT[(BENCH_M, BENCH_N)]
+    for defer in (0, 16):
+        tag = f"steepest update_defer={defer}"
+        opts = SimplexOptions(pricing="steepest", update_defer=defer, max_iter=BENCH_WINDOW)
+        res, wall, counts, steps, reads = timed_solve(dev, BENCH_M, BENCH_N, opts)
+        check(res.status == SolveStatus.MAX_ITER and res.iters == BENCH_WINDOW, f"{tag}: {res.status!r} {res.iters}")
+        check(counts["ratio_eta"] == steps, f"{tag}: ratio_eta {counts['ratio_eta']} launches in {steps} steps")
+        check(counts["rank1_update"] == (0 if defer else steps),
+              f"{tag}: rank1_update {counts['rank1_update']} launches in {steps} steps")
+        resid = residual64(dev, BENCH_M, BENCH_N, res)
+        check(resid <= 1e-4, f"{tag}: f64 residual {resid}")
+        per_pivot = (reads["control"] + reads["branch"]) / res.iters
+        print(
+            f"{tag} on random_dense_lp({BENCH_M}, {BENCH_N}, seed=0), max_iter={BENCH_WINDOW}: "
+            f"{res.status.name} after {res.iters} pivots ({steps} steps) in {wall:.3f} s "
+            f"({res.iters / wall:.1f} pivots/s end to end, setup and polish included); z {res.z!r}; "
+            f"f64 residual {resid:.3e}; launches {counts} ({counts['pricing_scan'] // 2} exact passes); "
+            f"host reads {reads} ({per_pivot:.3f} per pivot)"
+        )
+        paths[f"{tag} window"] = counts
+        res, wall, counts, steps, reads = timed_solve(
+            dev, BENCH_M, BENCH_N, SimplexOptions(pricing="steepest", update_defer=defer)
+        )
+        check(res.status == SolveStatus.OPTIMAL, f"{tag} full solve: {res.status!r}")
+        check(counts["ratio_eta"] == steps, f"{tag}: ratio_eta {counts['ratio_eta']} launches in {steps} steps")
+        check(counts["pricing_scan"] > 0, f"{tag}: no exact pricing pass")
+        if not defer:
+            check(counts["rank1_update"] == steps, f"{tag}: rank1_update {counts['rank1_update']} in {steps} steps")
+        gap = relative_gap(res.z, cold.z)
+        print(
+            f"{tag} full solve random_dense_lp({BENCH_M}, {BENCH_N}, seed=0): OPTIMAL z {res.z!r} "
+            f"(default path {cold.z!r}, rel {gap:.3e}) after {res.iters} pivots ({steps} steps; default path "
+            f"{cold.iters}) in {wall:.2f} s ({res.iters / wall:.1f} pivots/s); launches {counts}; "
+            f"host reads {reads} ({(reads['control'] + reads['branch']) / max(1, res.iters):.3f} per pivot); "
+            + kkt64(dev, BENCH_M, BENCH_N, res)
+        )
+        check(gap <= GAP_TOL, f"{tag}: z {res.z} vs the default path's {cold.z}")
+        paths[f"{tag} full"] = counts
+    return paths
+
+
+def warm_run(dev, A, b2, c, prev):
+    """``reoptimize`` once from a synchronized start. Returns (result, wall
+    seconds, dual pivots, launches of the dual loop, launches of the whole
+    call, host reads)."""
+    import torch
+
+    from simplex_tpu_torch import reoptimize
+    from simplex_tpu_torch.core import dual, step
+    from simplex_tpu_torch.kernels import hopper
+
+    seen = {}
+    inner = dual.dual_solve_state
+
+    def counted(*a, **k):
+        before = dict(hopper.launches)
+        s = inner(*a, **k)
+        seen["pivots"] = int(s.iters)
+        seen["launches"] = {n: hopper.launches[n] - before[n] for n in before}
+        return s
+
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    step.reset_host_reads()
+    dual.dual_solve_state = counted
+    try:
+        t0 = time.perf_counter()
+        res = reoptimize(A, b2, c, prev, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dual.dual_solve_state = inner
+    check(seen["launches"]["rank1_update"] == seen["pivots"],
+          f"dual loop: rank1_update {seen['launches']['rank1_update']} launches in {seen['pivots']} dual pivots")
+    return res, wall, seen["pivots"], seen["launches"], dict(hopper.launches), dict(step.host_reads)
+
+
+def phase_warm_restart(dev) -> dict:
+    """``ranging`` and ``reoptimize`` from the default solves' results: one
+    b_i moved inside its allowable range, then past it."""
+    import numpy as np
+
+    from simplex_tpu_torch import SolveStatus, ranging
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy
+
+    paths = {}
+    for m, n in ((SMALL_M, SMALL_N), (BENCH_M, BENCH_N)):
+        A, b, c = instance(m, n)
+        cold = KEPT[(m, n)]
+        tag = f"warm restart {m}x{n}"
+        prev = cold
+        # the dual loop's exit test: feas_tol (1 + |x_b|_inf)
+        entry_tol = 1e-6 * (1 + float(np.abs(cold.x_b).max()))
+        if cold.feas_err > entry_tol:
+            prev, wall, dual_piv, _, _, _ = warm_run(dev, A, b, c, cold)
+            check(prev.status == SolveStatus.OPTIMAL, f"{tag}: repair {prev.status!r}")
+            print(
+                f"{tag}: the cold basis is primal infeasible by {cold.feas_err:.3e} (> {entry_tol:.3e}); "
+                f"reoptimize on the unchanged b: {dual_piv} dual + {prev.iters - dual_piv} primal pivots in "
+                f"{wall:.2f} s, feas_err {prev.feas_err:.3e}, z {prev.z!r} (cold {cold.z!r})"
+            )
+        t0 = time.perf_counter()
+        rng = ranging(A, b, c, prev.basis, device=dev)
+        t_rng = time.perf_counter() - t0
+        check(rng.ok, f"{tag}: ranging could not invert the basis")
+        # the row with the widest finite upward range no larger than b_i
+        # itself: raising b_i keeps the LP feasible (its slack absorbs it).
+        # b_lo may sit just above 0 where a basic value is negative within
+        # the solver's tolerance; moving up inside the range only helps it
+        room = np.where(np.isfinite(rng.b_hi) & (rng.b_hi <= np.abs(b)), rng.b_hi, -np.inf)
+        i = int(np.argmax(room))
+        check(room[i] > 1e-3, f"{tag}: no row with a usable finite range (best {room[i]})")
+        print(f"{tag}: ranging in {t_rng:.2f} s; row {i}: b {b[i]:.6f}, allowable delta "
+              f"[{rng.b_lo[i]:.6f}, {rng.b_hi[i]:.6f}], y_i {rng.y[i]:.6f}")
+        for where, factor in (("inside", 0.5), ("outside", 1.5)):
+            b2 = np.array(b, np.float64)
+            b2[i] += factor * rng.b_hi[i]
+            b2 = b2.astype(np.float32)
+            res, wall, dual_piv, dual_launches, counts, reads = warm_run(dev, A, b2, c, prev)
+            check(res.status == SolveStatus.OPTIMAL, f"{tag} {where}: {res.status!r}")
+            same = sorted(res.basis.tolist()) == sorted(prev.basis.tolist())
+            if where == "inside":
+                check(dual_piv == 0, f"{tag} inside: {dual_piv} dual pivots")
+                check(same, f"{tag} inside: the basis changed")
+                # inside the range the optimum moves at rate y_i
+                want = prev.z + float(rng.y[i]) * factor * float(rng.b_hi[i])
+                check(relative_gap(res.z, want) <= GAP_TOL, f"{tag} inside: z {res.z} vs z + y_i delta {want}")
+                verdict = f"z + y_i delta {want!r}"
+            else:
+                check(dual_piv > 0, f"{tag} outside: no dual pivot")
+                check(not same, f"{tag} outside: the basis did not change")
+                if (m, n) == (SMALL_M, SMALL_N):
+                    ref = solve_scipy(A, b2, c)
+                    gap = relative_gap(res.z, ref.z)
+                    check(gap <= GAP_TOL, f"{tag} outside: rel gap {gap:.3e} vs HiGHS")
+                    verdict = f"HiGHS {ref.z!r} rel_gap {gap:.3e}"
+                else:
+                    verdict = kkt64(dev, m, n, res, b2)
+            print(
+                f"{tag}, b_{i} + {factor} x its range ({where}): OPTIMAL z {res.z!r}; {dual_piv} dual + "
+                f"{res.iters - dual_piv} primal clean-up pivots in {wall:.2f} s (cold solve: {cold.iters} "
+                f"pivots); same basis {same}; feas_err {res.feas_err:.3e}; {verdict}; dual loop launches "
+                f"{dual_launches}; all launches {counts}; host reads {reads}"
+            )
+            paths[f"{tag} {where}"] = counts
+    return paths
+
+
+def phase_general_warm(dev) -> dict:
+    """``solve_general(warm=)`` on B with every b_i moved by up to 5%,
+    from the token of the cold run, against HiGHS."""
+    import numpy as np
+    import torch
+
+    from simplex_tpu_torch import SolveStatus, solve_general
+    from simplex_tpu_torch.core import step
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy_general
+
+    lp, cold = KEPT["general B"]
+    check(cold.warm is not None, "general warm: the cold run left no token")
+    rng = np.random.default_rng(0)
+    lp2 = lp._replace(b=np.asarray(lp.b) * (1 + 0.05 * rng.uniform(-1, 1, np.shape(lp.b))))
+    t0 = time.perf_counter()
+    ref = solve_scipy_general(lp2)
+    t_ref = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    step.reset_host_reads()
+    t0 = time.perf_counter()
+    res = solve_general(lp2, warm=cold.warm, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(hopper.launches)
+    tag = "general B warm, b moved 5%"
+    check(res.status == ref.status, f"{tag}: {res.status!r} vs HiGHS {ref.status!r}")
+    check(res.phase1_iters == 0, f"{tag}: phase 1 ran")
+    note = ""
+    if ref.status == SolveStatus.OPTIMAL:
+        gap = relative_gap(res.z, ref.z)
+        viol = general_violation(lp2, res.x)
+        note = f" z {res.z!r} HiGHS {ref.z!r} rel_gap {gap:.3e} violation {viol:.3e};"
+        check(gap <= GAP_TOL, f"{tag}: rel gap {gap:.3e} vs HiGHS")
+        check(viol <= FEAS_TOL, f"{tag}: violation {viol:.3e}")
+        check(counts["rank1_update"] > 0, f"{tag}: rank1_update never launched")
+    print(
+        f"{tag}: {res.status.name};{note} {res.iters} pivots, no phase 1 (cold: {cold.iters}, "
+        f"{cold.phase1_iters} in phase 1) in {wall:.2f} s (HiGHS {t_ref:.2f} s); launches {counts}; "
+        f"host reads {dict(step.host_reads)}"
+    )
+    return {tag: counts}
+
+
 def phase_device_ops(dev) -> None:
     """Device operations a pivot of the default path issues, from a
     profiled stretch of the solver's pivot loop on the bench instance
@@ -797,11 +1054,23 @@ def phase_device_ops(dev) -> None:
         check(rec["launches_per_pivot"][name] == 1.0, f"{name}: {rec['launches_per_pivot'][name]} launches a pivot")
 
 
+def phase_ratio_device_time(dev) -> dict:
+    """Device time of one launch of each ratio kernel at m = 8192, from a
+    profiler trace of the per-op bench's loop."""
+    from simplex_tpu_torch.bench.kernels import ratio_device_us
+
+    us = ratio_device_us(BENCH_M, device=dev)
+    print(f"device us a launch at m={BENCH_M}: {us}")
+    check(all(v > 0 for v in us.values()), "the profiler saw no device time for a ratio kernel")
+    return us
+
+
 def phase_full_solve(dev) -> None:
     """The benchmark instance solved to OPTIMAL with the default options."""
     from simplex_tpu_torch import SimplexOptions, SolveStatus
 
     res, wall, _, _, _ = timed_solve(dev, BENCH_M, BENCH_N, SimplexOptions())
+    KEPT[(BENCH_M, BENCH_N)] = res
     check(res.status == SolveStatus.OPTIMAL, f"full solve: {res.status!r}")
     print(
         f"full solve random_dense_lp({BENCH_M}, {BENCH_N}, seed=0): OPTIMAL z {res.z!r} "
@@ -1083,7 +1352,9 @@ def phase_general(dev) -> dict:
         for opt_name, opts in sets.items():
             for presolve in (False, True):
                 tag = f"general {size} {opt_name} presolve={presolve}"
-                _, probe, counts = general_run(dev, tag, lp, ref, opts, presolve)
+                res, probe, counts = general_run(dev, tag, lp, ref, opts, presolve)
+                if (size, opt_name, presolve) == ("B", "default", False):
+                    KEPT["general B"] = (lp, res)
                 # signed pricing runs through pricing_scan under both option
                 # sets (on the bf16 shadow under bench.py --mode general's)
                 check(counts["pricing_scan"] > 0, f"{tag}: pricing_scan never launched")
@@ -1156,8 +1427,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths["mps files (cli)"] = phase_mps_cli(dev)
     paths.update(phase_general(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_pricing_rules(dev))
+    paths.update(phase_warm_restart(dev))
+    paths.update(phase_general_warm(dev))
+    torch.cuda.empty_cache()
     # last: a profiler run leaves every later launch of the process dearer
     phase_device_ops(dev)
+    ratio_us = phase_ratio_device_time(dev)
+    recs["ratio_argmin"]["device_us"] = ratio_us["ratio_argmin"]
+    recs["ratio_eta"]["ratio_only_device_us"] = ratio_us["ratio_eta, harris, tail off"]
+    recs["ratio_eta"]["ratio_only_classic_device_us"] = ratio_us["ratio_eta, classic, tail off"]
     for tag, counts in paths.items():
         print(f"launches on path '{tag}': {counts}")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,7 @@
 """simplex_tpu_torch -- the dense revised simplex solver on PyTorch + CUDA.
 
 The port of ``simplex_tpu`` (JAX on a TPU) to one NVIDIA H100: the pivot
-loop runs in PyTorch, and its hot ops -- Dantzig pricing, the fused ratio
+loop runs in PyTorch, and its hot ops -- the pricing scan, the fused ratio
 test and the rank-1 update of the basis inverse -- run through CUDA kernels
 written for Hopper (``simplex_tpu_torch/csrc``). This package never imports
 jax; ``simplex_tpu`` stays the reference it is tested against.
@@ -15,15 +15,24 @@ jax; ``simplex_tpu`` stays the reference it is tested against.
     lp = GeneralLP(p.A, p.b, -p.c, p.row_types, p.lower, p.upper)
     result = solve_general(lp, presolve=True, device="cuda")
 
-Subpackages:
-    core     state, pivot step (native upper bounds too), host-driven solve
-             loop, Newton inversion, the two-phase route
+    from simplex_tpu_torch import SimplexOptions, ranging, reoptimize
+    result = solve(A, b, c, options=SimplexOptions(pricing="steepest"))
+    rng = ranging(A, b, c, result.basis)         # allowable delta-b / delta-c
+    again = reoptimize(A, b_new, c, result)      # dual simplex, warm
+
+Modules and subpackages:
+    core     state, pivot step (native upper bounds; Dantzig, devex and
+             steepest-edge pricing), host-driven solve loop, Newton
+             inversion, the dual simplex, the two-phase route
+    analysis ranging and the warm re-solve after a rhs change
     kernels  plain torch ops, the Hopper kernel wrappers and their build
     io       the reference text format, MPS read/write, canonical form
     oracle   instance generators and the HiGHS oracle
 """
 
+from simplex_tpu_torch.analysis import RangingResult, ranging, reoptimize
 from simplex_tpu_torch.config import DEFAULT_OPTIONS, SimplexOptions
+from simplex_tpu_torch.core.dual import solve_dual
 from simplex_tpu_torch.core.solver import SolveResult, solve
 from simplex_tpu_torch.core.twophase import GeneralLP, GeneralSolveResult, solve_general
 from simplex_tpu_torch.io.mps import read_mps
@@ -36,14 +45,18 @@ __all__ = [
     "DEFAULT_OPTIONS",
     "GeneralLP",
     "GeneralSolveResult",
+    "RangingResult",
     "SimplexOptions",
     "SolveResult",
     "SolveStatus",
     "load_lp",
     "loads_lp",
     "presolve",
+    "ranging",
     "read_mps",
+    "reoptimize",
     "solve",
+    "solve_dual",
     "solve_general",
     "write_mps",
 ]

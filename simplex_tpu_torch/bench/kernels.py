@@ -14,13 +14,27 @@ JAX package's names:
                          the bf16 shadow, a view priced in place
   flush_rankL_amortized  B_inv += U.T R with L = 16 pending pairs, divided
                          by L (one flush per L pivots)
+  pricing_update2        steepest edge's (2, m) x (m, n) product, one pass
+                         over A; ``pricing_update_two_mv`` is the same
+                         function as two ``torch.mv`` calls (two passes)
+  steepest_u             alpha . B_inv, steepest edge's extra O(m^2) pass
+  ranging_W              ranging's (m, m) x (m, n) product B_inv . A, once
+
+The products are library calls in full fp32 on both backends (the JAX
+package leaves them to XLA): they are timed here, not replaced.
+
+``--device-time`` adds, from a ``torch.profiler`` trace of the same loops,
+the device time of one launch of each ratio kernel (``ratio_argmin``,
+``ratio_eta`` with its tail off): between events those two are bound by the
+host's launch rate, not by the card. It runs last: after a profiler run
+every later launch of the process costs more host time.
 
 ``backend`` is ``"hopper"`` (the CUDA kernels) or ``"torch"`` (plain
 PyTorch). The JAX package's two block-sparse ops wait for the port of
 ``sparse.py``. Inputs are random, from a fixed seed, made on the device.
 
     python -m simplex_tpu_torch.bench.kernels [--m 8192 --n 16384 --k 32]
-        [--backend hopper|torch] [--device cuda]
+        [--backend hopper|torch] [--device cuda] [--device-time]
 """
 
 from __future__ import annotations
@@ -53,10 +67,11 @@ def bench_ops(
     no = torch.zeros((), dtype=torch.bool, device=dev)
     results: Dict[str, dict] = {}
 
-    def record(name: str, loop: Callable[[], object], nbytes: float, per: int = k):
+    def record(name: str, loop: Callable[[], object], nbytes: float, per: int = k) -> float:
         loop()  # warm-up (and the kernels' build)
         ms = min(elapsed_ms(loop, dev) for _ in range(3)) / per
         results[name] = {"ms": round(ms, 4), "gbps": round(nbytes / ms / 1e6, 1)}
+        return ms
 
     def pricing_loop(Aa, ca, segments=1):
         w = Aa.shape[1] // segments
@@ -115,7 +130,86 @@ def bench_ops(
 
     # amortized: one flush per PENDING pivots
     record("flush_rankL_amortized", flush_loop, 8 * m * m / PENDING, per=k * PENDING)
+
+    rho0 = torch.randn(m, generator=g, device=dev)
+
+    def update2_loop(fused: bool):
+        rc, uc = rho0, y0
+        for _ in range(k):
+            if fused:
+                w, v = be.pricing_update2(A, rc, uc)
+            else:
+                w, v = torch.mv(A.T, rc), torch.mv(A.T, uc)
+            rc = rc + (w[0] + v[0]) * 1e-20
+        return rc
+
+    record("pricing_update2", lambda: update2_loop(True), 4 * m * n)
+    record("pricing_update_two_mv", lambda: update2_loop(False), 8 * m * n)
+
+    def steepest_u_loop():
+        ac = y0
+        for _ in range(k):
+            u = ac @ B
+            ac = ac + u * 1e-20
+        return ac
+
+    record("steepest_u", steepest_u_loop, 4 * m * m)
+
+    W = None
+
+    def ranging_loop():
+        nonlocal W
+        W = B @ A
+        return W
+
+    ms = record("ranging_W", ranging_loop, 4 * (m * m + 2 * m * n), per=1)
+    results["ranging_W"]["tflops"] = round(2.0 * m * m * n / ms / 1e9, 2)
+    del W
     return results
+
+
+def ratio_device_us(m: int, k: int = 200, device="cuda") -> Dict[str, float]:
+    """Device microseconds of ONE launch of each ratio kernel at m rows, from
+    a ``torch.profiler`` trace of k chained launches: ``ratio_argmin`` (the
+    classic test) and ``ratio_eta`` with its tail off (classic, and
+    Harris)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch.kernels import hopper
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand(m, generator=g, device=dev)
+    al = torch.randn(m, generator=g, device=dev)
+    basis = torch.arange(m, dtype=torch.int32, device=dev)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    loops = {
+        "ratio_argmin": lambda xc: hopper.ratio_argmin(xc, al, basis, 1e-7, no)[1],
+        "ratio_eta, classic, tail off": lambda xc: hopper.ratio_eta(xc, al, basis, 1e-7, no, False)[1],
+        "ratio_eta, harris, tail off": lambda xc: hopper.ratio_eta(xc, al, basis, 1e-7, no, True)[1],
+    }
+    out = {}
+    for name, fn in loops.items():
+        fn(x)  # build, first launch
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            xc = x
+            for _ in range(k):
+                xc = xc + fn(xc) * 1e-20
+            torch.cuda.synchronize(dev)
+        hits = [
+            e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and ("ratio_argmin_kernel" in e.key or "pivot_tail_kernel" in e.key)
+        ]
+        # the trace may miss a launch or two at its start: divide by the
+        # launches it did record
+        if len(hits) != 1 or not k // 2 <= hits[0].count <= k:
+            raise RuntimeError(f"{name}: expected about {k} launches of one kernel in the trace, got "
+                               f"{[(e.key[:40], e.count) for e in hits]}")
+        t = getattr(hits[0], "self_device_time_total", None)
+        out[name] = (hits[0].self_cuda_time_total if t is None else t) / hits[0].count
+    return out
 
 
 def record_line(m: int, n: int, backend: str, device, ops: Dict[str, dict]) -> str:
@@ -140,11 +234,15 @@ def main(argv=None) -> None:
     ap.add_argument("--k", type=int, default=32)
     ap.add_argument("--backend", default="hopper", choices=["hopper", "torch"])
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    ap.add_argument("--device-time", action="store_true",
+                    help="also trace the ratio kernels' device time per launch")
     args = ap.parse_args(argv)
     # full fp32 products, as in solve()
     torch.backends.cuda.matmul.allow_tf32 = False
     res = bench_ops(args.m, args.n, args.k, args.backend, args.device)
     print(record_line(args.m, args.n, args.backend, args.device, res))
+    if args.device_time:
+        print(json.dumps({"m": args.m, "device_us_per_launch": ratio_device_us(args.m, device=args.device)}))
     total_ms = sum(v["ms"] for v in res.values())
     print(f"-> {1000.0 / total_ms:.0f} pivots/s roofline from phases", file=sys.stderr)
 

@@ -2,7 +2,8 @@
 
 Usage:
   python -m simplex_tpu_torch.cli solve INPUT [--mps] [--presolve] [--fast]
-      [--device cuda] [--backend hopper|torch] [--fp64] [--time] [option flags]
+      [--pricing dantzig|devex|steepest] [--device cuda]
+      [--backend hopper|torch] [--fp64] [--time] [option flags]
 
 Reads an LP in the reference text format (``m n``, A, b, c) or an MPS file
 (``.mps`` or ``--mps``) and prints the optimum and the solution, as
@@ -65,7 +66,9 @@ def _resolve_flag_defaults(args) -> None:
     if args.refactor_every is None:
         args.refactor_every = 1024 if fast else 0
     if args.multi_price is None:
-        args.multi_price = 64 if fast else 0
+        # multiple pricing is Dantzig-only: steepest edge refuses it, devex
+        # would drop it
+        args.multi_price = 64 if (fast and getattr(args, "pricing", "dantzig") == "dantzig") else 0
 
 
 def _options(args):
@@ -81,6 +84,7 @@ def _options(args):
     return SimplexOptions(
         dtype=torch.float64 if args.fp64 else torch.float32,
         backend=args.backend,
+        pricing=args.pricing,
         pricing_dtype=args.pricing_dtype,
         update_defer=args.update_defer,
         partial_pricing=args.partial_pricing,
@@ -146,6 +150,10 @@ def main(argv=None) -> int:
         "--backend", default="hopper", choices=["hopper", "torch"],
         help="hopper = the CUDA kernels, torch = plain PyTorch ops",
     )
+    ps.add_argument(
+        "--pricing", default="dantzig", choices=["dantzig", "devex", "steepest"],
+        help="entering-column rule (devex / steepest keep incremental reduced costs and weights)",
+    )
     ps.add_argument("--fp64", action="store_true", help="solve in float64 (needs --backend torch)")
     ps.add_argument("--max-iter", type=int, default=0)
     # None = "not set by the user", so --fast fills only what is unset
@@ -178,8 +186,9 @@ def main(argv=None) -> int:
     ps.add_argument(
         "--fast", action="store_true",
         help="shorthand for --pricing-dtype bfloat16 --update-defer 16 "
-             "--partial-pricing 8 --refactor-every 1024 --multi-price 64; "
-             "flags you set explicitly are kept",
+             "--partial-pricing 8 --refactor-every 1024 --multi-price 64 "
+             "(--multi-price under --pricing dantzig only); flags you set "
+             "explicitly are kept",
     )
     ps.add_argument(
         "--log-level", default=None, choices=["debug", "info", "warning", "error"],

@@ -10,13 +10,17 @@ solve in both packages. Two fields change meaning:
     hand-written CUDA kernels of :mod:`simplex_tpu_torch.kernels.hopper`,
     ``"torch"`` runs plain PyTorch ops everywhere.
 
-This port covers the dense path under the Dantzig rule, with or without
-native upper bounds (``solve(u=)``, and the general-form route of
-``solve_general`` on top): full, segmented (``partial_pricing``) or
-multiple (``multi_price``) pricing, on A or on its bfloat16 shadow
-(``pricing_dtype``) with an exact recheck; the eager rank-1 or the
-deferred rank-L (``update_defer``) update of B_inv; the Harris or the
-classic ratio test. Options that select another path raise
+This port covers the dense path, with or without native upper bounds
+(``solve(u=)``, and the general-form route of ``solve_general`` on top).
+Under the Dantzig rule: full, segmented (``partial_pricing``) or multiple
+(``multi_price``) pricing, on A or on its bfloat16 shadow
+(``pricing_dtype``) with an exact recheck. Under ``pricing="devex"`` or
+``"steepest"``: incremental reduced costs with devex reference weights or
+exact steepest-edge norms, always in fp32 and over all columns (no shadow,
+no segments; steepest edge refuses ``multi_price``, devex drops it). Under
+every rule: the eager rank-1 or the deferred rank-L (``update_defer``)
+update of B_inv; the Harris or the classic ratio test. The dual simplex
+(``solve_dual``) takes ``dual_flip``. Options that select another path raise
 ``NotImplementedError`` from :func:`check_supported`, naming the ROADMAP
 item that ports them; none is silently ignored.
 """
@@ -62,7 +66,9 @@ class SimplexOptions:
     dtype: torch.dtype = torch.float32
     # op set of the pivot step: "hopper" (CUDA kernels) or "torch" (plain)
     backend: str = "hopper"
-    # "dantzig" only in this port (devex / steepest: ROADMAP item 9)
+    # "dantzig", "devex" (reference weights) or "steepest" (exact
+    # Goldfarb-Reid norms: one more O(mn) and one O(m^2) pass a pivot for
+    # shorter pivot paths)
     pricing: str = "dantzig"
     # "float32" (exact) or "bfloat16": price against a bf16 shadow of A and
     # recheck the winner in fp32; termination is always decided exactly
@@ -83,10 +89,12 @@ class SimplexOptions:
     multi_price_degen: int = 4
     # a dry segment retries over the full shadow before the exact pass
     fallback_shadow: bool = True
+    # the dual simplex's bound-flipping (long-step) ratio test on boxed
+    # problems; off = the textbook ratio test
+    dual_flip: bool = True
     # options of later slices, kept so an option set reads the same in both
     # packages; check_supported rejects any value that would select them
     pricing_sparse: bool = False
-    dual_flip: bool = True
     checkpoint_every: int = 0
     # f64 refinement of the returned basis (when m <= polish_max_m)
     polish: bool = True
@@ -109,30 +117,48 @@ class SimplexOptions:
 DEFAULT_OPTIONS = SimplexOptions()
 
 
-def check_supported(opts: SimplexOptions) -> None:
-    """Raise for an option value this port does not run yet."""
+PRICING_RULES = ("dantzig", "devex", "steepest")
+
+
+def check_supported(opts: SimplexOptions) -> SimplexOptions:
+    """Raise for an option value this port does not run, and return the
+    options the solve runs with: ``simplex_tpu.solve``'s own two rules on
+    the weighted pricing rules are applied here (steepest edge with
+    ``multi_price`` raises; devex drops ``multi_price`` with a warning)."""
     if opts.backend not in BACKENDS:
         raise ValueError(
             f"unknown kernel backend: {opts.backend!r} (want one of {BACKENDS})"
         )
     if opts.ratio not in ("harris", "classic"):
         raise ValueError(f"unknown ratio test: {opts.ratio!r}")
+    if opts.pricing not in PRICING_RULES:
+        raise ValueError(f"unknown pricing rule: {opts.pricing!r} (want one of {PRICING_RULES})")
     if opts.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64, got {opts.dtype}")
     if opts.pricing_dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"pricing_dtype must be 'float32' or 'bfloat16', got {opts.pricing_dtype!r}"
         )
-    # simplex_tpu.solve's own rules (core/solver.py:596-617) concern the
-    # devex / steepest rules with multi_price only: steepest raises, devex
-    # drops multi_price. Both rules are unported, so they raise here first.
-    unported = [
-        (opts.pricing != "dantzig", f"pricing={opts.pricing!r}", 9),
-        (opts.pricing_sparse, "pricing_sparse=True", 15),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to simplex_tpu_torch yet "
-                f"(ROADMAP.md, open item {item})"
-            )
+    if opts.pricing_sparse:
+        raise NotImplementedError(
+            "pricing_sparse=True is not ported to simplex_tpu_torch yet "
+            "(ROADMAP.md, open item 15)"
+        )
+    if opts.pricing == "steepest" and opts.multi_price > 0:
+        raise NotImplementedError(
+            "pricing='steepest' maintains exact norms every pivot (the weight "
+            "recurrence needs the full w / v passes); it does not compose with "
+            "multi_price's buffered minor pivots. It does compose with "
+            "update_defer."
+        )
+    if opts.pricing == "devex" and opts.multi_price > 0:
+        # multiple pricing is Dantzig-only; left on it would size the
+        # deferred and candidate buffers by K for nothing
+        from simplex_tpu_torch.logging import get_logger
+
+        get_logger("solver").warning(
+            "multi_price=%d is inert under pricing='devex' (dantzig only); "
+            "solving without multiple pricing", opts.multi_price,
+        )
+        opts = dataclasses.replace(opts, multi_price=0)
+    return opts

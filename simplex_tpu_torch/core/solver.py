@@ -70,7 +70,7 @@ def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
     defer = opts.resolve_defer() > 0
     while ctl.status == SolveStatus.RUNNING and ctl.iters < max_iter:
         s = pivot_step(prob, s, opts, backend, ctl)
-        ctl = read_control(s, opts)
+        ctl = read_control(s, opts, prob, backend)
         running = ctl.status == SolveStatus.RUNNING
         touched = False
         if (
@@ -96,11 +96,11 @@ def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
             and ctl.iters > 0
             and ctl.iters % opts.refactor_every == 0
         ):
-            s = refactorize(prob, s, backend, defer)
+            s = refactorize(prob, s, backend, defer, opts.pricing)
             touched = True
         if touched:
             # the next step branches on the state as it is now
-            ctl = read_control(s, opts)
+            ctl = read_control(s, opts, prob, backend)
     return s, ctl
 
 
@@ -117,7 +117,7 @@ def solve_state(
         backend = get_backend(opts.backend)
     perturb = opts.perturb_after > 0 and state0.pert is not None
     defer = opts.resolve_defer() > 0
-    ctl = read_control(state0, opts)
+    ctl = read_control(state0, opts, prob, backend)
     s, ctl = _pivot_loop(prob, state0, ctl, opts, max_iter, backend)
 
     if opts.verify_terminal:
@@ -132,9 +132,9 @@ def solve_state(
         ):
             if perturb and ctl.pert_on:
                 s = perturb_clear(s)
-            s = refactorize(prob, s, backend, defer)
+            s = refactorize(prob, s, backend, defer, opts.pricing)
             s.status = torch.full_like(s.status, int(SolveStatus.RUNNING))
-            ctl = read_control(s, opts)
+            ctl = read_control(s, opts, prob, backend)
             s, ctl = _pivot_loop(prob, s, ctl, opts, max_iter, backend)
             rounds += 1
 
@@ -184,7 +184,7 @@ def solve(
         raise NotImplementedError(
             "sparse A is not ported to simplex_tpu_torch yet (ROADMAP.md, open item 15)"
         )
-    check_supported(options)
+    options = check_supported(options)
     if not isinstance(A, torch.Tensor):
         A = np.asarray(A)
     b, c = (np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v) for v in (b, c))
@@ -217,6 +217,7 @@ def solve(
         update_defer=options.resolve_defer(),
         multi_price=options.multi_price,
         at_upper0=at_upper0 if u_np is not None else None,
+        pricing=options.pricing,
     )
     if basis0 is None:
         state0 = initial_state_slack(prob, dtype, **extras)

@@ -15,15 +15,20 @@ pytrees. Leaves for an m x n problem:
   U, R       (L, m)  pending (eta, true-inverse row) pairs of the deferred
                      update; the true inverse is B_inv + U.T @ R
   npend      ()      number of pending pairs (int32)
+  e          (n,)    devex / steepest edge: the reduced costs y.A - c,
+                     maintained incrementally (never sign-flipped)
+  gamma      (n,)    devex reference weights, or steepest edge's exact
+                     norms 1 + |B_inv A_j|^2
   at_upper   (n,)    bounded problems: nonbasic columns parked at their
                      upper bound (never set on a basic column), so
                      x_N = where(at_upper, u, 0) and B x_b = b - A x_N
   cand               the multiple-pricing candidate buffer
   pert               the rhs perturbation
 
-U, R and npend are None when updates are eager, at_upper when the problem
-has no upper bounds, cand when multiple pricing is off, pert when the
-perturbation is off (the JAX package carries dummy leaves there instead).
+U, R and npend are None when updates are eager, e and gamma under the
+Dantzig rule, at_upper when the problem has no upper bounds, cand when
+multiple pricing is off, pert when the perturbation is off (the JAX package
+carries dummy leaves there instead).
 
 Scalars stay 0-d device tensors so a pivot step never waits on the host.
 The pivot step updates ``B_inv`` (the rank-1 update, the rank-L flush) and
@@ -117,6 +122,8 @@ class SolverState:
     at_upper: Optional[torch.Tensor] = None
     cand: Optional[CandBuffer] = None
     pert: Optional[PertState] = None
+    e: Optional[torch.Tensor] = None
+    gamma: Optional[torch.Tensor] = None
 
 
 def _int(v: int, device) -> torch.Tensor:
@@ -131,6 +138,30 @@ def _pert_extras(m: int, dtype, device, perturb: bool) -> Optional[PertState]:
         on=torch.zeros((), dtype=torch.bool, device=device),
         rounds=_int(0, device),
     )
+
+
+def steepest_gamma(prob: Problem, B_inv: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """Exact steepest-edge weights gamma_j = 1 + |B_inv A_j|^2: one
+    (m, m) x (m, n) product in full fp32 (the column norms of A when
+    ``B_inv`` is None, the identity slack basis)."""
+    A = prob.A.to(dtype)
+    T = A if B_inv is None else B_inv @ A
+    return 1 + (T * T).sum(0)
+
+
+def _pricing_extras(prob: Problem, y: torch.Tensor, dtype, pricing: str, B_inv=None) -> dict:
+    """(e, gamma) for the devex / steepest-edge rules
+    (``simplex_tpu.core.state._pricing_extras``): e = y.A - c; devex starts
+    from unit reference weights, steepest edge from the true norms. Empty
+    under the Dantzig rule."""
+    if pricing not in ("devex", "steepest"):
+        return {}
+    e = y @ prob.A.to(dtype) - prob.c.to(dtype)
+    if pricing == "steepest":
+        gamma = steepest_gamma(prob, B_inv, dtype)
+    else:
+        gamma = torch.ones(prob.A.shape[1], dtype=dtype, device=prob.A.device)
+    return {"e": e, "gamma": gamma}
 
 
 def _defer_extras(m: int, dtype, device, update_defer: int) -> dict:
@@ -195,12 +226,14 @@ def initial_state_slack(
     update_defer: int = 0,
     multi_price: int = 0,
     at_upper0=None,
+    pricing: str = "dantzig",
 ) -> SolverState:
     """The trailing-identity slack basis: B_inv = I, x_b = b (b - A x_N
     when bounded), y = c_b = c[n-m:], basis = [n-m, ..., n-1].
     ``update_defer`` is the number of pending-pair rows
     (``SimplexOptions.resolve_defer()``); ``at_upper0`` marks the nonbasic
-    columns that start at their upper bound."""
+    columns that start at their upper bound; ``pricing`` adds the devex /
+    steepest-edge leaves."""
     m, n = prob.A.shape
     dev = prob.A.device
     c_b = prob.c[n - m :].to(dtype).clone()
@@ -219,6 +252,7 @@ def initial_state_slack(
         at_upper=at_upper,
         cand=_cand_extras(m, n, dtype, dev, multi_price),
         pert=_pert_extras(m, dtype, dev, perturb),
+        **_pricing_extras(prob, c_b, dtype, pricing),
     )
 
 
@@ -230,10 +264,12 @@ def initial_state(
     update_defer: int = 0,
     multi_price: int = 0,
     at_upper0=None,
+    pricing: str = "dantzig",
 ) -> SolverState:
     """Starting state for a given feasible basis: B_inv by one dense solve
     (an O(m^3) set-up cost), x_b = B_inv b (B_inv (b - A x_N) when
-    bounded), y = c_b B_inv."""
+    bounded), y = c_b B_inv; under steepest edge also one (m, m) x (m, n)
+    product for the exact weights."""
     m, n = prob.A.shape
     dev = prob.A.device
     basis = torch.as_tensor(np.asarray(basis0), dtype=torch.int32, device=dev)
@@ -241,10 +277,11 @@ def initial_state(
     B_inv = torch.linalg.solve(B, torch.eye(m, dtype=dtype, device=dev)).contiguous()
     c_b = prob.c.index_select(0, basis).to(dtype)
     at_upper = _at_upper_extras(prob, at_upper0)
+    y = c_b @ B_inv
     return SolverState(
         B_inv=B_inv,
         x_b=B_inv @ bounded_rhs(prob, at_upper, dtype),
-        y=c_b @ B_inv,
+        y=y,
         c_b=c_b,
         basis=basis,
         iters=_int(0, dev),
@@ -255,6 +292,7 @@ def initial_state(
         at_upper=at_upper,
         cand=_cand_extras(m, n, dtype, dev, multi_price),
         pert=_pert_extras(m, dtype, dev, perturb),
+        **_pricing_extras(prob, y, dtype, pricing, B_inv=B_inv),
     )
 
 
@@ -282,10 +320,11 @@ def state_from_numpy(leaves: Mapping[str, object], device) -> SolverState:
     bounded rule's flags; ``leaves["cand"]`` (optional) is None or the
     candidate buffer's (idx, alpha, acols, e, valid, e0, seg) in
     ``CandBuffer`` order; ``leaves["pert"]`` is None or the (w, on, rounds)
-    triple. Devex weights are ignored (their values are the JAX package's
-    dummies on the Dantzig path), and so are the JAX package's (1, 1)
-    deferred-update dummies when ``update_defer`` is 0: pass ``U`` only
-    when the state has real buffers.
+    triple; ``leaves["e"]`` and ``["gamma"]`` (optional) the devex /
+    steepest-edge reduced costs and weights. The JAX package carries (1,)
+    dummies for e and gamma under the Dantzig rule and (1, 1) dummies for U
+    and R when ``update_defer`` is 0: pass those leaves only when the state
+    has real ones.
     """
 
     def put(v, dtype=None):
@@ -314,6 +353,8 @@ def state_from_numpy(leaves: Mapping[str, object], device) -> SolverState:
             e0=put(e0).reshape(()),
             seg=scalar(seg),
         )
+    if leaves.get("e") is not None:
+        st.update(e=put(leaves["e"]), gamma=put(leaves["gamma"]))
     pert = leaves.get("pert")
     if pert is not None:
         w, on, rounds = pert

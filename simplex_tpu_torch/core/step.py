@@ -1,6 +1,6 @@
 """One revised-simplex pivot on device tensors.
 
-The Dantzig paths of ``simplex_tpu.core.step.pivot_step``:
+The paths of ``simplex_tpu.core.step.pivot_step`` under the Dantzig rule:
 
   pricing      e = y.A - c with the basic columns masked; p = argmin e;
                optimal iff min e >= -eps; mask, scan and choice in one
@@ -34,6 +34,25 @@ moves x_b and ``at_upper`` and leaves the basis, B_inv and y alone.
 Whether a problem is bounded is a Python bool, so the unbounded step
 launches what it launched before.
 
+Under ``pricing="devex"`` / ``"steepest"`` the state carries the reduced
+costs e = y.A - c and the weights gamma, both maintained incrementally:
+
+  pricing      p = argmax e_j^2 / gamma_j over e_j < -eps (signed under
+               bounds), O(n); the pick is rechecked exactly (O(m)) and is
+               *stale* when the incremental minimum or the rechecked e_p
+               does not improve, or p is already basic; a stale pick, and
+               Bland's rule, take one exact pass (``choose_entering`` /
+               ``choose_entering_bounded``: the pricing kernel)
+  update       on a pivot: w = rho.A with rho = row q of the true inverse
+               over alpha_q (one O(mn) pass); e -= e_p w; devex: gamma =
+               max(gamma, w^2 max(gamma_p, 1)); steepest (Goldfarb-Reid):
+               gamma -= 2 w v - w^2 (1 + |alpha|^2) with v = u.A and
+               u = alpha . B_inv_old (one more O(m^2) pass, taken before
+               the inverse is rewritten; w and v share one (2, m) x (m, n)
+               product), the leaving column's weight set exactly; both
+               clipped to [1, 1e30]. A bound flip and a terminal step
+               change neither e nor gamma.
+
 Every decision that picks a value is a device tensor: a step that does not
 pivot (a terminal status) leaves the state as it was through
 ``torch.where`` selects and a zeroed update. Where the JAX step picks a
@@ -43,7 +62,9 @@ branch not taken costs nothing:
   * from :class:`Control`, the scalars the solver reads once per pivot
     (``read_control``): the segment (``iters mod S``), whether the
     candidate buffer needs a refill, whether pending pairs must be flushed,
-    whether Bland's rule is on;
+    whether Bland's rule is on, and, under devex / steepest edge, whether
+    the next step's pick is stale (the pick itself rides along as device
+    tensors, so the step does not price twice);
   * by one explicit read (:func:`read_flag`) where the branch depends on a
     value the step itself computed: whether a shadow or segment winner
     failed its exact recheck (then the fallback pass runs).
@@ -98,6 +119,9 @@ class Control(NamedTuple):
     npend: int = 0  # pending deferred pairs
     seg: int = 0  # candidate-buffer refill counter
     need_refill: bool = False  # the next step refills the candidate buffer
+    stale: bool = False  # devex / steepest: the next step's pick is stale
+    # devex / steepest: that pick, (p, min_e, (A_p, c_p, e_p)) on the device
+    pick: Optional[tuple] = None
 
 
 def _multi_active(opts: SimplexOptions, state: SolverState) -> bool:
@@ -141,9 +165,42 @@ def _need_refill(state: SolverState, opts: SimplexOptions) -> torch.Tensor:
     return need
 
 
-def read_control(state: SolverState, opts: Optional[SimplexOptions] = None) -> Control:
+def _weighted_active(opts: SimplexOptions, state: SolverState) -> bool:
+    return opts.pricing in ("devex", "steepest") and state.e is not None
+
+
+def _weighted_pick(prob: Problem, state: SolverState, opts: SimplexOptions, backend):
+    """The devex / steepest-edge pick from the maintained e and gamma, with
+    its exact recheck (``simplex_tpu.core.step.pivot_step``'s devex
+    branches, Bland's rule aside: the caller knows that on the host).
+    Returns ``((p, min_e, col), stale)``: ``col`` the pick's
+    ``_entering_column``, ``min_e`` the incremental minimum (under bounds
+    the pick's exact signed reduced cost), ``stale`` a device bool."""
+    eps = opts.resolve_eps()
+    no_bland = _const_flag(state.y.device, False)
+    if state.at_upper is not None:
+        p1, min1 = backend.devex_choose_bounded(
+            state.e, state.gamma, state.at_upper, eps, no_bland
+        )
+    else:
+        p1, min1 = backend.devex_choose(state.e, state.gamma, eps, no_bland)
+    col = _entering_column(prob, state, p1, backend)
+    s_p1 = _signed(state, col[2], p1)
+    # stale also when the drifted e picked an already-basic column
+    stale = (min1 >= -eps) | (s_p1 >= -eps) | (state.basis == p1).any()
+    return (p1, min1 if state.at_upper is None else s_p1, col), stale
+
+
+def read_control(
+    state: SolverState,
+    opts: Optional[SimplexOptions] = None,
+    prob: Optional[Problem] = None,
+    backend=None,
+) -> Control:
     """The loop's control scalars and the next step's branch flags in ONE
-    device-to-host read. ``need_refill`` needs ``opts``."""
+    device-to-host read. ``need_refill`` needs ``opts``; the devex /
+    steepest-edge pick and its ``stale`` flag need ``prob`` and ``backend``
+    too."""
     fields = {
         "status": state.status,
         "iters": state.iters,
@@ -158,13 +215,16 @@ def read_control(state: SolverState, opts: Optional[SimplexOptions] = None) -> C
         fields["seg"] = state.cand.seg
         if opts is not None and _multi_active(opts, state):
             fields["need_refill"] = _need_refill(state, opts)
+    pick = None
+    if opts is not None and prob is not None and _weighted_active(opts, state):
+        pick, fields["stale"] = _weighted_pick(prob, state, opts, backend)
     vals = torch.stack([v.to(torch.int32) for v in fields.values()]).tolist()
     host_reads["control"] += 1
     ctl = dict(zip(fields, vals))
-    for k in ("pert_on", "need_refill"):
+    for k in ("pert_on", "need_refill", "stale"):
         if k in ctl:
             ctl[k] = bool(ctl[k])
-    return Control(**ctl)
+    return Control(**ctl, pick=pick)
 
 
 def _partial_active(opts: SimplexOptions, prob: Problem) -> bool:
@@ -284,6 +344,70 @@ def _price_segment(prob, state, opts, use_bland, bland, ctl, backend):
     return exact()
 
 
+def _price_weighted(prob, state, opts, use_bland, bland, ctl, backend):
+    """Devex / steepest-edge pricing: the pick the control read carries, or
+    one exact pass when that pick is stale or Bland's rule is on. Returns
+    ``(p, min_e, col)`` as :func:`_price_shadow`."""
+    eps = opts.resolve_eps()
+    if not bland:
+        if ctl.pick is None:
+            raise ValueError(
+                "devex / steepest edge: the control read carries no pick "
+                "(read_control needs prob and backend under these rules)"
+            )
+        if not ctl.stale:
+            return ctl.pick
+    if state.at_upper is not None:
+        p, min_e = backend.choose_entering_bounded(
+            state.y, prob.A, prob.c, state.at_upper, state.basis, 0, eps, use_bland
+        )
+    else:
+        p, min_e = backend.choose_entering(state.y, prob.A, prob.c, eps, use_bland, state.basis)
+    return p, min_e, None
+
+
+def _pre_pivot_u(state, opts, alpha, defer):
+    """Steepest edge's u = alpha . B_inv against the TRUE pre-pivot inverse
+    (the base plus the pending pairs, O(L m)); None under the other rules.
+    Must be taken before the step rewrites B_inv or appends to U / R."""
+    if opts.pricing != "steepest" or state.e is None:
+        return None
+    u = alpha @ state.B_inv
+    if defer:
+        u = u + (alpha @ state.U.T) @ state.R
+    return u
+
+
+def _update_weights(prob, state, opts, backend, p, e_p, alpha, u, row, q, do_pivot):
+    """The post-pivot e and gamma (``simplex_tpu.core.step.pivot_step``'s
+    incremental pricing block): ``row`` is row q of the true pre-pivot
+    inverse, ``q`` the leaving row, ``u`` from :func:`_pre_pivot_u`; every
+    index is read from the PRE-pivot state. Unchanged unless ``do_pivot``."""
+    qv = q.view(1)
+    alpha_q = alpha.index_select(0, qv).view(())
+    safe_aq = torch.where(do_pivot, alpha_q, 1)
+    inv_aq = 1 / safe_aq
+    rho = row * inv_aq
+    if u is not None:
+        w, v = backend.pricing_update2(prob.A, rho, u)
+    else:
+        w = backend.pricing_update(prob.A, rho)
+    e_new = state.e - e_p * w
+    if u is not None:
+        gp1 = 1 + torch.dot(alpha, alpha)
+        lv = state.basis.index_select(0, qv).long()
+        gamma_lv = 1 + (gp1 - safe_aq * safe_aq) * (inv_aq * inv_aq)
+        gse = state.gamma - 2 * w * v + (w * w) * gp1
+        # floored at the provable minimum 1 (the three-term recurrence can
+        # cancel below it), capped like devex
+        gamma_new = gse.index_copy(0, lv, gamma_lv.view(1)).clamp(1.0, 1e30)
+    else:
+        gamma_p = backend.gather_cost(state.gamma, p)
+        # capped: the weights grow multiplicatively and would overflow fp32
+        gamma_new = torch.maximum(state.gamma, (w * w) * gamma_p.clamp_min(1)).clamp(1.0, 1e30)
+    return torch.where(do_pivot, e_new, state.e), torch.where(do_pivot, gamma_new, state.gamma)
+
+
 def _refill(prob, state, opts, ctl, bland):
     """Refill the multiple-pricing buffer (``simplex_tpu.core.step.
     _multi_pricing``'s ``_fill``): the K most improving columns of one
@@ -390,12 +514,14 @@ def _multi_pricing(prob, state, opts, ctl, bland):
     return p, min_e, cand.alpha.index_select(0, j).view(-1), state, npend
 
 
-def _finish_unbounded(state, opts, backend, alpha, min_e, e_p, c_p, p, defer, npend):
+def _finish_unbounded(prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, defer, npend):
     """The unbounded step without multiple pricing, from its ftran on: the
     whole O(m) tail in one backend call (``pivot_tail``: one launch on the
     hopper backend), then the inverse's update -- the rank-1 kernel, or,
     under deferred updates, the pair the tail wrote into slot ``npend`` and
-    the flush when that filled the buffer."""
+    the flush when that filled the buffer. Under devex / steepest edge the
+    e / gamma update follows from what the tail returns (row q copied out
+    before the update, q, take) and ``u`` (:func:`_pre_pivot_u`)."""
     extra = {}
     if defer:
         extra = dict(U=state.U, R=state.R, npend=npend, npend_t=state.npend)
@@ -419,10 +545,16 @@ def _finish_unbounded(state, opts, backend, alpha, min_e, e_p, c_p, p, defer, np
     else:
         # a no-op when not pivoting: eta and row are zero then
         B_inv = backend.rank1_update(state.B_inv, t.eta, t.row)
+    e, gamma = state.e, state.gamma
+    if _weighted_active(opts, state):
+        e, gamma = _update_weights(
+            prob, state, opts, backend, p, e_p, alpha, u, t.row, t.q, t.take
+        )
     return SolverState(
         B_inv=B_inv, x_b=t.x_b, y=t.y, c_b=t.c_b, basis=t.basis, iters=t.iters,
         status=t.status, degen=t.degen, last_refac=state.last_refac,
         U=U, R=R, npend=npend_new, at_upper=None, cand=state.cand, pert=state.pert,
+        e=e, gamma=gamma,
     )
 
 
@@ -438,7 +570,7 @@ def pivot_step(
     ``state.B_inv``, ``state.U`` and ``state.R`` in place and returns the
     new state."""
     if ctl is None:
-        ctl = read_control(state, opts)
+        ctl = read_control(state, opts, prob, backend)
     dtype = state.B_inv.dtype
     eps = opts.resolve_eps()
     # the host's copy of the same comparison: ctl is this state's control
@@ -454,6 +586,8 @@ def pivot_step(
     if multi:
         p, min_e, alpha0_p, state, npend = _multi_pricing(prob, state, opts, ctl, bland)
         cand_mid = state.cand
+    elif _weighted_active(opts, state):
+        p, min_e, col = _price_weighted(prob, state, opts, use_bland, bland, ctl, backend)
     elif bounded:
         p, min_e = _price_bounded(prob, state, opts, use_bland, bland, ctl, backend)
     elif prob.A_price is not None and not _partial_active(opts, prob):
@@ -477,9 +611,12 @@ def pivot_step(
     else:
         alpha = torch.mv(state.B_inv, A_p)
 
+    # steepest edge: before anything below rewrites B_inv, U or R
+    u_se = _pre_pivot_u(state, opts, alpha, defer)
+
     if not multi and not bounded:
         return _finish_unbounded(
-            state, opts, backend, alpha, min_e, e_p, c_p, p, defer, npend
+            prob, state, opts, backend, alpha, u_se, min_e, e_p, c_p, p, defer, npend
         )
 
     # ---- ratio test (+ eta and the stepped x_b) ----
@@ -586,6 +723,11 @@ def pivot_step(
             torch.where(bad, int(SolveStatus.SINGULAR), int(SolveStatus.RUNNING)),
         ),
     ).to(torch.int32)
+    e_out, gamma_out = state.e, state.gamma
+    if _weighted_active(opts, state):
+        e_out, gamma_out = _update_weights(
+            prob, state, opts, backend, p, e_p, alpha, u_se, binv_q, q, do_pivot
+        )
     degen_keep = state.degen
     cand_new = state.cand
     if multi:
@@ -617,6 +759,8 @@ def pivot_step(
         at_upper=at_upper,
         cand=cand_new,
         pert=state.pert,
+        e=e_out,
+        gamma=gamma_out,
     )
 
 
@@ -704,11 +848,15 @@ def _invalidate_candidates(state: SolverState) -> SolverState:
 
 
 def refactorize(
-    prob: Problem, state: SolverState, backend, defer: bool = False
+    prob: Problem, state: SolverState, backend, defer: bool = False,
+    pricing: str = "dantzig",
 ) -> SolverState:
     """Re-invert the true basis (Newton-Schulz seeded with the drifted
     inverse, the pending pairs folded in when ``defer``), re-derive x_b and
-    y from it, drop the pending pairs and empty the candidate buffer."""
+    y from it, drop the pending pairs and empty the candidate buffer. Under
+    devex / steepest edge (``pricing``) also re-derive e exactly; devex
+    resets its reference weights to 1, steepest edge keeps gamma (the true
+    norms depend on the basis alone)."""
     dtype = state.B_inv.dtype
     B = backend.gather_basis_matrix(prob.A, state.basis).to(dtype)
     seed = state.B_inv
@@ -726,6 +874,10 @@ def refactorize(
     if defer:
         new.U, new.R = torch.zeros_like(state.U), torch.zeros_like(state.R)
         new.npend = torch.zeros_like(state.npend)
+    if pricing in ("devex", "steepest") and state.e is not None:
+        new.e = _ops.pricing_update(prob.A, new.y) - prob.c.to(dtype)
+        if pricing == "devex":
+            new.gamma = torch.ones_like(state.gamma)
     return _invalidate_candidates(new)
 
 

@@ -11,9 +11,10 @@ on the port's solver.
 Both phases run :func:`simplex_tpu_torch.core.solver.solve` on ``device``;
 finite upper bounds go to it as native bounds (``u=``), so a bound costs
 no row. Bound rewriting, standardization and the artificial driveout are
-host numpy, as in the reference package. Dense A only: sparse A is ROADMAP
-item 15, and consuming a warm-start token needs the dual simplex, ROADMAP
-item 14.
+host numpy, as in the reference package. A warm-start token (``warm=``)
+skips phase 1: the dual simplex
+(:func:`simplex_tpu_torch.core.dual.solve_dual`) re-solves from the stored
+basis. Dense A only: sparse A is ROADMAP item 15.
 """
 
 from __future__ import annotations
@@ -160,7 +161,7 @@ def _preprocess_bounds(lp: GeneralLP):
     return lp2, recover, z_const
 
 
-def _standardize(lp: GeneralLP):
+def _standardize(lp: GeneralLP, flips_override=None):
     """Equality form with slacks/surpluses and artificial columns.
 
     Returns (A_std, b_std, c_std (phase-2 costs), k_struct, n_real,
@@ -168,7 +169,10 @@ def _standardize(lp: GeneralLP):
     Rows with b < 0 are negated (L <-> G). ``u_std`` is the native
     upper-bound vector over all standardized columns (structural residual
     uppers from ``lp.upper``; slacks and artificials unbounded), or None
-    when every upper is infinite.
+    when every upper is infinite. ``flips_override`` (warm restarts)
+    reproduces a previous solve's row flips instead of taking them from
+    sign(b): the column layout must match the stored basis, and the dual
+    warm start does not need b >= 0.
     """
     A = np.asarray(lp.A, np.float64).copy()
     b = np.asarray(lp.b, np.float64).copy()
@@ -183,7 +187,7 @@ def _standardize(lp: GeneralLP):
         t = t.upper()
         if t not in ("L", "G", "E"):
             raise ValueError(f"bad row type {t!r}")
-        if b[i] < 0:
+        if (flips_override[i] < 0) if flips_override is not None else (b[i] < 0):
             A[i] *= -1
             b[i] *= -1
             t = {"L": "G", "G": "L", "E": "E"}[t]
@@ -272,20 +276,24 @@ def solve_general(
     uppers go to the solver as native bounds, and the solution is mapped
     back. ``presolve=True`` first runs :mod:`simplex_tpu_torch.presolve`
     and maps the primal and dual solutions back through postsolve (no warm
-    token then). An OPTIMAL result carries a ``warm`` token; passing one
-    back as ``warm=`` raises NotImplementedError (the dual simplex,
-    ROADMAP item 14), and so does a sparse A (ROADMAP item 15).
+    token then, and ``warm`` cannot be combined with it: the token's basis
+    lives in the unreduced column space). An OPTIMAL result carries a
+    ``warm`` token; passed back as ``warm=`` on the same A / c / row_types /
+    bounds with another b, it skips phase 1: the standardization repeats the
+    original row flips and the dual simplex re-solves from the stored basis.
+    A sparse A raises NotImplementedError (ROADMAP item 15).
     """
-    if warm is not None:
-        raise NotImplementedError(
-            "warm= re-solves run the dual simplex, which is not ported to "
-            "simplex_tpu_torch yet (ROADMAP.md, open item 14)"
-        )
     if _is_sparse(lp.A):
         raise NotImplementedError(
             "sparse A is not ported to simplex_tpu_torch yet (ROADMAP.md, open item 15)"
         )
     if presolve:
+        if warm is not None:
+            raise ValueError(
+                "warm restarts cannot be combined with presolve=True: the warm "
+                "token's basis lives in the unreduced column space. Re-solve "
+                "cold with presolve, or warm-solve with presolve=False."
+            )
         return _solve_general_presolved(
             lp, options=options, phase2_artificial_cost=phase2_artificial_cost,
             device=device,
@@ -297,14 +305,29 @@ def solve_general(
             z=float("nan"), x=np.zeros(k_orig), status=SolveStatus.INFEASIBLE,
             iters=0, phase1_iters=0,
         )
-    A_std, b, c, k, n_real, art_cols, basis1, flips, u_std = _standardize(lp)
+    A_std, b, c, k, n_real, art_cols, basis1, flips, u_std = _standardize(
+        lp, flips_override=None if warm is None else np.asarray(warm.flips)
+    )
     m, n = A_std.shape
     art_set = set(art_cols.tolist())
 
     p1_iters = 0
     basis = basis1
     at_upper = None  # threaded through the phases when u_std is not None
-    if len(art_cols) > 0:
+    if warm is not None:
+        basis = np.asarray(warm.basis, np.int32)
+        if basis.shape != (m,) or int(basis.max(initial=0)) >= n:
+            raise ValueError(
+                "warm token does not match this instance's standardized "
+                f"shape (basis {basis.shape}, max {basis.max(initial=0)} "
+                f"vs m={m}, n={n}): the warm path requires the same "
+                "A / c / row_types / bounds, only b may change"
+            )
+        if warm.at_upper is not None:
+            at_upper = np.asarray(warm.at_upper, bool)
+        elif u_std is not None:
+            at_upper = np.zeros(n, bool)
+    elif len(art_cols) > 0:
         # Phase 1: max -(sum of artificials)
         c1 = np.zeros(n)
         c1[art_cols] = -1.0
@@ -347,10 +370,38 @@ def solve_general(
             c2[art_cols] = big
             if len(pinned) > 0:
                 c2[pinned] = 0.0
-        r2 = solve(
-            A_std, b, c2, basis0=basis, u=u_std, at_upper0=at_upper,
-            options=options, device=device,
-        )
+        if warm is not None and _attempt == 0:
+            # the stored basis is dual-feasible for c2 (it was optimal for
+            # the same costs) but primal-infeasible under the new b: the
+            # dual simplex's entry contract. Nonbasic artificials are FIXED
+            # at 0 (upper bound 0), so the dual loop proves infeasibility
+            # over the real columns instead of parking residual on a big-M
+            # artificial. A penalty retry starts from ITS basis, which is
+            # primal-feasible, and runs the primal loop as usual.
+            from simplex_tpu_torch.core.dual import solve_dual
+
+            u_warm, at_up_warm = u_std, at_upper
+            in_basis = set(basis.tolist())
+            free_arts = [a for a in art_cols.tolist() if a not in in_basis]
+            if free_arts:
+                u_warm = np.full(n, np.inf) if u_std is None else u_std.copy()
+                u_warm[np.asarray(free_arts)] = 0.0
+                if at_up_warm is None:
+                    at_up_warm = np.zeros(n, bool)
+            r2 = solve_dual(
+                A_std, b, c2, basis0=basis, u=u_warm, at_upper0=at_up_warm,
+                options=options, device=device,
+            )
+            if r2.status == SolveStatus.INFEASIBLE:
+                return GeneralSolveResult(
+                    z=float("nan"), x=np.zeros(k_orig), status=SolveStatus.INFEASIBLE,
+                    iters=r2.iters, phase1_iters=0,
+                )
+        else:
+            r2 = solve(
+                A_std, b, c2, basis0=basis, u=u_std, at_upper0=at_upper,
+                options=options, device=device,
+            )
         iters2 += r2.iters
         # an artificial re-entering at a nonzero value means the penalty was
         # too small for this problem's duals: escalate and re-solve from

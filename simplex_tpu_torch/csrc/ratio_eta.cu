@@ -17,11 +17,9 @@
 // registers, so at m <= 8192 every row is read from device memory once; rows
 // beyond the first stride are re-read (they hit L2).
 //   round 1  min theta, min relaxed theta (Harris pass 1), any(alpha > tol),
-//            reduced as one record: warp shuffles, shared memory across the
-//            block's warps, then distributed shared memory across the
-//            cluster (every block writes its record to its own shared
-//            memory, cluster.sync(), lane b of warp 0 of every block reads
-//            block b's record through map_shared_rank);
+//            reduced as one record over the cluster (cluster_reduce,
+//            ratio_cluster.cuh: warp shuffles, shared memory, then
+//            distributed shared memory);
 //   round 2  over the rows with theta recomputed bit for bit: Harris' largest
 //            alpha among rows with theta <= theta_max, the classic lowest
 //            index of the minimum, Bland's smallest basis index among the
@@ -45,112 +43,11 @@
 // A last cluster.sync() keeps every block's shared memory alive until all
 // its readers are done.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
+#include "ratio_cluster.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kIntMax = 0x7fffffff;
-constexpr unsigned kFull = 0xffffffffu;
-
-// NaN-propagating min (torch.min semantics)
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return ((isnan(b) && !isnan(a)) || b < a) ? b : a;
-}
-
-// round 1: min theta, min relaxed theta, any eligible row
-struct Pass1 {
-  float tmin, trel;
-  int any;
-  __device__ static Pass1 identity() { return Pass1{INFINITY, INFINITY, 0}; }
-  __device__ Pass1 shfl(int off) const {
-    Pass1 o;
-    o.tmin = __shfl_down_sync(kFull, tmin, off);
-    o.trel = __shfl_down_sync(kFull, trel, off);
-    o.any = __shfl_down_sync(kFull, any, off);
-    return o;
-  }
-  __device__ void merge(const Pass1& o) {
-    tmin = nan_min(tmin, o.tmin);
-    trel = nan_min(trel, o.trel);
-    any |= o.any;
-  }
-};
-
-// round 2: Harris (largest alpha, then lowest row), classic (lowest row of
-// the minimum), Bland (smallest basis index, then lowest row)
-struct Pass2 {
-  float h_alpha;
-  int h_row, c_row, b_basis, b_row;
-  __device__ static Pass2 identity() {
-    return Pass2{-INFINITY, kIntMax, kIntMax, kIntMax, kIntMax};
-  }
-  __device__ Pass2 shfl(int off) const {
-    Pass2 o;
-    o.h_alpha = __shfl_down_sync(kFull, h_alpha, off);
-    o.h_row = __shfl_down_sync(kFull, h_row, off);
-    o.c_row = __shfl_down_sync(kFull, c_row, off);
-    o.b_basis = __shfl_down_sync(kFull, b_basis, off);
-    o.b_row = __shfl_down_sync(kFull, b_row, off);
-    return o;
-  }
-  __device__ void harris(float a, int r) {
-    if (a > h_alpha || (a == h_alpha && r < h_row)) { h_alpha = a; h_row = r; }
-  }
-  __device__ void bland(int b, int r) {
-    if (b < b_basis || (b == b_basis && r < b_row)) { b_basis = b; b_row = r; }
-  }
-  __device__ void merge(const Pass2& o) {
-    harris(o.h_alpha, o.h_row);
-    c_row = min(c_row, o.c_row);
-    bland(o.b_basis, o.b_row);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ T warp_reduce(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v.merge(v.shfl(off));
-  return v;
-}
-
-// Reduces v over the cluster; every thread of every block gets the result.
-// red: 33 entries of this block's shared memory; slot: this block's exchange
-// record, read by the other blocks (a different slot for each round, so a
-// block that runs ahead cannot overwrite a record still being read).
-template <typename T>
-__device__ T cluster_reduce(T v, T* red, T* slot, cg::cluster_group& cluster) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  v = warp_reduce(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  const unsigned blocks = cluster.num_blocks();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? red[lane] : T::identity();
-    v = warp_reduce(v);
-    if (lane == 0) { red[32] = v; *slot = v; }
-  }
-  if (blocks > 1) {
-    cluster.sync();  // every block's slot is written
-    if (warp == 0) {
-      v = T::identity();
-      if (lane < (int)blocks) v = *cluster.map_shared_rank(slot, lane);
-      v = warp_reduce(v);
-      if (lane == 0) red[32] = v;
-    }
-  }
-  __syncthreads();
-  return red[32];
-}
-
-// max(x, 0) that keeps a NaN (torch.clamp_min semantics)
-__device__ __forceinline__ float pos(float x) { return x < 0.f ? 0.f : x; }
+using namespace ratio_cluster;
 
 struct Params {
   // the ratio test
@@ -333,21 +230,7 @@ __global__ void __launch_bounds__(kThreads) pivot_tail_kernel(const Params P) {
 }
 
 int launch(const Params& P, int cluster_blocks, cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster_blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster_blocks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, pivot_tail_kernel, P);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_cluster(pivot_tail_kernel, P, cluster_blocks, stream);
 }
 
 }  // namespace

@@ -5,7 +5,8 @@ process per source, side by side) into one shared library with a plain C
 interface, loaded through ``ctypes``: no PyTorch headers, so the build takes
 seconds. It happens at first use, into
 ``build/kernels/`` beside the package, under a name that hashes the sources
-and flags, so an edited source never loads a stale library.
+and flags (the shared header included), so an edited source never loads a
+stale library.
 
 Environment: ``CUDA_HOME`` (default ``/usr/local/cuda``) locates nvcc when
 it is not on ``PATH``.
@@ -22,6 +23,9 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 SOURCES = ("pricing_scan.cu", "ratio_argmin.cu", "ratio_eta.cu", "rank1_update.cu")
+# included by the sources: part of the build's name, so an edited header
+# rebuilds every object
+HEADERS = ("ratio_cluster.cuh",)
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -38,7 +42,7 @@ _SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _F, _I, _I, _I, _P, _I, _I,
         _P, _P, _P, _P, _P, _P, _P,
     ),
-    "simplex_ratio_argmin": (_P, _P, _P, _P, _I, _F, _P, _P, _P, _P),
+    "simplex_ratio_argmin": (_P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P),
     "simplex_ratio_eta": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P, _P),
     "simplex_pivot_tail": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I,  # vectors, B_inv, U, R, npend
@@ -67,7 +71,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libsimplex_kernels_{h.hexdigest()[:16]}.so"
 

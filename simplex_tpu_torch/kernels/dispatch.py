@@ -12,7 +12,7 @@
     (:mod:`simplex_tpu_torch.kernels.ops`), the kernels' reference.
 
 Both expose the functions of ``simplex_tpu.kernels.dispatch``'s namespaces
-that the dense Dantzig path uses, so the step is backend-agnostic. As in
+that the dense path uses, so the step is backend-agnostic. As in
 the JAX package's Pallas backend, the Harris ratio test without the eta
 epilogue has no kernel of its own, and neither has the two-sided ratio
 test of the bounded rule: the JAX package runs it through XLA on both
@@ -47,6 +47,12 @@ def get_backend(name: str) -> types.SimpleNamespace:
         ),
         ratio_argmin_bounded=_ops.ratio_argmin_bounded,
         rank1_update=_hopper.rank1_update if fast else _ops.rank1_update,
+        # torch ops on both backends, as they are XLA on both in the JAX
+        # package: the devex / steepest-edge choice and its O(mn) updates
+        devex_choose=_ops.devex_choose,
+        devex_choose_bounded=_ops.devex_choose_bounded,
+        pricing_update=_ops.pricing_update,
+        pricing_update2=_ops.pricing_update2,
         gather_column=_ops.gather_column,
         gather_cost=_ops.gather_cost,
         gather_basis_matrix=_ops.gather_basis_matrix,

@@ -9,6 +9,7 @@ Each wrapper stands beside its plain PyTorch version and a launch counter:
                                                  signed: the bounded rule's
                                                  pricing (XLA in JAX)
   ratio_argmin       csrc/ratio_argmin.cu        pallas_ops.ratio_argmin
+                     (+ ratio_cluster.cuh)
   ratio_eta,         csrc/ratio_eta.cu           pallas_ops.ratio_eta; with
   pivot_tail                                     the tail on, also the O(m)
                                                  selects and scalar updates of
@@ -298,6 +299,17 @@ def choose_entering_bounded(
 # --------------------------------------------------------------------------
 
 
+_RATIO_BLOCK_ROWS = 1024
+_RATIO_MAX_CLUSTER = 8
+
+
+def _ratio_cluster(m: int) -> int:
+    """Blocks of 1024 threads in a ratio kernel's cluster
+    (``csrc/ratio_cluster.cuh``): one row a thread up to 8 blocks, a stride
+    loop beyond."""
+    return min(_RATIO_MAX_CLUSTER, -(-m // _RATIO_BLOCK_ROWS))
+
+
 def ratio_argmin_plain(x_b, alpha, basis, pivot_tol, use_bland):
     """The classic ratio test
     (:func:`simplex_tpu_torch.kernels.ops.ratio_argmin`)."""
@@ -314,8 +326,10 @@ def ratio_argmin(
     use_bland: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(q, theta_q, unbounded)`` of the classic masked ratio test in one
-    launch, every result a 0-d device tensor. x_b, alpha (m,) float32;
-    basis (m,) int32; use_bland a one-element bool or int32 tensor. Any m."""
+    launch of a thread block cluster sized by m (:func:`_ratio_cluster`),
+    every result a 0-d device tensor and a view of one 3-word block. x_b,
+    alpha (m,) float32; basis (m,) int32; use_bland a one-element bool or
+    int32 tensor, read on the device as it is. Any m."""
     m = x_b.shape[0] if x_b.dim() == 1 else -1
     if m <= 0:
         raise ValueError(f"x_b: want a non-empty vector, got {tuple(x_b.shape)}")
@@ -327,34 +341,25 @@ def ratio_argmin(
     if dev.type == "cpu":
         return ratio_argmin_plain(x_b, alpha, basis, pivot_tol, use_bland)
     lib = _build.load_library()
-    bland = use_bland.to(torch.int32).reshape(1)
-    q = torch.empty((), dtype=torch.int32, device=dev)
-    theta_q = torch.empty((), dtype=torch.float32, device=dev)
-    unbounded = torch.empty((), dtype=torch.bool, device=dev)
+    # q, theta_q's bits, and the unbounded flag in the third word's first byte
+    out = torch.empty(3, dtype=torch.int32, device=dev)
+    q, theta_q, unb = out.unbind(0)
     err = lib.simplex_ratio_argmin(
-        x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), bland.data_ptr(),
-        m, pivot_tol, q.data_ptr(), theta_q.data_ptr(), unbounded.data_ptr(),
-        _stream(dev),
+        x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), use_bland.data_ptr(),
+        int(use_bland.dtype == torch.bool), m, pivot_tol, _ratio_cluster(m),
+        q.data_ptr(), theta_q.data_ptr(), unb.data_ptr(), _stream(dev),
     )
     _build.check(err, "ratio_argmin")
     launches["ratio_argmin"] += 1
-    return q, theta_q, unbounded
+    return q, theta_q.view(torch.float32), out[2:].view(torch.bool)[0]
 
 
 # --------------------------------------------------------------------------
 # fused ratio test + eta + x_b step, and the pivot's whole O(m) tail
 # --------------------------------------------------------------------------
 
-_RATIO_BLOCK_ROWS = 1024
-_RATIO_MAX_CLUSTER = 8
 _SCAL_WORDS, _FLAG_BYTES = 6, 4  # csrc/ratio_eta.cu: the scalar block, the flags
 PivotTail = _ops.PivotTail
-
-
-def _ratio_cluster(m: int) -> int:
-    """Blocks of 1024 threads in the ratio kernel's cluster: one row a
-    thread up to 8 blocks, a stride loop beyond."""
-    return min(_RATIO_MAX_CLUSTER, -(-m // _RATIO_BLOCK_ROWS))
 
 
 def _scalar_views(scal: torch.Tensor, flags: torch.Tensor) -> dict:

@@ -97,6 +97,57 @@ def choose_entering_bounded(
     return p.to(torch.int32), s.min()
 
 
+def devex_choose(
+    e: torch.Tensor, gamma: torch.Tensor, eps: float, use_bland: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Entering column from the maintained reduced costs under devex or
+    steepest-edge weights, ``(p, min_e)``: the lowest-index argmax of
+    e_j^2 / gamma_j over the eligible columns (e_j < -eps), or under Bland's
+    rule the first eligible column (0 when none; ``min_e >= -eps`` says so).
+    Basic columns are not masked: a drifted pick is caught by the step's
+    exact recheck."""
+    neg = e < -eps
+    score = torch.where(neg, (e * e) / gamma, -math.inf)
+    p_bland = torch.argmax(neg.to(torch.int32))
+    p = torch.where(use_bland.view(()).to(torch.bool), p_bland, torch.argmax(score))
+    return p.to(torch.int32), e.min()
+
+
+def devex_choose_bounded(
+    e: torch.Tensor,
+    gamma: torch.Tensor,
+    at_upper: torch.Tensor,
+    eps: float,
+    use_bland: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`devex_choose` under the bounded-variable rule, ``(p, min_s)``:
+    eligibility and the termination value take the signed reduced cost
+    s_j = at_upper_j ? -e_j : e_j; the score e^2 / gamma is sign-free."""
+    s = torch.where(at_upper, -e, e)
+    neg = s < -eps
+    score = torch.where(neg, (e * e) / gamma, -math.inf)
+    p_bland = torch.argmax(neg.to(torch.int32))
+    p = torch.where(use_bland.view(()).to(torch.bool), p_bland, torch.argmax(score))
+    return p.to(torch.int32), s.min()
+
+
+def pricing_update(A: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
+    """w = rho . A, the updated pivot row of the tableau: one O(mn) pass in
+    full fp32 (w feeds the incremental reduced costs and weights, whose
+    error compounds over pivots)."""
+    return rho @ A.to(rho.dtype)
+
+
+def pricing_update2(
+    A: torch.Tensor, rho: torch.Tensor, u: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rho . A, u . A)`` as one (2, m) x (m, n) product in full fp32, so
+    that A is read once (steepest edge's pivot row and its weight
+    recurrence's t_j . alpha terms)."""
+    wv = torch.stack([rho, u]) @ A.to(rho.dtype)
+    return wv[0], wv[1]
+
+
 def mask_basic(c: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     """c - 1e30 at the basic columns, so a drifted basic reduced cost can
     never win pricing and the optimality test ranges over nonbasic columns."""

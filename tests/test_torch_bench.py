@@ -1,8 +1,10 @@
 """The port's per-op bench and timing helpers, on the CPU at a tiny size.
 
 The numbers a CPU run gives are host times of PyTorch's CPU kernels; these
-tests check only the record's shape: the JAX package's op names, one
-``{"ms", "gbps"}`` record each, and the JSON line ``main`` prints. The
+tests check only the record's shape: the JAX package's op names and the
+products of steepest edge, the dual step and ranging, one ``{"ms", "gbps"}``
+record each (``ranging_W`` also its TFLOP/s), and the JSON line ``main``
+prints. The
 Hopper backend given CPU tensors runs the plain versions and builds
 nothing.
 """
@@ -23,6 +25,10 @@ OPS = [
     "rank1_update",
     "pricing_segment_bf16",
     "flush_rankL_amortized",
+    "pricing_update2",
+    "pricing_update_two_mv",
+    "steepest_u",
+    "ranging_W",
 ]
 
 
@@ -42,7 +48,7 @@ def test_bench_ops_records(backend, no_library):
     res = bk.bench_ops(16, 64, k=2, backend=backend, device="cpu")
     assert list(res) == OPS
     for op, rec in res.items():
-        assert set(rec) == {"ms", "gbps"}, op
+        assert set(rec) == ({"ms", "gbps", "tflops"} if op == "ranging_W" else {"ms", "gbps"}), op
         assert rec["ms"] >= 0 and rec["gbps"] >= 0, op
 
 
@@ -111,11 +117,35 @@ def test_profile_canonical_rehearses_on_cpu(tmp_path, capsys, no_library):
     out = tmp_path / "profile.json"
     assert pc.main(["--device", "cpu", "--warm", "3", "--window", "5", "--out", str(out)]) == 0
     recs = json.loads(out.read_text())
-    assert list(recs) == ["default", "flagship, multi-price 64", "flagship, multi-price off"]
+    assert list(recs) == [
+        "default", "flagship, multi-price 64", "flagship, multi-price off",
+        "devex", "steepest", "steepest, defer 16",
+    ]
     for tag, rec in recs.items():
         assert (rec["status"], rec["pivots_timed"], rec["pivots_traced"]) == (0, 5, 5), tag
         assert rec["wall_ms_per_pivot"] > 0 and rec["device_ops_per_pivot"] > 0, tag
         assert rec["steps_per_pivot"] >= 1.0, tag
         assert set(rec["launches_per_pivot"]) == set(hopper.launches), tag
+        assert rec["host_reads_per_pivot"]["control"] >= 1.0, tag
+    # the weighted rules' stale flag rides on the control read
+    for tag in ("devex", "steepest", "steepest, defer 16"):
+        assert recs[tag]["host_reads_per_pivot"]["branch"] == 0.0, tag
     printed = [ln for ln in capsys.readouterr().out.splitlines() if ln.split(" {")[0] in recs]
     assert len(printed) == len(recs)
+
+
+def test_profile_canonical_only_and_dual(tmp_path, capsys, no_library):
+    # --only picks option sets by name; --dual adds the dual loop's stretch
+    # after a rhs move, from the default solve's basis
+    from simplex_tpu_torch.bench import profile_canonical as pc
+
+    out = tmp_path / "profile.json"
+    args = ["--device", "cpu", "--warm", "4", "--window", "4", "--only", "steepest",
+            "--dual", "--dual-scale", "0.3", "--out", str(out)]
+    assert pc.main(args) == 0
+    recs = json.loads(out.read_text())
+    assert list(recs) == ["steepest", "steepest, defer 16", "dual"]
+    dual = recs["dual"]
+    assert dual["b_scale"] == 0.3 and dual["cold_pivots"] > 0
+    assert dual["pivots_traced"] >= 1 and dual["host_reads_per_pivot"]["branch"] == 0.0
+    assert set(dual["launches_per_pivot"]) == set(hopper.launches)

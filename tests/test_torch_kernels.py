@@ -268,6 +268,25 @@ def test_ratio_argmin_backends_and_rejects(no_library):
         hopper.ratio_argmin(x, a, b[:3], 1e-7, torch.tensor(False))
     with pytest.raises(ValueError):
         hopper.ratio_argmin(x, a, b, 1e-7, torch.tensor([False, True]))
+    with pytest.raises(ValueError):
+        hopper.ratio_argmin(torch.zeros(0), torch.zeros(0), b[:0], 1e-7, torch.tensor(False))
+    with pytest.raises(ValueError):
+        hopper.ratio_argmin(x, a, b, 1e-7, torch.tensor(0.0))  # a float flag
+    # CPU tensors take the plain version: no build, no launch, the flag as
+    # a bool or an int32
+    hopper.reset_launches()
+    for flag in (torch.tensor(True), torch.tensor([1], dtype=torch.int32)):
+        q, theta, unb = hopper.ratio_argmin(x, a, b, 1e-7, flag)
+        assert (int(q), float(theta), bool(unb)) == (0, 0.0, False)
+    assert hopper.launches["ratio_argmin"] == 0
+
+
+@pytest.mark.parametrize("m,blocks", [(1, 1), (1024, 1), (1025, 2), (8192, 8), (9000, 8)])
+def test_ratio_argmin_cluster_follows_m(m, blocks):
+    # one row a thread: a block of 1024 rows each up to 8 blocks, then a
+    # stride loop; the same choice as ratio_eta's kernel
+    assert hopper._ratio_cluster(m) == blocks
+    assert blocks * hopper._RATIO_BLOCK_ROWS >= min(m, 8 * hopper._RATIO_BLOCK_ROWS)
 
 
 def bf16_pair(shape, seed):
@@ -323,3 +342,26 @@ def test_gather_columns_and_top_k_match_jax():
     assert i_t.dtype == torch.int32
     assert set(i_t.tolist()) == set(np.asarray(i_j).tolist())
     np.testing.assert_array_equal(np.sort(v_t.numpy()), np.sort(np.asarray(v_j)))
+
+
+def test_shared_header_is_part_of_the_build_name(tmp_path, monkeypatch):
+    # both ratio sources include csrc/ratio_cluster.cuh: an edited header
+    # must give the library another name, so every object is rebuilt
+    import shutil
+
+    from simplex_tpu_torch.kernels import _build
+
+    assert _build.HEADERS == ("ratio_cluster.cuh",)
+    for src in ("ratio_argmin.cu", "ratio_eta.cu"):
+        text = (_build.CSRC / src).read_text()
+        assert '#include "ratio_cluster.cuh"' in text
+        assert "cluster_reduce(" in text and "T cluster_reduce" not in text
+    assert (_build.CSRC / "ratio_cluster.cuh").read_text().count("T cluster_reduce(") == 1
+    before = _build.library_path().name
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    assert _build.library_path().name == before
+    with open(copy / "ratio_cluster.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path().name != before

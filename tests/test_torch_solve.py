@@ -114,19 +114,34 @@ def test_explicit_basis_matches_jax():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"options": SimplexOptions(pricing="devex")},
-        {"options": SimplexOptions(pricing="steepest")},
-        {"options": SimplexOptions(pricing="devex", multi_price=64)},
-        {"options": SimplexOptions(pricing="steepest", update_defer=16)},
         {"options": SimplexOptions(pricing_sparse=True, partial_pricing=8)},
         {"options": SimplexOptions(pricing_sparse=True)},
-        {"u": np.full(4, 5.0), "options": SimplexOptions(pricing="devex")},
     ],
 )
 def test_unported_options_raise(kwargs):
     A, b, c = load_lp(SAMPLE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve(A, b, c, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"options": SimplexOptions(pricing="devex")},
+        {"options": SimplexOptions(pricing="steepest")},
+        {"options": SimplexOptions(pricing="devex", multi_price=64)},
+        {"options": SimplexOptions(pricing="steepest", update_defer=16)},
+        {"u": np.full(4, 5.0), "options": SimplexOptions(pricing="devex")},
+    ],
+)
+def test_weighted_pricing_options_solve(kwargs):
+    # the option sets that raised before devex and steepest edge were
+    # ported now solve (devex drops multi_price, as simplex_tpu.solve does)
+    A, b, c = load_lp(SAMPLE)
+    res = solve(A, b, c, device="cpu", **kwargs)
+    ref = simplex_tpu.solve(A, b, c, u=kwargs.get("u"))
+    assert res.status == SolveStatus.OPTIMAL == int(ref.status)
+    assert relative_gap(res.z, ref.z) <= 1e-5 and abs(res.z - 9.0) < 1e-5
 
 
 def test_sparse_and_unknown_backend_raise():

@@ -219,8 +219,14 @@ def test_fp32_phase1_tolerance_reads_the_torch_dtype(monkeypatch):
 def test_warm_sparse_and_device_raise():
     lp = instance("production")
     res = solve_general(lp, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        solve_general(lp, warm=res.warm, device="cpu")
+    # the token is consumed: no phase 1, the dual loop finds the stored
+    # basis still optimal, and the result carries a token of its own
+    again = solve_general(lp, warm=res.warm, device="cpu")
+    assert again.status == SolveStatus.OPTIMAL and again.phase1_iters == 0
+    assert again.iters == 0 and relative_gap(again.z, res.z) <= GAP
+    np.testing.assert_array_equal(np.sort(again.warm.basis), np.sort(res.warm.basis))
+    with pytest.raises(ValueError, match="presolve"):
+        solve_general(lp, warm=res.warm, presolve=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         solve_general(lp._replace(A=scipy.sparse.csc_matrix(lp.A)), device="cpu")
     if torch.cuda.is_available():
