@@ -62,12 +62,44 @@ Phases, each of which raises (and so exits non-zero) on failure:
   9. the general route's warm restart: ``solve_general`` on
      ``multiperiod_production_lp(256, 16)`` again with ``warm=`` the token of
      phase 6's run and every b_i moved by up to 5%, against HiGHS;
- 10. a profiled stretch of the default path's pivot loop on the 8192 x
+ 10. the pivot trace (``core.trace``): ``tests/data/sample.txt`` along its
+     known path (entering 0 then 1, leaving 3 then 2, z 7.5 then 9), and
+     256 pivots of the 2048 x 4096 instance, whose basis after pivot k
+     equals ``solve(max_iter=k)``'s, with the trace's pivots/s;
+ 11. checkpoint / resume (``core.checkpoint``): the 8192 x 16384 instance
+     under steepest edge through ``solve_with_checkpoints`` in chunks of 512
+     pivots with light snapshots, stopped after two chunks and resumed in a
+     fresh call to OPTIMAL within 1e-5 of the uninterrupted solve (phase
+     7's); the same at 2048 x 4096 (default options) with full snapshots
+     against HiGHS; save and load seconds and the snapshot sizes;
+ 12. the CLI's ``verify``, ``analyze --reoptimize`` and ``trace`` on
+     ``tests/data/sample.txt`` and every ``tests/data/*.mps``, each with the
+     JAX CLI's exit code (0, but 2 where the instance is unbounded or the
+     re-solve infeasible, and 1 for ``trace`` on a general-route input,
+     which the reference refuses); ``solve --sparse`` on every MPS file
+     against HiGHS;
+ 13. sparse A: ``bench.py --mode sparse``'s instance rebuilt from its
+     recipe ([A0 | I], A0's 128 x 128 tiles kept with probability 0.1,
+     ``default_rng(0)``) at 8192 x 16384, solved sparse and dense over the
+     512-pivot window under the default options (as ``bench.py --mode
+     sparse`` runs it: Dantzig's path there is longer than 1.2 M pivots);
+     the same recipe at 2048 x 4096 solved sparse and dense to OPTIMAL
+     under steepest edge against HiGHS (same status, z within 1e-5, the
+     f64 KKT check of both answers: dual feasible, primal infeasible by at
+     most ``MAX_PRIMAL_INFEAS``); for each run pivots, seconds, host reads and
+     device syncs a pivot, which the sparse loop keeps at or under 1.05;
+     the sparse and the dense pricing pass timed side by side; general C
+     and B with A as scipy CSC against HiGHS; one sparse ``ranging`` +
+     ``reoptimize`` at 2048 x 4096 against the dense ranges and HiGHS;
+ 14. a profiled stretch of the default path's pivot loop on the 8192 x
      16384 instance, which must stay under ``MAX_DEVICE_OPS_PER_PIVOT``
      device operations a pivot and launch each solve-path kernel once a
-     pivot, and the ratio kernels' device time a launch from a trace of
-     the per-op bench's loop. It runs last: after a profiler run every
-     later launch of the process costs more host time.
+     pivot (after the trace has run); the same stretch of the sparse
+     default path on phase 13's instance, and the device time of one
+     sparse and one dense pricing pass there; and the ratio kernels'
+     device time a launch from a trace of the per-op bench's loop. It runs
+     last: after a profiler run every later launch of the process costs
+     more host time.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON record is its total over
@@ -83,7 +115,9 @@ lines are the kernels' JSON record, the card's ``nvidia-smi`` line and
 checkout of the repository, the script exits non-zero at once.
 
 ``--only kernels`` stops after phase 2 (a quick check of a changed kernel;
-it prints the kernels' measured times and no final ``ok`` line).
+it prints the kernels' measured times and no final ``ok`` line); ``--only
+new`` builds the kernels and runs phases 10-13 and phase 14's sparse part
+alone (no final ``ok`` line either).
 """
 
 from __future__ import annotations
@@ -110,6 +144,20 @@ FLAGSHIP_REFACTOR = 2048
 # four times its rows, and an unbounded transportation LP
 GENERAL_SIZES = {"A": (64, 16), "B": (256, 16)}
 TRANSPORT_C = (64, 1024)
+TRACE_PIVOTS = 256  # pivots of the traced 2048 x 4096 stretch
+CHECKPOINT_EVERY = 512  # pivots a chunk of the checkpointed solves
+# bench.py --mode sparse's recipe: A0's tiles kept with this probability
+SPARSE_TILE, SPARSE_DENSITY = 128, 0.10
+# host reads (and device syncs) a pivot the sparse default loop may take:
+# the one control read, plus a perturbation round now and then
+MAX_SPARSE_READS_PER_PIVOT = 1.05
+# float64 primal infeasibility (-min x_b of the returned basis) a sparse-vs-
+# dense answer may keep: the Harris ratio test trades O(feas_tol)
+# infeasibility for pivot size (1.2e-4 on the default path's 8192 x 16384
+# answer); a drifted fp32 inverse leaves O(1) on the bench-sparse class at
+# 4096 x 8192 and up (python -m tests.bench_sparse_drift), so the
+# to-OPTIMAL pair runs at 2048 x 4096
+MAX_PRIMAL_INFEAS = 1e-3
 # bench.py --mode general's options (its argparse defaults, bench.py:456-462)
 GENERAL_BENCH = dict(pricing_dtype="bfloat16", partial_pricing=8, update_defer=16, refactor_every=1024)
 # the shapes the general route gives the kernels: standardized A (rows,
@@ -697,6 +745,11 @@ def timed_solve(dev, m, n, opts):
     """``solve`` on ``instance(m, n)`` from a synchronized start, with the
     kernels' launch counts, the pivot steps taken and the host reads of
     that run alone. Returns (result, wall seconds, counts, steps, reads)."""
+    return timed_solve_of(dev, *instance(m, n), opts)
+
+
+def timed_solve_of(dev, A, b, c, opts):
+    """:func:`timed_solve` on the LP (A, b, c); A may be sparse."""
     import torch
 
     from simplex_tpu_torch import solve
@@ -710,7 +763,6 @@ def timed_solve(dev, m, n, opts):
         steps[0] += 1
         return inner(*a, **k)
 
-    A, b, c = instance(m, n)
     torch.cuda.synchronize()
     hopper.reset_launches()
     step.reset_host_reads()
@@ -727,10 +779,15 @@ def timed_solve(dev, m, n, opts):
 
 def residual64(dev, m, n, res) -> float:
     """|A_B x_b - b|_inf in float64 for the returned basis."""
+    A, b, _ = instance(m, n)
+    return residual64_of(dev, A, b, res)
+
+
+def residual64_of(dev, A, b, res) -> float:
+    """:func:`residual64` for the dense LP matrix A and rhs b."""
     import numpy as np
     import torch
 
-    A, b, _ = instance(m, n)
     A_d = torch.as_tensor(A, device=dev)
     basis = torch.as_tensor(res.basis.astype(np.int64), device=dev)
     x_b = torch.as_tensor(res.x_b, device=dev).double()
@@ -743,26 +800,39 @@ def kkt64(dev, m, n, res, b=None) -> str:
     residual and sign, dual feasibility (reduced costs of the f64 duals)
     and the duality gap. Raises when the duals are infeasible. ``b``
     replaces the instance's rhs (a warm restart's)."""
+    A, b0, c = instance(m, n)
+    return kkt64_of(dev, A, b0 if b is None else b, c, res, f"{m}x{n}")
+
+
+def kkt64_of(dev, A, b, c, res, tag, max_infeas=None) -> str:
+    """:func:`kkt64` on the LP (A, b, c); a scipy.sparse A is checked
+    through its float64 columns and a float64 SpMV on the card. Fails on
+    a float64 primal infeasibility above ``max_infeas`` when given."""
     import numpy as np
     import torch
 
-    A, b0, c = instance(m, n)
-    b = b0 if b is None else b
-    A64 = torch.as_tensor(A, device=dev).double()
+    from simplex_tpu_torch import sparse as sp
+
+    if sp.is_sparse(A):
+        A64 = sp.from_scipy(A, torch.float64, dev)
+    else:
+        A64 = torch.as_tensor(A, device=dev).double()
     b64 = torch.as_tensor(b, device=dev).double()
     c64 = torch.as_tensor(c, device=dev).double()
     basis = torch.as_tensor(res.basis.astype(np.int64), device=dev)
-    A_B = A64.index_select(1, basis)
+    A_B = sp.gather_columns(A64, basis) if sp.is_sparse(A) else A64.index_select(1, basis)
     x_b = torch.linalg.solve(A_B, b64)
     y = torch.linalg.solve(A_B.T, c64.index_select(0, basis))
-    d = y @ A64 - c64  # reduced costs; optimal iff all >= -eps
+    d = (sp.rmatvec(A64, y) if sp.is_sparse(A) else y @ A64) - c64  # optimal iff all >= -eps
     resid = float((A_B @ torch.as_tensor(res.x_b, device=dev).double() - b64).abs().max())
     gap = float(y @ b64) - float(c64.index_select(0, basis) @ x_b)
     min_d = float(d.min())
     # dual feasibility is the optimality test the solve certified; primal
-    # infeasibility of order feas_tol and above is reported, not refused
-    # (the Harris ratio test trades it for pivot size)
-    check(min_d >= -KKT_TOL, f"{m}x{n}: min reduced cost {min_d}")
+    # infeasibility of order feas_tol is reported (the Harris ratio test
+    # trades it for pivot size), and refused above max_infeas when given
+    check(min_d >= -KKT_TOL, f"{tag}: min reduced cost {min_d}")
+    if max_infeas is not None:
+        check(float(x_b.min()) >= -max_infeas, f"{tag}: f64 min x_b {float(x_b.min())} below -{max_infeas}")
     return (
         f"f64 KKT: |A_B x_b - b|_inf {resid:.3e}, min x_b {float(x_b.min()):.3e}, "
         f"min reduced cost {min_d:.3e}, y.b - c.x {gap:.3e}, feas_err {res.feas_err:.3e}"
@@ -875,6 +945,7 @@ def phase_pricing_rules(dev) -> dict:
         )
         check(gap <= GAP_TOL, f"{tag}: z {res.z} vs the default path's {cold.z}")
         paths[f"{tag} full"] = counts
+        KEPT[f"steepest update_defer={defer} full"] = res
     return paths
 
 
@@ -1235,8 +1306,9 @@ def general_violation(lp, x) -> float:
     """The largest row or bound violation of x in the LP's own (f64)
     terms, over max(1, |b|_inf)."""
     import numpy as np
+    import scipy.sparse as sps
 
-    A = np.asarray(lp.A, np.float64)
+    A = lp.A.tocsr().astype(np.float64) if sps.issparse(lp.A) else np.asarray(lp.A, np.float64)
     r = A @ x - np.asarray(lp.b, np.float64)
     sign = {"L": 1.0, "G": -1.0}
     viol = [abs(ri) if t == "E" else max(0.0, sign[t] * ri) for ri, t in zip(r, lp.row_types)]
@@ -1355,6 +1427,7 @@ def phase_general(dev) -> dict:
                 res, probe, counts = general_run(dev, tag, lp, ref, opts, presolve)
                 if (size, opt_name, presolve) == ("B", "default", False):
                     KEPT["general B"] = (lp, res)
+                    KEPT["general B HiGHS"] = ref
                 # signed pricing runs through pricing_scan under both option
                 # sets (on the bf16 shadow under bench.py --mode general's)
                 check(counts["pricing_scan"] > 0, f"{tag}: pricing_scan never launched")
@@ -1371,6 +1444,7 @@ def phase_general(dev) -> dict:
     print(f"general C transportation_lp({ns}, {nd}, seed=0, balanced=False): {len(lp.b)} rows, "
           f"{lp.A.shape[1]} columns, no bounds; HiGHS {ref.status.name} in {time.perf_counter() - t0:.2f} s")
     tag = "general C default presolve=False"
+    KEPT["general C"] = (lp, ref)
     res, probe, counts = general_run(dev, tag, lp, ref, SimplexOptions(), False)
     p1, p2 = probe.phases(res)
     check(p1 is not None, f"{tag}: no phase 1")
@@ -1381,10 +1455,499 @@ def phase_general(dev) -> dict:
     return paths
 
 
+SCRATCH = ROOT / "build" / "chip_smoke"  # snapshots (build/ is git-ignored)
+
+
+def phase_trace(dev) -> dict:
+    """The pivot trace on the card: the sample's known path, and 256 pivots
+    of the 2048 x 4096 instance against ``solve(max_iter=k)``'s bases. The
+    trace prices once more a pivot for ``min_reduced_cost`` (one
+    pricing_scan call), so it launches pricing_scan twice a pivot step."""
+    import numpy as np
+    import torch
+
+    from simplex_tpu_torch import SimplexOptions, SolveStatus, load_lp, solve
+    from simplex_tpu_torch.core.trace import trace_pivots
+    from simplex_tpu_torch.kernels import hopper
+
+    paths = {}
+    A, b, c = load_lp(ROOT / "tests" / "data" / "sample.txt")
+    hopper.reset_launches()
+    recs = list(trace_pivots(A, b, c, device=dev))
+    paths["trace sample"] = dict(hopper.launches)
+    got = [(r.entering, r.leaving, r.leaving_row, r.objective) for r in recs]
+    check(got == [(0, 3, 1, 7.5), (1, 2, 0, 9.0), (-1, -1, -1, 9.0)], f"trace sample: {got}")
+    check(recs[-1].status == SolveStatus.OPTIMAL, f"trace sample: {recs[-1].status!r}")
+    check([r.min_reduced_cost for r in recs] == [-3.0, -0.5, 1.0], "trace sample: min reduced costs")
+    print(f"trace sample.txt: entering/leaving/row/z {got}; min_e {[r.min_reduced_cost for r in recs]}; "
+          f"launches {paths['trace sample']}")
+
+    A, b, c = instance(SMALL_M, SMALL_N)
+    opts = SimplexOptions(perturb_after=0)  # the trace arms no perturbation
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.perf_counter()
+    recs = list(trace_pivots(A, b, c, options=opts, max_iter=TRACE_PIVOTS, device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(hopper.launches)
+    tag = f"trace {SMALL_M}x{SMALL_N}"
+    paths[tag] = counts
+    check(len(recs) == TRACE_PIVOTS and recs[-1].status == SolveStatus.RUNNING, f"{tag}: {len(recs)} records")
+    check(counts["pricing_scan"] == 2 * TRACE_PIVOTS, f"{tag}: pricing_scan {counts['pricing_scan']}")
+    for name in ("ratio_eta", "rank1_update"):
+        check(counts[name] == TRACE_PIVOTS, f"{tag}: {name} {counts[name]} launches")
+    ks = (1, TRACE_PIVOTS // 4, TRACE_PIVOTS // 2, TRACE_PIVOTS)
+    for k in ks:
+        res = solve(A, b, c, options=SimplexOptions(perturb_after=0, max_iter=k), device=dev)
+        check(res.iters == k and np.array_equal(res.basis, recs[k - 1].basis),
+              f"{tag}: the basis after {k} pivots differs from solve(max_iter={k})'s")
+        check(abs(res.z - recs[k - 1].objective) <= 1e-5 * max(1.0, abs(res.z)), f"{tag}: z after {k} pivots")
+    print(f"{tag}: {len(recs)} pivots traced in {wall:.3f} s ({len(recs) / wall:.1f} pivots/s, the records' "
+          f"host copies included); the basis after pivots {ks} equals solve(max_iter=k)'s; "
+          f"z {recs[-1].objective!r}; launches {counts}")
+    return paths
+
+
+class Stop(Exception):
+    """Raised from ``on_chunk`` to stop a checkpointed solve."""
+
+
+def checkpointed_run(dev, tag, A, b, c, opts, light, want_z, kkt):
+    """``solve_with_checkpoints`` stopped after its second snapshot, then
+    resumed in a fresh call; the snapshot's save / load seconds and size.
+    Returns the launch counts of both calls."""
+    import os
+
+    import torch
+
+    from simplex_tpu_torch import SolveStatus
+    from simplex_tpu_torch.core import checkpoint as ck
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.reference import relative_gap
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    path = SCRATCH / f"{tag.replace(' ', '_')}.npz"
+    if path.exists():
+        path.unlink()
+    seen = []
+
+    def on_chunk(state):
+        seen.append(int(state.iters))
+        if len(seen) == 2:
+            raise Stop
+
+    # the snapshot kind follows the solve's m (light from LIGHT_FROM_M rows)
+    light_from = ck.LIGHT_FROM_M
+    ck.LIGHT_FROM_M = A.shape[0] if light else A.shape[0] + 1
+    try:
+        torch.cuda.synchronize()
+        hopper.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            ck.solve_with_checkpoints(A, b, c, path=path, options=opts, on_chunk=on_chunk, device=dev)
+            check(False, f"{tag}: the solve ended before its second snapshot")
+        except Stop:
+            pass
+        wall1 = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        state = ck.load_checkpoint(path, A=A, b=b, c=c, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck.save_checkpoint(SCRATCH / "resave.npz", state, light=light)
+        t_save = time.perf_counter() - t0
+        del state
+        t0 = time.perf_counter()
+        res = ck.solve_with_checkpoints(A, b, c, path=path, options=opts, device=dev)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    finally:
+        ck.LIGHT_FROM_M = light_from
+    counts = dict(hopper.launches)
+    gap = relative_gap(res.z, want_z)
+    check(res.status == SolveStatus.OPTIMAL, f"{tag}: resumed {res.status!r}")
+    check(gap <= GAP_TOL, f"{tag}: z {res.z} vs the uninterrupted {want_z} (rel {gap:.3e})")
+    print(
+        f"{tag}: stopped after snapshots at pivots {seen} ({wall1:.2f} s), resumed to OPTIMAL z {res.z!r} "
+        f"(uninterrupted {want_z!r}, rel {gap:.3e}) at pivot {res.iters} in {wall2:.2f} s; "
+        f"{'light' if light else 'full'} snapshot {size} bytes, save {t_save:.4f} s, load {t_load:.4f} s "
+        f"({'inverse rebuilt by an f64 LU on the card' if light else 'inverse read back'}); {kkt(res)}; "
+        f"launches {counts}"
+    )
+    path.unlink()
+    return counts
+
+
+def phase_checkpoint(dev) -> dict:
+    """Checkpoint / resume: 8192 x 16384 under steepest edge with light
+    snapshots, and 2048 x 4096 under the default options with full ones."""
+    from simplex_tpu_torch import SimplexOptions
+
+    paths = {}
+    A, b, c = instance(BENCH_M, BENCH_N)
+    want = KEPT.get("steepest update_defer=0 full")
+    if want is None:  # run alone (--only new)
+        want = timed_solve(dev, BENCH_M, BENCH_N, SimplexOptions(pricing="steepest"))[0]
+    opts = SimplexOptions(pricing="steepest", checkpoint_every=CHECKPOINT_EVERY)
+    tag = f"checkpoint {BENCH_M}x{BENCH_N} steepest light"
+    paths[tag] = checkpointed_run(dev, tag, A, b, c, opts, True, want.z,
+                                  lambda r: kkt64(dev, BENCH_M, BENCH_N, r))
+    A, b, c = instance(SMALL_M, SMALL_N)
+    tag = f"checkpoint {SMALL_M}x{SMALL_N} default full"
+    opts = SimplexOptions(checkpoint_every=CHECKPOINT_EVERY)
+    paths[tag] = checkpointed_run(dev, tag, A, b, c, opts, False, highs(SMALL_M, SMALL_N).z,
+                                  lambda r: "z against HiGHS")
+    return paths
+
+
+# exit codes of the JAX CLI where they are not 0: freevar_mi is unbounded;
+# transport2x3 is balanced, so +0.1 on a supply row makes the re-solve
+# infeasible; trace refuses a general-route input
+CLI_RC = {("analyze", "freevar_mi.mps"): 2, ("analyze", "transport2x3.mps"): 2}
+
+
+def phase_cli_more(dev) -> dict:
+    """verify, analyze --reoptimize and trace on sample.txt and every MPS
+    file, then solve --sparse on every MPS file against HiGHS."""
+    import torch
+
+    from simplex_tpu_torch import SolveStatus, cli
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy, solve_scipy_general
+
+    counts = collections.Counter()
+    data = ROOT / "tests" / "data"
+    files = [data / "sample.txt"] + sorted(data.glob("*.mps"))
+    for path in files:
+        for sub in ("verify", "analyze", "trace"):
+            argv = [sub, str(path), "--device", str(dev)]
+            if sub == "analyze":
+                argv += ["--reoptimize", "0=0.1"]
+            want = CLI_RC.get((sub, path.name), 1 if (sub == "trace" and path.suffix == ".mps") else 0)
+            torch.cuda.synchronize()
+            hopper.reset_launches()
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+            counts.update(hopper.launches)
+            lines = (out.getvalue() or err.getvalue()).strip().splitlines()
+            print(f"cli {sub} {path.name}: rc {rc} (want {want}), {len(lines)} lines, wall {wall:.3f} s: "
+                  f"'{lines[0] if lines else ''}' ... '{lines[-1] if lines else ''}'")
+            check(rc == want, f"cli {sub} {path.name}: rc {rc}")
+            if sub == "verify":
+                check(any("OK" in ln or "status agreed" in ln for ln in lines), f"cli verify {path.name}")
+    for path in sorted(data.glob("*.mps")):
+        loaded, c0, maximize = cli._load(str(path), True)
+        ref = solve_scipy_general(loaded) if hasattr(loaded, "row_types") else solve_scipy(*loaded[:3])
+        torch.cuda.synchronize()
+        hopper.reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["solve", str(path), "--sparse", "--device", str(dev)])
+        counts.update(hopper.launches)
+        lines = out.getvalue().splitlines()
+        if ref.status == SolveStatus.OPTIMAL:
+            want = (ref.z if maximize else -ref.z) + c0
+            gap = relative_gap(float(lines[0].split(":")[1]), want)
+            print(f"cli solve --sparse {path.name}: rc {rc}, '{lines[0]}', {lines[-1]}; HiGHS {want!r} "
+                  f"rel_gap {gap:.3e} (6 printed digits)")
+            check(rc == 0 and gap <= GAP_TOL, f"solve --sparse {path.name}: rc {rc}, gap {gap:.3e}")
+        else:
+            print(f"cli solve --sparse {path.name}: rc {rc}, '{lines[0]}'; HiGHS {ref.status.name}")
+            check(rc == 2 and lines[0] == ref.status.describe(), f"solve --sparse {path.name}: {lines[0]}")
+    return {"cli verify / analyze / trace / solve --sparse": dict(counts)}
+
+
+@functools.lru_cache(maxsize=None)
+def sparse_instance(m: int, n: int):
+    """``bench.py --mode sparse``'s instance (bench.py:632-668), rebuilt
+    from its recipe: [A0 | I], A0's 128 x 128 tiles kept with probability
+    0.1 (at least one) and uniform(0.2, 1.5) inside, ``default_rng(0)``.
+    Returns (dense A, scipy CSC A, b, c)."""
+    import numpy as np
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(0)
+    k = n - m
+    gr, gc = -(-m // SPARSE_TILE), -(-k // SPARSE_TILE)
+    mask = rng.uniform(size=(gr, gc)) < SPARSE_DENSITY
+    if not mask.any():
+        mask[0, 0] = True
+    A0 = rng.uniform(0.2, 1.5, (m, k)).astype(np.float32)
+    keep = np.kron(mask, np.ones((SPARSE_TILE, SPARSE_TILE), bool))[:m, :k]
+    A0[~keep] = 0.0
+    A = np.hstack([A0, np.eye(m, dtype=np.float32)])
+    b = (A0 @ rng.uniform(0.2, 0.8, k) + rng.uniform(0.1, 1.0, m)).astype(np.float32)
+    c = np.concatenate([rng.uniform(0.5, 2, k), np.zeros(m)]).astype(np.float32)
+    c[:k] *= (A0 != 0).any(axis=0)
+    return A, sps.csc_matrix(A), b, c
+
+
+def sparse_vs_dense(dev, paths, label, A, A_sp, b, c, opts, name) -> dict:
+    """The same LP solved with A dense and with A sparse (scipy CSC) under
+    ``opts``: status, z, pivots, seconds, host reads and device syncs a
+    pivot of each; the sparse loop must stay within
+    MAX_SPARSE_READS_PER_PIVOT; an f64 residual (window) or KKT check
+    (OPTIMAL, primal infeasibility within MAX_PRIMAL_INFEAS) of both.
+    Returns the two results."""
+    import numpy as np
+
+    from simplex_tpu_torch import SolveStatus
+    from simplex_tpu_torch.oracle.reference import relative_gap
+
+    runs = {}
+    for tag, mat in (("dense", A), ("sparse", A_sp)):
+        res, wall, counts, steps, reads, syncs = sync_counted_solve(dev, mat, b, c, opts)
+        runs[tag] = res
+        paths[f"{label} {name}, {tag} A"] = counts
+        per = (reads["control"] + reads["branch"]) / max(1, res.iters)
+        print(f"{label} {tag} A, {name}: {res.status.name} z {res.z!r} after {res.iters} pivots "
+              f"({steps} steps) in {wall:.2f} s ({res.iters / wall:.1f} pivots/s, set-up and polish included); "
+              f"host reads {reads} ({per:.4f} a pivot); device syncs in the pivot loop {syncs} "
+              f"({syncs / max(1, res.iters):.4f} a pivot); launches {counts}")
+        want = SolveStatus.MAX_ITER if opts.max_iter else SolveStatus.OPTIMAL
+        check(res.status == want, f"{label} {tag} {name}: {res.status!r}")
+        check(counts["ratio_eta"] == steps and counts["rank1_update"] == steps,
+              f"{label} {tag} {name}: ratio_eta / rank1_update launches {counts} in {steps} steps")
+        if tag == "sparse":
+            check(counts["pricing_scan"] == 0, f"{label} sparse: pricing_scan {counts['pricing_scan']}")
+            check(per <= MAX_SPARSE_READS_PER_PIVOT, f"{label} sparse: {per:.4f} host reads a pivot")
+            check(syncs / max(1, res.iters) <= MAX_SPARSE_READS_PER_PIVOT,
+                  f"{label} sparse: {syncs} device syncs in {res.iters} pivots")
+    gap = relative_gap(runs["sparse"].z, runs["dense"].z)
+    same = np.array_equal(runs["sparse"].basis, runs["dense"].basis)
+    check(gap <= GAP_TOL, f"{label} {name}: sparse z {runs['sparse'].z} vs dense {runs['dense'].z}")
+    if opts.max_iter:
+        verdict = f"f64 residual of the sparse basis {residual64_of(dev, A, b, runs['sparse']):.3e}"
+    else:
+        verdict = "; ".join(f"{tag} answer " + kkt64_of(dev, A_sp, b, c, runs[tag], f"{label} {tag}",
+                                                        MAX_PRIMAL_INFEAS)
+                            for tag in ("sparse", "dense"))
+    print(f"{label} {name}: sparse vs dense z rel {gap:.3e}, same basis {same}; {verdict}")
+    return runs
+
+
+def general_instance(name: str):
+    """(GeneralLP, HiGHS result) of general C or B, from phase 6 when it
+    ran."""
+    from simplex_tpu_torch.oracle.generator import multiperiod_production_lp, transportation_lp
+    from simplex_tpu_torch.oracle.reference import solve_scipy_general
+
+    if name == "C":
+        if "general C" in KEPT:
+            return KEPT["general C"]
+        lp = transportation_lp(*TRANSPORT_C, seed=0, balanced=False)
+    else:
+        if "general B" in KEPT:
+            return KEPT["general B"][0], KEPT["general B HiGHS"]
+        lp = multiperiod_production_lp(*GENERAL_SIZES["B"], seed=0)
+    return lp, solve_scipy_general(lp)
+
+
+def sync_counted_solve(dev, A, b, c, opts):
+    """:func:`timed_solve_of` with the device syncs inside the pivot loop
+    counted (``torch.cuda.set_sync_debug_mode``: one warning a sync).
+    Returns its tuple plus the syncs."""
+    import warnings
+
+    import torch
+
+    from simplex_tpu_torch.core import solver
+
+    inner = solver._pivot_loop
+    syncs = [0]
+
+    def counted(*a, **k):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return inner(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs[0] += sum("synchroniz" in str(w.message) for w in seen)
+
+    solver._pivot_loop = counted
+    try:
+        out = timed_solve_of(dev, A, b, c, opts)
+    finally:
+        solver._pivot_loop = inner
+    return (*out, syncs[0])
+
+
+def pricing_pass_record(dev, A, A_sp, c) -> dict:
+    """The sparse pricing pass (SpMV over A^T, then the masked argmin) and
+    the dense one (``pricing_scan``) on the same instance, timed with CUDA
+    events, beside their bounds; the same choice from both."""
+    import torch
+
+    from simplex_tpu_torch import sparse as sp
+    from simplex_tpu_torch.kernels import hopper
+
+    m, n = A.shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    y = torch.randn(m, generator=g, device=dev) * 0.1
+    c_d = torch.as_tensor(c, device=dev)
+    basis = torch.arange(n - m, n, dtype=torch.int32, device=dev)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    P = sp.from_scipy(A_sp, torch.float32, dev)
+    A_d = torch.as_tensor(A, device=dev)
+    p_s, e_s = hopper.choose_entering(y, P, c_d, 1e-5, no, basis)
+    p_d, e_d = hopper.choose_entering(y, A_d, c_d, 1e-5, no, basis)
+    check(int(p_s) == int(p_d), f"sparse pricing picks {int(p_s)}, dense {int(p_d)}")
+    check(abs(float(e_s) - float(e_d)) <= PRICING_RTOL * max(1.0, abs(float(e_d))), "sparse pricing min_e")
+    ms_s = time_ms(lambda: hopper.choose_entering(y, P, c_d, 1e-5, no, basis))
+    ms_d = time_ms(lambda: hopper.choose_entering(y, A_d, c_d, 1e-5, no, basis))
+    bytes_s = 8 * P.nnz + 4 * (n + 1) + 4 * (2 * m + n)  # values + indices, pointers, y, basis, c
+    bytes_d = 4 * m * n + 4 * (2 * m + n)
+    rec = {
+        "nnz": P.nnz, "sparse_ms": ms_s, "sparse_bytes": bytes_s, "sparse_bound_ms": bound(bytes_s, 2 * P.nnz)["bound_ms"],
+        "dense_ms": ms_d, "dense_bytes": bytes_d, "dense_bound_ms": bound(bytes_d, 2 * m * n)["bound_ms"],
+    }
+    print(f"pricing pass on the sparse bench instance {m}x{n} ({P.nnz} nonzeros, k_max {P.k_max}): "
+          f"sparse (SpMV + masked argmin) {ms_s:.4f} ms between events, {bytes_s} bytes, bound "
+          f"{rec['sparse_bound_ms']:.4f} ms; dense pricing_scan {ms_d:.4f} ms, {bytes_d} bytes, bound "
+          f"{rec['dense_bound_ms']:.4f} ms; same choice {int(p_s)}")
+    KEPT["pricing pass inputs"] = (y, P, A_d, c_d, no, basis)
+    return rec
+
+
+def phase_sparse(dev) -> dict:
+    """Sparse A: the bench-sparse instance solved sparse and dense (the
+    default options over the window at 8192 x 16384; steepest edge to
+    OPTIMAL at 2048 x 4096); general C and B on scipy CSC against HiGHS; a
+    sparse ranging + reoptimize."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+
+    from simplex_tpu_torch import SimplexOptions, SolveStatus, ranging, reoptimize
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy
+
+    paths = {}
+    t0 = time.perf_counter()
+    A, A_sp, b, c = sparse_instance(BENCH_M, BENCH_N)
+    print(f"sparse bench instance {BENCH_M}x{BENCH_N}: {A_sp.nnz} nonzeros ({A_sp.nnz / A.size:.4f} of A), "
+          f"dense A {A.nbytes / 2**20:.0f} MiB, CSR values + indices {8 * A_sp.nnz / 2**20:.0f} MiB; "
+          f"built on the host in {time.perf_counter() - t0:.2f} s")
+    # the default options over bench.py --mode sparse's window (its own
+    # run is a window: Dantzig's path on this instance is longer than 1.2 M
+    # pivots); to OPTIMAL at 2048 x 4096 below
+    sparse_vs_dense(dev, paths, f"bench-sparse {BENCH_M}x{BENCH_N}", A, A_sp, b, c,
+                    SimplexOptions(max_iter=BENCH_WINDOW), f"default, max_iter={BENCH_WINDOW}")
+    KEPT["pricing pass"] = pricing_pass_record(dev, A, A_sp, c)
+    del A, A_sp
+    torch.cuda.empty_cache()
+
+    for name in ("C", "B"):
+        lp, ref = general_instance(name)
+        lp_s = lp._replace(A=sps.csc_matrix(np.asarray(lp.A)))
+        tag = f"general {name} sparse A (scipy CSC) default presolve=False"
+        res, probe, counts = general_run(dev, tag, lp_s, ref, SimplexOptions(), False)
+        # B is bounded: its steps take the plain two-sided ratio test, not
+        # ratio_eta; C runs both kernels
+        for kname in ("rank1_update", "ratio_eta") if name == "C" else ("rank1_update",):
+            check(counts[kname] > 0, f"{tag}: {kname} never launched ({counts})")
+        paths[tag] = counts
+        torch.cuda.empty_cache()
+
+    # to OPTIMAL at the size HiGHS checks quickly, the same recipe
+    A, A_sp, b, c = sparse_instance(SMALL_M, SMALL_N)
+    t0 = time.perf_counter()
+    ref = solve_scipy(A, b, c)
+    print(f"bench-sparse recipe at {SMALL_M}x{SMALL_N}: {A_sp.nnz} nonzeros; HiGHS {ref.status.name} "
+          f"z {ref.z!r} in {time.perf_counter() - t0:.2f} s")
+    runs = sparse_vs_dense(dev, paths, f"bench-sparse {SMALL_M}x{SMALL_N}", A, A_sp, b, c,
+                           SimplexOptions(pricing="steepest"), "steepest, to OPTIMAL")
+    res = runs["sparse"]
+    gap = relative_gap(res.z, ref.z)
+    check(gap <= GAP_TOL, f"sparse {SMALL_M}x{SMALL_N}: z {res.z} HiGHS {ref.z}")
+    print(f"bench-sparse {SMALL_M}x{SMALL_N} sparse answer against HiGHS: rel_gap {gap:.3e}")
+    t0 = time.perf_counter()
+    rng_s = ranging(A_sp, b, c, res.basis, device=dev)
+    t_s = time.perf_counter() - t0
+    rng_d = ranging(A, b, c, res.basis, device=dev)
+    for f in ("b_lo", "b_hi", "c_lo", "c_hi", "y", "x"):
+        g, w = getattr(rng_s, f).astype(np.float64), getattr(rng_d, f).astype(np.float64)
+        big = ~np.isfinite(w) | (np.abs(w) > 1e6)
+        check(np.array_equal(np.sign(g[big]), np.sign(w[big])) and np.allclose(g[~big], w[~big], rtol=1e-4, atol=1e-5),
+              f"sparse ranging {f} differs from the dense ranges")
+    room = np.where(np.isfinite(rng_s.b_hi) & (rng_s.b_hi <= np.abs(b)), rng_s.b_hi, -np.inf)
+    i = int(np.argmax(room))
+    b2 = np.array(b, np.float64)
+    b2[i] += 1.5 * rng_s.b_hi[i]
+    b2 = b2.astype(np.float32)
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.perf_counter()
+    warm = reoptimize(A_sp, b2, c, res, device=dev)
+    torch.cuda.synchronize()
+    t_w = time.perf_counter() - t0
+    counts = dict(hopper.launches)
+    ref2 = solve_scipy(A, b2, c)
+    gap = relative_gap(warm.z, ref2.z)
+    check(warm.status == SolveStatus.OPTIMAL and gap <= GAP_TOL, f"sparse reoptimize: {warm.status!r} gap {gap:.3e}")
+    check(counts["rank1_update"] > 0, "sparse reoptimize: rank1_update never launched")
+    paths[f"sparse reoptimize {SMALL_M}x{SMALL_N}"] = counts
+    print(f"sparse {SMALL_M}x{SMALL_N} (bench-sparse recipe), from the steepest solve's basis: ranging "
+          f"in {t_s:.2f} s (equal to the dense ranges); b_{i} + 1.5 x its range: reoptimize {warm.iters} pivots "
+          f"in {t_w:.2f} s, z {warm.z!r} HiGHS {ref2.z!r} rel_gap {gap:.3e}; launches {counts}")
+    return paths
+
+
+def phase_sparse_profile(dev) -> None:
+    """Device ops and time a pivot of the sparse default path on the
+    bench-sparse instance (the same profiled stretch as the dense gate's),
+    and the device time of one sparse and one dense pricing pass."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch import SimplexOptions
+    from simplex_tpu_torch.bench.profile_canonical import profile_loop
+    from simplex_tpu_torch.bench.profile_general import device_summary
+    from simplex_tpu_torch.kernels import hopper
+
+    _, A_sp, b, c = sparse_instance(BENCH_M, BENCH_N)
+    rec = profile_loop(A_sp, b, c, SimplexOptions(), dev, warm=32, window=128)
+    print(
+        f"sparse default path, {rec['pivots_traced']} profiled pivots: {rec['device_ops_per_pivot']:.2f} device "
+        f"ops, {rec['device_us_per_pivot']:.1f} device us and {rec['wall_ms_per_pivot']:.3f} wall ms a pivot, "
+        f"busy {rec['device_busy']:.1%}; launches a pivot {rec['launches_per_pivot']}; host reads a pivot "
+        f"{rec['host_reads_per_pivot']}; largest items (us a pivot) {rec['top_us_per_pivot']}"
+    )
+    check(rec["device_us_per_pivot"] > 0, "sparse profile: no device time")
+    y, P, A_d, c_d, no, basis = KEPT.pop("pricing pass inputs")
+    k = 50
+    out = {}
+    for tag, Am in (("sparse", P), ("dense", A_d)):
+        hopper.choose_entering(y, Am, c_d, 1e-5, no, basis)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(k):
+                hopper.choose_entering(y, Am, c_d, 1e-5, no, basis)
+            torch.cuda.synchronize()
+        dev_us, n_ops, _ = device_summary(prof, True)
+        out[tag] = (sum(dev_us.values()) / k, n_ops / k, dict(dev_us.most_common(4)))
+    rec = KEPT["pricing pass"]
+    print(f"pricing pass device time on the bench-sparse instance: sparse {out['sparse'][0]:.1f} us a pass in "
+          f"{out['sparse'][1]:.1f} device ops (bound {1e3 * rec['sparse_bound_ms']:.1f} us; largest "
+          f"{out['sparse'][2]}); dense pricing_scan {out['dense'][0]:.1f} us in {out['dense'][1]:.1f} ops "
+          f"(bound {1e3 * rec['dense_bound_ms']:.1f} us)")
+    check(out["sparse"][0] > 0 and out["dense"][0] > 0, "pricing pass: no device time")
+
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="stop after the kernel checks (no final ok line)")
+    ap.add_argument("--only", choices=["kernels", "new"], default=None,
+                    help="kernels: stop after the kernel checks; new: the kernel build, then only "
+                         "the trace, checkpoint, CLI and sparse phases (no final ok line either way)")
     args = ap.parse_args(argv)
     if not (ROOT / "simplex_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -1403,6 +1966,14 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     phase_build()
+    if args.only == "new":
+        for phase in (phase_trace, phase_checkpoint, phase_cli_more, phase_sparse):
+            for tag, counts in phase(dev).items():
+                print(f"launches on path '{tag}': {counts}")
+        phase_sparse_profile(dev)
+        print(f"new phases: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
     recs = {
         "pricing_scan": phase_pricing(dev),
         "ratio_argmin": phase_ratio_argmin(dev),
@@ -1432,8 +2003,15 @@ def main(argv=None) -> int:
     paths.update(phase_warm_restart(dev))
     paths.update(phase_general_warm(dev))
     torch.cuda.empty_cache()
+    paths.update(phase_trace(dev))
+    paths.update(phase_checkpoint(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_cli_more(dev))
+    paths.update(phase_sparse(dev))
+    torch.cuda.empty_cache()
     # last: a profiler run leaves every later launch of the process dearer
     phase_device_ops(dev)
+    phase_sparse_profile(dev)
     ratio_us = phase_ratio_device_time(dev)
     recs["ratio_argmin"]["device_us"] = ratio_us["ratio_argmin"]
     recs["ratio_eta"]["ratio_only_device_us"] = ratio_us["ratio_eta, harris, tail off"]

@@ -20,11 +20,20 @@ jax; ``simplex_tpu`` stays the reference it is tested against.
     rng = ranging(A, b, c, result.basis)         # allowable delta-b / delta-c
     again = reoptimize(A, b_new, c, result)      # dual simplex, warm
 
+    import scipy.sparse as sps                   # sparse A, every entry point
+    result = solve(sps.csc_matrix(A), b, c)
+
+    from simplex_tpu_torch import trace_pivots, solve_with_checkpoints
+    for rec in trace_pivots(A, b, c): ...        # one record a pivot
+    result = solve_with_checkpoints(A, b, c, path="run.npz")  # resumable
+
 Modules and subpackages:
     core     state, pivot step (native upper bounds; Dantzig, devex and
              steepest-edge pricing), host-driven solve loop, Newton
-             inversion, the dual simplex, the two-phase route
+             inversion, the dual simplex, the two-phase route, the pivot
+             trace, checkpoint / resume
     analysis ranging and the warm re-solve after a rhs change
+    sparse   sparse A on the device (CSR of A and of A^T), its ops
     kernels  plain torch ops, the Hopper kernel wrappers and their build
     io       the reference text format, MPS read/write, canonical form
     oracle   instance generators and the HiGHS oracle
@@ -32,31 +41,47 @@ Modules and subpackages:
 
 from simplex_tpu_torch.analysis import RangingResult, ranging, reoptimize
 from simplex_tpu_torch.config import DEFAULT_OPTIONS, SimplexOptions
+from simplex_tpu_torch.core.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+    solve_with_checkpoints,
+    validate_checkpoint,
+)
 from simplex_tpu_torch.core.dual import solve_dual
 from simplex_tpu_torch.core.solver import SolveResult, solve
+from simplex_tpu_torch.core.trace import PivotRecord, print_trace, trace_pivots
 from simplex_tpu_torch.core.twophase import GeneralLP, GeneralSolveResult, solve_general
 from simplex_tpu_torch.io.mps import read_mps
 from simplex_tpu_torch.io.mps_write import write_mps
 from simplex_tpu_torch.io.text import load_lp, loads_lp
 from simplex_tpu_torch.presolve import presolve
+from simplex_tpu_torch.sparse import SparseA
 from simplex_tpu_torch.status import SolveStatus
 
 __all__ = [
     "DEFAULT_OPTIONS",
     "GeneralLP",
     "GeneralSolveResult",
+    "PivotRecord",
     "RangingResult",
     "SimplexOptions",
     "SolveResult",
     "SolveStatus",
+    "SparseA",
+    "load_checkpoint",
     "load_lp",
     "loads_lp",
     "presolve",
+    "print_trace",
     "ranging",
     "read_mps",
     "reoptimize",
+    "save_checkpoint",
     "solve",
     "solve_dual",
     "solve_general",
+    "solve_with_checkpoints",
+    "trace_pivots",
+    "validate_checkpoint",
     "write_mps",
 ]

@@ -16,7 +16,9 @@ Everything is derived from the final basis on the device: one Newton-Schulz
 re-inversion (:mod:`simplex_tpu_torch.core.linalg`, its residual checked,
 with a float64 LU on the same device behind it), the (m, m) x (m, n) product
 W = B_inv A and masked row minima / maxima, all plain torch ops in full
-fp32; only O(m + n) vectors come back to the host.
+fp32; only O(m + n) vectors come back to the host. A sparse A never
+materializes W: the cost-ranging reductions run over column chunks, each
+gathered dense and multiplied by B_inv (``_ranging_jit_sparse``).
 """
 
 from __future__ import annotations
@@ -27,9 +29,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from simplex_tpu_torch.config import DEFAULT_OPTIONS
+from simplex_tpu_torch import sparse as _sp
+from simplex_tpu_torch.config import DEFAULT_OPTIONS, pin_full_fp32
 from simplex_tpu_torch.core.linalg import inverse_newton
-from simplex_tpu_torch.core.solver import _is_sparse
+from simplex_tpu_torch.kernels import ops as _ops
 from simplex_tpu_torch.logging import get_logger
 
 _EPS = 1e-12  # entries of B_inv and W below this constrain nothing
@@ -55,14 +58,36 @@ class RangingResult(NamedTuple):
     ok: bool = True
 
 
+def _cost_rows(A, B_inv, red, nonbasic, chunk: int = 512):
+    """Per row r of the tableau W = B_inv A: the least upper and the largest
+    lower cost-ranging bound over the nonbasic columns. Dense A: W at once;
+    sparse A: ``chunk`` columns at a time, so W is never held whole."""
+    if isinstance(A, _sp.SparseA):
+        n = A.shape[1]
+        ups, los = [], []
+        for lo in range(0, n, chunk):
+            ids = torch.arange(lo, min(lo + chunk, n), device=B_inv.device)
+            Wc = B_inv @ _sp.gather_columns(A, ids).to(B_inv.dtype)
+            up, low = _cost_rows(Wc, None, red[lo : lo + Wc.shape[1]], nonbasic[lo : lo + Wc.shape[1]])
+            ups.append(up)
+            los.append(low)
+        return torch.stack(ups).amin(0), torch.stack(los).amax(0)
+    W = A if B_inv is None else B_inv @ A  # (m, n): row r is w
+    q = -red[None, :] / W
+    up_rows = torch.where(nonbasic[None, :] & (W < -_EPS), q, math.inf).amin(1)
+    lo_rows = torch.where(nonbasic[None, :] & (W > _EPS), q, -math.inf).amax(1)
+    return up_rows, lo_rows
+
+
 def _ranges(A, b, c, basis, B_inv):
     """The six vectors of :class:`RangingResult` on the device
-    (``simplex_tpu.analysis._ranging_jit``)."""
+    (``simplex_tpu.analysis._ranging_jit``, or ``_ranging_jit_sparse``
+    for a sparse A)."""
     n = A.shape[1]
     idx = basis.long()
     x_b = B_inv @ b
     y = c.index_select(0, idx) @ B_inv
-    red = y @ A - c  # >= 0 at optimality
+    red = _ops.reduced_costs(y, A, c)  # >= 0 at optimality
 
     # rhs ranging: x_b + t B_inv[:, i] >= 0 for every column i of B_inv
     D = B_inv
@@ -76,11 +101,7 @@ def _ranges(A, b, c, basis, B_inv):
     # red_k(t) >= 0 must hold over the nonbasic k:
     #   w_k > 0  ->  t >= -red_k / w_k;   w_k < 0  ->  t <= -red_k / w_k
     nonbasic = torch.ones(n, dtype=torch.bool, device=A.device).index_fill_(0, idx, False)
-    W = B_inv @ A  # (m, n): row r is w
-    q = -red[None, :] / W
-    up_rows = torch.where(nonbasic[None, :] & (W < -_EPS), q, math.inf).amin(1)
-    lo_rows = torch.where(nonbasic[None, :] & (W > _EPS), q, -math.inf).amax(1)
-    del W, q
+    up_rows, lo_rows = _cost_rows(A, B_inv, red, nonbasic)
     c_lo = torch.full_like(red, -math.inf).index_copy_(0, idx, lo_rows)
     c_hi = red.index_copy(0, idx, up_rows)
     x = torch.zeros_like(red).index_copy_(0, idx, x_b)
@@ -95,22 +116,20 @@ def ranging(A, b, c, basis, *, device="cuda") -> RangingResult:
     The basis is re-inverted by Newton-Schulz and the residual is checked:
     an ill-conditioned basis that stalls the fp32 iteration falls back to a
     float64 LU inversion on the device, so the ranges never come from a bad
-    inverse; ``ok=False`` reports a basis even that could not invert."""
-    if _is_sparse(A):
-        raise NotImplementedError(
-            "ranging on a sparse A is not ported to simplex_tpu_torch yet "
-            "(ROADMAP.md, open item 15)"
-        )
-    torch.backends.cuda.matmul.allow_tf32 = False
+    inverse; ``ok=False`` reports a basis even that could not invert.
+    ``A`` may be sparse (scipy.sparse or a
+    :class:`~simplex_tpu_torch.sparse.SparseA`)."""
+    pin_full_fp32()
     device = torch.device(device)
 
     def put(v):
         v = v if isinstance(v, torch.Tensor) else np.asarray(v)
         return torch.as_tensor(v, device=device).to(torch.float32)
 
-    A_d, b_d, c_d = put(A), put(b), put(c)
+    A_d = _sp.as_sparse(A, torch.float32, device) if _sp.is_sparse(A) else put(A)
+    b_d, c_d = put(b), put(c)
     basis_d = torch.as_tensor(np.asarray(basis, np.int32), device=device)
-    B = A_d.index_select(1, basis_d)
+    B = _ops.gather_basis_matrix(A_d, basis_d)
     B_inv, resid = inverse_newton(B)
     ok = math.isfinite(resid) and resid <= 1e-3
     if not ok:

@@ -19,6 +19,12 @@ JAX package's names:
                          function as two ``torch.mv`` calls (two passes)
   steepest_u             alpha . B_inv, steepest edge's extra O(m^2) pass
   ranging_W              ranging's (m, m) x (m, n) product B_inv . A, once
+  bsp_matvec_density*    A x and y . A over a sparse A (the JAX package's
+  bsp_rmatvec_density*   block-sparse ops; here :mod:`simplex_tpu_torch.
+                         sparse`'s CSR SpMVs): A's 128 x 128 tiles kept with
+                         probability 0.1 and stored whole, as the JAX
+                         bench's; bytes = nnz x 8 (value, index) + the row
+                         pointers and the two vectors
 
 The products are library calls in full fp32 on both backends (the JAX
 package leaves them to XLA): they are timed here, not replaced.
@@ -30,8 +36,9 @@ host's launch rate, not by the card. It runs last: after a profiler run
 every later launch of the process costs more host time.
 
 ``backend`` is ``"hopper"`` (the CUDA kernels) or ``"torch"`` (plain
-PyTorch). The JAX package's two block-sparse ops wait for the port of
-``sparse.py``. Inputs are random, from a fixed seed, made on the device.
+PyTorch); the sparse products are cuSPARSE on both. Inputs are random,
+from a fixed seed, made on the device (the sparse matrix's pattern and
+values on the host).
 
     python -m simplex_tpu_torch.bench.kernels [--m 8192 --n 16384 --k 32]
         [--backend hopper|torch] [--device cuda] [--device-time]
@@ -44,6 +51,9 @@ from typing import Callable, Dict
 
 import torch
 
+import numpy as np
+
+from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch.bench.timing import elapsed_ms
 from simplex_tpu_torch.kernels.dispatch import get_backend
 
@@ -165,7 +175,46 @@ def bench_ops(
     ms = record("ranging_W", ranging_loop, 4 * (m * m + 2 * m * n), per=1)
     results["ranging_W"]["tflops"] = round(2.0 * m * m * n / ms / 1e9, 2)
     del W
+
+    M, density = tile_sparse(m, n, dev)
+    x0 = torch.randn(n, generator=g, device=dev)
+
+    def sp_mv_loop():
+        xc = x0
+        for _ in range(k):
+            xc = xc + torch.nn.functional.pad(_sp.matvec(M, xc), (0, n - m)) * 1e-20
+        return xc
+
+    def sp_rmv_loop():
+        yc = y0
+        for _ in range(k):
+            yc = yc + _sp.rmatvec(M, yc)[:m] * 1e-20
+        return yc
+
+    stored = 8 * M.nnz + 4 * (m + n)
+    record(f"bsp_matvec_density{density:.2f}", sp_mv_loop, stored + 4 * (m + 1))
+    record(f"bsp_rmatvec_density{density:.2f}", sp_rmv_loop, stored + 4 * (n + 1))
     return results
+
+
+def tile_sparse(m: int, n: int, device, density: float = 0.10, seed: int = 0):
+    """``(SparseA, tile density)``: an (m, n) matrix whose 128 x 128 tiles
+    are kept with probability ``density`` (at least one) and stored whole,
+    with standard normal values: the JAX bench's structured pattern."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    mask = rng.uniform(size=(max(1, m // 128), max(1, n // 128))) < density
+    if not mask.any():
+        mask[0, 0] = True
+    tr, tc = np.nonzero(mask)
+    ii, jj = np.divmod(np.arange(128 * 128), 128)
+    rows = (tr[:, None] * 128 + ii[None, :]).ravel()
+    cols = (tc[:, None] * 128 + jj[None, :]).ravel()
+    keep = (rows < m) & (cols < n)
+    vals = rng.standard_normal(int(keep.sum()))
+    coo = sps.coo_matrix((vals, (rows[keep], cols[keep])), shape=(m, n))
+    return _sp.from_scipy(coo, torch.float32, device), float(mask.mean())
 
 
 def ratio_device_us(m: int, k: int = 200, device="cuda") -> Dict[str, float]:

@@ -10,11 +10,12 @@ solve in both packages. Two fields change meaning:
     hand-written CUDA kernels of :mod:`simplex_tpu_torch.kernels.hopper`,
     ``"torch"`` runs plain PyTorch ops everywhere.
 
-This port covers the dense path, with or without native upper bounds
+This port covers dense and sparse A, with or without native upper bounds
 (``solve(u=)``, and the general-form route of ``solve_general`` on top).
 Under the Dantzig rule: full, segmented (``partial_pricing``) or multiple
 (``multi_price``) pricing, on A or on its bfloat16 shadow
-(``pricing_dtype``) with an exact recheck. Under ``pricing="devex"`` or
+(``pricing_dtype``), or on a sparse copy of a dense A (``pricing_sparse``),
+with an exact recheck. Under ``pricing="devex"`` or
 ``"steepest"``: incremental reduced costs with devex reference weights or
 exact steepest-edge norms, always in fp32 and over all columns (no shadow,
 no segments; steepest edge refuses ``multi_price``, devex drops it). Under
@@ -92,9 +93,11 @@ class SimplexOptions:
     # the dual simplex's bound-flipping (long-step) ratio test on boxed
     # problems; off = the textbook ratio test
     dual_flip: bool = True
-    # options of later slices, kept so an option set reads the same in both
-    # packages; check_supported rejects any value that would select them
+    # Dantzig over a dense A: price against a sparse copy of A (at
+    # pricing_dtype) and recheck the winner exactly; needs the full pass
+    # (partial_pricing <= 1)
     pricing_sparse: bool = False
+    # solve_with_checkpoints: pivots between snapshots (0 = 1024)
     checkpoint_every: int = 0
     # f64 refinement of the returned basis (when m <= polish_max_m)
     polish: bool = True
@@ -120,6 +123,13 @@ DEFAULT_OPTIONS = SimplexOptions()
 PRICING_RULES = ("dantzig", "devex", "steepest")
 
 
+def pin_full_fp32() -> None:
+    """Matrix products in full fp32 (TF32 off): every entry point calls this
+    first, the counterpart of the JAX package's ``Precision.HIGHEST``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def check_supported(opts: SimplexOptions) -> SimplexOptions:
     """Raise for an option value this port does not run, and return the
     options the solve runs with: ``simplex_tpu.solve``'s own two rules on
@@ -138,11 +148,6 @@ def check_supported(opts: SimplexOptions) -> SimplexOptions:
     if opts.pricing_dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"pricing_dtype must be 'float32' or 'bfloat16', got {opts.pricing_dtype!r}"
-        )
-    if opts.pricing_sparse:
-        raise NotImplementedError(
-            "pricing_sparse=True is not ported to simplex_tpu_torch yet "
-            "(ROADMAP.md, open item 15)"
         )
     if opts.pricing == "steepest" and opts.multi_price > 0:
         raise NotImplementedError(

@@ -54,11 +54,17 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from simplex_tpu_torch.config import DEFAULT_OPTIONS, SimplexOptions, check_supported
+from simplex_tpu_torch import sparse as _sp
+from simplex_tpu_torch.config import (
+    DEFAULT_OPTIONS,
+    SimplexOptions,
+    check_supported,
+    pin_full_fp32,
+)
 from simplex_tpu_torch.core import step as _step
 from simplex_tpu_torch.core.solver import (
     MAX_VERIFY_ROUNDS,
-    _is_sparse,
+    basis_columns64,
     finalize_result,
     solve_state,
 )
@@ -390,15 +396,20 @@ def warm_solve_state(
 def _entry_dual_feasibility(A, c, basis, at_upper0, u, device) -> float:
     """The least signed reduced cost over the nonbasic, non-fixed columns of
     the entry basis, in float64 on ``device`` at every m (one LU solve);
-    >= -tol means dual-feasible. -inf for a singular basis."""
-    A64 = torch.as_tensor(A, device=device).double()
+    >= -tol means dual-feasible. -inf for a singular basis. A sparse A
+    (scipy or SparseA) is checked through a float64 copy of it on
+    ``device``."""
+    if _sp.is_sparse(A):
+        A64 = _sp.as_sparse(A.host if isinstance(A, _sp.SparseA) else A, torch.float64, device)
+    else:
+        A64 = torch.as_tensor(A, device=device).double()
     c64 = torch.as_tensor(np.asarray(c, np.float64), device=device)
     idx = torch.as_tensor(np.asarray(basis, np.int64), device=device)
     try:
-        y = torch.linalg.solve(A64.index_select(1, idx).T, c64.index_select(0, idx))
+        y = torch.linalg.solve(basis_columns64(A64, idx).T, c64.index_select(0, idx))
     except torch.linalg.LinAlgError:
         return -math.inf
-    e = y @ A64 - c64
+    e = _ops.reduced_costs(y, A64, c64)
     if at_upper0 is not None:
         e = torch.where(torch.as_tensor(np.asarray(at_upper0, bool), device=device), -e, e)
     skip = torch.zeros_like(e, dtype=torch.bool).index_fill_(0, idx, True)
@@ -435,16 +446,15 @@ def solve_dual(
     optimality; ``iters`` counts both. INFEASIBLE means the dual became
     unbounded: a Farkas proof that the new primal is empty.
 
+    ``A`` may be sparse (scipy.sparse or a
+    :class:`~simplex_tpu_torch.sparse.SparseA`), as in ``solve``.
+
     Raises ``ValueError`` when ``check_entry`` finds the entry basis not
     dual-feasible (``c`` changed, not ``b``): warm-start a cost change with
     the primal loop, ``solve(A, b, c_new, basis0=prev.basis)``.
     """
-    if _is_sparse(A):
-        raise NotImplementedError(
-            "sparse A is not ported to simplex_tpu_torch yet (ROADMAP.md, open item 15)"
-        )
     options = check_supported(options)
-    if not isinstance(A, torch.Tensor):
+    if not isinstance(A, torch.Tensor) and not _sp.is_sparse(A):
         A = np.asarray(A)
     b, c = (np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v) for v in (b, c))
     m, n = A.shape
@@ -471,9 +481,10 @@ def solve_dual(
                 "For a cost change, warm-start the primal loop instead: "
                 "solve(A, b, c, basis0=prev.basis)"
             )
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_full_fp32()
     dtype = options.dtype
+    # sparse A: no column segments on the warm path (the full pass prices),
+    # as in the JAX package
     prob = problem_from_numpy(A, b, c, device, dtype, u=u_np)
     prob = with_pricing_shadow(prob, options.pricing_dtype, options.pricing)
     # no rhs perturbation on the warm path, as in the JAX package

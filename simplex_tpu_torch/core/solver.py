@@ -11,16 +11,28 @@ refactorization, re-reading the control after any of them; after the loop,
 the verify-terminal rounds re-check every terminal decision against a
 re-inverted basis. The returned basis is then polished in float64 on the
 same device.
+
+A sparse A (scipy.sparse, or a :class:`~simplex_tpu_torch.sparse.SparseA`)
+stays sparse on the device: every op that reads A dispatches on it, the
+pivot loop is the same, and the polish takes A's basis columns from the
+matrix's float64 host copy.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from simplex_tpu_torch.config import DEFAULT_OPTIONS, SimplexOptions, check_supported
+from simplex_tpu_torch import sparse as _sp
+from simplex_tpu_torch.config import (
+    DEFAULT_OPTIONS,
+    SimplexOptions,
+    check_supported,
+    pin_full_fp32,
+)
 from simplex_tpu_torch.core.state import (
     Problem,
     SolverState,
@@ -148,14 +160,29 @@ def solve_state(
     return s
 
 
-def _is_sparse(A) -> bool:
-    if isinstance(A, torch.Tensor):
-        return A.layout != torch.strided
-    try:
-        import scipy.sparse as sps
-    except ImportError:  # pragma: no cover - scipy is a test dependency
-        return False
-    return sps.issparse(A)
+def build_problem(A, b, c, options: SimplexOptions, device, u_np=None) -> Problem:
+    """The device problem a solve runs on (``simplex_tpu.core.solver.solve``'s
+    set-up): A dense or sparse in ``options.dtype``; the pricing shadow
+    (bfloat16 for a dense A; under ``pricing_sparse`` a float32 sparse copy
+    of a dense A); and for a sparse A under segmented Dantzig pricing the
+    column segments, built when S divides n and n / S >=
+    ``partial_min_segment`` (else the full pass prices, as for dense A)."""
+    dtype = options.dtype
+    prob = problem_from_numpy(A, b, c, device, dtype, u=u_np)
+    sparse = isinstance(prob.A, _sp.SparseA)
+    dantzig = options.pricing == "dantzig"
+    if options.pricing_sparse and dantzig and not sparse:
+        if options.partial_pricing > 1:
+            raise NotImplementedError(
+                "pricing_sparse needs the full-shadow pass; segmented "
+                "pricing (partial_pricing) slices dense arrays"
+            )
+        return dataclasses.replace(prob, A_price=_sp.from_dense(A, torch.float32, device))
+    prob = with_pricing_shadow(prob, options.pricing_dtype, options.pricing)
+    S, n = options.partial_pricing, prob.A.shape[1]
+    if sparse and dantzig and S > 1 and n % S == 0 and n // S >= options.partial_min_segment:
+        prob = dataclasses.replace(prob, A_segs=_sp.split_columns(prob.A, S))
+    return prob
 
 
 def solve(
@@ -173,19 +200,17 @@ def solve(
     on ``device`` (default ``"cuda"``; there is no fallback to the CPU).
 
     ``basis0=None`` starts from the trailing identity slack block. ``A``
-    (a dense numpy array or tensor) is moved to ``device`` and cast to
-    ``options.dtype``, with its bfloat16 pricing shadow beside it when
-    ``options.pricing_dtype`` asks for one. ``u`` ((n,), +inf for a column
-    without a bound) selects the bounded-variable rule; ``at_upper0`` marks
-    the nonbasic columns that start at their upper bound. A ``u`` with no
-    finite entry takes the unbounded path.
+    (a dense numpy array or tensor; sparse: scipy.sparse, a sparse tensor
+    or a :class:`~simplex_tpu_torch.sparse.SparseA`) is moved to
+    ``device`` and cast to ``options.dtype``, with its pricing shadow beside
+    it when ``options.pricing_dtype`` or ``pricing_sparse`` asks for one.
+    ``u`` ((n,), +inf for a column without a bound) selects the
+    bounded-variable rule; ``at_upper0`` marks the nonbasic columns that
+    start at their upper bound. A ``u`` with no finite entry takes the
+    unbounded path.
     """
-    if _is_sparse(A):
-        raise NotImplementedError(
-            "sparse A is not ported to simplex_tpu_torch yet (ROADMAP.md, open item 15)"
-        )
     options = check_supported(options)
-    if not isinstance(A, torch.Tensor):
+    if not isinstance(A, torch.Tensor) and not _sp.is_sparse(A):
         A = np.asarray(A)
     b, c = (np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v) for v in (b, c))
     if A.ndim != 2:
@@ -205,13 +230,10 @@ def solve(
         if not np.any(np.isfinite(u_np)):
             u_np = None  # all-inf bounds: the unbounded path
 
-    # full fp32 everywhere: the counterpart of the JAX package's HIGHEST pins
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_full_fp32()
     device = torch.device(device)
     dtype = options.dtype
-    prob = problem_from_numpy(A, b, c, device, dtype, u=u_np)
-    prob = with_pricing_shadow(prob, options.pricing_dtype, options.pricing)
+    prob = build_problem(A, b, c, options, device, u_np)
     extras = dict(
         perturb=options.perturb_after > 0,
         update_defer=options.resolve_defer(),
@@ -227,11 +249,20 @@ def solve(
     return finalize_result(prob, b, c, final, options, u_np)
 
 
-def _polish_refine(A, b64, basis, x_b0, B_inv, iters: int = 4):
+def basis_columns64(A, basis: torch.Tensor) -> torch.Tensor:
+    """A[:, basis] in float64 on A's device: from the device A when dense,
+    from the float64 host copy when sparse (``_host_basis_cols``)."""
+    if isinstance(A, _sp.SparseA):
+        cols = _sp.gather_columns_host(A, basis.cpu().numpy())
+        return torch.as_tensor(cols, device=A.device)
+    return A.index_select(1, basis.to(A.device)).double()
+
+
+def _polish_refine(A_B, b64, x_b0, B_inv, iters: int = 4):
     """f64 x_b for the final basis by iterative refinement on the device:
-    r = b - A_B x in float64, x += B_inv r with the solve's fp32 inverse as
-    the preconditioner. Keeps the best iterate. Returns (x64, residual)."""
-    A_B = A.index_select(1, basis).double()
+    r = b - A_B x in float64 (``A_B`` the basis columns in float64), x +=
+    B_inv r with the solve's fp32 inverse as the preconditioner. Keeps the
+    best iterate. Returns (x64, residual)."""
     x = x_b0.double()
     best_x, best_nr = x, torch.full((), float("inf"), dtype=torch.float64, device=x.device)
     for it in range(iters + 1):
@@ -242,7 +273,7 @@ def _polish_refine(A, b64, basis, x_b0, B_inv, iters: int = 4):
         best_nr = torch.where(better, nr, best_nr)
         if it < iters:
             x = x + (B_inv @ r.to(B_inv.dtype)).double()
-    return best_x, best_nr.item(), A_B
+    return best_x, best_nr.item()
 
 
 def finalize_result(
@@ -271,7 +302,7 @@ def finalize_result(
         if len(up_cols):
             idx = torch.as_tensor(up_cols, device=prob.A.device)
             u_up = torch.as_tensor(u_np[up_cols], device=prob.A.device)
-            b64 = b64 - prob.A.index_select(1, idx).double() @ u_up
+            b64 = b64 - basis_columns64(prob.A, idx) @ u_up
             z_fixed = float(c64[up_cols] @ u_np[up_cols])
         ub_basic = u_np[basis_np]
 
@@ -290,7 +321,8 @@ def finalize_result(
         if final.U is not None:
             # precondition with the true inverse, pending pairs folded in
             B_inv = torch.addmm(B_inv, final.U.T, final.R)
-        x64, nr, A_B = _polish_refine(prob.A, b64, final.basis, final.x_b, B_inv)
+        A_B = basis_columns64(prob.A, final.basis)
+        x64, nr = _polish_refine(A_B, b64, final.x_b, B_inv)
         scale = max(1.0, float(b64.abs().max())) if m else 1.0
         ok = np.isfinite(nr) and nr <= 1e-7 * scale
         if not ok:

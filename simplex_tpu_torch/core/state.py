@@ -44,6 +44,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch.kernels import ops as _ops
 from simplex_tpu_torch.status import SolveStatus
 
@@ -56,13 +57,20 @@ class Problem:
     place of A; every candidate it yields is rechecked against A. ``u``
     (optional, +inf where a column has no bound) selects the
     bounded-variable rule: nonbasic columns sit at 0 or at u, the ratio
-    test is two-sided and a step may flip a column between its bounds."""
+    test is two-sided and a step may flip a column between its bounds.
 
-    A: torch.Tensor  # (m, n)
+    ``A`` may be a :class:`~simplex_tpu_torch.sparse.SparseA` (the sparse
+    solve: every op that reads A dispatches on it; no shadow), and
+    ``A_segs`` holds the column segments segmented pricing scans (a column
+    range of a compressed matrix is not a view; None = segmented pricing
+    off). ``pricing_sparse`` makes ``A_price`` a sparse copy of a dense A."""
+
+    A: torch.Tensor  # (m, n), or a SparseA
     b: torch.Tensor  # (m,)
     c: torch.Tensor  # (n,)
-    A_price: Optional[torch.Tensor] = None  # (m, n) bfloat16
+    A_price: Optional[torch.Tensor] = None  # (m, n) bfloat16, or a SparseA
     u: Optional[torch.Tensor] = None  # (n,) upper bounds, +inf = none
+    A_segs: Optional[tuple] = None  # sparse A: SparseA column segments
 
 
 def with_pricing_shadow(
@@ -70,8 +78,10 @@ def with_pricing_shadow(
 ) -> Problem:
     """Attach the reduced-precision pricing shadow of A when requested (one
     cast pass at solve start; ``"float32"``, devex and steepest edge leave
-    the problem as it is)."""
-    if pricing_dtype == "float32" or pricing in ("devex", "steepest"):
+    the problem as it is). A sparse A takes none: its SpMV reads float32
+    values and indices whatever the values were rounded to, so a shadow
+    would cost a copy and the recheck and save no byte."""
+    if pricing_dtype == "float32" or pricing in ("devex", "steepest") or isinstance(prob.A, _sp.SparseA):
         return prob
     shadow = prob.A.to(getattr(torch, pricing_dtype)).contiguous()
     return dataclasses.replace(prob, A_price=shadow)
@@ -143,10 +153,30 @@ def _pert_extras(m: int, dtype, device, perturb: bool) -> Optional[PertState]:
 def steepest_gamma(prob: Problem, B_inv: Optional[torch.Tensor], dtype) -> torch.Tensor:
     """Exact steepest-edge weights gamma_j = 1 + |B_inv A_j|^2: one
     (m, m) x (m, n) product in full fp32 (the column norms of A when
-    ``B_inv`` is None, the identity slack basis)."""
+    ``B_inv`` is None, the identity slack basis). Sparse A: the column
+    sums of squares, or dense column chunks through one GEMM each."""
+    if isinstance(prob.A, _sp.SparseA):
+        A = prob.A.to(dtype=dtype)
+        if B_inv is None:
+            return (1 + _sp.col_sumsq(A)).to(dtype)
+        return _steepest_gamma_sparse(B_inv, A, dtype)
     A = prob.A.to(dtype)
     T = A if B_inv is None else B_inv @ A
     return 1 + (T * T).sum(0)
+
+
+def _steepest_gamma_sparse(B_inv, A, dtype, chunk: int = 512) -> torch.Tensor:
+    """gamma_j = 1 + |B_inv A_j|^2 for a sparse A
+    (``simplex_tpu.core.state._steepest_gamma_sparse``): ``chunk`` columns
+    at a time gathered dense and pushed through one (m, m) x (m, chunk)
+    product, so the extra memory is m * chunk, not m * n."""
+    n = A.shape[1]
+    out = []
+    for lo in range(0, n, chunk):
+        ids = torch.arange(lo, min(lo + chunk, n), device=B_inv.device)
+        T = B_inv @ _sp.gather_columns(A, ids).to(dtype)
+        out.append((T * T).sum(0))
+    return 1 + torch.cat(out)
 
 
 def _pricing_extras(prob: Problem, y: torch.Tensor, dtype, pricing: str, B_inv=None) -> dict:
@@ -156,7 +186,7 @@ def _pricing_extras(prob: Problem, y: torch.Tensor, dtype, pricing: str, B_inv=N
     under the Dantzig rule."""
     if pricing not in ("devex", "steepest"):
         return {}
-    e = y @ prob.A.to(dtype) - prob.c.to(dtype)
+    e = _ops.reduced_costs(y, prob.A, prob.c.to(dtype))
     if pricing == "steepest":
         gamma = steepest_gamma(prob, B_inv, dtype)
     else:
@@ -298,12 +328,14 @@ def initial_state(
 
 def problem_from_numpy(A, b, c, device, dtype=torch.float32, u=None) -> Problem:
     """A Problem on ``device`` from host arrays (or tensors), cast to
-    ``dtype``; ``u`` (optional) the upper bounds."""
+    ``dtype``; ``u`` (optional) the upper bounds. A scipy.sparse ``A`` or a
+    :class:`~simplex_tpu_torch.sparse.SparseA` stays sparse."""
 
     def put(v):
         return torch.as_tensor(v, device=device).to(dtype).contiguous()
 
-    return Problem(A=put(A), b=put(b), c=put(c), u=None if u is None else put(u))
+    A = _sp.as_sparse(A, dtype, device) if _sp.is_sparse(A) else put(A)
+    return Problem(A=A, b=put(b), c=put(c), u=None if u is None else put(u))
 
 
 _LEAVES = ("B_inv", "x_b", "y", "c_b", "basis")

@@ -34,6 +34,13 @@ moves x_b and ``at_upper`` and leaves the basis, B_inv and y alone.
 Whether a problem is bounded is a Python bool, so the unbounded step
 launches what it launched before.
 
+A sparse A (:class:`~simplex_tpu_torch.sparse.SparseA`) runs the same
+step: pricing is one SpMV over A^T and the masked argmin (the hopper
+backend's ``choose_entering`` takes the plain ops there; ``pricing_scan``
+reads dense A), the entering column is a fixed-length gather with no host
+read, and segmented pricing scans the prebuilt segments ``prob.A_segs``.
+The ftran, the tail and the update do not read A and are unchanged.
+
 Under ``pricing="devex"`` / ``"steepest"`` the state carries the reduced
 costs e = y.A - c and the weights gamma, both maintained incrementally:
 
@@ -84,6 +91,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch.config import SimplexOptions
 from simplex_tpu_torch.core.linalg import inverse_newton
 from simplex_tpu_torch.core.state import CandBuffer, Problem, SolverState, bounded_rhs
@@ -230,9 +238,20 @@ def read_control(
 def _partial_active(opts: SimplexOptions, prob: Problem) -> bool:
     """Segmented pricing needs S | n and segments of at least
     ``partial_min_segment`` columns (tiny segments cost more than they
-    save)."""
+    save). A sparse A segments when the solve built its column segments
+    (``prob.A_segs``)."""
+    if isinstance(prob.A, _sp.SparseA):
+        return prob.A_segs is not None
     S, n = opts.partial_pricing, prob.A.shape[1]
     return S > 1 and n % S == 0 and n // S >= opts.partial_min_segment
+
+
+def _segment(prob: Problem, A_src, lo: int, w: int):
+    """Columns [lo, lo + w) of the pricing source: a view of a dense A or
+    shadow, or the prebuilt segment of a sparse one."""
+    if prob.A_segs is not None:
+        return prob.A_segs[lo // w]
+    return A_src[:, lo : lo + w]
 
 
 def _entering_column(prob: Problem, state: SolverState, p: torch.Tensor, backend):
@@ -289,7 +308,7 @@ def _price_bounded(prob, state, opts, use_bland, bland, ctl, backend):
         w = n // S
         lo = (ctl.iters % S) * w
         A_src = prob.A_price if prob.A_price is not None else prob.A
-        got = rechecked(pick(A_src[:, lo : lo + w], lo, w, no_bland)[0])
+        got = rechecked(pick(_segment(prob, A_src, lo, w), lo, w, no_bland)[0])
         if got is None and prob.A_price is not None and opts.fallback_shadow:
             got = rechecked(pick(prob.A_price, flag=no_bland)[0])
         return got if got is not None else exact()
@@ -330,7 +349,7 @@ def _price_segment(prob, state, opts, use_bland, bland, ctl, backend):
     lo = (ctl.iters % S) * w
     A_src = prob.A_price if prob.A_price is not None else prob.A
     p1, _ = backend.choose_entering(
-        state.y, A_src[:, lo : lo + w], prob.c[lo : lo + w], eps, use_bland, state.basis, lo
+        state.y, _segment(prob, A_src, lo, w), prob.c[lo : lo + w], eps, use_bland, state.basis, lo
     )
     col = _entering_column(prob, state, p1, backend)
     if not read_flag(col[2] >= -eps):
@@ -436,7 +455,8 @@ def _refill(prob, state, opts, ctl, bland):
 
     def shadow_pick(lo, hi):
         # top-K of the shadow's masked signed reduced costs over [lo, hi)
-        e_sh = _ops.reduced_costs(y, prob.A_price[:, lo:hi], prob.c[lo:hi]).to(dtype)
+        A_sh = prob.A_price if (lo, hi) == (0, n) else prob.A_price[:, lo:hi]
+        e_sh = _ops.reduced_costs(y, A_sh, prob.c[lo:hi]).to(dtype)
         if state.at_upper is not None:
             e_sh = torch.where(state.at_upper[lo:hi], -e_sh, e_sh)
         negv, loc = _ops.top_k(-_ops.add_basic_penalty(e_sh, state.basis, lo), K)
@@ -445,7 +465,8 @@ def _refill(prob, state, opts, ctl, bland):
     fill, min_exact = None, -math.inf
     if prob.A_price is not None and not bland:
         S = opts.partial_pricing
-        if S > 1 and n % S == 0 and n // S >= max(opts.partial_min_segment, K):
+        seg_ok = not isinstance(prob.A_price, _sp.SparseA)
+        if seg_ok and S > 1 and n % S == 0 and n // S >= max(opts.partial_min_segment, K):
             w = n // S
             lo = (ctl.seg % S) * w
             fill = shadow_pick(lo, lo + w)

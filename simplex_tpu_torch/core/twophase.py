@@ -11,10 +11,12 @@ on the port's solver.
 Both phases run :func:`simplex_tpu_torch.core.solver.solve` on ``device``;
 finite upper bounds go to it as native bounds (``u=``), so a bound costs
 no row. Bound rewriting, standardization and the artificial driveout are
-host numpy, as in the reference package. A warm-start token (``warm=``)
-skips phase 1: the dual simplex
+host code on a float64 scipy CSC copy of A, whatever A's storage. A
+warm-start token (``warm=``) skips phase 1: the dual simplex
 (:func:`simplex_tpu_torch.core.dual.solve_dual`) re-solves from the stored
-basis. Dense A only: sparse A is ROADMAP item 15.
+basis. ``lp.A`` may be scipy.sparse: the solver then takes the standardized
+matrix as a sparse A, so dense A never exists; a dense ``lp.A`` gives the
+solver a dense standardized A.
 """
 
 from __future__ import annotations
@@ -22,14 +24,36 @@ from __future__ import annotations
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
+import scipy.sparse as sps
 import torch
 
 from simplex_tpu_torch.config import DEFAULT_OPTIONS, SimplexOptions
-from simplex_tpu_torch.core.solver import _is_sparse, solve
+from simplex_tpu_torch.core.solver import solve
+from simplex_tpu_torch.sparse import is_sparse as _issparse
 from simplex_tpu_torch.logging import fields, get_logger
 from simplex_tpu_torch.status import SolveStatus
 
 _log = get_logger("twophase")
+
+
+def _shape(A):
+    """(m, k) for dense array-likes and scipy.sparse alike."""
+    return A.shape if _issparse(A) else np.asarray(A).shape
+
+
+def _csc64(A) -> sps.csc_matrix:
+    """A float64 CSC copy of a dense or scipy.sparse A, duplicates summed."""
+    A = sps.csc_matrix(A if _issparse(A) else np.asarray(A, np.float64), dtype=np.float64, copy=True)
+    A.sum_duplicates()
+    return A
+
+
+def _colv(A: sps.csc_matrix, j) -> np.ndarray:
+    """Column j of a CSC A as a dense float64 vector."""
+    v = np.zeros(A.shape[0])
+    lo, hi = A.indptr[int(j)], A.indptr[int(j) + 1]
+    v[A.indices[lo:hi]] = A.data[lo:hi]
+    return v
 
 
 class GeneralLP(NamedTuple):
@@ -86,9 +110,9 @@ def _preprocess_bounds(lp: GeneralLP):
     Returns ``(lp2, recover, z_const)`` where ``recover`` maps the
     transformed solution back to the original variables and ``z_const``
     satisfies ``c.x == c2.x' + z_const``; or ``(None, None, None)`` when
-    some lo > up (trivially infeasible).
+    some lo > up (trivially infeasible). ``lp2.A`` is a float64 CSC matrix.
     """
-    A = np.asarray(lp.A, np.float64)
+    A = _csc64(lp.A)
     m, k = A.shape
     lower = np.zeros(k) if lp.lower is None else np.asarray(lp.lower, np.float64)
     upper = np.full(k, np.inf) if lp.upper is None else np.asarray(lp.upper, np.float64)
@@ -102,7 +126,8 @@ def _preprocess_bounds(lp: GeneralLP):
         lp2 = GeneralLP(A=A, b=b, c=c, row_types=list(lp.row_types))
         return lp2, (lambda x: x), 0.0
 
-    cols: List[np.ndarray] = []
+    cols: List[int] = []  # source column of each new column
+    signs: List[float] = []
     costs: List[float] = []
     ubs: List[float] = []  # residual native upper per new column (+inf = none)
     ops = []  # per original var: ('shift',i,lo) | ('reflect',i,up) | ('split',i,j) | ('fixed',v)
@@ -112,34 +137,37 @@ def _preprocess_bounds(lp: GeneralLP):
         if np.isfinite(lo) and np.isfinite(up) and up - lo <= 1e-12:
             # fixed variable: substitute out
             if lo != 0.0:
-                b -= A[:, j] * lo
+                b -= _colv(A, j) * lo
             z_const += c[j] * lo
             ops.append(("fixed", lo))
         elif np.isfinite(lo):
             if lo != 0.0:
-                b -= A[:, j] * lo
+                b -= _colv(A, j) * lo
                 z_const += c[j] * lo
             ops.append(("shift", len(cols), lo))
-            cols.append(A[:, j])
+            cols.append(j)
+            signs.append(1.0)
             costs.append(c[j])
             ubs.append(up - lo if np.isfinite(up) else np.inf)
         elif np.isfinite(up):
             # free below, bounded above: reflect  x = up - x'
-            b -= A[:, j] * up
+            b -= _colv(A, j) * up
             z_const += c[j] * up
             ops.append(("reflect", len(cols), up))
-            cols.append(-A[:, j])
+            cols.append(j)
+            signs.append(-1.0)
             costs.append(-c[j])
             ubs.append(np.inf)
         else:
             # free: split  x = x+ - x-
             ops.append(("split", len(cols), len(cols) + 1))
-            cols += [A[:, j], -A[:, j]]
+            cols += [j, j]
+            signs += [1.0, -1.0]
             costs += [c[j], -c[j]]
             ubs += [np.inf, np.inf]
 
     k2 = len(cols)
-    A2 = np.stack(cols, axis=1) if cols else np.zeros((m, 0))
+    A2 = (A[:, cols] @ sps.diags(signs, shape=(k2, k2))).tocsc()
     u2 = np.asarray(ubs) if ubs else np.full(k2, np.inf)
     if not np.any(np.isfinite(u2)):
         u2 = None  # classic domain: the unbounded path
@@ -172,9 +200,9 @@ def _standardize(lp: GeneralLP, flips_override=None):
     when every upper is infinite. ``flips_override`` (warm restarts)
     reproduces a previous solve's row flips instead of taking them from
     sign(b): the column layout must match the stored basis, and the dual
-    warm start does not need b >= 0.
+    warm start does not need b >= 0. A_std is a float64 CSC matrix.
     """
-    A = np.asarray(lp.A, np.float64).copy()
+    A = _csc64(lp.A)
     b = np.asarray(lp.b, np.float64).copy()
     c = np.asarray(lp.c, np.float64)
     m, k = A.shape
@@ -188,23 +216,28 @@ def _standardize(lp: GeneralLP, flips_override=None):
         if t not in ("L", "G", "E"):
             raise ValueError(f"bad row type {t!r}")
         if (flips_override[i] < 0) if flips_override is not None else (b[i] < 0):
-            A[i] *= -1
             b[i] *= -1
             t = {"L": "G", "G": "L", "E": "E"}[t]
             flips[i] = -1.0
         types.append(t)
+    if np.any(flips < 0):
+        # one diagonal scale (CSC rows are not writable slices)
+        A = (sps.diags(flips) @ A).tocsc()
 
     slack_cols = [(i, 1.0 if t == "L" else -1.0) for i, t in enumerate(types) if t != "E"]
     # a +1 slack can start basic; every other row gets an artificial
     basis_from_slack = {i: k + j for j, (i, sgn) in enumerate(slack_cols) if sgn > 0}
     art_rows = [i for i in range(m) if i not in basis_from_slack]
 
-    S = np.zeros((m, len(slack_cols)))
-    for j, (i, sgn) in enumerate(slack_cols):
-        S[i, j] = sgn
-    R = np.zeros((m, len(art_rows)))
-    R[art_rows, np.arange(len(art_rows))] = 1.0
-    A_std = np.concatenate([A, S, R], axis=1)
+    S = sps.csc_matrix(
+        ([sgn for _, sgn in slack_cols], ([i for i, _ in slack_cols], np.arange(len(slack_cols)))),
+        shape=(m, len(slack_cols)),
+    )
+    R = sps.csc_matrix(
+        (np.ones(len(art_rows)), (art_rows, np.arange(len(art_rows)))),
+        shape=(m, len(art_rows)),
+    )
+    A_std = sps.hstack([A, S, R], format="csc")
     n_real = k + S.shape[1]
     art_cols = np.arange(n_real, n_real + len(art_rows), dtype=np.int32)
     basis1 = np.empty(m, np.int32)
@@ -229,8 +262,10 @@ def _drive_out_artificials(A_std, basis, art_set, tol=1e-7, at_upper=None):
     zero by the phase-2 cost. Columns parked at their upper bound
     (``at_upper``) are excluded: only value-0 columns enter, so every swap
     stays degenerate. One O(m^3) inversion, then one O(mn) row product and
-    one rank-1 update per basic artificial.
+    one rank-1 update per basic artificial. ``A_std`` may be dense or
+    scipy.sparse; the driveout reads a float64 CSC copy.
     """
+    A_std = _csc64(A_std)
     basis = basis.copy()
     m, n = A_std.shape
     art_rows = [r for r in range(m) if basis[r] in art_set]
@@ -241,9 +276,10 @@ def _drive_out_artificials(A_std, basis, art_set, tol=1e-7, at_upper=None):
     blocked[basis] = True
     if at_upper is not None:
         blocked |= np.asarray(at_upper, bool)
-    B_inv = np.linalg.inv(A_std[:, basis])
+    B_inv = np.linalg.inv(A_std[:, basis].toarray())
     for r in art_rows:
-        row = np.abs(B_inv[r] @ A_std)
+        # vec @ CSC is a dense (n,) ndarray
+        row = np.abs(np.asarray(B_inv[r] @ A_std).ravel())
         row[blocked] = 0.0
         j = int(np.argmax(row))
         if row[j] <= tol:
@@ -252,7 +288,7 @@ def _drive_out_artificials(A_std, basis, art_set, tol=1e-7, at_upper=None):
         blocked[j] = True
         basis[r] = j
         # product-form update: B_inv <- E B_inv, eta of the entering column
-        alpha = B_inv @ A_std[:, j]
+        alpha = B_inv @ _colv(A_std, j)
         eta = -alpha / alpha[r]
         eta[r] = 1.0 / alpha[r] - 1.0
         B_inv = B_inv + np.outer(eta, B_inv[r])
@@ -281,12 +317,8 @@ def solve_general(
     ``warm`` token; passed back as ``warm=`` on the same A / c / row_types /
     bounds with another b, it skips phase 1: the standardization repeats the
     original row flips and the dual simplex re-solves from the stored basis.
-    A sparse A raises NotImplementedError (ROADMAP item 15).
+    ``lp.A`` may be scipy.sparse (see the module docstring).
     """
-    if _is_sparse(lp.A):
-        raise NotImplementedError(
-            "sparse A is not ported to simplex_tpu_torch yet (ROADMAP.md, open item 15)"
-        )
     if presolve:
         if warm is not None:
             raise ValueError(
@@ -298,16 +330,19 @@ def solve_general(
             lp, options=options, phase2_artificial_cost=phase2_artificial_cost,
             device=device,
         )
-    m_orig, k_orig = np.shape(lp.A)
+    m_orig, k_orig = _shape(lp.A)
+    sparse_in = _issparse(lp.A)
     lp, recover, z_const = _preprocess_bounds(lp)
     if lp is None:  # some lower bound exceeds its upper bound
         return GeneralSolveResult(
             z=float("nan"), x=np.zeros(k_orig), status=SolveStatus.INFEASIBLE,
             iters=0, phase1_iters=0,
         )
-    A_std, b, c, k, n_real, art_cols, basis1, flips, u_std = _standardize(
+    A_csc, b, c, k, n_real, art_cols, basis1, flips, u_std = _standardize(
         lp, flips_override=None if warm is None else np.asarray(warm.flips)
     )
+    # the device solves take A as the caller stored it
+    A_std = A_csc if sparse_in else A_csc.toarray()
     m, n = A_std.shape
     art_set = set(art_cols.tolist())
 
@@ -349,7 +384,7 @@ def solve_general(
             )
         _log.info("phase 1 complete", extra=fields(iters=p1_iters, z1=float(r1.z)))
         at_upper = r1.at_upper
-        basis = _drive_out_artificials(A_std, r1.basis, art_set, at_upper=at_upper)
+        basis = _drive_out_artificials(A_csc, r1.basis, art_set, at_upper=at_upper)
 
     # Phase 2: true objective; artificials blocked by a large negative cost,
     # except those still basic after the driveout (redundant rows): they
@@ -450,7 +485,7 @@ def _solve_general_presolved(
     from simplex_tpu_torch.presolve import postsolve
     from simplex_tpu_torch.presolve import presolve as run_presolve
 
-    m_orig, k_orig = np.shape(lp.A)
+    m_orig, k_orig = _shape(lp.A)
     c_orig = np.asarray(lp.c, np.float64)
     pr = run_presolve(lp)
     if pr.status is not None and pr.status != SolveStatus.OPTIMAL:

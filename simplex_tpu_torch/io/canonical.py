@@ -79,7 +79,7 @@ def to_equality_form(lp) -> EqualityForm:
     lp2, recover, z_const = _preprocess_bounds(lp)
     if lp2 is None:
         raise ValueError("infeasible bounds: some lower exceeds its upper")
-    A = np.asarray(lp2.A, np.float64)
+    A = lp2.A.toarray()  # float64 CSC from the rewriting
     b = np.asarray(lp2.b, np.float64)
     c = np.asarray(lp2.c, np.float64)
     m, k2 = A.shape

@@ -20,6 +20,10 @@ backends, so both namespaces here take the plain op. The bounded rule's
 signed pricing is XLA in JAX too; here the hopper backend runs it through
 ``pricing_scan``'s signed mode, so the bf16 shadow is priced in place
 rather than through an fp32 copy of it.
+
+On a sparse A (:class:`~simplex_tpu_torch.sparse.SparseA`) the hopper
+backend's pricing takes the plain ops (an SpMV and the masked argmin); the
+ops that do not read A launch the same kernels as on dense A.
 """
 
 from __future__ import annotations

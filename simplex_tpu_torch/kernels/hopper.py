@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch.kernels import _build
 from simplex_tpu_torch.kernels import ops as _ops
 from simplex_tpu_torch.status import SolveStatus
@@ -276,7 +277,11 @@ def choose_entering(
     in one :func:`pricing_scan` call: the basic-column mask, the choice
     between Dantzig's and Bland's column (``use_bland`` read on the device)
     and the ``base_col`` offset are made by the kernel, so no torch op runs
-    before or after it."""
+    before or after it. A sparse A (:class:`~simplex_tpu_torch.sparse.SparseA`)
+    is priced by its SpMV and the masked argmin as plain ops: the kernel
+    reads dense A."""
+    if isinstance(A, _sp.SparseA):
+        return _ops.choose_entering(y, A, c, eps, use_bland, basis, base_col)
     min_e, _, _, p = _pricing_call(y, A, c, eps, None, basis, base_col, use_bland, base_col)
     return p, min_e
 
@@ -289,7 +294,9 @@ def choose_entering_bounded(
     :func:`pricing_scan`'s signed mode: one pass over A (fp32, the bf16
     shadow or a segment view of either), no fp32 copy of a bf16 A, and the
     basic-column penalty, the choice and the segment offset made inside the
-    same call."""
+    same call. Sparse A takes the plain ops, as in :func:`choose_entering`."""
+    if isinstance(A, _sp.SparseA):
+        return _ops.choose_entering_bounded(y, A, c, at_upper, basis, base_col, eps, use_bland)
     min_s, _, _, p = _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, base_col)
     return p, min_s
 

@@ -10,6 +10,12 @@ against these functions.
 Every index a later op needs stays a device tensor: columns and rows are
 picked with ``index_select`` (never ``t[p]`` with a tensor ``p``, which would
 read ``p`` back to the host), so a pivot step runs without a host sync.
+
+The ops that read A take a dense tensor or a
+:class:`simplex_tpu_torch.sparse.SparseA` (``reduced_costs`` and so both
+``choose_entering`` rules, ``pricing_update(2)``, the column gathers,
+``gather_basis_matrix``, ``matvec``), as ``kernels.xla`` takes a
+``BlockSparse``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch.status import SolveStatus
 
 INT_MAX = 2**31 - 1
@@ -27,7 +34,9 @@ BASIC_PENALTY = 1e30
 
 def reduced_costs(y: torch.Tensor, A: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """e_j = y . A_j - c_j, accumulated in c's dtype (A may be a bf16 shadow,
-    which is upcast)."""
+    which is upcast; or sparse: one SpMV over A^T)."""
+    if isinstance(A, _sp.SparseA):
+        return _sp.rmatvec(A, y).to(c.dtype) - c
     return y.to(c.dtype) @ A.to(c.dtype) - c
 
 
@@ -134,7 +143,9 @@ def devex_choose_bounded(
 def pricing_update(A: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
     """w = rho . A, the updated pivot row of the tableau: one O(mn) pass in
     full fp32 (w feeds the incremental reduced costs and weights, whose
-    error compounds over pivots)."""
+    error compounds over pivots). Sparse A: one SpMV over A^T."""
+    if isinstance(A, _sp.SparseA):
+        return _sp.rmatvec(A, rho).to(rho.dtype)
     return rho @ A.to(rho.dtype)
 
 
@@ -143,7 +154,10 @@ def pricing_update2(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(rho . A, u . A)`` as one (2, m) x (m, n) product in full fp32, so
     that A is read once (steepest edge's pivot row and its weight
-    recurrence's t_j . alpha terms)."""
+    recurrence's t_j . alpha terms). Sparse A: one SpMM over A^T."""
+    if isinstance(A, _sp.SparseA):
+        w, v = _sp.rmatvec2(A, rho, u)
+        return w.to(rho.dtype), v.to(rho.dtype)
     wv = torch.stack([rho, u]) @ A.to(rho.dtype)
     return wv[0], wv[1]
 
@@ -156,7 +170,9 @@ def mask_basic(c: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
 
 
 def gather_column(A: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """A[:, p] for a 0-d device index p."""
+    """A[:, p] for a 0-d device index p (no host read, sparse A too)."""
+    if isinstance(A, _sp.SparseA):
+        return _sp.gather_column(A, p)
     return A.index_select(1, p.view(1)).view(-1)
 
 
@@ -167,6 +183,8 @@ def gather_cost(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 def gather_columns(A: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """A[:, idx] for a device index vector (the multiple-pricing refill)."""
+    if isinstance(A, _sp.SparseA):
+        return _sp.gather_columns(A, idx)
     return A.index_select(1, idx)
 
 
@@ -180,12 +198,16 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def gather_basis_matrix(A: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
-    """A[:, basis], the basis matrix."""
+    """A[:, basis], the basis matrix (dense, sparse A too)."""
+    if isinstance(A, _sp.SparseA):
+        return _sp.gather_columns(A, basis)
     return A.index_select(1, basis)
 
 
 def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A @ x in x's dtype."""
+    if isinstance(A, _sp.SparseA):
+        return _sp.matvec(A, x).to(x.dtype)
     return A.to(x.dtype) @ x
 
 

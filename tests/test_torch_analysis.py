@@ -168,8 +168,11 @@ def test_sparse_and_default_device():
 
     A, b, c = random_dense_lp(6, 16, seed=31)
     res = solve(A, b, c, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ranging(sps.csr_matrix(A), b, c, res.basis, device="cpu")
+    # sparse A ranges as the dense A does
+    assert_ranges_match(
+        ranging(sps.csr_matrix(A), b, c, res.basis, device="cpu"),
+        ranging(A, b, c, res.basis, device="cpu"),
+    )
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             ranging(A, b, c, res.basis)

@@ -1,7 +1,8 @@
 """The port's per-op bench and timing helpers, on the CPU at a tiny size.
 
 The numbers a CPU run gives are host times of PyTorch's CPU kernels; these
-tests check only the record's shape: the JAX package's op names and the
+tests check only the record's shape: the JAX package's op names (the
+block-sparse SpMVs included) and the
 products of steepest edge, the dual step and ranging, one ``{"ms", "gbps"}``
 record each (``ranging_W`` also its TFLOP/s), and the JSON line ``main``
 prints. The
@@ -30,6 +31,8 @@ OPS = [
     "steepest_u",
     "ranging_W",
 ]
+# one 128 x 128 tile covers these shapes: tile density 1
+SPARSE_OPS = ["bsp_matvec_density1.00", "bsp_rmatvec_density1.00"]
 
 
 @pytest.fixture
@@ -46,7 +49,7 @@ def no_library(monkeypatch):
 @pytest.mark.parametrize("backend", ["torch", "hopper"])
 def test_bench_ops_records(backend, no_library):
     res = bk.bench_ops(16, 64, k=2, backend=backend, device="cpu")
-    assert list(res) == OPS
+    assert list(res) == OPS + SPARSE_OPS
     for op, rec in res.items():
         assert set(rec) == ({"ms", "gbps", "tflops"} if op == "ranging_W" else {"ms", "gbps"}), op
         assert rec["ms"] >= 0 and rec["gbps"] >= 0, op
@@ -55,7 +58,7 @@ def test_bench_ops_records(backend, no_library):
 def test_bench_ops_skips_segments_when_n_does_not_divide(no_library):
     res = bk.bench_ops(8, 60, k=1, backend="torch", device="cpu")
     assert "pricing_segment_bf16" not in res
-    assert list(res) == [op for op in OPS if op != "pricing_segment_bf16"]
+    assert list(res) == [op for op in OPS if op != "pricing_segment_bf16"] + SPARSE_OPS
 
 
 def test_main_prints_one_json_line(capsys, no_library):
@@ -65,7 +68,7 @@ def test_main_prints_one_json_line(capsys, no_library):
     rec = json.loads(out[0])
     assert set(rec) == {"m", "n", "backend", "device", "ops", "total_pivot_ms"}
     assert (rec["m"], rec["n"], rec["backend"], rec["device"]) == (16, 64, "torch", "cpu")
-    assert list(rec["ops"]) == OPS
+    assert list(rec["ops"]) == OPS + SPARSE_OPS
     assert rec["total_pivot_ms"] == pytest.approx(sum(v["ms"] for v in rec["ops"].values()), abs=1e-3)
 
 

@@ -472,3 +472,22 @@ def test_solve_general_warm_rejects_presolve_and_foreign_tokens():
     other = multiperiod_production_lp(3, 3, seed=5)
     with pytest.raises(ValueError, match="warm token"):
         solve_general(GeneralLP(*other), warm=cold.warm, device="cpu")
+
+
+def test_warm_restart_on_an_unchanged_b_matches_jax():
+    # a basis the Harris ratio test left primal infeasible beyond the dual
+    # loop's exit test (the cold solve runs with a loose feas_tol of 1e-3),
+    # re-solved on the SAME b under the default options: both packages take
+    # the same pivots to the same optimum (the reference behaves the same)
+    A, b, c = (v.astype(np.float32) for v in random_dense_lp(48, 128, seed=0))
+    cold = solve(A, b, c, options=SimplexOptions(feas_tol=1e-3), device="cpu")
+    jcold = simplex_tpu.solve(A, b, c, options=JaxOptions(feas_tol=1e-3))
+    assert cold.status == SolveStatus.OPTIMAL == int(jcold.status)
+    assert cold.iters == jcold.iters
+    np.testing.assert_array_equal(cold.basis, np.asarray(jcold.basis))
+    assert cold.feas_err > 1e-4 and jcold.feas_err > 1e-4
+    warm = reoptimize(A, b, c, cold, device="cpu")
+    jwarm = jax_reoptimize(A, b, c, jcold)
+    assert warm.status == SolveStatus.OPTIMAL == int(jwarm.status)
+    assert warm.iters == jwarm.iters >= 1
+    assert relative_gap(warm.z, jwarm.z) <= 1e-5 and warm.feas_err < 1e-5

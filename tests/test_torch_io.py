@@ -113,10 +113,11 @@ def test_cli_flags(capsys):
                    "--time", "--max-iter", "500"])
     out = capsys.readouterr().out
     assert rc == 0 and "Optimum found: 15.25" in out and "Solve:" in out
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.main(["solve", mps, "--device", "cpu", "--sparse"])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cli.main(["solve", mps, "--device", "cpu", "--algo", "pdhg"])
+    # --sparse solves (ported); --algo pdhg is refused with exit code 1
+    rc = cli.main(["solve", mps, "--device", "cpu", "--sparse"])
+    assert rc == 0 and "Optimum found: 15.25" in capsys.readouterr().out
+    assert cli.main(["solve", mps, "--device", "cpu", "--algo", "pdhg"]) == 1
+    assert "item 17" in capsys.readouterr().err
     assert cli.main(["solve", str(DATA / "nonexistent.mps"), "--device", "cpu"]) == 1
 
 

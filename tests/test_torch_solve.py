@@ -119,9 +119,20 @@ def test_explicit_basis_matches_jax():
     ],
 )
 def test_unported_options_raise(kwargs):
+    # pricing_sparse is ported: it solves, and refuses segmented pricing as
+    # simplex_tpu.solve does
     A, b, c = load_lp(SAMPLE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(A, b, c, device="cpu", **kwargs)
+    if kwargs["options"].partial_pricing > 1:
+        with pytest.raises(NotImplementedError, match="partial_pricing"):
+            solve(A, b, c, device="cpu", **kwargs)
+        with pytest.raises(NotImplementedError, match="partial_pricing"):
+            simplex_tpu.solve(A, b, c, options=simplex_tpu.SimplexOptions(
+                pricing_sparse=True, partial_pricing=8))
+        return
+    res = solve(A, b, c, device="cpu", **kwargs)
+    ref = simplex_tpu.solve(A, b, c, options=simplex_tpu.SimplexOptions(pricing_sparse=True))
+    assert res.status == SolveStatus.OPTIMAL == int(ref.status)
+    assert res.iters == ref.iters and abs(res.z - 9.0) < 1e-5
 
 
 @pytest.mark.parametrize(
@@ -145,9 +156,14 @@ def test_weighted_pricing_options_solve(kwargs):
 
 
 def test_sparse_and_unknown_backend_raise():
+    # sparse A solves now (the same path as the JAX package's); an unknown
+    # backend still raises
     A, b, c = load_lp(SAMPLE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(scipy.sparse.csr_matrix(A), b, c, device="cpu")
+    res = solve(scipy.sparse.csr_matrix(A), b, c, device="cpu")
+    ref = simplex_tpu.solve(scipy.sparse.csr_matrix(A), b, c)
+    assert res.status == SolveStatus.OPTIMAL == int(ref.status)
+    assert res.iters == ref.iters == 2 and abs(res.z - 9.0) < 1e-5
+    np.testing.assert_array_equal(res.basis, ref.basis)
     with pytest.raises(ValueError, match="backend"):
         solve(A, b, c, options=SimplexOptions(backend="xla"), device="cpu")
 

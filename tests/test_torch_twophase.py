@@ -227,8 +227,10 @@ def test_warm_sparse_and_device_raise():
     np.testing.assert_array_equal(np.sort(again.warm.basis), np.sort(res.warm.basis))
     with pytest.raises(ValueError, match="presolve"):
         solve_general(lp, warm=res.warm, presolve=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        solve_general(lp._replace(A=scipy.sparse.csc_matrix(lp.A)), device="cpu")
+    # a sparse A takes the same route (ported): the same optimum and token
+    sp = solve_general(lp._replace(A=scipy.sparse.csc_matrix(lp.A)), device="cpu")
+    assert sp.status == SolveStatus.OPTIMAL and relative_gap(sp.z, res.z) <= GAP
+    np.testing.assert_array_equal(np.sort(sp.warm.basis), np.sort(res.warm.basis))
     if torch.cuda.is_available():
         assert solve_general(lp).status == SolveStatus.OPTIMAL
     else:
@@ -239,7 +241,8 @@ def test_warm_sparse_and_device_raise():
 def test_driveout_matches_jax():
     lp2, _, _ = twophase._preprocess_bounds(instance("multiperiod"))
     A_std, b, _, _, _, art, basis1, _, u_std = twophase._standardize(lp2)
-    j_std = jtp._standardize(jtp.GeneralLP(*lp2))
+    j_std = jtp._standardize(jtp.GeneralLP(*lp2._replace(A=lp2.A.toarray())))
+    A_std = A_std.toarray()  # the port standardizes on float64 CSC
     np.testing.assert_array_equal(A_std, j_std[0])
     np.testing.assert_array_equal(basis1, j_std[6])
     np.testing.assert_array_equal(u_std, j_std[8])
