@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
-  1. print the card's name and power limit; build the four CUDA kernels
+  1. print the card's name and power limit; build the seven CUDA kernels
      from ``simplex_tpu_torch/csrc`` with nvcc for sm_90a (one process per
      source, side by side);
   2. each kernel against its plain PyTorch version on the card, at the main
@@ -22,7 +22,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ratio_eta's cluster kernel is held with its tail off (the old
      contract) and on (``pivot_tail``: eager, and deferred with pending
      pairs), at one block, several, and beyond 8 x 1024 rows;
-     ``ratio_argmin``'s cluster kernel at the same row counts, bit for bit;
+     ``ratio_argmin``'s cluster kernel at the same row counts, bit for bit.
+     The three batched kernels against their plain twins:
+     pricing at ``bench.py --mode batch``'s 4,096 x 64 x 160 (fp32, the
+     bf16 shadow, the signed mode, Bland's choice), 3 x 17 x 45 and 8 x
+     2048 x 4096 (1.2e-4 of scale, every pick equal); the tail and rank-1
+     bit for bit at 4,096 x 64, 3 x 17, 8 x 2048 and 37 x 1100 (eager and
+     deferred, finished instances mixed in); rank-1 timed also at the
+     warm re-solve's 256 x 2048;
   3. ``simplex_tpu_torch.solve`` through its normal entry point with the
      default options: the sample LP (z = 9), a 2048 x 4096 random LP
      against HiGHS, and the benchmark's 8192 x 16384 instance over its
@@ -97,9 +104,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
      pivot (after the trace has run); the same stretch of the sparse
      default path on phase 13's instance, and the device time of one
      sparse and one dense pricing pass there; and the ratio kernels'
-     device time a launch from a trace of the per-op bench's loop. It runs
-     last: after a profiler run every later launch of the process costs
-     more host time.
+     device time a launch from a trace of the per-op bench's loop; and a
+     trace of one ``solve_batched`` call (phase 15's recipe at B = 4,096):
+     device ops and device us a batch step, and each batched kernel's; of
+     one ``reoptimize_batched`` call (phase 16's) a dual batch step; and of
+     1,280 PDHG iterations (phase 17's 256 x 640 and T = 64 sparse) an
+     iteration. It runs last: after a profiler run every later launch of the process
+     costs more host time.
+ 15. ``solve_batched`` on ``bench.py --mode batch``'s recipe (4,096 and
+     10,240 LPs of 64 x 160, its options: no verify rounds, no polish,
+     max_iter 1000), with bench.py's one-at-a-time figure; then on the same
+     recipe with the slack identity kept exact (bench.py's noise lands on
+     it while the slack start assumes B_inv = I, in the JAX package too),
+     held against HiGHS and the port's single solve on 16 sampled
+     instances: fp32 A, the bf16 shadow, ``update_defer=4`` and bounds u
+     shared by the batch. Every eager unbounded batch step launches the
+     three batched kernels once each, with one control read;
+ 16. ``reoptimize_batched`` on ``bench.py --mode reopt``'s recipe: a cold
+     solve of 2048 x 4096, then 256 rhs scenarios re-solved from its
+     basis, dense A and scipy CSC, 8 sampled scenarios against HiGHS;
+ 17. PDHG: ``random_dense_lp(256, 640)`` and ``bench.py --mode pdhg
+     --sparse``'s multiperiod instance at T = 64 to OPTIMAL within 1e-3 of
+     HiGHS; T = 248 dense and sparse under an iteration budget (reported);
+     ``crossover`` of the T = 64 answer within 1e-6 of HiGHS; ``cli solve
+     --algo pdhg --crossover`` on sample.txt.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON record is its total over
@@ -116,8 +144,8 @@ checkout of the repository, the script exits non-zero at once.
 
 ``--only kernels`` stops after phase 2 (a quick check of a changed kernel;
 it prints the kernels' measured times and no final ``ok`` line); ``--only
-new`` builds the kernels and runs phases 10-13 and phase 14's sparse part
-alone (no final ``ok`` line either).
+new`` builds the kernels and runs phases 15-17 and phase 14's traces of
+them alone (no final ``ok`` line either).
 """
 
 from __future__ import annotations
@@ -187,12 +215,19 @@ SOURCES = {
     "ratio_argmin": "simplex_tpu_torch/csrc/ratio_argmin.cu",
     "ratio_eta": "simplex_tpu_torch/csrc/ratio_eta.cu",
     "rank1_update": "simplex_tpu_torch/csrc/rank1_update.cu",
+    "batch_pricing": "simplex_tpu_torch/csrc/batch_pricing.cu",
+    "batch_tail": "simplex_tpu_torch/csrc/batch_tail.cu",
+    "batch_rank1": "simplex_tpu_torch/csrc/batch_rank1.cu",
 }
 REPLACES = {
     "pricing_scan": "simplex_tpu/kernels/pallas_ops.py:140",
     "ratio_argmin": "simplex_tpu/kernels/pallas_ops.py:212",
     "ratio_eta": "simplex_tpu/kernels/pallas_ops.py:323",
     "rank1_update": "simplex_tpu/kernels/pallas_ops.py:374",
+    # the same three Pallas calls under vmap (simplex_tpu/batch/vmapped.py)
+    "batch_pricing": "simplex_tpu/kernels/pallas_ops.py:140",
+    "batch_tail": "simplex_tpu/kernels/pallas_ops.py:323",
+    "batch_rank1": "simplex_tpu/kernels/pallas_ops.py:374",
 }
 
 
@@ -665,6 +700,249 @@ def phase_pricing_bounded(dev) -> None:
                 f"{times['bf16'][0]:.4f} / {times['bf16'][1]:.4f} (plain upcasts the shadow)"
             )
         del A, Ab
+
+
+# --------------------------------------------------------------------------
+# the batched kernels (simplex_tpu_torch.batch)
+# --------------------------------------------------------------------------
+
+# bench.py --mode batch's shape (bench.py:801-898): 4,096 LPs of 64 x 160
+BATCH_B, BATCH_M, BATCH_N = 4096, 64, 160
+# the warm re-solve's shape (bench.py --mode reopt, bench.py:729-798)
+REOPT_M, REOPT_N, REOPT_B = 2048, 4096, 256
+# batched pricing against its plain twin: fp32 sums of m terms in another
+# order (a batched matrix product there): 1.2e-4 of scale, every pick equal
+BATCH_PRICING_ATOL = 1.2e-4
+
+
+def batch_pricing_inputs(dev, g, Bn: int, m: int, n: int, shared: bool = False):
+    """y, A, c and basis for the batched pricing; ``shared``: one A (m, n)
+    and one c (n,) for every instance, as the warm re-solve has them."""
+    import torch
+
+    lead = () if shared else (Bn,)
+    y = torch.randn(Bn, m, generator=g, device=dev) / m ** 0.5
+    A = torch.randn(*lead, m, n, generator=g, device=dev)
+    c = torch.randn(*lead, n, generator=g, device=dev)
+    e = (y @ A if shared else torch.bmm(y[:, None, :], A)[:, 0]) - c
+    # a basis of m distinct columns holding each instance's best column, so
+    # the mask decides the pick
+    basis = torch.rand(Bn, n, generator=g, device=dev).argsort(1)[:, :m]
+    best = e.argmin(1)
+    has = (basis == best[:, None]).any(1)
+    basis[:, 0] = torch.where(has, basis[:, 0], best)
+    basis = basis.to(torch.int32).contiguous()
+    return y, A, c, basis
+
+
+def check_batch_pricing(tag, dev, y, A, c, basis, bland, at_upper=None) -> float:
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    p_k, min_k = hopper.choose_entering_batched(y, A, c, 1e-5, bland, basis, at_upper)
+    p_p, min_p = hopper.choose_entering_batched_plain(y, A, c, 1e-5, bland, basis, at_upper)
+    torch.cuda.synchronize()
+    err = float((min_k - min_p).abs().max())
+    scale = max(1.0, float(min_p.abs().max()))
+    check(err <= BATCH_PRICING_ATOL * scale, f"{tag}: min_e differs by {err} (scale {scale})")
+    bad = int((p_k != p_p).sum())
+    check(bad == 0, f"{tag}: {bad} picks differ")
+    print(f"{tag}: max abs err {err:.3e}, picks equal ok")
+    return err
+
+
+def batch_tail_inputs(dev, g, Bn: int, m: int, L: int = 0):
+    import torch
+
+    x_b = torch.rand(Bn, m, generator=g, device=dev) * 2
+    x_b[:, ::7] = 0.0
+    t = dict(
+        x_b=x_b, alpha=torch.randn(Bn, m, generator=g, device=dev),
+        basis=torch.rand(Bn, m + 50, generator=g, device=dev).argsort(1)[:, :m].to(torch.int32).contiguous(),
+        y=torch.randn(Bn, m, generator=g, device=dev), c_b=torch.randn(Bn, m, generator=g, device=dev),
+        B_inv=torch.randn(Bn, m, m, generator=g, device=dev),
+        min_e=-torch.rand(Bn, generator=g, device=dev), c_p=torch.randn(Bn, generator=g, device=dev),
+        p=torch.randint(0, m + 50, (Bn,), generator=g, device=dev).to(torch.int32),
+        iters=torch.randint(0, 100, (Bn,), generator=g, device=dev).to(torch.int32),
+        degen=torch.randint(0, 80, (Bn,), generator=g, device=dev).to(torch.int32),
+    )
+    t["e_p"] = t["min_e"].clone()
+    # a few optimal, unbounded and non-finite instances, and finished ones
+    t["min_e"][1::9] = 0.5
+    t["alpha"][2::9] = -t["alpha"][2::9].abs() - 1
+    t["min_e"][3::17] = float("nan")
+    status = torch.zeros(Bn, dtype=torch.int32, device=dev)
+    status[4::5] = 1
+    t["status"] = status
+    t["active"] = (status == 0) & (t["iters"] < 95)
+    if L:
+        t["npend"] = torch.randint(0, L, (Bn,), generator=g, device=dev).to(torch.int32)
+        k = torch.arange(L, device=dev)[None, :, None]
+        live = (k < t["npend"][:, None, None]).float()
+        t["U"] = torch.randn(Bn, L, m, generator=g, device=dev) * 0.1 * live
+        t["R"] = torch.randn(Bn, L, m, generator=g, device=dev) * live
+    return t
+
+
+TAIL_KEYS = ("x_b", "alpha", "basis", "y", "c_b", "B_inv", "min_e", "e_p", "c_p", "p", "iters",
+             "degen", "status", "active")
+
+
+def check_batch_tail(tag, dev, t, harris) -> None:
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    outs, bufs = [], []
+    for fn in (hopper.pivot_tail_batched, hopper.pivot_tail_batched_plain):
+        extra = {}
+        if "U" in t:
+            extra = dict(U=t["U"].clone(), R=t["R"].clone(), npend=t["npend"])
+            bufs.append(extra)
+        outs.append(fn(*(t[k] for k in TAIL_KEYS), harris=harris, **TAIL_OPTS, **extra))
+    torch.cuda.synchronize()
+    got, want = outs
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if a is None and b is None:
+            continue
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{tag}: {name} {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+        same = torch.equal(a, b) or bool(((a == b) | (a.isnan() & b.isnan())).all()) if a.is_floating_point() \
+            else torch.equal(a, b)
+        check(same, f"{tag}: {name} differs")
+    if bufs:
+        for k in ("U", "R"):
+            check(torch.equal(bufs[0][k], bufs[1][k]), f"{tag}: {k} differs")
+    print(f"{tag}: every leaf bit for bit ok (takes {int(got.take.sum())} of {got.take.shape[0]})")
+
+
+def check_batch_rank1(tag, dev, g, Bn, m) -> None:
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    B = torch.randn(Bn, m, m, generator=g, device=dev)
+    B[:, 0, 0] = -0.0
+    eta = torch.randn(Bn, m, generator=g, device=dev)
+    row = torch.randn(Bn, m, generator=g, device=dev)
+    take = torch.rand(Bn, generator=g, device=dev) < 0.7
+    got = hopper.rank1_update_batched(B.clone(), eta, row, take)
+    want = hopper.rank1_update_batched_plain(B.clone(), eta, row, take)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{tag}: differs by {float((got - want).abs().max())}")
+    check(torch.equal(got[~take].view(-1).view(torch.int32), B[~take].view(-1).view(torch.int32)),
+          f"{tag}: an instance without take changed")
+    try:
+        hopper.rank1_update_batched(B, eta, B[:, 3], take)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"{tag}: a row that aliases B_inv was accepted")
+    print(f"{tag}: bit for bit ok")
+
+
+def phase_batch_kernels(dev) -> dict:
+    """The three batched kernels against their plain twins on the card:
+    pricing (fp32 A, the bf16 shadow, the signed mode; 1.2e-4 of scale,
+    every pick equal), the tail (eager and deferred, Harris and classic,
+    finished instances mixed in; bit for bit) and rank-1 (bit for bit), at
+    bench.py --mode batch's shape, odd shapes and a wide one; then times
+    at the bench's shape (rank-1 also at the warm re-solve's)."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper, ops
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    recs = {}
+    shapes = ((BATCH_B, BATCH_M, BATCH_N), (3, 17, 45), (8, 2048, 4096))
+    worst = 0.0
+    for Bn, m, n in shapes:
+        y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n)
+        bland = torch.rand(Bn, generator=g, device=dev) < 0.2
+        no = torch.zeros(Bn, dtype=torch.bool, device=dev)
+        at_upper = torch.rand(Bn, n, generator=g, device=dev) < 0.3
+        Ab = A.to(torch.bfloat16)
+        for tag, args in (
+            ("fp32", (y, A, c, basis, no)), ("fp32 bland", (y, A, c, basis, bland)),
+            ("bf16", (y, Ab, c, basis, no)), ("signed", (y, A, c, basis, bland, at_upper)),
+            ("signed bf16", (y, Ab, c, basis, no, at_upper)),
+        ):
+            worst = max(worst, check_batch_pricing(f"batch_pricing {Bn}x{m}x{n} {tag}", dev, *args))
+        if (Bn, m, n) == (BATCH_B, BATCH_M, BATCH_N):
+            nb = Bn * (4.0 * (m * n + 2 * m + n) + 9)
+            recs["batch_pricing"] = {
+                "ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis), 50),
+                "plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis), 20),
+                "bf16_ms": time_ms(lambda: hopper.choose_entering_batched(y, Ab, c, 1e-5, no, basis), 50),
+                "bf16_plain_ms": time_ms(lambda: ops.choose_entering_batched(y, Ab, c, 1e-5, no, basis), 20),
+                **bound(nb, 2.0 * Bn * m * n),
+                "bf16_bound_ms": bound(nb - Bn * 2.0 * m * n, 2.0 * Bn * m * n)["bound_ms"],
+                # the product alone (no mask, no choice)
+                "library_ms": time_ms(lambda: torch.bmm(y[:, None, :], A), 50),
+            }
+        del A, Ab
+    # one A and c shared by the batch (the warm re-solve's primal clean-up):
+    # an odd shape and bench.py --mode reopt's
+    for Bn, m, n in ((3, 17, 45), (REOPT_B, REOPT_M, REOPT_N)):
+        y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared=True)
+        bland = torch.rand(Bn, generator=g, device=dev) < 0.2
+        no = torch.zeros(Bn, dtype=torch.bool, device=dev)
+        at_upper = torch.rand(Bn, n, generator=g, device=dev) < 0.3
+        Ab = A.to(torch.bfloat16)
+        for tag, args in (
+            ("fp32", (y, A, c, basis, no)), ("fp32 bland", (y, A, c, basis, bland)),
+            ("bf16", (y, Ab, c, basis, no)), ("signed", (y, A, c, basis, bland, at_upper)),
+        ):
+            worst = max(worst, check_batch_pricing(f"batch_pricing shared {Bn}x{m}x{n} {tag}", dev, *args))
+        if Bn == REOPT_B:
+            # A and c are read from memory once; 2 B m n flops bound it
+            bd = bound(4.0 * (m * n + n) + Bn * (4.0 * (2 * m) + 9), 2.0 * Bn * m * n)
+            recs["batch_pricing"].update({
+                "reopt_ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis), 20),
+                "reopt_plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis), 20),
+                "reopt_bound_ms": bd["bound_ms"],
+                "reopt_bound_by": bd["bound_by"],
+                # the product alone: one GEMM
+                "reopt_library_ms": time_ms(lambda: y @ A, 20),
+            })
+        del A, Ab
+    recs["batch_pricing"]["max_abs_err"] = worst
+    for Bn, m in ((BATCH_B, BATCH_M), (3, 17), (8, 2048), (37, 1100)):
+        for L in (0, 4):
+            t = batch_tail_inputs(dev, g, Bn, m, L)
+            for harris in (True, False):
+                check_batch_tail(f"batch_tail {Bn}x{m} L={L} harris={harris}", dev, t, harris)
+            if (Bn, m, L) == (BATCH_B, BATCH_M, 0):
+                args = tuple(t[k] for k in TAIL_KEYS)
+                recs["batch_tail"] = {
+                    "ms": time_ms(lambda: hopper.pivot_tail_batched(*args, harris=True, **TAIL_OPTS), 200),
+                    "plain_ms": time_ms(lambda: hopper.pivot_tail_batched_plain(*args, harris=True, **TAIL_OPTS), 50),
+                    **bound(4.0 * Bn * (12 * m + 12), 12.0 * Bn * m),
+                    "library_ms": None,
+                    "max_abs_err": 0.0,
+                }
+    for Bn, m in ((BATCH_B, BATCH_M), (3, 17), (8, 2048), (5, 1025)):
+        check_batch_rank1(f"batch_rank1 {Bn}x{m}", dev, g, Bn, m)
+    for tag, Bn, m in (("", BATCH_B, BATCH_M), ("reopt_", REOPT_B, REOPT_M)):
+        B = torch.randn(Bn, m, m, generator=g, device=dev)
+        eta = torch.randn(Bn, m, generator=g, device=dev) * 1e-6
+        row = torch.randn(Bn, m, generator=g, device=dev)
+        take = torch.ones(Bn, dtype=torch.bool, device=dev)
+        r = {
+            f"{tag}ms": time_ms(lambda: hopper.rank1_update_batched(B, eta, row, take), 20),
+            f"{tag}plain_ms": time_ms(lambda: hopper.rank1_update_batched_plain(B, eta, row, take), 5),
+            f"{tag}library_ms": time_ms(lambda: B.baddbmm_(eta[:, :, None], row[:, None, :]), 20),
+        }
+        bd = bound(8.0 * Bn * m * m + 8.0 * Bn * m + Bn, 2.0 * Bn * m * m)
+        r.update({f"{tag}bound_ms": bd["bound_ms"], f"{tag}bound_by": bd["bound_by"]})
+        recs.setdefault("batch_rank1", {}).update(r)
+        del B
+        torch.cuda.empty_cache()
+    recs["batch_rank1"]["max_abs_err"] = 0.0
+    for name, r in recs.items():
+        print(f"{name}: " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()))
+    return recs
 
 
 def phase_ratio_argmin(dev) -> dict:
@@ -1943,11 +2221,407 @@ def phase_sparse_profile(dev) -> None:
 
 
 
+# --------------------------------------------------------------------------
+# batched solves, warm re-solves of many scenarios, PDHG
+# --------------------------------------------------------------------------
+
+# bench.py --mode batch's options (bench.py:843-849)
+BATCH_OPTS = dict(verify_terminal=False, polish=False, max_iter=1000)
+BATCH_SAMPLES = 16  # instances held against HiGHS and the single solve
+BATCH_FULL = 10240  # BASELINE.json configs[3]'s "10k small LPs", whole on one card
+REOPT_SAMPLES = 8
+REOPT_GAP = 1e-4  # tests/test_dual.py:276 holds the warm re-solves to this
+PDHG_GAP = 1e-3  # a tol = 1e-4 first-order answer against HiGHS
+PDHG_P = 32  # bench.py --mode pdhg --sparse: products per period
+PDHG_T, PDHG_T_BIG = 64, 248  # periods: rows 2,112 and 8,184 (the bench's ~8,192)
+PDHG_BUDGET = 20000  # iterations of the T = 248 runs
+
+
+def batch_instances(Bn: int, exact_slack: bool = False):
+    """bench.py --mode batch's recipe (bench.py:827-838): Bn copies of
+    random_dense_lp(64, 160, seed=0) with 0.01 N(0, 1) added to A and
+    0.01 |N(0, 1)| to b, from default_rng(0). The noise also lands on the
+    slack identity, while the slack start takes B_inv = I: the instances
+    bench.py times are solved for a slightly different basis matrix, in the
+    JAX package as here (z about 2e-2 from HiGHS on the CPU in both).
+    ``exact_slack`` keeps the identity exact, which makes the slack start
+    a true basis and HiGHS a fair judge."""
+    import numpy as np
+
+    from simplex_tpu_torch.oracle.generator import random_dense_lp
+
+    m, n = BATCH_M, BATCH_N
+    rng = np.random.default_rng(0)
+    A0, b0, c0 = random_dense_lp(m, n, seed=0, dtype=np.float32)
+    As = np.empty((Bn, m, n), np.float32)
+    bs = np.empty((Bn, m), np.float32)
+    for i in range(Bn):
+        As[i] = A0 + 0.01 * rng.standard_normal((m, n)).astype(np.float32)
+        bs[i] = b0 + 0.01 * np.abs(rng.standard_normal(m)).astype(np.float32)
+    if exact_slack:
+        As[:, :, n - m:] = np.eye(m, dtype=np.float32)
+    return As, bs, np.broadcast_to(c0, (Bn, n)).copy()
+
+
+def highs_bounded(A, b, c, u):
+    import numpy as np
+    from scipy.optimize import linprog
+
+    r = linprog(-np.asarray(c, np.float64), A_eq=np.asarray(A, np.float64),
+                b_eq=np.asarray(b, np.float64),
+                bounds=[(0, float(v) if np.isfinite(v) else None) for v in u], method="highs")
+    return -r.fun if r.status == 0 else None
+
+
+def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True) -> dict:
+    """solve_batched once through its entry point with the counters set to
+    0 just before; prints solves/s, statuses, pivots, batch steps, host
+    reads and launches a batch step; holds BATCH_SAMPLES instances against
+    the port's single solve under the same options (the same slack start,
+    so a witness on any input) and, when ``highs``, against HiGHS."""
+    import numpy as np
+    import torch
+
+    from simplex_tpu_torch import SimplexOptions, solve, solve_batched
+    from simplex_tpu_torch.batch import step as bstep
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy
+
+    opts = SimplexOptions(**BATCH_OPTS, **(extra or {}))
+    Bn = As.shape[0]
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    bstep.reset_host_reads()
+    t0 = time.perf_counter()
+    res = solve_batched(As, bs, cs, u=u, options=opts, device=dev)
+    dt = time.perf_counter() - t0
+    counts = dict(hopper.launches)
+    steps = bstep.steps["primal"]
+    reads = dict(bstep.host_reads)
+    st = collections.Counter(res.statuses())
+    per = {k: round(v / max(steps, 1), 4) for k, v in counts.items() if v}
+    print(f"solve_batched {tag}: {Bn} LPs in {dt:.3f} s -> {Bn / dt:.1f} solves/s; statuses "
+          f"{ {s.name: k for s, k in st.items()} }; pivots median {int(np.median(res.iters))} max "
+          f"{int(res.iters.max())}; {steps} batch steps; host reads {reads} "
+          f"({reads['control'] / max(steps, 1):.4f} control a step); launches a step {per}")
+    check(st.get(1, 0) == Bn, f"solve_batched {tag}: not every instance OPTIMAL: {st}")
+    idx = np.linspace(0, Bn - 1, BATCH_SAMPLES).astype(int)
+    worst_h = worst_s = 0.0
+    for i in idx:
+        single = solve(As[i], bs[i], cs[i], u=u, options=opts, device=dev)
+        worst_s = max(worst_s, relative_gap(float(res.z[i]), single.z))
+        if highs:
+            ref = solve_scipy(As[i], bs[i], cs[i]).z if u is None else highs_bounded(As[i], bs[i], cs[i], u)
+            worst_h = max(worst_h, relative_gap(float(res.z[i]), ref))
+    print(f"solve_batched {tag}: {BATCH_SAMPLES} sampled instances, worst rel gap vs the single solve "
+          f"{worst_s:.3e}" + (f", vs HiGHS {worst_h:.3e}" if highs else " (HiGHS not held: see the recipe)"))
+    check(worst_s <= GAP_TOL and worst_h <= GAP_TOL, f"solve_batched {tag}: gaps {worst_s}, {worst_h}")
+    return {"counts": counts, "steps": steps, "seconds": dt, "reads": reads}
+
+
+def phase_solve_batched(dev) -> dict:
+    """solve_batched on bench.py --mode batch's recipe (its options: no
+    verify rounds, no polish, max_iter 1000) at B = 4,096 (the JAX bench's)
+    and 10,240, held against the single solve, with the one-at-a-time
+    figure bench.py prints; then on the recipe with an exact slack
+    identity, held against HiGHS and the single solve: fp32 A, the bf16
+    shadow, update_defer = 4 and bounds u shared by the batch. Each eager unbounded batch step must launch the three
+    batched kernels once each."""
+    import numpy as np
+    import torch
+
+    from simplex_tpu_torch import SimplexOptions, solve_batched
+
+    paths = {}
+    for Bn in (BATCH_B, BATCH_FULL):
+        As, bs, cs = batch_instances(Bn)
+        if Bn == BATCH_B:
+            # bench.py's warm-up call: the first launches of every op
+            solve_batched(As, bs, cs, options=SimplexOptions(**BATCH_OPTS), device=dev)
+        r = batch_run(dev, f"bench recipe B={Bn}", As, bs, cs, highs=False)
+        c, k = r["counts"], r["steps"]
+        check(c["batch_pricing"] == c["batch_tail"] == c["batch_rank1"] == k,
+              f"batch B={Bn}: launches {c} over {k} batch steps")
+        check(r["reads"]["control"] <= k + 1, f"batch B={Bn}: {r['reads']} reads over {k} steps")
+        paths[f"solve_batched B={Bn}"] = c
+        if Bn == BATCH_B:
+            # bench.py's sequential figure: the same entry point, one LP a call
+            ns = BATCH_SAMPLES
+            opts = SimplexOptions(**BATCH_OPTS)
+            solve_batched(As[:1], bs[:1], cs[:1], options=opts, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(ns):
+                solve_batched(As[i:i + 1], bs[i:i + 1], cs[i:i + 1], options=opts, device=dev)
+            dt1 = time.perf_counter() - t0
+            print(f"solve_batched B=1, one at a time: {1e3 * dt1 / ns:.2f} ms a LP -> {ns / dt1:.1f} solves/s; "
+                  f"batched over sequential {(Bn / r['seconds']) / (ns / dt1):.1f}x")
+        del As, bs, cs
+    As, bs, cs = batch_instances(BATCH_B, exact_slack=True)
+    rng = np.random.default_rng(2)
+    u = np.concatenate([rng.uniform(0.3, 1.0, BATCH_N - BATCH_M) * 4, np.full(BATCH_M, np.inf)]).astype(np.float32)
+    for tag, extra, uu in (
+        ("exact slack", {}, None),
+        ("exact slack, bf16 shadow", {"pricing_dtype": "bfloat16"}, None),
+        ("exact slack, update_defer=4", {"update_defer": 4}, None),
+        ("exact slack, shared bounds u", {}, u),
+    ):
+        r = batch_run(dev, f"{tag} B={BATCH_B}", As, bs, cs, extra, uu)
+        c, k = r["counts"], r["steps"]
+        if not extra and uu is None:
+            check(c["batch_pricing"] == c["batch_tail"] == c["batch_rank1"] == k, f"{tag}: launches {c}, {k} steps")
+        elif uu is not None:
+            check(c["batch_pricing"] == k and c["batch_tail"] == 0 and c["batch_rank1"] == k,
+                  f"{tag}: launches {c}, {k} steps")
+        elif "update_defer" in extra:
+            check(c["batch_pricing"] == c["batch_tail"] == k and c["batch_rank1"] == 0, f"{tag}: launches {c}")
+        else:
+            check(c["batch_pricing"] >= k and c["batch_tail"] == c["batch_rank1"] == k, f"{tag}: launches {c}")
+        paths[f"solve_batched {tag}"] = c
+    return paths
+
+
+def phase_reoptimize_batched(dev) -> dict:
+    """reoptimize_batched on bench.py --mode reopt's recipe (bench.py:729-798):
+    a cold solve of random_dense_lp(2048, 4096, seed=0) with refactor_every
+    = 256, then 256 scenarios b (1 + 0.05 U(-1, 1)) from default_rng(1),
+    dense A and A as scipy CSC; 8 sampled scenarios against HiGHS."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+
+    from simplex_tpu_torch import SimplexOptions, SolveStatus, reoptimize_batched, solve
+    from simplex_tpu_torch.batch import step as bstep
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.generator import random_dense_lp
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy
+
+    m, n, Bn = REOPT_M, REOPT_N, REOPT_B
+    A, b, c = random_dense_lp(m, n, seed=0, dtype=np.float32)
+    opts = SimplexOptions(refactor_every=256)
+    t0 = time.perf_counter()
+    cold = solve(A, b, c, options=opts, device=dev)
+    print(f"reopt base {m}x{n}: cold {cold.status.name} {cold.iters} pivots in {time.perf_counter() - t0:.2f} s")
+    check(int(cold.status) == 1, "reopt: the cold solve is not OPTIMAL")
+    rng = np.random.default_rng(1)
+    bs = (np.asarray(b, np.float64)[None, :] * (1 + 0.05 * rng.uniform(-1, 1, (Bn, m)))).astype(np.float32)
+    idx = np.linspace(0, Bn - 1, REOPT_SAMPLES).astype(int)
+    refs = {int(i): solve_scipy(A, bs[i], c) for i in idx}
+    paths, first = {}, None
+    for storage, A_in in (("dense", A), ("scipy CSC", sps.csc_matrix(A))):
+        torch.cuda.synchronize()
+        hopper.reset_launches()
+        bstep.reset_host_reads()
+        t0 = time.perf_counter()
+        res = reoptimize_batched(A_in, bs, c, cold, options=opts, device=dev)
+        dt = time.perf_counter() - t0
+        counts, steps = dict(hopper.launches), dict(bstep.steps)
+        st = collections.Counter(res.statuses())
+        print(f"reoptimize_batched {storage}: {Bn} scenarios in {dt:.3f} s -> {Bn / dt:.1f} scenarios/s; "
+              f"statuses { {s.name: k for s, k in st.items()} }; pivots (dual + clean-up) mean "
+              f"{float(res.iters.mean()):.2f} max {int(res.iters.max())}; batch steps {steps}; "
+              f"host reads {dict(bstep.host_reads)}; launches {counts}; feas_err max {float(res.feas_err.max()):.3e}")
+        # the clean-up's primal steps price a dense A through the kernel (A
+        # and c shared); no kernel reads a sparse A
+        want_pricing = steps["primal"] if storage == "dense" else 0
+        check(counts["batch_rank1"] >= steps["dual"] and counts["batch_tail"] == steps["primal"]
+              and counts["batch_pricing"] == want_pricing, f"reopt {storage}: launches {counts}, steps {steps}")
+        worst = 0.0
+        for i, ref in refs.items():
+            check(SolveStatus(int(res.status[i])) == ref.status, f"reopt {storage} scenario {i}: status")
+            if ref.z is not None:
+                worst = max(worst, relative_gap(float(res.z[i]), ref.z))
+        print(f"reoptimize_batched {storage}: {REOPT_SAMPLES} sampled scenarios, worst rel gap vs HiGHS {worst:.3e}")
+        check(worst <= REOPT_GAP, f"reopt {storage}: gap {worst}")
+        if first is None:
+            first = res
+        else:
+            check((res.status == first.status).all(), f"reopt {storage}: statuses differ from dense")
+        paths[f"reoptimize_batched {storage}"] = counts
+        del res
+        torch.cuda.empty_cache()
+    return paths
+
+
+def multiperiod_eq(T: int):
+    """bench.py --mode pdhg --sparse's instance (bench.py:567-625):
+    multiperiod_production_lp(T, 32, seed=0) in box-bounded equality form,
+    float32, with its general form for HiGHS."""
+    import numpy as np
+
+    from simplex_tpu_torch.io.canonical import to_equality_form
+    from simplex_tpu_torch.oracle.generator import multiperiod_production_lp
+
+    lp = multiperiod_production_lp(T, PDHG_P, seed=0)
+    eq = to_equality_form(lp)
+    A, b, c, u = (np.asarray(v, np.float32) for v in (eq.A, eq.b, eq.c, eq.u))
+    return lp, eq, A, b, c, u
+
+
+def pdhg_run(dev, tag, A, b, c, u=None, **kw):
+    from simplex_tpu_torch import solve_pdhg
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_pdhg(A, b, c, u=u, device=dev, **kw)
+    dt = time.perf_counter() - t0
+    print(f"pdhg {tag}: {res.status.name} in {res.iters} iterations, {dt:.2f} s -> {res.iters / dt:.0f} it/s; "
+          f"rp {res.primal_res:.2e} rd {res.dual_res:.2e} gap {res.gap:.2e}")
+    return res, dt
+
+
+def phase_pdhg(dev) -> dict:
+    """PDHG: random_dense_lp(256, 640, seed=0) at tol 1e-4 and bench.py
+    --mode pdhg --sparse's multiperiod instance at T = 64, both OPTIMAL and
+    within PDHG_GAP of HiGHS; T = 248 (rows 8,184) dense and sparse under a
+    PDHG_BUDGET-iteration budget, reported; crossover of the T = 64 sparse
+    answer (OPTIMAL, 1e-6 from HiGHS); ``cli solve --algo pdhg
+    --crossover`` on tests/data/sample.txt (z = 9)."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+
+    from simplex_tpu_torch import cli, crossover
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.generator import random_dense_lp
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy, solve_scipy_general
+
+    hopper.reset_launches()
+    A, b, c = random_dense_lp(256, 640, seed=0, dtype=np.float32)
+    res, _ = pdhg_run(dev, "dense 256x640 tol 1e-4", A, b, c, tol=1e-4)
+    gap = relative_gap(res.z, solve_scipy(A, b, c).z)
+    print(f"pdhg dense 256x640: rel gap vs HiGHS {gap:.3e}")
+    check(int(res.status) == 1 and gap <= PDHG_GAP, f"pdhg 256x640: {res.status.name}, gap {gap}")
+    lp, eq, A, b, c, u = multiperiod_eq(PDHG_T)
+    ref = solve_scipy_general(lp).z
+    print(f"multiperiod T={PDHG_T} P={PDHG_P}: {A.shape[0]}x{A.shape[1]} equality form, {np.count_nonzero(A)} nonzeros")
+    res, _ = pdhg_run(dev, f"sparse T={PDHG_T}", sps.csr_matrix(A), b, c, u=u, tol=1e-4)
+    gap = relative_gap(res.z + eq.z_const, ref)
+    print(f"pdhg sparse T={PDHG_T}: rel gap vs HiGHS {gap:.3e}")
+    check(int(res.status) == 1 and gap <= PDHG_GAP, f"pdhg sparse T={PDHG_T}: {res.status.name}, gap {gap}")
+    t0 = time.perf_counter()
+    vert = crossover(sps.csc_matrix(A), b, c, res, u=u, device=dev)
+    vgap = relative_gap(vert.z + eq.z_const, ref)
+    print(f"crossover T={PDHG_T}: {vert.status.name} in {vert.iters} pivots, {time.perf_counter() - t0:.2f} s, "
+          f"rel gap vs HiGHS {vgap:.3e}, feas_err {vert.feas_err:.2e}")
+    check(int(vert.status) == 1 and vgap <= 1e-6, f"crossover: {vert.status.name}, gap {vgap}")
+    lp, eq, A, b, c, u = multiperiod_eq(PDHG_T_BIG)
+    print(f"multiperiod T={PDHG_T_BIG}: {A.shape[0]}x{A.shape[1]}, {np.count_nonzero(A)} nonzeros, "
+          f"budget {PDHG_BUDGET} iterations")
+    for tag, A_in in (("sparse", sps.csr_matrix(A)), ("dense", A)):
+        res, _ = pdhg_run(dev, f"{tag} T={PDHG_T_BIG}", A_in, b, c, u=u, tol=1e-4, max_iter=PDHG_BUDGET)
+        check(np.isfinite(res.z) and res.iters > 0, f"pdhg {tag} T={PDHG_T_BIG}: no iterate")
+    del A
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["solve", str(ROOT / "tests" / "data" / "sample.txt"), "--algo", "pdhg",
+                       "--crossover", "--device", str(dev)])
+    lines = out.getvalue().splitlines()
+    print(f"cli solve --algo pdhg --crossover sample.txt: rc {rc}, '{lines[0]}', {lines[-1]}")
+    check(rc == 0 and lines[0] == "Optimum found: 9", f"cli pdhg: {lines[:2]}")
+    return {"pdhg (and its crossovers)": dict(hopper.launches)}
+
+
+def phase_batch_profile(dev) -> dict:
+    """Device ops and device time a batch step on bench.py --mode batch's
+    recipe at B = 4,096, from a torch.profiler trace of the whole
+    solve_batched call (after the other profiles)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch import SimplexOptions, solve_batched
+    from simplex_tpu_torch.batch import step as bstep
+    from simplex_tpu_torch.bench.profile_general import device_summary
+
+    As, bs, cs = batch_instances(BATCH_B)
+    opts = SimplexOptions(**BATCH_OPTS)
+    solve_batched(As, bs, cs, options=opts, device=dev)
+    torch.cuda.synchronize()
+    bstep.reset_host_reads()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solve_batched(As, bs, cs, options=opts, device=dev)
+        torch.cuda.synchronize()
+    steps = max(bstep.steps["primal"], 1)
+    by, ops, _ = device_summary(prof, True)
+    total = sum(by.values())
+    per = {k: v / steps for k, v in by.most_common(8)}
+    print(f"batch profile B={BATCH_B}: {steps} batch steps; {ops / steps:.2f} device ops and "
+          f"{total / steps:.1f} device us a batch step; largest (us a step): "
+          + ", ".join(f"{k[:60]} {v:.1f}" for k, v in per.items()))
+    check(ops > 0 and total > 0, "batch profile: no device time")
+    kern = {name: sum(v for k, v in by.items() if key in k) / steps
+            for name, key in (("batch_pricing", "scan_kernel"), ("batch_tail", "batch_tail_kernel"),
+                              ("batch_rank1", "batch_rank1_kernel"))}
+    return {"device_us_per_batch_step": total / steps, "device_ops_per_batch_step": ops / steps,
+            "kernel_device_us": kern}
+
+
+def phase_warm_and_pdhg_profile(dev) -> dict:
+    """Where the time of bench-reopt and of a PDHG iteration goes: one
+    ``reoptimize_batched`` call on bench-reopt (dense A) and 1,280 PDHG
+    iterations (10 windows) of the 256 x 640 and T = 64 sparse instances,
+    each traced by torch.profiler: device ops and device us a dual batch
+    step or an iteration, and the largest items."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch import SimplexOptions, reoptimize_batched, solve, solve_pdhg
+    from simplex_tpu_torch.batch import step as bstep
+    from simplex_tpu_torch.bench.profile_general import device_summary
+    from simplex_tpu_torch.oracle.generator import random_dense_lp
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by, ops, _ = device_summary(prof, True)
+        return out, by, ops, wall
+
+    def report(tag, by, ops, wall, per, unit):
+        total = sum(by.values())
+        top = ", ".join(f"{k[:60]} {v / per:.1f}" for k, v in by.most_common(6))
+        print(f"{tag}: {per} {unit}s; {ops / per:.2f} device ops and {total / per:.1f} device us a {unit}, "
+              f"{1e3 * wall / per:.3f} wall ms a {unit} (traced); largest (us a {unit}): {top}")
+        check(total > 0, f"{tag}: no device time")
+        return {"device_us": total / per, "device_ops": ops / per, "wall_ms_traced": 1e3 * wall / per}
+
+    out = {}
+    m, n, Bn = REOPT_M, REOPT_N, REOPT_B
+    A, b, c = random_dense_lp(m, n, seed=0, dtype=np.float32)
+    opts = SimplexOptions(refactor_every=256)
+    cold = solve(A, b, c, options=opts, device=dev)
+    rng = np.random.default_rng(1)
+    bs = (np.asarray(b, np.float64)[None, :] * (1 + 0.05 * rng.uniform(-1, 1, (Bn, m)))).astype(np.float32)
+    bstep.reset_host_reads()
+    _, by, ops, wall = traced(lambda: reoptimize_batched(A, bs, c, cold, options=opts, device=dev))
+    out["reopt"] = report("bench-reopt dual loop profile", by, ops, wall, bstep.steps["dual"], "dual batch step")
+    del A
+    torch.cuda.empty_cache()
+    A, b, c = random_dense_lp(256, 640, seed=0, dtype=np.float32)
+    iters = 1280
+    _, by, ops, wall = traced(lambda: solve_pdhg(A, b, c, tol=1e-12, max_iter=iters, device=dev))
+    out["pdhg dense"] = report("pdhg 256x640 profile", by, ops, wall, iters, "iteration")
+    _, _, A, b, c, u = multiperiod_eq(PDHG_T)
+    _, by, ops, wall = traced(lambda: solve_pdhg(sps.csr_matrix(A), b, c, u=u, tol=1e-12, max_iter=iters,
+                                                 device=dev))
+    out["pdhg sparse"] = report(f"pdhg sparse T={PDHG_T} profile", by, ops, wall, iters, "iteration")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "new"], default=None,
                     help="kernels: stop after the kernel checks; new: the kernel build, then only "
-                         "the trace, checkpoint, CLI and sparse phases (no final ok line either way)")
+                         "the batched, warm-batched and PDHG phases and the batch profile (no "
+                         "final ok line either way)")
     args = ap.parse_args(argv)
     if not (ROOT / "simplex_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -1967,10 +2641,12 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     if args.only == "new":
-        for phase in (phase_trace, phase_checkpoint, phase_cli_more, phase_sparse):
+        for phase in (phase_solve_batched, phase_reoptimize_batched, phase_pdhg):
             for tag, counts in phase(dev).items():
                 print(f"launches on path '{tag}': {counts}")
-        phase_sparse_profile(dev)
+            torch.cuda.empty_cache()
+        print(f"batch profile: {phase_batch_profile(dev)}")
+        print(f"warm batched and PDHG profiles: {phase_warm_and_pdhg_profile(dev)}")
         print(f"new phases: {time.perf_counter() - t_start:.1f} s")
         print(card)
         return 0
@@ -1983,6 +2659,8 @@ def main(argv=None) -> int:
     bf16 = phase_pricing_bf16(dev)
     recs["pricing_scan"]["shapes"] = {f"bf16 {tag}": r for tag, r in bf16.items()}
     phase_pricing_bounded(dev)
+    torch.cuda.empty_cache()
+    recs.update(phase_batch_kernels(dev))
     torch.cuda.empty_cache()
     if args.only == "kernels":
         print(f"kernel checks: {time.perf_counter() - t_start:.1f} s")
@@ -2009,10 +2687,20 @@ def main(argv=None) -> int:
     paths.update(phase_cli_more(dev))
     paths.update(phase_sparse(dev))
     torch.cuda.empty_cache()
+    paths.update(phase_solve_batched(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_reoptimize_batched(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_pdhg(dev))
+    torch.cuda.empty_cache()
     # last: a profiler run leaves every later launch of the process dearer
     phase_device_ops(dev)
     phase_sparse_profile(dev)
     ratio_us = phase_ratio_device_time(dev)
+    bprof = phase_batch_profile(dev)
+    for name, us in bprof["kernel_device_us"].items():
+        recs[name]["device_us_per_batch_step"] = us
+    phase_warm_and_pdhg_profile(dev)
     recs["ratio_argmin"]["device_us"] = ratio_us["ratio_argmin"]
     recs["ratio_eta"]["ratio_only_device_us"] = ratio_us["ratio_eta, harris, tail off"]
     recs["ratio_eta"]["ratio_only_classic_device_us"] = ratio_us["ratio_eta, classic, tail off"]

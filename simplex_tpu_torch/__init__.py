@@ -27,11 +27,22 @@ jax; ``simplex_tpu`` stays the reference it is tested against.
     for rec in trace_pivots(A, b, c): ...        # one record a pivot
     result = solve_with_checkpoints(A, b, c, path="run.npz")  # resumable
 
+    from simplex_tpu_torch import solve_batched, reoptimize_batched
+    res = solve_batched(As, bs, cs)              # (B, m, n): B LPs at once
+    res = reoptimize_batched(A, bs_new, c, result)  # (B, m) rhs scenarios
+
+    from simplex_tpu_torch import solve_pdhg, crossover
+    fo = solve_pdhg(A, b, c, tol=1e-4)           # first-order, inverse-free
+    vertex = crossover(A, b, c, fo)              # exact basic optimum
+
 Modules and subpackages:
     core     state, pivot step (native upper bounds; Dantzig, devex and
              steepest-edge pricing), host-driven solve loop, Newton
              inversion, the dual simplex, the two-phase route, the pivot
              trace, checkpoint / resume
+    batch    many same-shape LPs (or rhs scenarios) at once: the batched
+             step on three batched Hopper kernels
+    fo       PDHG (PDLP-style first-order solver) and crossover
     analysis ranging and the warm re-solve after a rhs change
     sparse   sparse A on the device (CSR of A and of A^T), its ops
     kernels  plain torch ops, the Hopper kernel wrappers and their build
@@ -40,6 +51,7 @@ Modules and subpackages:
 """
 
 from simplex_tpu_torch.analysis import RangingResult, ranging, reoptimize
+from simplex_tpu_torch.batch.vmapped import BatchSolveResult, reoptimize_batched, solve_batched
 from simplex_tpu_torch.config import DEFAULT_OPTIONS, SimplexOptions
 from simplex_tpu_torch.core.checkpoint import (
     load_checkpoint,
@@ -51,6 +63,8 @@ from simplex_tpu_torch.core.dual import solve_dual
 from simplex_tpu_torch.core.solver import SolveResult, solve
 from simplex_tpu_torch.core.trace import PivotRecord, print_trace, trace_pivots
 from simplex_tpu_torch.core.twophase import GeneralLP, GeneralSolveResult, solve_general
+from simplex_tpu_torch.fo.crossover import crossover
+from simplex_tpu_torch.fo.pdhg import PDHGResult, solve_pdhg
 from simplex_tpu_torch.io.mps import read_mps
 from simplex_tpu_torch.io.mps_write import write_mps
 from simplex_tpu_torch.io.text import load_lp, loads_lp
@@ -59,15 +73,18 @@ from simplex_tpu_torch.sparse import SparseA
 from simplex_tpu_torch.status import SolveStatus
 
 __all__ = [
+    "BatchSolveResult",
     "DEFAULT_OPTIONS",
     "GeneralLP",
     "GeneralSolveResult",
+    "PDHGResult",
     "PivotRecord",
     "RangingResult",
     "SimplexOptions",
     "SolveResult",
     "SolveStatus",
     "SparseA",
+    "crossover",
     "load_checkpoint",
     "load_lp",
     "loads_lp",
@@ -76,10 +93,13 @@ __all__ = [
     "ranging",
     "read_mps",
     "reoptimize",
+    "reoptimize_batched",
     "save_checkpoint",
     "solve",
+    "solve_batched",
     "solve_dual",
     "solve_general",
+    "solve_pdhg",
     "solve_with_checkpoints",
     "trace_pivots",
     "validate_checkpoint",

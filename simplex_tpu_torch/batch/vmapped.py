@@ -1,0 +1,215 @@
+"""Batched solves: many same-shape LPs at once on one device.
+
+The counterpart of ``simplex_tpu.batch.vmapped`` with its names, fields
+and statuses. JAX vmaps its whole solve; here the batch axis is written out
+(:mod:`simplex_tpu_torch.batch.step`, :mod:`simplex_tpu_torch.batch.dual`):
+one batch step pivots every running instance at once through three batched
+Hopper kernels (pricing, the pivot's tail, the rank-1 update) with one
+control read, and a finished instance is left as it is.
+
+  solve_batched        B independent LPs (A (B, m, n), b (B, m), c (B, n)),
+                       each from its slack basis; optional bounds u (n,)
+                       shared by the batch
+  reoptimize_batched   B rhs scenarios (b (B, m)) re-solved from ONE prior
+                       optimal basis of a shared (A, c): the batched dual
+                       loop, then the primal clean-up
+
+Neither runs the f64 polish: z comes from the fp32 solve, and
+``reoptimize_batched`` reports each scenario's feas_err = max(-min x_b, 0).
+Use the single :func:`~simplex_tpu_torch.solve` for audited final numbers.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from simplex_tpu_torch import sparse as _sp
+from simplex_tpu_torch.batch import dual as _bd
+from simplex_tpu_torch.batch import step as _bs
+from simplex_tpu_torch.config import (
+    DEFAULT_OPTIONS,
+    SimplexOptions,
+    check_supported,
+    pin_full_fp32,
+)
+from simplex_tpu_torch.core.dual import _entry_dual_feasibility
+from simplex_tpu_torch.core.state import Problem
+from simplex_tpu_torch.kernels.dispatch import get_backend
+from simplex_tpu_torch.logging import get_logger
+from simplex_tpu_torch.status import SolveStatus
+
+
+class BatchSolveResult(NamedTuple):
+    z: np.ndarray  # (B,)
+    x_b: np.ndarray  # (B, m)
+    basis: np.ndarray  # (B, m)
+    status: np.ndarray  # (B,) int32
+    iters: np.ndarray  # (B,) int32
+    # worst primal lower-bound violation per instance (fp32; no polish):
+    # None from solve_batched, filled by reoptimize_batched
+    feas_err: Optional[np.ndarray] = None
+
+    def statuses(self):
+        return [SolveStatus(int(s)) for s in self.status]
+
+
+def _prepare(options: SimplexOptions, what: str, mesh) -> SimplexOptions:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what}: mesh= (the batch sharded over several cards) is not ported "
+            "yet (ROADMAP item 18)"
+        )
+    options = check_supported(options)
+    if options.multi_price > 0:
+        # as in the JAX package: the batched state has no candidate buffer
+        get_logger("batch").warning(
+            "multi_price=%d is inert in solve_batched (single-chip dantzig "
+            "only); solving without multiple pricing", options.multi_price
+        )
+    _bs._check_options(options, what)
+    return options
+
+
+def _bounds(u, n: int, device, dtype):
+    if u is None:
+        return None
+    u_np = np.asarray(u.cpu() if isinstance(u, torch.Tensor) else u, np.float64)
+    if u_np.shape != (n,):
+        raise ValueError(f"u shape {u_np.shape} != ({n},)")
+    if np.any(u_np < 0):
+        raise ValueError("negative upper bound (shift lowers to 0 first)")
+    return torch.as_tensor(u_np, device=device).to(dtype)
+
+
+def _array(v) -> np.ndarray:
+    return np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+
+
+def solve_batched(
+    As,
+    bs,
+    cs,
+    *,
+    u=None,
+    options: SimplexOptions = DEFAULT_OPTIONS,
+    mesh=None,
+    batch_axis: str = "batch",
+    device="cuda",
+) -> BatchSolveResult:
+    """Solve a stack of same-shape LPs: As (B, m, n), bs (B, m), cs (B, n),
+    each  max c.x  s.t.  A x = b, 0 <= x (<= u)  from its trailing slack
+    basis, on ``device`` (default ``"cuda"``; no fallback to the CPU). ``u``
+    (optional (n,), shared by the batch) runs every instance under the
+    native bounded-variable rule. ``mesh`` is not ported (ROADMAP item 18);
+    ``batch_axis`` is accepted for the JAX signature."""
+    options = _prepare(options, "solve_batched", mesh)
+    As, bs, cs = (_array(v) for v in (As, bs, cs))
+    if As.ndim != 3:
+        raise ValueError(f"As must be (B, m, n), got {As.shape}")
+    Bn, m, n = As.shape
+    if bs.shape != (Bn, m) or cs.shape != (Bn, n):
+        raise ValueError(f"shape mismatch: As {As.shape}, bs {bs.shape}, cs {cs.shape}")
+    pin_full_fp32()
+    device = torch.device(device)
+    dtype = options.dtype
+
+    def put(v):
+        return torch.as_tensor(v, device=device).to(dtype).contiguous()
+
+    prob = Problem(A=put(As), b=put(bs), c=put(cs), u=_bounds(u, n, device, dtype))
+    if options.pricing_dtype != "float32":
+        prob.A_price = prob.A.to(getattr(torch, options.pricing_dtype)).contiguous()
+    s = _bs.batch_state_slack(prob, dtype, options.resolve_defer())
+    final = _bs.batch_solve_state(
+        prob, s, options, options.resolve_max_iter(m, n), get_backend(options.backend)
+    )
+    z = _bs.objective(prob, final, dtype)
+    return BatchSolveResult(
+        z=z.cpu().numpy(),
+        x_b=final.x_b.cpu().numpy(),
+        basis=final.basis.cpu().numpy(),
+        status=final.status.cpu().numpy(),
+        iters=final.iters.cpu().numpy(),
+    )
+
+
+def reoptimize_batched(
+    A,
+    bs_new,
+    c,
+    prev,
+    *,
+    u=None,
+    options: SimplexOptions = DEFAULT_OPTIONS,
+    mesh=None,
+    batch_axis: str = "batch",
+    device="cuda",
+) -> BatchSolveResult:
+    """Warm re-solve MANY rhs scenarios from one prior optimal basis, on
+    ``device`` (default ``"cuda"``).
+
+    ``bs_new`` is (B, m); ``prev`` is the SolveResult of the original solve
+    (or a bare (m,) basis array; ``prev.at_upper`` carries the bounded
+    flags). A (dense, scipy.sparse or a
+    :class:`~simplex_tpu_torch.sparse.SparseA`) and c are shared. Entry dual
+    feasibility is checked once, in float64 on the device. Each scenario
+    runs the dual simplex from the shared basis, then the primal loop
+    certifies optimality; statuses are per scenario (an INFEASIBLE scenario
+    does not poison the batch). No f64 polish: ``feas_err`` is each
+    scenario's max(-min x_b, 0)."""
+    options = _prepare(options, "reoptimize_batched", mesh)
+    sparse = _sp.is_sparse(A)
+    if not sparse:
+        A = _array(A)
+    bs_new, c = _array(bs_new), _array(c)
+    m, n = A.shape
+    if bs_new.ndim != 2 or bs_new.shape[1] != m:
+        raise ValueError(f"bs_new must be (B, {m}), got {bs_new.shape}")
+    if c.shape != (n,):
+        raise ValueError(f"c shape {c.shape} != ({n},)")
+    basis0 = np.asarray(getattr(prev, "basis", prev), np.int32)
+    at_upper0 = getattr(prev, "at_upper", None)
+    device = torch.device(device)
+    tol = 10 * options.resolve_eps()
+    u_np = None if u is None else np.asarray(_array(u), np.float64)
+    min_e = _entry_dual_feasibility(
+        A, c, basis0, at_upper0 if u is not None else None, u_np, device
+    )
+    if min_e < -tol:
+        raise ValueError(
+            f"entry basis is not dual-feasible (min signed reduced cost "
+            f"{min_e:.3g} < {-tol:.3g}); reoptimize_batched requires the "
+            "basis of a prior OPTIMAL solve of the same (A, c)"
+        )
+    pin_full_fp32()
+    dtype = options.dtype
+    A_dev = (
+        _sp.as_sparse(A, dtype, device) if sparse
+        else torch.as_tensor(A, device=device).to(dtype).contiguous()
+    )
+
+    def put(v):
+        return torch.as_tensor(v, device=device).to(dtype).contiguous()
+
+    prob = Problem(A=A_dev, b=put(bs_new), c=put(c), u=_bounds(u, n, device, dtype))
+    if options.pricing_dtype != "float32" and not sparse:
+        prob.A_price = A_dev.to(getattr(torch, options.pricing_dtype)).contiguous()
+    s = _bs.batch_state_from_basis(
+        prob, basis0, dtype, at_upper0 if u is not None else None, options.resolve_defer()
+    )
+    final = _bd.warm_solve_state(
+        prob, s, options, options.resolve_max_iter(m, n), get_backend(options.backend)
+    )
+    z = _bs.objective(prob, final, dtype)
+    feas = torch.clamp_min(-final.x_b.min(1).values, 0)
+    return BatchSolveResult(
+        z=z.cpu().numpy(),
+        x_b=final.x_b.cpu().numpy(),
+        basis=final.basis.cpu().numpy(),
+        status=final.status.cpu().numpy(),
+        iters=final.iters.cpu().numpy(),
+        feas_err=feas.cpu().numpy(),
+    )

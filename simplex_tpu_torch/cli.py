@@ -2,6 +2,7 @@
 
 Usage:
   python -m simplex_tpu_torch.cli solve INPUT [--mps] [--sparse] [--time]
+      [--algo simplex|pdhg] [--pdhg-tol T] [--crossover]
   python -m simplex_tpu_torch.cli verify INPUT [--mps] [--oracle scipy] [--gap G]
   python -m simplex_tpu_torch.cli analyze INPUT [--mps] [--sparse]
       [--top-cols K] [--reoptimize 'i=delta,...']
@@ -100,10 +101,10 @@ def _options(args):
 
     from simplex_tpu_torch.config import SimplexOptions
 
-    if args.algo != "simplex":
+    if args.algo != "simplex" and args.cmd != "solve":
         raise NotImplementedError(
-            f"--algo {args.algo} is not ported to simplex_tpu_torch yet "
-            "(ROADMAP.md, open item 17)"
+            f"--algo {args.algo} runs under `solve` only (as in simplex_tpu.cli): "
+            f"`{args.cmd}` is a simplex subcommand"
         )
     return SimplexOptions(
         dtype=torch.float64 if args.fp64 else torch.float32,
@@ -127,6 +128,36 @@ def _sparse_needs_mps(args) -> bool:
     return False
 
 
+def _solve_pdhg(loaded, args, opts):
+    """``--algo pdhg`` (``simplex_tpu.cli``'s first-order route): PDHG to
+    ``--pdhg-tol``, then with ``--crossover`` the simplex from the
+    identified basis. A general LP goes through its box-bounded equality
+    form (no feasible basis, no artificials) and is mapped back to the
+    caller's variables, its objective constant restored."""
+    from simplex_tpu_torch.core.twophase import GeneralLP
+    from simplex_tpu_torch.fo.crossover import crossover
+    from simplex_tpu_torch.fo.pdhg import solve_pdhg
+    from simplex_tpu_torch.io.canonical import to_equality_form
+    from simplex_tpu_torch.status import SolveStatus
+
+    eq = None
+    if isinstance(loaded, GeneralLP):
+        eq = to_equality_form(loaded)
+        A, b, c, u = (np.asarray(v, np.float32) for v in (eq.A, eq.b, eq.c, eq.u))
+    else:
+        A, b, c, _basis0 = loaded
+        u = None
+    res = solve_pdhg(A, b, c, u=u, tol=args.pdhg_tol, device=args.device)
+    if args.crossover and res.status == SolveStatus.OPTIMAL:
+        vert = crossover(A, b, c, res, u=u, options=opts, device=args.device)
+        res = res._replace(z=vert.z, x=vert.x, status=vert.status, iters=res.iters + vert.iters)
+    if eq is not None:
+        res = res._replace(
+            z=res.z + eq.z_const, x=eq.recover(np.asarray(res.x)[: eq.k_transformed])
+        )
+    return res
+
+
 def cmd_solve(args) -> int:
     from simplex_tpu_torch.bench.timing import PhaseTimer
     from simplex_tpu_torch.core.solver import solve
@@ -145,7 +176,13 @@ def cmd_solve(args) -> int:
             return 1
     general = isinstance(loaded, GeneralLP)
     with timer.phase("Solve"):
-        if general:
+        if args.algo == "pdhg":
+            try:
+                res = _solve_pdhg(loaded, args, opts)
+            except ValueError as exc:
+                print(f"error: {exc}", file=sys.stderr)
+                return 1
+        elif general:
             res = solve_general(loaded, options=opts, presolve=args.presolve, device=args.device)
         else:
             A, b, c, basis0 = loaded
@@ -160,9 +197,12 @@ def cmd_solve(args) -> int:
             if general:
                 for i, v in enumerate(res.x):
                     print(f"\tx_{i} = {v:g}")
-            else:
+            elif hasattr(res, "basis"):
                 for i in range(len(res.basis)):
                     print(f"\tx_{int(res.basis[i])} = {res.x_b[i]:g}")
+            else:  # a first-order result has no basis: print the support
+                for i in np.flatnonzero(np.abs(res.x) > 1e-9):
+                    print(f"\tx_{int(i)} = {res.x[i]:g}")
         else:
             print(res.status.describe())
         print(f"Pivots: {res.iters}")
@@ -361,7 +401,10 @@ def _common(p) -> None:
         "--log-level", default=None, choices=["debug", "info", "warning", "error"],
         help="log verbosity (also: SIMPLEX_TPU_LOG; SIMPLEX_TPU_LOG_JSON=1 for JSON lines)",
     )
-    p.add_argument("--algo", default="simplex", choices=["simplex", "pdhg"])
+    p.add_argument(
+        "--algo", default="simplex", choices=["simplex", "pdhg"],
+        help="pdhg (solve only): the PDLP-style first-order mode, inverse-free",
+    )
 
 
 def main(argv=None) -> int:
@@ -376,6 +419,15 @@ def main(argv=None) -> int:
         "--sparse", action="store_true",
         help="MPS inputs: keep A scipy.sparse end to end and solve it sparse "
              "on the device (always the general route)",
+    )
+    ps.add_argument(
+        "--pdhg-tol", type=float, default=1e-4,
+        help="relative KKT tolerance for --algo pdhg",
+    )
+    ps.add_argument(
+        "--crossover", action="store_true",
+        help="with --algo pdhg: purify the first-order point to an exact vertex "
+             "(basis identification, then a short warm simplex clean-up)",
     )
     _common(ps)
     ps.set_defaults(fn=cmd_solve)

@@ -22,7 +22,10 @@ import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
-SOURCES = ("pricing_scan.cu", "ratio_argmin.cu", "ratio_eta.cu", "rank1_update.cu")
+SOURCES = (
+    "pricing_scan.cu", "ratio_argmin.cu", "ratio_eta.cu", "rank1_update.cu",
+    "batch_pricing.cu", "batch_tail.cu", "batch_rank1.cu",
+)
 # included by the sources: part of the build's name, so an edited header
 # rebuilds every object
 HEADERS = ("ratio_cluster.cuh",)
@@ -51,6 +54,15 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs, stream
     ),
     "simplex_rank1_update": (_P, _P, _P, _I, _I, _P),
+    "simplex_batch_pricing": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P),
+    "simplex_batch_pricing_record_bytes": (),
+    "simplex_batch_tail": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,  # vectors, B_inv, U, R, npend, L
+        _P, _P, _P, _P, _P, _P, _P, _P,  # min_e .. active
+        _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I,  # batch .. threads
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs, stream
+    ),
+    "simplex_batch_rank1": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -51,6 +51,15 @@ def get_backend(name: str) -> types.SimpleNamespace:
         ),
         ratio_argmin_bounded=_ops.ratio_argmin_bounded,
         rank1_update=_hopper.rank1_update if fast else _ops.rank1_update,
+        # the batched step (simplex_tpu_torch.batch): one launch a batch step
+        # each on the hopper backend
+        choose_entering_batched=(
+            _hopper.choose_entering_batched if fast else _ops.choose_entering_batched
+        ),
+        pivot_tail_batched=_hopper.pivot_tail_batched if fast else _ops.pivot_tail_batched,
+        rank1_update_batched=(
+            _hopper.rank1_update_batched if fast else _ops.rank1_update_batched
+        ),
         # torch ops on both backends, as they are XLA on both in the JAX
         # package: the devex / steepest-edge choice and its O(mn) updates
         devex_choose=_ops.devex_choose,

@@ -15,6 +15,12 @@ Each wrapper stands beside its plain PyTorch version and a launch counter:
                                                  selects and scalar updates of
                                                  the step around it
   rank1_update       csrc/rank1_update.cu        pallas_ops.rank1_update
+  choose_entering_   csrc/batch_pricing.cu       pallas_ops.pricing_scan under
+  batched                                        vmap (a batch grid axis)
+  pivot_tail_        csrc/batch_tail.cu          pallas_ops.ratio_eta under
+  batched                                        vmap, with the step's tail
+  rank1_update_      csrc/batch_rank1.cu         pallas_ops.rank1_update under
+  batched                                        vmap
   =================  ==========================  =============================
 
 A wrapper checks its inputs and raises on anything its kernel does not take.
@@ -42,6 +48,7 @@ INT_MAX = _ops.INT_MAX
 # kernel launches per wrapper since the last reset_launches()
 launches = {
     "pricing_scan": 0, "ratio_argmin": 0, "ratio_eta": 0, "rank1_update": 0,
+    "batch_pricing": 0, "batch_tail": 0, "batch_rank1": 0,
 }
 
 # pricing pass 1 splits the rows into chunks so that about this many blocks
@@ -588,3 +595,210 @@ def rank1_update(
     launches["rank1_update"] += 1
     return B_inv
 
+
+
+# --------------------------------------------------------------------------
+# the batched kernels (simplex_tpu_torch.batch): one launch a batch step each
+# --------------------------------------------------------------------------
+
+
+def _batched(t: torch.Tensor, shape: tuple, dtype: torch.dtype, name: str) -> None:
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype} != {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+_BATCH_GRID_MAX = 65535  # the instances ride on grid.y
+
+
+def choose_entering_batched_plain(y, A, c, eps, use_bland, basis, at_upper=None):
+    """The per-instance masked choice as plain torch ops
+    (:func:`simplex_tpu_torch.kernels.ops.choose_entering_batched`)."""
+    return _ops.choose_entering_batched(y, A, c, eps, use_bland, basis, at_upper)
+
+
+def choose_entering_batched(
+    y: torch.Tensor,
+    A: torch.Tensor,
+    c: torch.Tensor,
+    eps: float,
+    use_bland: torch.Tensor,
+    basis: torch.Tensor,
+    at_upper: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(p (B,) int32, min_e (B,))``: the contract of
+    :func:`simplex_tpu_torch.kernels.ops.choose_entering_batched` in one
+    call of ``csrc/batch_pricing.cu`` (one launch where 256 columns cover n,
+    two beyond). A is dense float32 or bfloat16, contiguous: per instance
+    (B, m, n), or one (m, n) every instance shares; c is (B, n) or a shared
+    (n,) float32. y (B, m) float32; use_bland (B,) bool; basis (B, m)
+    int32; at_upper (B, n) bool for the signed mode. A sparse A has no
+    kernel here: its caller prices it (``simplex_tpu_torch.batch.step``)."""
+    if not isinstance(A, torch.Tensor) or A.dim() not in (2, 3) or 0 in A.shape:
+        raise ValueError("A: want a dense (B, m, n) stack or a shared (m, n) matrix")
+    m, n = A.shape[-2:]
+    Bn = y.shape[0]
+    if A.dim() == 3 and A.shape[0] != Bn:
+        raise ValueError(f"A: {A.shape[0]} instances, y has {Bn}")
+    if A.dtype not in (torch.float32, torch.bfloat16) or not A.is_contiguous():
+        raise ValueError(f"A: want contiguous float32 or bfloat16, got {A.dtype}")
+    _batched(y, (Bn, m), torch.float32, "y")
+    _batched(c, (n,) if c.dim() == 1 else (Bn, n), torch.float32, "c")
+    _batched(use_bland, (Bn,), torch.bool, "use_bland")
+    _batched(basis, (Bn, m), torch.int32, "basis")
+    ins = [y, A, c, use_bland, basis]
+    if at_upper is not None:
+        _batched(at_upper, (Bn, n), torch.bool, "at_upper")
+        ins.append(at_upper)
+    dev = _same_device(*ins)
+    if dev.type == "cpu":
+        return choose_entering_batched_plain(y, A, c, eps, use_bland, basis, at_upper)
+    _require(Bn <= _BATCH_GRID_MAX, f"batch_pricing: at most {_BATCH_GRID_MAX} instances")
+    lib = _build.load_library()
+    chunks = -(-n // 256)
+    recs = None
+    if chunks > 1:
+        recs = torch.empty(Bn * chunks * lib.simplex_batch_pricing_record_bytes() // 4,
+                           dtype=torch.int32, device=dev)
+    out = torch.empty((2, Bn), dtype=torch.int32, device=dev)
+    err = lib.simplex_batch_pricing(
+        0 if A.dtype == torch.float32 else 1, y.data_ptr(), A.data_ptr(), c.data_ptr(),
+        None if at_upper is None else at_upper.data_ptr(), basis.data_ptr(),
+        use_bland.data_ptr(), Bn, m, n, int(A.dim() == 2), int(c.dim() == 1), eps,
+        None if recs is None else recs.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), _stream(dev),
+    )
+    _build.check(err, "batch_pricing")
+    launches["batch_pricing"] += 1
+    return out[0], out[1].view(torch.float32)
+
+
+_BSCAL, _BFLAGS = 6, 4  # csrc/batch_tail.cu: the scalar rows, the flag rows
+
+
+def pivot_tail_batched_plain(*args, **kw) -> PivotTail:
+    """The torch composition the batched tail kernel replaces
+    (:func:`simplex_tpu_torch.kernels.ops.pivot_tail_batched`)."""
+    return _ops.pivot_tail_batched(*args, **kw)
+
+
+def pivot_tail_batched(
+    x_b, alpha, basis, y, c_b, B_inv, min_e, e_p, c_p, p, iters, degen, status, active, *,
+    eps: float, pivot_tol: float, feas_tol: float, harris: bool,
+    degen_tol: float, bland_after: int,
+    U: Optional[torch.Tensor] = None, R: Optional[torch.Tensor] = None,
+    npend: Optional[torch.Tensor] = None,
+) -> PivotTail:
+    """Every active instance's pivot tail in ONE launch of
+    ``csrc/batch_tail.cu`` (one block an instance); the contract of
+    :func:`simplex_tpu_torch.kernels.ops.pivot_tail_batched`, bit for bit.
+    Vectors (B, m) float32 (basis int32), B_inv (B, m, m) float32,
+    contiguous; min_e, e_p, c_p (B,) float32; p, iters, degen, status (B,)
+    int32; active (B,) bool. Deferred: U, R (B, L, m) float32 and npend
+    (B,) int32 (each below L), the new pairs written in place. Three
+    allocations: the vector block, the (6, B) scalars and the (4, B)
+    flags."""
+    if x_b.dim() != 2 or 0 in x_b.shape:
+        raise ValueError(f"x_b: want a non-empty (B, m) stack, got {tuple(x_b.shape)}")
+    Bn, m = x_b.shape
+    for name, t in (("x_b", x_b), ("alpha", alpha), ("y", y), ("c_b", c_b)):
+        _batched(t, (Bn, m), torch.float32, name)
+    _batched(basis, (Bn, m), torch.int32, "basis")
+    _batched(B_inv, (Bn, m, m), torch.float32, "B_inv")
+    for name, t in (("min_e", min_e), ("e_p", e_p), ("c_p", c_p)):
+        _batched(t, (Bn,), torch.float32, name)
+    for name, t in (("p", p), ("iters", iters), ("degen", degen), ("status", status)):
+        _batched(t, (Bn,), torch.int32, name)
+    _batched(active, (Bn,), torch.bool, "active")
+    ins = [x_b, alpha, basis, y, c_b, B_inv, min_e, e_p, c_p, p, iters, degen, status, active]
+    defer = U is not None
+    if (R is not None) != defer or (npend is not None) != defer:
+        raise ValueError("U, R and npend go together")
+    L = 0
+    if defer:
+        L = U.shape[1] if U.dim() == 3 else -1
+        _batched(U, (Bn, L, m), torch.float32, "U")
+        _batched(R, (Bn, L, m), torch.float32, "R")
+        _batched(npend, (Bn,), torch.int32, "npend")
+        ins += [U, R, npend]
+    kw = dict(eps=eps, pivot_tol=pivot_tol, feas_tol=feas_tol, harris=harris,
+              degen_tol=degen_tol, bland_after=bland_after, U=U, R=R, npend=npend)
+    dev = _same_device(*ins)
+    if dev.type == "cpu":
+        return pivot_tail_batched_plain(
+            x_b, alpha, basis, y, c_b, B_inv, min_e, e_p, c_p, p, iters, degen, status,
+            active, **kw,
+        )
+    lib = _build.load_library()
+    vecs = torch.empty((6, Bn, m), dtype=torch.float32, device=dev).unbind(0)
+    scal = torch.empty((_BSCAL, Bn), dtype=torch.int32, device=dev)
+    flags = torch.empty((_BFLAGS, Bn), dtype=torch.bool, device=dev)
+    basis_out = vecs[5].view(torch.int32)
+    threads = min(1024, max(32, -(-m // 32) * 32))
+    st = SolveStatus
+    err = lib.simplex_batch_tail(
+        x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), y.data_ptr(), c_b.data_ptr(),
+        B_inv.data_ptr(), U.data_ptr() if defer else None, R.data_ptr() if defer else None,
+        npend.data_ptr() if defer else None, L, min_e.data_ptr(), e_p.data_ptr(),
+        c_p.data_ptr(), p.data_ptr(), iters.data_ptr(), degen.data_ptr(),
+        status.data_ptr(), active.data_ptr(), Bn, m, eps, pivot_tol, feas_tol, degen_tol,
+        int(bool(harris)), int(bland_after), int(st.RUNNING), int(st.OPTIMAL),
+        int(st.UNBOUNDED), int(st.SINGULAR), threads, vecs[0].data_ptr(),
+        vecs[1].data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(), vecs[4].data_ptr(),
+        basis_out.data_ptr(), scal.data_ptr(), flags.data_ptr(), _stream(dev),
+    )
+    _build.check(err, "batch_tail")
+    launches["batch_tail"] += 1
+    q, theta, it, status_o, dg, np_o = scal.unbind(0)
+    optimal, unbounded, bad, take = flags.unbind(0)
+    return PivotTail(
+        x_b=vecs[2], y=vecs[3], c_b=vecs[4], basis=basis_out, iters=it, status=status_o,
+        degen=dg, npend=np_o if defer else None, eta=vecs[0], row=vecs[1], q=q,
+        theta_q=theta.view(torch.float32), optimal=optimal, unbounded=unbounded, bad=bad,
+        take=take,
+    )
+
+
+def rank1_update_batched_plain(B_inv, eta, row, take) -> torch.Tensor:
+    """``B_inv[i] += eta[i] (x) row[i]`` where ``take[i]``, in place
+    (:func:`simplex_tpu_torch.kernels.ops.rank1_update_batched`)."""
+    return _ops.rank1_update_batched(B_inv, eta, row, take)
+
+
+def rank1_update_batched(
+    B_inv: torch.Tensor, eta: torch.Tensor, row: torch.Tensor, take: torch.Tensor
+) -> torch.Tensor:
+    """``B_inv[i] += eta[i] (x) row[i]`` IN PLACE for every instance with
+    ``take[i]`` (read on the device), in one launch of
+    ``csrc/batch_rank1.cu``; the others untouched. B_inv (B, m, m) float32
+    contiguous; eta, row (B, m) float32 contiguous, not overlapping B_inv;
+    take (B,) bool. Equal to the plain version bit for bit."""
+    _require(
+        B_inv.dim() == 3 and B_inv.shape[1] == B_inv.shape[2] and B_inv.numel() > 0,
+        f"B_inv: want a non-empty (B, m, m) stack, got {tuple(B_inv.shape)}",
+    )
+    Bn, m, _ = B_inv.shape
+    _batched(B_inv, (Bn, m, m), torch.float32, "B_inv")
+    _batched(eta, (Bn, m), torch.float32, "eta")
+    _batched(row, (Bn, m), torch.float32, "row")
+    _batched(take, (Bn,), torch.bool, "take")
+    dev = _same_device(B_inv, eta, row, take)
+    _require(
+        not _overlaps(row, B_inv) and not _overlaps(eta, B_inv),
+        "rank1_update_batched: eta / row overlap B_inv (pass copies of the rows)",
+    )
+    if dev.type == "cpu":
+        return rank1_update_batched_plain(B_inv, eta, row, take)
+    _require(Bn <= _BATCH_GRID_MAX, f"batch_rank1: at most {_BATCH_GRID_MAX} instances")
+    lib = _build.load_library()
+    vec = m % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (B_inv, row))
+    err = lib.simplex_batch_rank1(
+        B_inv.data_ptr(), eta.data_ptr(), row.data_ptr(), take.data_ptr(), Bn, m,
+        int(vec), _stream(dev),
+    )
+    _build.check(err, "batch_rank1")
+    launches["batch_rank1"] += 1
+    return B_inv

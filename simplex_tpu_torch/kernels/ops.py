@@ -496,3 +496,249 @@ def rank1_update(
     ``binv_q`` must therefore not be a view of B_inv (pass a copy of row q).
     """
     return B_inv.addr_(eta, binv_q)
+
+
+# --------------------------------------------------------------------------
+# batched twins: a leading batch axis B, one instance a row
+# --------------------------------------------------------------------------
+
+
+def rmat_batched(Y: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Y . A over a dense A, accumulated in Y's dtype (a bf16 shadow is
+    upcast): row i of Y (B, m) against A[i] of a per-instance stack (B, m,
+    n), or any (k, m) rows against one (m, n) A (one matrix product)."""
+    A = A.to(Y.dtype)
+    if A.dim() == 2:
+        return Y @ A
+    return torch.bmm(Y[:, None, :], A)[:, 0]
+
+
+def add_basic_penalty_batched(s: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """s[i] + BASIC_PENALTY at the columns basis[i] (the whole column range)."""
+    pen = torch.full(basis.shape, BASIC_PENALTY, dtype=s.dtype, device=s.device)
+    return s.scatter_add(1, basis.long(), pen)
+
+
+def choose_from_costs_batched(
+    e: torch.Tensor,
+    eps: float,
+    use_bland: torch.Tensor,
+    basis: torch.Tensor,
+    at_upper: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(p (B,) int32, min_e (B,))`` from the reduced costs e (B, n): the
+    masked (under ``at_upper``, signed) lowest-index argmin, or per instance
+    where ``use_bland`` (B,) the first column with e < -eps."""
+    if at_upper is not None:
+        e = torch.where(at_upper, -e, e)
+    e = add_basic_penalty_batched(e, basis)
+    p_dantzig = torch.argmin(e, 1)
+    p_bland = torch.argmax((e < -eps).to(torch.int32), 1)
+    p = torch.where(use_bland.to(torch.bool), p_bland, p_dantzig)
+    return p.to(torch.int32), e.min(1).values
+
+
+def choose_entering_batched(
+    y: torch.Tensor,
+    A: torch.Tensor,
+    c: torch.Tensor,
+    eps: float,
+    use_bland: torch.Tensor,
+    basis: torch.Tensor,
+    at_upper: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`choose_entering` (``at_upper`` None) or
+    :func:`choose_entering_bounded` (the signed mode) for every instance,
+    over e = y[i] . A[i] - c[i] accumulated in c's dtype. A is dense: per
+    instance (B, m, n) (fp32 or the bf16 shadow) or one (m, n) every
+    instance shares; c is (B, n) or a shared (n,). basis (B, m) int32,
+    at_upper (B, n) bool, ``use_bland`` (B,) bool."""
+    e = rmat_batched(y.to(c.dtype), A) - c
+    return choose_from_costs_batched(e, eps, use_bland, basis, at_upper)
+
+
+def _ratio_batched(x_b, alpha, basis, pivot_tol, use_bland, harris, feas_tol):
+    """:func:`ratio_argmin_harris` / :func:`ratio_argmin` along dim 1."""
+    mask = alpha > pivot_tol
+    unbounded = ~mask.any(1)
+    safe_alpha = torch.where(mask, alpha, 1)
+    x_pos = x_b.clamp_min(0)
+    theta = torch.where(mask, x_pos / safe_alpha, math.inf)
+    tmin = theta.min(1).values
+    if harris:
+        theta_max = torch.where(mask, (x_pos + feas_tol) / safe_alpha, math.inf).min(1).values
+        ok = mask & (theta <= theta_max[:, None])
+        q_fast = torch.argmax(torch.where(ok, alpha, -math.inf), 1)
+    else:
+        q_fast = torch.argmin(theta, 1)
+    q_bland = torch.argmin(torch.where(theta == tmin[:, None], basis, INT_MAX), 1)
+    q = torch.where(use_bland, q_bland, q_fast)
+    theta_at_q = theta.gather(1, q[:, None])[:, 0]
+    theta_q = torch.where(unbounded, math.inf, torch.where(use_bland, tmin, theta_at_q))
+    return q.to(torch.int32), theta_q, unbounded
+
+
+def pivot_tail_batched(
+    x_b: torch.Tensor,
+    alpha: torch.Tensor,
+    basis: torch.Tensor,
+    y: torch.Tensor,
+    c_b: torch.Tensor,
+    B_inv: torch.Tensor,
+    min_e: torch.Tensor,
+    e_p: torch.Tensor,
+    c_p: torch.Tensor,
+    p: torch.Tensor,
+    iters: torch.Tensor,
+    degen: torch.Tensor,
+    status: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    eps: float,
+    pivot_tol: float,
+    feas_tol: float,
+    harris: bool,
+    degen_tol: float,
+    bland_after: int,
+    U: Optional[torch.Tensor] = None,
+    R: Optional[torch.Tensor] = None,
+    npend: Optional[torch.Tensor] = None,
+) -> PivotTail:
+    """:func:`pivot_tail` for every instance at once: the vectors (B, m),
+    B_inv (B, m, m), the scalars (B,). An instance that is not ``active``
+    (its status is terminal, or it reached the pivot limit) is left as it
+    was, bit for bit: its x_b, y, c_b, basis, iters, degen and ``status``
+    come back unchanged, its eta and row are zero, q and theta_q are 0 and
+    every flag is False.
+
+    Deferred updates: U, R (B, L, m) and the per-instance pending counts
+    ``npend`` (B,) int32 (each below L). Row q of the true inverse adds the
+    pending pairs in pair order, one multiply and one add each (the kernel's
+    order; :func:`pivot_tail` sums them through a matrix product, so the two
+    agree to rounding there). The pair of a pivoting instance is written
+    into its slot ``npend[i]`` of U and R in place; ``npend + take`` comes
+    back."""
+    Bn, m = x_b.shape
+    use_bland = degen >= bland_after if bland_after > 0 else torch.zeros_like(active)
+    optimal = min_e >= -eps
+    q, theta_q, unbounded = _ratio_batched(
+        x_b, alpha, basis, pivot_tol, use_bland, harris, feas_tol
+    )
+    take = ~optimal & ~unbounded
+    bad = ~torch.isfinite(min_e) | (take & ~torch.isfinite(theta_q))
+    take = take & ~bad & active
+    q2 = q.long()[:, None]
+    alpha_q = alpha.gather(1, q2)[:, 0]
+    live = ~unbounded & torch.isfinite(theta_q)
+    inv_go = 1 / torch.where(live, alpha_q, 1)
+    th = torch.where(live, theta_q, 0)
+    sel = torch.arange(m, device=x_b.device)[None, :] == q2
+    eta = torch.where(sel, (inv_go - 1)[:, None], -alpha * inv_go[:, None])
+    x_b_new = torch.where(sel, th[:, None], x_b - th[:, None] * alpha)
+    inv_aq = 1 / torch.where(take, alpha_q, 1)
+    theta_safe = torch.where(take, theta_q, 0)
+    row = B_inv.gather(1, q2[:, :, None].expand(Bn, 1, m))[:, 0]
+    if U is not None:
+        uq = U.gather(2, q2[:, None, :].expand(Bn, U.shape[1], 1))[:, :, 0]  # (B, L)
+        for k in range(U.shape[1]):
+            nxt = row + uq[:, k, None] * R[:, k]
+            row = torch.where((k < npend)[:, None], nxt, row)
+    eta = torch.where(take[:, None], eta, 0)
+    row_out = torch.where(take[:, None], row, 0)
+    npend_new = None
+    if U is not None:
+        slot = npend.long()[:, None, None].expand(Bn, 1, m)
+        U.scatter_(1, slot, torch.where(take[:, None], eta, U.gather(1, slot)[:, 0])[:, None])
+        R.scatter_(1, slot, torch.where(take[:, None], row_out, R.gather(1, slot)[:, 0])[:, None])
+        npend_new = npend + take.to(torch.int32)
+    y_new = y - (e_p * inv_aq)[:, None] * row
+    at_q = sel & take[:, None]
+    degen_new = torch.where(theta_safe <= degen_tol, degen + 1, torch.zeros_like(degen))
+    status_new = torch.where(
+        optimal,
+        int(SolveStatus.OPTIMAL),
+        torch.where(
+            unbounded,
+            int(SolveStatus.UNBOUNDED),
+            torch.where(bad, int(SolveStatus.SINGULAR), int(SolveStatus.RUNNING)),
+        ),
+    ).to(torch.int32)
+    off = ~active
+    return PivotTail(
+        x_b=torch.where(take[:, None], x_b_new, x_b),
+        y=torch.where(take[:, None], y_new, y),
+        c_b=torch.where(at_q, c_p[:, None], c_b),
+        basis=torch.where(at_q, p[:, None], basis),
+        iters=iters + take.to(torch.int32),
+        status=torch.where(active, status_new, status),
+        degen=torch.where(take, degen_new, degen),
+        npend=npend_new,
+        eta=eta,
+        row=row_out,
+        q=torch.where(off, 0, q),
+        theta_q=torch.where(off, 0.0, theta_q),
+        optimal=optimal & active,
+        unbounded=unbounded & active,
+        bad=bad & active,
+        take=take,
+    )
+
+
+def rank1_update_batched(
+    B_inv: torch.Tensor, eta: torch.Tensor, row: torch.Tensor, take: torch.Tensor
+) -> torch.Tensor:
+    """``B_inv[i] += eta[i] (x) row[i]`` IN PLACE for every instance with
+    ``take[i]``; the others are left bit for bit. Each element is one
+    multiply and one add, each rounded (no fused multiply-add), as the
+    kernel computes it; :func:`rank1_update` (a BLAS ger) may fuse them, so
+    a loop of it agrees to rounding. B_inv (B, m, m); eta, row (B, m);
+    take (B,) bool. ``row`` must not alias B_inv."""
+    upd = B_inv + eta[:, :, None] * row[:, None, :]
+    return B_inv.copy_(torch.where(take[:, None, None], upd, B_inv))
+
+
+def ratio_argmin_bounded_batched(
+    x_b: torch.Tensor,
+    d: torch.Tensor,
+    u_basic: torch.Tensor,
+    u_p: torch.Tensor,
+    basis: torch.Tensor,
+    pivot_tol: float,
+    use_bland: torch.Tensor,
+    harris: bool,
+    feas_tol: float,
+):
+    """:func:`ratio_argmin_bounded` along dim 1: x_b, d, u_basic, basis
+    (B, m); u_p, use_bland (B,). Returns ``(q, theta, unbounded, flip,
+    leave_upper)``, each (B,)."""
+    dec = d > pivot_tol
+    inc = (d < -pivot_tol) & torch.isfinite(u_basic)
+    x_pos = x_b.clamp_min(0)
+    gap_pos = (u_basic - x_b).clamp_min(0)
+    safe_dec = torch.where(dec, d, 1)
+    safe_inc = torch.where(inc, -d, 1)
+    theta_dec = torch.where(dec, x_pos / safe_dec, math.inf)
+    theta_inc = torch.where(inc, gap_pos / safe_inc, math.inf)
+    theta_row = torch.minimum(theta_dec, theta_inc)
+    blocks = dec | inc
+    any_row = blocks.any(1)
+    unbounded = ~any_row & ~torch.isfinite(u_p)
+    tmin = theta_row.min(1).values
+    if harris:
+        rel_dec = torch.where(dec, (x_pos + feas_tol) / safe_dec, math.inf)
+        rel_inc = torch.where(inc, (gap_pos + feas_tol) / safe_inc, math.inf)
+        theta_max = torch.minimum(rel_dec, rel_inc).min(1).values
+        ok = blocks & (theta_row <= theta_max[:, None])
+        q_fast = torch.argmax(torch.where(ok, d.abs(), -math.inf), 1)
+    else:
+        theta_max = tmin
+        q_fast = torch.argmin(theta_row, 1)
+    q_bland = torch.argmin(torch.where(theta_row == tmin[:, None], basis, INT_MAX), 1)
+    q = torch.where(use_bland, q_bland, q_fast)
+    q2 = q[:, None]
+    theta_q = torch.where(use_bland, tmin, theta_row.gather(1, q2)[:, 0])
+    row_bound = torch.where(use_bland, tmin, theta_max)
+    flip = ~unbounded & (u_p <= row_bound)
+    theta = torch.where(flip, u_p, torch.where(any_row, theta_q, math.inf))
+    leave_upper = (theta_inc.gather(1, q2) < theta_dec.gather(1, q2))[:, 0]
+    return q.to(torch.int32), theta, unbounded, flip, leave_upper

@@ -160,6 +160,16 @@ def rmatvec2(M: SparseA, a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor
     return out[:, 0].contiguous(), out[:, 1].contiguous()
 
 
+def rmatmat(M: SparseA, Y: torch.Tensor) -> torch.Tensor:
+    """Y . A for a stack of rows Y (k, m) -> (k, n): one SpMM over A^T."""
+    return (M.csr_t @ Y.to(M.dtype).T.contiguous()).T.contiguous()
+
+
+def matmat(M: SparseA, X: torch.Tensor) -> torch.Tensor:
+    """A . X^T for a stack of rows X (k, n) -> (k, m): one SpMM over A."""
+    return (M.csr @ X.to(M.dtype).T.contiguous()).T.contiguous()
+
+
 def _gather(M: SparseA, idx: torch.Tensor) -> torch.Tensor:
     """Columns ``idx`` (k,) as a dense (m, k) matrix: k_max entries read
     from each column's start, those past its end zeroed."""

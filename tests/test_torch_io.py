@@ -113,11 +113,12 @@ def test_cli_flags(capsys):
                    "--time", "--max-iter", "500"])
     out = capsys.readouterr().out
     assert rc == 0 and "Optimum found: 15.25" in out and "Solve:" in out
-    # --sparse solves (ported); --algo pdhg is refused with exit code 1
+    # --sparse solves (ported), and so does --algo pdhg (with --crossover
+    # the exact vertex)
     rc = cli.main(["solve", mps, "--device", "cpu", "--sparse"])
     assert rc == 0 and "Optimum found: 15.25" in capsys.readouterr().out
-    assert cli.main(["solve", mps, "--device", "cpu", "--algo", "pdhg"]) == 1
-    assert "item 17" in capsys.readouterr().err
+    assert cli.main(["solve", mps, "--device", "cpu", "--algo", "pdhg", "--crossover"]) == 0
+    assert "Optimum found: 15.25" in capsys.readouterr().out
     assert cli.main(["solve", str(DATA / "nonexistent.mps"), "--device", "cpu"]) == 1
 
 
@@ -141,9 +142,17 @@ def test_new_modules_leave_jax_out():
         "simplex_tpu_torch.logging, simplex_tpu_torch.core.twophase, "
         "simplex_tpu_torch.io.mps, simplex_tpu_torch.io.mps_write, "
         "simplex_tpu_torch.io.canonical, simplex_tpu_torch.oracle.generator, "
-        "simplex_tpu_torch.oracle.reference, simplex_tpu_torch.bench.profile_general\n"
+        "simplex_tpu_torch.oracle.reference, simplex_tpu_torch.bench.profile_general, "
+        "simplex_tpu_torch.batch.vmapped, simplex_tpu_torch.batch.step, "
+        "simplex_tpu_torch.batch.dual, simplex_tpu_torch.fo, simplex_tpu_torch.fo.pdhg, "
+        "simplex_tpu_torch.fo.crossover\n"
         "from simplex_tpu_torch import cli\n"
         "cli.main(['solve', 'tests/data/prod_bounded.mps', '--device', 'cpu'])\n"
+        "cli.main(['solve', 'tests/data/sample.txt', '--device', 'cpu', '--algo', 'pdhg', '--crossover'])\n"
+        "import numpy as np\n"
+        "A, b, c = simplex_tpu_torch.load_lp('tests/data/sample.txt')\n"
+        "r = simplex_tpu_torch.solve_batched(A[None], b[None], c[None], device='cpu')\n"
+        "assert int(r.status[0]) == 1 and abs(float(r.z[0]) - 9) < 1e-5\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'simplex_tpu.'))]\n"
         "assert not bad, bad\n"
         "assert 'simplex_tpu' not in sys.modules\n"
@@ -151,4 +160,4 @@ def test_new_modules_leave_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=DATA.parent.parent)
     assert proc.returncode == 0, proc.stderr
-    assert "Optimum found: 15.25" in proc.stdout
+    assert "Optimum found: 15.25" in proc.stdout and "Optimum found: 9" in proc.stdout

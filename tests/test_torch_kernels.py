@@ -43,7 +43,10 @@ def no_library(monkeypatch):
     monkeypatch.setattr(_build, "build", refuse)
     hopper.reset_launches()
     yield
-    assert set(hopper.launches) == {"pricing_scan", "ratio_argmin", "ratio_eta", "rank1_update"}
+    assert set(hopper.launches) == {
+        "pricing_scan", "ratio_argmin", "ratio_eta", "rank1_update",
+        "batch_pricing", "batch_tail", "batch_rank1",
+    }
     assert not any(hopper.launches.values()), hopper.launches
 
 
