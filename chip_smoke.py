@@ -25,11 +25,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ``ratio_argmin``'s cluster kernel at the same row counts, bit for bit.
      The three batched kernels against their plain twins:
      pricing at ``bench.py --mode batch``'s 4,096 x 64 x 160 (fp32, the
-     bf16 shadow, the signed mode, Bland's choice), 3 x 17 x 45 and 8 x
-     2048 x 4096 (1.2e-4 of scale, every pick equal); the tail and rank-1
-     bit for bit at 4,096 x 64, 3 x 17, 8 x 2048 and 37 x 1100 (eager and
-     deferred, finished instances mixed in); rank-1 timed also at the
-     warm re-solve's 256 x 2048;
+     bf16 shadow, the signed mode, Bland's choice), odd and multi-chunk
+     shapes and 8 x 2048 x 4096 (1.2e-4 of scale, every pick equal); the
+     shared-A layout (the tiled product) at 1 x 1 x 1, 3 x 17 x 45, 65 x 33
+     x 129, 130 x 257 x 1000, 130 x 260 x 1000 (a tail on every tile axis,
+     with and without 16-byte copies) and the warm re-solve's 256 x 2048 x
+     4096, and bit for bit against the per-instance path on the same A
+     expanded (8 x 2048 x 4096, 70 x 33 x 300); the tail and rank-1 bit for
+     bit at 4,096 x 64, 3 x 17, 8 x 2048 and 37 x 1100 and, for the tail,
+     both of its paths (one warp an instance up to 256 rows, rows a lane
+     1 to 8, misaligned loads; one block an instance beyond, and forced at
+     small m), eager and deferred, finished instances mixed in; rank-1 and
+     the tail timed also at the warm re-solve's 256 x 2048;
   3. ``simplex_tpu_torch.solve`` through its normal entry point with the
      default options: the sample LP (z = 9), a 2048 x 4096 random LP
      against HiGHS, and the benchmark's 8192 x 16384 instance over its
@@ -106,7 +113,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      sparse and one dense pricing pass there; and the ratio kernels'
      device time a launch from a trace of the per-op bench's loop; and a
      trace of one ``solve_batched`` call (phase 15's recipe at B = 4,096):
-     device ops and device us a batch step, and each batched kernel's; of
+     device ops and device us a batch step, and each batched kernel's; the
+     device us a call of the redesigned batched kernels (shared-A and bf16
+     pricing, the tail's two paths and its 256 x 2048 shape); of
      one ``reoptimize_batched`` call (phase 16's) a dual batch step; and of
      1,280 PDHG iterations (phase 17's 256 x 640 and T = 64 sparse) an
      iteration. It runs last: after a profiler run every later launch of the process
@@ -143,7 +152,9 @@ lines are the kernels' JSON record, the card's ``nvidia-smi`` line and
 checkout of the repository, the script exits non-zero at once.
 
 ``--only kernels`` stops after phase 2 (a quick check of a changed kernel;
-it prints the kernels' measured times and no final ``ok`` line); ``--only
+it prints the kernels' measured times, then the device time a call of the
+redesigned batched kernels from a profiler trace, and no final ``ok``
+line); ``--only
 new`` builds the kernels and runs phases 15-17 and phase 14's traces of
 them alone (no final ``ok`` line either).
 """
@@ -842,20 +853,82 @@ def check_batch_rank1(tag, dev, g, Bn, m) -> None:
     print(f"{tag}: bit for bit ok")
 
 
-def phase_batch_kernels(dev) -> dict:
-    """The three batched kernels against their plain twins on the card:
-    pricing (fp32 A, the bf16 shadow, the signed mode; 1.2e-4 of scale,
-    every pick equal), the tail (eager and deferred, Harris and classic,
-    finished instances mixed in; bit for bit) and rank-1 (bit for bit), at
-    bench.py --mode batch's shape, odd shapes and a wide one; then times
-    at the bench's shape (rank-1 also at the warm re-solve's)."""
+@contextlib.contextmanager
+def tail_block_path():
+    """``hopper.pivot_tail_batched`` on its block path at every m (the warp
+    path's threshold at 0), to hold and time the two paths at one shape."""
+    from simplex_tpu_torch.kernels import hopper
+
+    keep = hopper._TAIL_WARP_MAX_M
+    hopper._TAIL_WARP_MAX_M = 0
+    try:
+        yield
+    finally:
+        hopper._TAIL_WARP_MAX_M = keep
+
+
+def misaligned(t):
+    """A contiguous copy of t whose data starts one element past an aligned
+    address (the kernels' element-load paths)."""
     import torch
 
-    from simplex_tpu_torch.kernels import hopper, ops
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
+
+def check_shared_is_per_instance(dev, g, Bn: int, m: int, n: int) -> None:
+    """The shared layout against the per-instance path on the same A
+    expanded to (B, m, n): both sum every e by fmaf in row order from 0, so
+    the picks are equal and min_e bit for bit."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared=True)
+    bland = torch.rand(Bn, generator=g, device=dev) < 0.3
+    no = torch.zeros(Bn, dtype=torch.bool, device=dev)
+    at_upper = torch.rand(Bn, n, generator=g, device=dev) < 0.3
+    for tag, A1, flags, up in (("fp32", A, no, None), ("fp32 bland", A, bland, None),
+                               ("bf16", A.to(torch.bfloat16), no, None), ("signed", A, bland, at_upper)):
+        A3 = A1.expand(Bn, m, n).contiguous()
+        c3 = c.expand(Bn, n).contiguous()
+        p_s, min_s = hopper.choose_entering_batched(y, A1, c, 1e-5, flags, basis, up)
+        for ctag, cc in (("per-instance c", c3), ("shared c", c)):
+            p_i, min_i = hopper.choose_entering_batched(y, A3, cc, 1e-5, flags, basis, up)
+            torch.cuda.synchronize()
+            check(torch.equal(p_s, p_i), f"shared vs per-instance {Bn}x{m}x{n} {tag} ({ctag}): picks differ")
+            check(torch.equal(min_s.view(torch.int32), min_i.view(torch.int32)),
+                  f"shared vs per-instance {Bn}x{m}x{n} {tag} ({ctag}): min_e not bit for bit")
+        del A3
+    print(f"batch_pricing shared vs per-instance {Bn}x{m}x{n} (fp32, bland, bf16, signed): "
+          "picks equal, min_e bit for bit ok")
+
+
+def phase_batch_kernels(dev) -> dict:
+    """The three batched kernels against their plain twins on the card:
+    pricing (per-instance A on both the fp32 and the bf16 pair path, and a
+    shared A through the tiled product at shapes that leave a tail on every
+    tile axis, on its 16-byte-copy and element-load feeds; fp32, Bland,
+    the bf16 shadow, the signed mode; 1.2e-4 of scale, every pick equal),
+    the shared layout against the per-instance path on an expanded A (bit
+    for bit), the tail (both paths, eager and deferred, Harris and
+    classic, finished instances mixed in; bit for bit) and rank-1 (bit for
+    bit), at bench.py --mode batch's shape, odd shapes and wide ones; then
+    times at the bench's shape and the warm re-solve's."""
+    import torch
+
+    from simplex_tpu_torch.kernels import _build, hopper, ops
+
+    check(_build.load_library().simplex_batch_pricing_record_bytes() == 4 * hopper._BP_RECORD_WORDS,
+          "batch_pricing: the record size differs from the wrapper's")
     g = torch.Generator(device=dev).manual_seed(11)
     recs = {}
-    shapes = ((BATCH_B, BATCH_M, BATCH_N), (3, 17, 45), (8, 2048, 4096))
+    # bench.py --mode batch's shape, odd n (element loads of bf16), n % 4 ==
+    # 2 over two chunks (element loads), n % 4 == 0 over three chunks (the
+    # four-column bf16 path with a chunk of 4 columns), a wide one
+    shapes = ((BATCH_B, BATCH_M, BATCH_N), (3, 17, 45), (5, 33, 258), (7, 9, 516), (8, 2048, 4096))
     worst = 0.0
     for Bn, m, n in shapes:
         y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n)
@@ -867,6 +940,7 @@ def phase_batch_kernels(dev) -> dict:
             ("fp32", (y, A, c, basis, no)), ("fp32 bland", (y, A, c, basis, bland)),
             ("bf16", (y, Ab, c, basis, no)), ("signed", (y, A, c, basis, bland, at_upper)),
             ("signed bf16", (y, Ab, c, basis, no, at_upper)),
+            ("bf16 misaligned", (y, misaligned(Ab), c, basis, bland)),
         ):
             worst = max(worst, check_batch_pricing(f"batch_pricing {Bn}x{m}x{n} {tag}", dev, *args))
         if (Bn, m, n) == (BATCH_B, BATCH_M, BATCH_N):
@@ -883,8 +957,11 @@ def phase_batch_kernels(dev) -> dict:
             }
         del A, Ab
     # one A and c shared by the batch (the warm re-solve's primal clean-up):
-    # an odd shape and bench.py --mode reopt's
-    for Bn, m, n in ((3, 17, 45), (REOPT_B, REOPT_M, REOPT_N)):
+    # tails on every tile axis (64 instances, 16 rows, 128 columns), with
+    # 16-byte copies (m % 4 == 0 and n % 8 == 0) and without, and bench.py
+    # --mode reopt's shape
+    for Bn, m, n in ((1, 1, 1), (3, 17, 45), (65, 33, 129), (130, 257, 1000), (130, 260, 1000),
+                     (REOPT_B, REOPT_M, REOPT_N)):
         y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared=True)
         bland = torch.rand(Bn, generator=g, device=dev) < 0.2
         no = torch.zeros(Bn, dtype=torch.bool, device=dev)
@@ -893,35 +970,60 @@ def phase_batch_kernels(dev) -> dict:
         for tag, args in (
             ("fp32", (y, A, c, basis, no)), ("fp32 bland", (y, A, c, basis, bland)),
             ("bf16", (y, Ab, c, basis, no)), ("signed", (y, A, c, basis, bland, at_upper)),
+            ("signed bf16", (y, Ab, c, basis, no, at_upper)),
+            ("fp32 misaligned", (misaligned(y), A, c, basis, bland)),
         ):
             worst = max(worst, check_batch_pricing(f"batch_pricing shared {Bn}x{m}x{n} {tag}", dev, *args))
         if Bn == REOPT_B:
             # A and c are read from memory once; 2 B m n flops bound it
             bd = bound(4.0 * (m * n + n) + Bn * (4.0 * (2 * m) + 9), 2.0 * Bn * m * n)
             recs["batch_pricing"].update({
-                "reopt_ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis), 20),
+                "reopt_ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis), 50),
                 "reopt_plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis), 20),
+                "reopt_bf16_ms": time_ms(lambda: hopper.choose_entering_batched(y, Ab, c, 1e-5, no, basis), 50),
                 "reopt_bound_ms": bd["bound_ms"],
                 "reopt_bound_by": bd["bound_by"],
                 # the product alone: one GEMM
-                "reopt_library_ms": time_ms(lambda: y @ A, 20),
+                "reopt_library_ms": time_ms(lambda: y @ A, 50),
             })
         del A, Ab
     recs["batch_pricing"]["max_abs_err"] = worst
-    for Bn, m in ((BATCH_B, BATCH_M), (3, 17), (8, 2048), (37, 1100)):
+    check_shared_is_per_instance(dev, g, 8, REOPT_M, REOPT_N)
+    check_shared_is_per_instance(dev, g, 70, 33, 300)
+    # the tail: the warp path (m <= 256: rows a lane 1, 2, 4, 8, loads of 1,
+    # 2 or 4 rows, idle lanes) and the block path (m > 256; and forced at
+    # small m), with one input misaligned (single-row loads)
+    for Bn, m, block in ((BATCH_B, BATCH_M, False), (BATCH_B, BATCH_M, True), (3, 17, False),
+                         (37, 33, False), (37, 100, False), (37, 100, True), (37, 129, False),
+                         (37, 256, False), (5, 257, False), (8, 2048, False), (37, 1100, False)):
         for L in (0, 4):
             t = batch_tail_inputs(dev, g, Bn, m, L)
-            for harris in (True, False):
-                check_batch_tail(f"batch_tail {Bn}x{m} L={L} harris={harris}", dev, t, harris)
-            if (Bn, m, L) == (BATCH_B, BATCH_M, 0):
-                args = tuple(t[k] for k in TAIL_KEYS)
-                recs["batch_tail"] = {
-                    "ms": time_ms(lambda: hopper.pivot_tail_batched(*args, harris=True, **TAIL_OPTS), 200),
-                    "plain_ms": time_ms(lambda: hopper.pivot_tail_batched_plain(*args, harris=True, **TAIL_OPTS), 50),
-                    **bound(4.0 * Bn * (12 * m + 12), 12.0 * Bn * m),
-                    "library_ms": None,
-                    "max_abs_err": 0.0,
-                }
+            cases = [(f"batch_tail {Bn}x{m} L={L}", t)]
+            if m == BATCH_M and not block:
+                cases.append((f"batch_tail {Bn}x{m} L={L} misaligned", dict(t, alpha=misaligned(t["alpha"]))))
+            for tag, tt in cases:
+                for harris in (True, False):
+                    path = tail_block_path() if block else contextlib.nullcontext()
+                    with path:
+                        check_batch_tail(f"{tag}{' block path' if block else ''} harris={harris}", dev, tt, harris)
+    for tag, Bn, m in (("", BATCH_B, BATCH_M), ("cleanup_", REOPT_B, REOPT_M)):
+        t = batch_tail_inputs(dev, g, Bn, m)
+        if tag:
+            check_batch_tail(f"batch_tail {Bn}x{m} L=0 harris=True", dev, t, True)
+        args = tuple(t[k] for k in TAIL_KEYS)
+        r = {
+            f"{tag}ms": time_ms(lambda: hopper.pivot_tail_batched(*args, harris=True, **TAIL_OPTS), 200),
+            f"{tag}plain_ms": time_ms(lambda: hopper.pivot_tail_batched_plain(*args, harris=True, **TAIL_OPTS), 50),
+        }
+        bd = bound(4.0 * Bn * (12 * m + 12), 12.0 * Bn * m)
+        r.update({f"{tag}bound_ms": bd["bound_ms"], f"{tag}bound_by": bd["bound_by"]})
+        if not tag:
+            with tail_block_path():
+                r["block_path_ms"] = time_ms(lambda: hopper.pivot_tail_batched(*args, harris=True, **TAIL_OPTS), 200)
+            r.update({"library_ms": None, "max_abs_err": 0.0})
+        recs.setdefault("batch_tail", {}).update(r)
+        del t, args
+        torch.cuda.empty_cache()
     for Bn, m in ((BATCH_B, BATCH_M), (3, 17), (8, 2048), (5, 1025)):
         check_batch_rank1(f"batch_rank1 {Bn}x{m}", dev, g, Bn, m)
     for tag, Bn, m in (("", BATCH_B, BATCH_M), ("reopt_", REOPT_B, REOPT_M)):
@@ -943,6 +1045,59 @@ def phase_batch_kernels(dev) -> dict:
     for name, r in recs.items():
         print(f"{name}: " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()))
     return recs
+
+
+def batch_kernel_device_us(dev) -> dict:
+    """Device us a call of the shared-A and bf16 pricing and both tail paths, from a
+    torch.profiler trace of 20 calls each (CUDA events time the calls in
+    phase 2): ``batch_pricing`` on a shared A at the warm re-solve's 256 x
+    2048 x 4096 and per instance on the bf16 shadow at bench.py --mode
+    batch's 4,096 x 64 x 160; ``batch_tail`` at 4,096 x 64 on the warp path
+    and on the block path, and at 256 x 2048 (the block path). Run it last:
+    a profiler session makes every later launch of the process dearer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch.bench.profile_general import device_summary
+    from simplex_tpu_torch.kernels import hopper
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    y, A, c, basis = batch_pricing_inputs(dev, g, REOPT_B, REOPT_M, REOPT_N, shared=True)
+    no_r = torch.zeros(REOPT_B, dtype=torch.bool, device=dev)
+    yb, Ab, cb, basis_b = batch_pricing_inputs(dev, g, BATCH_B, BATCH_M, BATCH_N)
+    Ab = Ab.to(torch.bfloat16)
+    no_b = torch.zeros(BATCH_B, dtype=torch.bool, device=dev)
+    small = tuple(batch_tail_inputs(dev, g, BATCH_B, BATCH_M)[k] for k in TAIL_KEYS)
+    wide = tuple(batch_tail_inputs(dev, g, REOPT_B, REOPT_M)[k] for k in TAIL_KEYS)
+
+    def tail(args):
+        return lambda: hopper.pivot_tail_batched(*args, harris=True, **TAIL_OPTS)
+
+    cases = (
+        ("batch_pricing shared 256x2048x4096", "batch_pricing_",
+         lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no_r, basis), contextlib.nullcontext),
+        ("batch_pricing bf16 4096x64x160", "batch_pricing_",
+         lambda: hopper.choose_entering_batched(yb, Ab, cb, 1e-5, no_b, basis_b), contextlib.nullcontext),
+        ("batch_tail 4096x64 warp path", "batch_tail_", tail(small), contextlib.nullcontext),
+        ("batch_tail 4096x64 block path", "batch_tail_", tail(small), tail_block_path),
+        ("batch_tail 256x2048", "batch_tail_", tail(wide), contextlib.nullcontext),
+    )
+    out = {}
+    calls = 20
+    for tag, key, fn, path in cases:
+        with path():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        by, _, _ = device_summary(prof, True)
+        mine = {k: v / calls for k, v in by.items() if key in k}
+        out[tag] = sum(mine.values())
+        check(out[tag] > 0, f"{tag}: no device time in the trace")
+        print(f"device us a call, {tag}: {out[tag]:.2f} (" + ", ".join(f"{k[:70]} {v:.2f}" for k, v in mine.items()) + ")")
+    return out
 
 
 def phase_ratio_argmin(dev) -> dict:
@@ -2528,7 +2683,8 @@ def phase_pdhg(dev) -> dict:
 def phase_batch_profile(dev) -> dict:
     """Device ops and device time a batch step on bench.py --mode batch's
     recipe at B = 4,096, from a torch.profiler trace of the whole
-    solve_batched call (after the other profiles)."""
+    solve_batched call (after the other profiles); then the device time a
+    call of the redesigned batched kernels (``batch_kernel_device_us``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2553,10 +2709,10 @@ def phase_batch_profile(dev) -> dict:
           + ", ".join(f"{k[:60]} {v:.1f}" for k, v in per.items()))
     check(ops > 0 and total > 0, "batch profile: no device time")
     kern = {name: sum(v for k, v in by.items() if key in k) / steps
-            for name, key in (("batch_pricing", "scan_kernel"), ("batch_tail", "batch_tail_kernel"),
+            for name, key in (("batch_pricing", "batch_pricing_"), ("batch_tail", "batch_tail_"),
                               ("batch_rank1", "batch_rank1_kernel"))}
     return {"device_us_per_batch_step": total / steps, "device_ops_per_batch_step": ops / steps,
-            "kernel_device_us": kern}
+            "kernel_device_us": kern, "kernel_calls_device_us": batch_kernel_device_us(dev)}
 
 
 def phase_warm_and_pdhg_profile(dev) -> dict:
@@ -2616,6 +2772,15 @@ def phase_warm_and_pdhg_profile(dev) -> dict:
     return out
 
 
+def add_call_device_us(recs: dict, us: dict) -> None:
+    """The record's keys for ``batch_kernel_device_us``'s times."""
+    recs["batch_pricing"]["reopt_device_us"] = us["batch_pricing shared 256x2048x4096"]
+    recs["batch_pricing"]["bf16_device_us"] = us["batch_pricing bf16 4096x64x160"]
+    recs["batch_tail"]["device_us"] = us["batch_tail 4096x64 warp path"]
+    recs["batch_tail"]["block_path_device_us"] = us["batch_tail 4096x64 block path"]
+    recs["batch_tail"]["cleanup_device_us"] = us["batch_tail 256x2048"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "new"], default=None,
@@ -2664,6 +2829,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if args.only == "kernels":
         print(f"kernel checks: {time.perf_counter() - t_start:.1f} s")
+        add_call_device_us(recs, batch_kernel_device_us(dev))
         print(json.dumps({"kernels": recs}))
         print(card)
         return 0
@@ -2700,6 +2866,7 @@ def main(argv=None) -> int:
     bprof = phase_batch_profile(dev)
     for name, us in bprof["kernel_device_us"].items():
         recs[name]["device_us_per_batch_step"] = us
+    add_call_device_us(recs, bprof["kernel_calls_device_us"])
     phase_warm_and_pdhg_profile(dev)
     recs["ratio_argmin"]["device_us"] = ratio_us["ratio_argmin"]
     recs["ratio_eta"]["ratio_only_device_us"] = ratio_us["ratio_eta, harris, tail off"]

@@ -12,33 +12,45 @@
 // Bound on the H100: the bytes, 4 B (12 m + 12) in all at batch B (each
 // input read once, each output written once): 12.8 MB at 4096 x 64, 0.0038
 // ms at 3.35 TB/s (the bound chip_smoke.py reports). In practice its time
-// is the launch and the reduction steps of a block.
+// is the latency of one instance's chain: load, two reduction rounds, the
+// dependent read of row q of B_inv, the stores.
 //
-// Design: one block an instance, one row a thread up to 1024 rows (a
-// stride loop beyond): at m = 64 two warps hold the column, so a thread
-// block cluster (csrc/ratio_eta.cu) has nothing to do here, and 4096
-// independent blocks fill the card. The two reduction rounds are those of
-// ratio_eta.cu, on its records (csrc/ratio_cluster.cuh: Pass1, Pass2, the
-// NaN-first minimum, lowest index on ties, Bland's smallest basis index)
-// reduced over the block alone: round 1 min theta, min relaxed theta, any
-// eligible row; round 2 Harris' largest alpha within theta_max, the
-// classic lowest index of the minimum, Bland's. Every arithmetic step is
-// one IEEE round-to-nearest op in the plain version's order, so every
-// output equals ops.pivot_tail_batched bit for bit; under deferred updates
-// row q adds the pending pairs of its instance in pair order, a multiply
-// and an add each, as the plain version does. An instance that is not
-// active is copied through unchanged, with a zero eta and row.
+// Design. The two reduction rounds are those of ratio_eta.cu, on its
+// records (csrc/ratio_cluster.cuh: Pass1, Pass2, the NaN-first minimum,
+// lowest index on ties, Bland's smallest basis index): round 1 min theta,
+// min relaxed theta, any eligible row; round 2 Harris' largest alpha within
+// theta_max, the classic lowest index of the minimum, Bland's. Two paths,
+// by m:
+//   - warp (m <= 256): one warp an instance, four instances a block. Each
+//     lane holds its rows of alpha, x_b and basis in registers, loaded
+//     once (float4 / float2 loads where m allows: a lane holds groups of V
+//     consecutive rows), and both rounds reduce by warp shuffles alone: no
+//     shared memory, no __syncthreads. Row q of B_inv (and the pending
+//     pairs' U[:, q], R) is read once q is known.
+//   - block (m > 256): one block an instance, one row a thread up to 512
+//     rows (a stride loop beyond), each round through shared memory. The
+//     warm re-solve's clean-up runs it at m = 2048.
+// Every arithmetic step is one IEEE round-to-nearest op in the plain
+// version's order (step_scalars, step_row: the same code on both paths), so
+// every output equals ops.pivot_tail_batched bit for bit; under deferred
+// updates row q adds the pending pairs of its instance in pair order, a
+// multiply and an add each, as the plain version does. An instance that is
+// not active is copied through unchanged, with a zero eta and row.
 
 #include "ratio_cluster.cuh"
 
 namespace {
 
+using ratio_cluster::kFull;
 using ratio_cluster::kIntMax;
 using ratio_cluster::nan_min;
 using ratio_cluster::Pass1;
 using ratio_cluster::Pass2;
 using ratio_cluster::pos;
 using ratio_cluster::warp_reduce;
+
+constexpr int kTailWarps = 4;        // instances a block on the warp path
+constexpr int kBlockThreads = 512;   // the block path's threads a block at most
 
 struct Params {
   const float* x_b;    // (B, m)
@@ -78,6 +90,125 @@ struct Params {
 enum { kQ = 0, kTheta, kIters, kStatus, kDegen, kNpend };
 enum { kOptimal = 0, kUnbounded, kBad, kTake };
 
+// ------------------------------------------------------------ shared steps
+
+__device__ __forceinline__ bool use_bland(const Params& P, int degen) {
+  return P.bland_after > 0 && degen >= P.bland_after;
+}
+
+// round 1's contribution of one row
+__device__ __forceinline__ void pass1_row(const Params& P, Pass1& r1, float a, float x) {
+  if (a > P.pivot_tol) {
+    const float xp = pos(x);
+    r1.tmin = nan_min(r1.tmin, __fdiv_rn(xp, a));
+    r1.trel = nan_min(r1.trel, __fdiv_rn(__fadd_rn(xp, P.feas_tol), a));
+    r1.any = 1;
+  }
+}
+
+// round 2's contribution of row r
+__device__ __forceinline__ void pass2_row(const Params& P, Pass2& r2, float tmin, float tmax,
+                                          float a, float x, int bas, int r) {
+  const bool mk = a > P.pivot_tol;
+  const float theta = mk ? __fdiv_rn(pos(x), a) : INFINITY;
+  if (mk && theta <= tmax) r2.harris(a, r);
+  if ((theta == tmin || (isnan(tmin) && isnan(theta))) && r < r2.c_row) r2.c_row = r;
+  if (theta == tmin) r2.bland(bas, r);
+}
+
+// what the step decides for instance i once both rounds are reduced
+struct Step {
+  int q, np, degen;
+  float theta_q, inv_live, th, y_scale;
+  bool optimal, unbounded, bad, go;
+};
+
+__device__ __forceinline__ Step step_scalars(const Params& P, int i, const Pass1& r1,
+                                             const Pass2& r2, int degen) {
+  const bool bland = use_bland(P, degen);
+  const size_t off = (size_t)i * P.m;
+  Step S;
+  S.degen = degen;
+  S.unbounded = r1.any == 0;
+  int q = bland ? r2.b_row : (P.harris ? r2.h_row : r2.c_row);
+  if (q == kIntMax) q = 0;
+  S.q = q;
+  const float a_q = P.alpha[off + q];
+  const float theta_at_q = a_q > P.pivot_tol ? __fdiv_rn(pos(P.x_b[off + q]), a_q) : INFINITY;
+  S.theta_q = S.unbounded ? INFINITY : (bland ? r1.tmin : theta_at_q);
+  const float min_e = P.min_e[i];
+  S.optimal = min_e >= -P.eps;
+  const bool take0 = !S.optimal && !S.unbounded;
+  S.bad = !isfinite(min_e) || (take0 && !isfinite(S.theta_q));
+  S.go = take0 && !S.bad;
+  // eta and x_b_new as ratio_eta computes them (live: a finite step)
+  const bool live = !S.unbounded && isfinite(S.theta_q);
+  S.inv_live = __fdiv_rn(1.f, live ? a_q : 1.f);
+  S.th = live ? S.theta_q : 0.f;
+  const float inv = __fdiv_rn(1.f, S.go ? a_q : 1.f);
+  S.y_scale = __fmul_rn(P.e_p[i], inv);
+  S.np = P.npend != nullptr ? P.npend[i] : 0;
+  return S;
+}
+
+// row r of row q of the true inverse: B_inv[q, r] plus the pending pairs
+__device__ __forceinline__ float true_row(const Params& P, const Step& S, int i, int r,
+                                          float b_qr) {
+  if (P.U != nullptr) {
+    const float* Ui = P.U + (size_t)i * P.L * P.m;
+    const float* Ri = P.R + (size_t)i * P.L * P.m;
+    for (int k = 0; k < S.np; ++k)
+      b_qr = __fadd_rn(b_qr, __fmul_rn(Ui[(size_t)k * P.m + S.q], Ri[(size_t)k * P.m + r]));
+  }
+  return b_qr;
+}
+
+struct Row {
+  float eta, row, x, y, c_b;
+  int basis;
+};
+
+// the outputs of row r; in: its alpha, x_b, basis, y, c_b and true-inverse entry
+__device__ __forceinline__ Row step_row(const Params& P, const Step& S, int i, int r, float a,
+                                        float x, int bas, float y, float c_b, float row) {
+  if (!S.go) return Row{0.f, 0.f, x, y, c_b, bas};
+  const bool at_q = r == S.q;
+  return Row{at_q ? __fsub_rn(S.inv_live, 1.f) : __fmul_rn(-a, S.inv_live), row,
+             at_q ? S.th : __fsub_rn(x, __fmul_rn(S.th, a)),
+             __fsub_rn(y, __fmul_rn(S.y_scale, row)), at_q ? P.c_p[i] : c_b,
+             at_q ? P.p[i] : bas};
+}
+
+__device__ __forceinline__ void write_scalars(const Params& P, int i, const Step& S) {
+  const int B = P.batch;
+  const float th_step = S.go ? S.theta_q : 0.f;
+  P.scal[kQ * B + i] = S.q;
+  P.scal[kTheta * B + i] = __float_as_int(S.theta_q);
+  P.scal[kIters * B + i] = P.iters[i] + (S.go ? 1 : 0);
+  P.scal[kStatus * B + i] = S.optimal ? P.st_optimal
+                            : S.unbounded ? P.st_unbounded
+                            : S.bad ? P.st_singular : P.st_running;
+  P.scal[kDegen * B + i] = S.go ? (th_step <= P.degen_tol ? S.degen + 1 : 0) : S.degen;
+  P.scal[kNpend * B + i] = S.np + (S.go && P.U != nullptr ? 1 : 0);
+  P.flags[kOptimal * B + i] = S.optimal;
+  P.flags[kUnbounded * B + i] = S.unbounded;
+  P.flags[kBad * B + i] = S.bad;
+  P.flags[kTake * B + i] = S.go;
+}
+
+__device__ __forceinline__ void write_inactive_scalars(const Params& P, int i) {
+  const int B = P.batch;
+  P.scal[kQ * B + i] = 0;
+  P.scal[kTheta * B + i] = 0;
+  P.scal[kIters * B + i] = P.iters[i];
+  P.scal[kStatus * B + i] = P.status[i];
+  P.scal[kDegen * B + i] = P.degen[i];
+  P.scal[kNpend * B + i] = P.npend != nullptr ? P.npend[i] : 0;
+  for (int f = 0; f < 4; ++f) P.flags[f * B + i] = 0;
+}
+
+// ------------------------------------------------------------ block path
+
 template <typename T>
 __device__ T block_reduce(T v, T* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -95,7 +226,9 @@ __device__ T block_reduce(T v, T* red) {
   return out;
 }
 
-__global__ void __launch_bounds__(1024) batch_tail_kernel(const Params P) {
+// at most kBlockThreads a block and two blocks an SM (64 registers a
+// thread): the warm re-solve's 256 instances of 2048 rows run in one wave
+__global__ void __launch_bounds__(kBlockThreads, 2) batch_tail_block_kernel(const Params P) {
   __shared__ Pass1 red1[33];
   __shared__ Pass2 red2[33];
   const int i = blockIdx.x;
@@ -104,9 +237,6 @@ __global__ void __launch_bounds__(1024) batch_tail_kernel(const Params P) {
   const float* x_b = P.x_b + off;
   const float* alpha = P.alpha + off;
   const int* basis = P.basis + off;
-  const int B = P.batch;
-  int* sc = P.scal;
-  unsigned char* fl = P.flags;
 
   if (!P.active[i]) {
     for (int r = threadIdx.x; r < m; r += blockDim.x) {
@@ -117,129 +247,210 @@ __global__ void __launch_bounds__(1024) batch_tail_kernel(const Params P) {
       P.c_b_out[off + r] = P.c_b[off + r];
       P.basis_out[off + r] = basis[r];
     }
-    if (threadIdx.x == 0) {
-      sc[kQ * B + i] = 0;
-      sc[kTheta * B + i] = 0;
-      sc[kIters * B + i] = P.iters[i];
-      sc[kStatus * B + i] = P.status[i];
-      sc[kDegen * B + i] = P.degen[i];
-      sc[kNpend * B + i] = P.npend != nullptr ? P.npend[i] : 0;
-      fl[kOptimal * B + i] = 0;
-      fl[kUnbounded * B + i] = 0;
-      fl[kBad * B + i] = 0;
-      fl[kTake * B + i] = 0;
-    }
+    if (threadIdx.x == 0) write_inactive_scalars(P, i);
     return;
   }
 
-  const int degen = P.degen[i];
-  const bool bland = P.bland_after > 0 && degen >= P.bland_after;
-
   Pass1 r1 = Pass1::identity();
-  for (int r = threadIdx.x; r < m; r += blockDim.x) {
-    const float a = alpha[r];
-    if (a > P.pivot_tol) {
-      const float xp = pos(x_b[r]);
-      r1.tmin = nan_min(r1.tmin, __fdiv_rn(xp, a));
-      r1.trel = nan_min(r1.trel, __fdiv_rn(__fadd_rn(xp, P.feas_tol), a));
-      r1.any = 1;
-    }
-  }
+  for (int r = threadIdx.x; r < m; r += blockDim.x) pass1_row(P, r1, alpha[r], x_b[r]);
   r1 = block_reduce(r1, red1);
-  const float tmin = r1.tmin;
-  const float tmax = r1.trel;
-  const bool unbounded = r1.any == 0;
 
   Pass2 r2 = Pass2::identity();
-  const bool tmin_nan = isnan(tmin);
-  for (int r = threadIdx.x; r < m; r += blockDim.x) {
-    const float a = alpha[r];
-    const bool mk = a > P.pivot_tol;
-    const float theta = mk ? __fdiv_rn(pos(x_b[r]), a) : INFINITY;
-    if (mk && theta <= tmax) r2.harris(a, r);
-    if ((theta == tmin || (tmin_nan && isnan(theta))) && r < r2.c_row) r2.c_row = r;
-    if (theta == tmin) r2.bland(basis[r], r);
-  }
+  for (int r = threadIdx.x; r < m; r += blockDim.x)
+    pass2_row(P, r2, r1.tmin, r1.trel, alpha[r], x_b[r], basis[r], r);
   r2 = block_reduce(r2, red2);
 
-  int q = bland ? r2.b_row : (P.harris ? r2.h_row : r2.c_row);
-  if (q == kIntMax) q = 0;
-  const float a_q = alpha[q];
-  const float theta_at_q = a_q > P.pivot_tol ? __fdiv_rn(pos(x_b[q]), a_q) : INFINITY;
-  const float theta_q = unbounded ? INFINITY : (bland ? tmin : theta_at_q);
-
-  const float min_e = P.min_e[i];
-  const float e_p = P.e_p[i];
-  const float c_p = P.c_p[i];
-  const int p = P.p[i];
-  const bool optimal = min_e >= -P.eps;
-  const bool take0 = !optimal && !unbounded;
-  const bool bad = !isfinite(min_e) || (take0 && !isfinite(theta_q));
-  const bool go = take0 && !bad;
-  // eta and x_b_new as ratio_eta computes them (live: a finite step)
-  const bool live = !unbounded && isfinite(theta_q);
-  const float inv_live = __fdiv_rn(1.f, live ? a_q : 1.f);
-  const float th = live ? theta_q : 0.f;
-  const float inv = __fdiv_rn(1.f, go ? a_q : 1.f);
-  const float y_scale = __fmul_rn(e_p, inv);
-  const int np = P.npend != nullptr ? P.npend[i] : 0;
-  const float* Bq = P.B_inv + (size_t)i * m * m + (size_t)q * m;
-
+  const Step S = step_scalars(P, i, r1, r2, P.degen[i]);
+  const float* Bq = P.B_inv + (size_t)i * m * m + (size_t)S.q * m;
   for (int r = threadIdx.x; r < m; r += blockDim.x) {
-    const float a = alpha[r];
-    const float x = x_b[r];
-    const bool at_q = r == q;
-    float row = Bq[r];
-    if (P.U != nullptr) {
-      const float* Ui = P.U + (size_t)i * P.L * m;
-      const float* Ri = P.R + (size_t)i * P.L * m;
-      for (int k = 0; k < np; ++k)
-        row = __fadd_rn(row, __fmul_rn(Ui[(size_t)k * m + q], Ri[(size_t)k * m + r]));
-    }
-    if (go) {
-      const float eta = at_q ? __fsub_rn(inv_live, 1.f) : __fmul_rn(-a, inv_live);
-      P.eta[off + r] = eta;
-      P.row_out[off + r] = row;
-      P.x_b_out[off + r] = at_q ? th : __fsub_rn(x, __fmul_rn(th, a));
-      P.y_out[off + r] = __fsub_rn(P.y[off + r], __fmul_rn(y_scale, row));
-      P.c_b_out[off + r] = at_q ? c_p : P.c_b[off + r];
-      P.basis_out[off + r] = at_q ? p : basis[r];
-    } else {
-      P.eta[off + r] = 0.f;
-      P.row_out[off + r] = 0.f;
-      P.x_b_out[off + r] = x;
-      P.y_out[off + r] = P.y[off + r];
-      P.c_b_out[off + r] = P.c_b[off + r];
-      P.basis_out[off + r] = basis[r];
-    }
+    const Row o = step_row(P, S, i, r, alpha[r], x_b[r], basis[r], P.y[off + r],
+                           P.c_b[off + r], true_row(P, S, i, r, Bq[r]));
+    P.eta[off + r] = o.eta;
+    P.row_out[off + r] = o.row;
+    P.x_b_out[off + r] = o.x;
+    P.y_out[off + r] = o.y;
+    P.c_b_out[off + r] = o.c_b;
+    P.basis_out[off + r] = o.basis;
   }
-  if (go && P.U != nullptr) {
+  if (S.go && P.U != nullptr) {
     // the new pair goes into slot npend of this instance (read above by
     // every thread, before any write: the slot is past the pending pairs)
-    float* Us = P.U + ((size_t)i * P.L + np) * m;
-    float* Rs = P.R + ((size_t)i * P.L + np) * m;
+    float* Us = P.U + ((size_t)i * P.L + S.np) * m;
+    float* Rs = P.R + ((size_t)i * P.L + S.np) * m;
     __syncthreads();
     for (int r = threadIdx.x; r < m; r += blockDim.x) {
       Us[r] = P.eta[off + r];
       Rs[r] = P.row_out[off + r];
     }
   }
+  if (threadIdx.x == 0) write_scalars(P, i, S);
+}
 
-  if (threadIdx.x == 0) {
-    const float th_step = go ? theta_q : 0.f;
-    sc[kQ * B + i] = q;
-    sc[kTheta * B + i] = __float_as_int(theta_q);
-    sc[kIters * B + i] = P.iters[i] + (go ? 1 : 0);
-    sc[kStatus * B + i] = optimal ? P.st_optimal
-                          : unbounded ? P.st_unbounded
-                          : bad ? P.st_singular : P.st_running;
-    sc[kDegen * B + i] = go ? (th_step <= P.degen_tol ? degen + 1 : 0) : degen;
-    sc[kNpend * B + i] = np + (go && P.U != nullptr ? 1 : 0);
-    fl[kOptimal * B + i] = optimal;
-    fl[kUnbounded * B + i] = unbounded;
-    fl[kBad * B + i] = bad;
-    fl[kTake * B + i] = go;
+// ------------------------------------------------------------ warp path
+
+// V consecutive 32-bit words at p (aligned to 4 V bytes)
+template <int V>
+__device__ __forceinline__ void ld(const void* p, unsigned* v) {
+  if constexpr (V == 4) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+  } else if constexpr (V == 2) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    v[0] = w.x; v[1] = w.y;
+  } else {
+    v[0] = *reinterpret_cast<const unsigned*>(p);
   }
+}
+
+template <int V>
+__device__ __forceinline__ void st(void* p, const unsigned* v) {
+  if constexpr (V == 4)
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+  else if constexpr (V == 2)
+    *reinterpret_cast<uint2*>(p) = make_uint2(v[0], v[1]);
+  else
+    *reinterpret_cast<unsigned*>(p) = v[0];
+}
+
+// every lane gets lane 0's record
+__device__ __forceinline__ Pass1 broadcast(Pass1 v) {
+  return Pass1{__shfl_sync(kFull, v.tmin, 0), __shfl_sync(kFull, v.trel, 0),
+               __shfl_sync(kFull, v.any, 0)};
+}
+__device__ __forceinline__ Pass2 broadcast(Pass2 v) {
+  return Pass2{__shfl_sync(kFull, v.h_alpha, 0), __shfl_sync(kFull, v.h_row, 0),
+               __shfl_sync(kFull, v.c_row, 0), __shfl_sync(kFull, v.b_basis, 0),
+               __shfl_sync(kFull, v.b_row, 0)};
+}
+
+// RPL rows a lane, in RPL / V groups of V consecutive rows: group g of lane
+// l starts at row (g * 32 + l) * V. m <= 32 * RPL; V > 1 needs m % V == 0.
+template <int RPL, int V>
+__global__ void __launch_bounds__(32 * kTailWarps) batch_tail_warp_kernel(const Params P) {
+  constexpr int G = RPL / V;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kTailWarps + (threadIdx.x >> 5);
+  if (i >= P.batch) return;  // the whole warp
+  const int m = P.m;
+  const size_t off = (size_t)i * m;
+  const unsigned zero[V] = {};
+
+  if (!P.active[i]) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int r0 = (g * 32 + lane) * V;
+      if (r0 < m) {
+        unsigned v[V];
+        ld<V>(P.x_b + off + r0, v);
+        st<V>(P.x_b_out + off + r0, v);
+        ld<V>(P.y + off + r0, v);
+        st<V>(P.y_out + off + r0, v);
+        ld<V>(P.c_b + off + r0, v);
+        st<V>(P.c_b_out + off + r0, v);
+        ld<V>(P.basis + off + r0, v);
+        st<V>(P.basis_out + off + r0, v);
+        st<V>(P.eta + off + r0, zero);
+        st<V>(P.row_out + off + r0, zero);
+      }
+    }
+    if (lane == 0) write_inactive_scalars(P, i);
+    return;
+  }
+
+  // this lane's rows, loaded once
+  unsigned a[RPL], x[RPL], bas[RPL];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int r0 = (g * 32 + lane) * V;
+    if (r0 < m) {
+      ld<V>(P.alpha + off + r0, a + g * V);
+      ld<V>(P.x_b + off + r0, x + g * V);
+      ld<V>(P.basis + off + r0, bas + g * V);
+    }
+  }
+
+  Pass1 r1 = Pass1::identity();
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int r0 = (g * 32 + lane) * V;
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (r0 + v < m)
+        pass1_row(P, r1, __uint_as_float(a[g * V + v]), __uint_as_float(x[g * V + v]));
+  }
+  r1 = broadcast(warp_reduce(r1));
+
+  Pass2 r2 = Pass2::identity();
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int r0 = (g * 32 + lane) * V;
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (r0 + v < m)
+        pass2_row(P, r2, r1.tmin, r1.trel, __uint_as_float(a[g * V + v]),
+                  __uint_as_float(x[g * V + v]), (int)bas[g * V + v], r0 + v);
+  }
+  r2 = broadcast(warp_reduce(r2));
+
+  const Step S = step_scalars(P, i, r1, r2, P.degen[i]);
+  const float* Bq = P.B_inv + (size_t)i * m * m + (size_t)S.q * m;
+  unsigned eta[RPL], row[RPL];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int r0 = (g * 32 + lane) * V;
+    if (r0 < m) {
+      unsigned bq[V], yv[V], cb[V], xo[V], yo[V], co[V], bo[V];
+      ld<V>(Bq + r0, bq);
+      ld<V>(P.y + off + r0, yv);
+      ld<V>(P.c_b + off + r0, cb);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int k = g * V + v;
+        const Row o = step_row(P, S, i, r0 + v, __uint_as_float(a[k]), __uint_as_float(x[k]),
+                               (int)bas[k], __uint_as_float(yv[v]), __uint_as_float(cb[v]),
+                               true_row(P, S, i, r0 + v, __uint_as_float(bq[v])));
+        eta[k] = __float_as_uint(o.eta);
+        row[k] = __float_as_uint(o.row);
+        xo[v] = __float_as_uint(o.x);
+        yo[v] = __float_as_uint(o.y);
+        co[v] = __float_as_uint(o.c_b);
+        bo[v] = (unsigned)o.basis;
+      }
+      st<V>(P.eta + off + r0, eta + g * V);
+      st<V>(P.row_out + off + r0, row + g * V);
+      st<V>(P.x_b_out + off + r0, xo);
+      st<V>(P.y_out + off + r0, yo);
+      st<V>(P.c_b_out + off + r0, co);
+      st<V>(P.basis_out + off + r0, bo);
+    }
+  }
+  if (S.go && P.U != nullptr) {
+    // the new pair goes into slot npend of this instance, after every lane
+    // has read the pending pairs (the slot is past them)
+    __syncwarp();
+    float* Us = P.U + ((size_t)i * P.L + S.np) * m;
+    float* Rs = P.R + ((size_t)i * P.L + S.np) * m;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int r0 = (g * 32 + lane) * V;
+      if (r0 < m) {
+        st<V>(Us + r0, eta + g * V);
+        st<V>(Rs + r0, row + g * V);
+      }
+    }
+  }
+  if (lane == 0) write_scalars(P, i, S);
+}
+
+template <int RPL, int V>
+int launch_warp(const Params& P, cudaStream_t s) {
+  const int blocks = (P.batch + kTailWarps - 1) / kTailWarps;
+  batch_tail_warp_kernel<RPL, V><<<blocks, 32 * kTailWarps, 0, s>>>(P);
+  return (int)cudaGetLastError();
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % (uintptr_t)bytes == 0;
 }
 
 }  // namespace
@@ -247,10 +458,15 @@ __global__ void __launch_bounds__(1024) batch_tail_kernel(const Params P) {
 // Vectors (B, m) fp32 (basis int32), B_inv (B, m, m) fp32; U, R (B, L, m)
 // fp32 and npend (B,) int32, or null under eager updates; per-instance
 // scalars (B,): min_e, e_p, c_p fp32, p, iters, degen, status int32,
-// active bool bytes. threads: a multiple of 32 up to 1024. Outputs: eta,
-// row, x_b, y, c_b (B, m) fp32, basis (B, m) int32, scal (6, B) int32
-// (q, theta_q's bits, iters, status, degen, npend), flags (4, B) bytes
-// (optimal, unbounded, bad, take). No output overlaps an input.
+// active bool bytes. The path: rows_per_lane 0, the block path with
+// `threads` (a multiple of 32 up to 512) a block; else the warp path,
+// rows_per_lane in {1, 2, 4, 8} (m <= 32 * rows_per_lane), vec in {1,
+// min(rows_per_lane, 4)} (vec > 1: m % vec == 0 and every pointer aligned
+// to 4 vec bytes), threads = 128. Outputs: eta, row, x_b, y, c_b (B, m)
+// fp32, basis (B, m) int32, scal (6, B) int32 (q, theta_q's bits, iters,
+// status, degen, npend), flags (4, B) bytes (optimal, unbounded, bad,
+// take). No output overlaps an input. Returns a cudaError_t; an
+// inconsistent plan is cudaErrorInvalidValue.
 extern "C" int simplex_batch_tail(
     const void* x_b, const void* alpha, const void* basis, const void* y,
     const void* c_b, const void* B_inv, void* U, void* R, const void* npend,
@@ -258,8 +474,9 @@ extern "C" int simplex_batch_tail(
     const void* iters, const void* degen, const void* status, const void* active,
     int batch, int m, float eps, float pivot_tol, float feas_tol, float degen_tol,
     int harris, int bland_after, int st_running, int st_optimal, int st_unbounded,
-    int st_singular, int threads, void* eta, void* row, void* x_b_out, void* y_out,
-    void* c_b_out, void* basis_out, void* scal, void* flags, void* stream) {
+    int st_singular, int threads, int rows_per_lane, int vec, void* eta, void* row,
+    void* x_b_out, void* y_out, void* c_b_out, void* basis_out, void* scal, void* flags,
+    void* stream) {
   Params P = {};
   P.x_b = static_cast<const float*>(x_b);
   P.alpha = static_cast<const float*>(alpha);
@@ -299,6 +516,29 @@ extern "C" int simplex_batch_tail(
   P.scal = static_cast<int*>(scal);
   P.flags = static_cast<unsigned char*>(flags);
   P.batch = batch;
-  batch_tail_kernel<<<batch, threads, 0, static_cast<cudaStream_t>(stream)>>>(P);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch < 1 || m < 1) return (int)cudaErrorInvalidValue;
+  if (rows_per_lane == 0) {
+    if (threads < 32 || threads > kBlockThreads || threads % 32 != 0)
+      return (int)cudaErrorInvalidValue;
+    batch_tail_block_kernel<<<batch, threads, 0, s>>>(P);
+    return (int)cudaGetLastError();
+  }
+  const int bytes = 4 * vec;
+  const void* vecs[] = {x_b, alpha, basis, y, c_b, B_inv, U, R, eta, row, x_b_out, y_out,
+                        c_b_out, basis_out};
+  bool ok = threads == 32 * kTailWarps && m <= 32 * rows_per_lane &&
+            (vec == 1 || (vec == (rows_per_lane < 4 ? rows_per_lane : 4) && m % vec == 0));
+  for (const void* v : vecs) ok = ok && aligned(v, bytes);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  switch (rows_per_lane * 10 + vec) {
+    case 11: return launch_warp<1, 1>(P, s);
+    case 21: return launch_warp<2, 1>(P, s);
+    case 22: return launch_warp<2, 2>(P, s);
+    case 41: return launch_warp<4, 1>(P, s);
+    case 44: return launch_warp<4, 4>(P, s);
+    case 81: return launch_warp<8, 1>(P, s);
+    case 84: return launch_warp<8, 4>(P, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

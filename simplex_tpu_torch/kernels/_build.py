@@ -54,12 +54,16 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs, stream
     ),
     "simplex_rank1_update": (_P, _P, _P, _I, _I, _P),
-    "simplex_batch_pricing": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P),
+    "simplex_batch_pricing": (
+        _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,  # layout .. words
+        _P, _P, _P, _P, _P,  # mask, recs, p, min_e, stream
+    ),
     "simplex_batch_pricing_record_bytes": (),
     "simplex_batch_tail": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,  # vectors, B_inv, U, R, npend, L
         _P, _P, _P, _P, _P, _P, _P, _P,  # min_e .. active
-        _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I,  # batch .. threads
+        _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,  # batch .. st_singular
+        _I, _I, _I,  # threads, rows_per_lane, vec
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs, stream
     ),
     "simplex_batch_rank1": (_P, _P, _P, _P, _I, _I, _I, _P),

@@ -611,7 +611,59 @@ def _batched(t: torch.Tensor, shape: tuple, dtype: torch.dtype, name: str) -> No
         raise ValueError(f"{name}: not contiguous")
 
 
-_BATCH_GRID_MAX = 65535  # the instances ride on grid.y
+_BATCH_GRID_MAX = 65535  # grid.y: the instances, or the shared layout's instance tiles
+
+# csrc/batch_pricing.cu: the per-instance chunk (columns a block), the shared
+# layout's CTA tile (instances x columns), a record's 32-bit words; the
+# launch's layout codes
+_BP_CHUNK = 256
+_BP_TILE_B, _BP_TILE_N = 64, 128
+_BP_RECORD_WORDS = 3
+_BP_LAYOUTS = {"scan": 0, "bf16x4": 1, "shared": 2, "shared_loads": 3}
+
+
+def _alignment(*ts: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every data pointer."""
+    a = 16
+    for t in ts:
+        ptr = t.data_ptr()
+        while ptr % a:
+            a //= 2
+    return a
+
+
+def batch_pricing_plan(Bn: int, m: int, n: int, *, shared: bool, bf16: bool, align: int) -> dict:
+    """How :func:`choose_entering_batched` launches ``csrc/batch_pricing.cu``
+    for B = ``Bn`` instances of m x n, A per instance or ``shared``, fp32 or
+    ``bf16``, its pointers aligned to ``align`` bytes (y's and A's):
+
+    ``layout``: "scan" (per instance, a column a thread), "bf16x4" (per
+    instance, the bf16 shadow at n % 4 == 0: four columns a thread), "shared"
+    (one A: the tiled product fed by 16-byte copies, which need m % 4 == 0,
+    rows of a multiple of 16 bytes and 16-byte alignment) or
+    "shared_loads" (the same product fed by element loads); ``grid`` and
+    ``threads`` of the main launch; ``chunks`` records an instance (one
+    chunk: the main launch writes the choice and no reduction launch
+    follows); ``words`` of the shared layout's basic-column mask an
+    instance; ``scratch_words``, the int32 words of scratch (mask, then
+    records); ``launches``, the kernels the call runs. Raises where a grid
+    would be too tall."""
+    if shared:
+        chunks, words = -(-n // _BP_TILE_N), -(-n // 32)
+        copies = m % 4 == 0 and (n * (2 if bf16 else 4)) % 16 == 0 and align >= 16
+        layout, threads = ("shared" if copies else "shared_loads"), 256
+        grid = (chunks, -(-Bn // _BP_TILE_B))
+    else:
+        chunks, words = -(-n // _BP_CHUNK), 0
+        quads = bf16 and n % 4 == 0 and align >= 8
+        layout, threads = ("bf16x4", 64) if quads else ("scan", 256)
+        grid = (chunks, Bn)
+    if grid[1] > _BATCH_GRID_MAX:
+        raise ValueError(f"batch_pricing: {Bn} instances need a grid taller than {_BATCH_GRID_MAX}")
+    recs = Bn * chunks * _BP_RECORD_WORDS if chunks > 1 else 0
+    return dict(layout=layout, grid=grid, threads=threads, chunks=chunks, words=words,
+                scratch_words=Bn * words + recs,
+                launches=int(shared) + 1 + int(chunks > 1))
 
 
 def choose_entering_batched_plain(y, A, c, eps, use_bland, basis, at_upper=None):
@@ -631,12 +683,14 @@ def choose_entering_batched(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(p (B,) int32, min_e (B,))``: the contract of
     :func:`simplex_tpu_torch.kernels.ops.choose_entering_batched` in one
-    call of ``csrc/batch_pricing.cu`` (one launch where 256 columns cover n,
-    two beyond). A is dense float32 or bfloat16, contiguous: per instance
-    (B, m, n), or one (m, n) every instance shares; c is (B, n) or a shared
-    (n,) float32. y (B, m) float32; use_bland (B,) bool; basis (B, m)
-    int32; at_upper (B, n) bool for the signed mode. A sparse A has no
-    kernel here: its caller prices it (``simplex_tpu_torch.batch.step``)."""
+    call of ``csrc/batch_pricing.cu`` (:func:`batch_pricing_plan`: per
+    instance one launch where 256 columns cover n, two beyond; a shared A
+    a mask launch, the tiled product and a reduction beyond 128 columns).
+    A is dense float32 or bfloat16, contiguous: per instance (B, m, n), or
+    one (m, n) every instance shares; c is (B, n) or a shared (n,) float32.
+    y (B, m) float32; use_bland (B,) bool; basis (B, m) int32; at_upper
+    (B, n) bool for the signed mode. A sparse A has no kernel here: its
+    caller prices it (``simplex_tpu_torch.batch.step``)."""
     if not isinstance(A, torch.Tensor) or A.dim() not in (2, 3) or 0 in A.shape:
         raise ValueError("A: want a dense (B, m, n) stack or a shared (m, n) matrix")
     m, n = A.shape[-2:]
@@ -656,20 +710,22 @@ def choose_entering_batched(
     dev = _same_device(*ins)
     if dev.type == "cpu":
         return choose_entering_batched_plain(y, A, c, eps, use_bland, basis, at_upper)
-    _require(Bn <= _BATCH_GRID_MAX, f"batch_pricing: at most {_BATCH_GRID_MAX} instances")
+    plan = batch_pricing_plan(Bn, m, n, shared=A.dim() == 2, bf16=A.dtype == torch.bfloat16,
+                              align=_alignment(y, A))
     lib = _build.load_library()
-    chunks = -(-n // 256)
-    recs = None
-    if chunks > 1:
-        recs = torch.empty(Bn * chunks * lib.simplex_batch_pricing_record_bytes() // 4,
-                           dtype=torch.int32, device=dev)
+    scratch = None
+    if plan["scratch_words"]:
+        scratch = torch.empty(plan["scratch_words"], dtype=torch.int32, device=dev)
+    mask = scratch if plan["words"] else None
+    recs = None if plan["chunks"] == 1 else scratch[Bn * plan["words"]:]
     out = torch.empty((2, Bn), dtype=torch.int32, device=dev)
     err = lib.simplex_batch_pricing(
-        0 if A.dtype == torch.float32 else 1, y.data_ptr(), A.data_ptr(), c.data_ptr(),
-        None if at_upper is None else at_upper.data_ptr(), basis.data_ptr(),
-        use_bland.data_ptr(), Bn, m, n, int(A.dim() == 2), int(c.dim() == 1), eps,
-        None if recs is None else recs.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), _stream(dev),
+        _BP_LAYOUTS[plan["layout"]], 0 if A.dtype == torch.float32 else 1, y.data_ptr(),
+        A.data_ptr(), c.data_ptr(), None if at_upper is None else at_upper.data_ptr(),
+        basis.data_ptr(), use_bland.data_ptr(), Bn, m, n, int(c.dim() == 1), eps,
+        plan["chunks"], plan["words"], None if mask is None else mask.data_ptr(),
+        None if recs is None else recs.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        _stream(dev),
     )
     _build.check(err, "batch_pricing")
     launches["batch_pricing"] += 1
@@ -677,6 +733,31 @@ def choose_entering_batched(
 
 
 _BSCAL, _BFLAGS = 6, 4  # csrc/batch_tail.cu: the scalar rows, the flag rows
+# csrc/batch_tail.cu: the warp path's largest m (8 rows a lane) and its
+# instances a block; the block path's threads a block at most
+_TAIL_WARP_MAX_M = 256
+_TAIL_WARPS = 4
+_TAIL_BLOCK_THREADS = 512
+
+
+def batch_tail_plan(Bn: int, m: int, align: int) -> dict:
+    """How :func:`pivot_tail_batched` launches ``csrc/batch_tail.cu`` for B
+    = ``Bn`` instances of m rows, every pointer aligned to ``align`` bytes:
+    ``path`` "warp" (m <= ``_TAIL_WARP_MAX_M``: one warp an instance,
+    ``rows_per_lane`` in 1, 2, 4, 8, ``vec`` rows a load, 1 or
+    min(rows_per_lane, 4) where m and the alignment allow) or "block" (one
+    block of ``threads``, a row a thread up to 512, an instance); ``blocks``
+    of the launch."""
+    if m <= _TAIL_WARP_MAX_M:
+        rpl = 1
+        while 32 * rpl < m:
+            rpl *= 2
+        v = min(rpl, 4)
+        vec = v if v > 1 and m % v == 0 and align >= 4 * v else 1
+        return dict(path="warp", rows_per_lane=rpl, vec=vec, threads=32 * _TAIL_WARPS,
+                    blocks=-(-Bn // _TAIL_WARPS))
+    return dict(path="block", rows_per_lane=0, vec=1,
+                threads=min(_TAIL_BLOCK_THREADS, -(-m // 32) * 32), blocks=Bn)
 
 
 def pivot_tail_batched_plain(*args, **kw) -> PivotTail:
@@ -693,7 +774,8 @@ def pivot_tail_batched(
     npend: Optional[torch.Tensor] = None,
 ) -> PivotTail:
     """Every active instance's pivot tail in ONE launch of
-    ``csrc/batch_tail.cu`` (one block an instance); the contract of
+    ``csrc/batch_tail.cu`` (one warp an instance up to 256 rows, one block
+    beyond: :func:`batch_tail_plan`); the contract of
     :func:`simplex_tpu_torch.kernels.ops.pivot_tail_batched`, bit for bit.
     Vectors (B, m) float32 (basis int32), B_inv (B, m, m) float32,
     contiguous; min_e, e_p, c_p (B,) float32; p, iters, degen, status (B,)
@@ -737,7 +819,8 @@ def pivot_tail_batched(
     scal = torch.empty((_BSCAL, Bn), dtype=torch.int32, device=dev)
     flags = torch.empty((_BFLAGS, Bn), dtype=torch.bool, device=dev)
     basis_out = vecs[5].view(torch.int32)
-    threads = min(1024, max(32, -(-m // 32) * 32))
+    plan = batch_tail_plan(
+        Bn, m, _alignment(x_b, alpha, basis, y, c_b, B_inv, *vecs, *((U, R) if defer else ())))
     st = SolveStatus
     err = lib.simplex_batch_tail(
         x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), y.data_ptr(), c_b.data_ptr(),
@@ -746,7 +829,8 @@ def pivot_tail_batched(
         c_p.data_ptr(), p.data_ptr(), iters.data_ptr(), degen.data_ptr(),
         status.data_ptr(), active.data_ptr(), Bn, m, eps, pivot_tol, feas_tol, degen_tol,
         int(bool(harris)), int(bland_after), int(st.RUNNING), int(st.OPTIMAL),
-        int(st.UNBOUNDED), int(st.SINGULAR), threads, vecs[0].data_ptr(),
+        int(st.UNBOUNDED), int(st.SINGULAR), plan["threads"], plan["rows_per_lane"],
+        plan["vec"], vecs[0].data_ptr(),
         vecs[1].data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(), vecs[4].data_ptr(),
         basis_out.data_ptr(), scal.data_ptr(), flags.data_ptr(), _stream(dev),
     )

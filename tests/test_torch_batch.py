@@ -361,22 +361,24 @@ def _g(seed=0):
     return torch.Generator().manual_seed(seed)
 
 
-@pytest.mark.parametrize("layout", ["stack", "shared"])
+@pytest.mark.parametrize("layout", ["stack", "shared", "shared tile tails"])
 @pytest.mark.parametrize("signed", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_choose_entering_batched_is_a_loop_of_the_single_op(signed, dtype, layout):
     """Per instance A and c: bit for bit the single op's. One A and c that
     every instance shares (the warm re-solve's clean-up): one matrix
     product sums in another order than the single op's, so e agrees to
-    rounding and every pick is the same."""
+    rounding and every pick is the same; also at 65 x 33 x 129, one past
+    the kernel's tile on every axis (64 instances, 32 rows a stage, 128
+    columns)."""
     g = _g(1)
-    B, m, n = 6, 17, 45
-    shared = layout == "shared"
+    B, m, n = (65, 33, 129) if layout == "shared tile tails" else (6, 17, 45)
+    shared = layout != "stack"
     y = torch.randn(B, m, generator=g)
     c = torch.randn(n, generator=g) if shared else torch.randn(B, n, generator=g)
     A = torch.randn(*(() if shared else (B,)), m, n, generator=g).to(dtype)
     basis = torch.stack([torch.randperm(n, generator=g)[:m] for _ in range(B)]).to(torch.int32)
-    bland = torch.tensor([False, True, False, True, False, False])
+    bland = torch.arange(B) % 6 % 2 == 1
     up = torch.rand(B, n, generator=g) < 0.3 if signed else None
     for fn in (ops.choose_entering_batched, hopper.choose_entering_batched):
         p, min_e = fn(y, A, c, 1e-5, bland, basis, up)
@@ -501,6 +503,81 @@ def test_ratio_argmin_bounded_batched_is_a_loop_of_the_single_op(harris):
             assert torch.equal(a[i], b.to(a.dtype)), i
 
 
+@pytest.mark.parametrize(
+    "shape, shared, bf16, align, want",
+    [
+        # bench.py --mode batch's shape: one launch, the choice in the block
+        ((4096, 64, 160), False, False, 16, dict(layout="scan", grid=(1, 4096), threads=256,
+                                                 chunks=1, words=0, scratch_words=0, launches=1)),
+        ((4096, 64, 160), False, True, 16, dict(layout="bf16x4", grid=(1, 4096), threads=64,
+                                                chunks=1, scratch_words=0, launches=1)),
+        # the bf16 path's 8-byte loads need n % 4 == 0 and an aligned A
+        ((4096, 64, 160), False, True, 4, dict(layout="scan", threads=256)),
+        ((3, 17, 45), False, True, 16, dict(layout="scan")),
+        ((5, 33, 258), False, True, 16, dict(layout="scan", grid=(2, 5), chunks=2,
+                                             scratch_words=5 * 2 * 3, launches=2)),
+        ((7, 9, 516), False, True, 16, dict(layout="bf16x4", grid=(3, 7), chunks=3,
+                                            scratch_words=7 * 3 * 3, launches=2)),
+        # bench.py --mode reopt's shared A: mask, the tiled product, reduction
+        ((256, 2048, 4096), True, False, 16, dict(layout="shared", grid=(32, 4), threads=256,
+                                                  chunks=32, words=128, launches=3,
+                                                  scratch_words=256 * 128 + 256 * 32 * 3)),
+        ((256, 2048, 4096), True, True, 16, dict(layout="shared", grid=(32, 4))),
+        # 16-byte copies need m % 4 == 0, rows of a multiple of 16 bytes and
+        # 16-byte alignment; else the product's element loads
+        ((256, 2048, 4096), True, False, 8, dict(layout="shared_loads", grid=(32, 4))),
+        ((130, 257, 1000), True, False, 16, dict(layout="shared_loads", grid=(8, 3))),
+        ((130, 260, 1000), True, True, 16, dict(layout="shared", grid=(8, 3), chunks=8, words=32)),
+        ((130, 260, 1004), True, True, 16, dict(layout="shared_loads")),
+        ((130, 260, 1004), True, False, 16, dict(layout="shared")),
+        # one tile: the product writes the choice, no reduction launch
+        ((1, 1, 1), True, False, 16, dict(layout="shared_loads", grid=(1, 1), chunks=1, words=1,
+                                          scratch_words=1, launches=2)),
+        ((65, 32, 128), True, False, 16, dict(layout="shared", grid=(1, 2), chunks=1, words=4,
+                                              scratch_words=65 * 4, launches=2)),
+    ],
+)
+def test_batch_pricing_plan(shape, shared, bf16, align, want):
+    plan = hopper.batch_pricing_plan(*shape, shared=shared, bf16=bf16, align=align)
+    assert {k: plan[k] for k in want} == want
+
+
+def test_batch_pricing_plan_grid_limit():
+    """Per instance the instances ride on grid.y (at most 65,535); a shared A
+    puts its tiles of 64 instances there."""
+    plan = hopper.batch_pricing_plan
+    assert plan(65535, 4, 9, shared=False, bf16=False, align=16)["grid"] == (1, 65535)
+    with pytest.raises(ValueError, match="grid"):
+        plan(65536, 4, 9, shared=False, bf16=False, align=16)
+    assert plan(65536, 4, 9, shared=True, bf16=False, align=16)["grid"] == (1, 1024)
+    assert plan(65535 * 64, 4, 9, shared=True, bf16=False, align=16)["grid"] == (1, 65535)
+    with pytest.raises(ValueError, match="grid"):
+        plan(65535 * 64 + 1, 4, 9, shared=True, bf16=False, align=16)
+
+
+@pytest.mark.parametrize(
+    "m, align, want",
+    [
+        (1, 16, ("warp", 1, 1)), (17, 16, ("warp", 1, 1)), (32, 16, ("warp", 1, 1)),
+        (33, 16, ("warp", 2, 1)), (64, 16, ("warp", 2, 2)), (64, 4, ("warp", 2, 1)),
+        (100, 16, ("warp", 4, 4)), (100, 8, ("warp", 4, 1)), (128, 16, ("warp", 4, 4)),
+        (129, 16, ("warp", 8, 1)), (256, 16, ("warp", 8, 4)), (257, 16, ("block", 0, 1)),
+        (1100, 16, ("block", 0, 1)), (2048, 16, ("block", 0, 1)),
+    ],
+)
+def test_batch_tail_plan(m, align, want):
+    """One warp an instance (four a block) up to 256 rows, 1-8 rows a lane,
+    loads of 4 (or 2) rows where m and the alignment allow; one block an
+    instance beyond, a thread a row up to 512."""
+    plan = hopper.batch_tail_plan(37, m, align)
+    assert (plan["path"], plan["rows_per_lane"], plan["vec"]) == want
+    if plan["path"] == "warp":
+        assert 32 * plan["rows_per_lane"] >= m and (plan["threads"], plan["blocks"]) == (128, 10)
+    else:
+        assert plan["blocks"] == 37 and plan["threads"] == min(512, -(-m // 32) * 32)
+    assert hopper._TAIL_WARP_MAX_M == 32 * 8
+
+
 def test_batched_wrappers_check_their_inputs():
     B, m, n = 3, 4, 9
     y, A, c = torch.zeros(B, m), torch.zeros(B, m, n), torch.zeros(B, n)
@@ -524,6 +601,13 @@ def test_batched_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="U, R and npend"):
         hopper.pivot_tail_batched(*(t[k] for k in TAIL_ARGS), t["status"], t["active"], harris=True,
                                   **TAIL_OPTS, U=torch.zeros(7, 2, m))
+    # the kernels' vector loads follow the alignment of every pointer the
+    # call passes: an offset view takes the element-load path
+    buf = torch.zeros(2 * B * n + 4)
+    assert hopper._alignment(buf[:B * n].view(B, n), buf[4:4 + B * n]) == 16
+    assert hopper._alignment(buf[2:2 + B * n].view(B, n)) == 8
+    assert hopper._alignment(buf[:B * n], buf[1:1 + B * n]) == 4
+    assert hopper._alignment(buf.to(torch.bfloat16)[1:]) == 2
 
 
 # --------------------------------------------------------------------------

@@ -79,6 +79,18 @@ def test_main_without_card_fails():
         bk.main(["--m", "8", "--n", "16", "--k", "1"])
 
 
+def test_batch_kernels_bench_needs_a_card(capsys):
+    """The batched kernels' timer measures the card only: without one it
+    prints no record and returns 1."""
+    from simplex_tpu_torch.bench import batch_kernels
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert batch_kernels.main(["--tag", "x"]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
 def test_timing_helpers_on_cpu(tmp_path):
     t = PhaseTimer("cpu")
     with t.phase("solve"):
