@@ -906,6 +906,125 @@ def check_shared_is_per_instance(dev, g, Bn: int, m: int, n: int) -> None:
           "picks equal, min_e bit for bit ok")
 
 
+# segmented pricing's window cell: 64 instances of random_dense_lp(512,
+# 4096) with partial_pricing = 8 (w = 512 = partial_min_segment)
+SEG_B, SEG_M, SEG_N, SEG_S = 64, 512, 4096, 8
+
+
+def window_inputs(dev, g, Bn, m, n, S, shared=False):
+    """batch_pricing_inputs plus each instance's segment counter (random
+    iteration counts, so the windows differ between instances and some
+    end at n) and the window's starts."""
+    import torch
+
+    y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared)
+    seg = torch.randint(0, 1000, (Bn,), generator=g, device=dev).to(torch.int32)
+    seg[0] = S - 1  # the last window, which ends at n
+    return y, A, c, basis, seg
+
+
+def check_window_pricing(tag, dev, y, A, c, basis, bland, w, S, seg, at_upper=None) -> float:
+    """The windowed call against (a) the unwindowed kernel on each
+    instance's contiguous slice with the window's start added: bit for
+    bit; (b) the plain twin: every pick equal, min_e within
+    BATCH_PRICING_ATOL of scale."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper, ops
+
+    win = (w, S, seg)
+    p_k, min_k = hopper.choose_entering_batched(y, A, c, 1e-5, bland, basis, at_upper, win)
+    lo = ops.window_starts(win, A.shape[-1])
+    cols = lo[:, None] + torch.arange(w, device=dev)
+    c_w = c.index_select(0, cols.reshape(-1)).view(cols.shape) if c.dim() == 1 else c.gather(1, cols)
+    up_w = None if at_upper is None else at_upper.gather(1, cols).contiguous()
+    p_s, min_s = hopper.choose_entering_batched(
+        y, ops.window_slice(A, lo, w), c_w.contiguous(), 1e-5, bland,
+        (basis - lo[:, None]).to(torch.int32).contiguous(), up_w,
+    )
+    p_p, min_p = hopper.choose_entering_batched_plain(y, A, c, 1e-5, bland, basis, at_upper, win)
+    torch.cuda.synchronize()
+    check(torch.equal(p_k, (p_s + lo).to(torch.int32)), f"{tag}: picks differ from the call on the slice")
+    check(torch.equal(min_k.view(torch.int32), min_s.view(torch.int32)),
+          f"{tag}: min_e not bit for bit the call on the slice")
+    check(bool(((p_k >= lo) & (p_k < lo + w)).all()), f"{tag}: a pick outside its window")
+    err = float((min_k - min_p).abs().max())
+    scale = max(1.0, float(min_p.abs().max()))
+    check(err <= BATCH_PRICING_ATOL * scale, f"{tag}: min_e differs from the plain twin by {err}")
+    bad = int((p_k != p_p).sum())
+    check(bad == 0, f"{tag}: {bad} picks differ from the plain twin")
+    print(f"{tag}: bit for bit the call on the slice, plain twin max abs err {err:.3e}, picks equal ok")
+    return err
+
+
+def phase_window_pricing(dev, g) -> dict:
+    """batch_pricing's window mode: per instance (fp32 scan, bf16 four
+    columns a thread, the bf16 scan where w % 4 != 0), shared A (the scan
+    with an instance stride of 0), signed and Bland, windows of one chunk,
+    of two with a tail, and ending at n, starts that differ between
+    instances; then times at the segmented cell's shape and at the warm
+    re-solve's, with their bounds."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper, ops
+
+    worst = 0.0
+    rec = {}
+    # (B, m, n, S, shared): w = 512 (two chunks), 250 (one, bf16 scan), 258
+    # (a tail chunk, bf16 scan), 520 (a tail chunk, bf16 four columns a
+    # thread), 15; shared at the warm re-solve's shape and odd ones
+    cases = ((SEG_B, SEG_M, SEG_N, SEG_S, False), (5, 33, 1000, 4, False), (7, 9, 1032, 4, False),
+             (6, 20, 1040, 2, False), (3, 17, 45, 3, False), (REOPT_B, REOPT_M, REOPT_N, SEG_S, True),
+             (70, 33, 300, 3, True), (65, 257, 1032, 4, True), (9, 16, 1040, 2, True))
+    for Bn, m, n, S, shared in cases:
+        w = n // S
+        y, A, c, basis, seg = window_inputs(dev, g, Bn, m, n, S, shared)
+        bland = torch.rand(Bn, generator=g, device=dev) < 0.2
+        no = torch.zeros(Bn, dtype=torch.bool, device=dev)
+        at_upper = torch.rand(Bn, n, generator=g, device=dev) < 0.3
+        Ab = A.to(torch.bfloat16)
+        kind = "shared" if shared else "per-instance"
+        for tag, args in (
+            ("fp32", (y, A, c, basis, no)), ("fp32 bland", (y, A, c, basis, bland)),
+            ("bf16", (y, Ab, c, basis, no)), ("signed", (y, A, c, basis, bland)),
+            ("signed bf16", (y, Ab, c, basis, no)),
+        ):
+            up = at_upper if tag.startswith("signed") else None
+            worst = max(worst, check_window_pricing(
+                f"batch_pricing window {kind} {Bn}x{m}x{n} w={w} S={S} {tag}", dev, *args, w, S, seg, up))
+        win = (w, S, seg)
+        if (Bn, m, n) == (SEG_B, SEG_M, SEG_N):
+            # the windows' A, y, c and the basis read once, p and min_e written
+            nb = Bn * (4.0 * (m * w + 2 * m + w) + 4 + 1 + 8)
+            A_w = ops.window_slice(A, ops.window_starts(win, n), w)
+            rec.update({
+                "window_ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win), 50),
+                "window_plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win), 20),
+                "window_bf16_ms": time_ms(lambda: hopper.choose_entering_batched(y, Ab, c, 1e-5, no, basis, None, win), 50),
+                "window_bound_ms": bound(nb, 2.0 * Bn * m * w)["bound_ms"],
+                "window_bf16_bound_ms": bound(nb - Bn * 2.0 * m * w, 2.0 * Bn * m * w)["bound_ms"],
+                # the product over the windows alone, on slices gathered beforehand
+                "window_library_ms": time_ms(lambda: torch.bmm(y[:, None, :], A_w), 50),
+            })
+            del A_w
+        if shared and Bn == REOPT_B:
+            # each distinct window of A read once; 2 B m w operations bound it
+            nwin = int(torch.remainder(seg.long(), S).unique().numel())
+            bd = bound(4.0 * nwin * (m * w + w) + Bn * (4.0 * (2 * m) + 4 + 1 + 8), 2.0 * Bn * m * w)
+            rec.update({
+                "window_shared_ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win), 50),
+                "window_shared_plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win), 10),
+                "window_shared_bound_ms": bd["bound_ms"],
+                "window_shared_bound_by": bd["bound_by"],
+                # one GEMM over one window: the same operations
+                "window_shared_library_ms": time_ms(lambda: y @ A[:, :w], 50),
+            })
+        del A, Ab
+        torch.cuda.empty_cache()
+    rec["window_max_abs_err"] = worst
+    return rec
+
+
 def phase_batch_kernels(dev) -> dict:
     """The three batched kernels against their plain twins on the card:
     pricing (per-instance A on both the fp32 and the bf16 pair path, and a
@@ -990,6 +1109,7 @@ def phase_batch_kernels(dev) -> dict:
     recs["batch_pricing"]["max_abs_err"] = worst
     check_shared_is_per_instance(dev, g, 8, REOPT_M, REOPT_N)
     check_shared_is_per_instance(dev, g, 70, 33, 300)
+    recs["batch_pricing"].update(phase_window_pricing(dev, g))
     # the tail: the warp path (m <= 256: rows a lane 1, 2, 4, 8, loads of 1,
     # 2 or 4 rows, idle lanes) and the block path (m > 256; and forced at
     # small m), with one input misaligned (single-row loads)
@@ -2385,6 +2505,9 @@ BATCH_OPTS = dict(verify_terminal=False, polish=False, max_iter=1000)
 BATCH_SAMPLES = 16  # instances held against HiGHS and the single solve
 BATCH_FULL = 10240  # BASELINE.json configs[3]'s "10k small LPs", whole on one card
 REOPT_SAMPLES = 8
+# dual batch steps of bench-reopt under the profiler: past one re-inversion
+# (refactor_every = 256), a third of the call's 1,051 steps
+REOPT_TRACED = 320
 REOPT_GAP = 1e-4  # tests/test_dual.py:276 holds the warm re-solves to this
 PDHG_GAP = 1e-3  # a tol = 1e-4 first-order answer against HiGHS
 PDHG_P = 32  # bench.py --mode pdhg --sparse: products per period
@@ -2428,12 +2551,15 @@ def highs_bounded(A, b, c, u):
     return -r.fun if r.status == 0 else None
 
 
-def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True) -> dict:
+def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True, base=None, refs=None) -> dict:
     """solve_batched once through its entry point with the counters set to
     0 just before; prints solves/s, statuses, pivots, batch steps, host
-    reads and launches a batch step; holds BATCH_SAMPLES instances against
-    the port's single solve under the same options (the same slack start,
-    so a witness on any input) and, when ``highs``, against HiGHS."""
+    reads (control and branch apart), the extra pricing passes by cause
+    and launches a batch step; holds BATCH_SAMPLES instances against the
+    port's single solve under the same options (the same slack start, so a
+    witness on any input) and, when ``highs``, against HiGHS (``refs``: a
+    dict of HiGHS objectives by instance, filled and reused). ``base``
+    replaces bench.py's options."""
     import numpy as np
     import torch
 
@@ -2442,7 +2568,7 @@ def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True) -> dict:
     from simplex_tpu_torch.kernels import hopper
     from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy
 
-    opts = SimplexOptions(**BATCH_OPTS, **(extra or {}))
+    opts = SimplexOptions(**{**(BATCH_OPTS if base is None else base), **(extra or {})})
     Bn = As.shape[0]
     torch.cuda.synchronize()
     hopper.reset_launches()
@@ -2453,12 +2579,14 @@ def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True) -> dict:
     counts = dict(hopper.launches)
     steps = bstep.steps["primal"]
     reads = dict(bstep.host_reads)
+    branches = dict(bstep.branches)
     st = collections.Counter(res.statuses())
     per = {k: round(v / max(steps, 1), 4) for k, v in counts.items() if v}
     print(f"solve_batched {tag}: {Bn} LPs in {dt:.3f} s -> {Bn / dt:.1f} solves/s; statuses "
           f"{ {s.name: k for s, k in st.items()} }; pivots median {int(np.median(res.iters))} max "
           f"{int(res.iters.max())}; {steps} batch steps; host reads {reads} "
-          f"({reads['control'] / max(steps, 1):.4f} control a step); launches a step {per}")
+          f"({reads['control'] / max(steps, 1):.4f} control, {reads['branch'] / max(steps, 1):.4f} branch a "
+          f"step); extra pricing passes {branches}; launches a step {per}")
     check(st.get(1, 0) == Bn, f"solve_batched {tag}: not every instance OPTIMAL: {st}")
     idx = np.linspace(0, Bn - 1, BATCH_SAMPLES).astype(int)
     worst_h = worst_s = 0.0
@@ -2466,12 +2594,17 @@ def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True) -> dict:
         single = solve(As[i], bs[i], cs[i], u=u, options=opts, device=dev)
         worst_s = max(worst_s, relative_gap(float(res.z[i]), single.z))
         if highs:
-            ref = solve_scipy(As[i], bs[i], cs[i]).z if u is None else highs_bounded(As[i], bs[i], cs[i], u)
+            if refs is not None and int(i) in refs:
+                ref = refs[int(i)]
+            else:
+                ref = solve_scipy(As[i], bs[i], cs[i]).z if u is None else highs_bounded(As[i], bs[i], cs[i], u)
+                if refs is not None:
+                    refs[int(i)] = ref
             worst_h = max(worst_h, relative_gap(float(res.z[i]), ref))
     print(f"solve_batched {tag}: {BATCH_SAMPLES} sampled instances, worst rel gap vs the single solve "
           f"{worst_s:.3e}" + (f", vs HiGHS {worst_h:.3e}" if highs else " (HiGHS not held: see the recipe)"))
     check(worst_s <= GAP_TOL and worst_h <= GAP_TOL, f"solve_batched {tag}: gaps {worst_s}, {worst_h}")
-    return {"counts": counts, "steps": steps, "seconds": dt, "reads": reads}
+    return {"counts": counts, "steps": steps, "seconds": dt, "reads": reads, "branches": branches}
 
 
 def phase_solve_batched(dev) -> dict:
@@ -2562,6 +2695,7 @@ def phase_reoptimize_batched(dev) -> dict:
     bs = (np.asarray(b, np.float64)[None, :] * (1 + 0.05 * rng.uniform(-1, 1, (Bn, m)))).astype(np.float32)
     idx = np.linspace(0, Bn - 1, REOPT_SAMPLES).astype(int)
     refs = {int(i): solve_scipy(A, bs[i], c) for i in idx}
+    KEPT["reopt"] = (A, c, cold, bs, refs)
     paths, first = {}, None
     for storage, A_in in (("dense", A), ("scipy CSC", sps.csc_matrix(A))):
         torch.cuda.synchronize()
@@ -2593,6 +2727,136 @@ def phase_reoptimize_batched(dev) -> dict:
         else:
             check((res.status == first.status).all(), f"reopt {storage}: statuses differ from dense")
         paths[f"reoptimize_batched {storage}"] = counts
+        del res
+        torch.cuda.empty_cache()
+    return paths
+
+
+def seg_instances():
+    """The segmented cell: SEG_B copies of random_dense_lp(512, 4096,
+    seed=0) with 0.01 N(0, 1) on A0's non-slack columns and 0.01 |N(0, 1)|
+    on b from default_rng(0) (bench.py --mode batch's noise, the slack
+    identity kept exact so that the slack start is a true basis and HiGHS
+    a fair judge), c shared."""
+    import numpy as np
+
+    from simplex_tpu_torch.oracle.generator import random_dense_lp
+
+    m, n = SEG_M, SEG_N
+    rng = np.random.default_rng(0)
+    A0, b0, c0 = random_dense_lp(m, n, seed=0, dtype=np.float32)
+    As = np.repeat(A0[None], SEG_B, 0)
+    bs = np.empty((SEG_B, m), np.float32)
+    for i in range(SEG_B):
+        As[i, :, : n - m] += 0.01 * rng.standard_normal((m, n - m)).astype(np.float32)
+        bs[i] = b0 + 0.01 * np.abs(rng.standard_normal(m)).astype(np.float32)
+    return As, bs, np.broadcast_to(c0, (SEG_B, n)).copy()
+
+
+def phase_batch_rules(dev) -> dict:
+    """The batched pricing rules. bench.py --mode batch's own rule cell
+    (bench.py:814-832: its recipe at B = 4,096, its options) under devex
+    and under steepest edge: one control read a batch step, the stale
+    flag inside it, no branch read, and one exact batch_pricing pass on a
+    step where some active pick is stale (the tail and rank-1 once a
+    step). Then segmented Dantzig (partial_pricing = 8, w = 512 =
+    partial_min_segment) on SEG_B instances of 512 x 4096 with an exact
+    slack identity, fp32 and on the bf16 shadow (the solver's default
+    options, no polish on either side): one windowed launch a step plus
+    one a fallback stage, one branch read a step and, on the shadow, one
+    more a failed segment; sampled instances within 1e-5 of the single
+    solve and of HiGHS."""
+    import numpy as np
+
+    paths = {}
+    As, bs, cs = batch_instances(BATCH_B)
+    for rule in ("devex", "steepest"):
+        r = batch_run(dev, f"bench recipe {rule} B={BATCH_B}", As, bs, cs, {"pricing": rule}, highs=False)
+        c, k, b = r["counts"], r["steps"], r["branches"]
+        check(c["batch_tail"] == c["batch_rank1"] == k and c["batch_pricing"] == b["stale"],
+              f"batch {rule}: launches {c} over {k} steps, passes {b}")
+        check(r["reads"]["control"] <= k + 1 and r["reads"]["branch"] == 0,
+              f"batch {rule}: {r['reads']} reads over {k} steps")
+        paths[f"solve_batched {rule} B={BATCH_B}"] = c
+    del As, bs, cs
+    As, bs, cs = seg_instances()
+    refs = {}
+    for tag, extra in (("fp32", {}), ("bf16 shadow", {"pricing_dtype": "bfloat16"})):
+        r = batch_run(dev, f"segmented S={SEG_S} {tag} {SEG_B}x{SEG_M}x{SEG_N}", As, bs, cs,
+                      dict(partial_pricing=SEG_S, **extra), base={"polish": False}, refs=refs)
+        c, k, b = r["counts"], r["steps"], r["branches"]
+        check(c["batch_pricing"] == k + b["segment"] + b["shadow"]
+              and r["reads"]["branch"] == k + (b["segment"] if extra else 0),
+              f"segmented {tag}: launches {c}, reads {r['reads']}, passes {b} over {k} steps")
+        check(c["batch_tail"] == c["batch_rank1"] == k, f"segmented {tag}: launches {c} over {k} steps")
+        paths[f"solve_batched segmented {tag}"] = c
+    return paths
+
+
+def phase_reopt_rules(dev) -> dict:
+    """reoptimize_batched under the rules on bench.py --mode reopt's cell
+    (phase 16's cold basis and scenarios): all 256 scenarios under steepest
+    edge on dense A and on scipy CSC (the weights recomputed at the switch
+    to the primal loop in chunks of scenarios), the first 64 (the 8 HiGHS
+    samples among them) under devex and under partial_pricing = 8; sampled
+    scenarios within 1e-4 of HiGHS."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch
+
+    from simplex_tpu_torch import SimplexOptions, SolveStatus, reoptimize_batched
+    from simplex_tpu_torch.batch import step as bstep
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.reference import relative_gap
+
+    A, c, cold, bs, refs = KEPT["reopt"]
+    samples = sorted(refs)
+    rest = [j for j in range(bs.shape[0]) if j not in refs]
+    sel64 = np.array(samples + rest[: 64 - len(samples)])
+    paths = {}
+    for tag, A_in, rule, sel in (
+        ("steepest dense", A, dict(pricing="steepest"), None),
+        ("steepest scipy CSC", sps.csc_matrix(A), dict(pricing="steepest"), None),
+        ("devex dense", A, dict(pricing="devex"), sel64),
+        (f"partial_pricing={SEG_S} dense", A, dict(partial_pricing=SEG_S), sel64),
+    ):
+        bsel = bs if sel is None else bs[sel]
+        Bn = bsel.shape[0]
+        opts = SimplexOptions(refactor_every=256, **rule)
+        torch.cuda.synchronize()
+        hopper.reset_launches()
+        bstep.reset_host_reads()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = reoptimize_batched(A_in, bsel, c, cold, options=opts, device=dev)
+        dt = time.perf_counter() - t0
+        counts, steps, br = dict(hopper.launches), dict(bstep.steps), dict(bstep.branches)
+        st = collections.Counter(res.statuses())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"reoptimize_batched {tag}: {Bn} scenarios in {dt:.3f} s -> {Bn / dt:.1f} scenarios/s; statuses "
+              f"{ {s.name: k for s, k in st.items()} }; pivots (dual + clean-up) median "
+              f"{int(np.median(res.iters))} max {int(res.iters.max())}; batch steps {steps}; host reads "
+              f"{dict(bstep.host_reads)}; extra pricing passes {br}; launches {counts}; feas_err max "
+              f"{float(res.feas_err.max()):.3e}; peak device memory {peak:.2f} GiB")
+        k = steps["primal"]
+        if "CSC" in tag:
+            want = 0
+        elif "partial" in tag:
+            want = k + br["segment"] + br["shadow"]
+        else:
+            want = br["stale"]
+        check(counts["batch_pricing"] == want and counts["batch_tail"] == k and counts["batch_rank1"] >= steps["dual"],
+              f"reopt {tag}: launches {counts}, steps {steps}, passes {br}")
+        worst = 0.0
+        where = {int(j): i for i, j in enumerate(range(Bn) if sel is None else sel)}
+        for j, ref in refs.items():
+            i = where[j]
+            check(SolveStatus(int(res.status[i])) == ref.status, f"reopt {tag} scenario {j}: status")
+            if ref.z is not None:
+                worst = max(worst, relative_gap(float(res.z[i]), ref.z))
+        print(f"reoptimize_batched {tag}: {len(refs)} sampled scenarios, worst rel gap vs HiGHS {worst:.3e}")
+        check(worst <= REOPT_GAP, f"reopt {tag}: gap {worst}")
+        paths[f"reoptimize_batched {tag}"] = counts
         del res
         torch.cuda.empty_cache()
     return paths
@@ -2693,40 +2957,50 @@ def phase_batch_profile(dev) -> dict:
     from simplex_tpu_torch.bench.profile_general import device_summary
 
     As, bs, cs = batch_instances(BATCH_B)
-    opts = SimplexOptions(**BATCH_OPTS)
-    solve_batched(As, bs, cs, options=opts, device=dev)
-    torch.cuda.synchronize()
-    bstep.reset_host_reads()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    out = {}
+    for rule in ("dantzig", "devex", "steepest"):
+        opts = SimplexOptions(**BATCH_OPTS, pricing=rule)
         solve_batched(As, bs, cs, options=opts, device=dev)
         torch.cuda.synchronize()
-    steps = max(bstep.steps["primal"], 1)
-    by, ops, _ = device_summary(prof, True)
-    total = sum(by.values())
-    per = {k: v / steps for k, v in by.most_common(8)}
-    print(f"batch profile B={BATCH_B}: {steps} batch steps; {ops / steps:.2f} device ops and "
-          f"{total / steps:.1f} device us a batch step; largest (us a step): "
-          + ", ".join(f"{k[:60]} {v:.1f}" for k, v in per.items()))
-    check(ops > 0 and total > 0, "batch profile: no device time")
-    kern = {name: sum(v for k, v in by.items() if key in k) / steps
-            for name, key in (("batch_pricing", "batch_pricing_"), ("batch_tail", "batch_tail_"),
-                              ("batch_rank1", "batch_rank1_kernel"))}
-    return {"device_us_per_batch_step": total / steps, "device_ops_per_batch_step": ops / steps,
-            "kernel_device_us": kern, "kernel_calls_device_us": batch_kernel_device_us(dev)}
+        bstep.reset_host_reads()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            solve_batched(As, bs, cs, options=opts, device=dev)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = max(bstep.steps["primal"], 1)
+        by, ops, _ = device_summary(prof, True)
+        total = sum(by.values())
+        per = {k: v / steps for k, v in by.most_common(8)}
+        print(f"batch profile B={BATCH_B} {rule}: {steps} batch steps; {ops / steps:.2f} device ops and "
+              f"{total / steps:.1f} device us a batch step, {1e3 * wall / steps:.3f} wall ms a step (traced), "
+              f"busy {1e-3 * total / (1e3 * wall):.1%}; reads {dict(bstep.host_reads)}, extra passes "
+              f"{dict(bstep.branches)}; largest (us a step): "
+              + ", ".join(f"{k[:60]} {v:.1f}" for k, v in per.items()))
+        check(ops > 0 and total > 0, f"batch profile {rule}: no device time")
+        kern = {name: sum(v for k, v in by.items() if key in k) / steps
+                for name, key in (("batch_pricing", "batch_pricing_"), ("batch_tail", "batch_tail_"),
+                                  ("batch_rank1", "batch_rank1_kernel"))}
+        out[rule] = {"device_us_per_batch_step": total / steps, "device_ops_per_batch_step": ops / steps,
+                     "kernel_device_us": kern}
+    return dict(out["dantzig"], rules=out, kernel_calls_device_us=batch_kernel_device_us(dev))
 
 
 def phase_warm_and_pdhg_profile(dev) -> dict:
-    """Where the time of bench-reopt and of a PDHG iteration goes: one
-    ``reoptimize_batched`` call on bench-reopt (dense A) and 1,280 PDHG
-    iterations (10 windows) of the 256 x 640 and T = 64 sparse instances,
-    each traced by torch.profiler: device ops and device us a dual batch
-    step or an iteration, and the largest items."""
+    """Where the time of bench-reopt and of a PDHG iteration goes: the
+    first REOPT_TRACED dual batch steps of a ``reoptimize_batched`` call on
+    bench-reopt (dense A, phase 16's cold basis and scenarios; the whole
+    call's 1,051 steps traced took two minutes of the script), one
+    re-inversion among them, and 1,280
+    PDHG iterations (10 windows) of the 256 x 640 and T = 64 sparse
+    instances, each traced by torch.profiler: device ops and device us a
+    dual batch step or an iteration, and the largest items."""
     import numpy as np
     import scipy.sparse as sps
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from simplex_tpu_torch import SimplexOptions, reoptimize_batched, solve, solve_pdhg
+    from simplex_tpu_torch import SimplexOptions, reoptimize_batched, solve_pdhg
     from simplex_tpu_torch.batch import step as bstep
     from simplex_tpu_torch.bench.profile_general import device_summary
     from simplex_tpu_torch.oracle.generator import random_dense_lp
@@ -2750,12 +3024,8 @@ def phase_warm_and_pdhg_profile(dev) -> dict:
         return {"device_us": total / per, "device_ops": ops / per, "wall_ms_traced": 1e3 * wall / per}
 
     out = {}
-    m, n, Bn = REOPT_M, REOPT_N, REOPT_B
-    A, b, c = random_dense_lp(m, n, seed=0, dtype=np.float32)
-    opts = SimplexOptions(refactor_every=256)
-    cold = solve(A, b, c, options=opts, device=dev)
-    rng = np.random.default_rng(1)
-    bs = (np.asarray(b, np.float64)[None, :] * (1 + 0.05 * rng.uniform(-1, 1, (Bn, m)))).astype(np.float32)
+    A, c, cold, bs, _ = KEPT.pop("reopt")
+    opts = SimplexOptions(refactor_every=256, max_iter=REOPT_TRACED)
     bstep.reset_host_reads()
     _, by, ops, wall = traced(lambda: reoptimize_batched(A, bs, c, cold, options=opts, device=dev))
     out["reopt"] = report("bench-reopt dual loop profile", by, ops, wall, bstep.steps["dual"], "dual batch step")
@@ -2781,6 +3051,20 @@ def add_call_device_us(recs: dict, us: dict) -> None:
     recs["batch_tail"]["cleanup_device_us"] = us["batch_tail 256x2048"]
 
 
+def timed(fn):
+    """``fn`` that prints its own seconds when it returns or raises."""
+
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    return run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "new"], default=None,
@@ -2797,6 +3081,9 @@ def main(argv=None) -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = timed(fn)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2806,7 +3093,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     if args.only == "new":
-        for phase in (phase_solve_batched, phase_reoptimize_batched, phase_pdhg):
+        for phase in (phase_solve_batched, phase_reoptimize_batched, phase_batch_rules,
+                      phase_reopt_rules, phase_pdhg):
             for tag, counts in phase(dev).items():
                 print(f"launches on path '{tag}': {counts}")
             torch.cuda.empty_cache()
@@ -2856,6 +3144,10 @@ def main(argv=None) -> int:
     paths.update(phase_solve_batched(dev))
     torch.cuda.empty_cache()
     paths.update(phase_reoptimize_batched(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_batch_rules(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_reopt_rules(dev))
     torch.cuda.empty_cache()
     paths.update(phase_pdhg(dev))
     torch.cuda.empty_cache()

@@ -26,7 +26,11 @@ x_b absorbs B_inv A dx). ``refactor_every`` re-inverts the due scenarios
 left OPTIMAL re-invert and run the batched primal loop
 (:func:`simplex_tpu_torch.batch.step.batch_solve_state`, which prices a
 dense shared A through the batched pricing kernel) to certify optimality;
-the others keep their status.
+the others keep their status. Under devex and steepest edge the state
+carries e and gamma through the dual loop untouched (it never reads them);
+at the switch the re-inversion re-derives e, devex restarts its weights at
+1 and steepest edge recomputes 1 + |B_inv A_j|^2 for the scenarios that go
+on, in chunks of scenarios (``step.steepest_gamma_batched``).
 """
 
 from __future__ import annotations
@@ -297,6 +301,6 @@ def warm_solve_state(
     ok = s.status == int(SolveStatus.OPTIMAL)
     if not _bs._read([ok.any()], "maintenance")[0]:
         return s
-    s = _bs.refactorize(prob, s, ok)
+    s = _bs.refactorize(prob, s, ok, opts.pricing, exact_gamma=opts.pricing == "steepest")
     s.status = torch.where(ok, RUNNING, s.status).to(torch.int32)
     return _bs.batch_solve_state(prob, s, opts, max_iter, backend, members=ok)

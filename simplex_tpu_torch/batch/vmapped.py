@@ -5,7 +5,9 @@ and statuses. JAX vmaps its whole solve; here the batch axis is written out
 (:mod:`simplex_tpu_torch.batch.step`, :mod:`simplex_tpu_torch.batch.dual`):
 one batch step pivots every running instance at once through three batched
 Hopper kernels (pricing, the pivot's tail, the rank-1 update) with one
-control read, and a finished instance is left as it is.
+control read, and a finished instance is left as it is. Every pricing rule
+of the single solve runs batched: Dantzig over A, the bf16 shadow or a
+column segment (``partial_pricing``), devex and steepest edge.
 
   solve_batched        B independent LPs (A (B, m, n), b (B, m), c (B, n)),
                        each from its slack basis; optional bounds u (n,)
@@ -69,8 +71,23 @@ def _prepare(options: SimplexOptions, what: str, mesh) -> SimplexOptions:
             "multi_price=%d is inert in solve_batched (single-chip dantzig "
             "only); solving without multiple pricing", options.multi_price
         )
-    _bs._check_options(options, what)
+    if options.pricing_sparse:
+        # as in the JAX package: its batched paths build no sparse shadow
+        # (only the single solve reads the option)
+        get_logger("batch").warning(
+            "pricing_sparse is inert in %s (the batched paths build no sparse "
+            "shadow); pricing the dense A", what
+        )
     return options
+
+
+def _shadow(prob: Problem, options: SimplexOptions) -> Problem:
+    """The bf16 pricing shadow of a dense A, under the Dantzig rule only
+    (``simplex_tpu.core.state.with_pricing_shadow``: devex and steepest
+    edge never read it)."""
+    if options.pricing_dtype != "float32" and options.pricing == "dantzig" and not _sp.is_sparse(prob.A):
+        prob.A_price = prob.A.to(getattr(torch, options.pricing_dtype)).contiguous()
+    return prob
 
 
 def _bounds(u, n: int, device, dtype):
@@ -119,10 +136,8 @@ def solve_batched(
     def put(v):
         return torch.as_tensor(v, device=device).to(dtype).contiguous()
 
-    prob = Problem(A=put(As), b=put(bs), c=put(cs), u=_bounds(u, n, device, dtype))
-    if options.pricing_dtype != "float32":
-        prob.A_price = prob.A.to(getattr(torch, options.pricing_dtype)).contiguous()
-    s = _bs.batch_state_slack(prob, dtype, options.resolve_defer())
+    prob = _shadow(Problem(A=put(As), b=put(bs), c=put(cs), u=_bounds(u, n, device, dtype)), options)
+    s = _bs.batch_state_slack(prob, dtype, options.resolve_defer(), options.pricing)
     final = _bs.batch_solve_state(
         prob, s, options, options.resolve_max_iter(m, n), get_backend(options.backend)
     )
@@ -194,11 +209,10 @@ def reoptimize_batched(
     def put(v):
         return torch.as_tensor(v, device=device).to(dtype).contiguous()
 
-    prob = Problem(A=A_dev, b=put(bs_new), c=put(c), u=_bounds(u, n, device, dtype))
-    if options.pricing_dtype != "float32" and not sparse:
-        prob.A_price = A_dev.to(getattr(torch, options.pricing_dtype)).contiguous()
+    prob = _shadow(Problem(A=A_dev, b=put(bs_new), c=put(c), u=_bounds(u, n, device, dtype)), options)
     s = _bs.batch_state_from_basis(
-        prob, basis0, dtype, at_upper0 if u is not None else None, options.resolve_defer()
+        prob, basis0, dtype, at_upper0 if u is not None else None, options.resolve_defer(),
+        options.pricing,
     )
     final = _bd.warm_solve_state(
         prob, s, options, options.resolve_max_iter(m, n), get_backend(options.backend)

@@ -8,6 +8,11 @@ run them, one call at a time:
                                 --mode reopt's primal clean-up step)
   tail 4096x64                  pivot_tail_batched, Harris, every instance
   tail 256x2048                 active (the batch step; the clean-up's)
+  window 64x512x4096 S=8        choose_entering_batched with a window of
+  window bf16 64x512x4096 S=8   512 columns an instance (segmented pricing,
+  window shared 256x2048x4096   partial_pricing = 8), per instance fp32 and
+    S=8                         bf16, and on a shared A; starts that differ
+                                between instances
 
 For each: ``events_ms``, the mean of 200 back-to-back calls between CUDA
 events, and ``device_us``, the device time of every kernel one call
@@ -17,7 +22,8 @@ and power limit.
 
 Only the wrappers' signatures are used, so the file also times another
 checkout of the port (the parent of a change, say) when that checkout's
-package comes first on the path; run the two in turns in one call:
+package comes first on the path (a checkout whose wrapper takes no window
+skips the window cases); run the two in turns in one call:
 
     python -m simplex_tpu_torch.bench.batch_kernels --tag change
     PYTHONPATH=path/to/parent python3 simplex_tpu_torch/bench/batch_kernels.py --tag parent
@@ -25,6 +31,7 @@ package comes first on the path; run the two in turns in one call:
 
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 import sys
@@ -68,7 +75,7 @@ def cases(dev: torch.device) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(11)
 
-    def pricing(Bn, m, n, shared, dtype=torch.float32):
+    def pricing(Bn, m, n, shared, dtype=torch.float32, S=0):
         y = torch.randn(Bn, m, generator=g, device=dev) / m ** 0.5
         lead = () if shared else (Bn,)
         A = torch.randn(*lead, m, n, generator=g, device=dev).to(dtype)
@@ -76,6 +83,9 @@ def cases(dev: torch.device) -> dict:
         basis = torch.rand(Bn, n, generator=g, device=dev).argsort(1)[:, :m]
         basis = basis.to(torch.int32).contiguous()
         no = torch.zeros(Bn, dtype=torch.bool, device=dev)
+        if S:
+            win = (n // S, S, torch.randint(0, 1000, (Bn,), generator=g, device=dev).to(torch.int32))
+            return lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win)
         return lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis)
 
     def tail(Bn, m):
@@ -90,13 +100,20 @@ def cases(dev: torch.device) -> dict:
                 zeros.clone(), zeros.clone(), torch.ones(Bn, dtype=torch.bool, device=dev))
         return lambda: hopper.pivot_tail_batched(*args, **TAIL_OPTS)
 
-    return {
+    out = {
         "pricing fp32 4096x64x160": pricing(4096, 64, 160, False),
         "pricing bf16 4096x64x160": pricing(4096, 64, 160, False, torch.bfloat16),
         "pricing shared 256x2048x4096": pricing(256, 2048, 4096, True),
         "tail 4096x64": tail(4096, 64),
         "tail 256x2048": tail(256, 2048),
     }
+    if "window" in inspect.signature(hopper.choose_entering_batched).parameters:
+        out.update({
+            "window 64x512x4096 S=8": pricing(64, 512, 4096, False, S=8),
+            "window bf16 64x512x4096 S=8": pricing(64, 512, 4096, False, torch.bfloat16, S=8),
+            "window shared 256x2048x4096 S=8": pricing(256, 2048, 4096, True, S=8),
+        })
+    return out
 
 
 def main(argv=None) -> int:

@@ -3,7 +3,7 @@
 Usage:
   python -m simplex_tpu_torch.cli solve INPUT [--mps] [--sparse] [--time]
       [--algo simplex|pdhg] [--pdhg-tol T] [--crossover]
-  python -m simplex_tpu_torch.cli verify INPUT [--mps] [--oracle scipy] [--gap G]
+  python -m simplex_tpu_torch.cli verify INPUT [--mps] [--oracle scipy|native] [--gap G]
   python -m simplex_tpu_torch.cli analyze INPUT [--mps] [--sparse]
       [--top-cols K] [--reoptimize 'i=delta,...']
   python -m simplex_tpu_torch.cli trace INPUT [--mps] [--verbose]
@@ -20,7 +20,9 @@ default bounds is solved in canonical form from its slack basis; anything
 else (and every ``--sparse`` input, whose A stays scipy.sparse and is solved
 sparse on the device) goes through the two-phase route (``solve_general``).
 The objective is reported in the instance's own sense, constant included.
-``verify`` compares with HiGHS (scipy), ``analyze`` prints duals and the
+``verify`` compares with HiGHS (scipy) or the native f64 oracle (g++ at
+first use; a general-route input is always held against HiGHS on its
+general form), ``analyze`` prints duals and the
 rhs / cost ranges and re-solves warm after a rhs change, ``trace`` prints
 the pivot path. Exit code 0 on OPTIMAL (verify: on agreement), 2 on any
 other status, 1 on bad input, a failed check or an option the port does
@@ -58,9 +60,9 @@ def _load(path: str, use_mps: bool, sparse: bool = False):
             lower=prob.lower, upper=prob.upper,
         )
         return lp, prob.c0, prob.maximize
-    from simplex_tpu_torch.io.text import load_lp
+    from simplex_tpu_torch.io.native import load_lp_fast
 
-    A, b, c = load_lp(path)
+    A, b, c = load_lp_fast(path)  # native mmap parser, Python fallback
     return (A, b, c, None), 0.0, True
 
 
@@ -213,18 +215,23 @@ def cmd_solve(args) -> int:
 
 
 def _oracle(name: str):
+    """``simplex_tpu.oracle.get_oracle``: HiGHS through scipy, or the
+    native f64 simplex (built with g++ at first use)."""
     if name == "scipy":
         from simplex_tpu_torch.oracle.reference import solve_scipy
 
         return solve_scipy
-    raise NotImplementedError(
-        f"--oracle {name} is not ported to simplex_tpu_torch yet (ROADMAP.md, open item 19)"
-    )
+    if name == "native":
+        from simplex_tpu_torch.oracle.native import solve_native
+
+        return solve_native
+    raise ValueError(f"unknown oracle {name!r}")
 
 
 def cmd_verify(args) -> int:
     """Solve, then compare status and objective with an oracle (HiGHS
-    through scipy): exit 0 when they agree within ``--gap``."""
+    through scipy, or the native f64 simplex): exit 0 when they agree
+    within ``--gap``."""
     from simplex_tpu_torch.core.solver import solve
     from simplex_tpu_torch.core.twophase import GeneralLP, solve_general
     from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy_general

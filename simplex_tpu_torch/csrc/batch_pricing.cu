@@ -51,6 +51,23 @@
 // an instance), which the epilogue reads; every (instance, column tile)
 // leaves one record.
 //
+// 3. A window (segmented pricing, simplex_tpu/core/step.py's lax.switch
+// over static column segments, under vmap every segment for every
+// instance): instance i prices columns [lo_i, lo_i + w), lo_i = (seg[i] mod
+// S) * w with seg (the iteration counts) read on the device, the row stride
+// still n. The per-instance kernels of 1 run it as template instances of
+// their own (WIN), so the unwindowed code is what it was: a grid of
+// ceil(w / 256) chunks an instance, each chunk's columns offset by lo_i, the
+// pick global. The result is bit for bit the unwindowed call on each
+// instance's contiguous slice A[i][:, lo_i : lo_i + w] with lo_i added to
+// the index (the records merge as a minimum under one total order, so the
+// chunking does not matter). A shared A takes the same scan with an
+// instance stride of 0 (instances of one 64-instance tile of layout 2 may
+// sit in different windows): B * m * w reads that hit L2 after the first
+// instance of each window, instead of the tiled product's one read of A.
+// Bound: the bytes of the windows, B * m * w * 4 (per instance) or m * n
+// * 4 and the 2 B m w operations (shared).
+//
 // Records: (min e, lowest argmin, NaN first as torch.argmin puts it;
 // lowest index with e < -eps), merged by warp shuffles and shared memory.
 // Where one chunk / tile covers n the kernel writes the instance's choice;
@@ -140,9 +157,11 @@ __device__ __forceinline__ Rec column_rec(float acc, float c, bool upper, bool b
   return Rec{e, j, e < -eps ? j : kIntMax};
 }
 
+// lo: the instance's first column (under Bland's rule with no eligible
+// column the pick is lo, the unwindowed call's 0 on the slice)
 __device__ __forceinline__ void choose(const Rec& r, bool bland, int* p_out,
-                                       float* min_out, int i) {
-  p_out[i] = bland ? (r.neg == kIntMax ? 0 : r.neg) : r.i;
+                                       float* min_out, int i, int lo) {
+  p_out[i] = bland ? (r.neg == kIntMax ? lo : r.neg) : r.i;
   min_out[i] = r.v;
 }
 
@@ -160,11 +179,11 @@ __device__ __forceinline__ void mark_chunk(unsigned char* basic, const int* bi, 
 // the block's record: the instance's choice, or its chunk's record
 __device__ __forceinline__ void finish_chunk(Rec rec, Rec* red, const unsigned char* use_bland,
                                              int inst, int chunks, Rec* recs, int* p_out,
-                                             float* min_out) {
+                                             float* min_out, int lo) {
   rec = block_merge(rec, red);
   if (threadIdx.x == 0) {
     if (chunks == 1)
-      choose(rec, use_bland[inst] != 0, p_out, min_out, inst);
+      choose(rec, use_bland[inst] != 0, p_out, min_out, inst, lo);
     else
       recs[(size_t)inst * chunks + blockIdx.x] = rec;
   }
@@ -186,24 +205,39 @@ struct Args {
   Rec* recs;
   int* p_out;
   float* min_out;
+  // the window (WIN kernels only): width, segments, the (B,) segment
+  // counters, and the elements between two instances' A (0: shared)
+  int win, win_s;
+  const int* win_seg;
+  size_t a_stride;
 };
+
+// instance inst's first column, (seg mod S) * w with a non-negative mod
+__device__ __forceinline__ int window_lo(const Args& P, int inst) {
+  int s = P.win_seg[inst] % P.win_s;
+  if (s < 0) s += P.win_s;
+  return s * P.win;
+}
 
 // ---------------------------------------------------------------- per instance
 
-template <typename T>
+template <typename T, bool WIN>
 __global__ void __launch_bounds__(kThreads) batch_pricing_scan_kernel(const Args P) {
   __shared__ unsigned char basic[kChunk];
   __shared__ Rec red[32];
   const int inst = blockIdx.y;
-  const int lo = blockIdx.x * kChunk;
+  const int base = WIN ? window_lo(P, inst) : 0;
+  const int lo = base + blockIdx.x * kChunk;
   const int j = lo + (int)threadIdx.x;
   const int m = P.m, n = P.n;
+  const int end = WIN ? base + P.win : n;
   mark_chunk(basic, P.basis + (size_t)inst * m, m, lo);
 
   Rec rec{INFINITY, kIntMax, kIntMax};
-  if (j < n) {
+  if (j < end) {
     const float* yi = P.y + (size_t)inst * m;
-    const T* col = static_cast<const T*>(P.A) + (size_t)inst * m * n + j;
+    const T* col = static_cast<const T*>(P.A) +
+                   (WIN ? (size_t)inst * P.a_stride : (size_t)inst * m * n) + j;
     float acc = 0.f;
     int r = 0;
     for (; r + kRows <= m; r += kRows) {
@@ -222,27 +256,33 @@ __global__ void __launch_bounds__(kThreads) batch_pricing_scan_kernel(const Args
     rec = column_rec(acc, P.c[(size_t)inst * P.c_stride + j],
                      P.at_upper != nullptr && P.at_upper[cn], basic[threadIdx.x], j, P.eps);
   }
-  finish_chunk(rec, red, P.use_bland, inst, P.chunks, P.recs, P.p_out, P.min_out);
+  finish_chunk(rec, red, P.use_bland, inst, P.chunks, P.recs, P.p_out, P.min_out, base);
 }
 
 // the bf16 shadow at n % 4 == 0: four adjacent columns a thread from one
 // 8-byte load a row, eight rows in flight (a bf16 is the top half of its
-// fp32 value, so the shifts convert exactly)
+// fp32 value, so the shifts convert exactly). Windowed: w % 4 == 0, so
+// every window starts on a 4-column boundary.
+template <bool WIN>
 __global__ void __launch_bounds__(kChunk / kCols) batch_pricing_bf16x4_kernel(const Args P) {
   __shared__ unsigned char basic[kChunk];
   __shared__ Rec red[32];
   const int inst = blockIdx.y;
-  const int lo = blockIdx.x * kChunk;
+  const int base = WIN ? window_lo(P, inst) : 0;
+  const int lo = base + blockIdx.x * kChunk;
   const int tc = kCols * (int)threadIdx.x;
   const int j = lo + tc;
   const int m = P.m, n = P.n;
+  const int end = WIN ? base + P.win : n;
   mark_chunk(basic, P.basis + (size_t)inst * m, m, lo);
 
   Rec rec{INFINITY, kIntMax, kIntMax};
-  if (j < n) {  // n % 4 == 0: the four columns are all in
+  if (j < end) {  // n % 4 == 0 (and w % 4 == 0): the four columns are all in
     const float* yi = P.y + (size_t)inst * m;
     const size_t step = (size_t)(n / kCols);  // 8-byte words a row
-    const uint2* col = static_cast<const uint2*>(P.A) + (size_t)inst * m * step + j / kCols;
+    const uint2* col = static_cast<const uint2*>(P.A) +
+                       (WIN ? (size_t)inst * (P.a_stride / kCols) : (size_t)inst * m * step) +
+                       j / kCols;
     float acc[kCols] = {0.f, 0.f, 0.f, 0.f};
     auto fma4 = [&](float yr, uint2 v) {
       acc[0] = fmaf(yr, __uint_as_float(v.x << 16), acc[0]);
@@ -267,7 +307,7 @@ __global__ void __launch_bounds__(kChunk / kCols) batch_pricing_bf16x4_kernel(co
       rec = merge(rec, column_rec(acc[q], ci[j + q], up && P.at_upper[cn + q], basic[tc + q],
                                   j + q, P.eps));
   }
-  finish_chunk(rec, red, P.use_bland, inst, P.chunks, P.recs, P.p_out, P.min_out);
+  finish_chunk(rec, red, P.use_bland, inst, P.chunks, P.recs, P.p_out, P.min_out, base);
 }
 
 // ---------------------------------------------------------------- shared A
@@ -500,7 +540,7 @@ __global__ void __launch_bounds__(kProdThreads) batch_pricing_product_kernel(con
     for (int w = 1; w < kWarpsN; ++w) rec = merge(rec, red[w][threadIdx.x]);
     if (b < P.batch) {
       if (P.chunks == 1)
-        choose(rec, P.use_bland[b] != 0, P.p_out, P.min_out, b);
+        choose(rec, P.use_bland[b] != 0, P.p_out, P.min_out, b, 0);
       else
         P.recs[(size_t)b * P.chunks + blockIdx.x] = rec;
     }
@@ -523,6 +563,7 @@ cudaError_t launch_product(const Args& P, cudaStream_t s) {
 
 // ---------------------------------------------------------------- records
 
+template <bool WIN>
 __global__ void __launch_bounds__(kThreads) batch_pricing_reduce_kernel(const Args P) {
   __shared__ Rec red[32];
   const int inst = blockIdx.x;
@@ -530,7 +571,8 @@ __global__ void __launch_bounds__(kThreads) batch_pricing_reduce_kernel(const Ar
   for (int k = threadIdx.x; k < P.chunks; k += kThreads)
     rec = merge(rec, P.recs[(size_t)inst * P.chunks + k]);
   rec = block_merge(rec, red);
-  if (threadIdx.x == 0) choose(rec, P.use_bland[inst] != 0, P.p_out, P.min_out, inst);
+  if (threadIdx.x == 0)
+    choose(rec, P.use_bland[inst] != 0, P.p_out, P.min_out, inst, WIN ? window_lo(P, inst) : 0);
 }
 
 }  // namespace
@@ -545,25 +587,34 @@ __global__ void __launch_bounds__(kThreads) batch_pricing_reduce_kernel(const Ar
 // instance, ceil(n / 256) (layouts 0, 1) or ceil(n / 128) (2, 3); words:
 // ceil(n / 32) (2, 3; else 0). Scratch: mask, B * words uint32 (2, 3);
 // recs, B * chunks 12-byte records where chunks > 1. Outputs: p (B,) int32,
-// min_e (B,) fp32. Returns a cudaError_t; an inconsistent plan is
+// min_e (B,) fp32. The window: win = 0 prices every column; win > 0 (layouts
+// 0 and 1 only, chunks = ceil(win / 256), win * win_s <= n, layout 1 also
+// win % 4 == 0) prices [(win_seg[i] mod win_s) * win, + win) of instance i,
+// win_seg (B,) int32; a_shared (windowed only): one A (m, n) for every
+// instance. Returns a cudaError_t; an inconsistent plan is
 // cudaErrorInvalidValue.
 extern "C" int simplex_batch_pricing(int layout, int a_dtype, const void* y, const void* A,
                                      const void* c, const void* at_upper, const void* basis,
                                      const void* use_bland, int batch, int m, int n,
                                      int c_shared, float eps, int chunks, int words,
-                                     void* mask, void* recs, void* p, void* min_e,
+                                     void* mask, void* recs, void* p, void* min_e, int win,
+                                     int win_s, const void* win_seg, int a_shared,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool shared = layout >= 2;
+  const bool windowed = win > 0;
   const int tile = shared ? kTileN : kChunk;
+  const int span = windowed ? win : n;
   const uintptr_t ya = reinterpret_cast<uintptr_t>(y), aa = reinterpret_cast<uintptr_t>(A);
   const bool copies16 = m % 4 == 0 && (n * (a_dtype == 1 ? 2 : 4)) % 16 == 0 && ya % 16 == 0 &&
                         aa % 16 == 0;
   if (layout < 0 || layout > 3 || a_dtype < 0 || a_dtype > 1 || batch < 1 || m < 1 || n < 1 ||
-      chunks != (n + tile - 1) / tile || words != (shared ? (n + 31) / 32 : 0) ||
-      (layout == 1 && (a_dtype != 1 || n % kCols != 0 || aa % 8 != 0)) ||
+      win < 0 || chunks != (span + tile - 1) / tile || words != (shared ? (n + 31) / 32 : 0) ||
+      (layout == 1 && (a_dtype != 1 || n % kCols != 0 || aa % 8 != 0 ||
+                       (windowed && win % kCols != 0))) ||
       (layout == 2 && !copies16) || (shared && mask == nullptr) ||
-      (chunks > 1 && recs == nullptr))
+      (chunks > 1 && recs == nullptr) || (a_shared && !windowed) ||
+      (windowed && (shared || win_s < 1 || (long long)win * win_s > n || win_seg == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args P;
   P.y = static_cast<const float*>(y);
@@ -583,15 +634,27 @@ extern "C" int simplex_batch_pricing(int layout, int a_dtype, const void* y, con
   P.recs = static_cast<Rec*>(recs);
   P.p_out = static_cast<int*>(p);
   P.min_out = static_cast<float*>(min_e);
+  P.win = win;
+  P.win_s = win_s;
+  P.win_seg = static_cast<const int*>(win_seg);
+  P.a_stride = a_shared ? 0 : (size_t)m * n;
   const bool bf16 = a_dtype == 1;
   if (!shared) {
     const dim3 grid(chunks, batch);
-    if (layout == 1)
-      batch_pricing_bf16x4_kernel<<<grid, kChunk / kCols, 0, s>>>(P);
-    else if (bf16)
-      batch_pricing_scan_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(P);
-    else
-      batch_pricing_scan_kernel<float><<<grid, kThreads, 0, s>>>(P);
+    if (windowed) {
+      if (layout == 1)
+        batch_pricing_bf16x4_kernel<true><<<grid, kChunk / kCols, 0, s>>>(P);
+      else if (bf16)
+        batch_pricing_scan_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, s>>>(P);
+      else
+        batch_pricing_scan_kernel<float, true><<<grid, kThreads, 0, s>>>(P);
+    } else if (layout == 1) {
+      batch_pricing_bf16x4_kernel<false><<<grid, kChunk / kCols, 0, s>>>(P);
+    } else if (bf16) {
+      batch_pricing_scan_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, s>>>(P);
+    } else {
+      batch_pricing_scan_kernel<float, false><<<grid, kThreads, 0, s>>>(P);
+    }
   } else {
     batch_pricing_mask_kernel<<<batch, kThreads, 0, s>>>(P);
     cudaError_t err = cudaGetLastError();
@@ -608,7 +671,10 @@ extern "C" int simplex_batch_pricing(int layout, int a_dtype, const void* y, con
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return (int)err;
-  batch_pricing_reduce_kernel<<<batch, kThreads, 0, s>>>(P);
+  if (windowed)
+    batch_pricing_reduce_kernel<true><<<batch, kThreads, 0, s>>>(P);
+  else
+    batch_pricing_reduce_kernel<false><<<batch, kThreads, 0, s>>>(P);
   return (int)cudaGetLastError();
 }
 

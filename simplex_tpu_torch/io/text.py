@@ -1,10 +1,11 @@
 """The reference text format: ``m n``, then A (m x n), b (m), c (n),
 whitespace separated. A numpy-only copy of ``simplex_tpu.io.text``'s
-readers: that package imports jax, this one must not.
+readers and writer: that package imports jax, this one must not.
 """
 
 from __future__ import annotations
 
+import io
 import os
 from typing import Tuple
 
@@ -39,3 +40,23 @@ def load_lp(path: str | os.PathLike, dtype=np.float32):
     m, n = int(tokens[0]), int(tokens[1])
     need = 2 + m * n + m + n
     return loads_lp(" ".join(tokens[:need]), dtype=dtype)
+
+
+def dumps_lp(A: np.ndarray, b: np.ndarray, c: np.ndarray) -> str:
+    """(A, b, c) in the text format, each value as Python's repr of it."""
+    m, n = A.shape
+    buf = io.StringIO()
+    buf.write(f"{m} {n}\n")
+    for row in np.asarray(A):
+        buf.write(" ".join(repr(float(v)) for v in row))
+        buf.write("\n")
+    buf.write(" ".join(repr(float(v)) for v in np.asarray(b)))
+    buf.write("\n")
+    buf.write(" ".join(repr(float(v)) for v in np.asarray(c)))
+    buf.write("\n")
+    return buf.getvalue()
+
+
+def save_lp(path: str | os.PathLike, A, b, c) -> None:
+    with open(path, "w") as f:
+        f.write(dumps_lp(np.asarray(A), np.asarray(b), np.asarray(c)))

@@ -56,7 +56,8 @@ _SIGNATURES = {
     "simplex_rank1_update": (_P, _P, _P, _I, _I, _P),
     "simplex_batch_pricing": (
         _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,  # layout .. words
-        _P, _P, _P, _P, _P,  # mask, recs, p, min_e, stream
+        _P, _P, _P, _P,  # mask, recs, p, min_e
+        _I, _I, _P, _I, _P,  # win, win_s, win_seg, a_shared, stream
     ),
     "simplex_batch_pricing_record_bytes": (),
     "simplex_batch_tail": (

@@ -632,23 +632,33 @@ def _alignment(*ts: torch.Tensor) -> int:
     return a
 
 
-def batch_pricing_plan(Bn: int, m: int, n: int, *, shared: bool, bf16: bool, align: int) -> dict:
+def batch_pricing_plan(
+    Bn: int, m: int, n: int, *, shared: bool, bf16: bool, align: int, window: int = 0
+) -> dict:
     """How :func:`choose_entering_batched` launches ``csrc/batch_pricing.cu``
     for B = ``Bn`` instances of m x n, A per instance or ``shared``, fp32 or
-    ``bf16``, its pointers aligned to ``align`` bytes (y's and A's):
+    ``bf16``, its pointers aligned to ``align`` bytes (y's and A's), every
+    column or a ``window`` of that many columns an instance (the per-instance
+    layouts then, for a shared A too, with an instance stride of 0):
 
     ``layout``: "scan" (per instance, a column a thread), "bf16x4" (per
     instance, the bf16 shadow at n % 4 == 0: four columns a thread), "shared"
     (one A: the tiled product fed by 16-byte copies, which need m % 4 == 0,
     rows of a multiple of 16 bytes and 16-byte alignment) or
-    "shared_loads" (the same product fed by element loads); ``grid`` and
+    "shared_loads" (the same product fed by element loads); a window takes
+    "scan", or "bf16x4" where its width is a multiple of 4; ``grid`` and
     ``threads`` of the main launch; ``chunks`` records an instance (one
     chunk: the main launch writes the choice and no reduction launch
     follows); ``words`` of the shared layout's basic-column mask an
     instance; ``scratch_words``, the int32 words of scratch (mask, then
     records); ``launches``, the kernels the call runs. Raises where a grid
     would be too tall."""
-    if shared:
+    if window:
+        chunks, words = -(-window // _BP_CHUNK), 0
+        quads = bf16 and n % 4 == 0 and window % 4 == 0 and align >= 8
+        layout, threads = ("bf16x4", 64) if quads else ("scan", 256)
+        grid = (chunks, Bn)
+    elif shared:
         chunks, words = -(-n // _BP_TILE_N), -(-n // 32)
         copies = m % 4 == 0 and (n * (2 if bf16 else 4)) % 16 == 0 and align >= 16
         layout, threads = ("shared" if copies else "shared_loads"), 256
@@ -663,13 +673,13 @@ def batch_pricing_plan(Bn: int, m: int, n: int, *, shared: bool, bf16: bool, ali
     recs = Bn * chunks * _BP_RECORD_WORDS if chunks > 1 else 0
     return dict(layout=layout, grid=grid, threads=threads, chunks=chunks, words=words,
                 scratch_words=Bn * words + recs,
-                launches=int(shared) + 1 + int(chunks > 1))
+                launches=int(shared and not window) + 1 + int(chunks > 1))
 
 
-def choose_entering_batched_plain(y, A, c, eps, use_bland, basis, at_upper=None):
+def choose_entering_batched_plain(y, A, c, eps, use_bland, basis, at_upper=None, window=None):
     """The per-instance masked choice as plain torch ops
     (:func:`simplex_tpu_torch.kernels.ops.choose_entering_batched`)."""
-    return _ops.choose_entering_batched(y, A, c, eps, use_bland, basis, at_upper)
+    return _ops.choose_entering_batched(y, A, c, eps, use_bland, basis, at_upper, window)
 
 
 def choose_entering_batched(
@@ -680,12 +690,17 @@ def choose_entering_batched(
     use_bland: torch.Tensor,
     basis: torch.Tensor,
     at_upper: Optional[torch.Tensor] = None,
+    window=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(p (B,) int32, min_e (B,))``: the contract of
     :func:`simplex_tpu_torch.kernels.ops.choose_entering_batched` in one
     call of ``csrc/batch_pricing.cu`` (:func:`batch_pricing_plan`: per
     instance one launch where 256 columns cover n, two beyond; a shared A
-    a mask launch, the tiled product and a reduction beyond 128 columns).
+    a mask launch, the tiled product and a reduction beyond 128 columns;
+    a ``window = (w, S, seg)`` one launch where 256 columns cover w, two
+    beyond, its starts (seg[i] mod S) * w worked out on the device from
+    seg, an int32 (B,) tensor; bit for bit the unwindowed call on each
+    instance's slice with the start added to the pick).
     A is dense float32 or bfloat16, contiguous: per instance (B, m, n), or
     one (m, n) every instance shares; c is (B, n) or a shared (n,) float32.
     y (B, m) float32; use_bland (B,) bool; basis (B, m) int32; at_upper
@@ -707,11 +722,17 @@ def choose_entering_batched(
     if at_upper is not None:
         _batched(at_upper, (Bn, n), torch.bool, "at_upper")
         ins.append(at_upper)
+    w = S = 0
+    if window is not None:
+        w, S, seg = window
+        _batched(seg, (Bn,), torch.int32, "window seg")
+        _require(w >= 1 and S >= 1 and S * w <= n, f"window: {S} segments of {w} columns exceed n = {n}")
+        ins.append(seg)
     dev = _same_device(*ins)
     if dev.type == "cpu":
-        return choose_entering_batched_plain(y, A, c, eps, use_bland, basis, at_upper)
+        return choose_entering_batched_plain(y, A, c, eps, use_bland, basis, at_upper, window)
     plan = batch_pricing_plan(Bn, m, n, shared=A.dim() == 2, bf16=A.dtype == torch.bfloat16,
-                              align=_alignment(y, A))
+                              align=_alignment(y, A), window=w)
     lib = _build.load_library()
     scratch = None
     if plan["scratch_words"]:
@@ -725,6 +746,7 @@ def choose_entering_batched(
         basis.data_ptr(), use_bland.data_ptr(), Bn, m, n, int(c.dim() == 1), eps,
         plan["chunks"], plan["words"], None if mask is None else mask.data_ptr(),
         None if recs is None else recs.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        w, S, None if window is None else seg.data_ptr(), int(window is not None and A.dim() == 2),
         _stream(dev),
     )
     _build.check(err, "batch_pricing")

@@ -514,9 +514,13 @@ def rmat_batched(Y: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
 
 
 def add_basic_penalty_batched(s: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
-    """s[i] + BASIC_PENALTY at the columns basis[i] (the whole column range)."""
-    pen = torch.full(basis.shape, BASIC_PENALTY, dtype=s.dtype, device=s.device)
-    return s.scatter_add(1, basis.long(), pen)
+    """s[i] + BASIC_PENALTY at the columns basis[i] that fall in [0, n) (a
+    window's basis, shifted by its start, reaches outside it)."""
+    n = s.shape[1]
+    inside = (basis >= 0) & (basis < n)
+    # -0.0 adds nothing to any value, -0.0 included
+    pen = torch.where(inside, BASIC_PENALTY, -0.0).to(s.dtype)
+    return s.scatter_add(1, basis.long().clamp(0, n - 1), pen)
 
 
 def choose_from_costs_batched(
@@ -538,6 +542,27 @@ def choose_from_costs_batched(
     return p.to(torch.int32), e.min(1).values
 
 
+def window_starts(window, n: int) -> torch.Tensor:
+    """Each instance's first column of a pricing window ``(w, S, seg)``:
+    (seg[i] mod S) * w, int64 (B,), on seg's device. The window's S
+    starts must fit in a row of n columns."""
+    w, S, seg = window
+    if w < 1 or S < 1 or S * w > n:
+        raise ValueError(f"window: {S} segments of {w} columns do not fit in {n}")
+    return torch.remainder(seg.long(), S) * w
+
+
+def window_slice(A: torch.Tensor, lo: torch.Tensor, w: int) -> torch.Tensor:
+    """Columns [lo[i], lo[i] + w) of A for every instance, as one
+    contiguous (B, m, w) stack: of A[i] for a per-instance A, of the
+    shared A otherwise."""
+    Bn = lo.shape[0]
+    cols = lo[:, None] + torch.arange(w, device=lo.device)
+    if A.dim() == 2:
+        return A.index_select(1, cols.reshape(-1)).view(A.shape[0], Bn, w).permute(1, 0, 2).contiguous()
+    return A.gather(2, cols[:, None, :].expand(Bn, A.shape[1], w))
+
+
 def choose_entering_batched(
     y: torch.Tensor,
     A: torch.Tensor,
@@ -546,15 +571,67 @@ def choose_entering_batched(
     use_bland: torch.Tensor,
     basis: torch.Tensor,
     at_upper: Optional[torch.Tensor] = None,
+    window=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`choose_entering` (``at_upper`` None) or
     :func:`choose_entering_bounded` (the signed mode) for every instance,
     over e = y[i] . A[i] - c[i] accumulated in c's dtype. A is dense: per
     instance (B, m, n) (fp32 or the bf16 shadow) or one (m, n) every
     instance shares; c is (B, n) or a shared (n,). basis (B, m) int32,
-    at_upper (B, n) bool, ``use_bland`` (B,) bool."""
+    at_upper (B, n) bool, ``use_bland`` (B,) bool.
+
+    ``window = (w, S, seg)`` (seg an int32 (B,) tensor, such as the
+    iteration counts) prices only columns [lo_i, lo_i + w) of instance i,
+    lo_i = (seg[i] mod S) * w (segmented pricing): by definition the call
+    on each instance's contiguous slice of A, c and at_upper, with the
+    basic columns of the slice masked and lo_i added to the pick (under
+    Bland's rule with no eligible column, lo_i itself)."""
+    if window is not None:
+        n = A.shape[-1]
+        w = window[0]
+        lo = window_starts(window, n)
+        cols = lo[:, None] + torch.arange(w, device=lo.device)
+        c_w = c.index_select(0, cols.reshape(-1)).view(cols.shape) if c.dim() == 1 else c.gather(1, cols)
+        up_w = None if at_upper is None else at_upper.gather(1, cols)
+        p, min_e = choose_entering_batched(
+            y, window_slice(A, lo, w), c_w, eps, use_bland, (basis - lo[:, None]).to(torch.int32), up_w
+        )
+        return (p + lo).to(torch.int32), min_e
     e = rmat_batched(y.to(c.dtype), A) - c
     return choose_from_costs_batched(e, eps, use_bland, basis, at_upper)
+
+
+def devex_choose_batched(
+    e: torch.Tensor, gamma: torch.Tensor, eps: float, use_bland: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`devex_choose` for every instance: e, gamma (B, n), use_bland
+    (B,) bool; ``(p (B,) int32, min_e (B,))``. The lowest-index argmax of
+    e^2 / gamma over the columns with e < -eps (basic columns are not
+    masked, as in the single op: the caller's exact recheck catches a
+    drifted basic pick); min_e is the minimum of e."""
+    neg = e < -eps
+    score = torch.where(neg, (e * e) / gamma, -math.inf)
+    p_bland = torch.argmax(neg.to(torch.int32), 1)
+    p = torch.where(use_bland.to(torch.bool), p_bland, torch.argmax(score, 1))
+    return p.to(torch.int32), e.min(1).values
+
+
+def devex_choose_bounded_batched(
+    e: torch.Tensor,
+    gamma: torch.Tensor,
+    at_upper: torch.Tensor,
+    eps: float,
+    use_bland: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`devex_choose_bounded` for every instance, ``(p, min_s)``:
+    eligibility and the termination value take the signed reduced cost
+    s = at_upper ? -e : e, the score e^2 / gamma is sign-free."""
+    s = torch.where(at_upper, -e, e)
+    neg = s < -eps
+    score = torch.where(neg, (e * e) / gamma, -math.inf)
+    p_bland = torch.argmax(neg.to(torch.int32), 1)
+    p = torch.where(use_bland.to(torch.bool), p_bland, torch.argmax(score, 1))
+    return p.to(torch.int32), s.min(1).values
 
 
 def _ratio_batched(x_b, alpha, basis, pivot_tol, use_bland, harris, feas_tol):

@@ -624,13 +624,20 @@ def test_batched_wrappers_check_their_inputs():
     ],
 )
 def test_unported_batch_options_raise(opts, what):
+    """The options ROADMAP item 16b ported to the batched paths (devex,
+    steepest edge, segmented pricing) no longer raise: both entry points
+    run them and agree with the JAX package's statuses and answers
+    (``tests/test_torch_batch_rules.py`` holds them at full depth)."""
     As, bs, cs = stack_lps(2, 4, 10)
-    with pytest.raises(NotImplementedError, match=what):
-        solve_batched(As, bs, cs, options=SimplexOptions(**opts), device="cpu")
+    res = solve_batched(As, bs, cs, options=SimplexOptions(**opts), device="cpu")
+    jres = jax_solve_batched(As, bs, cs, options=JaxOptions(**opts))
+    np.testing.assert_array_equal(res.status, jres.status)
+    np.testing.assert_allclose(res.z, jres.z, rtol=1e-5)
     A, b, c = random_dense_lp(4, 10, seed=1)
     cold = solve(A, b, c, device="cpu")
-    with pytest.raises(NotImplementedError, match=what):
-        reoptimize_batched(A, b[None], c, cold, options=SimplexOptions(**opts), device="cpu")
+    warm = reoptimize_batched(A, b[None], c, cold, options=SimplexOptions(**opts), device="cpu")
+    assert SolveStatus(int(warm.status[0])) == SolveStatus.OPTIMAL, what
+    assert relative_gap(float(warm.z[0]), cold.z) < 1e-5
 
 
 def test_mesh_raises_and_multi_price_warns():

@@ -101,19 +101,21 @@ def test_analyze_reoptimize_sample(capsys):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["verify", SAMPLE, "--oracle", "native"],
+        ["verify", SAMPLE, "--pricing", "steepest", "--multi-price", "8"],
         ["verify", SAMPLE, "--algo", "pdhg"],
         ["analyze", SAMPLE, "--algo", "pdhg"],
         ["trace", SAMPLE, "--algo", "pdhg"],
-        ["verify", str(DATA / "prod_bounded.mps"), "--oracle", "native"],
+        ["verify", str(DATA / "prod_bounded.mps"), "--pricing", "steepest", "--multi-price", "8"],
     ],
 )
 def test_not_implemented_exits_1(capsys, argv):
     rc, out, err = run(capsys, argv)
     assert rc == 1 and out == ""
-    # the native oracle is not ported yet; --algo pdhg runs under solve only,
-    # as in the JAX CLI
-    want = "ROADMAP.md, open item" if "--oracle" in argv else "runs under `solve` only"
+    # steepest edge does not compose with multiple pricing (canonical and
+    # general route alike); --algo pdhg runs under solve only, as in the
+    # JAX CLI. (The native oracle these cases once named is ported:
+    # tests/test_torch_native.py.)
+    want = "does not compose" if "--multi-price" in argv else "runs under `solve` only"
     assert err.startswith("error: ") and want in err
 
 
