@@ -31,7 +31,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      x 129, 130 x 257 x 1000, 130 x 260 x 1000 (a tail on every tile axis,
      with and without 16-byte copies) and the warm re-solve's 256 x 2048 x
      4096, and bit for bit against the per-instance path on the same A
-     expanded (8 x 2048 x 4096, 70 x 33 x 300); the tail and rank-1 bit for
+     expanded (8 x 2048 x 4096, 70 x 33 x 300); its window mode (segmented
+     pricing) on every layout the plan gives it (the bulk-copy scan, the
+     scan and four-column kernels where shapes or a misaligned base forbid
+     bulk copies, a shared A grouped by window on 16-byte copies and on
+     element loads), each case printed with its layout and bit for bit the
+     call on each instance's slice, and the grouping against its plain
+     twin; the tail and rank-1 bit for
      bit at 4,096 x 64, 3 x 17, 8 x 2048 and 37 x 1100 and, for the tail,
      both of its paths (one warp an instance up to 256 rows, rows a lane
      1 to 8, misaligned loads; one block an instance beyond, and forced at
@@ -112,10 +118,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      default path on phase 13's instance, and the device time of one
      sparse and one dense pricing pass there; and the ratio kernels'
      device time a launch from a trace of the per-op bench's loop; and a
-     trace of one ``solve_batched`` call (phase 15's recipe at B = 4,096):
-     device ops and device us a batch step, and each batched kernel's; the
+     trace of one ``solve_batched`` call (phase 15's recipe at B = 4,096,
+     under Dantzig, devex and steepest edge, and the segmented cell, fp32
+     and bf16): device ops and device us a batch step, and each batched
+     kernel's; the
      device us a call of the redesigned batched kernels (shared-A and bf16
-     pricing, the tail's two paths and its 256 x 2048 shape); of
+     pricing, the windows per instance and on a shared A, the tail's two
+     paths and its 256 x 2048 shape); of
      one ``reoptimize_batched`` call (phase 16's) a dual batch step; and of
      1,280 PDHG iterations (phase 17's 256 x 640 and T = 64 sparse) an
      iteration. It runs last: after a profiler run every later launch of the process
@@ -909,25 +918,50 @@ def check_shared_is_per_instance(dev, g, Bn: int, m: int, n: int) -> None:
 # segmented pricing's window cell: 64 instances of random_dense_lp(512,
 # 4096) with partial_pricing = 8 (w = 512 = partial_min_segment)
 SEG_B, SEG_M, SEG_N, SEG_S = 64, 512, 4096, 8
+# the segmented cell's path under the window's first version (the
+# per-instance scan for every window, run on an H100 beside this code):
+# pivots of all instances, the most of one, batch steps, and the failed
+# segment and shadow stages. The window is bit for bit the call on each
+# slice, so every pick, and so the whole path, is the same under any of its
+# layouts.
+SEG_PATH = {
+    "fp32": dict(pivots=50344, max_pivots=1064, steps=1066, segment=324, shadow=0),
+    "bf16 shadow": dict(pivots=49758, max_pivots=955, steps=957, segment=321, shadow=57),
+}
 
 
-def window_inputs(dev, g, Bn, m, n, S, shared=False):
+def window_inputs(dev, g, Bn, m, n, S, shared=False, one_window=False):
     """batch_pricing_inputs plus each instance's segment counter (random
     iteration counts, so the windows differ between instances and some
-    end at n) and the window's starts."""
+    end at n; ``one_window``: every instance in the same window)."""
     import torch
 
     y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared)
     seg = torch.randint(0, 1000, (Bn,), generator=g, device=dev).to(torch.int32)
-    seg[0] = S - 1  # the last window, which ends at n
+    if one_window:
+        seg.fill_(5 * S + S // 2)
+    else:
+        seg[0] = S - 1  # the last window, which ends at n
     return y, A, c, basis, seg
+
+
+def window_layout(y, A, w, S) -> str:
+    """The layout batch_pricing's plan gives this window call."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    m, n = A.shape[-2:]
+    return hopper.batch_pricing_plan(y.shape[0], m, n, shared=A.dim() == 2,
+                                     bf16=A.dtype == torch.bfloat16, align=hopper._alignment(y, A),
+                                     window=w, segments=S)["layout"]
 
 
 def check_window_pricing(tag, dev, y, A, c, basis, bland, w, S, seg, at_upper=None) -> float:
     """The windowed call against (a) the unwindowed kernel on each
     instance's contiguous slice with the window's start added: bit for
     bit; (b) the plain twin: every pick equal, min_e within
-    BATCH_PRICING_ATOL of scale."""
+    BATCH_PRICING_ATOL of scale. Prints the layout the call took."""
     import torch
 
     from simplex_tpu_torch.kernels import hopper, ops
@@ -953,43 +987,84 @@ def check_window_pricing(tag, dev, y, A, c, basis, bland, w, S, seg, at_upper=No
     check(err <= BATCH_PRICING_ATOL * scale, f"{tag}: min_e differs from the plain twin by {err}")
     bad = int((p_k != p_p).sum())
     check(bad == 0, f"{tag}: {bad} picks differ from the plain twin")
-    print(f"{tag}: bit for bit the call on the slice, plain twin max abs err {err:.3e}, picks equal ok")
+    print(f"{tag} [{window_layout(y, A, w, S)}]: bit for bit the call on the slice, plain twin max abs "
+          f"err {err:.3e}, picks equal ok")
     return err
 
 
-def phase_window_pricing(dev, g) -> dict:
-    """batch_pricing's window mode: per instance (fp32 scan, bf16 four
-    columns a thread, the bf16 scan where w % 4 != 0), shared A (the scan
-    with an instance stride of 0), signed and Bland, windows of one chunk,
-    of two with a tail, and ending at n, starts that differ between
-    instances; then times at the segmented cell's shape and at the warm
-    re-solve's, with their bounds."""
+def check_window_groups(dev, g) -> None:
+    """The grouped window's first step alone on the card (the grouping
+    block of batch_pricing.cu) against its plain twin ops.window_groups."""
     import torch
 
     from simplex_tpu_torch.kernels import hopper, ops
 
+    for Bn, S, one in ((REOPT_B, SEG_S, False), (70, 3, False), (37, 5, True), (33, 1, False),
+                       (3000, 1024, False), (1, 4, False)):
+        seg = torch.randint(-500, 1000, (Bn,), generator=g, device=dev).to(torch.int32)
+        if one:
+            seg.fill_(7)
+        perm, off = hopper.window_groups(seg, S)
+        perm_p, off_p = ops.window_groups(seg, S)
+        torch.cuda.synchronize()
+        check(torch.equal(perm, perm_p) and torch.equal(off, off_p),
+              f"window groups {Bn} instances S={S}: the card's grouping differs from the plain twin")
+    print("batch_pricing window groups (B = 256, 70, 37 in one window, 33 at S = 1, 3000 at S = 1024, "
+          "1): equal to the plain twin ok")
+
+
+def phase_window_pricing(dev, g) -> dict:
+    """batch_pricing's window mode on every layout: per instance the
+    bulk-copy scan (fp32, bf16, tails of a chunk) and the scan / bf16x4
+    kernels where the shape or a misaligned base forbids bulk copies;
+    shared A grouped by window (16-byte copies and element loads, B not a
+    multiple of the instance tile, one tile, all instances in one window,
+    S = 1); signed and Bland, windows ending at n, starts that differ
+    between instances; the grouping against its plain twin; then times at
+    the segmented cell's shape and at the warm re-solve's, with their
+    bounds. Every layout the plan can give a window must have run."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper, ops
+
+    check_window_groups(dev, g)
     worst = 0.0
     rec = {}
-    # (B, m, n, S, shared): w = 512 (two chunks), 250 (one, bf16 scan), 258
-    # (a tail chunk, bf16 scan), 520 (a tail chunk, bf16 four columns a
-    # thread), 15; shared at the warm re-solve's shape and odd ones
-    cases = ((SEG_B, SEG_M, SEG_N, SEG_S, False), (5, 33, 1000, 4, False), (7, 9, 1032, 4, False),
-             (6, 20, 1040, 2, False), (3, 17, 45, 3, False), (REOPT_B, REOPT_M, REOPT_N, SEG_S, True),
-             (70, 33, 300, 3, True), (65, 257, 1032, 4, True), (9, 16, 1040, 2, True))
-    for Bn, m, n, S, shared in cases:
+    seen = set()
+    # (B, m, n, S, shared, one window): per instance w = 512 (the cell: two
+    # chunks in a cluster), 250 and 258 (m = 33, 9: the scan), 520 (bulk
+    # copies, three chunks, the last of 8 columns; at m = 21 the bf16
+    # four-column scan), 15, 1024 (S = 1), 4096 (16 chunks: a reduction
+    # launch), all in one window; shared at the warm
+    # re-solve's shape, odd ones (element loads), 520 (a tail tile of 8
+    # columns), B = 100 (not a multiple of 32), S = 1, all in one window
+    cases = ((SEG_B, SEG_M, SEG_N, SEG_S, False, False), (5, 33, 1000, 4, False, False),
+             (7, 9, 1032, 4, False, False), (6, 20, 1040, 2, False, False),
+             (6, 21, 1040, 2, False, False), (3, 17, 45, 3, False, False), (40, 64, 1024, 1, False, False),
+             (4, 16, 4096, 1, False, False),
+             (20, 64, 2048, 8, False, True),
+             (REOPT_B, REOPT_M, REOPT_N, SEG_S, True, False), (70, 33, 300, 3, True, False),
+             (65, 257, 1032, 4, True, False), (9, 16, 1040, 2, True, False),
+             (100, 128, 2048, 8, True, False), (96, 64, 1024, 1, True, False),
+             (REOPT_B, 256, REOPT_N, SEG_S, True, True))
+    for Bn, m, n, S, shared, one in cases:
         w = n // S
-        y, A, c, basis, seg = window_inputs(dev, g, Bn, m, n, S, shared)
+        y, A, c, basis, seg = window_inputs(dev, g, Bn, m, n, S, shared, one)
         bland = torch.rand(Bn, generator=g, device=dev) < 0.2
         no = torch.zeros(Bn, dtype=torch.bool, device=dev)
         at_upper = torch.rand(Bn, n, generator=g, device=dev) < 0.3
         Ab = A.to(torch.bfloat16)
-        kind = "shared" if shared else "per-instance"
-        for tag, args in (
-            ("fp32", (y, A, c, basis, no)), ("fp32 bland", (y, A, c, basis, bland)),
-            ("bf16", (y, Ab, c, basis, no)), ("signed", (y, A, c, basis, bland)),
-            ("signed bf16", (y, Ab, c, basis, no)),
-        ):
+        kind = ("shared" if shared else "per-instance") + (" one window" if one else "")
+        runs = [("fp32", (y, A, c, basis, no)), ("fp32 bland", (y, A, c, basis, bland)),
+                ("bf16", (y, Ab, c, basis, no)), ("signed", (y, A, c, basis, bland)),
+                ("signed bf16", (y, Ab, c, basis, no))]
+        if (Bn, m, n) in ((SEG_B, SEG_M, SEG_N), (REOPT_B, REOPT_M, REOPT_N)):
+            # a base one element off 16 bytes: no bulk / 16-byte copies
+            runs += [("fp32 misaligned", (y, misaligned(A), c, basis, bland)),
+                     ("bf16 misaligned", (y, misaligned(Ab), c, basis, no))]
+        for tag, args in runs:
             up = at_upper if tag.startswith("signed") else None
+            seen.add(window_layout(args[0], args[1], w, S))
             worst = max(worst, check_window_pricing(
                 f"batch_pricing window {kind} {Bn}x{m}x{n} w={w} S={S} {tag}", dev, *args, w, S, seg, up))
         win = (w, S, seg)
@@ -1007,7 +1082,7 @@ def phase_window_pricing(dev, g) -> dict:
                 "window_library_ms": time_ms(lambda: torch.bmm(y[:, None, :], A_w), 50),
             })
             del A_w
-        if shared and Bn == REOPT_B:
+        if shared and (Bn, m, n) == (REOPT_B, REOPT_M, REOPT_N):
             # each distinct window of A read once; 2 B m w operations bound it
             nwin = int(torch.remainder(seg.long(), S).unique().numel())
             bd = bound(4.0 * nwin * (m * w + w) + Bn * (4.0 * (2 * m) + 4 + 1 + 8), 2.0 * Bn * m * w)
@@ -1021,6 +1096,9 @@ def phase_window_pricing(dev, g) -> dict:
             })
         del A, Ab
         torch.cuda.empty_cache()
+    want = {"window_tma", "scan", "bf16x4", "window_group", "window_group_loads"}
+    check(want <= seen, f"window layouts run {sorted(seen)}, want every one of {sorted(want)}")
+    print(f"batch_pricing window layouts run: {sorted(seen)}")
     rec["window_max_abs_err"] = worst
     return rec
 
@@ -1168,11 +1246,13 @@ def phase_batch_kernels(dev) -> dict:
 
 
 def batch_kernel_device_us(dev) -> dict:
-    """Device us a call of the shared-A and bf16 pricing and both tail paths, from a
-    torch.profiler trace of 20 calls each (CUDA events time the calls in
-    phase 2): ``batch_pricing`` on a shared A at the warm re-solve's 256 x
-    2048 x 4096 and per instance on the bf16 shadow at bench.py --mode
-    batch's 4,096 x 64 x 160; ``batch_tail`` at 4,096 x 64 on the warp path
+    """Device us a call of the shared-A and bf16 pricing, the windows and
+    both tail paths, from a torch.profiler trace of 20 calls each (CUDA
+    events time the calls in phase 2): ``batch_pricing`` on a shared A at
+    the warm re-solve's 256 x 2048 x 4096 and per instance on the bf16
+    shadow at bench.py --mode batch's 4,096 x 64 x 160, its window per
+    instance at the segmented cell's 64 x 512 x 4096 (fp32, bf16) and on the
+    shared A with 8 segments; ``batch_tail`` at 4,096 x 64 on the warp path
     and on the block path, and at 256 x 2048 (the block path). Run it last:
     a profiler session makes every later launch of the process dearer."""
     import torch
@@ -1187,6 +1267,12 @@ def batch_kernel_device_us(dev) -> dict:
     yb, Ab, cb, basis_b = batch_pricing_inputs(dev, g, BATCH_B, BATCH_M, BATCH_N)
     Ab = Ab.to(torch.bfloat16)
     no_b = torch.zeros(BATCH_B, dtype=torch.bool, device=dev)
+    ys, As_, cs_, basis_s, seg_s = window_inputs(dev, g, SEG_B, SEG_M, SEG_N, SEG_S)
+    As_b = As_.to(torch.bfloat16)
+    no_s = torch.zeros(SEG_B, dtype=torch.bool, device=dev)
+    win_s = (SEG_N // SEG_S, SEG_S, seg_s)
+    seg_r = torch.randint(0, 1000, (REOPT_B,), generator=g, device=dev).to(torch.int32)
+    win_r = (REOPT_N // SEG_S, SEG_S, seg_r)
     small = tuple(batch_tail_inputs(dev, g, BATCH_B, BATCH_M)[k] for k in TAIL_KEYS)
     wide = tuple(batch_tail_inputs(dev, g, REOPT_B, REOPT_M)[k] for k in TAIL_KEYS)
 
@@ -1198,6 +1284,15 @@ def batch_kernel_device_us(dev) -> dict:
          lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no_r, basis), contextlib.nullcontext),
         ("batch_pricing bf16 4096x64x160", "batch_pricing_",
          lambda: hopper.choose_entering_batched(yb, Ab, cb, 1e-5, no_b, basis_b), contextlib.nullcontext),
+        ("batch_pricing window 64x512x4096", "batch_pricing_",
+         lambda: hopper.choose_entering_batched(ys, As_, cs_, 1e-5, no_s, basis_s, None, win_s),
+         contextlib.nullcontext),
+        ("batch_pricing window bf16 64x512x4096", "batch_pricing_",
+         lambda: hopper.choose_entering_batched(ys, As_b, cs_, 1e-5, no_s, basis_s, None, win_s),
+         contextlib.nullcontext),
+        ("batch_pricing window shared 256x2048x4096", "batch_pricing_",
+         lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no_r, basis, None, win_r),
+         contextlib.nullcontext),
         ("batch_tail 4096x64 warp path", "batch_tail_", tail(small), contextlib.nullcontext),
         ("batch_tail 4096x64 block path", "batch_tail_", tail(small), tail_block_path),
         ("batch_tail 256x2048", "batch_tail_", tail(wide), contextlib.nullcontext),
@@ -2604,7 +2699,8 @@ def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True, base=None, r
     print(f"solve_batched {tag}: {BATCH_SAMPLES} sampled instances, worst rel gap vs the single solve "
           f"{worst_s:.3e}" + (f", vs HiGHS {worst_h:.3e}" if highs else " (HiGHS not held: see the recipe)"))
     check(worst_s <= GAP_TOL and worst_h <= GAP_TOL, f"solve_batched {tag}: gaps {worst_s}, {worst_h}")
-    return {"counts": counts, "steps": steps, "seconds": dt, "reads": reads, "branches": branches}
+    return {"counts": counts, "steps": steps, "seconds": dt, "reads": reads, "branches": branches,
+            "pivots": int(res.iters.sum()), "max_pivots": int(res.iters.max())}
 
 
 def phase_solve_batched(dev) -> dict:
@@ -2789,6 +2885,9 @@ def phase_batch_rules(dev) -> dict:
               and r["reads"]["branch"] == k + (b["segment"] if extra else 0),
               f"segmented {tag}: launches {c}, reads {r['reads']}, passes {b} over {k} steps")
         check(c["batch_tail"] == c["batch_rank1"] == k, f"segmented {tag}: launches {c} over {k} steps")
+        got = dict(pivots=r["pivots"], max_pivots=r["max_pivots"], steps=k, segment=b["segment"],
+                   shadow=b["shadow"])
+        check(got == SEG_PATH[tag], f"segmented {tag}: {got}, the window's parent took {SEG_PATH[tag]}")
         paths[f"solve_batched segmented {tag}"] = c
     return paths
 
@@ -2945,10 +3044,12 @@ def phase_pdhg(dev) -> dict:
 
 
 def phase_batch_profile(dev) -> dict:
-    """Device ops and device time a batch step on bench.py --mode batch's
-    recipe at B = 4,096, from a torch.profiler trace of the whole
-    solve_batched call (after the other profiles); then the device time a
-    call of the redesigned batched kernels (``batch_kernel_device_us``)."""
+    """Device ops and device time a batch step from a torch.profiler trace
+    of a whole solve_batched call (after the other profiles): bench.py
+    --mode batch's recipe at B = 4,096 under Dantzig, devex and steepest
+    edge, and the segmented cell (fp32 and the bf16 shadow, where the
+    window prices every step); then the device time a call of the
+    redesigned batched kernels (``batch_kernel_device_us``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2956,10 +3057,7 @@ def phase_batch_profile(dev) -> dict:
     from simplex_tpu_torch.batch import step as bstep
     from simplex_tpu_torch.bench.profile_general import device_summary
 
-    As, bs, cs = batch_instances(BATCH_B)
-    out = {}
-    for rule in ("dantzig", "devex", "steepest"):
-        opts = SimplexOptions(**BATCH_OPTS, pricing=rule)
+    def traced(tag, As, bs, cs, opts):
         solve_batched(As, bs, cs, options=opts, device=dev)
         torch.cuda.synchronize()
         bstep.reset_host_reads()
@@ -2972,17 +3070,26 @@ def phase_batch_profile(dev) -> dict:
         by, ops, _ = device_summary(prof, True)
         total = sum(by.values())
         per = {k: v / steps for k, v in by.most_common(8)}
-        print(f"batch profile B={BATCH_B} {rule}: {steps} batch steps; {ops / steps:.2f} device ops and "
+        print(f"batch profile {tag}: {steps} batch steps; {ops / steps:.2f} device ops and "
               f"{total / steps:.1f} device us a batch step, {1e3 * wall / steps:.3f} wall ms a step (traced), "
               f"busy {1e-3 * total / (1e3 * wall):.1%}; reads {dict(bstep.host_reads)}, extra passes "
               f"{dict(bstep.branches)}; largest (us a step): "
               + ", ".join(f"{k[:60]} {v:.1f}" for k, v in per.items()))
-        check(ops > 0 and total > 0, f"batch profile {rule}: no device time")
+        check(ops > 0 and total > 0, f"batch profile {tag}: no device time")
         kern = {name: sum(v for k, v in by.items() if key in k) / steps
                 for name, key in (("batch_pricing", "batch_pricing_"), ("batch_tail", "batch_tail_"),
                                   ("batch_rank1", "batch_rank1_kernel"))}
-        out[rule] = {"device_us_per_batch_step": total / steps, "device_ops_per_batch_step": ops / steps,
-                     "kernel_device_us": kern}
+        return {"device_us_per_batch_step": total / steps, "device_ops_per_batch_step": ops / steps,
+                "kernel_device_us": kern}
+
+    As, bs, cs = batch_instances(BATCH_B)
+    out = {rule: traced(f"B={BATCH_B} {rule}", As, bs, cs, SimplexOptions(**BATCH_OPTS, pricing=rule))
+           for rule in ("dantzig", "devex", "steepest")}
+    del As, bs, cs
+    As, bs, cs = seg_instances()
+    for tag, extra in (("fp32", {}), ("bf16 shadow", {"pricing_dtype": "bfloat16"})):
+        out[f"segmented {tag}"] = traced(f"segmented S={SEG_S} {tag} {SEG_B}x{SEG_M}x{SEG_N}", As, bs, cs,
+                                         SimplexOptions(polish=False, partial_pricing=SEG_S, **extra))
     return dict(out["dantzig"], rules=out, kernel_calls_device_us=batch_kernel_device_us(dev))
 
 
@@ -3046,6 +3153,9 @@ def add_call_device_us(recs: dict, us: dict) -> None:
     """The record's keys for ``batch_kernel_device_us``'s times."""
     recs["batch_pricing"]["reopt_device_us"] = us["batch_pricing shared 256x2048x4096"]
     recs["batch_pricing"]["bf16_device_us"] = us["batch_pricing bf16 4096x64x160"]
+    recs["batch_pricing"]["window_device_us"] = us["batch_pricing window 64x512x4096"]
+    recs["batch_pricing"]["window_bf16_device_us"] = us["batch_pricing window bf16 64x512x4096"]
+    recs["batch_pricing"]["window_shared_device_us"] = us["batch_pricing window shared 256x2048x4096"]
     recs["batch_tail"]["device_us"] = us["batch_tail 4096x64 warp path"]
     recs["batch_tail"]["block_path_device_us"] = us["batch_tail 4096x64 block path"]
     recs["batch_tail"]["cleanup_device_us"] = us["batch_tail 256x2048"]

@@ -13,9 +13,10 @@
 // simplex_tpu/core/dual.py _warm_jit under vmap with A unbatched).
 //
 // Every e is the sum over the rows, in ascending row order, of fmaf(y[r],
-// A[r, j], acc) from 0, then one subtraction of c[j]: both layouts below
-// compute it so, so a shared A gives bit for bit the records of the same A
-// expanded per instance. The plain PyTorch version sums through a matrix
+// A[r, j], acc) from 0, then one subtraction of c[j]: every layout below
+// computes it so, so a shared A gives bit for bit the records of the same A
+// expanded per instance, and a window bit for bit those of the call on the
+// instance's slice. The plain PyTorch version sums through a matrix
 // product, in another order: e agrees to rounding, the picks where no two
 // columns tie.
 //
@@ -55,26 +56,60 @@
 // over static column segments, under vmap every segment for every
 // instance): instance i prices columns [lo_i, lo_i + w), lo_i = (seg[i] mod
 // S) * w with seg (the iteration counts) read on the device, the row stride
-// still n. The per-instance kernels of 1 run it as template instances of
-// their own (WIN), so the unwindowed code is what it was: a grid of
-// ceil(w / 256) chunks an instance, each chunk's columns offset by lo_i, the
-// pick global. The result is bit for bit the unwindowed call on each
-// instance's contiguous slice A[i][:, lo_i : lo_i + w] with lo_i added to
-// the index (the records merge as a minimum under one total order, so the
-// chunking does not matter). A shared A takes the same scan with an
-// instance stride of 0 (instances of one 64-instance tile of layout 2 may
-// sit in different windows): B * m * w reads that hit L2 after the first
-// instance of each window, instead of the tiled product's one read of A.
-// Bound: the bytes of the windows, B * m * w * 4 (per instance) or m * n
-// * 4 and the 2 B m w operations (shared).
+// still n; the pick is global. The result is bit for bit the unwindowed
+// call on each instance's contiguous slice A[i][:, lo_i : lo_i + w] with
+// lo_i added to the index (the records merge as a minimum under one total
+// order, so the chunking does not matter).
+//
+// 3a. Per-instance A, "window_tma". Bound: the windows' bytes, B * m * w *
+// 4 (64 MiB, 0.020 ms at 64 x 512 x 4096, w = 512; bf16 half). The grid is
+// (ceil(w / 256) chunks, B), one CTA an SM at that shape, so each CTA has
+// to keep its SM's share of the bandwidth in flight by itself: a producer
+// warp streams the chunk's rows into a ring of 4 shared-memory stages, a
+// stage one box of a 3-D tensor map of A (n, m, B) (32 rows of 1 KB in
+// fp32, 64 rows of 512 B in bf16; rows past m land as zeros) and one bulk
+// copy of the rows' y, both completing on the stage's full mbarrier by
+// bytes: 128 KB in flight a CTA (a bulk copy a row cost about 50 ns each
+// and held the bf16 scan at half the rate of one box a stage). The
+// consumer warps (a column a thread in fp32, four in bf16) run the same
+// ascending fmaf chain out of shared memory and release a stage through its
+// empty mbarrier, one arrival a warp. Up to 8 chunks of an instance run as
+// one thread block cluster, and its block 0 merges their records through
+// distributed shared memory: one launch. The copies need 16-byte-aligned
+// sources, strides and sizes (m % 4 == 0, n * elem and w * elem multiples
+// of 16, y and A 16-byte aligned); elsewhere the per-instance kernels of 1
+// run the window as template instances of their own (WIN: "scan",
+// "bf16x4"), a grid of ceil(w / 256) chunks an instance.
+//
+// 3b. One A shared by the batch, "window_group": instances of one tile of
+// layout 2 may sit in different windows, so the launch before the product
+// groups them on the device. Its block 0 sorts the instances by window s =
+// seg mod S (a stable counting sort: a permutation, ascending instance
+// inside each window) and writes a table of instance tiles, each inside
+// one window; the other blocks write the bit mask as in 2. The grid of the
+// product comes from host-known B, S and w: ceil(B / 16) + S - 1 instance
+// tiles can exist over all windows, and the surplus CTAs return at once.
+// Bound: 2 B m w operations (0.0080 ms at 256 x 2048 x 4096 with S = 8)
+// over the distinct windows' bytes. There a window holds about 32
+// instances, 1 M sums in all, each a 2,048-row chain: about 1,000 sums an
+// SM. A thread of 4 x 4 sums reads 8 floats out of shared memory for 16
+// FMAs a row, but leaves 2 or 3 warps an SM, one a scheduler, which run
+// at about half a warp instruction a cycle; a thread of 2 x 4 sums reads 6
+// floats for 8 FMAs and gives twice the warps. A CTA is 2 warps: 16
+// grouped instances (y rows gathered through the permutation) x 32 columns
+// of their window (A's columns at lo_s + the tile), on layout 2's cp.async
+// ring (4 stages of 32 rows) and zero fill: about 320 CTAs at that shape.
+// More than 1024 windows (S) take the scan at an instance stride of 0.
 //
 // Records: (min e, lowest argmin, NaN first as torch.argmin puts it;
 // lowest index with e < -eps), merged by warp shuffles and shared memory.
-// Where one chunk / tile covers n the kernel writes the instance's choice;
-// wider instances write one record a chunk, and a last launch reduces each
-// instance's records (one block an instance) in chunk order, so the result
-// does not depend on the order blocks run in.
+// Where one chunk / tile covers n (or w) the kernel writes the instance's
+// choice; wider instances write one record a chunk, and a last launch
+// reduces each instance's records (one block an instance) in chunk order,
+// so the result does not depend on the order blocks run in.
 
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap; its encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -93,16 +128,42 @@ constexpr float kPenalty = 1e30f;
 // the shared layout's tile (hopper.py _BP_TILE_B / _BP_TILE_N mirror them)
 constexpr int kTileB = 64;   // instances a CTA
 constexpr int kTileN = 128;  // columns a CTA
-constexpr int kTileK = 32;   // rows of A a stage
+constexpr int kTileK = 32;   // rows of A a stage (also of the grouped window)
 constexpr int kTileM = 4;    // y rows a thread
 constexpr int kStages = 3;
 constexpr int kProdThreads = kTileB * kTileN / (8 * kTileM);  // 256
 constexpr int kMaskChunk = 4096;  // mask words a block holds at a time
 
+// the window's bulk-copy scan (hopper.py _BP_TMA_* mirror it): columns a
+// chunk, rows a stage (fp32, bf16), stages; an instance's chunks up to
+// kTmaClusterMax run as one thread block cluster and merge their records
+// through distributed shared memory (no reduction launch)
+constexpr int kTmaChunk = 256;
+constexpr int kTmaRowsF32 = 32;
+constexpr int kTmaRowsBf16 = 64;
+constexpr int kTmaStages = 4;
+constexpr int kTmaClusterMax = 8;
+// the grouped window (hopper.py _BP_GROUP_* mirror it): at most this many
+// windows; a CTA of 2 warps along the instances, a warp 8 instances x 32
+// columns, a thread 2 instances (4 apart) x 4 adjacent columns; its ring
+constexpr int kGroupBins = 1024;
+constexpr int kGroupWarps = 2;
+constexpr int kGroupTM = 2;
+constexpr int kGroupB = 4 * kGroupTM * kGroupWarps, kGroupN = 32;
+constexpr int kGroupThreads = 32 * kGroupWarps;
+constexpr int kGroupK = 32;
+constexpr int kGroupStages = 4;
+
 struct Rec {
   float v;  // the minimum
   int i;    // its lowest index
   int neg;  // the lowest index with e < -eps, kIntMax when none
+};
+
+// an instance tile of the grouped window: instances perm[start, start +
+// count), all in window s (count 0: a surplus tile)
+struct Group {
+  int s, start, count;
 };
 
 // a before b: NaN first (torch.min / argmin), then smaller, then lower index
@@ -165,13 +226,14 @@ __device__ __forceinline__ void choose(const Rec& r, bool bland, int* p_out,
   min_out[i] = r.v;
 }
 
-// the basic columns of [lo, lo + kChunk) of one instance, in shared memory
+// the basic columns of [lo, lo + C) of one instance, in shared memory
+template <int C = kChunk>
 __device__ __forceinline__ void mark_chunk(unsigned char* basic, const int* bi, int m, int lo) {
-  for (int k = threadIdx.x; k < kChunk; k += blockDim.x) basic[k] = 0;
+  for (int k = threadIdx.x; k < C; k += blockDim.x) basic[k] = 0;
   __syncthreads();
   for (int r = threadIdx.x; r < m; r += blockDim.x) {
     const int b = bi[r] - lo;
-    if (b >= 0 && b < kChunk) basic[b] = 1;
+    if (b >= 0 && b < C) basic[b] = 1;
   }
   __syncthreads();
 }
@@ -200,7 +262,7 @@ struct Args {
   size_t c_stride;
   float eps;
   int chunks;                      // records an instance (1: no reduce launch)
-  unsigned* mask;                  // (B, words): the shared layout's basic columns
+  unsigned* mask;                  // (B, words): the shared layouts' basic columns
   int words;
   Rec* recs;
   int* p_out;
@@ -210,13 +272,24 @@ struct Args {
   int win, win_s;
   const int* win_seg;
   size_t a_stride;
+  // the grouped window: the permutation (B), each window's first place in
+  // it (S + 1), the instance tiles (group_tiles) and their instances each
+  int* perm;
+  int* win_off;
+  Group* groups;
+  int group_tiles;
 };
 
-// instance inst's first column, (seg mod S) * w with a non-negative mod
-__device__ __forceinline__ int window_lo(const Args& P, int inst) {
+// instance inst's window, seg mod S with a non-negative mod
+__device__ __forceinline__ int window_of(const Args& P, int inst) {
   int s = P.win_seg[inst] % P.win_s;
   if (s < 0) s += P.win_s;
-  return s * P.win;
+  return s;
+}
+
+// instance inst's first column, (seg mod S) * w
+__device__ __forceinline__ int window_lo(const Args& P, int inst) {
+  return window_of(P, inst) * P.win;
 }
 
 // ---------------------------------------------------------------- per instance
@@ -310,12 +383,358 @@ __global__ void __launch_bounds__(kChunk / kCols) batch_pricing_bf16x4_kernel(co
   finish_chunk(rec, red, P.use_bland, inst, P.chunks, P.recs, P.p_out, P.min_out, base);
 }
 
+// ---------------------------------------------------------------- async copies
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared, zeros where !in (nothing is read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// mbarriers in shared memory and the bulk copies that complete on them
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// one arrival, and bytes more that the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+// until the phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared, counted on bar when they land
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the box (C columns, R rows, instance inst) at column x, row r of a 3-D
+// tensor map (n, m, B) into shared memory, counted on bar when it lands
+// (rows past m land as zeros; the bytes counted are the whole box's)
+__device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map, int x, int r, int inst,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(r), "r"(inst), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------- window, bulk copies
+
+// one stage of the ring: R rows of the chunk's C columns, then their y
+// (padded to 128 bytes: the next stage's box lands 128-byte aligned)
+template <typename T, int C, int R>
+struct WinStage {
+  T a[R][C];
+  float y[(R + 31) / 32 * 32];
+};
+
+// T: float, or uint16_t for the bf16 shadow (four columns a thread)
+template <typename T>
+struct WinTma {
+  static constexpr int kCpt = sizeof(T) == 4 ? 1 : kCols;  // columns a consumer thread
+  static constexpr int kR = sizeof(T) == 4 ? kTmaRowsF32 : kTmaRowsBf16;
+  static constexpr int kConsumers = kTmaChunk / kCpt;
+  static constexpr int kThreads = kConsumers + 32;  // and the producer warp
+  using Stage = WinStage<T, kTmaChunk, kR>;
+  static constexpr size_t kSmem = kTmaStages * (sizeof(Stage) + 2 * sizeof(uint64_t));
+  static_assert(sizeof(Stage) % 128 == 0, "stages stay 128-byte aligned");
+};
+
+__device__ __forceinline__ void fma_row(float (&acc)[1], float yr, const float* row, int tc) {
+  acc[0] = fmaf(yr, row[tc], acc[0]);
+}
+// four bf16 columns (a bf16 is the top half of its fp32 value, so the
+// shifts convert exactly)
+__device__ __forceinline__ void fma_row(float (&acc)[kCols], float yr, const uint16_t* row,
+                                        int tc) {
+  const uint2 v = *reinterpret_cast<const uint2*>(row + tc);
+  acc[0] = fmaf(yr, __uint_as_float(v.x << 16), acc[0]);
+  acc[1] = fmaf(yr, __uint_as_float(v.x & 0xffff0000u), acc[1]);
+  acc[2] = fmaf(yr, __uint_as_float(v.y << 16), acc[2]);
+  acc[3] = fmaf(yr, __uint_as_float(v.y & 0xffff0000u), acc[3]);
+}
+
+// grid (chunks, B); the last warp copies (a box of the tensor map and the
+// rows' y a stage), the others sum
+template <typename T, bool CLUSTER>
+__global__ void __launch_bounds__(WinTma<T>::kThreads) batch_pricing_window_tma_kernel(
+    const Args P, const __grid_constant__ CUtensorMap map) {
+  using W = WinTma<T>;
+  using Stage = typename W::Stage;
+  constexpr int R = W::kR, ST = kTmaStages, CPT = W::kCpt;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Stage* st = reinterpret_cast<Stage*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * sizeof(Stage));
+  uint64_t* empty = full + ST;
+  __shared__ unsigned char basic[kTmaChunk];
+  __shared__ Rec red[32];
+  const int inst = blockIdx.y;
+  const int base = window_lo(P, inst);
+  const int lo = base + blockIdx.x * kTmaChunk;
+  const int width = min(kTmaChunk, base + P.win - lo);  // a multiple of 16 bytes
+  const int m = P.m;
+  const int tiles = (m + R - 1) / R;
+  const int lane = threadIdx.x & 31;
+  const bool producer = threadIdx.x >= W::kConsumers;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W::kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const float* y_src = P.y + (size_t)inst * m;
+  // tile k's rows into stage k mod ST
+  auto fill = [&](int k) {
+    Stage& s = st[k % ST];
+    uint64_t* bar = &full[k % ST];
+    const int r0 = k * R, rows = min(R, m - r0);
+    if (lane == 0) {
+      mbar_expect_tx(bar, sizeof(s.a) + rows * 4);
+      tensor_copy(&s.a[0][0], &map, lo, r0, inst, bar);
+      bulk_copy(s.y, y_src + r0, rows * 4, bar);
+    }
+  };
+  // the first stages fly while the chunk's basic columns are marked
+  if (producer)
+    for (int k = 0; k < min(ST, tiles); ++k) fill(k);
+  mark_chunk<kTmaChunk>(basic, P.basis + (size_t)inst * m, m, lo);
+
+  Rec rec{INFINITY, kIntMax, kIntMax};
+  if (producer) {
+    for (int k = ST; k < tiles; ++k) {
+      mbar_wait(&empty[k % ST], ((k / ST) - 1) & 1);  // tile k - ST consumed
+      fill(k);
+    }
+  } else {
+    const int tc = CPT * (int)threadIdx.x;
+    const bool in = tc < width;
+    float acc[CPT];
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) acc[q] = 0.f;
+    for (int k = 0; k < tiles; ++k) {
+      const Stage& s = st[k % ST];
+      mbar_wait(&full[k % ST], (k / ST) & 1);
+      const int rows = min(R, m - k * R);  // a multiple of 4
+      if (in) {
+#pragma unroll 4
+        for (int r = 0; r < rows; r += 4) {
+          const float4 yv = *reinterpret_cast<const float4*>(&s.y[r]);
+          fma_row(acc, yv.x, s.a[r], tc);
+          fma_row(acc, yv.y, s.a[r + 1], tc);
+          fma_row(acc, yv.z, s.a[r + 2], tc);
+          fma_row(acc, yv.w, s.a[r + 3], tc);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[k % ST]);
+    }
+    if (in) {
+      const float* ci = P.c + (size_t)inst * P.c_stride;
+      const size_t cn = (size_t)inst * P.n + lo + tc;
+      const bool up = P.at_upper != nullptr;
+#pragma unroll
+      for (int q = 0; q < CPT; ++q)
+        rec = merge(rec, column_rec(acc[q], ci[lo + tc + q], up && P.at_upper[cn + q],
+                                    basic[tc + q], lo + tc + q, P.eps));
+    }
+  }
+  if constexpr (CLUSTER) {
+    // the instance's chunks are one cluster: block 0 merges their records
+    // in chunk order out of each block's slot
+    __shared__ Rec slot;
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    rec = block_merge(rec, red);
+    if (threadIdx.x == 0) slot = rec;
+    cluster.sync();
+    if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+      Rec r = slot;
+      for (unsigned q = 1; q < cluster.num_blocks(); ++q) r = merge(r, *cluster.map_shared_rank(&slot, q));
+      choose(r, P.use_bland[inst] != 0, P.p_out, P.min_out, inst, base);
+    }
+    cluster.sync();  // no block leaves while its slot may be read
+  } else {
+    finish_chunk(rec, red, P.use_bland, inst, P.chunks, P.recs, P.p_out, P.min_out, base);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the runtime's entry
+// point query (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <typename T>
+cudaError_t launch_window_tma(const Args& P, cudaStream_t s) {
+  using W = WinTma<T>;
+  // A as (n, m, B) elements, boxes of one stage's rows of a chunk
+  CUtensorMap map{};
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)P.n, (cuuint64_t)P.m, (cuuint64_t)P.batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)P.n * sizeof(T), (cuuint64_t)P.m * P.n * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)kTmaChunk, (cuuint32_t)W::kR, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  if (encode(&map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+             3, const_cast<void*>(P.A), dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  if (P.chunks > kTmaClusterMax) {
+    auto kernel = batch_pricing_window_tma_kernel<T, false>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::kSmem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(P.chunks, P.batch), W::kThreads, W::kSmem, s>>>(P, map);
+    return cudaGetLastError();
+  }
+  auto kernel = batch_pricing_window_tma_kernel<T, true>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::kSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P.chunks, P.batch);
+  cfg.blockDim = dim3(W::kThreads);
+  cfg.dynamicSmemBytes = W::kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P.chunks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, P, map);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- shared A
 
+// block 0 of the grouped window's first launch: the instances sorted by
+// window, stably (a counting sort), and the table of instance tiles
+__device__ void group_windows(const Args& P) {
+  __shared__ int cnt[kGroupBins], off[kGroupBins], first[kGroupBins];
+  __shared__ int total;
+  const int lane = threadIdx.x & 31, S = P.win_s, tb = kGroupB;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) cnt[s] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < P.batch; i += blockDim.x) atomicAdd(&cnt[window_of(P, i)], 1);
+  __syncthreads();
+  if (threadIdx.x < 32) {  // exclusive scans of the counts and of the tiles
+    const int per = (S + 31) / 32, s0 = min(S, lane * per), s1 = min(S, s0 + per);
+    int n_i = 0, n_t = 0;
+    for (int s = s0; s < s1; ++s) {
+      n_i += cnt[s];
+      n_t += (cnt[s] + tb - 1) / tb;
+    }
+    int e_i = n_i, e_t = n_t;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int a = __shfl_up_sync(kFull, e_i, d), b = __shfl_up_sync(kFull, e_t, d);
+      if (lane >= d) {
+        e_i += a;
+        e_t += b;
+      }
+    }
+    if (lane == 31) total = e_t;
+    e_i -= n_i;
+    e_t -= n_t;
+    for (int s = s0; s < s1; ++s) {
+      off[s] = e_i;
+      first[s] = e_t;
+      e_i += cnt[s];
+      e_t += (cnt[s] + tb - 1) / tb;
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+    P.win_off[s] = off[s];
+    for (int q = 0; q * tb < cnt[s]; ++q)
+      P.groups[first[s] + q] = Group{s, off[s] + q * tb, min(tb, cnt[s] - q * tb)};
+  }
+  if (threadIdx.x == 0) P.win_off[S] = P.batch;
+  for (int t = total + threadIdx.x; t < P.group_tiles; t += blockDim.x) P.groups[t] = Group{0, 0, 0};
+  __syncthreads();
+  if (threadIdx.x < 32) {  // the permutation, 32 instances at a time in order
+    for (int i0 = 0; i0 < P.batch; i0 += 32) {
+      const int i = i0 + lane;
+      const int s = i < P.batch ? window_of(P, i) : -1;
+      const unsigned same = __match_any_sync(kFull, s);
+      const int rank = __popc(same & ((1u << lane) - 1u));
+      const int pos = s >= 0 ? off[s] + rank : 0;
+      __syncwarp();
+      if (s >= 0 && rank == 0) off[s] += __popc(same);
+      __syncwarp();
+      if (s >= 0) P.perm[pos] = i;
+    }
+  }
+}
+
 // bit j % 32 of word j / 32 of row i: column j is basic in instance i
+// (GROUP: block 0 groups the instances by window, the others make the mask)
+template <bool GROUP>
 __global__ void __launch_bounds__(kThreads) batch_pricing_mask_kernel(const Args P) {
+  if constexpr (GROUP) {
+    if (blockIdx.x == 0) {
+      group_windows(P);
+      return;
+    }
+  }
   __shared__ unsigned w[kMaskChunk];
-  const int inst = blockIdx.x;
+  const int inst = blockIdx.x - (GROUP ? 1 : 0);
   const int* bi = P.basis + (size_t)inst * P.m;
   unsigned* out = P.mask + (size_t)inst * P.words;
   for (int w0 = 0; w0 < P.words; w0 += kMaskChunk) {
@@ -331,21 +750,6 @@ __global__ void __launch_bounds__(kThreads) batch_pricing_mask_kernel(const Args
     for (int k = threadIdx.x; k < nw; k += kThreads) out[w0 + k] = w[k];
     __syncthreads();
   }
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, zeros where !in (nothing is read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 template <typename T>
@@ -561,6 +965,201 @@ cudaError_t launch_product(const Args& P, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- shared A, grouped window
+
+// a stage of the grouped window's ring: kGroupK rows of the tile's y rows
+// (padded as in Stage) and of its A columns
+template <typename T>
+struct GroupStage {
+  float y[kGroupB][kGroupK + 4];
+  T a[kGroupK][kGroupN];
+};
+
+// Fills the grouped window's stages: y rows gathered through the
+// permutation, A's columns [j0, end) of the tile's window; 16-byte copies
+// (VEC) or element loads, zeros past count, m and end.
+template <typename T, bool VEC>
+struct GroupLoader {
+  static constexpr int kPer = 16 / sizeof(T);                     // elements a copy
+  static constexpr int kRowCopies = kGroupN / kPer;               // copies a row of A's tile
+  static constexpr int kYRow = kGroupK / 4;                        // copies a row of y's tile
+  static constexpr int kY = kGroupB * kYRow / kGroupThreads;      // copies of y a thread
+  static constexpr int kA = kGroupK * kRowCopies / kGroupThreads;  // copies of A a thread
+  static_assert(kY * kGroupThreads == kGroupB * kYRow && kA * kGroupThreads == kGroupK * kRowCopies,
+                "every thread makes the same number of copies");
+  const float* ysrc[VEC ? kY : 1];
+  const T* asrc[VEC ? kA : 1];
+  int yk[VEC ? kY : 1], ak[VEC ? kA : 1];
+  bool yin[VEC ? kY : 1], ain[VEC ? kA : 1];
+
+  __device__ __forceinline__ GroupLoader(const Args& P, const T* A, const Group& g, int j0,
+                                         int end) {
+    if constexpr (VEC) {
+#pragma unroll
+      for (int u = 0; u < kY; ++u) {
+        const int idx = threadIdx.x + u * kGroupThreads, bi = idx / kYRow;
+        yk[u] = (idx % kYRow) * 4;
+        yin[u] = bi < g.count;
+        ysrc[u] = P.y + (size_t)(yin[u] ? P.perm[g.start + bi] : 0) * P.m + yk[u];
+      }
+#pragma unroll
+      for (int u = 0; u < kA; ++u) {
+        const int idx = threadIdx.x + u * kGroupThreads, j = j0 + (idx % kRowCopies) * kPer;
+        ak[u] = idx / kRowCopies;
+        ain[u] = j < end;
+        asrc[u] = A + (size_t)ak[u] * P.n + (ain[u] ? j : 0);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void load(GroupStage<T>& s, const Args& P, const T* A,
+                                       const Group& g, int j0, int end, int k0) const {
+    const int t = threadIdx.x;
+    if constexpr (VEC) {
+#pragma unroll
+      for (int u = 0; u < kY; ++u) {
+        const int idx = t + u * kGroupThreads;
+        const bool in = yin[u] && k0 + yk[u] < P.m;
+        cp_async16(&s.y[idx / kYRow][yk[u]], in ? ysrc[u] + k0 : P.y, in);
+      }
+#pragma unroll
+      for (int u = 0; u < kA; ++u) {
+        const int idx = t + u * kGroupThreads;
+        const bool in = ain[u] && k0 + ak[u] < P.m;
+        cp_async16(&s.a[ak[u]][(idx % kRowCopies) * kPer], in ? asrc[u] + (size_t)k0 * P.n : A,
+                   in);
+      }
+    } else {
+      for (int idx = t; idx < kGroupB * kGroupK; idx += kGroupThreads) {
+        const int bi = idx / kGroupK, kr = idx % kGroupK, k = k0 + kr;
+        s.y[bi][kr] = (bi < g.count && k < P.m) ? P.y[(size_t)P.perm[g.start + bi] * P.m + k] : 0.f;
+      }
+      for (int idx = t; idx < kGroupK * kGroupN; idx += kGroupThreads) {
+        const int kr = idx / kGroupN, jc = idx % kGroupN;
+        const int k = k0 + kr, j = j0 + jc;
+        s.a[kr][jc] = (k < P.m && j < end) ? A[(size_t)k * P.n + j] : T(0);
+      }
+    }
+  }
+};
+
+// four adjacent columns of one row of a stage
+__device__ __forceinline__ void load_a4(const float* row, int c0, float (&a)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(&row[c0]);
+  a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+}
+__device__ __forceinline__ void load_a4(const uint16_t* row, int c0, float (&a)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(&row[c0]);
+  a[0] = __uint_as_float(v.x << 16); a[1] = __uint_as_float(v.x & 0xffff0000u);
+  a[2] = __uint_as_float(v.y << 16); a[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// grid (column tiles of the window, instance tiles of the table). A warp:
+// lanes 4 (instance groups) x 8 (column groups); a thread kGroupTM
+// instances, 4 apart (their float4 of y in distinct banks), x 4 adjacent
+// columns (a warp's load of A is 32 consecutive floats).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kGroupThreads) batch_pricing_group_kernel(const Args P) {
+  using S = GroupStage<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  S* st = reinterpret_cast<S*>(smem);
+  const Group g = P.groups[blockIdx.y];
+  if (g.count == 0) return;  // a surplus tile: the whole CTA leaves
+  const int lo = g.s * P.win, end = lo + P.win;
+  const int j0 = lo + (int)blockIdx.x * kGroupN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * 4 * kGroupTM + (lane & 3);  // this thread's rows of the tile: row0 + 4 i
+  const int col0 = (lane >> 2) * 4;                     // and columns: col0 + [0, 4)
+  const T* A = static_cast<const T*>(P.A);
+  const int k_tiles = (P.m + kGroupK - 1) / kGroupK;
+  const GroupLoader<T, VEC> ld(P, A, g, j0, end);
+
+  float acc[kGroupTM][4];
+#pragma unroll
+  for (int i = 0; i < kGroupTM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kGroupStages - 1; ++s) {
+    if (s < k_tiles) ld.load(st[s], P, A, g, j0, end, s * kGroupK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<kGroupStages - 2>();
+    __syncthreads();  // tile kt has landed; every thread is done with tile kt - 1
+    const int nt = kt + kGroupStages - 1;
+    if (nt < k_tiles) ld.load(st[nt % kGroupStages], P, A, g, j0, end, nt * kGroupK);
+    cp_async_commit();
+    const S& s = st[kt % kGroupStages];
+#pragma unroll
+    for (int k4 = 0; k4 < kGroupK; k4 += 4) {
+      float yv[kGroupTM][4];
+#pragma unroll
+      for (int i = 0; i < kGroupTM; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(&s.y[row0 + 4 * i][k4]);
+        yv[i][0] = v.x; yv[i][1] = v.y; yv[i][2] = v.z; yv[i][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float a[4];
+        load_a4(s.a[k4 + kk], col0, a);
+#pragma unroll
+        for (int i = 0; i < kGroupTM; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(yv[i][kk], a[jj], acc[i][jj]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: each instance's record over the tile's 32 columns (the 8
+  // lanes of one instance group); a warp owns its instances' whole rows
+#pragma unroll
+  for (int i = 0; i < kGroupTM; ++i) {
+    const int bi = row0 + 4 * i;
+    const int b = bi < g.count ? P.perm[g.start + bi] : 0;
+    Rec rec{INFINITY, kIntMax, kIntMax};
+    if (bi < g.count) {
+      const float* cb = P.c + (size_t)b * P.c_stride;
+      const unsigned* mb = P.mask + (size_t)b * P.words;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j0 + col0 + jj;
+        if (j < end) {
+          const bool up = P.at_upper != nullptr && P.at_upper[(size_t)b * P.n + j];
+          const bool basic = (mb[j >> 5] >> (j & 31)) & 1u;
+          rec = merge(rec, column_rec(acc[i][jj], cb[j], up, basic, j, P.eps));
+        }
+      }
+    }
+    // merge is commutative: every lane of the eight ends with the same record
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      const Rec o{__shfl_xor_sync(kFull, rec.v, off), __shfl_xor_sync(kFull, rec.i, off),
+                  __shfl_xor_sync(kFull, rec.neg, off)};
+      rec = merge(rec, o);
+    }
+    if ((lane >> 2) == 0 && bi < g.count) {
+      if (P.chunks == 1)
+        choose(rec, P.use_bland[b] != 0, P.p_out, P.min_out, b, lo);
+      else
+        P.recs[(size_t)b * P.chunks + blockIdx.x] = rec;
+    }
+  }
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_group(const Args& P, cudaStream_t s) {
+  constexpr size_t smem = kGroupStages * sizeof(GroupStage<T>);
+  auto kernel = batch_pricing_group_kernel<T, VEC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(P.chunks, P.group_tiles), kGroupThreads, smem, s>>>(P);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- records
 
 template <bool WIN>
@@ -575,46 +1174,71 @@ __global__ void __launch_bounds__(kThreads) batch_pricing_reduce_kernel(const Ar
     choose(rec, P.use_bland[inst] != 0, P.p_out, P.min_out, inst, WIN ? window_lo(P, inst) : 0);
 }
 
+// the group scratch of B instances in S windows: the permutation, the
+// windows' offsets, then the tiles
+void carve_groups(Args& P, void* group, int batch, int win_s) {
+  P.perm = static_cast<int*>(group);
+  P.win_off = P.perm + batch;
+  P.groups = reinterpret_cast<Group*>(P.win_off + win_s + 1);
+}
+
 }  // namespace
 
 // layout 0: per-instance A (B, m, n), a column a thread; 1: per-instance
 // bf16, four columns a thread (n % 4 == 0, A 8-byte aligned); 2: one shared
 // A (m, n), 16-byte copies (m % 4 == 0, n * elem % 16 == 0, y and A 16-byte
-// aligned); 3: one shared A, element loads.
+// aligned); 3: one shared A, element loads; 4: a per-instance window by
+// bulk copies (m % 4 == 0, n * elem and win * elem multiples of 16, y and
+// A 16-byte aligned); 5: a shared A's window, instances grouped by window,
+// the product on 16-byte copies (layout 2's conditions and win * elem %
+// 16 == 0); 6: the same on element loads.
 // a_dtype 0: A fp32, 1: bf16. y (B, m) fp32; c (B, n) fp32, or one (n,)
 // with c_shared; at_upper (B, n) bool bytes or null (the unsigned mode);
 // basis (B, m) int32; use_bland (B,) bool bytes. chunks: records an
-// instance, ceil(n / 256) (layouts 0, 1) or ceil(n / 128) (2, 3); words:
-// ceil(n / 32) (2, 3; else 0). Scratch: mask, B * words uint32 (2, 3);
-// recs, B * chunks 12-byte records where chunks > 1. Outputs: p (B,) int32,
-// min_e (B,) fp32. The window: win = 0 prices every column; win > 0 (layouts
-// 0 and 1 only, chunks = ceil(win / 256), win * win_s <= n, layout 1 also
-// win % 4 == 0) prices [(win_seg[i] mod win_s) * win, + win) of instance i,
-// win_seg (B,) int32; a_shared (windowed only): one A (m, n) for every
-// instance. Returns a cudaError_t; an inconsistent plan is
-// cudaErrorInvalidValue.
+// instance, ceil(span / 256) (layouts 0, 1, 4), ceil(n / 128) (2, 3) or
+// ceil(win / 64) (5, 6), span = win or n; words: ceil(n / 32) (2, 3, 5, 6;
+// else 0). Scratch: mask, B * words uint32 (2, 3, 5, 6); recs, B * chunks
+// 12-byte records where chunks > 1; group (5, 6): B + win_s + 1 + 3 *
+// group_tiles int32, group_tiles = ceil(B / 32) + win_s - 1. Outputs: p
+// (B,) int32, min_e (B,) fp32. The window: win = 0 prices every column (0
+// to 3); win > 0 (0, 1, 4 to 6; chunks as above, win * win_s <= n, layout 1
+// also win % 4 == 0) prices [(win_seg[i] mod win_s) * win, + win) of
+// instance i, win_seg (B,) int32; a_shared (windowed only): one A (m, n)
+// for every instance (layouts 0 and 1 at an instance stride of 0, and 5,
+// 6; at most 1024 windows for 5, 6). Returns a cudaError_t; an
+// inconsistent plan is cudaErrorInvalidValue.
 extern "C" int simplex_batch_pricing(int layout, int a_dtype, const void* y, const void* A,
                                      const void* c, const void* at_upper, const void* basis,
                                      const void* use_bland, int batch, int m, int n,
                                      int c_shared, float eps, int chunks, int words,
                                      void* mask, void* recs, void* p, void* min_e, int win,
-                                     int win_s, const void* win_seg, int a_shared,
-                                     void* stream) {
+                                     int win_s, const void* win_seg, int a_shared, void* group,
+                                     int group_tiles, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool shared = layout >= 2;
+  const bool grouped = layout == 5 || layout == 6;
+  const bool shared = layout == 2 || layout == 3 || grouped;
   const bool windowed = win > 0;
-  const int tile = shared ? kTileN : kChunk;
+  const bool bf16 = a_dtype == 1;
+  const int elem = bf16 ? 2 : 4;
+  const int tile = layout == 4 ? kTmaChunk : grouped ? kGroupN : shared ? kTileN : kChunk;
   const int span = windowed ? win : n;
   const uintptr_t ya = reinterpret_cast<uintptr_t>(y), aa = reinterpret_cast<uintptr_t>(A);
-  const bool copies16 = m % 4 == 0 && (n * (a_dtype == 1 ? 2 : 4)) % 16 == 0 && ya % 16 == 0 &&
-                        aa % 16 == 0;
-  if (layout < 0 || layout > 3 || a_dtype < 0 || a_dtype > 1 || batch < 1 || m < 1 || n < 1 ||
+  const bool copies16 = m % 4 == 0 && (n * elem) % 16 == 0 && ya % 16 == 0 && aa % 16 == 0;
+  const bool win16 = (win * elem) % 16 == 0;
+  if (layout < 0 || layout > 6 || a_dtype < 0 || a_dtype > 1 || batch < 1 || m < 1 || n < 1 ||
       win < 0 || chunks != (span + tile - 1) / tile || words != (shared ? (n + 31) / 32 : 0) ||
-      (layout == 1 && (a_dtype != 1 || n % kCols != 0 || aa % 8 != 0 ||
+      (layout == 1 && (!bf16 || n % kCols != 0 || aa % 8 != 0 ||
                        (windowed && win % kCols != 0))) ||
-      (layout == 2 && !copies16) || (shared && mask == nullptr) ||
-      (chunks > 1 && recs == nullptr) || (a_shared && !windowed) ||
-      (windowed && (shared || win_s < 1 || (long long)win * win_s > n || win_seg == nullptr)))
+      ((layout == 2 || layout == 5) && !copies16) || (shared && mask == nullptr) ||
+      (chunks > 1 && recs == nullptr && !(layout == 4 && chunks <= kTmaClusterMax)) ||
+      (a_shared && !windowed) ||
+      ((layout == 2 || layout == 3) && windowed) ||
+      (layout == 4 && (!copies16 || !win16 || a_shared)) ||
+      (layout == 5 && !win16) ||
+      (grouped && (!a_shared || win_s > kGroupBins || group == nullptr ||
+                   group_tiles != (batch + kGroupB - 1) / kGroupB + win_s - 1)) ||
+      (layout >= 4 && !windowed) ||
+      (windowed && (win_s < 1 || (long long)win * win_s > n || win_seg == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args P;
   P.y = static_cast<const float*>(y);
@@ -638,8 +1262,12 @@ extern "C" int simplex_batch_pricing(int layout, int a_dtype, const void* y, con
   P.win_s = win_s;
   P.win_seg = static_cast<const int*>(win_seg);
   P.a_stride = a_shared ? 0 : (size_t)m * n;
-  const bool bf16 = a_dtype == 1;
-  if (!shared) {
+  P.group_tiles = group_tiles;
+  if (grouped) carve_groups(P, group, batch, win_s);
+  cudaError_t err = cudaSuccess;
+  if (layout == 4) {
+    err = bf16 ? launch_window_tma<uint16_t>(P, s) : launch_window_tma<float>(P, s);
+  } else if (!shared) {
     const dim3 grid(chunks, batch);
     if (windowed) {
       if (layout == 1)
@@ -655,9 +1283,19 @@ extern "C" int simplex_batch_pricing(int layout, int a_dtype, const void* y, con
     } else {
       batch_pricing_scan_kernel<float, false><<<grid, kThreads, 0, s>>>(P);
     }
+    err = cudaGetLastError();
+  } else if (grouped) {
+    batch_pricing_mask_kernel<true><<<batch + 1, kThreads, 0, s>>>(P);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) {
+      if (layout == 5)
+        err = bf16 ? launch_group<uint16_t, true>(P, s) : launch_group<float, true>(P, s);
+      else
+        err = bf16 ? launch_group<uint16_t, false>(P, s) : launch_group<float, false>(P, s);
+    }
   } else {
-    batch_pricing_mask_kernel<<<batch, kThreads, 0, s>>>(P);
-    cudaError_t err = cudaGetLastError();
+    batch_pricing_mask_kernel<false><<<batch, kThreads, 0, s>>>(P);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if (layout == 2 && bf16)
       err = launch_product<uint16_t, true>(P, s);
@@ -667,14 +1305,32 @@ extern "C" int simplex_batch_pricing(int layout, int a_dtype, const void* y, con
       err = launch_product<uint16_t, false>(P, s);
     else
       err = launch_product<float, false>(P, s);
-    if (err != cudaSuccess) return (int)err;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || chunks == 1) return (int)err;
+  if (err != cudaSuccess || chunks == 1 || (layout == 4 && chunks <= kTmaClusterMax))
+    return (int)err;
   if (windowed)
     batch_pricing_reduce_kernel<true><<<batch, kThreads, 0, s>>>(P);
   else
     batch_pricing_reduce_kernel<false><<<batch, kThreads, 0, s>>>(P);
+  return (int)cudaGetLastError();
+}
+
+// The grouped window's first step alone (block 0 of layouts 5 and 6's first
+// launch): the instances of seg (B,) int32 sorted by window seg mod win_s
+// (at most 1024), stably, into group (B + win_s + 1 + 3 * group_tiles
+// int32: the permutation, the windows' offsets, the instance tiles).
+extern "C" int simplex_batch_pricing_groups(const void* win_seg, int batch, int win_s,
+                                            int group_tiles, void* group, void* stream) {
+  if (batch < 1 || win_s < 1 || win_s > kGroupBins || win_seg == nullptr || group == nullptr ||
+      group_tiles != (batch + kGroupB - 1) / kGroupB + win_s - 1)
+    return (int)cudaErrorInvalidValue;
+  Args P{};
+  P.batch = batch;
+  P.win_s = win_s;
+  P.win_seg = static_cast<const int*>(win_seg);
+  P.group_tiles = group_tiles;
+  carve_groups(P, group, batch, win_s);
+  batch_pricing_mask_kernel<true><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P);
   return (int)cudaGetLastError();
 }
 

@@ -57,8 +57,10 @@ _SIGNATURES = {
     "simplex_batch_pricing": (
         _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,  # layout .. words
         _P, _P, _P, _P,  # mask, recs, p, min_e
-        _I, _I, _P, _I, _P,  # win, win_s, win_seg, a_shared, stream
+        _I, _I, _P, _I,  # win, win_s, win_seg, a_shared
+        _P, _I, _P,  # group, group_tiles, stream
     ),
+    "simplex_batch_pricing_groups": (_P, _I, _I, _I, _P, _P),
     "simplex_batch_pricing_record_bytes": (),
     "simplex_batch_tail": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,  # vectors, B_inv, U, R, npend, L

@@ -615,11 +615,18 @@ _BATCH_GRID_MAX = 65535  # grid.y: the instances, or the shared layout's instanc
 
 # csrc/batch_pricing.cu: the per-instance chunk (columns a block), the shared
 # layout's CTA tile (instances x columns), a record's 32-bit words; the
-# launch's layout codes
+# window's bulk-copy chunk and its threads (fp32, bf16), the grouped window's
+# CTA tile and most windows; the launch's layout codes
 _BP_CHUNK = 256
 _BP_TILE_B, _BP_TILE_N = 64, 128
 _BP_RECORD_WORDS = 3
-_BP_LAYOUTS = {"scan": 0, "bf16x4": 1, "shared": 2, "shared_loads": 3}
+_BP_TMA_CHUNK = 256
+_BP_TMA_THREADS = {False: 256 + 32, True: 64 + 32}
+_BP_TMA_CLUSTER_MAX = 8  # chunks an instance that merge in one cluster
+_BP_GROUP_TILE = (16, 32)
+_BP_GROUP_MAX_S = 1024
+_BP_LAYOUTS = {"scan": 0, "bf16x4": 1, "shared": 2, "shared_loads": 3, "window_tma": 4,
+               "window_group": 5, "window_group_loads": 6}
 
 
 def _alignment(*ts: torch.Tensor) -> int:
@@ -633,47 +640,96 @@ def _alignment(*ts: torch.Tensor) -> int:
 
 
 def batch_pricing_plan(
-    Bn: int, m: int, n: int, *, shared: bool, bf16: bool, align: int, window: int = 0
+    Bn: int, m: int, n: int, *, shared: bool, bf16: bool, align: int, window: int = 0,
+    segments: int = 0,
 ) -> dict:
     """How :func:`choose_entering_batched` launches ``csrc/batch_pricing.cu``
     for B = ``Bn`` instances of m x n, A per instance or ``shared``, fp32 or
     ``bf16``, its pointers aligned to ``align`` bytes (y's and A's), every
-    column or a ``window`` of that many columns an instance (the per-instance
-    layouts then, for a shared A too, with an instance stride of 0):
+    column or a ``window`` of that many columns an instance out of
+    ``segments`` (S):
 
     ``layout``: "scan" (per instance, a column a thread), "bf16x4" (per
     instance, the bf16 shadow at n % 4 == 0: four columns a thread), "shared"
     (one A: the tiled product fed by 16-byte copies, which need m % 4 == 0,
     rows of a multiple of 16 bytes and 16-byte alignment) or
-    "shared_loads" (the same product fed by element loads); a window takes
-    "scan", or "bf16x4" where its width is a multiple of 4; ``grid`` and
-    ``threads`` of the main launch; ``chunks`` records an instance (one
-    chunk: the main launch writes the choice and no reduction launch
-    follows); ``words`` of the shared layout's basic-column mask an
-    instance; ``scratch_words``, the int32 words of scratch (mask, then
-    records); ``launches``, the kernels the call runs. Raises where a grid
-    would be too tall."""
-    if window:
-        chunks, words = -(-window // _BP_CHUNK), 0
+    "shared_loads" (the same product fed by element loads). A window of a
+    per-instance A takes "window_tma" (a producer warp's bulk copies into a
+    ring of shared memory, which need m % 4 == 0, n and w of a multiple of
+    16 bytes and 16-byte alignment), else "scan", or "bf16x4" where w is a
+    multiple of 4; a window of a shared A takes "window_group" (instances
+    grouped by window on the device, then the tiled product on 16-byte
+    copies: the shared layout's conditions and w of a multiple of 16 bytes)
+    or "window_group_loads" (element loads), and the scan at an instance
+    stride of 0 beyond ``_BP_GROUP_MAX_S`` windows. ``grid`` and
+    ``threads`` of the main launch (the grouped window: one row of
+    ``ceil(B / 16) + S - 1`` instance tiles, the surplus returning at
+    once); ``chunks`` records an instance; ``reduce``, whether a
+    reduction launch merges them (not for one chunk, where the main launch
+    writes the choice, nor for the bulk-copy scan's chunks up to
+    ``_BP_TMA_CLUSTER_MAX``, which run as one thread block cluster and merge
+    through distributed shared memory); ``words`` of the
+    basic-column mask an instance; ``group_tiles``; ``scratch_words``, the
+    int32 words of scratch (mask, the grouping's permutation, offsets and
+    tiles, then records); ``launches``, the kernels the call runs. Raises
+    where a grid would be too tall."""
+    if window and segments < 1:
+        raise ValueError("batch_pricing_plan: a window needs its number of segments")
+    elem = 2 if bf16 else 4
+    copies = m % 4 == 0 and (n * elem) % 16 == 0 and align >= 16
+    words = tiles = group = 0
+    if window and shared and segments <= _BP_GROUP_MAX_S:
+        tb, tn = _BP_GROUP_TILE
+        chunks, words = -(-window // tn), -(-n // 32)
+        tiles = -(-Bn // tb) + segments - 1
+        layout = "window_group" if copies and (window * elem) % 16 == 0 else "window_group_loads"
+        threads, grid = 64, (chunks, tiles)
+        group = Bn + segments + 1 + 3 * tiles
+    elif window and not shared and copies and (window * elem) % 16 == 0:
+        chunks = -(-window // _BP_TMA_CHUNK)
+        layout, threads = "window_tma", _BP_TMA_THREADS[bf16]
+        grid = (chunks, Bn)
+    elif window:
+        chunks = -(-window // _BP_CHUNK)
         quads = bf16 and n % 4 == 0 and window % 4 == 0 and align >= 8
         layout, threads = ("bf16x4", 64) if quads else ("scan", 256)
         grid = (chunks, Bn)
     elif shared:
         chunks, words = -(-n // _BP_TILE_N), -(-n // 32)
-        copies = m % 4 == 0 and (n * (2 if bf16 else 4)) % 16 == 0 and align >= 16
         layout, threads = ("shared" if copies else "shared_loads"), 256
         grid = (chunks, -(-Bn // _BP_TILE_B))
     else:
-        chunks, words = -(-n // _BP_CHUNK), 0
+        chunks = -(-n // _BP_CHUNK)
         quads = bf16 and n % 4 == 0 and align >= 8
         layout, threads = ("bf16x4", 64) if quads else ("scan", 256)
         grid = (chunks, Bn)
     if grid[1] > _BATCH_GRID_MAX:
         raise ValueError(f"batch_pricing: {Bn} instances need a grid taller than {_BATCH_GRID_MAX}")
-    recs = Bn * chunks * _BP_RECORD_WORDS if chunks > 1 else 0
-    return dict(layout=layout, grid=grid, threads=threads, chunks=chunks, words=words,
-                scratch_words=Bn * words + recs,
-                launches=int(shared and not window) + 1 + int(chunks > 1))
+    reduce = chunks > (_BP_TMA_CLUSTER_MAX if layout == "window_tma" else 1)
+    recs = Bn * chunks * _BP_RECORD_WORDS if reduce else 0
+    return dict(layout=layout, grid=grid, threads=threads, chunks=chunks, reduce=reduce,
+                words=words, group_tiles=tiles, scratch_words=Bn * words + group + recs,
+                launches=int(words > 0) + 1 + int(reduce))
+
+
+def window_groups(seg: torch.Tensor, S: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(perm (B,) int32, offsets (S + 1,) int32)``: the instances grouped
+    by window s = seg mod S, ascending inside each window, window s at
+    perm[offsets[s] : offsets[s + 1]] (the grouped window's first step). On
+    a CUDA tensor it runs that step alone, the grouping block of
+    ``csrc/batch_pricing.cu`` (uncounted: no pricing call runs it so); on
+    the CPU :func:`simplex_tpu_torch.kernels.ops.window_groups`."""
+    Bn = seg.shape[0]
+    _batched(seg, (Bn,), torch.int32, "seg")
+    _require(Bn >= 1 and 1 <= S <= _BP_GROUP_MAX_S, f"window_groups: {Bn} instances, S = {S}")
+    if seg.device.type == "cpu":
+        return _ops.window_groups(seg, S)
+    tiles = -(-Bn // _BP_GROUP_TILE[0]) + S - 1
+    group = torch.empty(Bn + S + 1 + 3 * tiles, dtype=torch.int32, device=seg.device)
+    err = _build.load_library().simplex_batch_pricing_groups(
+        seg.data_ptr(), Bn, S, tiles, group.data_ptr(), _stream(seg.device))
+    _build.check(err, "batch_pricing groups")
+    return group[:Bn], group[Bn:Bn + S + 1]
 
 
 def choose_entering_batched_plain(y, A, c, eps, use_bland, basis, at_upper=None, window=None):
@@ -697,10 +753,13 @@ def choose_entering_batched(
     call of ``csrc/batch_pricing.cu`` (:func:`batch_pricing_plan`: per
     instance one launch where 256 columns cover n, two beyond; a shared A
     a mask launch, the tiled product and a reduction beyond 128 columns;
-    a ``window = (w, S, seg)`` one launch where 256 columns cover w, two
-    beyond, its starts (seg[i] mod S) * w worked out on the device from
-    seg, an int32 (B,) tensor; bit for bit the unwindowed call on each
-    instance's slice with the start added to the pick).
+    a ``window = (w, S, seg)`` of a per-instance A one launch of the
+    bulk-copy scan up to 8 chunks of 256 columns, two beyond, of a shared A a
+    launch that groups the instances by window (and writes the mask), the
+    tiled product over each window and a reduction beyond 32 columns; its
+    starts (seg[i] mod S) * w worked out on the device from seg, an int32
+    (B,) tensor; bit for bit the unwindowed call on each instance's slice
+    with the start added to the pick).
     A is dense float32 or bfloat16, contiguous: per instance (B, m, n), or
     one (m, n) every instance shares; c is (B, n) or a shared (n,) float32.
     y (B, m) float32; use_bland (B,) bool; basis (B, m) int32; at_upper
@@ -732,13 +791,16 @@ def choose_entering_batched(
     if dev.type == "cpu":
         return choose_entering_batched_plain(y, A, c, eps, use_bland, basis, at_upper, window)
     plan = batch_pricing_plan(Bn, m, n, shared=A.dim() == 2, bf16=A.dtype == torch.bfloat16,
-                              align=_alignment(y, A), window=w)
+                              align=_alignment(y, A), window=w, segments=S)
     lib = _build.load_library()
     scratch = None
     if plan["scratch_words"]:
         scratch = torch.empty(plan["scratch_words"], dtype=torch.int32, device=dev)
     mask = scratch if plan["words"] else None
-    recs = None if plan["chunks"] == 1 else scratch[Bn * plan["words"]:]
+    group = scratch[Bn * plan["words"]:] if plan["group_tiles"] else None
+    recs = None
+    if plan["reduce"]:
+        recs = scratch[scratch.numel() - Bn * plan["chunks"] * _BP_RECORD_WORDS:]
     out = torch.empty((2, Bn), dtype=torch.int32, device=dev)
     err = lib.simplex_batch_pricing(
         _BP_LAYOUTS[plan["layout"]], 0 if A.dtype == torch.float32 else 1, y.data_ptr(),
@@ -747,7 +809,7 @@ def choose_entering_batched(
         plan["chunks"], plan["words"], None if mask is None else mask.data_ptr(),
         None if recs is None else recs.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
         w, S, None if window is None else seg.data_ptr(), int(window is not None and A.dim() == 2),
-        _stream(dev),
+        None if group is None else group.data_ptr(), plan["group_tiles"], _stream(dev),
     )
     _build.check(err, "batch_pricing")
     launches["batch_pricing"] += 1

@@ -563,6 +563,16 @@ def window_slice(A: torch.Tensor, lo: torch.Tensor, w: int) -> torch.Tensor:
     return A.gather(2, cols[:, None, :].expand(Bn, A.shape[1], w))
 
 
+def window_groups(seg: torch.Tensor, S: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The instances grouped by window: ``(perm (B,) int32, offsets (S + 1,)
+    int32)`` with the instances of window s = seg mod S at
+    perm[offsets[s] : offsets[s + 1]], ascending (a stable sort by window)."""
+    s = torch.remainder(seg.long(), S)
+    offsets = torch.zeros(S + 1, dtype=torch.int64, device=seg.device)
+    offsets[1:] = torch.cumsum(torch.bincount(s, minlength=S), 0)
+    return torch.argsort(s, stable=True).to(torch.int32), offsets.to(torch.int32)
+
+
 def choose_entering_batched(
     y: torch.Tensor,
     A: torch.Tensor,

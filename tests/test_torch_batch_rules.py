@@ -411,23 +411,145 @@ def test_windowed_choose_is_the_single_op_on_the_slice(layout, signed, dtype):
 
 
 def test_window_plan_and_checks():
-    plan = hopper.batch_pricing_plan(64, 512, 4096, shared=False, bf16=False, align=16, window=512)
-    assert plan["layout"] == "scan" and plan["grid"] == (2, 64) and plan["launches"] == 2
-    plan = hopper.batch_pricing_plan(64, 512, 4096, shared=False, bf16=True, align=16, window=512)
-    assert plan["layout"] == "bf16x4" and plan["threads"] == 64
-    plan = hopper.batch_pricing_plan(64, 512, 4098, shared=False, bf16=True, align=16, window=2049)
-    assert plan["layout"] == "scan" and plan["chunks"] == 9
-    # a shared A takes the per-instance scan, no mask launch
-    plan = hopper.batch_pricing_plan(256, 2048, 4096, shared=True, bf16=False, align=16, window=512)
-    assert plan["layout"] == "scan" and plan["words"] == 0 and plan["launches"] == 2
-    plan = hopper.batch_pricing_plan(256, 2048, 4096, shared=True, bf16=False, align=16, window=200)
-    assert plan["launches"] == 1 and plan["scratch_words"] == 0
+    plan = hopper.batch_pricing_plan
+    # the segmented cell, 64 x 512 x 4096 with w = 512: the bulk-copy scan,
+    # two chunks of 256 columns merged in their cluster, one launch; its
+    # bf16 shadow the same; beyond 8 chunks a reduction launch
+    p = plan(64, 512, 4096, shared=False, bf16=False, align=16, window=512, segments=8)
+    assert {k: p[k] for k in ("layout", "grid", "threads", "chunks", "reduce", "words",
+                              "group_tiles", "launches", "scratch_words")} == dict(
+        layout="window_tma", grid=(2, 64), threads=288, chunks=2, reduce=False, words=0,
+        group_tiles=0, launches=1, scratch_words=0)
+    p = plan(64, 512, 4096, shared=False, bf16=True, align=16, window=512, segments=8)
+    assert (p["layout"], p["grid"], p["threads"], p["launches"]) == ("window_tma", (2, 64), 96, 1)
+    p = plan(64, 512, 4096, shared=False, bf16=True, align=16, window=256, segments=16)
+    assert (p["chunks"], p["launches"], p["scratch_words"]) == (1, 1, 0)
+    p = plan(64, 512, 4096, shared=False, bf16=False, align=16, window=2304, segments=1)
+    assert (p["chunks"], p["reduce"], p["launches"], p["scratch_words"]) == (9, True, 2, 64 * 9 * 3)
+    # what bulk copies cannot take forces the scan: m % 4, the alignment, a
+    # row or a window that is not a multiple of 16 bytes
+    for m, n, w, align, bf16, want in (
+        (511, 4096, 512, 16, False, "scan"), (512, 4096, 512, 8, False, "scan"),
+        (512, 4098, 512, 16, False, "scan"), (512, 4096, 510, 16, False, "scan"),
+        (512, 4096, 508, 16, True, "bf16x4"), (512, 4100, 512, 16, True, "bf16x4"),
+        (512, 4096, 512, 16, True, "window_tma"), (512, 4096, 8, 16, True, "window_tma"),
+    ):
+        p = plan(64, m, n, shared=False, bf16=bf16, align=align, window=w, segments=2)
+        assert p["layout"] == want, (m, n, w, align, bf16)
+        assert p["grid"] == (-(-w // 256), 64) and p["words"] == p["group_tiles"] == 0
+    p = plan(64, 512, 4098, shared=False, bf16=True, align=16, window=2049, segments=2)
+    assert p["layout"] == "scan" and p["chunks"] == 9
+    # a shared A: the grouping (with the mask), the tiled product over each
+    # window's 32-column tiles, ceil(B / 16) + S - 1 instance tiles, and a
+    # reduction beyond one tile
+    p = plan(256, 2048, 4096, shared=True, bf16=False, align=16, window=512, segments=8)
+    assert {k: p[k] for k in ("layout", "grid", "threads", "chunks", "words", "group_tiles",
+                              "launches", "scratch_words")} == dict(
+        layout="window_group", grid=(16, 23), threads=64, chunks=16, words=128, group_tiles=23,
+        launches=3, scratch_words=256 * 128 + (256 + 9 + 3 * 23) + 256 * 16 * 3)
+    # S = 1 (one window, the whole row), and B not a multiple of 16
+    p = plan(256, 2048, 4096, shared=True, bf16=True, align=16, window=4096, segments=1)
+    assert (p["layout"], p["grid"], p["group_tiles"]) == ("window_group", (128, 16), 16)
+    p = plan(70, 32, 300, shared=True, bf16=False, align=16, window=100, segments=3)
+    assert (p["layout"], p["grid"], p["chunks"], p["launches"]) == ("window_group", (4, 7), 4, 3)
+    # element loads where m, n, w or the alignment forbid 16-byte copies
+    for m, n, w, align in ((33, 300, 100, 16), (32, 301, 100, 16), (32, 300, 98, 16), (32, 300, 100, 8)):
+        p = plan(70, m, n, shared=True, bf16=False, align=align, window=w, segments=3)
+        assert p["layout"] == "window_group_loads", (m, n, w, align)
+    # one tile: the product writes the choice; beyond 1024 windows the scan at stride 0
+    p = plan(9, 16, 1040, shared=True, bf16=False, align=16, window=32, segments=2)
+    assert (p["chunks"], p["launches"], p["scratch_words"]) == (1, 2, 9 * 33 + 9 + 3 + 3 * 2)
+    p = plan(4, 8, 2050, shared=True, bf16=False, align=16, window=2, segments=1025)
+    assert (p["layout"], p["words"], p["group_tiles"], p["launches"]) == ("scan", 0, 0, 1)
+    with pytest.raises(ValueError, match="grid"):
+        plan(65535 * 16, 4, 16, shared=True, bf16=False, align=16, window=8, segments=2)
+    with pytest.raises(ValueError, match="segments"):
+        plan(64, 512, 4096, shared=False, bf16=False, align=16, window=512)
     y, A, c = torch.zeros(2, 3), torch.zeros(2, 3, 8), torch.zeros(2, 8)
     basis, no = torch.zeros(2, 3, dtype=torch.int32), torch.zeros(2, dtype=torch.bool)
     with pytest.raises(ValueError, match="exceed"):
         hopper.choose_entering_batched(y, A, c, 1e-5, no, basis, None, (3, 3, torch.zeros(2, dtype=torch.int32)))
     with pytest.raises(ValueError, match="window seg"):
         hopper.choose_entering_batched(y, A, c, 1e-5, no, basis, None, (4, 2, torch.zeros(3, dtype=torch.int32)))
+
+
+@pytest.mark.parametrize(
+    "B, S, spread",
+    [(256, 8, "random"), (70, 3, "random"), (37, 5, "one window"), (33, 1, "random"),
+     (50, 7, "negative"), (1, 4, "random"), (300, 1024, "random")],
+)
+def test_window_groups(B, S, spread):
+    """The grouped window's first step (``ops.window_groups``, and the hopper
+    wrapper on CPU tensors) against numpy's stable argsort of seg mod S:
+    every instance once, grouped by window, ascending inside a window,
+    offsets the windows' counts summed, B at the end."""
+    rng = np.random.default_rng(B + S)
+    seg = rng.integers(0, 1000, B)
+    if spread == "one window":
+        seg = np.full(B, 3 * S + 2)
+    elif spread == "negative":
+        seg = seg - 600
+    seg_t = torch.as_tensor(seg, dtype=torch.int32)
+    for perm, offsets in (ops.window_groups(seg_t, S), hopper.window_groups(seg_t, S)):
+        s = np.mod(seg, S)
+        assert perm.dtype == offsets.dtype == torch.int32
+        np.testing.assert_array_equal(perm.numpy(), np.argsort(s, kind="stable"))
+        want = np.concatenate([[0], np.cumsum(np.bincount(s, minlength=S))])
+        np.testing.assert_array_equal(offsets.numpy(), want)
+        assert offsets[-1] == B
+        for w in range(S):
+            part = perm[offsets[w]:offsets[w + 1]].numpy()
+            assert (np.mod(seg[part], S) == w).all() and (np.diff(part) > 0).all()
+    with pytest.raises(ValueError, match="window_groups"):
+        hopper.window_groups(seg_t, 1025)
+
+
+@pytest.mark.parametrize("layout", ["stack", "shared"])
+@pytest.mark.parametrize("bland", [False, True])
+def test_windowed_choose_matches_jax_segments(layout, bland):
+    """The windowed twin against the JAX package's segment switch
+    (``simplex_tpu/core/step.py:616-640``): ``jax.vmap`` of
+    ``kernels.xla.choose_entering`` over each instance's static slice,
+    chosen by ``lax.switch`` on iters mod S, with c masked by
+    ``xla.mask_basic``; seeded numpy fp32 inputs. Picks equal (no ties),
+    min_e within rtol / atol 1e-5 (fp32 sums in another order)."""
+    import jax
+    import jax.numpy as jnp
+
+    from simplex_tpu.kernels import xla
+
+    rng = np.random.default_rng(17)
+    B, m, n, S = 6, 7, 48, 4
+    w = n // S
+    shared = layout == "shared"
+    y = rng.standard_normal((B, m)).astype(np.float32)
+    A = rng.standard_normal((m, n) if shared else (B, m, n)).astype(np.float32)
+    c = rng.standard_normal((B, n)).astype(np.float32)
+    basis = np.stack([rng.permutation(n)[:m] for _ in range(B)]).astype(np.int32)
+    iters = rng.integers(-50, 100, B).astype(np.int32)
+    flags = np.full(B, bland)
+
+    def one(y, A, c, basis, it, flag):
+        c_eff = xla.mask_basic(c, basis)
+
+        def segment(s):
+            def br(_):
+                p, mn = xla.choose_entering(
+                    y, jax.lax.slice_in_dim(A, s * w, (s + 1) * w, axis=1),
+                    jax.lax.slice_in_dim(c_eff, s * w, (s + 1) * w), 1e-5, flag)
+                return (s * w + p).astype(jnp.int32), mn
+
+            return br
+
+        return jax.lax.switch(it % S, [segment(s) for s in range(S)], None)
+
+    p_j, min_j = jax.vmap(one, in_axes=(0, None if shared else 0, 0, 0, 0, 0))(
+        y, A, c, basis, iters, flags)
+    p, min_e = ops.choose_entering_batched(
+        torch.as_tensor(y), torch.as_tensor(A), torch.as_tensor(c), 1e-5, torch.as_tensor(flags),
+        torch.as_tensor(basis), None, (w, S, torch.as_tensor(iters)))
+    np.testing.assert_array_equal(p.numpy(), np.asarray(p_j))
+    np.testing.assert_allclose(min_e.numpy(), np.asarray(min_j), rtol=1e-5, atol=1e-5)
 
 
 def test_segments_follow_the_static_test():
