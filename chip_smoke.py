@@ -1396,12 +1396,15 @@ def timed_solve(dev, m, n, opts):
     return timed_solve_of(dev, *instance(m, n), opts)
 
 
-def timed_solve_of(dev, A, b, c, opts):
-    """:func:`timed_solve` on the LP (A, b, c); A may be sparse."""
+def timed_solve_of(dev, A, b, c, opts, mesh=None):
+    """:func:`timed_solve` on the LP (A, b, c); A may be sparse. With
+    ``mesh``, ``solve_sharded`` on it (this process's rank), whose
+    collectives the caller reads from ``sharded.collectives``."""
     import torch
 
-    from simplex_tpu_torch import solve
+    from simplex_tpu_torch import solve, solve_sharded
     from simplex_tpu_torch.core import solver, step
+    from simplex_tpu_torch.dist import sharded
     from simplex_tpu_torch.kernels import hopper
 
     steps = [0]
@@ -1414,15 +1417,45 @@ def timed_solve_of(dev, A, b, c, opts):
     torch.cuda.synchronize()
     hopper.reset_launches()
     step.reset_host_reads()
+    sharded.reset_collectives()
     solver.pivot_step = counted
     try:
         t0 = time.perf_counter()
-        res = solve(A, b, c, options=opts, device=dev)
+        if mesh is None:
+            res = solve(A, b, c, options=opts, device=dev)
+        else:
+            res = solve_sharded(A, b, c, mesh, options=opts, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         solver.pivot_step = inner
     return res, wall, dict(hopper.launches), steps[0], dict(step.host_reads)
+
+
+@contextlib.contextmanager
+def loop_timer():
+    """Seconds spent in the solver's pivot loops while the block runs, each
+    loop synchronized at both ends: the solve without its set-up, its
+    verify-round refactorizations and its polish. Yields a one-item list."""
+    import torch
+
+    from simplex_tpu_torch.core import solver
+
+    inner, spent = solver._pivot_loop, [0.0]
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    solver._pivot_loop = timed
+    try:
+        yield spent
+    finally:
+        solver._pivot_loop = inner
 
 
 def residual64(dev, m, n, res) -> float:
@@ -1515,18 +1548,20 @@ def phase_solve(dev) -> dict:
     )
 
     opts = SimplexOptions(max_iter=BENCH_WINDOW)
-    res, wall, counts, steps, reads = timed_solve(dev, BENCH_M, BENCH_N, opts)
+    with loop_timer() as loop:
+        res, wall, counts, steps, reads = timed_solve(dev, BENCH_M, BENCH_N, opts)
     check(res.status == SolveStatus.MAX_ITER, f"{BENCH_M}x{BENCH_N}: {res.status!r}")
     check(res.iters == BENCH_WINDOW, f"{BENCH_M}x{BENCH_N}: {res.iters} pivots")
     for name in ("pricing_scan", "ratio_eta", "rank1_update"):
         check(counts[name] == BENCH_WINDOW, f"{name}: {counts[name]} launches in {BENCH_WINDOW} pivot steps")
     check(counts["ratio_argmin"] == 0, f"ratio_argmin: {counts['ratio_argmin']} launches")
+    KEPT["window"] = (res, wall, reads, loop[0])
     resid = residual64(dev, BENCH_M, BENCH_N, res)
     print(
         f"random_dense_lp({BENCH_M}, {BENCH_N}, seed=0), max_iter={BENCH_WINDOW}: "
         f"{res.status.name} after {res.iters} pivots in {wall:.3f} s "
-        f"({res.iters / wall:.1f} pivots/s end to end, setup and polish included); "
-        f"z {res.z!r}; f64 residual |A_B x_b - b|_inf {resid:.3e}; launches {counts}; "
+        f"({res.iters / wall:.1f} pivots/s end to end, setup and polish included; the pivot loop "
+        f"alone {res.iters / loop[0]:.1f}); z {res.z!r}; f64 residual |A_B x_b - b|_inf {resid:.3e}; launches {counts}; "
         f"host reads {reads}"
     )
     return counts
@@ -3149,6 +3184,228 @@ def phase_warm_and_pdhg_profile(dev) -> dict:
     return out
 
 
+# ---- the column-sharded solve and the sharded batch ----------------------
+
+SHARD_RANKS = 2  # gloo ranks of the one-card sharded run (NCCL refuses a card twice)
+# the 2048 x 4096 option sets solved to OPTIMAL on the shards, against HiGHS
+SHARDED_SETS = {
+    "default": {},
+    "flagship, multi-price off": {**FLAGSHIP, "multi_price": 0},
+    "devex": {"pricing": "devex"},
+}
+
+
+def phase_shard_pricing(dev) -> dict:
+    """``pricing_scan`` on a column shard: its own contiguous (m, n / R)
+    copy, ``base_col`` at the shard's first column, global basis ids, rows
+    chunked as the (m, n) pass chunks them. Against its plain version, and
+    bit for bit against the pass over the whole matrix restricted to the
+    shard (c = -inf on the other columns pushes them out of the min). Timed
+    at the shard shapes of 2 and 4 ranks, with the shard's own chunking
+    beside the whole matrix's."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    m, n = BENCH_M, BENCH_N
+    y = torch.randn(m, generator=g, device=dev)
+    A = torch.randn(m, n, generator=g, device=dev)
+    c = torch.randn(n, generator=g, device=dev)
+    eps = 1e-5
+    rec = {}
+    for R in (2, 4):
+        w = n // R
+        lo = n - w  # the last shard: base_col != 0
+        A_loc, c_loc = A[:, lo:].contiguous(), c[lo:].contiguous()
+        e = y @ A - c
+        basis = masked_basis(e, m, g, n, 0)  # global ids, some in this shard
+        got = hopper.pricing_scan(y, A_loc, c_loc, eps, None, basis, lo, chunk_n=n)
+        plain = hopper.pricing_scan_plain(y, A_loc, c_loc, eps, None, basis, lo)
+        c_out = c.clone()
+        c_out[:lo] = -float("inf")
+        whole = hopper.pricing_scan(y, A, c_out, eps, None, basis, 0)
+        torch.cuda.synchronize()
+        min_k, p_k, neg_k = float(got[0]), int(got[1]), int(got[2])
+        err = abs(min_k - float(plain[0]))
+        check(err <= PRICING_RTOL * abs(float(plain[0])), f"shard pricing R={R}: min {min_k} vs plain {float(plain[0])}")
+        check(p_k == int(plain[1]) and neg_k == int(plain[2]),
+              f"shard pricing R={R}: p {p_k}, first {neg_k} vs plain {int(plain[1])}, {int(plain[2])}")
+        check(got[0].view(torch.int32).item() == whole[0].view(torch.int32).item() and lo + p_k == int(whole[1]),
+              f"shard pricing R={R}: {min_k!r} at {lo + p_k} vs the whole pass's {float(whole[0])!r} at {int(whole[1])}")
+        own = hopper.pricing_scan(y, A_loc, c_loc, eps, None, basis, lo)
+        torch.cuda.synchronize()
+        same = own[0].view(torch.int32).item() == got[0].view(torch.int32).item()
+        rec[f"{m}x{w}"] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: hopper.pricing_scan(y, A_loc, c_loc, eps, None, basis, lo, chunk_n=n)),
+            "own_chunks_ms": time_ms(lambda: hopper.pricing_scan(y, A_loc, c_loc, eps, None, basis, lo)),
+            "plain_ms": time_ms(lambda: hopper.pricing_scan_plain(y, A_loc, c_loc, eps, None, basis, lo)),
+            **bound(4.0 * (m * w + 2 * m + w), 2.0 * m * w),
+            "chunks": hopper._pricing_chunks(m, n)[1], "own_chunks": hopper._pricing_chunks(m, w)[1],
+        }
+        r = rec[f"{m}x{w}"]
+        print(f"pricing_scan on shard {R} of {R} ({m}x{w}, base_col {lo}): min_e {min_k!r} p {lo + p_k}, bit for bit "
+              f"the whole pass's; its own chunking ({r['own_chunks']} chunks, not {r['chunks']}) "
+              f"{'gives the same bits' if same else 'gives other bits'}; ms {r['ms']:.4f} "
+              f"(own chunks {r['own_chunks_ms']:.4f}, plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f})")
+        del A_loc
+    return rec
+
+
+def sharded_run(dev, mesh, A, b, c, opts) -> dict:
+    """One ``solve_sharded`` through :func:`timed_solve_of`, with the
+    collectives of the run and the seconds of its pivot loops."""
+    from simplex_tpu_torch.dist import sharded
+
+    with loop_timer() as loop:
+        res, wall, counts, steps, reads = timed_solve_of(dev, A, b, c, opts, mesh=mesh)
+    return dict(res=res, wall=wall, loop=loop[0], counts=counts, steps=steps, reads=reads,
+                collectives=dict(sharded.collectives))
+
+
+def sharded_rank(rank: int, world: int, port: int, dev_type: str, out) -> None:
+    """One gloo rank of the one-card sharded run (a spawned process): the
+    window, the 2048 x 4096 option sets, and bench-batch over the ranks."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from simplex_tpu_torch import SimplexOptions, solve_batched
+    from simplex_tpu_torch.dist.mesh import initialize_multihost, make_mesh
+    from simplex_tpu_torch.kernels import hopper
+
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        mesh = make_mesh(device=dev_type)
+        dev = torch.device("cuda", torch.cuda.current_device()) if dev_type == "cuda" else torch.device("cpu")
+        rec = {"window": sharded_run(dev, mesh, *instance(BENCH_M, BENCH_N), SimplexOptions(max_iter=BENCH_WINDOW))}
+        for tag, kw in SHARDED_SETS.items():
+            rec[tag] = sharded_run(dev, mesh, *instance(SMALL_M, SMALL_N), SimplexOptions(**kw))
+        As, bs, cs = batch_instances(BATCH_B)
+        bmesh = make_mesh(("batch",), device=dev_type)
+        torch.cuda.synchronize()
+        hopper.reset_launches()
+        t0 = time.perf_counter()
+        res = solve_batched(As, bs, cs, options=SimplexOptions(**BATCH_OPTS), mesh=bmesh, device=dev)
+        rec["batch"] = dict(res=res, wall=time.perf_counter() - t0, counts=dict(hopper.launches))
+        out.put((rank, "ok", rec))
+    except Exception:
+        out.put((rank, "err", traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def check_sharded_window(tag, run, single, single_reads) -> None:
+    """A sharded window against the single solve's: the same pivots, basis
+    and z; each kernel once a pivot step; two collectives a pivot step; the
+    single solve's host reads."""
+    res, k = run["res"], run["steps"]
+    check(res.status == single.status and res.iters == single.iters,
+          f"{tag}: {res.status!r} after {res.iters} vs {single.status!r} after {single.iters}")
+    check((res.basis == single.basis).all() and res.z == single.z,
+          f"{tag}: basis or z {res.z!r} differs from the single solve's {single.z!r}")
+    for name in ("pricing_scan", "ratio_eta", "rank1_update"):
+        check(run["counts"][name] == k, f"{tag}: {name} {run['counts'][name]} launches in {k} pivot steps")
+    col = run["collectives"]
+    check(col["choose_entering"] == col["gather_column_cost"] == k, f"{tag}: collectives {col} in {k} steps")
+    check(run["reads"] == single_reads, f"{tag}: host reads {run['reads']} vs the single solve's {single_reads}")
+
+
+def phase_sharded(dev) -> dict:
+    """The column-sharded solve: at world size 1 over NCCL (a group of this
+    process), then at world size 2 on this one card over gloo (two spawned
+    ranks on cuda:0), on the bench instance's 512-pivot window, pivot for
+    pivot against the single solve (phase 3's run); at world size 2 also
+    the 2048 x 4096 instance to OPTIMAL under the default, the flagship
+    without multiple pricing and devex against HiGHS, and bench-batch's
+    4,096 x 64 x 160 through ``solve_batched(mesh=)`` against the call
+    without a mesh."""
+    import multiprocessing
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from simplex_tpu_torch import SimplexOptions, solve_batched
+    from simplex_tpu_torch.dist.mesh import free_port, make_mesh
+    from simplex_tpu_torch.oracle.reference import relative_gap
+
+    single, s_wall, s_reads, s_loop = KEPT["window"]
+    paths = {}
+    mesh = make_mesh(device=dev.type)  # a group of one, NCCL on the card
+    try:
+        run = sharded_run(dev, mesh, *instance(BENCH_M, BENCH_N), SimplexOptions(max_iter=BENCH_WINDOW))
+    finally:
+        dist.destroy_process_group()
+    check_sharded_window("sharded window, world 1 (nccl)", run, single, s_reads)
+    k = run["steps"]
+    print(f"solve_sharded world 1 (nccl), {BENCH_M}x{BENCH_N} window: {run['res'].iters} pivots in "
+          f"{run['wall']:.3f} s ({run['res'].iters / run['wall']:.1f} pivots/s end to end, the pivot loop "
+          f"alone {run['res'].iters / run['loop']:.1f}; the single solve {single.iters / s_wall:.1f} and "
+          f"{single.iters / s_loop:.1f}); same basis and z {run['res'].z!r}; launches {run['counts']}; "
+          f"collectives {run['collectives']} ({sum(run['collectives'].values()) / k:.3f} a pivot step); "
+          f"host reads {run['reads']}")
+    paths["sharded window, world 1"] = run["counts"]
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=sharded_rank, args=(r, SHARD_RANKS, port, dev.type, out)) for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    recs, errors = {}, []
+    try:
+        for _ in procs:
+            rank, kind, val = out.get(timeout=600)
+            if kind == "ok":
+                recs[rank] = val
+            else:
+                errors.append(f"rank {rank}:\n{val}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+    check(not errors, "sharded ranks failed:\n" + "\n".join(errors))
+    for rank in range(SHARD_RANKS):
+        rec = recs[rank]
+        check_sharded_window(f"sharded window, world {SHARD_RANKS} (gloo), rank {rank}", rec["window"], single, s_reads)
+        paths[f"sharded window, world {SHARD_RANKS}, rank {rank}"] = rec["window"]["counts"]
+    w = recs[0]["window"]
+    print(f"solve_sharded world {SHARD_RANKS} (gloo, one card), window: {w['res'].iters} pivots in {w['wall']:.3f} s "
+          f"({w['res'].iters / w['wall']:.1f} pivots/s end to end, the pivot loop alone "
+          f"{w['res'].iters / w['loop']:.1f}); same basis and z on every rank; launches (rank 0) {w['counts']}; "
+          f"collectives {w['collectives']}; host reads {w['reads']}")
+    ref = highs(SMALL_M, SMALL_N)
+    for tag in SHARDED_SETS:
+        runs = [recs[r][tag] for r in range(SHARD_RANKS)]
+        res = runs[0]["res"]
+        for other in runs[1:]:
+            check(other["res"].z == res.z and (other["res"].basis == res.basis).all(), f"sharded {tag}: ranks disagree")
+        gap = relative_gap(res.z, ref.z)
+        check(res.status.name == "OPTIMAL" and gap <= GAP_TOL, f"sharded {tag}: {res.status!r}, rel gap {gap:.3e}")
+        k = runs[0]["steps"]
+        print(f"solve_sharded world {SHARD_RANKS}, {SMALL_M}x{SMALL_N} {tag}: OPTIMAL z {res.z!r} HiGHS {ref.z!r} "
+              f"rel_gap {gap:.3e} feas_err {res.feas_err:.3e} pivots {res.iters} in {runs[0]['wall']:.2f} s; "
+              f"collectives {runs[0]['collectives']} ({sum(runs[0]['collectives'].values()) / k:.3f} a pivot step); "
+              f"host reads {runs[0]['reads']}; launches {runs[0]['counts']}")
+        for rank in range(SHARD_RANKS):
+            paths[f"sharded {tag}, rank {rank}"] = recs[rank][tag]["counts"]
+    As, bs, cs = batch_instances(BATCH_B)
+    base = solve_batched(As, bs, cs, options=SimplexOptions(**BATCH_OPTS), device=dev)
+    for rank in range(SHARD_RANKS):
+        b = recs[rank]["batch"]
+        check((b["res"].status == base.status).all(), f"sharded batch rank {rank}: statuses differ")
+        check(np.allclose(b["res"].z, base.z, rtol=1e-6, atol=0), f"sharded batch rank {rank}: z differs beyond 1e-6")
+        paths[f"solve_batched over {SHARD_RANKS} ranks, rank {rank}"] = b["counts"]
+    b = recs[0]["batch"]
+    print(f"solve_batched over {SHARD_RANKS} ranks (gloo, one card), B={BATCH_B}: {b['wall']:.3f} s "
+          f"({BATCH_B / b['wall']:.1f} solves/s) against the call without a mesh; statuses equal, worst z rel diff "
+          f"{float(np.max(np.abs(b['res'].z - base.z) / np.maximum(np.abs(base.z), 1e-30))):.3e}; launches rank 0 {b['counts']}")
+    return paths
+
+
 def add_call_device_us(recs: dict, us: dict) -> None:
     """The record's keys for ``batch_kernel_device_us``'s times."""
     recs["batch_pricing"]["reopt_device_us"] = us["batch_pricing shared 256x2048x4096"]
@@ -3177,10 +3434,11 @@ def timed(fn):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "new"], default=None,
+    ap.add_argument("--only", choices=["kernels", "new", "sharded"], default=None,
                     help="kernels: stop after the kernel checks; new: the kernel build, then only "
-                         "the batched, warm-batched and PDHG phases and the batch profile (no "
-                         "final ok line either way)")
+                         "the batched, warm-batched and PDHG phases and the batch profile; sharded: "
+                         "the kernel build, pricing on a shard, the default window and the sharded "
+                         "phase (no final ok line in any of them)")
     args = ap.parse_args(argv)
     if not (ROOT / "simplex_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -3213,6 +3471,15 @@ def main(argv=None) -> int:
         print(f"new phases: {time.perf_counter() - t_start:.1f} s")
         print(card)
         return 0
+    if args.only == "sharded":
+        phase_shard_pricing(dev)
+        paths = {"default window": phase_solve(dev)}
+        paths.update(phase_sharded(dev))
+        for tag, counts in paths.items():
+            print(f"launches on path '{tag}': {counts}")
+        print(f"sharded phases: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
     recs = {
         "pricing_scan": phase_pricing(dev),
         "ratio_argmin": phase_ratio_argmin(dev),
@@ -3221,6 +3488,8 @@ def main(argv=None) -> int:
     }
     bf16 = phase_pricing_bf16(dev)
     recs["pricing_scan"]["shapes"] = {f"bf16 {tag}": r for tag, r in bf16.items()}
+    recs["pricing_scan"]["shapes"].update(
+        {f"shard {tag}": r for tag, r in phase_shard_pricing(dev).items()})
     phase_pricing_bounded(dev)
     torch.cuda.empty_cache()
     recs.update(phase_batch_kernels(dev))
@@ -3260,6 +3529,8 @@ def main(argv=None) -> int:
     paths.update(phase_reopt_rules(dev))
     torch.cuda.empty_cache()
     paths.update(phase_pdhg(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_sharded(dev))
     torch.cuda.empty_cache()
     # last: a profiler run leaves every later launch of the process dearer
     phase_device_ops(dev)

@@ -35,6 +35,12 @@ jax; ``simplex_tpu`` stays the reference it is tested against.
     fo = solve_pdhg(A, b, c, tol=1e-4)           # first-order, inverse-free
     vertex = crossover(A, b, c, fo)              # exact basic optimum
 
+    from simplex_tpu_torch import solve_sharded  # one process a rank
+    from simplex_tpu_torch.dist.mesh import make_mesh
+    mesh = make_mesh()                           # every rank of the group
+    result = solve_sharded(A, b, c, mesh)        # A's columns over the ranks
+    res = solve_batched(As, bs, cs, mesh=make_mesh(("batch",)))
+
 Modules and subpackages:
     core     state, pivot step (native upper bounds; Dantzig, devex and
              steepest-edge pricing), host-driven solve loop, Newton
@@ -42,6 +48,9 @@ Modules and subpackages:
              trace, checkpoint / resume
     batch    many same-shape LPs (or rhs scenarios) at once: the batched
              step on three batched Hopper kernels
+    dist     the mesh of ranks (torch.distributed: NCCL on the cards,
+             gloo on the CPU), the column-sharded solve, and the batch
+             split over the ranks
     fo       PDHG (PDLP-style first-order solver) and crossover
     analysis ranging and the warm re-solve after a rhs change
     sparse   sparse A on the device (CSR of A and of A^T), its ops
@@ -61,14 +70,16 @@ from simplex_tpu_torch.core.checkpoint import (
 )
 from simplex_tpu_torch.core.dual import solve_dual
 from simplex_tpu_torch.core.solver import SolveResult, solve
+from simplex_tpu_torch.core.state import Problem, SolverState
 from simplex_tpu_torch.core.trace import PivotRecord, print_trace, trace_pivots
 from simplex_tpu_torch.core.twophase import GeneralLP, GeneralSolveResult, solve_general
+from simplex_tpu_torch.dist.sharded import solve_sharded
 from simplex_tpu_torch.fo.crossover import crossover
 from simplex_tpu_torch.fo.pdhg import PDHGResult, solve_pdhg
 from simplex_tpu_torch.io.mps import read_mps
 from simplex_tpu_torch.io.mps_write import write_mps
-from simplex_tpu_torch.io.text import load_lp, loads_lp
-from simplex_tpu_torch.presolve import presolve
+from simplex_tpu_torch.io.text import dumps_lp, load_lp, loads_lp, save_lp
+from simplex_tpu_torch.presolve import postsolve, presolve
 from simplex_tpu_torch.sparse import SparseA
 from simplex_tpu_torch.status import SolveStatus
 
@@ -79,15 +90,19 @@ __all__ = [
     "GeneralSolveResult",
     "PDHGResult",
     "PivotRecord",
+    "Problem",
     "RangingResult",
     "SimplexOptions",
     "SolveResult",
     "SolveStatus",
+    "SolverState",
     "SparseA",
     "crossover",
+    "dumps_lp",
     "load_checkpoint",
     "load_lp",
     "loads_lp",
+    "postsolve",
     "presolve",
     "print_trace",
     "ranging",
@@ -95,13 +110,18 @@ __all__ = [
     "reoptimize",
     "reoptimize_batched",
     "save_checkpoint",
+    "save_lp",
     "solve",
     "solve_batched",
     "solve_dual",
     "solve_general",
     "solve_pdhg",
+    "solve_sharded",
     "solve_with_checkpoints",
     "trace_pivots",
     "validate_checkpoint",
     "write_mps",
+    "__version__",
 ]
+
+__version__ = "0.2.0"

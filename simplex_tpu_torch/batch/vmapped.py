@@ -16,6 +16,13 @@ column segment (``partial_pricing``), devex and steepest edge.
                        optimal basis of a shared (A, c): the batched dual
                        loop, then the primal clean-up
 
+Given ``mesh=`` (a :class:`~torch.distributed.device_mesh.DeviceMesh`),
+the batch is split over the ranks of its axis ``batch_axis`` (pure data
+parallelism, as the JAX package shards the vmapped batch): each rank
+solves its ``tensor_split`` slice of the instances (or scenarios) on its
+own device, and the per-instance results are all-gathered, so every rank
+returns the whole batch's result.
+
 Neither runs the f64 polish: z comes from the fp32 solve, and
 ``reoptimize_batched`` reports each scenario's feas_err = max(-min x_b, 0).
 Use the single :func:`~simplex_tpu_torch.solve` for audited final numbers.
@@ -58,12 +65,7 @@ class BatchSolveResult(NamedTuple):
         return [SolveStatus(int(s)) for s in self.status]
 
 
-def _prepare(options: SimplexOptions, what: str, mesh) -> SimplexOptions:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}: mesh= (the batch sharded over several cards) is not ported "
-            "yet (ROADMAP item 18)"
-        )
+def _prepare(options: SimplexOptions, what: str) -> SimplexOptions:
     options = check_supported(options)
     if options.multi_price > 0:
         # as in the JAX package: the batched state has no candidate buffer
@@ -105,6 +107,37 @@ def _array(v) -> np.ndarray:
     return np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
 
 
+def _over_mesh(mesh, batch_axis: str, Bn: int, solve_slice) -> BatchSolveResult:
+    """``solve_slice(lo, hi)`` on this rank's ``tensor_split`` slice of the
+    Bn instances, then every rank's results all-gathered in rank order. An
+    error on any rank is gathered too and raised on every rank, so that no
+    rank waits for one that gave up."""
+    import torch.distributed as dist
+
+    from simplex_tpu_torch.dist.mesh import require_mesh
+
+    group = require_mesh(mesh).get_group(batch_axis)
+    ranks, rank = dist.get_world_size(group), dist.get_rank(group)
+    sizes = [len(s) for s in np.array_split(np.arange(Bn), ranks)]
+    lo = sum(sizes[:rank])
+    try:
+        mine = solve_slice(lo, lo + sizes[rank]) if sizes[rank] else None
+    except Exception as e:  # raised below, on every rank
+        mine = e
+    parts = [None] * ranks
+    dist.all_gather_object(parts, mine, group=group)
+    for p in parts:
+        if isinstance(p, Exception):
+            raise p
+    parts = [p for p in parts if p is not None]
+
+    def cat(field):
+        vals = [getattr(p, field) for p in parts]
+        return None if vals[0] is None else np.concatenate(vals)
+
+    return BatchSolveResult(*(cat(f) for f in BatchSolveResult._fields))
+
+
 def solve_batched(
     As,
     bs,
@@ -120,10 +153,14 @@ def solve_batched(
     each  max c.x  s.t.  A x = b, 0 <= x (<= u)  from its trailing slack
     basis, on ``device`` (default ``"cuda"``; no fallback to the CPU). ``u``
     (optional (n,), shared by the batch) runs every instance under the
-    native bounded-variable rule. ``mesh`` is not ported (ROADMAP item 18);
-    ``batch_axis`` is accepted for the JAX signature."""
-    options = _prepare(options, "solve_batched", mesh)
+    native bounded-variable rule. With ``mesh``, the instances are split
+    over the ranks of its axis ``batch_axis`` (every rank of it calls this
+    with the whole batch and returns the whole result)."""
     As, bs, cs = (_array(v) for v in (As, bs, cs))
+    if mesh is not None:
+        return _over_mesh(mesh, batch_axis, len(As), lambda lo, hi: solve_batched(
+            As[lo:hi], bs[lo:hi], cs[lo:hi], u=u, options=options, device=device))
+    options = _prepare(options, "solve_batched")
     if As.ndim != 3:
         raise ValueError(f"As must be (B, m, n), got {As.shape}")
     Bn, m, n = As.shape
@@ -174,8 +211,13 @@ def reoptimize_batched(
     runs the dual simplex from the shared basis, then the primal loop
     certifies optimality; statuses are per scenario (an INFEASIBLE scenario
     does not poison the batch). No f64 polish: ``feas_err`` is each
-    scenario's max(-min x_b, 0)."""
-    options = _prepare(options, "reoptimize_batched", mesh)
+    scenario's max(-min x_b, 0). With ``mesh``, the scenarios are split
+    over the ranks of its axis ``batch_axis``, as in :func:`solve_batched`."""
+    if mesh is not None:
+        bs_new = _array(bs_new)
+        return _over_mesh(mesh, batch_axis, len(bs_new), lambda lo, hi: reoptimize_batched(
+            A, bs_new[lo:hi], c, prev, u=u, options=options, device=device))
+    options = _prepare(options, "reoptimize_batched")
     sparse = _sp.is_sparse(A)
     if not sparse:
         A = _array(A)

@@ -214,31 +214,18 @@ def cmd_solve(args) -> int:
     return 0 if res.status == SolveStatus.OPTIMAL else 2
 
 
-def _oracle(name: str):
-    """``simplex_tpu.oracle.get_oracle``: HiGHS through scipy, or the
-    native f64 simplex (built with g++ at first use)."""
-    if name == "scipy":
-        from simplex_tpu_torch.oracle.reference import solve_scipy
-
-        return solve_scipy
-    if name == "native":
-        from simplex_tpu_torch.oracle.native import solve_native
-
-        return solve_native
-    raise ValueError(f"unknown oracle {name!r}")
-
-
 def cmd_verify(args) -> int:
     """Solve, then compare status and objective with an oracle (HiGHS
     through scipy, or the native f64 simplex): exit 0 when they agree
     within ``--gap``."""
     from simplex_tpu_torch.core.solver import solve
     from simplex_tpu_torch.core.twophase import GeneralLP, solve_general
+    from simplex_tpu_torch.oracle import get_oracle
     from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy_general
     from simplex_tpu_torch.status import SolveStatus
 
     opts = _options(args)
-    oracle = _oracle(args.oracle)
+    oracle = get_oracle(args.oracle)
     loaded, _c0, _max = _load(args.input, args.mps)
     if isinstance(loaded, GeneralLP):
         # the general route against HiGHS on the same general form

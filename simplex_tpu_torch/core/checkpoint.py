@@ -282,6 +282,7 @@ def solve_with_checkpoints(
     options: SimplexOptions = DEFAULT_OPTIONS,
     resume: bool = True,
     on_chunk: Optional[Callable[[SolverState], None]] = None,
+    A_host: Optional[np.ndarray] = None,
     device="cuda",
 ) -> SolveResult:
     """``solve`` in chunks of ``options.checkpoint_every`` pivots (1024 when
@@ -294,7 +295,10 @@ def solve_with_checkpoints(
 
     The JAX package's retry loop (the chunk re-run after an UNAVAILABLE
     device error) answers a TPU runtime's failure and is not ported: a
-    failed call is resumed by calling again."""
+    failed call is resumed by calling again. ``A_host`` is accepted for the
+    reference's signature and not read: the reference polishes against a
+    host copy of A, and this port polishes on the device against the A it
+    already holds."""
     options = check_supported(options)
     if not isinstance(A, torch.Tensor) and not _sp.is_sparse(A):
         A = np.asarray(A)

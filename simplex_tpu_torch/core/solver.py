@@ -277,13 +277,16 @@ def _polish_refine(A_B, b64, x_b0, B_inv, iters: int = 4):
 
 
 def finalize_result(
-    prob: Problem, b, c, final: SolverState, options: SimplexOptions, u_np=None
+    prob: Problem, b, c, final: SolverState, options: SimplexOptions, u_np=None,
+    basis_columns=basis_columns64,
 ) -> SolveResult:
     """Pull the result to the host and polish the returned basis in f64.
 
     Bounded solves (``u_np``) fold the nonbasic-at-upper columns in: the
     basis solves against b_eff = b - A_up u_up, z gains c_up . u_up, x
-    carries u at those columns, and feas_err counts excess over u too."""
+    carries u at those columns, and feas_err counts excess over u too.
+    ``basis_columns(A, idx)`` gives A's columns ``idx`` in float64 (a
+    column-sharded solve gathers them from the ranks that own them)."""
     x_b_np = final.x_b.cpu().numpy()
     basis_np = final.basis.cpu().numpy()
     c_b_np = final.c_b.cpu().numpy()
@@ -302,7 +305,7 @@ def finalize_result(
         if len(up_cols):
             idx = torch.as_tensor(up_cols, device=prob.A.device)
             u_up = torch.as_tensor(u_np[up_cols], device=prob.A.device)
-            b64 = b64 - basis_columns64(prob.A, idx) @ u_up
+            b64 = b64 - basis_columns(prob.A, idx) @ u_up
             z_fixed = float(c64[up_cols] @ u_np[up_cols])
         ub_basic = u_np[basis_np]
 
@@ -321,7 +324,7 @@ def finalize_result(
         if final.U is not None:
             # precondition with the true inverse, pending pairs folded in
             B_inv = torch.addmm(B_inv, final.U.T, final.R)
-        A_B = basis_columns64(prob.A, final.basis)
+        A_B = basis_columns(prob.A, final.basis)
         x64, nr = _polish_refine(A_B, b64, final.x_b, B_inv)
         scale = max(1.0, float(b64.abs().max())) if m else 1.0
         ok = np.isfinite(nr) and nr <= 1e-7 * scale

@@ -258,8 +258,8 @@ def _entering_column(prob: Problem, state: SolverState, p: torch.Tensor, backend
     """``(A_p, c_p, e_p)``: column p of A, its cost, and its exact reduced
     cost y.A_p - c_p (O(m))."""
     dtype = state.B_inv.dtype
-    A_p = backend.gather_column(prob.A, p).to(dtype)
-    c_p = backend.gather_cost(prob.c, p).to(dtype)
+    A_p, c_p = backend.gather_column_cost(prob.A, prob.c, p)
+    A_p, c_p = A_p.to(dtype), c_p.to(dtype)
     return A_p, c_p, torch.dot(state.y, A_p) - c_p
 
 

@@ -1,6 +1,7 @@
 """The reference text format: ``m n``, then A (m x n), b (m), c (n),
-whitespace separated. A numpy-only copy of ``simplex_tpu.io.text``'s
-readers and writer: that package imports jax, this one must not.
+whitespace separated; and the thesis archive's order (``M N``, then c, b,
+A). A numpy-only copy of ``simplex_tpu.io.text``'s readers and writer:
+that package imports jax, this one must not.
 """
 
 from __future__ import annotations
@@ -60,3 +61,26 @@ def dumps_lp(A: np.ndarray, b: np.ndarray, c: np.ndarray) -> str:
 def save_lp(path: str | os.PathLike, A, b, c) -> None:
     with open(path, "w") as f:
         f.write(dumps_lp(np.asarray(A), np.asarray(b), np.asarray(c)))
+
+
+def loads_lp_thesis(text: str, dtype=np.float32):
+    """Parse the thesis archive's field order: ``M N``, then c (n), b (m),
+    A (m x n). Returns (A, b, c)."""
+    tokens = text.split()
+    if len(tokens) < 2:
+        raise ValueError("LP text (thesis order): missing header 'M N'")
+    m, n = int(tokens[0]), int(tokens[1])
+    need = 2 + n + m + m * n
+    if len(tokens) < need:
+        raise ValueError(f"LP text (thesis order): expected {need} tokens, got {len(tokens)}")
+    vals = np.asarray(tokens[2:need], dtype=np.float64)
+    c = vals[:n].astype(dtype)
+    b = vals[n : n + m].astype(dtype)
+    A = vals[n + m :].reshape(m, n).astype(dtype)
+    return A, b, c
+
+
+def load_lp_thesis(path: str | os.PathLike, dtype=np.float32):
+    """Load (A, b, c) from a file in the thesis archive's field order."""
+    with open(path, "r") as f:
+        return loads_lp_thesis(f.read(), dtype=dtype)

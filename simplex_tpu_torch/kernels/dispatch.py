@@ -68,5 +68,6 @@ def get_backend(name: str) -> types.SimpleNamespace:
         pricing_update2=_ops.pricing_update2,
         gather_column=_ops.gather_column,
         gather_cost=_ops.gather_cost,
+        gather_column_cost=_ops.gather_column_cost,
         gather_basis_matrix=_ops.gather_basis_matrix,
     )

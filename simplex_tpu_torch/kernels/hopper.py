@@ -151,10 +151,11 @@ def _pricing_chunks(m: int, n: int) -> Tuple[int, int]:
 
 class _PricingWorkspace:
     """The scratch of one pricing shape: the (chunks, n) partial sums, the
-    per-block results and the ticket (0 between calls)."""
+    per-block results and the ticket (0 between calls). The row chunks are
+    those of an (m, chunk_n) pass."""
 
-    def __init__(self, dev: torch.device, m: int, n: int):
-        self.rows, self.chunks = _pricing_chunks(m, n)
+    def __init__(self, dev: torch.device, m: int, n: int, chunk_n: int):
+        self.rows, self.chunks = _pricing_chunks(m, chunk_n)
         nblk = -(-n // _PRICING_REDUCE_COLS)
         self.partial = torch.empty((self.chunks, n), dtype=torch.float32, device=dev)
         self.blk_min = torch.empty(nblk, dtype=torch.float32, device=dev)
@@ -162,26 +163,28 @@ class _PricingWorkspace:
         self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
 
 
-# (device, stream, m, n) -> workspace; emptied when it outgrows its room
+# (device, stream, m, n, chunk_n) -> workspace; emptied when it outgrows
+# its room
 _workspaces: dict = {}
 _WORKSPACES_MAX = 16
 
 
-def _pricing_workspace(dev: torch.device, stream: int, m: int, n: int) -> _PricingWorkspace:
-    key = (dev, stream, m, n)
+def _pricing_workspace(dev: torch.device, stream: int, m: int, n: int, chunk_n: int) -> _PricingWorkspace:
+    key = (dev, stream, m, n, chunk_n)
     ws = _workspaces.get(key)
     if ws is None:
         if len(_workspaces) >= _WORKSPACES_MAX:
             _workspaces.clear()
-        ws = _workspaces[key] = _PricingWorkspace(dev, m, n)
+        ws = _workspaces[key] = _PricingWorkspace(dev, m, n, chunk_n)
     return ws
 
 
-def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset):
+def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset, chunk_n=None):
     """Checks, then the plain version (CPU tensors) or the two launches.
     Returns ``(min_e, argmin, first_below, p)``; ``p`` is the entering
     column chosen under ``use_bland`` plus ``p_offset`` (None when
-    ``use_bland`` is None)."""
+    ``use_bland`` is None). The row chunks are those of an (m, ``chunk_n``)
+    pass (default: A's own width)."""
     if A.dim() != 2 or A.shape[0] == 0 or A.shape[1] == 0:
         raise ValueError(f"A: want a non-empty matrix, got {tuple(A.shape)}")
     m, n = A.shape
@@ -217,7 +220,8 @@ def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset):
         return min_e, p_dantzig, p_neg, p
     lib = _build.load_library()
     stream = _stream(dev)
-    ws = _pricing_workspace(dev, stream, m, n)
+    chunk_n = n if chunk_n is None else int(chunk_n)
+    ws = _pricing_workspace(dev, stream, m, n, chunk_n)
     out = torch.empty(4, dtype=torch.int32, device=dev)
     align = 16 if A.dtype == torch.float32 else 8
     vec = n % 4 == 0 and lda % 4 == 0 and A.data_ptr() % align == 0
@@ -235,7 +239,7 @@ def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset):
     )
     if err != 0:
         # a refused launch may leave the ticket taken: drop the workspace
-        _workspaces.pop((dev, stream, m, n), None)
+        _workspaces.pop((dev, stream, m, n, chunk_n), None)
     _build.check(err, "pricing_scan")
     launches["pricing_scan"] += 1
     min_e, p_dantzig, p_neg, p = out.unbind(0)
@@ -245,7 +249,7 @@ def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset):
 def pricing_scan(
     y: torch.Tensor, A: torch.Tensor, c: torch.Tensor, eps: float,
     at_upper: Optional[torch.Tensor] = None, basis: Optional[torch.Tensor] = None,
-    base_col: int = 0,
+    base_col: int = 0, chunk_n: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One pass over A: ``(min_e, argmin_e, first index with e < -eps or
     INT_MAX)`` as 0-d device tensors, e = y.A - c never stored.
@@ -262,13 +266,18 @@ def pricing_scan(
     Two launches on the current stream (one where a single row chunk covers
     m, as for m <= 32). The scratch (partial sums, per-block
     results, the ticket that elects the reducing block) is kept per (device,
-    stream, m, n) and reused: the calls that share it are ordered by their
+    stream, m, n, chunk_n) and reused: the calls that share it are ordered by their
     stream, and the second launch resets the ticket. Launching the same
     shape on one stream from two host threads at once, or replaying a
     captured call beside a live one, would break that; a launch error drops
     the workspace. Only the 4-word output block is allocated per call.
+
+    Each column's sum runs over row chunks fixed by (m, ``chunk_n``)
+    (default: A's width n). A column shard of a wider matrix passes the
+    full width, so that its sums are bit for bit those of the pass over
+    the whole matrix.
     """
-    return _pricing_call(y, A, c, eps, at_upper, basis, base_col, None, 0)[:3]
+    return _pricing_call(y, A, c, eps, at_upper, basis, base_col, None, 0, chunk_n)[:3]
 
 
 def choose_entering_plain(y, A, c, eps, use_bland, basis=None, base_col: int = 0):

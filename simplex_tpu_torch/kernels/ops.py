@@ -181,6 +181,11 @@ def gather_cost(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return c.index_select(0, p.view(1)).view(())
 
 
+def gather_column_cost(A: torch.Tensor, c: torch.Tensor, p: torch.Tensor):
+    """``(A[:, p], c[p])``: the entering column and its cost."""
+    return gather_column(A, p), gather_cost(c, p)
+
+
 def gather_columns(A: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """A[:, idx] for a device index vector (the multiple-pricing refill)."""
     if isinstance(A, _sp.SparseA):

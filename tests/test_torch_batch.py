@@ -641,10 +641,12 @@ def test_unported_batch_options_raise(opts, what):
 
 
 def test_mesh_raises_and_multi_price_warns():
+    # a mesh runs the batch over its ranks (tests/test_torch_dist_batch.py);
+    # anything else given as mesh= is refused
     As, bs, cs = stack_lps(3, 8, 20)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         solve_batched(As, bs, cs, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         reoptimize_batched(As[0], bs, cs[0], np.arange(12, 20), mesh=object(), device="cpu")
     import logging
 
