@@ -606,6 +606,38 @@ def phase_rank1(dev) -> dict:
             }
         del B, got, want
     rec["max_abs_err"] = worst
+    # the 2-D solve's row blocks: a rank of R rows groups updates its
+    # (m / R, m) rows of the inverse; bit for bit the unfused plain form
+    # B + outer(eta, row) and the whole matrix's update on those rows
+    m = BENCH_M
+    B = torch.randn(m, m, generator=g, device=dev)
+    eta = torch.randn(m, generator=g, device=dev)
+    row = B[m // 3].clone()
+    whole = hopper.rank1_update(B.clone(), eta, row)
+    for R in (2, 4):
+        r0 = (R - 1) * (m // R)  # the last block: a nonzero row offset
+        blk = B[r0 : r0 + m // R].clone()
+        e_blk = eta[r0 : r0 + m // R].clone()
+        got = hopper.rank1_update(blk.clone(), e_blk, row)
+        want = blk + torch.outer(e_blk, row)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"rank1_update row block {m // R}x{m}: differs from B + outer(eta, row)")
+        check(torch.equal(got, whole[r0 : r0 + m // R]), f"rank1_update row block {m // R}x{m}: differs from the whole")
+        err = float((got - hopper.rank1_update_plain(blk.clone(), e_blk, row)).abs().max())
+        check(err <= RANK1_ATOL, f"rank1_update row block {m // R}x{m}: {err} from plain")
+        small = e_blk * 1e-6
+        rec.setdefault("row_blocks", {})[f"{m // R}x{m}"] = r = {
+            "max_abs_err": err, "bitwise_unfused_plain": True,
+            "ms": time_ms(lambda: hopper.rank1_update(blk, small, row)),
+            "plain_ms": time_ms(lambda: hopper.rank1_update_plain(blk, small, row)),
+            **bound(8.0 * (m // R) * m + 4 * (m // R + m), 2.0 * (m // R) * m),
+            "library_ms": time_ms(lambda: blk.addr_(small, row)),
+        }
+        print(f"rank1_update row block {m // R}x{m} (rows {r0}..): bit for bit B + outer(eta, row) and the whole "
+              f"update's rows; {err:.3e} from addr_; ms {r['ms']:.4f} (plain {r['plain_ms']:.4f}, addr_ "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f})")
+        del blk, got, want
+    del B, whole
     return rec
 
 
@@ -1405,21 +1437,14 @@ def timed_solve_of(dev, A, b, c, opts, mesh=None):
     from simplex_tpu_torch import solve, solve_sharded
     from simplex_tpu_torch.core import solver, step
     from simplex_tpu_torch.dist import sharded
+    from simplex_tpu_torch.dist.card_check import count_calls
     from simplex_tpu_torch.kernels import hopper
-
-    steps = [0]
-    inner = solver.pivot_step
-
-    def counted(*a, **k):
-        steps[0] += 1
-        return inner(*a, **k)
 
     torch.cuda.synchronize()
     hopper.reset_launches()
     step.reset_host_reads()
     sharded.reset_collectives()
-    solver.pivot_step = counted
-    try:
+    with count_calls(solver, "pivot_step") as steps:
         t0 = time.perf_counter()
         if mesh is None:
             res = solve(A, b, c, options=opts, device=dev)
@@ -1427,8 +1452,6 @@ def timed_solve_of(dev, A, b, c, opts, mesh=None):
             res = solve_sharded(A, b, c, mesh, options=opts, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        solver.pivot_step = inner
     return res, wall, dict(hopper.launches), steps[0], dict(step.host_reads)
 
 
@@ -3064,8 +3087,9 @@ def phase_pdhg(dev) -> dict:
     print(f"multiperiod T={PDHG_T_BIG}: {A.shape[0]}x{A.shape[1]}, {np.count_nonzero(A)} nonzeros, "
           f"budget {PDHG_BUDGET} iterations")
     for tag, A_in in (("sparse", sps.csr_matrix(A)), ("dense", A)):
-        res, _ = pdhg_run(dev, f"{tag} T={PDHG_T_BIG}", A_in, b, c, u=u, tol=1e-4, max_iter=PDHG_BUDGET)
+        res, dt = pdhg_run(dev, f"{tag} T={PDHG_T_BIG}", A_in, b, c, u=u, tol=1e-4, max_iter=PDHG_BUDGET)
         check(np.isfinite(res.z) and res.iters > 0, f"pdhg {tag} T={PDHG_T_BIG}: no iterate")
+        KEPT[f"pdhg {tag} T={PDHG_T_BIG}"] = (res, dt)
     del A
     torch.cuda.empty_cache()
     out = io.StringIO()
@@ -3261,7 +3285,7 @@ def sharded_run(dev, mesh, A, b, c, opts) -> dict:
     with loop_timer() as loop:
         res, wall, counts, steps, reads = timed_solve_of(dev, A, b, c, opts, mesh=mesh)
     return dict(res=res, wall=wall, loop=loop[0], counts=counts, steps=steps, reads=reads,
-                collectives=dict(sharded.collectives))
+                collectives=collections.Counter(sharded.collectives))
 
 
 def sharded_rank(rank: int, world: int, port: int, dev_type: str, out) -> None:
@@ -3406,6 +3430,304 @@ def phase_sharded(dev) -> dict:
     return paths
 
 
+# ---- sharded PDHG and the 2-D solve -----------------------------------------
+
+RESUME_M, RESUME_N = 512, 1024  # the 2-D chunk-resume's instance
+# the 2 x 2 gloo ranks: the default over a window of TWO_D_WINDOW pivots at
+# 2048 x 4096, held against the single solve's window (the same vertex;
+# degenerate ties may seat a column in another row); devex and the
+# flagship with multiple pricing to OPTIMAL against HiGHS. A devex window
+# is no check: the shard's w = rho A_loc rounds apart from the whole
+# matrix's product on the card, and near-ties of the pick then part.
+TWO_D_WINDOW = 256
+# z and x of one vertex polished in f64 by the row-sharded inverse against
+# the single solve's whole inverse: the two agree to rounding
+TWO_D_Z_TOL = 1e-9
+TWO_D_WINDOW_SETS = {"default": {}}
+TWO_D_FULL = {
+    "devex": ((RESUME_M, RESUME_N), {"pricing": "devex"}),
+    "flagship with multi-price": ((SMALL_M, SMALL_N), {**FLAGSHIP, "refactor_every": FLAGSHIP_REFACTOR}),
+}
+# iterations of the two-rank sharded PDHG at 256 x 640 (held against
+# solve_pdhg on the same budget): to OPTIMAL takes 56,320, 94 s over gloo
+PDHG_RANKS_BUDGET = 4096
+
+
+def phase_sharded_pdhg(dev) -> dict:
+    """Column-sharded PDHG at world size 1 over NCCL (a group of this
+    process) on bench.py --mode pdhg --sparse's multiperiod instance at
+    T = 248, sparse and dense, under phase 17's budget and tolerance,
+    against ``solve_pdhg`` on the same settings (status equal, z within
+    PDHG_GAP; HiGHS too where it ends OPTIMAL), with iterations/s."""
+    import numpy as np
+    import scipy.sparse as sps
+    import torch.distributed as dist
+
+    from simplex_tpu_torch.dist import sharded
+    from simplex_tpu_torch.dist.mesh import make_mesh
+    from simplex_tpu_torch.fo import solve_pdhg_sharded
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy_general
+
+    import torch
+
+    lp, eq, A, b, c, u = multiperiod_eq(PDHG_T_BIG)
+    mesh = make_mesh(device=dev.type)  # a group of one, NCCL on the card
+    hopper.reset_launches()
+    try:
+        for tag, A_in in (("sparse", sps.csr_matrix(A)), ("dense", A)):
+            if f"pdhg {tag} T={PDHG_T_BIG}" not in KEPT:  # run alone (--only sharded)
+                KEPT[f"pdhg {tag} T={PDHG_T_BIG}"] = pdhg_run(
+                    dev, f"{tag} T={PDHG_T_BIG}", A_in, b, c, u=u, tol=1e-4, max_iter=PDHG_BUDGET)
+            single, s_dt = KEPT[f"pdhg {tag} T={PDHG_T_BIG}"]
+            sharded.reset_collectives()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solve_pdhg_sharded(A_in, b, c, mesh, u=u, tol=1e-4, max_iter=PDHG_BUDGET, device=dev)
+            dt = time.perf_counter() - t0
+            gap = relative_gap(res.z, single.z)
+            col = {k: v for k, v in sharded.collectives.items() if v}
+            print(f"solve_pdhg_sharded world 1 (nccl) {tag} T={PDHG_T_BIG}: {res.status.name} in {res.iters} "
+                  f"iterations, {dt:.2f} s -> {res.iters / dt:.0f} it/s (solve_pdhg {single.status.name} in "
+                  f"{single.iters}, {single.iters / s_dt:.0f} it/s); rp {res.primal_res:.2e} rd {res.dual_res:.2e} "
+                  f"gap {res.gap:.2e}; z rel diff from solve_pdhg {gap:.3e}; collectives {col}")
+            check(res.status == single.status and gap <= PDHG_GAP and np.isfinite(res.z),
+                  f"sharded pdhg {tag}: {res.status.name} vs {single.status.name}, z rel diff {gap}")
+            if int(res.status) == 1:
+                hgap = relative_gap(res.z + eq.z_const, solve_scipy_general(lp).z)
+                check(hgap <= PDHG_GAP, f"sharded pdhg {tag}: {hgap} from HiGHS")
+    finally:
+        dist.destroy_process_group()
+    return {f"sharded pdhg world 1, T={PDHG_T_BIG}": dict(hopper.launches)}
+
+
+def two_d_rank(rank: int, world: int, port: int, dev_type: str, out) -> None:
+    """One of the four gloo ranks on this card (a spawned process): sharded
+    PDHG over ranks 0-1 at 256 x 640 under ``PDHG_RANKS_BUDGET``, the 2-D
+    solve on a 2 x 2 mesh (``TWO_D_WINDOW_SETS`` over ``TWO_D_WINDOW``
+    pivots at 2048 x 4096, ``TWO_D_FULL`` to OPTIMAL), a
+    chunk-resume of the 2-D checkpointed solve, and the dryrun's modes
+    (``dist/dryrun.py`` ``run_modes``) over the four ranks; each run's
+    result, wall, launches, collectives and pivot steps."""
+    import tempfile
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from simplex_tpu_torch import SimplexOptions
+    from simplex_tpu_torch.dist import dryrun, sharded, sharded2d
+    from simplex_tpu_torch.dist.card_check import count_calls
+    from simplex_tpu_torch.dist.checkpoint2d import solve_sharded_2d_with_checkpoints
+    from simplex_tpu_torch.dist.mesh import COLS_AXIS, ROWS_AXIS, initialize_multihost, make_mesh
+    from simplex_tpu_torch.fo import solve_pdhg_sharded
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.generator import random_dense_lp
+
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        pmesh = make_mesh((COLS_AXIS,), devices=[0, 1], device=dev_type)
+        mesh = make_mesh((ROWS_AXIS, COLS_AXIS), shape=(2, 2), device=dev_type)
+        dev = torch.device("cuda", torch.cuda.current_device()) if dev_type == "cuda" else torch.device("cpu")
+        sync = torch.cuda.synchronize if dev_type == "cuda" else (lambda: None)
+        rec = {}
+
+        def timed(fn, barrier=True):
+            hopper.reset_launches()
+            sharded.reset_collectives()
+            sync()
+            if barrier:
+                dist.barrier()
+            with count_calls(sharded2d, "_step") as steps:
+                t0 = time.perf_counter()
+                res = fn()
+                sync()
+                wall = time.perf_counter() - t0
+            return dict(res=res, wall=wall, counts=dict(hopper.launches), steps=steps[0],
+                        collectives=dict(sharded.collectives))
+
+        Ap, bp, cp = random_dense_lp(256, 640, seed=0, dtype=np.float32)
+        if pmesh.get_coordinate() is not None:
+            rec["pdhg"] = timed(lambda: solve_pdhg_sharded(Ap, bp, cp, pmesh, tol=1e-4, max_iter=PDHG_RANKS_BUDGET,
+                                                           device=dev), barrier=False)
+        runs = {tag: ((SMALL_M, SMALL_N), {**kw, "max_iter": TWO_D_WINDOW}) for tag, kw in TWO_D_WINDOW_SETS.items()}
+        for tag, ((m, n), kw) in {**runs, **TWO_D_FULL}.items():
+            A, b, c = instance(m, n)
+            rec[tag] = timed(lambda: sharded2d.solve_sharded_2d(A, b, c, mesh, options=SimplexOptions(**kw),
+                                                                  device=dev))
+        A, b, c = instance(RESUME_M, RESUME_N)
+        direct = sharded2d.solve_sharded_2d(A, b, c, mesh, device=dev)
+        half = direct.iters // 2
+        path = [tempfile.mkdtemp(prefix="chip_smoke_2d_") if rank == 0 else None]
+        dist.broadcast_object_list(path, src=0)
+        ck = f"{path[0]}/c2d.npz"
+        opts = SimplexOptions(checkpoint_every=max(1, half // 2), max_iter=half)
+        part = timed(lambda: solve_sharded_2d_with_checkpoints(A, b, c, mesh, path=ck, options=opts, device=dev))
+        opts = SimplexOptions(checkpoint_every=max(1, half // 2))
+        resumed = timed(lambda: solve_sharded_2d_with_checkpoints(A, b, c, mesh, path=ck, options=opts, device=dev))
+        rec["resume"] = dict(direct=direct, part=part, resumed=resumed)
+        t0 = time.perf_counter()
+        rec["dryrun"] = (dryrun.run_modes(world, dev_type), time.perf_counter() - t0)
+        dist.barrier()
+        out.put((rank, "ok", rec))
+    except Exception:
+        out.put((rank, "err", traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_2d(dev) -> dict:
+    """The 2-D solve: a 1 x 1 mesh at world size 1 over NCCL on the bench
+    instance's 512-pivot window against the single solve (phase 3's run:
+    the same pivots, basis and z), launching ``pricing_scan`` and
+    ``rank1_update`` once a pivot step; then four gloo ranks on this one
+    card (NCCL refuses a card twice): sharded PDHG over two of them at
+    256 x 640 against ``solve_pdhg`` on the same budget (status equal, z
+    within PDHG_GAP), the 2 x 2 mesh under ``TWO_D_WINDOW_SETS`` over
+    ``TWO_D_WINDOW`` pivots at 2048 x 4096 against the single solve's
+    window (the same pivots and basic columns, x and z within TWO_D_Z_TOL;
+    each rank pricing its (2048, 1024) columns and updating its (1024,
+    2048) rows of the inverse every step) and under ``TWO_D_FULL`` to
+    OPTIMAL against HiGHS (GAP_TOL), and a
+    chunk-resume at 512 x 1024 (stopped halfway in chunks of a quarter,
+    resumed from the light snapshot to the direct solve's z); last the
+    modes of ``python -m simplex_tpu_torch.dist.dryrun --ranks 4`` on the
+    same four ranks, every distributed mode against HiGHS."""
+    import multiprocessing
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from simplex_tpu_torch import SimplexOptions, solve
+    from simplex_tpu_torch.dist import sharded, sharded2d
+    from simplex_tpu_torch.dist.card_check import count_calls
+    from simplex_tpu_torch.dist.mesh import COLS_AXIS, ROWS_AXIS, free_port, make_mesh
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.reference import relative_gap
+
+    import torch
+
+    single, s_wall, s_reads, s_loop = KEPT["window"]
+    paths = {}
+    mesh = make_mesh((ROWS_AXIS, COLS_AXIS), shape=(1, 1), device=dev.type)
+    A, b, c = instance(BENCH_M, BENCH_N)
+    hopper.reset_launches()
+    sharded.reset_collectives()
+    try:
+        with count_calls(sharded2d, "_step") as steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sharded2d.solve_sharded_2d(A, b, c, mesh, options=SimplexOptions(max_iter=BENCH_WINDOW), device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    counts, k = dict(hopper.launches), steps[0]
+    same = bool((res.basis == single.basis).all() and res.z == single.z)
+    print(f"solve_sharded_2d 1x1 (nccl), {BENCH_M}x{BENCH_N} window: {res.status.name} after {res.iters} pivots in "
+          f"{wall:.3f} s ({res.iters / wall:.1f} pivots/s end to end; the single solve {single.iters / s_wall:.1f}); "
+          f"{'the same basis and z as' if same else 'another basis or z than'} the single window "
+          f"(z {res.z!r} vs {single.z!r}); launches {counts} in {k} steps; collectives "
+          f"{ {n: v for n, v in sharded.collectives.items() if v} }")
+    check(res.iters == single.iters == BENCH_WINDOW, f"2-D window: {res.iters} pivots")
+    check(same, f"2-D window: basis or z {res.z!r} differs from the single window's {single.z!r}")
+    for name in ("pricing_scan", "rank1_update"):
+        check(counts[name] == k, f"2-D window: {name} {counts[name]} launches in {k} pivot steps")
+    paths["2-D window, 1x1 (nccl)"] = counts
+    A, b, c = instance(SMALL_M, SMALL_N)
+    windows = {tag: solve(A, b, c, options=SimplexOptions(max_iter=TWO_D_WINDOW, **kw), device=dev)
+               for tag, kw in TWO_D_WINDOW_SETS.items()}
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=two_d_rank, args=(r, 4, port, dev.type, out)) for r in range(4)]
+    for p in procs:
+        p.start()
+    recs, errors = {}, []
+    try:
+        for _ in procs:
+            rank, kind, val = out.get(timeout=600)
+            if kind == "ok":
+                recs[rank] = val
+            else:
+                errors.append(f"rank {rank}:\n{val}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+    check(not errors, "2-D ranks failed:\n" + "\n".join(errors))
+    from simplex_tpu_torch.oracle.generator import random_dense_lp
+
+    Ap, bp, cp = random_dense_lp(256, 640, seed=0, dtype=np.float32)
+    p0, p1 = recs[0]["pdhg"], recs[1]["pdhg"]
+    one, _ = pdhg_run(dev, "dense 256x640, the two ranks' budget", Ap, bp, cp, tol=1e-4, max_iter=PDHG_RANKS_BUDGET)
+    gap = relative_gap(p0["res"].z, one.z)
+    print(f"solve_pdhg_sharded over 2 gloo ranks, 256x640: {p0['res'].status.name} in {p0['res'].iters} iterations, "
+          f"{p0['wall']:.2f} s ({p0['res'].iters / p0['wall']:.0f} it/s); z rel diff from solve_pdhg on the same "
+          f"budget {gap:.3e}; rp {p0['res'].primal_res:.2e}; collectives {p0['collectives']}")
+    check(p0["res"].status == one.status and p0["res"].iters == one.iters and gap <= PDHG_GAP
+          and p1["res"].z == p0["res"].z, f"sharded pdhg 2 ranks: {p0['res'].status.name}, z rel diff {gap}")
+    for tag in [*TWO_D_WINDOW_SETS, *TWO_D_FULL]:
+        runs = [recs[r][tag] for r in range(4)]
+        r0 = runs[0]["res"]
+        for other in runs[1:]:
+            check(other["res"].z == r0.z and (other["res"].basis == r0.basis).all(), f"2-D {tag}: ranks disagree")
+        k = runs[0]["steps"]
+        if tag in windows:
+            one = windows[tag]
+            # the vertex: the same set of basic columns, x and z; and each
+            # result's x_b in its own basis order
+            same_set = bool(np.array_equal(np.sort(r0.basis), np.sort(one.basis)))
+            moved = int((r0.basis != one.basis).sum())
+            zdiff = relative_gap(r0.z, one.z)
+            xdiff = float(np.abs(r0.x - one.x).max())
+            ordered = all(np.allclose(r.x[r.basis], r.x_b, rtol=1e-6, atol=1e-9) for r in (r0, one))
+            if moved:
+                rows = np.flatnonzero(r0.basis != one.basis)[:8]
+                print(f"2-D {tag} window, rows whose basic column differs (row, 2-D, single): "
+                      f"{[(int(i), int(r0.basis[i]), int(one.basis[i])) for i in rows]}")
+            check(r0.status == one.status and r0.iters == one.iters == TWO_D_WINDOW and same_set and ordered
+                  and zdiff <= TWO_D_Z_TOL and xdiff <= TWO_D_Z_TOL * max(1.0, float(np.abs(one.x).max())),
+                  f"2-D {tag} window: {r0.status!r} after {r0.iters}, z {r0.z!r} vs the single solve's "
+                  f"{one.status!r} after {one.iters}, z {one.z!r} (rel diff {zdiff:.3e}); the same basic "
+                  f"columns: {same_set} ({moved} rows hold another); x differs by {xdiff:.3e}; x_b in basis "
+                  f"order: {ordered}")
+            verdict = (f"{r0.status.name} after {r0.iters} pivots, the single window's basic columns ({moved} of "
+                       f"{len(one.basis)} rows in another order), x within {xdiff:.3e}; z {r0.z!r} vs {one.z!r} "
+                       f"(rel diff {zdiff:.3e})")
+        else:
+            ref = highs(*TWO_D_FULL[tag][0])
+            gap = relative_gap(r0.z, ref.z)
+            check(r0.status.name == "OPTIMAL" and gap <= GAP_TOL, f"2-D {tag}: {r0.status!r}, rel gap {gap:.3e}")
+            verdict = (f"OPTIMAL z {r0.z!r} HiGHS {ref.z!r} rel_gap {gap:.3e} feas_err {r0.feas_err:.3e}; "
+                       f"{r0.iters} pivots")
+        m, n = TWO_D_FULL[tag][0] if tag in TWO_D_FULL else (SMALL_M, SMALL_N)
+        print(f"solve_sharded_2d 2x2 (4 gloo ranks, one card), {m}x{n} {tag}: {verdict} in "
+              f"{runs[0]['wall']:.2f} s; collectives {runs[0]['collectives']} "
+              f"({sum(runs[0]['collectives'].values()) / k:.3f} a pivot step); launches rank 0 {runs[0]['counts']}")
+        for rank in range(4):
+            paths[f"2-D 2x2 {tag}, rank {rank}"] = runs[rank]["counts"]
+            if tag == "default":
+                # each rank prices its columns and updates its rows every step
+                c_r, k_r = runs[rank]["counts"], runs[rank]["steps"]
+                check(c_r["pricing_scan"] == c_r["rank1_update"] == k_r,
+                      f"2-D {tag} rank {rank}: launches {c_r} in {k_r} pivot steps")
+    rs = recs[0]["resume"]
+    direct, part, resumed = rs["direct"], rs["part"]["res"], rs["resumed"]["res"]
+    print(f"solve_sharded_2d_with_checkpoints 2x2, {RESUME_M}x{RESUME_N}: stopped {part.status.name} after "
+          f"{part.iters} pivots, resumed {resumed.status.name} after {resumed.iters} (direct {direct.iters}); z "
+          f"{resumed.z!r} vs the direct {direct.z!r}")
+    check(part.status.name == "MAX_ITER" and resumed.status.name == "OPTIMAL" and resumed.iters > part.iters
+          and relative_gap(resumed.z, direct.z) <= GAP_TOL, "2-D chunk-resume")
+    line, secs = recs[0]["dryrun"]
+    print(f"dryrun modes over 4 gloo ranks, {secs:.1f} s: {line}")
+    check(all(recs[r]["dryrun"][0] == line for r in range(4)), "dryrun: ranks disagree")
+    return paths
+
+
 def add_call_device_us(recs: dict, us: dict) -> None:
     """The record's keys for ``batch_kernel_device_us``'s times."""
     recs["batch_pricing"]["reopt_device_us"] = us["batch_pricing shared 256x2048x4096"]
@@ -3437,8 +3759,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["kernels", "new", "sharded"], default=None,
                     help="kernels: stop after the kernel checks; new: the kernel build, then only "
                          "the batched, warm-batched and PDHG phases and the batch profile; sharded: "
-                         "the kernel build, pricing on a shard, the default window and the sharded "
-                         "phase (no final ok line in any of them)")
+                         "the kernel build, rank-1 on row blocks, pricing on a shard, the default "
+                         "window and every distributed phase (no final ok line in any of them)")
     args = ap.parse_args(argv)
     if not (ROOT / "simplex_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -3472,9 +3794,12 @@ def main(argv=None) -> int:
         print(card)
         return 0
     if args.only == "sharded":
+        phase_rank1(dev)
         phase_shard_pricing(dev)
         paths = {"default window": phase_solve(dev)}
         paths.update(phase_sharded(dev))
+        paths.update(phase_sharded_pdhg(dev))
+        paths.update(phase_sharded_2d(dev))
         for tag, counts in paths.items():
             print(f"launches on path '{tag}': {counts}")
         print(f"sharded phases: {time.perf_counter() - t_start:.1f} s")
@@ -3531,6 +3856,10 @@ def main(argv=None) -> int:
     paths.update(phase_pdhg(dev))
     torch.cuda.empty_cache()
     paths.update(phase_sharded(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_sharded_pdhg(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_sharded_2d(dev))
     torch.cuda.empty_cache()
     # last: a profiler run leaves every later launch of the process dearer
     phase_device_ops(dev)

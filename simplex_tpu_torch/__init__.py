@@ -35,11 +35,15 @@ jax; ``simplex_tpu`` stays the reference it is tested against.
     fo = solve_pdhg(A, b, c, tol=1e-4)           # first-order, inverse-free
     vertex = crossover(A, b, c, fo)              # exact basic optimum
 
-    from simplex_tpu_torch import solve_sharded  # one process a rank
+    from simplex_tpu_torch import solve_sharded, solve_sharded_2d  # a process a rank
     from simplex_tpu_torch.dist.mesh import make_mesh
+    from simplex_tpu_torch.fo import solve_pdhg_sharded
     mesh = make_mesh()                           # every rank of the group
     result = solve_sharded(A, b, c, mesh)        # A's columns over the ranks
     res = solve_batched(As, bs, cs, mesh=make_mesh(("batch",)))
+    mesh2 = make_mesh(("rows", "cols"), shape=(2, 2))
+    result = solve_sharded_2d(A, b, c, mesh2)    # B_inv's rows over "rows" too
+    fo = solve_pdhg_sharded(A, b, c, mesh)       # first-order, sharded
 
 Modules and subpackages:
     core     state, pivot step (native upper bounds; Dantzig, devex and
@@ -49,9 +53,11 @@ Modules and subpackages:
     batch    many same-shape LPs (or rhs scenarios) at once: the batched
              step on three batched Hopper kernels
     dist     the mesh of ranks (torch.distributed: NCCL on the cards,
-             gloo on the CPU), the column-sharded solve, and the batch
-             split over the ranks
-    fo       PDHG (PDLP-style first-order solver) and crossover
+             gloo on the CPU), the column-sharded solve, the batch split
+             over the ranks, the 2-D rows x cols solve and its
+             checkpointed solve
+    fo       PDHG (PDLP-style first-order solver), column-sharded PDHG and
+             crossover
     analysis ranging and the warm re-solve after a rhs change
     sparse   sparse A on the device (CSR of A and of A^T), its ops
     kernels  plain torch ops, the Hopper kernel wrappers and their build
@@ -74,6 +80,7 @@ from simplex_tpu_torch.core.state import Problem, SolverState
 from simplex_tpu_torch.core.trace import PivotRecord, print_trace, trace_pivots
 from simplex_tpu_torch.core.twophase import GeneralLP, GeneralSolveResult, solve_general
 from simplex_tpu_torch.dist.sharded import solve_sharded
+from simplex_tpu_torch.dist.sharded2d import solve_sharded_2d
 from simplex_tpu_torch.fo.crossover import crossover
 from simplex_tpu_torch.fo.pdhg import PDHGResult, solve_pdhg
 from simplex_tpu_torch.io.mps import read_mps
@@ -117,6 +124,7 @@ __all__ = [
     "solve_general",
     "solve_pdhg",
     "solve_sharded",
+    "solve_sharded_2d",
     "solve_with_checkpoints",
     "trace_pivots",
     "validate_checkpoint",

@@ -258,10 +258,10 @@ def basis_columns64(A, basis: torch.Tensor) -> torch.Tensor:
     return A.index_select(1, basis.to(A.device)).double()
 
 
-def _polish_refine(A_B, b64, x_b0, B_inv, iters: int = 4):
+def _polish_refine(A_B, b64, x_b0, precondition, iters: int = 4):
     """f64 x_b for the final basis by iterative refinement on the device:
     r = b - A_B x in float64 (``A_B`` the basis columns in float64), x +=
-    B_inv r with the solve's fp32 inverse as the preconditioner. Keeps the
+    ``precondition(r)``, the solve's fp32 inverse applied to r. Keeps the
     best iterate. Returns (x64, residual)."""
     x = x_b0.double()
     best_x, best_nr = x, torch.full((), float("inf"), dtype=torch.float64, device=x.device)
@@ -272,13 +272,13 @@ def _polish_refine(A_B, b64, x_b0, B_inv, iters: int = 4):
         best_x = torch.where(better, x, best_x)
         best_nr = torch.where(better, nr, best_nr)
         if it < iters:
-            x = x + (B_inv @ r.to(B_inv.dtype)).double()
+            x = x + precondition(r)
     return best_x, best_nr.item()
 
 
 def finalize_result(
     prob: Problem, b, c, final: SolverState, options: SimplexOptions, u_np=None,
-    basis_columns=basis_columns64,
+    basis_columns=basis_columns64, precondition=None,
 ) -> SolveResult:
     """Pull the result to the host and polish the returned basis in f64.
 
@@ -286,7 +286,10 @@ def finalize_result(
     basis solves against b_eff = b - A_up u_up, z gains c_up . u_up, x
     carries u at those columns, and feas_err counts excess over u too.
     ``basis_columns(A, idx)`` gives A's columns ``idx`` in float64 (a
-    column-sharded solve gathers them from the ranks that own them)."""
+    column-sharded solve gathers them from the ranks that own them);
+    ``precondition(r)`` applies the solve's inverse to an f64 residual
+    (default: ``final.B_inv`` with the pending pairs folded in; the 2-D
+    solve applies its row-sharded inverse)."""
     x_b_np = final.x_b.cpu().numpy()
     basis_np = final.basis.cpu().numpy()
     c_b_np = final.c_b.cpu().numpy()
@@ -320,12 +323,17 @@ def finalize_result(
     if options.polish and m <= options.polish_max_m:
         # exact values for the returned basis, no clamping: a violation is
         # reported as feas_err, not zeroed
-        B_inv = final.B_inv
-        if final.U is not None:
-            # precondition with the true inverse, pending pairs folded in
-            B_inv = torch.addmm(B_inv, final.U.T, final.R)
+        if precondition is None:
+            B_inv = final.B_inv
+            if final.U is not None:
+                # precondition with the true inverse, pending pairs folded in
+                B_inv = torch.addmm(B_inv, final.U.T, final.R)
+
+            def precondition(r):
+                return (B_inv @ r.to(B_inv.dtype)).double()
+
         A_B = basis_columns(prob.A, final.basis)
-        x64, nr = _polish_refine(A_B, b64, final.x_b, B_inv)
+        x64, nr = _polish_refine(A_B, b64, final.x_b, precondition)
         scale = max(1.0, float(b64.abs().max())) if m else 1.0
         ok = np.isfinite(nr) and nr <= 1e-7 * scale
         if not ok:

@@ -1,12 +1,14 @@
 // Product-form update of the basis inverse, in place:
 //   B_inv[i, j] += eta[i] * row[j]
+// over a block of `rows` rows of an m-wide inverse: the whole (m, m)
+// inverse, or one rank's (m / R, m) row block in the 2-D sharded solve.
 //
 // Replaces: simplex_tpu/kernels/pallas_ops.py, rank1_update / _rank1_kernel
 // (the pl.pallas_call at line 374, which aliases B_inv input to output).
 //
 // Bound on the H100: device-memory bandwidth. It reads and writes B_inv
-// once, 2 * m^2 * 4 bytes (512 MiB at m = 8192), and does 2 flops a
-// element.
+// once, 2 * rows * m * 4 bytes (512 MiB at rows = m = 8192), and does 2
+// flops an element.
 //
 // Design: a 2-D grid of blocks, each 256 threads wide and 1024 columns by 8
 // rows. A thread keeps its 4 entries of `row` in registers and walks the 8
@@ -35,10 +37,10 @@ __device__ __forceinline__ float upd(float b, float e, float r) {
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 rank1_kernel(float* __restrict__ B, const float* __restrict__ eta,
-             const float* __restrict__ row, int m) {
+             const float* __restrict__ row, int rows, int m) {
   const int i0 = blockIdx.y * kRows;
   const int j0 = blockIdx.x * kCols;
-  const int nrows = min(kRows, m - i0);
+  const int nrows = min(kRows, rows - i0);
   if (kVec) {
     const int j = j0 + 4 * threadIdx.x;  // m % 4 == 0, so j + 3 < m too
     if (j >= m) return;
@@ -82,18 +84,18 @@ rank1_kernel(float* __restrict__ B, const float* __restrict__ eta,
 
 }  // namespace
 
-// B (m, m) fp32 row-major, updated in place; eta, row (m,) fp32.
+// B (rows, m) fp32 row-major, updated in place; eta (rows,), row (m,) fp32.
 extern "C" int simplex_rank1_update(void* B, const void* eta, const void* row,
-                                    int m, int vec, void* stream) {
-  const dim3 grid((m + kCols - 1) / kCols, (m + kRows - 1) / kRows);
+                                    int rows, int m, int vec, void* stream) {
+  const dim3 grid((m + kCols - 1) / kCols, (rows + kRows - 1) / kRows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* Bf = static_cast<float*>(B);
   const float* ef = static_cast<const float*>(eta);
   const float* rf = static_cast<const float*>(row);
   if (vec)
-    rank1_kernel<true><<<grid, kThreads, 0, s>>>(Bf, ef, rf, m);
+    rank1_kernel<true><<<grid, kThreads, 0, s>>>(Bf, ef, rf, rows, m);
   else
-    rank1_kernel<false><<<grid, kThreads, 0, s>>>(Bf, ef, rf, m);
+    rank1_kernel<false><<<grid, kThreads, 0, s>>>(Bf, ef, rf, rows, m);
   return (int)cudaGetLastError();
 }
 

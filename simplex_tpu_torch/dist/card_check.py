@@ -1,7 +1,8 @@
-"""The column-sharded solve on several cards of one host, against one card.
+"""The distributed modes on several cards of one host, against one card.
 
-    python -m simplex_tpu_torch.dist.card_check [--ranks 4] [--m 32768 --n 131072]
-        [--window 512] [--out FILE] [--device cuda] [--collectives-only]
+    python -m simplex_tpu_torch.dist.card_check [--mode 1d|2d|pdhg] [--rows 2]
+        [--ranks 4] [--m 32768 --n 131072] [--window 512] [--out FILE]
+        [--device cuda] [--collectives-only]
 
 Needs ``--ranks`` CUDA cards (``--device cpu`` rehearses the run on gloo CPU
 ranks at a small size: no device numbers). It builds the kernels, writes
@@ -27,15 +28,35 @@ NCCL. The ranks then run
      pivots/s on one card, and its status, pivots, basis and z, which the
      sharded solve must equal.
 
+``--mode 2d --rows R`` runs the 2-D solve (``dist/sharded2d.py``) on an
+(R, ranks / R) mesh first, over the same window and profiled the same way
+(its pivot loop alone between barriers: pivots/s, the device time and the
+NCCL kernels' time a step on every card, its collectives a step), then
+steps 1-3 as above, so that the record holds the 2-D loop beside the 1-D
+loop over the same ranks and one card. ``--mode pdhg`` runs
+``--window`` PDHG iterations (windows of 128, tolerance 0 so that none
+stops early) of the column-sharded PDHG (``fo/sharded.py``) over the ranks,
+then on rank 0's card alone of the same scheme at world size 1 and of
+``solve_pdhg``, the iterations alone timed between barriers (set-up out),
+and one window of each under the profiler: iterations/s, device and NCCL
+time an iteration; then ``solve_pdhg_sharded`` itself over the ranks to
+MAX_ITER, whose exit certifies from the shards.
+
 The last line of standard output is one JSON record (also written to
 ``--out``), with every card's ``nvidia-smi`` name and power limit. Exit
-code 0 only when every rank ran and the answers match.
+code 0 only when every rank ran and the answers match: the 1-D window the
+single solve's; the 2-D window on every rank the same basis and z, all its
+pivots taken, the single solve's basis and its z within ``TWO_D_Z_TOL``;
+sharded PDHG's replicated state the same on every rank, its KKT errors
+within ``PDHG_WORLD1_TOL`` of the world-1 run's, and the entry's run
+MAX_ITER with the same z on every rank.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import shutil
@@ -46,6 +67,9 @@ from pathlib import Path
 import numpy as np
 
 PROFILED_PIVOTS = 64
+# the 2-D window's z against the single solve's on the same basis: each
+# polishes it in f64, the 2-D solve preconditioned by its row-sharded inverse
+TWO_D_Z_TOL = 1e-9
 COLLECTIVE_ITERS = 200
 # device milliseconds of a four-card pivot step at 32768 x 131072 before
 # its two collectives (the shard's pricing pass) and after them (the ftran
@@ -92,20 +116,40 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
-def _run(fn, barrier: bool, profiled: bool = False):
+@contextlib.contextmanager
+def count_calls(mod, name: str):
+    """Calls of ``mod.name`` (a solver's pivot step) counted while the
+    block runs; yields a one-item list holding the count."""
+    inner, calls = getattr(mod, name), [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return inner(*a, **k)
+
+    setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, inner)
+
+
+def _run(fn, barrier: bool, profiled: bool = False, two_d: bool = False):
     """``fn()`` (a solve) with its seconds between synchronizes, the seconds
     of its pivot loops alone, the launch, collective, host-read and
     pivot-step counters of the call (set to 0 before it), and with
     ``profiled`` its pivot loops under ``torch.profiler``. With ``barrier``
-    every rank meets at both ends of the call and of each loop. Returns
-    (result, record, profile or None)."""
+    every rank meets at both ends of the call and of each loop. ``two_d``:
+    the loop and step of ``dist/sharded2d.py``, else of ``core/solver.py``.
+    Returns (result, record, profile or None)."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
     from simplex_tpu_torch.core import solver, step
-    from simplex_tpu_torch.dist import sharded
+    from simplex_tpu_torch.dist import sharded, sharded2d
     from simplex_tpu_torch.kernels import hopper
+
+    mod, step_name, loop_name = (sharded2d, "_step", "_loop") if two_d else (solver, "pivot_step", "_pivot_loop")
 
     def meet():
         _sync()
@@ -113,12 +157,8 @@ def _run(fn, barrier: bool, profiled: bool = False):
             dist.barrier()
             _sync()
 
-    steps, loop_s, profs = [0], [0.0], []
-    inner_step, inner_loop = solver.pivot_step, solver._pivot_loop
-
-    def count(*a, **k):
-        steps[0] += 1
-        return inner_step(*a, **k)
+    loop_s, profs = [0.0], []
+    inner_loop = getattr(mod, loop_name)
 
     def loop(*a, **k):
         meet()
@@ -138,17 +178,18 @@ def _run(fn, barrier: bool, profiled: bool = False):
     hopper.reset_launches()
     step.reset_host_reads()
     sharded.reset_collectives()
-    solver.pivot_step, solver._pivot_loop = count, loop
+    setattr(mod, loop_name, loop)
     try:
-        meet()
-        t0 = time.perf_counter()
-        res = fn()
-        meet()
-        wall = time.perf_counter() - t0
+        with count_calls(mod, step_name) as steps:
+            meet()
+            t0 = time.perf_counter()
+            res = fn()
+            meet()
+            wall = time.perf_counter() - t0
     finally:
-        solver.pivot_step, solver._pivot_loop = inner_step, inner_loop
+        setattr(mod, loop_name, inner_loop)
     rec = dict(res=res, wall=wall, loop=loop_s[0], launches=dict(hopper.launches),
-               collectives=dict(sharded.collectives), reads=dict(step.host_reads), steps=steps[0])
+               collectives=collections.Counter(sharded.collectives), reads=dict(step.host_reads), steps=steps[0])
     return res, rec, (profs[0] if profs else None)
 
 
@@ -228,14 +269,152 @@ def _collectives_alone(m: int, dev, group) -> dict:
             "paced_without_us": idle}
 
 
-def _rank(rank: int, world: int, port: int, dev_type: str, a_path: str, b, c, window: int, out) -> None:
+PDHG_WINDOW = 128  # iterations a PDHG check window
+# the four-rank state's KKT errors (relative residuals and gap) after the
+# timed windows against the world-1 run of the same scheme: the ranks split
+# each A x into partial sums, so the iterates part in the last bits
+PDHG_WORLD1_TOL = 1e-3
+PDHG_MAX_ITER = 256  # solve_pdhg_sharded to MAX_ITER: its exit certificate on the shards
+
+
+def _pdhg_agree(state, group) -> bool:
+    """Whether every rank holds the same replicated leaves of a sharded PDHG
+    state (y, sy, yr and the scalars): one MAX and one MIN over ``group``."""
+    import torch
+    import torch.distributed as dist
+
+    from simplex_tpu_torch.fo import sharded as fs
+
+    v = torch.cat([state[i].double().reshape(-1) for i, f in enumerate(fs.STATE_LEAVES) if f not in fs._SHARDED])
+    hi, lo = v.clone(), v.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+    return bool(torch.equal(hi, lo))
+
+
+def _pdhg_runs(A, b, c, mesh, dev, rank: int, iters: int, cuda: bool) -> dict:
+    """``iters`` iterations of the sharded PDHG over the ranks, then on
+    rank 0 alone the same scheme at world size 1 and the single card's
+    ``solve_pdhg`` (the others wait): seconds of the iterations alone
+    (between barriers, set-up out), iterations/s, one window of each under
+    the profiler, whether the ranks' states agree and the four-rank KKT
+    errors against the world-1 run's; last ``solve_pdhg_sharded`` itself
+    to MAX_ITER over the ranks, whose exit certifies from the shards (its
+    seconds, status and the host memory its certificate took)."""
+    import tracemalloc
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from simplex_tpu_torch.dist import sharded
+    from simplex_tpu_torch.fo import pdhg
+    from simplex_tpu_torch.fo import sharded as fs
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    rec = {}
+    windows = iters // PDHG_WINDOW
+
+    def timed(run_window, state, barrier=True):
+        _sync()
+        if barrier:
+            dist.barrier()
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            state = run_window(state)
+        _sync()
+        if barrier:
+            dist.barrier()
+        secs = time.perf_counter() - t0
+        with profile(activities=acts) as prof:
+            run_window(state)
+            _sync()
+        return state, secs, prof
+
+    def sharded_windows(sh, data, barrier=True):
+        As, bs, cs, dr, dc, b_scale, c_scale, us, tau0, sigma0 = data
+        state = fs._initial_state(len(b), sh.hi - sh.lo, dev, tau0, sigma0)
+        return timed(lambda st: fs._window(sh, As, bs, cs, dr, dc, b_scale, c_scale, us, st, 0.0, PDHG_WINDOW),
+                     state, barrier)
+
+    def kkt(state):
+        return [float(state[i]) for i in (6, 7, 8)]  # rp, rd, gp
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    group = mesh.get_group()
+    one_rank = dist.new_group([0])  # every rank takes part in making it
+    sh, data, _ = fs.prepare(A, b, c, mesh, device=dev)
+    sharded.reset_collectives()
+    state, secs, prof = sharded_windows(sh, data)
+    rec["sharded"] = {"seconds": secs, "iterations_per_s": iters / secs,
+                      "collectives": {k: v for k, v in sharded.collectives.items() if v},
+                      "profile": _device_us(prof, PDHG_WINDOW, cuda), "kkt": kkt(state),
+                      "ranks_agree": _pdhg_agree(state, group)}
+    del sh, data, state
+    free()
+    if rank == 0:
+        sh, data, _ = fs.prepare_on(A, b, c, one_rank, device=dev)
+        state, secs, _ = sharded_windows(sh, data, barrier=False)
+        rec["world1"] = {"seconds": secs, "iterations_per_s": iters / secs, "kkt": kkt(state)}
+        del sh, data, state
+        free()
+        A_d = pdhg._as_device_A(A, torch.float32, dev)
+        b_t = torch.as_tensor(b, device=dev).float()
+        cmin = -torch.as_tensor(c, device=dev).float()
+        As, dr, dc, bs, cs, tau0, sigma0, b_scale, c_scale = pdhg._pdhg_setup(A_d, b_t, cmin, torch.float32)
+        del A_d
+        us = torch.full_like(cs, float("inf"))
+        state = pdhg._initial_state(len(b), len(c), torch.float32, dev, tau0, sigma0)
+        state, secs, prof = timed(
+            lambda st: pdhg._pdhg_window(As, bs, cs, dr, dc, b_scale, c_scale, us, st, 0.0, PDHG_WINDOW, True),
+            state, barrier=False)
+        rec["single"] = {"seconds": secs, "iterations_per_s": iters / secs,
+                         "profile": _device_us(prof, PDHG_WINDOW, cuda)}
+        del As, state
+        free()
+    dist.barrier()
+    # the whole entry to MAX_ITER: the exit's certificate runs on each
+    # rank's own columns; its host allocations traced alone
+    inner, cert_peak = fs.finish, [0]
+
+    def traced(*a, **k):
+        tracemalloc.start()
+        try:
+            return inner(*a, **k)
+        finally:
+            cert_peak[0] = tracemalloc.get_traced_memory()[1]
+            tracemalloc.stop()
+
+    fs.finish = traced
+    try:
+        _sync()
+        t0 = time.perf_counter()
+        res = fs.solve_pdhg_sharded(A, b, c, mesh, tol=0.0, max_iter=PDHG_MAX_ITER, device=dev)
+        _sync()
+        wall = time.perf_counter() - t0
+    finally:
+        fs.finish = inner
+    rec["max_iter"] = {"status": res.status.name, "iters": res.iters, "z": res.z, "seconds": wall,
+                       "kkt": [res.primal_res, res.dual_res, res.gap], "certificate_host_peak_bytes": cert_peak[0]}
+    free()
+    dist.barrier()
+    return rec
+
+
+def _rank(rank: int, world: int, port: int, dev_type: str, a_path: str, b, c, window: int, mode: str,
+          rows: int, out) -> None:
     import traceback
 
     import torch
     import torch.distributed as dist
 
     from simplex_tpu_torch import SimplexOptions, solve, solve_sharded
-    from simplex_tpu_torch.dist.mesh import COLS_AXIS, initialize_multihost, make_mesh
+    from simplex_tpu_torch.dist.mesh import COLS_AXIS, ROWS_AXIS, initialize_multihost, make_mesh
+    from simplex_tpu_torch.dist.sharded2d import solve_sharded_2d
 
     cuda = dev_type == "cuda"
     initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="nccl" if cuda else "gloo")
@@ -243,13 +422,27 @@ def _rank(rank: int, world: int, port: int, dev_type: str, a_path: str, b, c, wi
         mesh = make_mesh(device=dev_type)
         dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
         rec = {"rank": rank, "card": torch.cuda.get_device_name(dev) if cuda else "cpu"}
-        rec["collectives_alone"] = _collectives_alone(len(b), dev, mesh.get_group(COLS_AXIS))
+        if mode != "pdhg":
+            rec["collectives_alone"] = _collectives_alone(len(b), dev, mesh.get_group(COLS_AXIS))
         if a_path is None:
             out.put((rank, "ok", rec))
             return
         A = np.load(a_path, mmap_mode="r")
+        if mode == "pdhg":
+            rec["pdhg"] = _pdhg_runs(A, b, c, mesh, dev, rank, window, cuda)
+            out.put((rank, "ok", rec))
+            return
         opts = SimplexOptions(max_iter=window)
         short = SimplexOptions(max_iter=PROFILED_PIVOTS)
+        if mode == "2d":
+            mesh2 = make_mesh((ROWS_AXIS, COLS_AXIS), shape=(rows, world // rows), device=dev_type)
+            _, rec["two_d"], _ = _run(
+                lambda: solve_sharded_2d(A, b, c, mesh2, options=opts), barrier=True, two_d=True)
+            _, short_rec, prof = _run(
+                lambda: solve_sharded_2d(A, b, c, mesh2, options=short), barrier=True, profiled=True, two_d=True)
+            rec["two_d_profile"] = _device_us(prof, short_rec["steps"], cuda)
+            if cuda:
+                torch.cuda.empty_cache()
         _, rec["sharded"], _ = _run(lambda: solve_sharded(A, b, c, mesh, options=opts), barrier=True)
         _, short_rec, prof = _run(
             lambda: solve_sharded(A, b, c, mesh, options=short), barrier=True, profiled=True)
@@ -279,7 +472,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--collectives-only", action="store_true",
                     help="only the two collectives alone, at the instance's m (no LP)")
+    ap.add_argument("--mode", choices=["1d", "2d", "pdhg"], default="1d",
+                    help="1d: the column-sharded solve; 2d: the 2-D solve first, then the 1-D one; "
+                         "pdhg: the column-sharded PDHG against one card's")
+    ap.add_argument("--rows", type=int, default=2, help="the 2-D mesh's rows axis (--mode 2d)")
     args = ap.parse_args(argv)
+    if args.mode == "2d" and (args.ranks % args.rows or args.m % args.rows):
+        print(f"card_check: --rows {args.rows} must divide --ranks and --m", file=sys.stderr)
+        return 1
     import torch
     import torch.multiprocessing as mp
 
@@ -309,7 +509,8 @@ def main(argv=None) -> int:
     port = free_port()
     procs = [
         ctx.Process(target=_rank,
-                    args=(r, args.ranks, port, args.device, a_path and str(a_path), b, c, args.window, out))
+                    args=(r, args.ranks, port, args.device, a_path and str(a_path), b, c, args.window, args.mode,
+                          args.rows, out))
         for r in range(args.ranks)
     ]
     for p in procs:
@@ -331,6 +532,30 @@ def main(argv=None) -> int:
     if errors:
         print("\n".join(errors), file=sys.stderr)
         return 1
+    if args.mode == "pdhg":
+        pd = {r: recs[r]["pdhg"] for r in range(args.ranks)}
+        mx = {r: pd[r]["max_iter"] for r in pd}
+        kkt_diff = max(abs(p - q) for p, q in zip(pd[0]["sharded"]["kkt"], pd[0]["world1"]["kkt"]))
+        record = {
+            "instance": f"random_dense_lp({args.m}, {args.n}, seed=0)", "mode": "pdhg", "cards": cards,
+            "iterations": args.window, "window": PDHG_WINDOW,
+            "ranks_agree": all(pd[r]["sharded"]["ranks_agree"] for r in pd),
+            "sharded_iterations_per_s": pd[0]["sharded"]["iterations_per_s"],
+            "world1_iterations_per_s": pd[0]["world1"]["iterations_per_s"],
+            "single_card_iterations_per_s": pd[0]["single"]["iterations_per_s"],
+            "sharded_seconds": {r: pd[r]["sharded"]["seconds"] for r in pd},
+            "single_card_seconds": pd[0]["single"]["seconds"],
+            "sharded_kkt": pd[0]["sharded"]["kkt"], "world1_kkt": pd[0]["world1"]["kkt"],
+            "kkt_diff_from_world1": kkt_diff, "kkt_tol": PDHG_WORLD1_TOL,
+            "sharded_collectives": pd[0]["sharded"]["collectives"],
+            "device_us_per_iteration": {r: pd[r]["sharded"]["profile"] for r in pd},
+            "single_card_device_us_per_iteration": pd[0]["single"]["profile"],
+            "max_iter_run": mx[0],
+            "max_iter_certificate_host_peak_bytes": {r: mx[r]["certificate_host_peak_bytes"] for r in mx},
+        }
+        ok = (record["ranks_agree"] and kkt_diff <= PDHG_WORLD1_TOL and mx[0]["status"] == "MAX_ITER"
+              and mx[0]["iters"] == PDHG_MAX_ITER and all(mx[r]["z"] == mx[0]["z"] for r in mx))
+        return _emit(record, args.out, ok)
     alone = {r: recs[r]["collectives_alone"] for r in range(args.ranks)}
     if args.collectives_only:
         return _emit({"m": args.m, "cards": cards, "collectives_alone": alone}, args.out, True)
@@ -362,7 +587,28 @@ def main(argv=None) -> int:
         "single_card_device_us_per_step": recs[0]["single_profile"],
         "collectives_alone": alone,
     }
-    return _emit(record, args.out, agree and match)
+    ok = agree and match
+    if args.mode == "2d":
+        td = [recs[r]["two_d"] for r in range(args.ranks)]
+        r2, k2 = td[0]["res"], td[0]["steps"]
+        agree2 = all(t["res"].z == r2.z and np.array_equal(t["res"].basis, r2.basis) for t in td)
+        record.update({
+            "mode": "2d", "mesh": [args.rows, args.ranks // args.rows],
+            "two_d_ranks_agree": bool(agree2),
+            "two_d_status": r2.status.name, "two_d_pivots": int(r2.iters), "two_d_z": r2.z,
+            "two_d_matches_single_card": bool(
+                r2.iters == ref.iters and np.array_equal(r2.basis, ref.basis)
+                and abs(r2.z - ref.z) <= TWO_D_Z_TOL * max(1.0, abs(ref.z))),
+            "two_d_z_diff": abs(r2.z - ref.z),
+            "two_d_pivots_per_s": r2.iters / td[0]["loop"], "two_d_loop_s": td[0]["loop"],
+            "two_d_wall_s": td[0]["wall"],
+            "two_d_launches_per_step": {n_: v / k2 for n_, v in td[0]["launches"].items() if v},
+            "two_d_collectives_per_step": {n_: v / k2 for n_, v in td[0]["collectives"].items() if v},
+            "two_d_reads": td[0]["reads"],
+            "two_d_device_us_per_step": {r: recs[r]["two_d_profile"] for r in range(args.ranks)},
+        })
+        ok = ok and agree2 and r2.iters == args.window and record["two_d_matches_single_card"]
+    return _emit(record, args.out, ok)
 
 
 def _emit(record: dict, out, ok: bool) -> int:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import datetime
 import socket
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
@@ -21,10 +22,14 @@ import torch
 import torch.distributed as dist
 
 COLS_AXIS = "cols"
+ROWS_AXIS = "rows"
 BATCH_AXIS = "batch"
 
 # how long a rank waits for the others at a rendezvous or a collective
 TIMEOUT = datetime.timedelta(minutes=10)
+
+# mesh -> the process group of all its ranks, for meshes of two or more axes
+_flat_groups: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def free_port() -> int:
@@ -53,7 +58,9 @@ def make_mesh(
     ``devices`` (default: every rank of the process group), shaped
     ``shape`` (default: all of them along the first axis), with the axes
     ``axis_names`` (``"cols"``: the column-sharded solve; ``"batch"``: the
-    sharded batch).
+    sharded batch; ``("rows", "cols")`` with ``shape=(R, C)``: the 2-D
+    solve). A mesh of two or more axes also gets the group of all its ranks
+    (:func:`flat_group`).
 
     Every rank of the process group calls this, the ranks outside
     ``devices`` too (each mesh axis is a new process group). Without a
@@ -77,13 +84,35 @@ def make_mesh(
         shape = (len(ranks),) + (1,) * (len(axis_names) - 1)
     grid = np.asarray(ranks, dtype=np.int64).reshape(tuple(shape))
     mesh = DeviceMesh(dev_type, torch.as_tensor(grid), mesh_dim_names=tuple(axis_names))
-    if mesh.get_coordinate() is not None:
-        # make each axis's communicator now (NCCL makes one at its first
+    groups = [mesh.get_group(name) for name in axis_names] if mesh.get_coordinate() is not None else []
+    if len(axis_names) > 1:
+        # every rank of the process group takes part in making a group
+        _flat_groups[mesh] = dist.new_group(ranks=grid.ravel().tolist())
+        if groups:
+            groups.append(_flat_groups[mesh])
+    if groups:
+        # make each communicator now (NCCL makes one at its first
         # collective, which takes a second or more), not inside a solve
         probe = torch.zeros(1, device=torch.cuda.current_device() if dev_type == "cuda" else "cpu")
-        for name in axis_names:
-            dist.all_reduce(probe, group=mesh.get_group(name))
+        for group in groups:
+            dist.all_reduce(probe, group=group)
     return mesh
+
+
+def flat_group(mesh):
+    """The process group of every rank of ``mesh``: its one axis's group,
+    or for a mesh of several axes the group :func:`make_mesh` made beside
+    it (the flattened mesh). A rank's place along the flattened mesh is
+    its coordinate in row-major order, whatever its rank in this group."""
+    mesh = require_mesh(mesh)
+    if mesh.ndim == 1:
+        return mesh.get_group(0)
+    if mesh not in _flat_groups:
+        raise ValueError(
+            "flat_group: a mesh of several axes must come from simplex_tpu_torch.dist.mesh.make_mesh, "
+            "which makes the group of all its ranks"
+        )
+    return _flat_groups[mesh]
 
 
 def require_mesh(mesh):

@@ -42,6 +42,7 @@ one column more), where the reference asks for padded columns.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import types
@@ -74,17 +75,30 @@ from simplex_tpu_torch.kernels.dispatch import get_backend
 from simplex_tpu_torch.logging import get_logger
 from simplex_tpu_torch.status import SolveStatus
 
-# collectives issued by the collective backends since the last
-# reset_collectives(), by op ("init": the start state's c_b)
-collectives = {
-    "choose_entering": 0, "gather_column_cost": 0, "devex_choose": 0,
-    "gather_cost": 0, "gather_basis_matrix": 0, "basis_columns64": 0, "init": 0,
-}
+# collectives issued by the distributed modes since the last
+# reset_collectives(), by the name each mode gives its op (here "init": the
+# start state's c_b); an op not issued reads 0
+collectives: collections.Counter = collections.Counter()
 
 
 def reset_collectives() -> None:
-    for k in collectives:
-        collectives[k] = 0
+    collectives.clear()
+
+
+def all_reduce(t: torch.Tensor, op, group, name: str) -> torch.Tensor:
+    """``dist.all_reduce`` of ``t`` in place over ``group``, counted under
+    ``name``; returns ``t``. ``t`` must be a tensor of its own, never a view
+    of a leaf the solve keeps (B_inv, U, R)."""
+    collectives[name] += 1
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def default_device(mesh, device=None) -> torch.device:
+    """``device``, or the mesh's device type on the current card."""
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda" else "cpu"
+    return torch.device(device)
 
 
 _NONE = 1 << 62  # the first-index key of "no candidate": above every column index
@@ -129,10 +143,8 @@ def make_collective_backend(
     local = get_backend(kernels)
     n = n_loc if n is None else int(n)
 
-    def all_reduce(t, op, name):
-        collectives[name] += 1
-        dist.all_reduce(t, op=op, group=group)
-        return t
+    def reduce(t, op, name):
+        return all_reduce(t, op, group, name)
 
     def owned(idx):
         """(owned here, local position clamped into the shard)."""
@@ -140,7 +152,7 @@ def make_collective_backend(
         return (loc >= 0) & (loc < n_loc), loc.clamp(0, n_loc - 1)
 
     def owner_sum(vals, mine, name):
-        return all_reduce(torch.where(mine, vals, 0), dist.ReduceOp.SUM, name)
+        return reduce(torch.where(mine, vals, 0), dist.ReduceOp.SUM, name)
 
     def scan(y, A, c, eps, basis, lo):
         # (min e, its lowest index, first index below -eps or INT_MAX) over
@@ -160,7 +172,7 @@ def make_collective_backend(
             _pack(min_e, arg.to(torch.int64) + lo),
             torch.where(neg == _ops.INT_MAX, _NONE, neg.to(torch.int64) + lo),
         ])
-        all_reduce(keys, dist.ReduceOp.MIN, "choose_entering")
+        reduce(keys, dist.ReduceOp.MIN, "choose_entering")
         p = torch.where(use_bland.view(()).to(torch.bool), _first(keys[1]), keys[0] & _LOW32)
         return p.to(torch.int32), _value(keys[0])
 
@@ -174,7 +186,7 @@ def make_collective_backend(
             torch.where(neg.any(), first + base, _NONE),
             _pack(e.min().view(1), 0),
         ])
-        all_reduce(keys, dist.ReduceOp.MIN, "devex_choose")
+        reduce(keys, dist.ReduceOp.MIN, "devex_choose")
         p = torch.where(use_bland.view(()).to(torch.bool), _first(keys[1]), keys[0] & _LOW32)
         return p.to(torch.int32), _value(keys[2])
 
@@ -232,14 +244,23 @@ def shard_bounds(n: int, ranks: int) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(sizes)])
 
 
+def _host_csc(A):
+    """The scipy CSC host copy of a sparse A (scipy, a sparse tensor or a
+    :class:`~simplex_tpu_torch.sparse.SparseA`)."""
+    if isinstance(A, _sp.SparseA):
+        return A.host
+    if isinstance(A, torch.Tensor):  # a sparse tensor, as solve() takes it
+        return _sp.as_sparse(A, torch.float64, "cpu").host
+    return A.tocsc()
+
+
 def _local_columns(A, lo: int, hi: int, dtype, device):
-    """Columns [lo, hi) of the full A on ``device``: a sparse A as a
-    :class:`~simplex_tpu_torch.sparse.SparseA` of those columns alone (from
-    the scipy CSC host copy), a dense one (numpy, a memmap, a tensor) as a
-    contiguous block."""
+    """Columns [lo, hi) of the full A on ``device``: a sparse A (scipy, a
+    sparse tensor or a :class:`~simplex_tpu_torch.sparse.SparseA`) as a
+    SparseA of those columns alone (from the scipy CSC host copy), a dense
+    one (numpy, a memmap, a tensor) as a contiguous block."""
     if _sp.is_sparse(A):
-        host = A.host if isinstance(A, _sp.SparseA) else A.tocsc()
-        return _sp.from_scipy(host[:, lo:hi], dtype, device)
+        return _sp.from_scipy(_host_csc(A)[:, lo:hi], dtype, device)
     if isinstance(A, torch.Tensor):
         return A[:, lo:hi].to(device=device, dtype=dtype).contiguous()
     return torch.as_tensor(np.ascontiguousarray(A[:, lo:hi]), device=device).to(dtype).contiguous()
@@ -287,7 +308,7 @@ def solve_sharded(
     axis calls it with the same arguments and returns the same result.
 
     ``A`` is the full matrix on every rank (numpy, a memmap, a tensor, or
-    sparse: scipy.sparse or a :class:`~simplex_tpu_torch.sparse.SparseA`);
+    sparse: scipy.sparse, a sparse tensor or a :class:`~simplex_tpu_torch.sparse.SparseA`);
     each rank moves only its own columns to ``device`` (default: the
     mesh's device type, on the current card). Any n of at least one
     column a rank is taken; shards may differ in width by one column.
@@ -337,9 +358,7 @@ def solve_sharded(
                 "columns disagree on segmented pricing; pick n or partial_pricing so "
                 "that they agree"
             )
-    if device is None:
-        device = torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda" else "cpu"
-    device = torch.device(device)
+    device = default_device(mesh, device)
     pin_full_fp32()
     dtype = options.dtype
     prob = Problem(

@@ -1,15 +1,7 @@
-"""First-order LP solvers (PDHG, PDLP-style): the inverse-free mode."""
+"""First-order LP solvers (PDHG, PDLP-style): the inverse-free mode, on one
+card and column-sharded over a mesh of ranks."""
 
 from simplex_tpu_torch.fo.pdhg import PDHGResult, solve_pdhg
-
-
-def __getattr__(name):
-    if name == "solve_pdhg_sharded":
-        raise NotImplementedError(
-            "solve_pdhg_sharded (PDHG sharded over several cards) is not ported yet "
-            "(ROADMAP item 18)"
-        )
-    raise AttributeError(f"module 'simplex_tpu_torch.fo' has no attribute {name!r}")
-
+from simplex_tpu_torch.fo.sharded import solve_pdhg_sharded
 
 __all__ = ["PDHGResult", "solve_pdhg", "solve_pdhg_sharded"]

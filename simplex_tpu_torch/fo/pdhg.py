@@ -265,18 +265,28 @@ def _host64(A, Ad):
     return np.asarray(A.detach().cpu().numpy() if isinstance(A, torch.Tensor) else A, np.float64)
 
 
-def _cert_metrics(A64, b, cmin, xhat, yhat, u):
-    """Certificate quality of candidate rays on the original data, in
-    float64: ``(||A xhat||_inf, cmin.xhat, viol_d, obj_d)`` (see
-    ``simplex_tpu.fo.pdhg._cert_metrics``)."""
-    viol_p = float(np.max(np.abs(A64 @ xhat))) if xhat.size else 0.0
-    obj_p = float(cmin @ xhat)
-    aty = np.asarray(A64.T @ yhat).ravel()
-    finite = np.isfinite(u)
-    pos = np.maximum(aty, 0)
-    viol_d = float(np.max(np.where(finite, 0, pos))) if aty.size else 0.0
-    obj_d = float(b @ yhat - np.sum(np.where(finite, u, 0) * pos))
-    return viol_p, obj_p, viol_d, obj_d
+class _HostCert:
+    """The products a certificate takes, on the whole A in float64 on the
+    host (``simplex_tpu.fo.pdhg._cert_metrics`` split into its primal and
+    dual halves)."""
+
+    def __init__(self, A64, b, cmin, u):
+        self.A64, self.b, self.cmin, self.finite, self.u = A64, b, cmin, np.isfinite(u), u
+
+    def primal(self, xhat):
+        """``(||A xhat||_inf, cmin.xhat)``."""
+        viol_p = float(np.max(np.abs(self.A64 @ xhat))) if xhat.size else 0.0
+        return viol_p, float(self.cmin @ xhat)
+
+    def dual(self, yhat):
+        """``(viol_d, obj_d)``: the positive part of A^T yhat on the
+        unbounded columns, and b.yhat less the finite bounds' share."""
+        pos = np.maximum(np.asarray(self.A64.T @ yhat).ravel(), 0)
+        viol_d = float(np.max(np.where(self.finite, 0, pos))) if pos.size else 0.0
+        return viol_d, float(self.b @ yhat - np.sum(np.where(self.finite, self.u, 0) * pos))
+
+    def polish(self, d, fixed):
+        return _polish_primal_ray(self.A64, d, fixed)
 
 
 def _polish_primal_ray(A64, d, fixed, iters: int = 8):
@@ -304,12 +314,13 @@ def _polish_primal_ray(A64, d, fixed, iters: int = 8):
     return d
 
 
-def _certify(A64, b, cmin, x, y, xr, yr, b_scale, c_scale, cert_tol, u):
+def _certify(ops, x, y, xr, yr, b_scale, c_scale, cert_tol, u):
     """PDLP's exit-time infeasibility detection from the divergent iterate
     ray: the epoch displacement and the normalized iterate, dual (Farkas)
     first, then primal (recession, polished in f64 when the raw candidate
-    misses). Returns ``(status, ray_primal, ray_dual)``, status None when
-    nothing certifies."""
+    misses), with the products of ``ops`` (a :class:`_HostCert`, or the
+    sharded solve's per-shard one). Returns ``(status, ray_primal,
+    ray_dual)``, status None when nothing certifies."""
     free = ~np.isfinite(u)
     dx = np.where(free, np.maximum(x - xr, 0), 0)
     dy = y - yr
@@ -318,17 +329,16 @@ def _certify(A64, b, cmin, x, y, xr, yr, b_scale, c_scale, cert_tol, u):
         nv = float(np.max(np.abs(v))) if v.size else 0.0
         return (v / nv, True) if nv > 0 else (v, False)
 
-    zeros_x = np.zeros_like(x)
     for cand in (dy, y):
         ray, ok = unit(cand)
         if not ok:
             continue
-        _vp, _op, viol_d, obj_d = _cert_metrics(A64, b, cmin, zeros_x, ray, u)
+        viol_d, obj_d = ops.dual(ray)
         if obj_d > 1e-8 * b_scale and viol_d <= cert_tol * obj_d:
             return SolveStatus.INFEASIBLE, None, ray
 
     def passes(ray):
-        viol_p, obj_p, _vd, _od = _cert_metrics(A64, b, cmin, ray, np.zeros_like(y), u)
+        viol_p, obj_p = ops.primal(ray)
         return -obj_p > 1e-8 * c_scale and viol_p <= cert_tol * (-obj_p)
 
     for cand in (dx, np.where(free, np.maximum(x, 0), 0)):
@@ -337,7 +347,7 @@ def _certify(A64, b, cmin, x, y, xr, yr, b_scale, c_scale, cert_tol, u):
             continue
         if passes(raw):
             return SolveStatus.UNBOUNDED, raw, None
-        polished = _polish_primal_ray(A64, raw, ~free)
+        polished = ops.polish(raw, ~free)
         if polished is not raw and passes(polished):
             return SolveStatus.UNBOUNDED, polished, None
     return None, None, None
@@ -417,10 +427,8 @@ def solve_pdhg(
     else:
         xr = (state[13] / dc).double().cpu().numpy()
         yr = (state[14] / dr).double().cpu().numpy()
-        cert, ray_p, ray_d = _certify(
-            _host64(A, Ad), b_t.double().cpu().numpy(), cmin.double().cpu().numpy(), x, y, xr, yr,
-            float(b_scale), float(c_scale), cert_tol, u_np,
-        )
+        ops = _HostCert(_host64(A, Ad), b_t.double().cpu().numpy(), cmin.double().cpu().numpy(), u_np)
+        cert, ray_p, ray_d = _certify(ops, x, y, xr, yr, float(b_scale), float(c_scale), cert_tol, u_np)
         if cert is not None:
             status = cert
         elif stall >= STALL_WINDOWS:

@@ -53,7 +53,7 @@ _SIGNATURES = {
         _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I,  # m .. cluster_blocks
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs, stream
     ),
-    "simplex_rank1_update": (_P, _P, _P, _I, _I, _P),
+    "simplex_rank1_update": (_P, _P, _P, _I, _I, _I, _P),
     "simplex_batch_pricing": (
         _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,  # layout .. words
         _P, _P, _P, _P,  # mask, recs, p, min_e

@@ -575,17 +575,19 @@ def rank1_update_plain(B_inv, eta, binv_q) -> torch.Tensor:
 def rank1_update(
     B_inv: torch.Tensor, eta: torch.Tensor, binv_q: torch.Tensor
 ) -> torch.Tensor:
-    """``B_inv += eta (x) binv_q`` IN PLACE; returns B_inv. B_inv (m, m)
-    float32 contiguous; eta, binv_q (m,) float32, neither overlapping B_inv
-    (row q of B_inv must be passed as a copy, ``B_inv[q].clone()``)."""
+    """``B_inv += eta (x) binv_q`` IN PLACE; returns B_inv. B_inv (r, m)
+    float32 contiguous with 0 < r <= m: the whole (m, m) inverse, or a
+    block of its rows (the 2-D sharded solve's row block); eta (r,) and
+    binv_q (m,) float32, neither overlapping B_inv (row q of B_inv must be
+    passed as a copy, ``B_inv[q].clone()``)."""
     _require(
-        B_inv.dim() == 2 and B_inv.shape[0] == B_inv.shape[1] and B_inv.shape[0] > 0,
-        f"B_inv: want a non-empty square matrix, got {tuple(B_inv.shape)}",
+        B_inv.dim() == 2 and 0 < B_inv.shape[0] <= B_inv.shape[1],
+        f"B_inv: want a non-empty block of rows of a square matrix, got {tuple(B_inv.shape)}",
     )
-    m = B_inv.shape[0]
+    r, m = B_inv.shape
     _require(B_inv.dtype == torch.float32, f"B_inv: dtype {B_inv.dtype}")
     _require(B_inv.is_contiguous(), "B_inv: not contiguous")
-    _vector(eta, m, torch.float32, "eta")
+    _vector(eta, r, torch.float32, "eta")
     _vector(binv_q, m, torch.float32, "binv_q")
     dev = _same_device(B_inv, eta, binv_q)
     _require(
@@ -597,7 +599,7 @@ def rank1_update(
     lib = _build.load_library()
     vec = m % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (B_inv, binv_q))
     err = lib.simplex_rank1_update(
-        B_inv.data_ptr(), eta.data_ptr(), binv_q.data_ptr(), m, int(vec),
+        B_inv.data_ptr(), eta.data_ptr(), binv_q.data_ptr(), r, m, int(vec),
         _stream(dev),
     )
     _build.check(err, "rank1_update")

@@ -255,8 +255,10 @@ def test_rejects_bad_input():
         solve_pdhg(A, b, c, u=-np.ones(10), device="cpu")
     with pytest.raises(ValueError, match="dtype"):
         solve_pdhg(A, b, c, dtype=torch.float16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        from simplex_tpu_torch.fo import solve_pdhg_sharded  # noqa: F401
+    # the sharded PDHG is ported (tests/test_torch_pdhg_sharded.py)
+    from simplex_tpu_torch.fo import solve_pdhg_sharded
+
+    assert callable(solve_pdhg_sharded)
 
 
 # --------------------------------------------------------------------------

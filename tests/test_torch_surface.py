@@ -1,10 +1,9 @@
 """The port's package surface against the JAX package's.
 
 Every public name of ``simplex_tpu`` imports from ``simplex_tpu_torch``
-(but ``BlockSparse``, whose counterpart is ``SparseA``, and
-``solve_sharded_2d``, not ported yet); ``simplex_tpu_torch.oracle`` has the
-reference oracle package's names; ``solve_with_checkpoints`` takes the
-reference's ``A_host=``; the thesis-order text reader parses as
+(but ``BlockSparse``, whose counterpart is ``SparseA``);
+``simplex_tpu_torch.oracle`` has the reference oracle package's names;
+``solve_with_checkpoints`` takes the reference's ``A_host=``; the thesis-order text reader parses as
 ``simplex_tpu.io.text``'s does (``tests/test_io.py``'s case) and refuses
 what it refuses.
 """
@@ -22,7 +21,7 @@ from simplex_tpu_torch import SolveStatus, solve_with_checkpoints
 from simplex_tpu_torch.io import text
 from simplex_tpu_torch.oracle.generator import random_dense_lp
 
-NOT_PORTED = {"BlockSparse", "solve_sharded_2d"}
+NOT_PORTED = {"BlockSparse"}
 
 
 @pytest.mark.parametrize("name", sorted(set(simplex_tpu.__all__) - NOT_PORTED))
