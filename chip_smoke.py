@@ -58,7 +58,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      backends, which is the path that runs ``ratio_argmin``;
   6. the general-form route: every ``tests/data/*.mps`` through the port's
      CLI on the card; ``solve_general`` on ``multiperiod_production_lp``
-     at (64, 16) and (256, 16) (every column bounded: the native-bounds
+     at (64, 16) and (128, 16) (every column bounded: the native-bounds
      rule in phase 2) under the default options and ``bench.py --mode
      general``'s, each with and without presolve; and on
      ``transportation_lp(64, 1024, balanced=False)`` (no bounds: the
@@ -80,7 +80,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      test leaves 1e-4 at 8192 x 16384), one ``reoptimize`` on the unchanged
      b repairs it first, and the ranges are those of the repaired basis;
   9. the general route's warm restart: ``solve_general`` on
-     ``multiperiod_production_lp(256, 16)`` again with ``warm=`` the token of
+     ``multiperiod_production_lp(128, 16)`` again with ``warm=`` the token of
      phase 6's run and every b_i moved by up to 5%, against HiGHS;
  10. the pivot trace (``core.trace``): ``tests/data/sample.txt`` along its
      known path (entering 0 then 1, leaving 3 then 2, z 7.5 then 9), and
@@ -126,7 +126,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      pricing, the windows per instance and on a shared A, the tail's two
      paths and its 256 x 2048 shape); of
      one ``reoptimize_batched`` call (phase 16's) a dual batch step; and of
-     1,280 PDHG iterations (phase 17's 256 x 640 and T = 64 sparse) an
+     640 PDHG iterations (phase 17's 256 x 640 and T = 64 sparse) an
      iteration. It runs last: after a profiler run every later launch of the process
      costs more host time.
  15. ``solve_batched`` on ``bench.py --mode batch``'s recipe (4,096 and
@@ -146,6 +146,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
      HiGHS; T = 248 dense and sparse under an iteration budget (reported);
      ``crossover`` of the T = 64 answer within 1e-6 of HiGHS; ``cli solve
      --algo pdhg --crossover`` on sample.txt.
+ 18. the port's benchmark entry point (``python -m
+     simplex_tpu_torch.bench.run``), every one of ``bench.py``'s modes
+     once through ``run.main`` at ``BENCH_RUNS``' sizes: ``single`` at
+     8192 x 16384 over 512 pivots under the flagship and the default option
+     set (whose kernels must launch once a pivot), ``sparse`` there too,
+     ``full`` under the flagship (no oracle; feas_err in the record),
+     ``parity`` at 2048 x 4096, ``general`` at T = 64, ``batch`` at B =
+     4,096 (the three batched kernels launched), ``pdhg`` at 256 x 640 and
+     ``--sparse --m 2112``, ``reopt`` at 2048 x 4096 with
+     ``BENCH_REOPT_B`` scenarios; each record must be one stdout line with
+     the expected metric, ``impl`` and this card, and meet its status and
+     gap gates (GAP_TOL, 1e-4 for the sampled warm re-solves, 1e-3 for
+     PDHG); then ``cli bench`` once as a subprocess.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON record is its total over
@@ -165,7 +178,8 @@ it prints the kernels' measured times, then the device time a call of the
 redesigned batched kernels from a profiler trace, and no final ``ok``
 line); ``--only
 new`` builds the kernels and runs phases 15-17 and phase 14's traces of
-them alone (no final ``ok`` line either).
+them alone (no final ``ok`` line either); ``--only bench`` builds the
+kernels and runs phase 18 alone (no final ``ok`` line).
 """
 
 from __future__ import annotations
@@ -189,8 +203,9 @@ BENCH_WINDOW = 512  # bench.py's pivot budget
 FLAGSHIP = dict(pricing_dtype="bfloat16", partial_pricing=8, update_defer=16, multi_price=64)
 FLAGSHIP_REFACTOR = 2048
 # the general route: bench.py --mode general's instance (T=64, P=16) and
-# four times its rows, and an unbounded transportation LP
-GENERAL_SIZES = {"A": (64, 16), "B": (256, 16)}
+# twice its periods (four times until the bench phase needed the time), and
+# an unbounded transportation LP
+GENERAL_SIZES = {"A": (64, 16), "B": (128, 16)}
 TRANSPORT_C = (64, 1024)
 TRACE_PIVOTS = 256  # pivots of the traced 2048 x 4096 stretch
 CHECKPOINT_EVERY = 512  # pivots a chunk of the checkpointed solves
@@ -209,7 +224,7 @@ MAX_PRIMAL_INFEAS = 1e-3
 # bench.py --mode general's options (its argparse defaults, bench.py:456-462)
 GENERAL_BENCH = dict(pricing_dtype="bfloat16", partial_pricing=8, update_defer=16, refactor_every=1024)
 # the shapes the general route gives the kernels: standardized A (rows,
-# columns) of A = (64, 16) and B = (256, 16), and C (no bounds)
+# columns) of multiperiod (64, 16) and (256, 16), and of C (no bounds)
 ROUTE_A, ROUTE_B, ROUTE_C = (1088, 4160), (4352, 16640), (1088, 67648)
 
 # tolerances, each with its reason
@@ -254,6 +269,25 @@ REPLACES = {
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+PROFILE_TRIES = 3
+
+
+def profiled(run, seen, what: str):
+    """``run()`` (a torch.profiler session and what was read from it) again
+    until ``seen`` holds of its result, at most PROFILE_TRIES times; the
+    last result either way, for the caller's check. On the H100 a session
+    once came back without a record of the kernels it had run, where five
+    earlier runs of the same script had held them: a trace that saw nothing
+    is taken again, not read as a kernel that took no time."""
+    for k in range(PROFILE_TRIES):
+        out = run()
+        if seen(out):
+            return out
+        print(f"{what}: the trace held none of the expected records (try {k + 1} of {PROFILE_TRIES})",
+              flush=True)
+    return out
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -950,6 +984,9 @@ def check_shared_is_per_instance(dev, g, Bn: int, m: int, n: int) -> None:
 # segmented pricing's window cell: 64 instances of random_dense_lp(512,
 # 4096) with partial_pricing = 8 (w = 512 = partial_min_segment)
 SEG_B, SEG_M, SEG_N, SEG_S = 64, 512, 4096, 8
+# batch steps of the segmented cell's profile (the whole call's ~1,000
+# traced took a minute of the script)
+SEG_TRACED = 256
 # the segmented cell's path under the window's first version (the
 # per-instance scan for every window, run on an H100 beside this code):
 # pivots of all instances, the most of one, batch steps, and the failed
@@ -1291,6 +1328,7 @@ def batch_kernel_device_us(dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from simplex_tpu_torch.bench.profile_general import device_summary
+    from simplex_tpu_torch.bench.timing import elapsed_ms
     from simplex_tpu_torch.kernels import hopper
 
     g = torch.Generator(device=dev).manual_seed(12)
@@ -1331,16 +1369,25 @@ def batch_kernel_device_us(dev) -> dict:
     )
     out = {}
     calls = 20
+
+    def calls_of(fn):
+        for _ in range(calls):
+            fn()
+
+    def trace(fn, key):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            calls_of(fn)
+            torch.cuda.synchronize()
+        by, _, _ = device_summary(prof, True)
+        return {k: v / calls for k, v in by.items() if key in k}
+
     for tag, key, fn, path in cases:
         with path():
             fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-        by, _, _ = device_summary(prof, True)
-        mine = {k: v / calls for k, v in by.items() if key in k}
+            mine = profiled(lambda: trace(fn, key), bool, tag)
+            if not mine:  # no trace held the kernels: CUDA events around the same calls
+                mine = {"CUDA events, no trace": 1e3 * elapsed_ms(lambda: calls_of(fn), dev) / calls}
         out[tag] = sum(mine.values())
         check(out[tag] > 0, f"{tag}: no device time in the trace")
         print(f"device us a call, {tag}: {out[tag]:.2f} (" + ", ".join(f"{k[:70]} {v:.2f}" for k, v in mine.items()) + ")")
@@ -1817,7 +1864,8 @@ def phase_device_ops(dev) -> None:
     from simplex_tpu_torch.bench.profile_canonical import profile_loop
 
     A, b, c = instance(BENCH_M, BENCH_N)
-    rec = profile_loop(A, b, c, SimplexOptions(), dev, warm=32, window=128)
+    rec = profiled(lambda: profile_loop(A, b, c, SimplexOptions(), dev, warm=32, window=128),
+                   lambda r: r["device_us_per_pivot"] > 0, "default path profile")
     ops = rec["device_ops_per_pivot"]
     print(
         f"default path, {rec['pivots_traced']} profiled pivots: {ops:.2f} device ops a pivot "
@@ -1836,7 +1884,15 @@ def phase_ratio_device_time(dev) -> dict:
     profiler trace of the per-op bench's loop."""
     from simplex_tpu_torch.bench.kernels import ratio_device_us
 
-    us = ratio_device_us(BENCH_M, device=dev)
+    def once():
+        try:
+            return ratio_device_us(BENCH_M, device=dev)
+        except RuntimeError as e:  # the trace did not hold the launches
+            print(e)
+            return None
+
+    us = profiled(once, lambda r: r is not None and all(v > 0 for v in r.values()), "ratio kernels")
+    check(us is not None, "the profiler did not record the ratio kernels' launches")
     print(f"device us a launch at m={BENCH_M}: {us}")
     check(all(v > 0 for v in us.values()), "the profiler saw no device time for a ratio kernel")
     return us
@@ -2619,7 +2675,8 @@ def phase_sparse_profile(dev) -> None:
     from simplex_tpu_torch.kernels import hopper
 
     _, A_sp, b, c = sparse_instance(BENCH_M, BENCH_N)
-    rec = profile_loop(A_sp, b, c, SimplexOptions(), dev, warm=32, window=128)
+    rec = profiled(lambda: profile_loop(A_sp, b, c, SimplexOptions(), dev, warm=32, window=128),
+                   lambda r: r["device_us_per_pivot"] > 0, "sparse profile")
     print(
         f"sparse default path, {rec['pivots_traced']} profiled pivots: {rec['device_ops_per_pivot']:.2f} device "
         f"ops, {rec['device_us_per_pivot']:.1f} device us and {rec['wall_ms_per_pivot']:.3f} wall ms a pivot, "
@@ -2630,14 +2687,18 @@ def phase_sparse_profile(dev) -> None:
     y, P, A_d, c_d, no, basis = KEPT.pop("pricing pass inputs")
     k = 50
     out = {}
-    for tag, Am in (("sparse", P), ("dense", A_d)):
-        hopper.choose_entering(y, Am, c_d, 1e-5, no, basis)
-        torch.cuda.synchronize()
+
+    def trace(Am):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(k):
                 hopper.choose_entering(y, Am, c_d, 1e-5, no, basis)
             torch.cuda.synchronize()
-        dev_us, n_ops, _ = device_summary(prof, True)
+        return device_summary(prof, True)
+
+    for tag, Am in (("sparse", P), ("dense", A_d)):
+        hopper.choose_entering(y, Am, c_d, 1e-5, no, basis)
+        torch.cuda.synchronize()
+        dev_us, n_ops, _ = profiled(lambda: trace(Am), lambda r: sum(r[0].values()) > 0, f"{tag} pricing pass")
         out[tag] = (sum(dev_us.values()) / k, n_ops / k, dict(dev_us.most_common(4)))
     rec = KEPT["pricing pass"]
     print(f"pricing pass device time on the bench-sparse instance: sparse {out['sparse'][0]:.1f} us a pass in "
@@ -2704,6 +2765,27 @@ def highs_bounded(A, b, c, u):
     return -r.fun if r.status == 0 else None
 
 
+HIGHS_POOL_FROM = 1 << 20  # entries of A from which highs_all pays for its processes
+
+
+def highs_all(problems) -> list:
+    """HiGHS (``solve_scipy``) on each (A, b, c) of ``problems``: in spawned
+    processes, one a core, once A holds HIGHS_POOL_FROM entries (a phase's
+    sampled references one after another cost ~6 s each at 2048 x 4096; a
+    process takes seconds to start), else here."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from simplex_tpu_torch.oracle.reference import solve_scipy
+
+    if len(problems) < 2 or problems[0][0].size < HIGHS_POOL_FROM:
+        return [solve_scipy(*p) for p in problems]
+    workers = min(len(problems), os.cpu_count() or 1)
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return list(pool.map(solve_scipy, *zip(*problems)))
+
+
 def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True, base=None, refs=None) -> dict:
     """solve_batched once through its entry point with the counters set to
     0 just before; prints solves/s, statuses, pivots, batch steps, host
@@ -2719,7 +2801,7 @@ def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True, base=None, r
     from simplex_tpu_torch import SimplexOptions, solve, solve_batched
     from simplex_tpu_torch.batch import step as bstep
     from simplex_tpu_torch.kernels import hopper
-    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy
+    from simplex_tpu_torch.oracle.reference import relative_gap
 
     opts = SimplexOptions(**{**(BATCH_OPTS if base is None else base), **(extra or {})})
     Bn = As.shape[0]
@@ -2741,19 +2823,20 @@ def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True, base=None, r
           f"({reads['control'] / max(steps, 1):.4f} control, {reads['branch'] / max(steps, 1):.4f} branch a "
           f"step); extra pricing passes {branches}; launches a step {per}")
     check(st.get(1, 0) == Bn, f"solve_batched {tag}: not every instance OPTIMAL: {st}")
-    idx = np.linspace(0, Bn - 1, BATCH_SAMPLES).astype(int)
+    idx = [int(i) for i in np.linspace(0, Bn - 1, BATCH_SAMPLES).astype(int)]
+    refs = {} if refs is None else refs
+    if highs:
+        todo = [i for i in idx if i not in refs]
+        if u is None:
+            refs.update(zip(todo, (r.z for r in highs_all([(As[i], bs[i], cs[i]) for i in todo]))))
+        else:
+            refs.update((i, highs_bounded(As[i], bs[i], cs[i], u)) for i in todo)
     worst_h = worst_s = 0.0
     for i in idx:
         single = solve(As[i], bs[i], cs[i], u=u, options=opts, device=dev)
         worst_s = max(worst_s, relative_gap(float(res.z[i]), single.z))
         if highs:
-            if refs is not None and int(i) in refs:
-                ref = refs[int(i)]
-            else:
-                ref = solve_scipy(As[i], bs[i], cs[i]).z if u is None else highs_bounded(As[i], bs[i], cs[i], u)
-                if refs is not None:
-                    refs[int(i)] = ref
-            worst_h = max(worst_h, relative_gap(float(res.z[i]), ref))
+            worst_h = max(worst_h, relative_gap(float(res.z[i]), refs[i]))
     print(f"solve_batched {tag}: {BATCH_SAMPLES} sampled instances, worst rel gap vs the single solve "
           f"{worst_s:.3e}" + (f", vs HiGHS {worst_h:.3e}" if highs else " (HiGHS not held: see the recipe)"))
     check(worst_s <= GAP_TOL and worst_h <= GAP_TOL, f"solve_batched {tag}: gaps {worst_s}, {worst_h}")
@@ -2836,7 +2919,7 @@ def phase_reoptimize_batched(dev) -> dict:
     from simplex_tpu_torch.batch import step as bstep
     from simplex_tpu_torch.kernels import hopper
     from simplex_tpu_torch.oracle.generator import random_dense_lp
-    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy
+    from simplex_tpu_torch.oracle.reference import relative_gap
 
     m, n, Bn = REOPT_M, REOPT_N, REOPT_B
     A, b, c = random_dense_lp(m, n, seed=0, dtype=np.float32)
@@ -2847,8 +2930,8 @@ def phase_reoptimize_batched(dev) -> dict:
     check(int(cold.status) == 1, "reopt: the cold solve is not OPTIMAL")
     rng = np.random.default_rng(1)
     bs = (np.asarray(b, np.float64)[None, :] * (1 + 0.05 * rng.uniform(-1, 1, (Bn, m)))).astype(np.float32)
-    idx = np.linspace(0, Bn - 1, REOPT_SAMPLES).astype(int)
-    refs = {int(i): solve_scipy(A, bs[i], c) for i in idx}
+    idx = [int(i) for i in np.linspace(0, Bn - 1, REOPT_SAMPLES).astype(int)]
+    refs = dict(zip(idx, highs_all([(A, bs[i], c) for i in idx])))
     KEPT["reopt"] = (A, c, cold, bs, refs)
     paths, first = {}, None
     for storage, A_in in (("dense", A), ("scipy CSC", sps.csc_matrix(A))):
@@ -3102,12 +3185,164 @@ def phase_pdhg(dev) -> dict:
     return {"pdhg (and its crossovers)": dict(hopper.launches)}
 
 
+# scenarios of the bench entry point's reopt run: bench.py's 4,096 at 8192 x
+# 16384 fit no card, and each sampled scenario costs a HiGHS solve of ~6 s
+# at 2048 x 4096
+BENCH_REOPT_B = 2
+# the default option set in the bench entry point's flags
+DEFAULT_SET = ["--pricing-dtype", "float32", "--partial-pricing", "0", "--update-defer", "0",
+               "--multi-price", "0"]
+# the bench entry point's runs (simplex_tpu_torch.bench.run): the arguments
+# and the metric each record must name; bench.py's widths, parity, pdhg and
+# reopt at the sizes HiGHS and the time limit allow
+BENCH_RUNS = {
+    "single, flagship": ([], "pivots_per_sec_dense_8192x16384_fp32"),
+    "single, default set": (DEFAULT_SET, "pivots_per_sec_dense_8192x16384_fp32"),
+    "sparse": (["--mode", "sparse"], "sparse_simplex_pivots_per_sec_8192x16384_fp32"),
+    "full, flagship": (["--mode", "full", "--no-oracle"], "seconds_to_optimal_dense_8192x16384_fp32"),
+    "parity": (["--mode", "parity", "--m", "2048", "--n", "4096"], "oracle_rel_gap_dense_2048x4096_fp32"),
+    "general": (["--mode", "general"], "seconds_to_optimal_general_1088rows_T64P16_fp32"),
+    "batch": (["--mode", "batch"], "lp_solves_per_sec_batched_4096x64x160_fp32"),
+    "pdhg": (["--mode", "pdhg", "--m", "256", "--n", "640"], "pdhg_seconds_to_kkt1e-4_dense_256x640_fp32"),
+    "pdhg, sparse": (["--mode", "pdhg", "--sparse", "--m", "2112"],
+                     "pdhg_seconds_to_kkt1e-4_sparse_2112x6208_fp32"),
+    "reopt": (["--mode", "reopt", "--m", "2048", "--n", "4096", "--batch", str(BENCH_REOPT_B)],
+              f"warm_rhs_scenarios_per_sec_2048x4096_batch{BENCH_REOPT_B}_fp32"),
+}
+
+
+def bench_gates(tag: str, rec: dict, err: str) -> None:
+    """What each run's record and log must show: its status, its gap within
+    the repo's gate, and its path's kernels launched in the timed window."""
+    import re
+
+    launches = rec["launches"]
+
+    def logged(pattern):
+        check(re.search(pattern, err, re.M) is not None, f"bench {tag}: no '{pattern}' in the log")
+
+    if tag.startswith("single"):
+        pivots = int(re.search(r"^(\d+) pivots in", err, re.M).group(1))
+        check(pivots == BENCH_WINDOW, f"bench {tag}: {pivots} pivots")
+        if tag == "single, default set":
+            # the default path: each of its kernels once a pivot step
+            for name in ("pricing_scan", "ratio_eta", "rank1_update"):
+                check(launches[name] == pivots, f"bench {tag}: {name} {launches[name]} in {pivots} pivots")
+        else:
+            check(launches["ratio_eta"] >= pivots, f"bench {tag}: ratio_eta {launches['ratio_eta']}")
+    elif tag in ("full, flagship", "parity", "general"):
+        logged(r"^OPTIMAL z=")
+        if tag == "parity":
+            check(rec["value"] <= GAP_TOL, f"bench parity: gap {rec['value']}")
+        if tag == "general":
+            check(rec["rel_gap_vs_highs"] <= GAP_TOL, f"bench general: gap {rec['rel_gap_vs_highs']}")
+        check(launches["pricing_scan" if tag == "general" else "ratio_eta"] > 0, f"bench {tag}: {launches}")
+    elif tag == "sparse":
+        check(rec["iters"] == {"sparse": BENCH_WINDOW, "dense": BENCH_WINDOW}, f"bench sparse: {rec['iters']}")
+        check(launches["pricing_scan"] > 0 and launches["ratio_eta"] > 0, f"bench sparse: {launches}")
+    elif tag == "batch":
+        logged(r"\((\d+)/\1 optimal")
+        check(all(launches[k] > 0 for k in ("batch_pricing", "batch_tail", "batch_rank1")),
+              f"bench batch: {launches}")
+    elif tag.startswith("pdhg"):
+        logged(r"OPTIMAL iters=")
+        check(rec["obj_rel_gap_vs_highs"] <= PDHG_GAP, f"bench {tag}: gap {rec['obj_rel_gap_vs_highs']}")
+        check(not any(launches.values()), f"bench {tag}: PDHG runs no kernel, {launches}")
+    elif tag == "reopt":
+        logged(rf"\({BENCH_REOPT_B} OPTIMAL")
+        check(rec["worst_sampled_rel_gap_vs_highs"] <= REOPT_GAP,
+              f"bench reopt: gap {rec['worst_sampled_rel_gap_vs_highs']}")
+        check(launches["batch_rank1"] > 0, f"bench reopt: {launches}")
+
+
+def phase_bench(dev) -> dict:
+    """The port's benchmark entry point, ``python -m
+    simplex_tpu_torch.bench.run``, once per mode through ``run.main`` in
+    this process (BENCH_RUNS), then ``cli bench`` once as a
+    subprocess at 2048 x 4096. ``random_dense_lp(m, n, seed=0)`` and
+    HiGHS's answer on 2048 x 4096 come from the caches of earlier phases.
+    Each run prints exactly one JSON line on stdout, with the expected
+    metric, ``impl`` and this card; each is gated by :func:`bench_gates`.
+    Returns the launch counts of each whole run."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from simplex_tpu_torch.bench import run
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle import generator, reference
+
+    card = card_line()
+    original, original_highs = generator.random_dense_lp, reference.solve_scipy
+
+    def unpatched(fn, *args):
+        # instance() and highs() import the originals when they run
+        generator.random_dense_lp, reference.solve_scipy = original, original_highs
+        try:
+            return fn(*args)
+        finally:
+            generator.random_dense_lp, reference.solve_scipy = reused, highs_reused
+
+    def reused(m, n, seed=0, dtype=np.float32, degenerate=False):
+        if (seed, np.dtype(dtype), degenerate) != (0, np.float32, False):
+            return original(m, n, seed, dtype, degenerate)
+        return unpatched(instance, m, n)
+
+    def highs_reused(A, b, c):
+        # HiGHS on instance(2048, 4096) itself: the answer earlier phases have
+        if np.shape(A) == (SMALL_M, SMALL_N) and all(
+                x is y for x, y in zip((A, b, c), unpatched(instance, SMALL_M, SMALL_N))):
+            return unpatched(highs, SMALL_M, SMALL_N)
+        return original_highs(A, b, c)
+
+    def record(tag, out, err, metric):
+        lines = out.splitlines()
+        check(len(lines) == 1, f"bench {tag}: {len(lines)} lines on stdout")
+        rec = json.loads(lines[0])
+        check(rec["metric"] == metric, f"bench {tag}: metric {rec['metric']}")
+        check(rec["impl"] == "simplex_tpu_torch" and rec["card"] == card, f"bench {tag}: {rec['impl']}, {rec['card']}")
+        tail = [ln for ln in err.splitlines() if re.search(r"pivots/s|OPTIMAL|solves/s|scenarios/s|rel_gap", ln)]
+        print(f"bench {tag}: {' | '.join(tail)}")
+        print(f"bench {tag} record: {lines[0]}")
+        return rec
+
+    paths = {}
+    generator.random_dense_lp, reference.solve_scipy = reused, highs_reused
+    try:
+        for tag, (argv, metric) in BENCH_RUNS.items():
+            out, err = io.StringIO(), io.StringIO()
+            torch.cuda.synchronize()
+            hopper.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = run.main(argv)
+            wall = time.perf_counter() - t0
+            paths[f"bench {tag}"] = dict(hopper.launches)
+            check(rc == 0, f"bench {tag}: rc {rc}")
+            rec = record(tag, out.getvalue(), err.getvalue(), metric)
+            bench_gates(tag, rec, err.getvalue())
+            print(f"bench {tag}: {wall:.1f} s in all")
+            torch.cuda.empty_cache()
+    finally:
+        generator.random_dense_lp, reference.solve_scipy = original, original_highs
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "simplex_tpu_torch.cli", "bench", "--m", str(SMALL_M), "--n", str(SMALL_N)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    check(proc.returncode == 0, f"cli bench: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    record("cli bench", proc.stdout, proc.stderr, f"pivots_per_sec_dense_{SMALL_M}x{SMALL_N}_fp32")
+    print(f"cli bench: {time.perf_counter() - t0:.1f} s in all (a new process)")
+    return paths
+
+
 def phase_batch_profile(dev) -> dict:
     """Device ops and device time a batch step from a torch.profiler trace
     of a whole solve_batched call (after the other profiles): bench.py
     --mode batch's recipe at B = 4,096 under Dantzig, devex and steepest
-    edge, and the segmented cell (fp32 and the bf16 shadow, where the
-    window prices every step); then the device time a call of the
+    edge, and the first SEG_TRACED steps of the segmented cell (fp32 and
+    the bf16 shadow, where the window prices every step); then the device time a call of the
     redesigned batched kernels (``batch_kernel_device_us``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3119,14 +3354,19 @@ def phase_batch_profile(dev) -> dict:
     def traced(tag, As, bs, cs, opts):
         solve_batched(As, bs, cs, options=opts, device=dev)
         torch.cuda.synchronize()
-        bstep.reset_host_reads()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            solve_batched(As, bs, cs, options=opts, device=dev)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+
+        def once():
+            bstep.reset_host_reads()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                solve_batched(As, bs, cs, options=opts, device=dev)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            by, ops, _ = device_summary(prof, True)
+            return by, ops, wall
+
+        by, ops, wall = profiled(once, lambda r: r[1] > 0 and sum(r[0].values()) > 0, f"batch profile {tag}")
         steps = max(bstep.steps["primal"], 1)
-        by, ops, _ = device_summary(prof, True)
         total = sum(by.values())
         per = {k: v / steps for k, v in by.most_common(8)}
         print(f"batch profile {tag}: {steps} batch steps; {ops / steps:.2f} device ops and "
@@ -3147,8 +3387,9 @@ def phase_batch_profile(dev) -> dict:
     del As, bs, cs
     As, bs, cs = seg_instances()
     for tag, extra in (("fp32", {}), ("bf16 shadow", {"pricing_dtype": "bfloat16"})):
-        out[f"segmented {tag}"] = traced(f"segmented S={SEG_S} {tag} {SEG_B}x{SEG_M}x{SEG_N}", As, bs, cs,
-                                         SimplexOptions(polish=False, partial_pricing=SEG_S, **extra))
+        out[f"segmented {tag}"] = traced(
+            f"segmented S={SEG_S} {tag} {SEG_B}x{SEG_M}x{SEG_N}, first {SEG_TRACED} steps", As, bs, cs,
+            SimplexOptions(polish=False, partial_pricing=SEG_S, max_iter=SEG_TRACED, **extra))
     return dict(out["dantzig"], rules=out, kernel_calls_device_us=batch_kernel_device_us(dev))
 
 
@@ -3157,8 +3398,8 @@ def phase_warm_and_pdhg_profile(dev) -> dict:
     first REOPT_TRACED dual batch steps of a ``reoptimize_batched`` call on
     bench-reopt (dense A, phase 16's cold basis and scenarios; the whole
     call's 1,051 steps traced took two minutes of the script), one
-    re-inversion among them, and 1,280
-    PDHG iterations (10 windows) of the 256 x 640 and T = 64 sparse
+    re-inversion among them, and 640
+    PDHG iterations (5 windows) of the 256 x 640 and T = 64 sparse
     instances, each traced by torch.profiler: device ops and device us a
     dual batch step or an iteration, and the largest items."""
     import numpy as np
@@ -3172,14 +3413,18 @@ def phase_warm_and_pdhg_profile(dev) -> dict:
     from simplex_tpu_torch.oracle.generator import random_dense_lp
 
     def traced(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = fn()
+        def once():
+            bstep.reset_host_reads()
             torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        by, ops, _ = device_summary(prof, True)
-        return out, by, ops, wall
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = fn()
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            by, ops, _ = device_summary(prof, True)
+            return out, by, ops, wall
+
+        return profiled(once, lambda r: sum(r[1].values()) > 0, "warm batched or PDHG profile")
 
     def report(tag, by, ops, wall, per, unit):
         total = sum(by.values())
@@ -3192,13 +3437,12 @@ def phase_warm_and_pdhg_profile(dev) -> dict:
     out = {}
     A, c, cold, bs, _ = KEPT.pop("reopt")
     opts = SimplexOptions(refactor_every=256, max_iter=REOPT_TRACED)
-    bstep.reset_host_reads()
     _, by, ops, wall = traced(lambda: reoptimize_batched(A, bs, c, cold, options=opts, device=dev))
     out["reopt"] = report("bench-reopt dual loop profile", by, ops, wall, bstep.steps["dual"], "dual batch step")
     del A
     torch.cuda.empty_cache()
     A, b, c = random_dense_lp(256, 640, seed=0, dtype=np.float32)
-    iters = 1280
+    iters = 640
     _, by, ops, wall = traced(lambda: solve_pdhg(A, b, c, tol=1e-12, max_iter=iters, device=dev))
     out["pdhg dense"] = report("pdhg 256x640 profile", by, ops, wall, iters, "iteration")
     _, _, A, b, c, u = multiperiod_eq(PDHG_T)
@@ -3756,11 +4000,12 @@ def timed(fn):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "new", "sharded"], default=None,
+    ap.add_argument("--only", choices=["kernels", "new", "sharded", "bench"], default=None,
                     help="kernels: stop after the kernel checks; new: the kernel build, then only "
                          "the batched, warm-batched and PDHG phases and the batch profile; sharded: "
                          "the kernel build, rank-1 on row blocks, pricing on a shard, the default "
-                         "window and every distributed phase (no final ok line in any of them)")
+                         "window and every distributed phase; bench: the kernel build and the bench "
+                         "entry point's runs (no final ok line in any of them)")
     args = ap.parse_args(argv)
     if not (ROOT / "simplex_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -3791,6 +4036,12 @@ def main(argv=None) -> int:
         print(f"batch profile: {phase_batch_profile(dev)}")
         print(f"warm batched and PDHG profiles: {phase_warm_and_pdhg_profile(dev)}")
         print(f"new phases: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
+    if args.only == "bench":
+        for tag, counts in phase_bench(dev).items():
+            print(f"launches on path '{tag}': {counts}")
+        print(f"bench phase: {time.perf_counter() - t_start:.1f} s")
         print(card)
         return 0
     if args.only == "sharded":
@@ -3854,6 +4105,8 @@ def main(argv=None) -> int:
     paths.update(phase_reopt_rules(dev))
     torch.cuda.empty_cache()
     paths.update(phase_pdhg(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_bench(dev))
     torch.cuda.empty_cache()
     paths.update(phase_sharded(dev))
     torch.cuda.empty_cache()

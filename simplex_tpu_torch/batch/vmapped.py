@@ -103,8 +103,10 @@ def _bounds(u, n: int, device, dtype):
     return torch.as_tensor(u_np, device=device).to(dtype)
 
 
-def _array(v) -> np.ndarray:
-    return np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+def _array(v):
+    """``v`` as it is when a tensor (no host round trip: a tensor already on
+    the solve's device is used in place), else a numpy array."""
+    return v if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 def _over_mesh(mesh, batch_axis: str, Bn: int, solve_slice) -> BatchSolveResult:
@@ -153,9 +155,11 @@ def solve_batched(
     each  max c.x  s.t.  A x = b, 0 <= x (<= u)  from its trailing slack
     basis, on ``device`` (default ``"cuda"``; no fallback to the CPU). ``u``
     (optional (n,), shared by the batch) runs every instance under the
-    native bounded-variable rule. With ``mesh``, the instances are split
-    over the ranks of its axis ``batch_axis`` (every rank of it calls this
-    with the whole batch and returns the whole result)."""
+    native bounded-variable rule. A stack given as a tensor already on
+    ``device`` in ``options.dtype`` is used in place (no host round trip).
+    With ``mesh``, the instances are split over the ranks of its axis
+    ``batch_axis`` (every rank of it calls this with the whole batch and
+    returns the whole result)."""
     As, bs, cs = (_array(v) for v in (As, bs, cs))
     if mesh is not None:
         return _over_mesh(mesh, batch_axis, len(As), lambda lo, hi: solve_batched(
@@ -206,7 +210,9 @@ def reoptimize_batched(
     ``bs_new`` is (B, m); ``prev`` is the SolveResult of the original solve
     (or a bare (m,) basis array; ``prev.at_upper`` carries the bounded
     flags). A (dense, scipy.sparse or a
-    :class:`~simplex_tpu_torch.sparse.SparseA`) and c are shared. Entry dual
+    :class:`~simplex_tpu_torch.sparse.SparseA`) and c are shared; a dense A,
+    ``bs_new`` or c given as a tensor already on ``device`` in
+    ``options.dtype`` is used in place (no host round trip). Entry dual
     feasibility is checked once, in float64 on the device. Each scenario
     runs the dual simplex from the shared basis, then the primal loop
     certifies optimality; statuses are per scenario (an INFEASIBLE scenario
@@ -231,7 +237,7 @@ def reoptimize_batched(
     at_upper0 = getattr(prev, "at_upper", None)
     device = torch.device(device)
     tol = 10 * options.resolve_eps()
-    u_np = None if u is None else np.asarray(_array(u), np.float64)
+    u_np = None if u is None else np.asarray(u.cpu() if isinstance(u, torch.Tensor) else u, np.float64)
     min_e = _entry_dual_feasibility(
         A, c, basis0, at_upper0 if u is not None else None, u_np, device
     )

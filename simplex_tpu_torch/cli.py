@@ -7,8 +7,10 @@ Usage:
   python -m simplex_tpu_torch.cli analyze INPUT [--mps] [--sparse]
       [--top-cols K] [--reoptimize 'i=delta,...']
   python -m simplex_tpu_torch.cli trace INPUT [--mps] [--verbose]
+  python -m simplex_tpu_torch.cli bench [--m M] [--n N] [--pivots K]
+      [--backend hopper|torch] [--device cuda]
 
-and on every subcommand the option flags: [--device cuda]
+and on every subcommand but ``bench`` the option flags: [--device cuda]
 [--backend hopper|torch] [--pricing dantzig|devex|steepest] [--fp64]
 [--max-iter N] [--presolve] [--fast] [--pricing-dtype ...]
 [--update-defer L] [--partial-pricing S] [--multi-price K] [--ratio ...]
@@ -24,7 +26,9 @@ The objective is reported in the instance's own sense, constant included.
 first use; a general-route input is always held against HiGHS on its
 general form), ``analyze`` prints duals and the
 rhs / cost ranges and re-solves warm after a rhs change, ``trace`` prints
-the pivot path. Exit code 0 on OPTIMAL (verify: on agreement), 2 on any
+the pivot path, ``bench`` runs the port's benchmark
+(``python -m simplex_tpu_torch.bench.run``, single mode) and returns its
+exit code. Exit code 0 on OPTIMAL (verify: on agreement), 2 on any
 other status, 1 on bad input, a failed check or an option the port does
 not run (``error: ...``).
 """
@@ -83,6 +87,8 @@ def _resolve_flag_defaults(args) -> None:
     """Fill the tuning flags the user did not pass: the flagship values
     under --fast, else the plain defaults. A flag passed explicitly (an
     explicit 0 too) always wins."""
+    if not hasattr(args, "pricing_dtype"):
+        return  # bench: no option flags
     fast = args.fast
     if args.pricing_dtype is None:
         args.pricing_dtype = "bfloat16" if fast else "float32"
@@ -343,6 +349,19 @@ def cmd_trace(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """Run the port's benchmark (``simplex_tpu_torch.bench.run``) in a
+    subprocess and return its exit code."""
+    import subprocess
+
+    cmd = [
+        sys.executable, "-m", "simplex_tpu_torch.bench.run",
+        "--m", str(args.m), "--n", str(args.n), "--pivots", str(args.pivots),
+        "--backend", args.backend, "--device", args.device,
+    ]
+    return subprocess.call(cmd)
+
+
 def _common(p) -> None:
     """The option flags every subcommand takes (``simplex_tpu.cli``'s
     ``common``)."""
@@ -457,8 +476,19 @@ def main(argv=None) -> int:
     _common(pt)
     pt.set_defaults(fn=cmd_trace)
 
+    pb = sub.add_parser("bench", help="run the pivots/sec benchmark")
+    pb.add_argument("--m", type=int, default=8192)
+    pb.add_argument("--n", type=int, default=16384)
+    pb.add_argument("--pivots", type=int, default=128)
+    pb.add_argument(
+        "--backend", default="hopper", choices=["hopper", "torch"],
+        help="hopper = the CUDA kernels, torch = plain PyTorch ops",
+    )
+    pb.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    pb.set_defaults(fn=cmd_bench)
+
     args = ap.parse_args(argv)
-    if args.log_level:
+    if getattr(args, "log_level", None):
         from simplex_tpu_torch.logging import set_level
 
         set_level(args.log_level)

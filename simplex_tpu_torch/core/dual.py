@@ -403,7 +403,8 @@ def _entry_dual_feasibility(A, c, basis, at_upper0, u, device) -> float:
         A64 = _sp.as_sparse(A.host if isinstance(A, _sp.SparseA) else A, torch.float64, device)
     else:
         A64 = torch.as_tensor(A, device=device).double()
-    c64 = torch.as_tensor(np.asarray(c, np.float64), device=device)
+    c64 = (c.to(device, torch.float64) if isinstance(c, torch.Tensor)
+           else torch.as_tensor(np.asarray(c, np.float64), device=device))
     idx = torch.as_tensor(np.asarray(basis, np.int64), device=device)
     try:
         y = torch.linalg.solve(basis_columns64(A64, idx).T, c64.index_select(0, idx))

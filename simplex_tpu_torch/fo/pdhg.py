@@ -356,7 +356,9 @@ def _certify(ops, x, y, xr, yr, b_scale, c_scale, cert_tol, u):
 def _as_device_A(A, dtype, device):
     if _sp.is_sparse(A):
         return _sp.as_sparse(A, dtype, device)
-    return torch.as_tensor(np.asarray(A.cpu() if isinstance(A, torch.Tensor) else A), device=device).to(dtype)
+    if isinstance(A, torch.Tensor):
+        return A.to(device=device, dtype=dtype)  # in place when it is there already
+    return torch.as_tensor(np.asarray(A), device=device).to(dtype)
 
 
 def solve_pdhg(

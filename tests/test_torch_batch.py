@@ -672,3 +672,46 @@ def test_batch_entry_points_default_to_the_card():
         pytest.skip("a card is present: the default device runs")
     with pytest.raises((RuntimeError, AssertionError)):
         solve_batched(As, bs, cs)
+
+
+@pytest.mark.parametrize("entry", ["solve_batched", "reoptimize_batched"])
+def test_tensors_are_used_in_place(entry, monkeypatch):
+    """A stack already on the solve's device goes into the Problem as it is:
+    never turned into a host array (no round trip), its storage shared, and
+    the answers those of the numpy inputs."""
+    from simplex_tpu_torch.batch import vmapped
+
+    seen = []
+    inner = vmapped._shadow
+
+    def shadow(prob, options):
+        seen.append(prob)
+        return inner(prob, options)
+
+    monkeypatch.setattr(vmapped, "_shadow", shadow)
+    if entry == "solve_batched":
+        arrays = stack_lps(3, 8, 20)
+        def call(A, b, c):
+            return solve_batched(A, b, c, device="cpu")
+    else:
+        A, b, c = random_dense_lp(12, 30, seed=31)
+        cold = solve(A, b, c, options=SimplexOptions(**OPTS_WARM), device="cpu")
+        rng = np.random.default_rng(9)
+        bs2 = (np.asarray(b, np.float64) * (1 + 0.2 * rng.uniform(-1, 1, (4, 12)))).astype(np.float32)
+        arrays = [A, bs2, c]
+        def call(A, b, c):
+            return reoptimize_batched(A, b, c, cold, options=SimplexOptions(**OPTS_WARM), device="cpu")
+    want = call(*arrays)
+    tensors = [torch.from_numpy(v) for v in arrays]
+
+    def no_host_copy(self, *a, **k):
+        raise AssertionError("an input tensor was turned into a host array")
+
+    monkeypatch.setattr(torch.Tensor, "__array__", no_host_copy)
+    got = call(*tensors)
+    monkeypatch.undo()
+    prob = seen[-1]
+    for field, t in zip("Abc", tensors):
+        assert getattr(prob, field).data_ptr() == t.data_ptr(), field
+    for field in ("z", "status", "iters", "basis"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))

@@ -142,6 +142,22 @@ def test_solve_matches_jax_moderate_tol(storage, seed):
     assert np.abs(A @ res.x - b).max() < 1e-2 and res.x.min() > -1e-6
 
 
+def test_a_tensor_is_used_in_place(monkeypatch):
+    """A dense A given as a tensor on the solve's device goes in as it is
+    (never turned into a host array); the answer is the numpy input's."""
+    A, b, c = random_dense_lp(24, 64, seed=0)
+    want = solve_pdhg(A, b, c, tol=1e-4, device="cpu")
+
+    def no_host_copy(self, *a, **k):
+        raise AssertionError("A was turned into a host array")
+
+    monkeypatch.setattr(torch.Tensor, "__array__", no_host_copy)
+    got = solve_pdhg(torch.from_numpy(np.asarray(A, np.float32)), b, c, tol=1e-4, device="cpu")
+    monkeypatch.undo()
+    assert (got.status, got.iters, got.z) == (want.status, want.iters, want.z)
+    np.testing.assert_array_equal(got.x, want.x)
+
+
 @pytest.mark.parametrize("seed", [1, 2])
 def test_solve_tight_tol(seed):
     A, b, c = random_dense_lp(24, 64, seed=seed)
