@@ -42,23 +42,46 @@ Phases, each of which raises (and so exits non-zero) on failure:
      both of its paths (one warp an instance up to 256 rows, rows a lane
      1 to 8, misaligned loads; one block an instance beyond, and forced at
      small m), eager and deferred, finished instances mixed in; rank-1 and
-     the tail timed also at the warm re-solve's 256 x 2048;
+     the tail timed also at the warm re-solve's 256 x 2048. The four
+     single-card kernels again in float64: pricing at 8192 x 16384, 8191 x
+     16383, 9000 x 1001 and 24 x 4099 (every pick equal, min_e within
+     1e-12), an exact tie, the strided segment view (aligned and not), the
+     bf16 shadow with float64 y and c, the signed mode at the bounded
+     route's shapes; ``ratio_eta`` (tail off), ``ratio_argmin`` and
+     ``pivot_tail`` eager bit for bit, deferred within 1e-12, at m = 17,
+     1024, 1025, 8192, 9000; ``rank1_update`` bit for bit the unfused B +
+     outer(eta, row) on the whole inverse and on row blocks; each timed
+     beside its plain version, its library call and its bound;
   3. ``simplex_tpu_torch.solve`` through its normal entry point with the
      default options: the sample LP (z = 9), a 2048 x 4096 random LP
      against HiGHS, and the benchmark's 8192 x 16384 instance over its
      512-pivot window, where every pivot step must launch each of its
      kernels once; then the same instance solved to OPTIMAL, checked in
-     f64 without an oracle (HiGHS needs minutes at this size);
+     f64 without an oracle (HiGHS needs minutes at this size). Then in
+     float64 under the default options (the kernels' float64
+     instantiations): the sample, Beale's cycler under both ratio tests,
+     the Klee-Minty ladder at n = 4, 6, 8 (2^n - 1 Dantzig pivots, 1
+     steepest-edge pivot, devex fewer), the structured corpus and every
+     MPS fixture through ``solve_general`` against HiGHS at 1e-6,
+     2048 x 4096 against HiGHS at 1e-9, the 512-pivot window and the
+     solve to OPTIMAL at 8192 x 16384 (the f64 KKT check; feas_err beside
+     the fp32 solve's), and every other single-card entry point at 2048 x
+     4096: the flagship with and without multiple pricing, devex, steepest
+     edge eager and deferred, sparse A, ``reoptimize``, ``ranging``,
+     ``trace_pivots``, ``solve_with_checkpoints`` stopped and resumed,
+     ``solve_general`` with presolve on multiperiod (32, 16) and ``cli
+     solve --fp64``; each default step launching its three kernels once;
   4. the flagship option set ``bench.py`` runs (bf16 shadow, partial
      pricing 8, deferred updates 16, multiple pricing 64, and the same with
      multiple pricing off) over the 512-pivot window, with launch counts
      and host reads per pivot; then flagship solves to OPTIMAL: 2048 x 4096
      against HiGHS and 8192 x 16384 with an f64 check;
   5. the per-op bench (``simplex_tpu_torch.bench.kernels``) on both
-     backends, which is the path that runs ``ratio_argmin``;
+     backends, which is the path that runs ``ratio_argmin``, and in
+     float64 on the hopper backend;
   6. the general-form route: every ``tests/data/*.mps`` through the port's
      CLI on the card; ``solve_general`` on ``multiperiod_production_lp``
-     at (64, 16) and (128, 16) (every column bounded: the native-bounds
+     at (64, 16) and (96, 16) (every column bounded: the native-bounds
      rule in phase 2) under the default options and ``bench.py --mode
      general``'s, each with and without presolve; and on
      ``transportation_lp(64, 1024, balanced=False)`` (no bounds: the
@@ -80,7 +103,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      test leaves 1e-4 at 8192 x 16384), one ``reoptimize`` on the unchanged
      b repairs it first, and the ranges are those of the repaired basis;
   9. the general route's warm restart: ``solve_general`` on
-     ``multiperiod_production_lp(128, 16)`` again with ``warm=`` the token of
+     ``multiperiod_production_lp(96, 16)`` again with ``warm=`` the token of
      phase 6's run and every b_i moved by up to 5%, against HiGHS;
  10. the pivot trace (``core.trace``): ``tests/data/sample.txt`` along its
      known path (entering 0 then 1, leaving 3 then 2, z 7.5 then 9), and
@@ -114,7 +137,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
  14. a profiled stretch of the default path's pivot loop on the 8192 x
      16384 instance, which must stay under ``MAX_DEVICE_OPS_PER_PIVOT``
      device operations a pivot and launch each solve-path kernel once a
-     pivot (after the trace has run); the same stretch of the sparse
+     pivot (after the trace has run), in fp32 and in float64; the ratio
+     kernels' device time a launch in both; the same stretch of the sparse
      default path on phase 13's instance, and the device time of one
      sparse and one dense pricing pass there; and the ratio kernels'
      device time a launch from a trace of the per-op bench's loop; and a
@@ -162,13 +186,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON record is its total over
-the paths (each path's counts are printed on their own line). Beside its
+the paths (each path's counts are printed on their own line); the float64
+instantiations are records of their own (``pricing_scan_f64``, ...), whose
+launches are those of the paths tagged ``f64``. Beside its
 measured times the record gives each kernel's ``bound_ms``: the bytes it
 must move at the main path's shape (each input read once, each output
 written once) over the card's 3.35 TB/s, or its operations over the fp32
-peak, whichever is larger; and ``library_ms``, the time of the one PyTorch
-call that computes the same function where there is one (``Tensor.addr_``
-for rank1_update), timed here and used nowhere in the port. The last
+(float64: fp64) peak, whichever is larger; and ``library_ms``, the time of
+the one PyTorch call that computes the same function where there is one
+(``Tensor.addr_`` for rank1_update; for float64 pricing ``torch.mv(A.T,
+y)``, the product alone), timed here and used nowhere in the port. The last
 lines are the kernels' JSON record, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
 checkout of the repository, the script exits non-zero at once.
@@ -179,7 +206,9 @@ redesigned batched kernels from a profiler trace, and no final ``ok``
 line); ``--only
 new`` builds the kernels and runs phases 15-17 and phase 14's traces of
 them alone (no final ``ok`` line either); ``--only bench`` builds the
-kernels and runs phase 18 alone (no final ``ok`` line).
+kernels and runs phase 18 alone; ``--only f64`` the float64 kernel
+checks, the float64 solves and entry points, the float64 per-op bench and
+the float64 profiles (no final ``ok`` line in either).
 """
 
 from __future__ import annotations
@@ -203,9 +232,9 @@ BENCH_WINDOW = 512  # bench.py's pivot budget
 FLAGSHIP = dict(pricing_dtype="bfloat16", partial_pricing=8, update_defer=16, multi_price=64)
 FLAGSHIP_REFACTOR = 2048
 # the general route: bench.py --mode general's instance (T=64, P=16) and
-# twice its periods (four times until the bench phase needed the time), and
-# an unbounded transportation LP
-GENERAL_SIZES = {"A": (64, 16), "B": (128, 16)}
+# 1.5 times its periods (four times until the bench phase needed the time,
+# twice until the float64 phases did), and an unbounded transportation LP
+GENERAL_SIZES = {"A": (64, 16), "B": (96, 16)}
 TRANSPORT_C = (64, 1024)
 TRACE_PIVOTS = 256  # pivots of the traced 2048 x 4096 stretch
 CHECKPOINT_EVERY = 512  # pivots a chunk of the checkpointed solves
@@ -238,9 +267,11 @@ TAIL_DEFER_RTOL = 1e-6
 # may issue: 13.02 measured on an H100 (78.01 before the tail and the mask
 # moved into the kernels), plus room for a perturbation round
 MAX_DEVICE_OPS_PER_PIVOT = 16.0
-# the card's published peaks (H100 SXM): HBM bytes/s and fp32 flop/s
+# the card's published peaks (H100 SXM): HBM bytes/s, fp32 flop/s, and
+# fp64 flop/s outside the tensor cores (NVIDIA's data sheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_FP64_S = 34e12
 GAP_TOL = 1e-5  # fp32 solve against HiGHS in f64 (the JAX package's gate)
 KKT_TOL = 1e-5  # min reduced cost of the f64 duals: dual feasibility at eps
 FEAS_TOL = 1e-5  # f64 bound / row violation of a general-route answer
@@ -253,6 +284,13 @@ SOURCES = {
     "batch_pricing": "simplex_tpu_torch/csrc/batch_pricing.cu",
     "batch_tail": "simplex_tpu_torch/csrc/batch_tail.cu",
     "batch_rank1": "simplex_tpu_torch/csrc/batch_rank1.cu",
+}
+# the single-card kernels' float64 instantiations, each its own record
+F64_KERNELS = {
+    "pricing_scan_f64": "pricing_scan",
+    "ratio_argmin_f64": "ratio_argmin",
+    "ratio_eta_f64": "ratio_eta",
+    "rank1_update_f64": "rank1_update",
 }
 REPLACES = {
     "pricing_scan": "simplex_tpu/kernels/pallas_ops.py:140",
@@ -290,10 +328,11 @@ def profiled(run, seen, what: str):
     return out
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_S) -> dict:
     """The least time the card could take for ``nbytes`` of traffic and
-    ``flops`` fp32 operations, and which of the two sets it."""
-    by_bytes, by_ops = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_FP32_S
+    ``flops`` operations at ``peak_flops`` (fp32 unless named), and which
+    of the two sets it."""
+    by_bytes, by_ops = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / peak_flops
     return {
         "bound_ms": max(by_bytes, by_ops),
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -475,30 +514,31 @@ def tail_inputs(dev, g, m: int):
     return t
 
 
-def check_tail(tag, dev, t, harris, defer) -> float:
-    """``hopper.pivot_tail`` against its plain version on the same inputs:
-    every leaf bitwise equal, except row q and y under deferred updates
-    (TAIL_DEFER_RTOL). Returns the largest absolute difference seen."""
+def check_tail(tag, dev, t, harris, defer, defer_rtol=TAIL_DEFER_RTOL, opts=TAIL_OPTS) -> float:
+    """``hopper.pivot_tail`` against its plain version on the same inputs
+    (in their dtype): every leaf bitwise equal, except row q and y under
+    deferred updates (``defer_rtol``). Returns the largest absolute
+    difference seen."""
     import torch
 
     from simplex_tpu_torch.kernels import hopper
 
     L, npend = 16, 5
     g = torch.Generator(device=dev).manual_seed(7)
-    m = t["x_b"].shape[0]
+    m, dt = t["x_b"].shape[0], t["x_b"].dtype
     outs = []
     for fn in (hopper.pivot_tail, hopper.pivot_tail_plain):
         extra = {}
         if defer:
-            U = torch.zeros(L, m, device=dev)
-            R = torch.zeros(L, m, device=dev)
+            U = torch.zeros(L, m, device=dev, dtype=dt)
+            R = torch.zeros(L, m, device=dev, dtype=dt)
             g.manual_seed(7)
             U[:npend] = torch.randn(npend, m, generator=g, device=dev) * 0.1
             R[:npend] = torch.randn(npend, m, generator=g, device=dev)
             extra = dict(U=U, R=R, npend=npend, npend_t=torch.tensor(npend, dtype=torch.int32, device=dev))
         outs.append(fn(*(t[k] for k in (
             "x_b", "alpha", "basis", "y", "c_b", "B_inv", "min_e", "e_p", "c_p", "p", "iters", "degen"
-        )), harris=harris, **TAIL_OPTS, **extra))
+        )), harris=harris, **opts, **extra))
     torch.cuda.synchronize()
     got, want = outs
     worst = 0.0
@@ -510,7 +550,7 @@ def check_tail(tag, dev, t, harris, defer) -> float:
         if defer and name in ("row", "y"):
             scale = float(b.abs().max()) + 1e-30
             err = float((a - b).abs().max())
-            check(err <= TAIL_DEFER_RTOL * max(scale, 1.0), f"{tag}: {name} differs by {err} (scale {scale})")
+            check(err <= defer_rtol * max(scale, 1.0), f"{tag}: {name} differs by {err} (scale {scale})")
         else:
             err = 0.0 if torch.equal(a, b) else float((a.double() - b.double()).abs().max())
             check(torch.equal(a, b), f"{tag}: {name} differs by {err}: {a} vs {b}")
@@ -1879,21 +1919,26 @@ def phase_device_ops(dev) -> None:
         check(rec["launches_per_pivot"][name] == 1.0, f"{name}: {rec['launches_per_pivot'][name]} launches a pivot")
 
 
-def phase_ratio_device_time(dev) -> dict:
+def phase_ratio_device_time(dev, dtype=None) -> dict:
     """Device time of one launch of each ratio kernel at m = 8192, from a
-    profiler trace of the per-op bench's loop."""
+    profiler trace of the per-op bench's loop, in ``dtype`` (float32 when
+    None)."""
+    import torch
+
     from simplex_tpu_torch.bench.kernels import ratio_device_us
+
+    dtype = torch.float32 if dtype is None else dtype
 
     def once():
         try:
-            return ratio_device_us(BENCH_M, device=dev)
+            return ratio_device_us(BENCH_M, device=dev, dtype=dtype)
         except RuntimeError as e:  # the trace did not hold the launches
             print(e)
             return None
 
-    us = profiled(once, lambda r: r is not None and all(v > 0 for v in r.values()), "ratio kernels")
+    us = profiled(once, lambda r: r is not None and all(v > 0 for v in r.values()), f"ratio kernels {dtype}")
     check(us is not None, "the profiler did not record the ratio kernels' launches")
-    print(f"device us a launch at m={BENCH_M}: {us}")
+    print(f"device us a launch at m={BENCH_M}, {dtype}: {us}")
     check(all(v > 0 for v in us.values()), "the profiler saw no device time for a ratio kernel")
     return us
 
@@ -3688,9 +3733,13 @@ TWO_D_WINDOW = 256
 # the single solve's whole inverse: the two agree to rounding
 TWO_D_Z_TOL = 1e-9
 TWO_D_WINDOW_SETS = {"default": {}}
+# The flagship runs at 1024 x 2048 (2048 x 4096 until the float64 phases
+# needed the time), its 8 segments of 256 columns kept active by
+# partial_min_segment
 TWO_D_FULL = {
     "devex": ((RESUME_M, RESUME_N), {"pricing": "devex"}),
-    "flagship with multi-price": ((SMALL_M, SMALL_N), {**FLAGSHIP, "refactor_every": FLAGSHIP_REFACTOR}),
+    "flagship with multi-price": (
+        (1024, 2048), {**FLAGSHIP, "refactor_every": FLAGSHIP_REFACTOR, "partial_min_segment": 256}),
 }
 # iterations of the two-rank sharded PDHG at 256 x 640 (held against
 # solve_pdhg on the same budget): to OPTIMAL takes 56,320, 94 s over gloo
@@ -3972,6 +4021,632 @@ def phase_sharded_2d(dev) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------------
+# float64 through the single-card kernels
+# --------------------------------------------------------------------------
+
+# float64 tolerances, each with its reason
+F64_PRICING_RTOL = 1e-12  # float64 sums of up to 9000 terms taken in another order
+F64_TAIL_DEFER_RTOL = 1e-12  # the deferred row: fma in pair order against a matrix product
+F64_RANK1_ATOL = 1e-12  # addr_ may fuse the multiply-add; the kernel rounds each (exact vs B + outer)
+F64_GAP_TOL = 1e-9  # a float64 solve against HiGHS (the JAX suite's float64 gate, tests/test_corpus.py)
+F64_CORPUS_GAP = 1e-6  # tests/test_corpus.py's gate
+F64_TAIL_M = (17, 1024, 1025, BENCH_M, 9000)
+F64_TRACE_PIVOTS = 64
+F64_TAIL_OPTS = dict(TAIL_OPTS, eps=1e-9)  # the float64 default eps
+
+
+def f64_options(**kw):
+    import torch
+
+    from simplex_tpu_torch import SimplexOptions
+
+    return SimplexOptions(dtype=torch.float64, **kw)
+
+
+def f64_check_scan(tag, y, Av, cv, eps) -> float:
+    """The three-output scan in float64 against its plain version: every
+    pick equal, min_e within F64_PRICING_RTOL. Returns |min_e error|."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    min_k, p_k, neg_k = hopper.pricing_scan(y, Av, cv, eps)
+    min_p, p_p, neg_p = hopper.pricing_scan_plain(y, Av, cv, eps)
+    torch.cuda.synchronize()
+    check(min_k.dtype == torch.float64, f"{tag}: min_e {min_k.dtype}")
+    err = abs(float(min_k) - float(min_p))
+    check(err <= F64_PRICING_RTOL * abs(float(min_p)), f"{tag}: min {float(min_k)!r} vs {float(min_p)!r}")
+    check((int(p_k), int(neg_k)) == (int(p_p), int(neg_p)),
+          f"{tag}: picks {int(p_k)}, {int(neg_k)} vs plain {int(p_p)}, {int(neg_p)}")
+    print(f"{tag}: min_e {float(min_k)!r} (plain {float(min_p)!r}) p {int(p_k)} first below {int(neg_k)} ok")
+    return err
+
+
+def f64_check_choose(tag, dev, y, Av, cv, basis, lo, eps, at_upper=None) -> float:
+    """The one-call form in float64 (mask, choice and offset in the kernel;
+    signed under ``at_upper``) against its plain version, Bland off and
+    on: the same column, min within F64_PRICING_RTOL, never a basic
+    column where it improves. Returns the worst |min| error."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper, ops
+
+    worst = 0.0
+    pen = ops.add_basic_penalty(torch.zeros_like(cv), basis, lo)
+    for bland in (False, True):
+        flag = torch.tensor(bland, device=dev)
+        if at_upper is None:
+            p_k, min_k = hopper.choose_entering(y, Av, cv, eps, flag, basis, lo)
+            p_p, min_p = hopper.choose_entering_plain(y, Av, cv, eps, flag, basis, lo)
+        else:
+            args = (y, Av, cv, at_upper, basis, lo, eps, flag)
+            p_k, min_k = hopper.choose_entering_bounded(*args)
+            p_p, min_p = ops.choose_entering_bounded(*args)
+        torch.cuda.synchronize()
+        name = f"{tag} bland={bland}"
+        p_k, p_p, min_k, min_p = int(p_k), int(p_p), float(min_k), float(min_p)
+        err = abs(min_k - min_p)
+        check(err <= F64_PRICING_RTOL * abs(min_p), f"{name}: min {min_k!r} vs {min_p!r}")
+        check(p_k == p_p, f"{name}: p {p_k} vs plain {p_p}")
+        if min_k < -eps:
+            check(float(pen[p_k - lo]) == 0.0, f"{name}: picked basic column {p_k}")
+        worst = max(worst, err)
+        print(f"{name}: p {p_k} min {min_k!r} ok")
+    return worst
+
+
+def phase_f64_pricing(dev) -> dict:
+    """``pricing_scan`` in float64 against its plain version: the bench's
+    8192 x 16384 (16-byte loads), odd shapes (element loads; more row
+    chunks than pass 2's float64 tile; one row chunk), an exact tie, the
+    strided segment view (aligned and not), the bf16 shadow with float64
+    y and c (full and a segment), the one-call form with the basic-column
+    mask and the signed mode at the bounded route's shapes; timed beside
+    its plain version, ``torch.mv(A.T, y)`` (the product alone) and its
+    bound."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper, ops
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    eps = 1e-9
+    rec = {}
+    worst = 0.0
+    for m, n in ((BENCH_M, BENCH_N), (BENCH_M - 1, BENCH_N - 1), (9000, 1001), (24, 4099)):
+        y = torch.randn(m, generator=g, device=dev, dtype=torch.float64)
+        A = torch.randn(m, n, generator=g, device=dev, dtype=torch.float64)
+        c = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+        worst = max(worst, f64_check_scan(f"pricing_scan f64 {m}x{n}", y, A, c, eps))
+        c_tie = torch.zeros(n, device=dev, dtype=torch.float64)
+        c_tie[40] = c_tie[n - 100] = 5.0
+        _, p_tie, neg_tie = hopper.pricing_scan(torch.zeros_like(y), A, c_tie, eps)
+        check(int(p_tie) == 40 and int(neg_tie) == 40, f"pricing f64 tie: {int(p_tie)}, {int(neg_tie)}")
+        e = y @ A - c
+        n_total, lo = (n, 0) if n >= m else (2 * m, m // 2)
+        basis = masked_basis(e, m, g, n_total, lo)
+        worst = max(worst, f64_check_choose(f"choose_entering f64 {m}x{n}", dev, y, A, c, basis, lo, eps))
+        if (m, n) == (BENCH_M, BENCH_N):
+            no = torch.tensor(False, device=dev)
+            w = n // FLAGSHIP["partial_pricing"]
+            views = {"segment": (3 * w, A[:, 3 * w : 4 * w]), "segment, unaligned": (1, A[:, 1 : 1 + w])}
+            for tag, (v0, Av) in views.items():
+                cv = c[v0 : v0 + w]
+                worst = max(worst, f64_check_scan(f"pricing_scan f64 {tag} {tuple(Av.shape)}", y, Av, cv, eps))
+                worst = max(worst, f64_check_choose(f"choose_entering f64 {tag}", dev, y, Av, cv, basis, v0, eps))
+            rec = {
+                "ms": time_ms(lambda: hopper.choose_entering(y, A, c, eps, no, basis)),
+                "plain_ms": time_ms(lambda: ops.choose_entering(y, A, c, eps, no, basis)),
+                "scan_ms": time_ms(lambda: hopper.pricing_scan(y, A, c, eps)),
+                # the product alone (cuBLAS DGEMV): the pass without its choice
+                "library_ms": time_ms(lambda: torch.mv(A.T, y)),
+                **bound(8.0 * (m * n + 2 * m + n) + 4 * m + 24, 2.0 * m * n, PEAK_FP64_S),
+            }
+            print(f"pricing_scan f64 {m}x{n}, ms: one-call {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}), "
+                  f"scan {rec['scan_ms']:.4f}, torch.mv(A.T, y) {rec['library_ms']:.4f}, "
+                  f"bound {rec['bound_ms']:.4f}")
+            # the bf16 shadow with float64 y and c: the sums in float64
+            Ab = A.to(torch.bfloat16)
+            del A
+            shadow = {"bf16": (0, Ab, c), "bf16 segment": (3 * w, Ab[:, 3 * w : 4 * w], c[3 * w : 4 * w])}
+            for tag, (v0, Av, cv) in shadow.items():
+                worst = max(worst, f64_check_scan(f"pricing_scan f64 {tag} {tuple(Av.shape)}", y, Av, cv, eps))
+                worst = max(worst, f64_check_choose(f"choose_entering f64 {tag}", dev, y, Av, cv, basis, v0, eps))
+            rec["bf16"] = {
+                "ms": time_ms(lambda: hopper.choose_entering(y, Ab, c, eps, no, basis)),
+                "plain_ms": time_ms(lambda: ops.choose_entering(y, Ab, c, eps, no, basis)),
+                **bound(2.0 * m * n + 8.0 * (2 * m + n) + 4 * m + 24, 2.0 * m * n, PEAK_FP64_S),
+            }
+            seg = Ab[:, 3 * w : 4 * w]
+            rec["bf16_segment"] = {
+                "ms": time_ms(lambda: hopper.choose_entering(y, seg, c[3 * w : 4 * w], eps, no, basis, 3 * w), 100),
+                "plain_ms": time_ms(lambda: ops.choose_entering(y, seg, c[3 * w : 4 * w], eps, no, basis, 3 * w), 100),
+                **bound(2.0 * m * w + 8.0 * (2 * m + w) + 4 * m + 24, 2.0 * m * w, PEAK_FP64_S),
+            }
+            print(f"pricing_scan f64 y / c on the bf16 shadow, ms: full {rec['bf16']['ms']:.4f} "
+                  f"(plain {rec['bf16']['plain_ms']:.4f}, bound {rec['bf16']['bound_ms']:.4f}); segment "
+                  f"{rec['bf16_segment']['ms']:.4f} (plain {rec['bf16_segment']['plain_ms']:.4f}, bound "
+                  f"{rec['bf16_segment']['bound_ms']:.4f})")
+            del Ab, seg
+        else:
+            del A
+    # the signed mode (the bounded rule) at the bounded route's shapes
+    for m, n in (ROUTE_A, ROUTE_B):
+        w = n // GENERAL_BENCH["partial_pricing"]
+        y = torch.randn(m, generator=g, device=dev, dtype=torch.float64)
+        A = torch.randn(m, n, generator=g, device=dev, dtype=torch.float64)
+        Ab = A.to(torch.bfloat16)
+        c = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+        at_up = torch.rand(n, generator=g, device=dev) < 0.4
+        basis = torch.randperm(n, generator=g, device=dev)[:m].to(torch.int32)
+        for tag, Av, v0, wv in (("f64", A, 0, n), ("bf16", Ab, 0, n), ("bf16 segment", Ab[:, 3 * w : 4 * w], 3 * w, w)):
+            worst = max(worst, f64_check_choose(
+                f"bounded pricing f64 y / c, {tag} A {m}x{wv} (base {v0})", dev, y, Av, c[v0 : v0 + wv],
+                basis, v0, eps, at_up[v0 : v0 + wv]))
+        if (m, n) == ROUTE_B:
+            no = torch.tensor(False, device=dev)
+            args = (y, A, c, at_up, basis, 0, eps, no)
+            rec["signed"] = {
+                "shape": f"{m}x{n}",
+                "ms": time_ms(lambda: hopper.choose_entering_bounded(*args)),
+                "plain_ms": time_ms(lambda: ops.choose_entering_bounded(*args)),
+                **bound(8.0 * (m * n + 2 * m + n) + n + 4 * m + 24, 3.0 * m * n, PEAK_FP64_S),
+            }
+            print(f"bounded pricing f64 {m}x{n}, ms: {rec['signed']['ms']:.4f} (plain "
+                  f"{rec['signed']['plain_ms']:.4f}), bound {rec['signed']['bound_ms']:.4f}")
+        del A, Ab
+    rec["max_abs_err"] = worst
+    return rec
+
+
+def tail_inputs64(dev, g, m: int) -> dict:
+    """:func:`tail_inputs` in float64 (the same draws, widened)."""
+    return {k: v.double() if v.is_floating_point() else v for k, v in tail_inputs(dev, g, m).items()}
+
+
+def phase_f64_ratio(dev) -> tuple:
+    """The ratio kernels in float64 against their plain versions, bit for
+    bit: ``ratio_eta`` with its tail off, ``ratio_argmin``, and
+    ``pivot_tail`` eager (every leaf bitwise) and deferred (row q and y
+    within F64_TAIL_DEFER_RTOL), with the steps that must change nothing;
+    at one block, two, eight and beyond 8 x 1024 rows. Returns the records
+    of ``ratio_eta`` and ``ratio_argmin``."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    rec, rec_arg = {}, {}
+    worst = 0.0
+    for m in F64_TAIL_M:
+        t = tail_inputs64(dev, g, m)
+        x_b, alpha, basis = t["x_b"], t["alpha"], t["basis"]
+        cases = [(h, b, alpha) for h in (True, False) for b in (False, True)]
+        cases += [(True, False, -alpha.abs() - 1), (False, True, -alpha.abs() - 1)]
+        for harris, bland, a in cases:
+            flag = torch.tensor(bland, device=dev)
+            got = hopper.ratio_eta(x_b, a, basis, 1e-7, flag, harris, 1e-6)
+            want = hopper.ratio_eta_plain(x_b, a, basis, 1e-7, flag, harris, 1e-6)
+            torch.cuda.synchronize()
+            tag = f"ratio_eta f64 m={m} harris={harris} bland={bland} unbounded-case={a is not alpha}"
+            check(got[1].dtype == got[3].dtype == torch.float64, f"{tag}: dtypes")
+            for k, (gv, wv) in enumerate(zip(got, want)):
+                check(torch.equal(gv, wv), f"{tag}: output {k} differs: {gv} vs {wv}")
+            if not harris:
+                q, th, unb = hopper.ratio_argmin(x_b, a, basis, 1e-7, flag)
+                qp, thp, unbp = hopper.ratio_argmin_plain(x_b, a, basis, 1e-7, flag)
+                torch.cuda.synchronize()
+                check(th.dtype == torch.float64 and (int(q), bool(unb)) == (int(qp), bool(unbp))
+                      and torch.equal(th, thp), f"ratio_argmin f64 m={m} bland={bland}: {int(q)} {float(th)!r} "
+                      f"vs {int(qp)} {float(thp)!r}")
+            print(f"{tag}: q {int(got[0])} theta_q {float(got[1])!r} ok (and ratio_argmin where classic)")
+        for defer in (False, True):
+            kind = "deferred" if defer else "eager"
+            variants = {
+                "": {},
+                "positive x_b": {"x_b": x_b + 0.25},
+                "bland": {"degen": torch.tensor(64, dtype=torch.int32, device=dev)},
+                "optimal": {"min_e": torch.tensor(0.0, device=dev, dtype=torch.float64)},
+                "unbounded": {"alpha": -alpha.abs() - 1},
+                "non-finite min_e": {"min_e": torch.tensor(float("nan"), device=dev, dtype=torch.float64)},
+                "non-finite theta": {"x_b": torch.full_like(x_b, float("inf"))},
+            }
+            for name, change in variants.items():
+                for harris in ((True, False) if name in ("", "positive x_b") else (True,)):
+                    worst = max(worst, check_tail(
+                        f"pivot_tail f64 m={m} {kind} {name or 'pivoting'} harris={harris}", dev,
+                        {**t, **change}, harris, defer, F64_TAIL_DEFER_RTOL, F64_TAIL_OPTS))
+        if m == BENCH_M:
+            no = torch.tensor(False, device=dev)
+            args = tuple(t[k] for k in (
+                "x_b", "alpha", "basis", "y", "c_b", "B_inv", "min_e", "e_p", "c_p", "p", "iters", "degen"))
+            # bytes: x_b, alpha, y, c_b and row q of B_inv in, eta, row, x_b,
+            # y, c_b out (8 each), basis in and out (4 each); ~12 flops a row
+            rec = {
+                "ms": time_ms(lambda: hopper.pivot_tail(*args, harris=True, **F64_TAIL_OPTS), 200),
+                "plain_ms": time_ms(lambda: hopper.pivot_tail_plain(*args, harris=True, **F64_TAIL_OPTS), 50),
+                "ratio_only_ms": time_ms(lambda: hopper.ratio_eta(x_b, alpha, basis, 1e-7, no, True), 200),
+                "ratio_only_plain_ms": time_ms(lambda: hopper.ratio_eta_plain(x_b, alpha, basis, 1e-7, no, True), 200),
+                **bound(8.0 * 10 * m + 4.0 * 2 * m + 64, 12.0 * m, PEAK_FP64_S),
+                "library_ms": None,
+            }
+            rec_arg = {
+                "ms": time_ms(lambda: hopper.ratio_argmin(x_b, alpha, basis, 1e-7, no), 200),
+                "plain_ms": time_ms(lambda: hopper.ratio_argmin_plain(x_b, alpha, basis, 1e-7, no), 200),
+                **bound(8.0 * 2 * m + 4.0 * m + 13, 2.0 * m, PEAK_FP64_S),
+                "library_ms": None,
+            }
+            print(f"pivot_tail f64 m={m}, ms: {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}); tail off "
+                  f"{rec['ratio_only_ms']:.4f} (plain {rec['ratio_only_plain_ms']:.4f}); ratio_argmin "
+                  f"{rec_arg['ms']:.4f} (plain {rec_arg['plain_ms']:.4f}); bound {rec['bound_ms']:.6f}")
+        del t
+    rec["max_abs_err"] = rec_arg["max_abs_err"] = worst
+    return rec, rec_arg
+
+
+def phase_f64_rank1(dev) -> dict:
+    """``rank1_update`` in float64: bit for bit the unfused B + outer(eta,
+    row) (the plain expression without a fused multiply-add) on the whole
+    inverse (16-byte accesses, and element accesses at m - 1) and on row
+    blocks (the whole update's rows); ``addr_`` within F64_RANK1_ATOL;
+    timed beside ``addr_`` and its bound."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    rec, worst = {}, 0.0
+    for m in (BENCH_M, BENCH_M - 1):
+        B = torch.randn(m, m, generator=g, device=dev, dtype=torch.float64)
+        eta = torch.randn(m, generator=g, device=dev, dtype=torch.float64)
+        row = B[m // 3].clone()
+        got = hopper.rank1_update(B.clone(), eta, row)
+        want = B + torch.outer(eta, row)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"rank1_update f64 m={m}: differs from B + outer(eta, row)")
+        err = float((got - hopper.rank1_update_plain(B.clone(), eta, row)).abs().max())
+        check(err <= F64_RANK1_ATOL, f"rank1_update f64 m={m}: {err} from addr_")
+        worst = max(worst, err)
+        print(f"rank1_update f64 m={m}: bit for bit B + outer(eta, row); {err:.3e} from addr_")
+        if m == BENCH_M:
+            for R in (2, 4):
+                r0 = (R - 1) * (m // R)
+                blk = B[r0 : r0 + m // R].clone()
+                out = hopper.rank1_update(blk, eta[r0 : r0 + m // R].clone(), row)
+                torch.cuda.synchronize()
+                check(torch.equal(out, got[r0 : r0 + m // R]), f"rank1_update f64 row block {m // R}x{m}")
+                print(f"rank1_update f64 row block {m // R}x{m} (rows {r0}..): bit for bit the whole update's rows")
+                del blk, out
+            small = eta * 1e-6
+            rec = {
+                "ms": time_ms(lambda: hopper.rank1_update(B, small, row)),
+                "plain_ms": time_ms(lambda: hopper.rank1_update_plain(B, small, row)),
+                **bound(16.0 * m * m + 16 * m, 2.0 * m * m, PEAK_FP64_S),
+                "library_ms": time_ms(lambda: B.addr_(small, row)),
+            }
+            print(f"rank1_update f64 m={m}, ms: {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}, addr_ "
+                  f"{rec['library_ms']:.4f}), bound {rec['bound_ms']:.4f}")
+        del B, got, want
+    rec["max_abs_err"] = worst
+    return rec
+
+
+def f64_kernel_counts(tag, counts, steps) -> None:
+    """The default path's three kernels, each launched once a pivot step."""
+    for name in ("pricing_scan", "ratio_eta", "rank1_update"):
+        check(counts[name] == steps, f"{tag}: {name} {counts[name]} launches in {steps} pivot steps")
+
+
+def phase_f64_solve(dev) -> dict:
+    """Float64 solves on the card under the default options (the kernels'
+    float64 instantiations): the sample (z = 9, x = (1, 3)), Beale's
+    cycler under both ratio tests (z = 0.05), the Klee-Minty ladder at n =
+    4, 6, 8 (Dantzig 2^n - 1 pivots, steepest edge 1, devex fewer), the
+    structured corpus and every MPS fixture through ``solve_general``
+    against HiGHS at 1e-6, and ``random_dense_lp(2048, 4096)`` against
+    HiGHS at 1e-9, each eager pivot step launching the three kernels once."""
+    import numpy as np
+
+    from simplex_tpu_torch import GeneralLP, SolveStatus, load_lp, read_mps, solve_general
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle import generator as gen
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy, solve_scipy_general
+
+    paths = {}
+    A, b, c = load_lp(ROOT / "tests" / "data" / "sample.txt", dtype=np.float64)
+    res, _, counts, steps, _ = timed_solve_of(dev, A, b, c, f64_options())
+    check(res.status == SolveStatus.OPTIMAL and res.z == 9.0 and list(res.x) == [1.0, 3.0, 0.0, 0.0],
+          f"sample f64: {res.status!r} z {res.z} x {res.x}")
+    f64_kernel_counts("sample f64", counts, steps)
+    print(f"sample.txt f64: OPTIMAL z {res.z} x {res.x.tolist()} pivots {res.iters}; launches {counts}")
+    paths["f64 sample"] = counts
+    A, b, c = gen.beale_cycling_lp()
+    for ratio in ("harris", "classic"):
+        res, _, counts, steps, _ = timed_solve_of(dev, A, b, c, f64_options(ratio=ratio, bland_after=8))
+        check(res.status == SolveStatus.OPTIMAL and abs(res.z - 0.05) < 1e-9, f"Beale f64 {ratio}: {res.status!r} {res.z!r}")
+        print(f"Beale f64 {ratio}: OPTIMAL z {res.z!r} pivots {res.iters}; launches {counts}")
+        paths[f"f64 Beale {ratio}"] = counts
+    for n in (4, 6, 8):
+        A, b, c = gen.klee_minty_lp(n)
+        z_ref = solve_scipy(A, b, c).z
+        piv = {}
+        for pricing in ("dantzig", "devex", "steepest"):
+            res, _, counts, steps, _ = timed_solve_of(dev, A, b, c, f64_options(ratio="classic", pricing=pricing))
+            check(res.status == SolveStatus.OPTIMAL and abs(res.z - z_ref) < 1e-9 * z_ref,
+                  f"Klee-Minty f64 n={n} {pricing}: {res.status!r} {res.z!r} vs {z_ref!r}")
+            check(counts["ratio_eta"] == steps, f"Klee-Minty f64 n={n} {pricing}: ratio_eta {counts}")
+            if pricing == "dantzig":
+                f64_kernel_counts(f"Klee-Minty f64 n={n}", counts, steps)
+            piv[pricing] = res.iters
+            paths[f"f64 Klee-Minty n={n} {pricing}"] = counts
+        check(piv["dantzig"] == 2 ** n - 1 and piv["steepest"] == 1 and piv["devex"] < piv["dantzig"],
+              f"Klee-Minty f64 n={n}: pivots {piv}")
+        print(f"Klee-Minty f64 n={n}: z {z_ref!r}, pivots {piv}")
+
+    def mps(name):
+        prob = read_mps(ROOT / "tests" / "data" / name)
+        cc = prob.c if prob.maximize else -prob.c
+        return GeneralLP(A=prob.A, b=prob.b, c=cc, row_types=prob.row_types, lower=prob.lower, upper=prob.upper)
+
+    corpus = {
+        "transportation 8x6 balanced": lambda: gen.transportation_lp(8, 6, seed=2, balanced=True),
+        "transportation 64x48": lambda: gen.transportation_lp(64, 48, seed=11, balanced=False),
+        "assignment 32": lambda: gen.assignment_lp(32, seed=12),
+        "production 512x128": lambda: gen.production_lp(512, 128, seed=13),
+        "multiperiod 32x16": lambda: gen.multiperiod_production_lp(32, 16, seed=0),
+        **{f: (lambda f=f: mps(f)) for f in sorted(p.name for p in (ROOT / "tests" / "data").glob("*.mps"))},
+    }
+    for name, make in corpus.items():
+        lp = make()
+        hopper.reset_launches()
+        t0 = time.perf_counter()
+        res = solve_general(lp, options=f64_options(), device=dev)
+        wall = time.perf_counter() - t0
+        ref = solve_scipy_general(lp)
+        check(res.status == ref.status, f"corpus f64 {name}: {res.status!r} vs HiGHS {ref.status!r}")
+        gap = relative_gap(res.z, ref.z) if ref.status == SolveStatus.OPTIMAL else 0.0
+        check(gap < F64_CORPUS_GAP, f"corpus f64 {name}: gap {gap:.3e}")
+        if name.startswith("assignment"):
+            x = np.round(res.x.reshape(32, 32))
+            check(np.all(x.sum(axis=0) == 1) and np.all(x.sum(axis=1) == 1), "assignment f64: not a permutation")
+        counts = dict(hopper.launches)
+        print(f"corpus f64 {name}: {res.status.name} z {res.z!r} HiGHS {ref.z!r} gap {gap:.3e} pivots "
+              f"{res.iters} in {wall:.2f} s; launches {counts}")
+        paths[f"f64 corpus {name}"] = counts
+    res, wall, counts, steps, _ = timed_solve(dev, SMALL_M, SMALL_N, f64_options())
+    ref = highs(SMALL_M, SMALL_N)
+    gap = relative_gap(res.z, ref.z)
+    check(res.status == SolveStatus.OPTIMAL and gap <= F64_GAP_TOL, f"f64 {SMALL_M}x{SMALL_N}: {res.status!r} gap {gap:.3e}")
+    f64_kernel_counts(f"f64 {SMALL_M}x{SMALL_N}", counts, steps)
+    KEPT[("f64", SMALL_M, SMALL_N)] = res
+    print(f"random_dense_lp({SMALL_M}, {SMALL_N}) f64: OPTIMAL z {res.z!r} HiGHS {ref.z!r} rel_gap {gap:.3e} "
+          f"feas_err {res.feas_err:.3e} pivots {res.iters} wall {wall:.2f} s; launches {counts}")
+    paths[f"f64 {SMALL_M}x{SMALL_N}"] = counts
+    return paths
+
+
+def phase_f64_bench(dev) -> dict:
+    """The bench instance in float64 under the default options: the
+    512-pivot window (pivots/s; each kernel once a pivot), then solved to
+    OPTIMAL with the f64 KKT check, its feas_err beside the fp32 solve's
+    (phase 3's, when it ran)."""
+    from simplex_tpu_torch import SolveStatus
+
+    paths = {}
+    with loop_timer() as loop:
+        res, wall, counts, steps, reads = timed_solve(dev, BENCH_M, BENCH_N, f64_options(max_iter=BENCH_WINDOW))
+    check(res.status == SolveStatus.MAX_ITER and res.iters == BENCH_WINDOW, f"f64 window: {res.status!r} {res.iters}")
+    f64_kernel_counts("f64 window", counts, steps)
+    check(steps == BENCH_WINDOW, f"f64 window: {steps} pivot steps")
+    KEPT["f64 window"] = (res, wall, reads, loop[0])
+    print(f"random_dense_lp({BENCH_M}, {BENCH_N}) f64, max_iter={BENCH_WINDOW}: {res.iters} pivots in "
+          f"{wall:.3f} s ({res.iters / wall:.1f} pivots/s end to end; the pivot loop alone "
+          f"{res.iters / loop[0]:.1f}); launches {counts}; host reads {reads}")
+    paths["f64 default window"] = counts
+    res, wall, counts, steps, _ = timed_solve(dev, BENCH_M, BENCH_N, f64_options())
+    check(res.status == SolveStatus.OPTIMAL, f"f64 full solve: {res.status!r}")
+    f64_kernel_counts("f64 full solve", counts, steps)
+    fp32 = KEPT.get((BENCH_M, BENCH_N))
+    print(f"full solve random_dense_lp({BENCH_M}, {BENCH_N}) f64: OPTIMAL z {res.z!r} after {res.iters} pivots "
+          f"in {wall:.2f} s ({res.iters / wall:.1f} pivots/s); " + kkt64(dev, BENCH_M, BENCH_N, res)
+          + ("" if fp32 is None else f"; the fp32 solve: z {fp32.z!r}, {fp32.iters} pivots, "
+             f"feas_err {fp32.feas_err:.3e}"))
+    paths["f64 full solve"] = counts
+    return paths
+
+
+def phase_f64_entry_points(dev) -> dict:
+    """Every other single-card entry point in float64 on the kernels, at
+    2048 x 4096 against HiGHS where it answers a solve: the flagship set
+    (bf16 shadow, 8 segments, defer 16, multiple pricing 64) and without
+    multiple pricing, devex, steepest edge (eager and deferred), sparse A,
+    ``reoptimize`` after one b_i moved and ``ranging`` of the answer,
+    ``trace_pivots`` over 64 pivots (its bases equal ``solve(max_iter=k)``'s),
+    ``solve_with_checkpoints`` stopped after two chunks and resumed, the
+    bounded route's ``solve_general`` with presolve on multiperiod (32, 16),
+    and ``cli solve --fp64`` without ``--backend``."""
+    import numpy as np
+    import scipy.sparse as sps
+
+    from simplex_tpu_torch import SolveStatus, ranging, reoptimize, solve, solve_general, trace_pivots
+    from simplex_tpu_torch.core import checkpoint
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle import generator as gen
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy, solve_scipy_general
+
+    paths = {}
+    A, b, c = instance(SMALL_M, SMALL_N)
+    ref = highs(SMALL_M, SMALL_N)
+    sets = {
+        "flagship": dict(refactor_every=FLAGSHIP_REFACTOR, **FLAGSHIP),
+        "flagship, multi-price off": dict(refactor_every=FLAGSHIP_REFACTOR, **{**FLAGSHIP, "multi_price": 0}),
+        "devex": dict(pricing="devex"),
+        "steepest": dict(pricing="steepest"),
+        "steepest, defer 16": dict(pricing="steepest", update_defer=16),
+    }
+    for tag, kw in sets.items():
+        res, wall, counts, steps, _ = timed_solve(dev, SMALL_M, SMALL_N, f64_options(**kw))
+        gap = relative_gap(res.z, ref.z)
+        check(res.status == SolveStatus.OPTIMAL and gap <= F64_GAP_TOL, f"f64 {tag}: {res.status!r} gap {gap:.3e}")
+        check(counts["ratio_eta"] == steps, f"f64 {tag}: ratio_eta {counts['ratio_eta']} in {steps} steps")
+        print(f"f64 {tag} {SMALL_M}x{SMALL_N}: OPTIMAL gap {gap:.3e} pivots {res.iters} ({steps} steps) "
+              f"in {wall:.2f} s; launches {counts}")
+        paths[f"f64 {tag}"] = counts
+    res, wall, counts, steps, _ = timed_solve_of(dev, sps.csc_matrix(np.asarray(A, np.float64)), b, c, f64_options())
+    gap = relative_gap(res.z, ref.z)
+    check(res.status == SolveStatus.OPTIMAL and gap <= F64_GAP_TOL, f"f64 sparse: {res.status!r} gap {gap:.3e}")
+    check(counts["ratio_eta"] == counts["rank1_update"] == steps and counts["pricing_scan"] == 0,
+          f"f64 sparse: launches {counts} in {steps} steps")
+    print(f"f64 sparse A (CSC) {SMALL_M}x{SMALL_N}: OPTIMAL gap {gap:.3e} pivots {res.iters} in {wall:.2f} s; "
+          f"launches {counts}")
+    paths["f64 sparse"] = counts
+    base = KEPT[("f64", SMALL_M, SMALL_N)]
+    b2 = np.asarray(b, np.float64).copy()
+    b2[7] *= 1.5
+    hopper.reset_launches()
+    t0 = time.perf_counter()
+    warm = reoptimize(A, b2, c, base, options=f64_options(), device=dev)
+    wall = time.perf_counter() - t0
+    wref = solve_scipy(A, b2, c)
+    gap = relative_gap(warm.z, wref.z)
+    check(warm.status == SolveStatus.OPTIMAL and gap <= F64_GAP_TOL, f"f64 reoptimize: {warm.status!r} gap {gap:.3e}")
+    print(f"f64 reoptimize (b_7 x 1.5): OPTIMAL gap {gap:.3e} pivots {warm.iters} in {wall:.2f} s; "
+          f"launches {dict(hopper.launches)}")
+    paths["f64 reoptimize"] = dict(hopper.launches)
+    rg = ranging(A, b, c, base.basis, device=dev)
+    # strong duality of the ranged basis: y.b is the optimum (ranging runs
+    # in float32, so the gate is the fp32 one)
+    yb = float(np.asarray(rg.y, np.float64) @ np.asarray(b, np.float64))
+    check(rg.ok and relative_gap(yb, base.z) <= GAP_TOL, f"f64 ranging: ok {rg.ok}, y.b {yb!r} vs z {base.z!r}")
+    print(f"f64 ranging of the answer: ok, y.b {yb!r} against z {base.z!r}")
+    hopper.reset_launches()
+    k = F64_TRACE_PIVOTS
+    recs = list(trace_pivots(A, b, c, options=f64_options(perturb_after=0), max_iter=k, device=dev))
+    counts = dict(hopper.launches)
+    cut = solve(A, b, c, options=f64_options(perturb_after=0, max_iter=k), device=dev)
+    check(len(recs) == k and np.array_equal(recs[-1].basis, cut.basis) and cut.iters == k,
+          f"f64 trace: {len(recs)} records; the basis against solve(max_iter={k})'s")
+    check(counts["pricing_scan"] == 2 * k and counts["ratio_eta"] == counts["rank1_update"] == k,
+          f"f64 trace: launches {counts} in {k} pivots")
+    print(f"f64 trace_pivots over {k} pivots: the basis of solve(max_iter={k}); launches {counts}")
+    paths["f64 trace"] = counts
+    path = SCRATCH / "f64.npz"
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    seen = []
+
+    def stop_after_two(state):
+        seen.append(int(state.iters))
+        if len(seen) == 2:
+            raise Stop
+
+    opts = f64_options(checkpoint_every=CHECKPOINT_EVERY)
+    try:
+        checkpoint.solve_with_checkpoints(A, b, c, path=path, options=opts, on_chunk=stop_after_two, device=dev)
+    except Stop:
+        pass
+    hopper.reset_launches()
+    res = checkpoint.solve_with_checkpoints(A, b, c, path=path, options=opts, device=dev)
+    gap = relative_gap(res.z, ref.z)
+    check(res.status == SolveStatus.OPTIMAL and gap <= F64_GAP_TOL and res.iters > seen[-1],
+          f"f64 checkpoint resume: {res.status!r} gap {gap:.3e} iters {res.iters} after {seen}")
+    print(f"f64 solve_with_checkpoints: stopped at {seen}, resumed to OPTIMAL at {res.iters} pivots, gap {gap:.3e}; "
+          f"launches {dict(hopper.launches)}")
+    paths["f64 checkpoint resume"] = dict(hopper.launches)
+    lp = gen.multiperiod_production_lp(32, 16, seed=0)
+    hopper.reset_launches()
+    t0 = time.perf_counter()
+    res = solve_general(lp, options=f64_options(), presolve=True, device=dev)
+    wall = time.perf_counter() - t0
+    gref = solve_scipy_general(lp)
+    gap = relative_gap(res.z, gref.z)
+    check(res.status == SolveStatus.OPTIMAL and gap <= F64_GAP_TOL, f"f64 general: {res.status!r} gap {gap:.3e}")
+    check(hopper.launches["pricing_scan"] > 0, f"f64 general: launches {dict(hopper.launches)}")
+    print(f"f64 solve_general(presolve) multiperiod (32, 16): OPTIMAL gap {gap:.3e} pivots "
+          f"{res.iters} in {wall:.2f} s; launches {dict(hopper.launches)}")
+    paths["f64 general"] = dict(hopper.launches)
+    from simplex_tpu_torch import cli
+
+    buf = io.StringIO()
+    hopper.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["solve", str(ROOT / "tests" / "data" / "sample.txt"), "--fp64", "--device", str(dev)])
+    out = buf.getvalue()
+    check(rc == 0 and out.startswith("Optimum found: 9"), f"cli solve --fp64: {rc} {out!r}")
+    print(f"cli solve sample.txt --fp64 (default backend): {out.splitlines()[0]}; launches {dict(hopper.launches)}")
+    paths["f64 cli solve"] = dict(hopper.launches)
+    return paths
+
+
+def phase_f64_bench_ops(dev) -> dict:
+    """The per-op bench in float64 on the hopper backend: the path that
+    runs ``ratio_argmin`` in float64."""
+    import torch
+
+    from simplex_tpu_torch.bench.kernels import bench_ops, record_line
+    from simplex_tpu_torch.kernels import hopper
+
+    hopper.reset_launches()
+    ops = bench_ops(BENCH_M, BENCH_N, k=32, backend="hopper", device=dev, dtype=torch.float64)
+    counts = dict(hopper.launches)
+    print(record_line(BENCH_M, BENCH_N, "hopper", dev, ops, torch.float64))
+    check(counts["ratio_argmin"] > 0, "per-op bench f64: ratio_argmin never launched")
+    return counts
+
+
+def f64_device_ops(dev) -> dict:
+    """:func:`phase_device_ops` for the float64 default path: device ops
+    and device us a pivot of a profiled stretch of the bench instance's
+    pivot loop in float64; the same limits."""
+    from simplex_tpu_torch.bench.profile_canonical import profile_loop
+
+    A, b, c = instance(BENCH_M, BENCH_N)
+    rec = profiled(lambda: profile_loop(A, b, c, f64_options(), dev, warm=32, window=128),
+                   lambda r: r["device_us_per_pivot"] > 0, "f64 default path profile")
+    ops = rec["device_ops_per_pivot"]
+    print(
+        f"f64 default path, {rec['pivots_traced']} profiled pivots: {ops:.2f} device ops a pivot "
+        f"(limit {MAX_DEVICE_OPS_PER_PIVOT}), {rec['device_us_per_pivot']:.1f} device us and "
+        f"{rec['wall_ms_per_pivot']:.3f} wall ms a pivot, busy {rec['device_busy']:.1%}; "
+        f"launches a pivot {rec['launches_per_pivot']}; largest items (us a pivot) {rec['top_us_per_pivot']}"
+    )
+    check(rec["device_us_per_pivot"] > 0, "the profiler saw no device time (f64)")
+    check(ops <= MAX_DEVICE_OPS_PER_PIVOT, f"{ops:.2f} device ops a pivot on the f64 default path")
+    for name in ("pricing_scan", "ratio_eta", "rank1_update"):
+        check(rec["launches_per_pivot"][name] == 1.0, f"f64 {name}: {rec['launches_per_pivot'][name]} launches a pivot")
+    return rec
+
+
+def f64_kernel_phases(dev) -> dict:
+    """The float64 kernel checks; their records by name."""
+    import torch
+
+    recs = {"pricing_scan_f64": phase_f64_pricing(dev)}
+    torch.cuda.empty_cache()
+    recs["ratio_eta_f64"], recs["ratio_argmin_f64"] = phase_f64_ratio(dev)
+    recs["rank1_update_f64"] = phase_f64_rank1(dev)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def add_f64_profile(recs: dict, prof: dict, ratio_us: dict) -> None:
+    """The float64 default path's device us a pivot and each float64
+    kernel's own share of it (profiler), and the ratio kernels' device us a
+    launch in float64, into the float64 records."""
+    for name in ("pricing_scan_f64", "ratio_eta_f64", "rank1_update_f64"):
+        recs[name]["f64_default_pivot_device_us"] = prof["device_us_per_pivot"]
+        recs[name]["f64_default_device_ops_per_pivot"] = prof["device_ops_per_pivot"]
+    for key, us in prof["top_us_per_pivot"].items():
+        for name, symbol in (("pricing_scan_f64", "pricing_"), ("ratio_eta_f64", "pivot_tail_kernel"),
+                             ("rank1_update_f64", "rank1_kernel")):
+            if symbol in key and "<double" in key:
+                dev_us = recs[name].setdefault("device_us_per_pivot", 0.0)
+                recs[name]["device_us_per_pivot"] = dev_us + us
+    recs["ratio_argmin_f64"]["device_us"] = ratio_us["ratio_argmin"]
+    recs["ratio_eta_f64"]["ratio_only_device_us"] = ratio_us["ratio_eta, harris, tail off"]
+    recs["ratio_eta_f64"]["ratio_only_classic_device_us"] = ratio_us["ratio_eta, classic, tail off"]
+
+
 def add_call_device_us(recs: dict, us: dict) -> None:
     """The record's keys for ``batch_kernel_device_us``'s times."""
     recs["batch_pricing"]["reopt_device_us"] = us["batch_pricing shared 256x2048x4096"]
@@ -4000,12 +4675,13 @@ def timed(fn):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "new", "sharded", "bench"], default=None,
+    ap.add_argument("--only", choices=["kernels", "new", "sharded", "bench", "f64"], default=None,
                     help="kernels: stop after the kernel checks; new: the kernel build, then only "
                          "the batched, warm-batched and PDHG phases and the batch profile; sharded: "
                          "the kernel build, rank-1 on row blocks, pricing on a shard, the default "
                          "window and every distributed phase; bench: the kernel build and the bench "
-                         "entry point's runs (no final ok line in any of them)")
+                         "entry point's runs; f64: the kernel build, the float64 kernel checks, the "
+                         "float64 solves and their profile (no final ok line in any of them)")
     args = ap.parse_args(argv)
     if not (ROOT / "simplex_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -4044,6 +4720,20 @@ def main(argv=None) -> int:
         print(f"bench phase: {time.perf_counter() - t_start:.1f} s")
         print(card)
         return 0
+    if args.only == "f64":
+        recs = f64_kernel_phases(dev)
+        paths = {}
+        for phase in (phase_f64_solve, phase_f64_bench, phase_f64_entry_points):
+            paths.update(phase(dev))
+            torch.cuda.empty_cache()
+        paths["f64 per-op bench (hopper)"] = phase_f64_bench_ops(dev)
+        add_f64_profile(recs, f64_device_ops(dev), phase_ratio_device_time(dev, torch.float64))
+        for tag, counts in paths.items():
+            print(f"launches on path '{tag}': {counts}")
+        print(f"f64 phases: {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": recs}))
+        print(card)
+        return 0
     if args.only == "sharded":
         phase_rank1(dev)
         phase_shard_pricing(dev)
@@ -4068,6 +4758,7 @@ def main(argv=None) -> int:
         {f"shard {tag}": r for tag, r in phase_shard_pricing(dev).items()})
     phase_pricing_bounded(dev)
     torch.cuda.empty_cache()
+    recs.update(f64_kernel_phases(dev))
     recs.update(phase_batch_kernels(dev))
     torch.cuda.empty_cache()
     if args.only == "kernels":
@@ -4078,10 +4769,14 @@ def main(argv=None) -> int:
         return 0
     paths = {"default window": phase_solve(dev)}
     phase_full_solve(dev)
+    for phase in (phase_f64_solve, phase_f64_bench, phase_f64_entry_points):
+        paths.update(phase(dev))
+        torch.cuda.empty_cache()
     paths.update(phase_flagship_window(dev))
     phase_flagship_full(dev)
     torch.cuda.empty_cache()
     paths["per-op bench (hopper)"] = phase_bench_ops(dev)
+    paths["f64 per-op bench (hopper)"] = phase_f64_bench_ops(dev)
     torch.cuda.empty_cache()
     paths["mps files (cli)"] = phase_mps_cli(dev)
     paths.update(phase_general(dev))
@@ -4116,6 +4811,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # last: a profiler run leaves every later launch of the process dearer
     phase_device_ops(dev)
+    add_f64_profile(recs, f64_device_ops(dev), phase_ratio_device_time(dev, torch.float64))
     phase_sparse_profile(dev)
     ratio_us = phase_ratio_device_time(dev)
     bprof = phase_batch_profile(dev)
@@ -4130,16 +4826,18 @@ def main(argv=None) -> int:
         print(f"launches on path '{tag}': {counts}")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
+    # a float64 path's launches count for the float64 instantiations
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": sum(counts[name] for counts in paths.values()),
+            "source": SOURCES[F64_KERNELS.get(name, name)],
+            "replaces": REPLACES[F64_KERNELS.get(name, name)],
+            "launches": sum(counts[F64_KERNELS.get(name, name)] for tag, counts in paths.items()
+                            if tag.startswith("f64 ") == (name in F64_KERNELS)),
             **recs[name],
         }
-        for name in SOURCES
+        for name in [*SOURCES, *F64_KERNELS]
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -41,6 +41,7 @@ from simplex_tpu_torch.batch import step as _bs
 from simplex_tpu_torch.config import (
     DEFAULT_OPTIONS,
     SimplexOptions,
+    check_kernel_dtype,
     check_supported,
     pin_full_fp32,
 )
@@ -160,6 +161,7 @@ def solve_batched(
     With ``mesh``, the instances are split over the ranks of its axis
     ``batch_axis`` (every rank of it calls this with the whole batch and
     returns the whole result)."""
+    check_kernel_dtype(options, "batched", "solve_batched")
     As, bs, cs = (_array(v) for v in (As, bs, cs))
     if mesh is not None:
         return _over_mesh(mesh, batch_axis, len(As), lambda lo, hi: solve_batched(
@@ -219,6 +221,7 @@ def reoptimize_batched(
     does not poison the batch). No f64 polish: ``feas_err`` is each
     scenario's max(-min x_b, 0). With ``mesh``, the scenarios are split
     over the ranks of its axis ``batch_axis``, as in :func:`solve_batched`."""
+    check_kernel_dtype(options, "batched", "reoptimize_batched")
     if mesh is not None:
         bs_new = _array(bs_new)
         return _over_mesh(mesh, batch_axis, len(bs_new), lambda lo, hi: reoptimize_batched(

@@ -36,12 +36,15 @@ host's launch rate, not by the card. It runs last: after a profiler run
 every later launch of the process costs more host time.
 
 ``backend`` is ``"hopper"`` (the CUDA kernels) or ``"torch"`` (plain
-PyTorch); the sparse products are cuSPARSE on both. Inputs are random,
-from a fixed seed, made on the device (the sparse matrix's pattern and
-values on the host).
+PyTorch); the sparse products are cuSPARSE on both. ``dtype`` is the
+working type of A, B_inv and the vectors, float32 (the default) or
+float64 (bytes count its width; the bf16 segment stays bf16). Inputs are
+random, from a fixed seed, made on the device (the sparse matrix's
+pattern and values on the host).
 
     python -m simplex_tpu_torch.bench.kernels [--m 8192 --n 16384 --k 32]
-        [--backend hopper|torch] [--device cuda] [--device-time]
+        [--backend hopper|torch] [--dtype float32|float64] [--device cuda]
+        [--device-time]
 """
 
 from __future__ import annotations
@@ -62,17 +65,19 @@ PENDING = 16  # bench.py's update_defer
 
 
 def bench_ops(
-    m: int, n: int, k: int = 32, backend: str = "hopper", device="cuda"
+    m: int, n: int, k: int = 32, backend: str = "hopper", device="cuda",
+    dtype: torch.dtype = torch.float32,
 ) -> Dict[str, dict]:
-    """Time the pivot's ops at (m, n). Returns ``{op: {"ms", "gbps"}}``,
-    ``ms`` per application."""
+    """Time the pivot's ops at (m, n) in ``dtype``. Returns ``{op: {"ms",
+    "gbps"}}``, ``ms`` per application."""
     be = get_backend(backend)
     dev = torch.device(device)
+    w8 = torch.finfo(dtype).bits // 8  # bytes an element
     g = torch.Generator(device=dev).manual_seed(0)
-    A = torch.randn(m, n, generator=g, device=dev)
-    B = torch.randn(m, m, generator=g, device=dev) * 0.01
-    c = torch.randn(n, generator=g, device=dev)
-    y0 = torch.randn(m, generator=g, device=dev)
+    A = torch.randn(m, n, generator=g, device=dev, dtype=dtype)
+    B = torch.randn(m, m, generator=g, device=dev, dtype=dtype) * 0.01
+    c = torch.randn(n, generator=g, device=dev, dtype=dtype)
+    y0 = torch.randn(m, generator=g, device=dev, dtype=dtype)
     basis = torch.arange(m, dtype=torch.int32, device=dev)
     no = torch.zeros((), dtype=torch.bool, device=dev)
     results: Dict[str, dict] = {}
@@ -90,10 +95,10 @@ def bench_ops(
             lo = (i % segments) * w
             p, min_e = be.choose_entering(yc, Aa[:, lo : lo + w], ca[lo : lo + w], 1e-6, no)
             # fold the result back into y: each pass waits for the last
-            yc = yc + min_e * 1e-20 + p.to(torch.float32) * 0
+            yc = yc + min_e * 1e-20 + p.to(dtype) * 0
         return yc
 
-    record("pricing_argmin", lambda: pricing_loop(A, c), 4 * m * n)
+    record("pricing_argmin", lambda: pricing_loop(A, c), w8 * m * n)
 
     def ftran_loop():
         cc = y0
@@ -102,16 +107,16 @@ def bench_ops(
             cc = alpha / (alpha.abs().max() + 1)
         return cc
 
-    record("ftran", ftran_loop, 4 * m * m)
+    record("ftran", ftran_loop, w8 * m * m)
 
     def ratio_loop():
         xc, al = y0.abs(), y0
         for _ in range(k):
             q, theta, _ = be.ratio_argmin(xc, al, basis, 1e-7, no)
-            xc = xc + theta * 1e-20 + q.to(torch.float32) * 0
+            xc = xc + theta * 1e-20 + q.to(dtype) * 0
         return xc
 
-    record("ratio_argmin", ratio_loop, 12 * m)
+    record("ratio_argmin", ratio_loop, (2 * w8 + 4) * m)
 
     def rank1_loop():
         for _ in range(k):
@@ -119,7 +124,7 @@ def bench_ops(
             be.rank1_update(B, B[0] * 1e-6, B[1].clone())
         return B
 
-    record("rank1_update", rank1_loop, 8 * m * m)
+    record("rank1_update", rank1_loop, 2 * w8 * m * m)
 
     if n % SEGMENTS == 0:
         Ab = A.to(torch.bfloat16)
@@ -130,8 +135,8 @@ def bench_ops(
         )
         del Ab
 
-    U = torch.randn(PENDING, m, generator=g, device=dev) * 1e-3
-    R = torch.randn(PENDING, m, generator=g, device=dev) * 1e-3
+    U = torch.randn(PENDING, m, generator=g, device=dev, dtype=dtype) * 1e-3
+    R = torch.randn(PENDING, m, generator=g, device=dev, dtype=dtype) * 1e-3
 
     def flush_loop():
         for _ in range(k):
@@ -139,9 +144,9 @@ def bench_ops(
         return B
 
     # amortized: one flush per PENDING pivots
-    record("flush_rankL_amortized", flush_loop, 8 * m * m / PENDING, per=k * PENDING)
+    record("flush_rankL_amortized", flush_loop, 2 * w8 * m * m / PENDING, per=k * PENDING)
 
-    rho0 = torch.randn(m, generator=g, device=dev)
+    rho0 = torch.randn(m, generator=g, device=dev, dtype=dtype)
 
     def update2_loop(fused: bool):
         rc, uc = rho0, y0
@@ -153,8 +158,8 @@ def bench_ops(
             rc = rc + (w[0] + v[0]) * 1e-20
         return rc
 
-    record("pricing_update2", lambda: update2_loop(True), 4 * m * n)
-    record("pricing_update_two_mv", lambda: update2_loop(False), 8 * m * n)
+    record("pricing_update2", lambda: update2_loop(True), w8 * m * n)
+    record("pricing_update_two_mv", lambda: update2_loop(False), 2 * w8 * m * n)
 
     def steepest_u_loop():
         ac = y0
@@ -163,7 +168,7 @@ def bench_ops(
             ac = ac + u * 1e-20
         return ac
 
-    record("steepest_u", steepest_u_loop, 4 * m * m)
+    record("steepest_u", steepest_u_loop, w8 * m * m)
 
     W = None
 
@@ -172,12 +177,12 @@ def bench_ops(
         W = B @ A
         return W
 
-    ms = record("ranging_W", ranging_loop, 4 * (m * m + 2 * m * n), per=1)
+    ms = record("ranging_W", ranging_loop, w8 * (m * m + 2 * m * n), per=1)
     results["ranging_W"]["tflops"] = round(2.0 * m * m * n / ms / 1e9, 2)
     del W
 
-    M, density = tile_sparse(m, n, dev)
-    x0 = torch.randn(n, generator=g, device=dev)
+    M, density = tile_sparse(m, n, dev, dtype=dtype)
+    x0 = torch.randn(n, generator=g, device=dev, dtype=dtype)
 
     def sp_mv_loop():
         xc = x0
@@ -191,16 +196,18 @@ def bench_ops(
             yc = yc + _sp.rmatvec(M, yc)[:m] * 1e-20
         return yc
 
-    stored = 8 * M.nnz + 4 * (m + n)
+    stored = (w8 + 4) * M.nnz + w8 * (m + n)
     record(f"bsp_matvec_density{density:.2f}", sp_mv_loop, stored + 4 * (m + 1))
     record(f"bsp_rmatvec_density{density:.2f}", sp_rmv_loop, stored + 4 * (n + 1))
     return results
 
 
-def tile_sparse(m: int, n: int, device, density: float = 0.10, seed: int = 0):
-    """``(SparseA, tile density)``: an (m, n) matrix whose 128 x 128 tiles
-    are kept with probability ``density`` (at least one) and stored whole,
-    with standard normal values: the JAX bench's structured pattern."""
+def tile_sparse(m: int, n: int, device, density: float = 0.10, seed: int = 0,
+                dtype: torch.dtype = torch.float32):
+    """``(SparseA, tile density)``: an (m, n) ``dtype`` matrix whose 128 x
+    128 tiles are kept with probability ``density`` (at least one) and
+    stored whole, with standard normal values: the JAX bench's structured
+    pattern."""
     import scipy.sparse as sps
 
     rng = np.random.default_rng(seed)
@@ -214,22 +221,24 @@ def tile_sparse(m: int, n: int, device, density: float = 0.10, seed: int = 0):
     keep = (rows < m) & (cols < n)
     vals = rng.standard_normal(int(keep.sum()))
     coo = sps.coo_matrix((vals, (rows[keep], cols[keep])), shape=(m, n))
-    return _sp.from_scipy(coo, torch.float32, device), float(mask.mean())
+    return _sp.from_scipy(coo, dtype, device), float(mask.mean())
 
 
-def ratio_device_us(m: int, k: int = 200, device="cuda") -> Dict[str, float]:
-    """Device microseconds of ONE launch of each ratio kernel at m rows, from
-    a ``torch.profiler`` trace of k chained launches: ``ratio_argmin`` (the
-    classic test) and ``ratio_eta`` with its tail off (classic, and
-    Harris)."""
+def ratio_device_us(
+    m: int, k: int = 200, device="cuda", dtype: torch.dtype = torch.float32
+) -> Dict[str, float]:
+    """Device microseconds of ONE launch of each ratio kernel at m rows in
+    ``dtype``, from a ``torch.profiler`` trace of k chained launches:
+    ``ratio_argmin`` (the classic test) and ``ratio_eta`` with its tail off
+    (classic, and Harris)."""
     from torch.profiler import ProfilerActivity, profile
 
     from simplex_tpu_torch.kernels import hopper
 
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.rand(m, generator=g, device=dev)
-    al = torch.randn(m, generator=g, device=dev)
+    x = torch.rand(m, generator=g, device=dev, dtype=dtype)
+    al = torch.randn(m, generator=g, device=dev, dtype=dtype)
     basis = torch.arange(m, dtype=torch.int32, device=dev)
     no = torch.zeros((), dtype=torch.bool, device=dev)
     loops = {
@@ -261,15 +270,16 @@ def ratio_device_us(m: int, k: int = 200, device="cuda") -> Dict[str, float]:
     return out
 
 
-def record_line(m: int, n: int, backend: str, device, ops: Dict[str, dict]) -> str:
-    """The bench's JSON line: shape, backend, the card's name, the ops and
-    their summed per-pivot milliseconds."""
+def record_line(m: int, n: int, backend: str, device, ops: Dict[str, dict],
+                dtype: torch.dtype = torch.float32) -> str:
+    """The bench's JSON line: shape, backend, dtype, the card's name, the
+    ops and their summed per-pivot milliseconds."""
     dev = torch.device(device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     total_ms = round(sum(v["ms"] for v in ops.values()), 3)
     return json.dumps(
-        {"m": m, "n": n, "backend": backend, "device": name, "ops": ops,
-         "total_pivot_ms": total_ms}
+        {"m": m, "n": n, "backend": backend, "dtype": str(dtype).removeprefix("torch."),
+         "device": name, "ops": ops, "total_pivot_ms": total_ms}
     )
 
 
@@ -282,16 +292,19 @@ def main(argv=None) -> None:
     ap.add_argument("--n", type=int, default=16384)
     ap.add_argument("--k", type=int, default=32)
     ap.add_argument("--backend", default="hopper", choices=["hopper", "torch"])
+    ap.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     ap.add_argument("--device-time", action="store_true",
                     help="also trace the ratio kernels' device time per launch")
     args = ap.parse_args(argv)
     # full fp32 products, as in solve()
     torch.backends.cuda.matmul.allow_tf32 = False
-    res = bench_ops(args.m, args.n, args.k, args.backend, args.device)
-    print(record_line(args.m, args.n, args.backend, args.device, res))
+    dtype = getattr(torch, args.dtype)
+    res = bench_ops(args.m, args.n, args.k, args.backend, args.device, dtype)
+    print(record_line(args.m, args.n, args.backend, args.device, res, dtype))
     if args.device_time:
-        print(json.dumps({"m": args.m, "device_us_per_launch": ratio_device_us(args.m, device=args.device)}))
+        us = ratio_device_us(args.m, device=args.device, dtype=dtype)
+        print(json.dumps({"m": args.m, "dtype": args.dtype, "device_us_per_launch": us}))
     total_ms = sum(v["ms"] for v in res.values())
     print(f"-> {1000.0 / total_ms:.0f} pivots/s roofline from phases", file=sys.stderr)
 

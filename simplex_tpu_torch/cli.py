@@ -374,7 +374,11 @@ def _common(p) -> None:
         "--pricing", default="dantzig", choices=["dantzig", "devex", "steepest"],
         help="entering-column rule (devex / steepest keep incremental reduced costs and weights)",
     )
-    p.add_argument("--fp64", action="store_true", help="solve in float64 (needs --backend torch)")
+    p.add_argument(
+        "--fp64", action="store_true",
+        help="solve in float64 (through the kernels under the default backend; "
+        "the batched and sharded modes take float32 only there)",
+    )
     p.add_argument("--max-iter", type=int, default=0)
     # None = "not set by the user", so --fast fills only what is unset
     p.add_argument("--refactor-every", type=int, default=None)

@@ -44,8 +44,8 @@ namespace {
 using ratio_cluster::kFull;
 using ratio_cluster::kIntMax;
 using ratio_cluster::nan_min;
-using ratio_cluster::Pass1;
-using ratio_cluster::Pass2;
+using Pass1 = ratio_cluster::Pass1<float>;  // the batched tail runs in fp32 only
+using Pass2 = ratio_cluster::Pass2<float>;
 using ratio_cluster::pos;
 using ratio_cluster::warp_reduce;
 

@@ -48,7 +48,11 @@
 // Every sum runs in a fixed order and every reduction breaks ties to the
 // lowest index, so the result is deterministic; no float atomics. A NaN in
 // e wins the min (with its lowest index), as jnp.argmin / torch.argmin do.
-// A may be fp32 or bf16 (upcast per element, accumulated in fp32), and a
+// The working type T of y, c, the partial sums and the results is float or
+// double; A is T or the bf16 shadow (upcast per element, accumulated in T,
+// as the plain version casts A to c's dtype). In double a full pass moves
+// twice the bytes (1 GiB at 8192 x 16384) and stays bound by them: 2 fp64
+// flops per 8 bytes is far below the card's fp64 rate. A is also a
 // column range of a wider matrix: rows are lda elements apart, so segmented
 // pricing scans a view of the shadow in place, without an O(mn/S) copy. The
 // row chunks are a function of the range's (m, n) alone (the wrapper picks
@@ -68,66 +72,93 @@ constexpr int kPartialThreads = 256;
 constexpr int kColsPerBlock = 4 * kPartialThreads;
 constexpr int kReduceThreads = 256;
 constexpr int kTileWarps = kReduceThreads / 32;
-constexpr int kTileCols = 32;     // columns a block of pass 2 owns when tiled
-constexpr int kTileChunks = 256;  // partial rows staged in shared memory at a time
+constexpr int kTileCols = 32;        // columns a block of pass 2 owns when tiled
+constexpr int kTileBytes = 32768;    // the staged tile of partial rows
 // pass 2 is tiled up to this many columns: 256-column blocks would then
 // occupy at most 32 of the card's 132 SMs
 constexpr int kTiledMaxCols = 8192;
 constexpr int kLoadBatch = 8;
 constexpr int kScanBatch = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kBasicPenalty = 1e30f;  // kernels/ops.py BASIC_PENALTY
+// kernels/ops.py BASIC_PENALTY as the plain version adds it: a float32
+// constant, widened to T
+constexpr float kBasicPenalty = 1e30f;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+// partial rows staged in shared memory at a time: 256 in float, 128 in double
+template <typename T>
+__host__ __device__ constexpr int tile_chunks() { return kTileBytes / (kTileCols * (int)sizeof(T)); }
 
-// four neighbouring elements starting at p (16-byte aligned for fp32,
-// 8-byte aligned for bf16; the launcher checks)
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
+template <typename T> __device__ __forceinline__ T widen(float v) { return (T)v; }
+template <typename T> __device__ __forceinline__ T widen(double v) { return (T)v; }
+template <typename T> __device__ __forceinline__ T widen(__nv_bfloat16 v) {
+  return (T)__bfloat162float(v);
+}
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+// four neighbouring elements starting at p, widened to T (16-byte aligned
+// for fp32 and fp64, 8-byte aligned for bf16; the launcher checks)
+template <typename T>
+__device__ __forceinline__ void load4(const float* p, T v[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+template <typename T>
+__device__ __forceinline__ void load4(const double* p, T v[4]) {
+  const double2 lo = reinterpret_cast<const double2*>(p)[0];
+  const double2 hi = reinterpret_cast<const double2*>(p)[1];
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+template <typename T>
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, T v[4]) {
   const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
   const float2 lo = __bfloat1622float2(q[0]);
   const float2 hi = __bfloat1622float2(q[1]);
   v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
 }
 
-template <typename T, bool kVec>
+__device__ __forceinline__ void store4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(double* p, const double v[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+template <typename TA, typename T, bool kVec>
 __global__ void __launch_bounds__(kPartialThreads)
-pricing_partial_kernel(const float* __restrict__ y, const T* __restrict__ A,
+pricing_partial_kernel(const T* __restrict__ y, const TA* __restrict__ A,
                        int m, int n, size_t lda, int rows_per_chunk,
-                       float* __restrict__ partial) {
+                       T* __restrict__ partial) {
   const int chunk = blockIdx.y;
   const int r0 = chunk * rows_per_chunk;
   const int r1 = min(m, r0 + rows_per_chunk);
   const int j0 = blockIdx.x * kColsPerBlock;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  T acc[4] = {0, 0, 0, 0};
   if (kVec) {
     const int j = j0 + 4 * threadIdx.x;  // n % 4 == 0, so j + 3 < n too
     if (j >= n) return;
 #pragma unroll 4
     for (int i = r0; i < r1; ++i) {
-      const float yi = y[i];
-      float a[4];
+      const T yi = y[i];
+      T a[4];
       load4(A + i * lda + j, a);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[k] = fmaf(yi, a[k], acc[k]);
+      for (int k = 0; k < 4; ++k) acc[k] = fma_rn(yi, a[k], acc[k]);
     }
-    float4 out = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    *reinterpret_cast<float4*>(partial + (size_t)chunk * n + j) = out;
+    store4(partial + (size_t)chunk * n + j, acc);
   } else {
     int cols[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) cols[k] = j0 + threadIdx.x + k * kPartialThreads;
 #pragma unroll 4
     for (int i = r0; i < r1; ++i) {
-      const float yi = y[i];
-      const T* row = A + i * lda;
+      const T yi = y[i];
+      const TA* row = A + i * lda;
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (cols[k] < n) acc[k] = fmaf(yi, to_float(row[cols[k]]), acc[k]);
+        if (cols[k] < n) acc[k] = fma_rn(yi, widen<T>(row[cols[k]]), acc[k]);
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k)
@@ -137,17 +168,19 @@ pricing_partial_kernel(const float* __restrict__ y, const T* __restrict__ A,
 
 // (value, index) order of the min: NaN first, then smaller value, then
 // lower index
-__device__ __forceinline__ bool min_before(float a, int ia, float b, int ib) {
+template <typename T>
+__device__ __forceinline__ bool min_before(T a, int ia, T b, int ib) {
   const bool an = isnan(a), bn = isnan(b);
   if (an != bn) return an;
   if (!an && a != b) return a < b;
   return ia < ib;
 }
 
-__device__ __forceinline__ void warp_reduce(float& v, int& arg, int& neg) {
+template <typename T>
+__device__ __forceinline__ void warp_reduce(T& v, int& arg, int& neg) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(kFull, v, off);
+    const T ov = __shfl_down_sync(kFull, v, off);
     const int oa = __shfl_down_sync(kFull, arg, off);
     const int on = __shfl_down_sync(kFull, neg, off);
     if (min_before(ov, oa, v, arg)) { v = ov; arg = oa; }
@@ -157,8 +190,9 @@ __device__ __forceinline__ void warp_reduce(float& v, int& arg, int& neg) {
 
 // reduces (v, arg, neg) over the block; the result is valid in thread 0.
 // blockDim.x is a multiple of 32 and at most 1024.
-__device__ __forceinline__ void block_reduce(float& v, int& arg, int& neg) {
-  __shared__ float s_v[32];
+template <typename T>
+__device__ __forceinline__ void block_reduce(T& v, int& arg, int& neg) {
+  __shared__ T s_v[32];
   __shared__ int s_arg[32];
   __shared__ int s_neg[32];
   const int lane = threadIdx.x & 31;
@@ -168,41 +202,46 @@ __device__ __forceinline__ void block_reduce(float& v, int& arg, int& neg) {
   __syncthreads();
   if (warp == 0) {
     const int nwarps = blockDim.x >> 5;
-    v = lane < nwarps ? s_v[lane] : INFINITY;
+    v = lane < nwarps ? s_v[lane] : T(INFINITY);
     arg = lane < nwarps ? s_arg[lane] : kIntMax;
     neg = lane < nwarps ? s_neg[lane] : kIntMax;
     warp_reduce(v, arg, neg);
   }
 }
 
-// words of the int32 output block (min as float bits)
-enum { kOutMin = 0, kOutArg, kOutNeg, kOutP, kOutWords };
+// The output block: min_e as a T in its first sizeof(T) bytes (so a double
+// is 8-byte aligned), then int32 words argmin, first below -eps, the choice.
+template <typename T>
+struct Out {
+  enum { kArg = sizeof(T) / 4, kNeg, kP, kWords };
+};
 
 // Pass 2, in one of two layouts the launcher picks from n alone.
 // Wide ranges (``tiled`` false): a thread owns a column and adds its chunk
 // partials straight from device memory, 16 loads in flight; a block owns 256
 // columns. Narrow ranges (n <= kTiledMaxCols: a 2048-column segment has 256
 // chunks and would leave 8 such blocks on the card, each waiting out 16
-// rounds of L2 latency): a block owns 32 columns, its 8 warps stage the
-// (chunks, 32) tile of partials in shared memory, warp w taking chunk rows w,
-// w + 8, ... with 8 independent loads in flight a thread, and warp 0 adds
-// each column's partials from there. Either way a column's partials are
+// rounds of L2 latency): a block owns 32 columns, its 8 warps stage a
+// (tile_chunks, 32) tile of partials in shared memory, warp w taking chunk
+// rows w, w + 8, ... with 8 independent loads in flight a thread, and warp 0
+// adds each column's partials from there. Either way a column's partials are
 // added by one thread in chunk order, so the result is the same to the bit.
 // A is null when the partial sums are in ``partial``; where one chunk covers
 // all m rows the launcher skips pass 1 and a column's thread sums over the
-// rows of A (the same fmaf chain in row order).
-template <typename T>
+// rows of A (the same fma chain in row order).
+template <typename TA, typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-pricing_columns_kernel(const float* __restrict__ partial, int chunks, int tiled,
-                       const float* __restrict__ y, const T* __restrict__ A,
-                       int m, size_t lda, const float* __restrict__ c,
+pricing_columns_kernel(const T* __restrict__ partial, int chunks, int tiled,
+                       const T* __restrict__ y, const TA* __restrict__ A,
+                       int m, size_t lda, const T* __restrict__ c,
                        const unsigned char* __restrict__ flip,
                        const int* __restrict__ basis, int m_basis, int base_col,
-                       int n, float eps, const void* __restrict__ use_bland,
-                       int bland_is_byte, int p_offset, float* blk_min,
+                       int n, T neg_eps, const void* __restrict__ use_bland,
+                       int bland_is_byte, int p_offset, T* blk_min,
                        int* blk_arg, int* blk_neg, unsigned int* ticket,
                        int* __restrict__ out) {
-  __shared__ float s_part[kTileChunks][kTileCols];
+  constexpr int kTileChunks = tile_chunks<T>();
+  __shared__ T s_part[kTileChunks][kTileCols];
   __shared__ unsigned char s_basic[kReduceThreads];
   __shared__ bool s_last;
   const int lane = threadIdx.x & 31;
@@ -212,11 +251,11 @@ pricing_columns_kernel(const float* __restrict__ partial, int chunks, int tiled,
   const int k_own = tiled ? lane : threadIdx.x;  // this thread's column in the block
   const int j = j0 + k_own;
   const bool owner = (!tiled || warp == 0) && j < n;  // holds column j's value
-  float e = 0.f;
+  T e = 0;
   if (A != nullptr) {
     if (owner) {
 #pragma unroll 4
-      for (int i = 0; i < m; ++i) e = fmaf(y[i], to_float(A[i * lda + j]), e);
+      for (int i = 0; i < m; ++i) e = fma_rn(y[i], widen<T>(A[i * lda + j]), e);
     }
   } else if (!tiled) {
     if (owner) {
@@ -229,11 +268,11 @@ pricing_columns_kernel(const float* __restrict__ partial, int chunks, int tiled,
       if (k0 > 0) __syncthreads();  // the previous tile is summed
       if (j < n) {
         for (int kk = warp; kk < kn; kk += kLoadBatch * kTileWarps) {
-          float v[kLoadBatch];
+          T v[kLoadBatch];
 #pragma unroll
           for (int u = 0; u < kLoadBatch; ++u) {
             const int k = kk + u * kTileWarps;
-            v[u] = k < kn ? partial[(size_t)(k0 + k) * n + j] : 0.f;
+            v[u] = k < kn ? partial[(size_t)(k0 + k) * n + j] : T(0);
           }
 #pragma unroll
           for (int u = 0; u < kLoadBatch; ++u) {
@@ -270,16 +309,16 @@ pricing_columns_kernel(const float* __restrict__ partial, int chunks, int tiled,
     }
     __syncthreads();
   }
-  float v = INFINITY;
+  T v = T(INFINITY);
   int arg = kIntMax;
   int neg = kIntMax;
   if (owner) {
     e -= c[j];
     if (flip != nullptr && flip[j]) e = -e;
-    if (basis != nullptr && s_basic[k_own]) e += kBasicPenalty;
+    if (basis != nullptr && s_basic[k_own]) e += (T)kBasicPenalty;
     v = e;
     arg = j;
-    if (e < -eps) neg = j;
+    if (e < neg_eps) neg = j;
   }
   block_reduce(v, arg, neg);
   if (threadIdx.x == 0) {
@@ -293,11 +332,11 @@ pricing_columns_kernel(const float* __restrict__ partial, int chunks, int tiled,
   if (!s_last) return;
   // the last block to finish reduces the per-block results
   __threadfence();
-  v = INFINITY;
+  v = T(INFINITY);
   arg = kIntMax;
   neg = kIntMax;
   for (int b = threadIdx.x; b < (int)gridDim.x; b += kReduceThreads) {
-    const float bv = __ldcg(blk_min + b);
+    const T bv = __ldcg(blk_min + b);
     const int ba = __ldcg(blk_arg + b);
     if (min_before(bv, ba, v, arg)) { v = bv; arg = ba; }
     neg = min(neg, __ldcg(blk_neg + b));
@@ -311,80 +350,112 @@ pricing_columns_kernel(const float* __restrict__ partial, int chunks, int tiled,
                             : *static_cast<const int*>(use_bland) != 0;
     const int p_dantzig = arg == kIntMax ? 0 : arg;
     const int p_bland = neg == kIntMax ? 0 : neg;
-    out[kOutMin] = __float_as_int(v);
-    out[kOutArg] = p_dantzig;
-    out[kOutNeg] = neg;
-    out[kOutP] = (bland ? p_bland : p_dantzig) + p_offset;
+    *reinterpret_cast<T*>(out) = v;
+    out[Out<T>::kArg] = p_dantzig;
+    out[Out<T>::kNeg] = neg;
+    out[Out<T>::kP] = (bland ? p_bland : p_dantzig) + p_offset;
     *ticket = 0;  // ready for the next call on this workspace
   }
 }
 
-template <typename T>
-int launch(const float* y, const T* A, const float* c,
-           const unsigned char* flip, const int* basis, int m_basis,
-           int base_col, int m, int n, size_t lda, float eps,
-           int rows_per_chunk, int chunks, int vec, const void* use_bland,
-           int bland_is_byte, int p_offset, float* partial, float* blk_min,
-           int* blk_arg, int* blk_neg, unsigned int* ticket, int* out,
-           cudaStream_t stream) {
-  const bool direct = chunks == 1;  // one launch: no partial sums to add up
+// The untyped arguments of one call; launch<TA, T> types them.
+struct Args {
+  const void *y, *A, *c;
+  const unsigned char* flip;
+  const int* basis;
+  int m_basis, base_col, m, n;
+  size_t lda;
+  double eps;
+  int rows_per_chunk, chunks, vec;
+  const void* use_bland;
+  int bland_is_byte, p_offset;
+  void *partial, *blk_min;
+  int *blk_arg, *blk_neg;
+  unsigned int* ticket;
+  int* out;
+};
+
+template <typename TA, typename T>
+int launch(const Args& a, cudaStream_t stream) {
+  const T* y = static_cast<const T*>(a.y);
+  const TA* A = static_cast<const TA*>(a.A);
+  T* partial = static_cast<T*>(a.partial);
+  const int n = a.n;
+  const bool direct = a.chunks == 1;  // one launch: no partial sums to add up
   if (!direct) {
-    const dim3 grid1((n + kColsPerBlock - 1) / kColsPerBlock, chunks);
-    if (vec)
-      pricing_partial_kernel<T, true><<<grid1, kPartialThreads, 0, stream>>>(
-          y, A, m, n, lda, rows_per_chunk, partial);
+    const dim3 grid1((n + kColsPerBlock - 1) / kColsPerBlock, a.chunks);
+    if (a.vec)
+      pricing_partial_kernel<TA, T, true><<<grid1, kPartialThreads, 0, stream>>>(
+          y, A, a.m, n, a.lda, a.rows_per_chunk, partial);
     else
-      pricing_partial_kernel<T, false><<<grid1, kPartialThreads, 0, stream>>>(
-          y, A, m, n, lda, rows_per_chunk, partial);
+      pricing_partial_kernel<TA, T, false><<<grid1, kPartialThreads, 0, stream>>>(
+          y, A, a.m, n, a.lda, a.rows_per_chunk, partial);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const int tiled = !direct && n <= kTiledMaxCols;
   const int cols = tiled ? kTileCols : kReduceThreads;
-  pricing_columns_kernel<T><<<(n + cols - 1) / cols, kReduceThreads, 0, stream>>>(
-      partial, chunks, tiled, y, direct ? A : nullptr, m, lda, c, flip, basis, m_basis,
-      base_col, n, eps, use_bland, bland_is_byte, p_offset, blk_min, blk_arg,
-      blk_neg, ticket, out);
+  pricing_columns_kernel<TA, T><<<(n + cols - 1) / cols, kReduceThreads, 0, stream>>>(
+      partial, a.chunks, tiled, y, direct ? A : nullptr, a.m, a.lda,
+      static_cast<const T*>(a.c), a.flip, a.basis, a.m_basis, a.base_col, n,
+      (T)(-a.eps), a.use_bland, a.bland_is_byte, a.p_offset,
+      static_cast<T*>(a.blk_min), a.blk_arg, a.blk_neg, a.ticket, a.out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// a_dtype: 0 = fp32 A, 1 = bf16 A; lda: elements between rows of A (>= n).
+// a_dtype: 0 = fp32 A, 1 = bf16 A, 2 = fp64 A; v_dtype: 0 = fp32, 1 = fp64,
+// the type T of y, c, the scratch and min_e (A is T or bf16; another pair
+// returns cudaErrorInvalidValue). lda: elements between rows of A (>= n).
 // basis (m_basis int32, global column indices; null for no mask) with
 // base_col, the global index of A's first column; flip (n bytes, the
 // at-upper flags; null outside the signed mode); use_bland (one bool byte or
 // one int32 on the device; null for Dantzig) and p_offset, added to the
-// chosen column. vec (16-byte fp32 / 8-byte bf16 loads) needs n % 4 == 0,
-// lda % 4 == 0 and an aligned A; the wrapper checks. Scratch: partial
-// (chunks, n) fp32; blk_* (ceil(n / 32), room for either layout of pass 2); ticket, one uint32 that is 0
-// between calls. out: 4 int32 words (min_e's bits, argmin, first below -eps
-// or INT_MAX, the chosen column). Returns the CUDA error code of the launches.
-extern "C" int simplex_pricing_scan(int a_dtype, const void* y, const void* A,
+// chosen column. eps is rounded to T. vec (16-byte fp32 / fp64 and 8-byte
+// bf16 loads) needs n % 4 == 0, lda % 4 == 0 and an aligned A; the wrapper
+// checks. Scratch: partial (chunks, n) T; blk_min T and blk_arg, blk_neg
+// int32 (ceil(n / 32) each, room for either layout of pass 2); ticket, one
+// uint32 that is 0 between calls. out: min_e as a T, then 3 int32 words
+// (argmin, first below -eps or INT_MAX, the chosen column). Returns the CUDA
+// error code of the launches.
+extern "C" int simplex_pricing_scan(int a_dtype, int v_dtype, const void* y, const void* A,
                                     const void* c, const void* flip,
                                     const void* basis, int m_basis, int base_col,
-                                    int m, int n, long long lda, float eps,
+                                    int m, int n, long long lda, double eps,
                                     int rows_per_chunk, int chunks, int vec,
                                     const void* use_bland, int bland_is_byte,
                                     int p_offset, void* partial, void* blk_min,
                                     void* blk_arg, void* blk_neg, void* ticket,
                                     void* out, void* stream) {
-  const float* yf = static_cast<const float*>(y);
-  const float* cf = static_cast<const float*>(c);
-  const unsigned char* fl = static_cast<const unsigned char*>(flip);
-  const int* bs = static_cast<const int*>(basis);
-  float* pf = static_cast<float*>(partial);
-  float* bm = static_cast<float*>(blk_min);
-  int* ba = static_cast<int*>(blk_arg);
-  int* bn = static_cast<int*>(blk_neg);
-  unsigned int* tk = static_cast<unsigned int*>(ticket);
-  int* o = static_cast<int*>(out);
+  Args a = {};
+  a.y = y;
+  a.A = A;
+  a.c = c;
+  a.flip = static_cast<const unsigned char*>(flip);
+  a.basis = static_cast<const int*>(basis);
+  a.m_basis = m_basis;
+  a.base_col = base_col;
+  a.m = m;
+  a.n = n;
+  a.lda = (size_t)lda;
+  a.eps = eps;
+  a.rows_per_chunk = rows_per_chunk;
+  a.chunks = chunks;
+  a.vec = vec;
+  a.use_bland = use_bland;
+  a.bland_is_byte = bland_is_byte;
+  a.p_offset = p_offset;
+  a.partial = partial;
+  a.blk_min = blk_min;
+  a.blk_arg = static_cast<int*>(blk_arg);
+  a.blk_neg = static_cast<int*>(blk_neg);
+  a.ticket = static_cast<unsigned int*>(ticket);
+  a.out = static_cast<int*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a_dtype == 0)
-    return launch(yf, static_cast<const float*>(A), cf, fl, bs, m_basis, base_col, m, n,
-                  (size_t)lda, eps, rows_per_chunk, chunks, vec, use_bland, bland_is_byte,
-                  p_offset, pf, bm, ba, bn, tk, o, s);
-  return launch(yf, static_cast<const __nv_bfloat16*>(A), cf, fl, bs, m_basis, base_col, m, n,
-                (size_t)lda, eps, rows_per_chunk, chunks, vec, use_bland, bland_is_byte,
-                p_offset, pf, bm, ba, bn, tk, o, s);
+  if (v_dtype == 0 && a_dtype == 0) return launch<float, float>(a, s);
+  if (v_dtype == 0 && a_dtype == 1) return launch<__nv_bfloat16, float>(a, s);
+  if (v_dtype == 1 && a_dtype == 2) return launch<double, double>(a, s);
+  if (v_dtype == 1 && a_dtype == 1) return launch<__nv_bfloat16, double>(a, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,8 @@
 // What the ratio-test kernels share (ratio_eta.cu, ratio_argmin.cu): the
 // records of the two reduction rounds, the reduction over a thread block
-// cluster, and the cluster launch.
+// cluster, the cluster launch, and the arithmetic on the element type T
+// (float or double; each step one IEEE round-to-nearest op, so nvcc cannot
+// contract a product and a sum into an FMA that the plain version lacks).
 //
 // A kernel here runs as ONE cluster of 1..8 blocks of 1024 threads, sized by
 // m (one row a thread up to 8192 rows, a stride loop beyond). A record is
@@ -27,20 +29,36 @@ constexpr int kThreads = 1024;
 constexpr int kIntMax = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
 
+// one rounding an op, in float or in double
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
 // NaN-propagating min (torch.min semantics)
-__device__ __forceinline__ float nan_min(float a, float b) {
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
   return ((isnan(b) && !isnan(a)) || b < a) ? b : a;
 }
 
 // max(x, 0) that keeps a NaN (torch.clamp_min semantics)
-__device__ __forceinline__ float pos(float x) { return x < 0.f ? 0.f : x; }
+template <typename T>
+__device__ __forceinline__ T pos(T x) { return x < T(0) ? T(0) : x; }
 
 // round 1: min theta, min relaxed theta (Harris pass 1; +inf when the test is
-// classic), any eligible row
+// classic), any eligible row. Two T and an int: 12 bytes in float, 24 in
+// double (padded), well inside a shared-memory exchange slot either way.
+template <typename T>
 struct Pass1 {
-  float tmin, trel;
+  T tmin, trel;
   int any;
-  __device__ static Pass1 identity() { return Pass1{INFINITY, INFINITY, 0}; }
+  __device__ static Pass1 identity() { return Pass1{T(INFINITY), T(INFINITY), 0}; }
   __device__ Pass1 shfl(int off) const {
     Pass1 o;
     o.tmin = __shfl_down_sync(kFull, tmin, off);
@@ -57,11 +75,12 @@ struct Pass1 {
 
 // round 2: Harris (largest alpha, then lowest row), classic (lowest row of
 // the minimum), Bland (smallest basis index, then lowest row)
+template <typename T>
 struct Pass2 {
-  float h_alpha;
+  T h_alpha;
   int h_row, c_row, b_basis, b_row;
   __device__ static Pass2 identity() {
-    return Pass2{-INFINITY, kIntMax, kIntMax, kIntMax, kIntMax};
+    return Pass2{T(-INFINITY), kIntMax, kIntMax, kIntMax, kIntMax};
   }
   __device__ Pass2 shfl(int off) const {
     Pass2 o;
@@ -72,7 +91,7 @@ struct Pass2 {
     o.b_row = __shfl_down_sync(kFull, b_row, off);
     return o;
   }
-  __device__ void harris(float a, int r) {
+  __device__ void harris(T a, int r) {
     if (a > h_alpha || (a == h_alpha && r < h_row)) { h_alpha = a; h_row = r; }
   }
   __device__ void bland(int b, int r) {
@@ -84,6 +103,9 @@ struct Pass2 {
     bland(o.b_basis, o.b_row);
   }
 };
+
+static_assert(sizeof(Pass1<double>) <= 32 && sizeof(Pass2<double>) <= 32,
+              "a record must stay small: 33 of each round sit in shared memory");
 
 template <typename T>
 __device__ __forceinline__ T warp_reduce(T v) {

@@ -56,6 +56,7 @@ from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch.config import (
     DEFAULT_OPTIONS,
     SimplexOptions,
+    check_kernel_dtype,
     check_supported,
     pin_full_fp32,
 )
@@ -316,6 +317,7 @@ def solve_sharded(
     A[:, basis0] = I. The result is polished in float64 as the single
     solve's is, with the basis columns gathered from their ranks."""
     options = check_supported(options)
+    check_kernel_dtype(options, "sharded", "solve_sharded")
     if options.multi_price > 0:
         get_logger("dist").warning(
             "multi_price=%d is inert in the 1-D sharded mode (supported "

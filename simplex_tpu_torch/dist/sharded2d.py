@@ -65,6 +65,7 @@ from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch.config import (
     DEFAULT_OPTIONS,
     SimplexOptions,
+    check_kernel_dtype,
     check_supported,
     pin_full_fp32,
 )
@@ -690,6 +691,7 @@ def make_context(A, b, c, mesh, options: SimplexOptions, device=None) -> Ctx:
         )
         options = dataclasses.replace(options, multi_price=0)
     options = check_supported(options)
+    check_kernel_dtype(options, "sharded", "solve_sharded_2d")
     mesh = require_mesh(mesh)
     if tuple(mesh.mesh_dim_names or ()) != (ROWS_AXIS, COLS_AXIS):
         raise ValueError(f"mesh axes must be {(ROWS_AXIS, COLS_AXIS)}, got {mesh.mesh_dim_names}")

@@ -52,8 +52,8 @@ def read_mps(path: str | os.PathLike, sparse: bool = False) -> MPSProblem:
     csc matrix built straight from the COLUMNS triplets — the dense (m, k)
     array never materializes (netlib-class instances are >99% sparse; the
     round-2 review flagged the unconditional densification here). The
-    port's ``solve_general`` takes dense A only: sparse A is ROADMAP item
-    15."""
+    port's ``solve_general`` takes such an A as it is and solves it sparse
+    on the device."""
     with open(path, "r") as f:
         lines = f.readlines()
 

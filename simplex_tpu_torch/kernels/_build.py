@@ -40,20 +40,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_D = ctypes.c_double
+# The four single-card kernels take a dtype code first (0 float32, 1
+# float64; pricing: A's code, then the vectors') and their tolerances as
+# doubles, which each rounds to its element type.
 _SIGNATURES = {
     "simplex_pricing_scan": (
-        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _F, _I, _I, _I, _P, _I, _I,
+        _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _D, _I, _I, _I, _P, _I, _I,
         _P, _P, _P, _P, _P, _P, _P,
     ),
-    "simplex_ratio_argmin": (_P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P),
-    "simplex_ratio_eta": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P, _P),
+    "simplex_ratio_argmin": (_I, _P, _P, _P, _P, _I, _I, _D, _I, _P, _P, _P, _P),
+    "simplex_ratio_eta": (_I, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I, _P, _P, _P, _P, _P),
     "simplex_pivot_tail": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I,  # vectors, B_inv, U, R, npend
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,  # dtype, vectors, B_inv, U, R, npend
         _P, _P, _P, _P, _P, _P, _P,  # min_e, e_p, c_p, p, iters, degen, npend_in
-        _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I,  # m .. cluster_blocks
+        _I, _D, _D, _D, _D, _I, _I, _I, _I, _I, _I, _I,  # m .. cluster_blocks
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs, stream
     ),
-    "simplex_rank1_update": (_P, _P, _P, _I, _I, _I, _P),
+    "simplex_rank1_update": (_I, _P, _P, _P, _I, _I, _I, _P),
     "simplex_batch_pricing": (
         _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,  # layout .. words
         _P, _P, _P, _P,  # mask, recs, p, min_e

@@ -24,7 +24,10 @@ Each wrapper stands beside its plain PyTorch version and a launch counter:
   =================  ==========================  =============================
 
 A wrapper checks its inputs and raises on anything its kernel does not take.
-Given CPU tensors it returns the plain version's result (that is how the CPU
+The four single-card kernels run in float32 or float64: every float operand
+of a call in one of the two (A also the bfloat16 shadow), a mixed call
+raises; the batched kernels take float32 only. Given CPU tensors a wrapper
+returns the plain version's result (that is how the CPU
 tests run the hopper backend); given CUDA tensors it launches the kernel on
 the current stream or raises: there is no fallback. ``launches[name]`` counts
 kernel launches only, so a run can show that its main path went through the
@@ -97,6 +100,26 @@ def _scalar(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
         raise ValueError(f"{name}: want one {dtype} element, got {tuple(t.shape)} {t.dtype}")
 
 
+_FLOATS = (torch.float32, torch.float64)
+# csrc: the element type's code of the single-card kernels (pricing also
+# names A's own: the bf16 shadow)
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_A_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+
+
+def _working_dtype(t: torch.Tensor, name: str) -> torch.dtype:
+    """The call's float dtype, taken from ``t``: float32 or float64."""
+    if t.dtype not in _FLOATS:
+        raise ValueError(f"{name}: dtype {t.dtype} (want float32 or float64)")
+    return t.dtype
+
+
+def _value(block: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The 0-d ``dtype`` value a kernel stored in the first words of an int32
+    output block (two words for a double, so that it stays 8-byte aligned)."""
+    return block[: dtype.itemsize // 4].view(dtype).view(())
+
+
 def _flag(t: torch.Tensor, name: str) -> None:
     if t.numel() != 1:
         raise ValueError(f"{name}: want one element, got {tuple(t.shape)}")
@@ -150,32 +173,34 @@ def _pricing_chunks(m: int, n: int) -> Tuple[int, int]:
 
 
 class _PricingWorkspace:
-    """The scratch of one pricing shape: the (chunks, n) partial sums, the
-    per-block results and the ticket (0 between calls). The row chunks are
-    those of an (m, chunk_n) pass."""
+    """The scratch of one pricing shape and working dtype: the (chunks, n)
+    partial sums, the per-block results and the ticket (0 between calls).
+    The row chunks are those of an (m, chunk_n) pass."""
 
-    def __init__(self, dev: torch.device, m: int, n: int, chunk_n: int):
+    def __init__(self, dev: torch.device, m: int, n: int, chunk_n: int, dtype: torch.dtype):
         self.rows, self.chunks = _pricing_chunks(m, chunk_n)
         nblk = -(-n // _PRICING_REDUCE_COLS)
-        self.partial = torch.empty((self.chunks, n), dtype=torch.float32, device=dev)
-        self.blk_min = torch.empty(nblk, dtype=torch.float32, device=dev)
+        self.partial = torch.empty((self.chunks, n), dtype=dtype, device=dev)
+        self.blk_min = torch.empty(nblk, dtype=dtype, device=dev)
         self.blk_idx = torch.empty((2, nblk), dtype=torch.int32, device=dev)
         self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
 
 
-# (device, stream, m, n, chunk_n) -> workspace; emptied when it outgrows
-# its room
+# (device, stream, m, n, chunk_n, dtype) -> workspace; emptied when it
+# outgrows its room
 _workspaces: dict = {}
 _WORKSPACES_MAX = 16
 
 
-def _pricing_workspace(dev: torch.device, stream: int, m: int, n: int, chunk_n: int) -> _PricingWorkspace:
-    key = (dev, stream, m, n, chunk_n)
+def _pricing_workspace(
+    dev: torch.device, stream: int, m: int, n: int, chunk_n: int, dtype: torch.dtype
+) -> _PricingWorkspace:
+    key = (dev, stream, m, n, chunk_n, dtype)
     ws = _workspaces.get(key)
     if ws is None:
         if len(_workspaces) >= _WORKSPACES_MAX:
             _workspaces.clear()
-        ws = _workspaces[key] = _PricingWorkspace(dev, m, n, chunk_n)
+        ws = _workspaces[key] = _PricingWorkspace(dev, m, n, chunk_n, dtype)
     return ws
 
 
@@ -188,15 +213,16 @@ def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset, 
     if A.dim() != 2 or A.shape[0] == 0 or A.shape[1] == 0:
         raise ValueError(f"A: want a non-empty matrix, got {tuple(A.shape)}")
     m, n = A.shape
-    if A.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"A: dtype {A.dtype}")
+    dt = _working_dtype(c, "c")
+    if A.dtype not in (dt, torch.bfloat16):
+        raise ValueError(f"A: dtype {A.dtype} beside {dt} vectors (want {dt} or bfloat16)")
     lda = A.stride(0)
     if A.stride(1) != 1 or (m > 1 and lda < n):
         raise ValueError(
             f"A: want unit column stride and rows at least n apart, got strides {A.stride()}"
         )
-    _vector(y, m, torch.float32, "y")
-    _vector(c, n, torch.float32, "c")
+    _vector(y, m, dt, "y")
+    _vector(c, n, dt, "c")
     ins = (y, A, c)
     if at_upper is not None and basis is None:
         raise ValueError("at_upper and basis go together (the signed mode needs both)")
@@ -221,12 +247,14 @@ def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset, 
     lib = _build.load_library()
     stream = _stream(dev)
     chunk_n = n if chunk_n is None else int(chunk_n)
-    ws = _pricing_workspace(dev, stream, m, n, chunk_n)
-    out = torch.empty(4, dtype=torch.int32, device=dev)
-    align = 16 if A.dtype == torch.float32 else 8
+    ws = _pricing_workspace(dev, stream, m, n, chunk_n, dt)
+    # min_e as a dt value, then argmin, first below -eps and the choice
+    w = dt.itemsize // 4
+    out = torch.empty(w + 3, dtype=torch.int32, device=dev)
+    align = 8 if A.dtype == torch.bfloat16 else 16
     vec = n % 4 == 0 and lda % 4 == 0 and A.data_ptr() % align == 0
     err = lib.simplex_pricing_scan(
-        0 if A.dtype == torch.float32 else 1,
+        _A_CODE[A.dtype], _DTYPE_CODE[dt],
         y.data_ptr(), A.data_ptr(), c.data_ptr(),
         None if at_upper is None else at_upper.data_ptr(),
         None if basis is None else basis.data_ptr(), m, int(base_col),
@@ -239,11 +267,11 @@ def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset, 
     )
     if err != 0:
         # a refused launch may leave the ticket taken: drop the workspace
-        _workspaces.pop((dev, stream, m, n, chunk_n), None)
+        _workspaces.pop((dev, stream, m, n, chunk_n, dt), None)
     _build.check(err, "pricing_scan")
     launches["pricing_scan"] += 1
-    min_e, p_dantzig, p_neg, p = out.unbind(0)
-    return min_e.view(torch.float32), p_dantzig, p_neg, p
+    p_dantzig, p_neg, p = out[w:].unbind(0)
+    return _value(out, dt), p_dantzig, p_neg, p
 
 
 def pricing_scan(
@@ -254,10 +282,11 @@ def pricing_scan(
     """One pass over A: ``(min_e, argmin_e, first index with e < -eps or
     INT_MAX)`` as 0-d device tensors, e = y.A - c never stored.
 
-    A is (m, n) float32 or bfloat16 (upcast per element) with unit column
-    stride: a contiguous matrix or a column range of one
-    (``A_price[:, s*w:(s+1)*w]``), scanned in place. y (m,) and c (n,)
-    float32 contiguous; all on one device. Given ``basis`` (int32,
+    y (m,) and c (n,) contiguous, both float32 or both float64 (the working
+    dtype, in which the sums run and min_e comes out); A (m, n) of the same
+    dtype or bfloat16 (upcast per element) with unit column stride: a
+    contiguous matrix or a column range of one (``A_price[:, s*w:(s+1)*w]``),
+    scanned in place; all on one device. Given ``basis`` (int32,
     contiguous, global column indices), BASIC_PENALTY is added at the basic
     columns, A being columns [base_col, base_col + n) of the problem's; given
     ``at_upper`` (n,) bool too (the signed mode of the bounded rule, basis
@@ -266,7 +295,7 @@ def pricing_scan(
     Two launches on the current stream (one where a single row chunk covers
     m, as for m <= 32). The scratch (partial sums, per-block
     results, the ticket that elects the reducing block) is kept per (device,
-    stream, m, n, chunk_n) and reused: the calls that share it are ordered by their
+    stream, m, n, chunk_n, dtype) and reused: the calls that share it are ordered by their
     stream, and the second launch resets the ticket. Launching the same
     shape on one stream from two host threads at once, or replaying a
     captured call beside a live one, would break that; a launch error drops
@@ -350,48 +379,60 @@ def ratio_argmin(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(q, theta_q, unbounded)`` of the classic masked ratio test in one
     launch of a thread block cluster sized by m (:func:`_ratio_cluster`),
-    every result a 0-d device tensor and a view of one 3-word block. x_b,
-    alpha (m,) float32; basis (m,) int32; use_bland a one-element bool or
-    int32 tensor, read on the device as it is. Any m."""
+    every result a 0-d device tensor and a view of one int32 block. x_b,
+    alpha (m,) both float32 or both float64; basis (m,) int32; use_bland a
+    one-element bool or int32 tensor, read on the device as it is. Any m."""
     m = x_b.shape[0] if x_b.dim() == 1 else -1
     if m <= 0:
         raise ValueError(f"x_b: want a non-empty vector, got {tuple(x_b.shape)}")
-    _vector(x_b, m, torch.float32, "x_b")
-    _vector(alpha, m, torch.float32, "alpha")
+    dt = _working_dtype(x_b, "x_b")
+    _vector(x_b, m, dt, "x_b")
+    _vector(alpha, m, dt, "alpha")
     _vector(basis, m, torch.int32, "basis")
     _flag(use_bland, "use_bland")
     dev = _same_device(x_b, alpha, basis, use_bland)
     if dev.type == "cpu":
         return ratio_argmin_plain(x_b, alpha, basis, pivot_tol, use_bland)
     lib = _build.load_library()
-    # q, theta_q's bits, and the unbounded flag in the third word's first byte
-    out = torch.empty(3, dtype=torch.int32, device=dev)
-    q, theta_q, unb = out.unbind(0)
+    # q, theta_q as a dt value from word w on, and the unbounded flag in the
+    # last word's first byte
+    w = dt.itemsize // 4
+    out = torch.empty(2 * w + 1, dtype=torch.int32, device=dev)
     err = lib.simplex_ratio_argmin(
-        x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), use_bland.data_ptr(),
-        int(use_bland.dtype == torch.bool), m, pivot_tol, _ratio_cluster(m),
-        q.data_ptr(), theta_q.data_ptr(), unb.data_ptr(), _stream(dev),
+        _DTYPE_CODE[dt], x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(),
+        use_bland.data_ptr(), int(use_bland.dtype == torch.bool), m, pivot_tol,
+        _ratio_cluster(m), out.data_ptr(), out[w].data_ptr(), out[2 * w].data_ptr(),
+        _stream(dev),
     )
     _build.check(err, "ratio_argmin")
     launches["ratio_argmin"] += 1
-    return q, theta_q.view(torch.float32), out[2:].view(torch.bool)[0]
+    return out[0], _value(out[w:], dt), out[2 * w:].view(torch.bool)[0]
 
 
 # --------------------------------------------------------------------------
 # fused ratio test + eta + x_b step, and the pivot's whole O(m) tail
 # --------------------------------------------------------------------------
 
-_SCAL_WORDS, _FLAG_BYTES = 6, 4  # csrc/ratio_eta.cu: the scalar block, the flags
+_FLAG_BYTES = 4  # csrc/ratio_eta.cu: the flag block
 PivotTail = _ops.PivotTail
 
 
-def _scalar_views(scal: torch.Tensor, flags: torch.Tensor) -> dict:
-    """The scalar block's words and the flag bytes as 0-d tensors (theta_q
-    is stored as its float bits)."""
-    q, theta, iters, status, degen, npend = scal.unbind(0)
+def _scalar_block(dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """csrc/ratio_eta.cu's scalar block: q, theta_q at word w (w = 1 for
+    float32, 2 for float64, after a pad word), iters, status, degen, npend."""
+    return torch.empty(2 * (dtype.itemsize // 4) + 4, dtype=torch.int32, device=dev)
+
+
+def _scalar_views(
+    scal: torch.Tensor, flags: torch.Tensor, dtype: torch.dtype = torch.float32
+) -> dict:
+    """The scalar block's values and the flag bytes as 0-d tensors (theta_q
+    is stored as a ``dtype`` value in its own words)."""
+    w = dtype.itemsize // 4
+    iters, status, degen, npend = scal[2 * w:].unbind(0)
     optimal, unbounded, bad, take = flags.unbind(0)
     return {
-        "q": q, "theta_q": theta.view(torch.float32), "iters": iters, "status": status,
+        "q": scal[0], "theta_q": _value(scal[w:], dtype), "iters": iters, "status": status,
         "degen": degen, "npend": npend, "optimal": optimal, "unbounded": unbounded,
         "bad": bad, "take": take,
     }
@@ -417,34 +458,35 @@ def ratio_eta(
 ):
     """``(q, theta_q, unbounded, eta, x_b_new)`` in one launch of the
     cluster kernel with its tail off, every result on the device. x_b, alpha
-    (m,) float32; basis (m,) int32; use_bland a one-element bool or int32
-    tensor, read on the device as it is. eta and x_b_new are computed as if
+    (m,) both float32 or both float64; basis (m,) int32; use_bland a
+    one-element bool or int32 tensor, read on the device as it is. eta and x_b_new are computed as if
     the pivot proceeds; the caller discards them on a terminal step. Two
     small allocations for the scalars and flags, one (2, m) block for eta and
     x_b_new."""
     m = x_b.shape[0] if x_b.dim() == 1 else -1
     if m <= 0:
         raise ValueError(f"x_b: want a non-empty vector, got {tuple(x_b.shape)}")
-    _vector(x_b, m, torch.float32, "x_b")
-    _vector(alpha, m, torch.float32, "alpha")
+    dt = _working_dtype(x_b, "x_b")
+    _vector(x_b, m, dt, "x_b")
+    _vector(alpha, m, dt, "alpha")
     _vector(basis, m, torch.int32, "basis")
     _flag(use_bland, "use_bland")
     dev = _same_device(x_b, alpha, basis, use_bland)
     if dev.type == "cpu":
         return ratio_eta_plain(x_b, alpha, basis, pivot_tol, use_bland, harris, feas_tol)
     lib = _build.load_library()
-    scal = torch.empty(_SCAL_WORDS, dtype=torch.int32, device=dev)
+    scal = _scalar_block(dev, dt)
     flags = torch.empty(_FLAG_BYTES, dtype=torch.bool, device=dev)
-    eta, x_b_new = torch.empty((2, m), dtype=torch.float32, device=dev).unbind(0)
+    eta, x_b_new = torch.empty((2, m), dtype=dt, device=dev).unbind(0)
     err = lib.simplex_ratio_eta(
-        x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), use_bland.data_ptr(),
+        _DTYPE_CODE[dt], x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), use_bland.data_ptr(),
         int(use_bland.dtype == torch.bool), m, pivot_tol, feas_tol,
         int(bool(harris)), _ratio_cluster(m), scal.data_ptr(), flags.data_ptr(),
         eta.data_ptr(), x_b_new.data_ptr(), _stream(dev),
     )
     _build.check(err, "ratio_eta")
     launches["ratio_eta"] += 1
-    v = _scalar_views(scal, flags)
+    v = _scalar_views(scal, flags, dt)
     return v["q"], v["theta_q"], v["unbounded"], eta, x_b_new
 
 
@@ -479,15 +521,17 @@ def pivot_tail(
     (unchanged when it does not pivot). See
     :func:`simplex_tpu_torch.kernels.ops.pivot_tail` for each formula.
 
-    x_b, alpha, y, c_b (m,) float32 and basis (m,) int32, contiguous; B_inv
-    (m, m) float32 contiguous; min_e, e_p, c_p one-element float32 and p,
-    iters, degen one-element int32 tensors. Deferred updates: U, R (L, m)
-    float32 contiguous with ``npend`` < L pending pairs (the host's count)
-    and ``npend_t`` its device scalar; the kernel adds the pending pairs to
+    Every float operand in one dtype, float32 or float64: x_b, alpha, y,
+    c_b (m,) and basis (m,) int32, contiguous; B_inv (m, m) contiguous;
+    min_e, e_p, c_p one-element and p, iters, degen one-element int32
+    tensors. Deferred updates: U, R (L, m) contiguous with ``npend`` < L
+    pending pairs (the host's count) and ``npend_t`` its device scalar; the
+    kernel adds the pending pairs to
     row q in pair order and writes the new pair straight into row ``npend``
     of U and R (the returned ``eta`` and ``row`` are those rows). Against
     the plain version's matrix product that sum differs in the last bits
-    (row and y to rtol 1e-6); every other result is bitwise equal.
+    (row and y to rtol 1e-6 in float32, 1e-12 in float64); every other result
+    is bitwise equal.
 
     Three allocations: one (k, m) block for the vector outputs, one block
     for the int32 scalars and one for the four flags; every result is a
@@ -495,16 +539,17 @@ def pivot_tail(
     m = x_b.shape[0] if x_b.dim() == 1 else -1
     if m <= 0:
         raise ValueError(f"x_b: want a non-empty vector, got {tuple(x_b.shape)}")
-    _vector(x_b, m, torch.float32, "x_b")
-    _vector(alpha, m, torch.float32, "alpha")
-    _vector(y, m, torch.float32, "y")
-    _vector(c_b, m, torch.float32, "c_b")
+    dt = _working_dtype(x_b, "x_b")
+    _vector(x_b, m, dt, "x_b")
+    _vector(alpha, m, dt, "alpha")
+    _vector(y, m, dt, "y")
+    _vector(c_b, m, dt, "c_b")
     _vector(basis, m, torch.int32, "basis")
-    if B_inv.shape != (m, m) or B_inv.dtype != torch.float32 or not B_inv.is_contiguous():
-        raise ValueError(f"B_inv: want contiguous float32 ({m}, {m}), got {tuple(B_inv.shape)} {B_inv.dtype}")
-    _scalar(min_e, torch.float32, "min_e")
-    _scalar(e_p, torch.float32, "e_p")
-    _scalar(c_p, torch.float32, "c_p")
+    if B_inv.shape != (m, m) or B_inv.dtype != dt or not B_inv.is_contiguous():
+        raise ValueError(f"B_inv: want contiguous {dt} ({m}, {m}), got {tuple(B_inv.shape)} {B_inv.dtype}")
+    _scalar(min_e, dt, "min_e")
+    _scalar(e_p, dt, "e_p")
+    _scalar(c_p, dt, "c_p")
     _scalar(p, torch.int32, "p")
     _scalar(iters, torch.int32, "iters")
     _scalar(degen, torch.int32, "degen")
@@ -515,8 +560,8 @@ def pivot_tail(
     if defer:
         L = U.shape[0] if U.dim() == 2 else -1
         for name, t in (("U", U), ("R", R)):
-            if t.shape != (L, m) or t.dtype != torch.float32 or not t.is_contiguous():
-                raise ValueError(f"{name}: want contiguous float32 ({L}, {m}), got {tuple(t.shape)} {t.dtype}")
+            if t.shape != (L, m) or t.dtype != dt or not t.is_contiguous():
+                raise ValueError(f"{name}: want contiguous {dt} ({L}, {m}), got {tuple(t.shape)} {t.dtype}")
         if not 0 <= npend < L:
             raise ValueError(f"npend {npend} outside [0, {L})")
         _scalar(npend_t, torch.int32, "npend_t")
@@ -532,14 +577,14 @@ def pivot_tail(
             npend_t=npend_t,
         )
     lib = _build.load_library()
-    scal = torch.empty(_SCAL_WORDS, dtype=torch.int32, device=dev)
+    scal = _scalar_block(dev, dt)
     flags = torch.empty(_FLAG_BYTES, dtype=torch.bool, device=dev)
-    vecs = torch.empty((4 if defer else 6, m), dtype=torch.float32, device=dev).unbind(0)
+    vecs = torch.empty((4 if defer else 6, m), dtype=dt, device=dev).unbind(0)
     eta, row = (U[npend], R[npend]) if defer else vecs[4:]
-    basis_out = vecs[3].view(torch.int32)
+    basis_out = vecs[3].view(torch.int32)[:m]
     st = SolveStatus
     err = lib.simplex_pivot_tail(
-        x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), y.data_ptr(),
+        _DTYPE_CODE[dt], x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), y.data_ptr(),
         c_b.data_ptr(), B_inv.data_ptr(),
         U.data_ptr() if defer else None, R.data_ptr() if defer else None, int(npend),
         min_e.data_ptr(), e_p.data_ptr(), c_p.data_ptr(), p.data_ptr(),
@@ -552,7 +597,7 @@ def pivot_tail(
     )
     _build.check(err, "ratio_eta")
     launches["ratio_eta"] += 1
-    v = _scalar_views(scal, flags)
+    v = _scalar_views(scal, flags, dt)
     return PivotTail(
         x_b=vecs[0], y=vecs[1], c_b=vecs[2], basis=basis_out, iters=v["iters"],
         status=v["status"], degen=v["degen"], npend=v["npend"] if defer else None,
@@ -576,19 +621,19 @@ def rank1_update(
     B_inv: torch.Tensor, eta: torch.Tensor, binv_q: torch.Tensor
 ) -> torch.Tensor:
     """``B_inv += eta (x) binv_q`` IN PLACE; returns B_inv. B_inv (r, m)
-    float32 contiguous with 0 < r <= m: the whole (m, m) inverse, or a
-    block of its rows (the 2-D sharded solve's row block); eta (r,) and
-    binv_q (m,) float32, neither overlapping B_inv (row q of B_inv must be
+    contiguous with 0 < r <= m: the whole (m, m) inverse, or a block of its
+    rows (the 2-D sharded solve's row block); eta (r,) and binv_q (m,);
+    all three float32 or all three float64; neither vector overlapping B_inv (row q of B_inv must be
     passed as a copy, ``B_inv[q].clone()``)."""
     _require(
         B_inv.dim() == 2 and 0 < B_inv.shape[0] <= B_inv.shape[1],
         f"B_inv: want a non-empty block of rows of a square matrix, got {tuple(B_inv.shape)}",
     )
     r, m = B_inv.shape
-    _require(B_inv.dtype == torch.float32, f"B_inv: dtype {B_inv.dtype}")
+    dt = _working_dtype(B_inv, "B_inv")
     _require(B_inv.is_contiguous(), "B_inv: not contiguous")
-    _vector(eta, r, torch.float32, "eta")
-    _vector(binv_q, m, torch.float32, "binv_q")
+    _vector(eta, r, dt, "eta")
+    _vector(binv_q, m, dt, "binv_q")
     dev = _same_device(B_inv, eta, binv_q)
     _require(
         not _overlaps(binv_q, B_inv) and not _overlaps(eta, B_inv),
@@ -599,7 +644,7 @@ def rank1_update(
     lib = _build.load_library()
     vec = m % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (B_inv, binv_q))
     err = lib.simplex_rank1_update(
-        B_inv.data_ptr(), eta.data_ptr(), binv_q.data_ptr(), r, m, int(vec),
+        _DTYPE_CODE[dt], B_inv.data_ptr(), eta.data_ptr(), binv_q.data_ptr(), r, m, int(vec),
         _stream(dev),
     )
     _build.check(err, "rank1_update")

@@ -55,6 +55,17 @@ def test_bench_ops_records(backend, no_library):
         assert rec["ms"] >= 0 and rec["gbps"] >= 0, op
 
 
+@pytest.mark.parametrize("backend", ["torch", "hopper"])
+def test_bench_ops_records_in_float64(backend, no_library):
+    # the same ops on float64 A, B_inv and vectors: every byte count doubles
+    # but the bf16 segment's and the sparse index's
+    res = bk.bench_ops(16, 64, k=2, backend=backend, device="cpu", dtype=torch.float64)
+    assert list(res) == OPS + SPARSE_OPS
+    assert all(rec["ms"] >= 0 and rec["gbps"] >= 0 for rec in res.values())
+    line = json.loads(bk.record_line(16, 64, backend, "cpu", res, torch.float64))
+    assert line["dtype"] == "float64" and list(line["ops"]) == OPS + SPARSE_OPS
+
+
 def test_bench_ops_skips_segments_when_n_does_not_divide(no_library):
     res = bk.bench_ops(8, 60, k=1, backend="torch", device="cpu")
     assert "pricing_segment_bf16" not in res
@@ -66,8 +77,8 @@ def test_main_prints_one_json_line(capsys, no_library):
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1
     rec = json.loads(out[0])
-    assert set(rec) == {"m", "n", "backend", "device", "ops", "total_pivot_ms"}
-    assert (rec["m"], rec["n"], rec["backend"], rec["device"]) == (16, 64, "torch", "cpu")
+    assert set(rec) == {"m", "n", "backend", "dtype", "device", "ops", "total_pivot_ms"}
+    assert (rec["m"], rec["n"], rec["backend"], rec["dtype"], rec["device"]) == (16, 64, "torch", "float32", "cpu")
     assert list(rec["ops"]) == OPS + SPARSE_OPS
     assert rec["total_pivot_ms"] == pytest.approx(sum(v["ms"] for v in rec["ops"].values()), abs=1e-3)
 

@@ -229,7 +229,7 @@ def test_wrappers_reject_unsupported_input(no_library):
     with pytest.raises(ValueError):
         hopper.rank1_update(B, torch.ones(4), B[2])  # row aliases B_inv
     with pytest.raises(ValueError):
-        hopper.rank1_update(B.double(), torch.ones(4).double(), torch.ones(4).double())
+        hopper.rank1_update(B.double(), torch.ones(4), torch.ones(4).double())  # mixed dtypes
 
 
 @pytest.mark.parametrize("m", [128, 256])
