@@ -51,7 +51,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ``pivot_tail`` eager bit for bit, deferred within 1e-12, at m = 17,
      1024, 1025, 8192, 9000; ``rank1_update`` bit for bit the unfused B +
      outer(eta, row) on the whole inverse and on row blocks; each timed
-     beside its plain version, its library call and its bound;
+     beside its plain version, its library call and its bound; and the
+     three batched kernels in float64 at the float32 checks' shapes and
+     layouts (bit for bit where float32 is, min_e within 1e-12 of scale);
   3. ``simplex_tpu_torch.solve`` through its normal entry point with the
      default options: the sample LP (z = 9), a 2048 x 4096 random LP
      against HiGHS, and the benchmark's 8192 x 16384 instance over its
@@ -183,6 +185,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the expected metric, ``impl`` and this card, and meet its status and
      gap gates (GAP_TOL, 1e-4 for the sampled warm re-solves, 1e-3 for
      PDHG); then ``cli bench`` once as a subprocess.
+ 19. the batched modes in float64 (``phase_f64_batched``): bench-batch's
+     recipe at B = 4,096, with the slack identity kept exact against
+     HiGHS too, bench-reopt's cold basis and ``F64_REOPT_B`` scenarios,
+     and the segmented cell under ``partial_pricing=8``, each within
+     F64_GAP_TOL of the single float64 solve or HiGHS, each batch step
+     launching the three batched kernels' float64 instantiations;
+ 20. the sharded modes in float64 (``phase_f64_sharded``): the 1-D and
+     the 1 x 1 2-D windows of the bench instance at world size 1 over NCCL
+     against the single float64 window (the same pivots, basis and z),
+     then four gloo ranks on the card: the 2-D classic ratio test (and
+     Harris with Bland's rule) on 2 x 2, ``solve_sharded`` at 2048 x 4096
+     to OPTIMAL against HiGHS over two ranks, and bench-batch's
+     ``solve_batched(mesh=)`` in float64.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel's ``launches`` in the JSON record is its total over
@@ -207,8 +222,9 @@ line); ``--only
 new`` builds the kernels and runs phases 15-17 and phase 14's traces of
 them alone (no final ``ok`` line either); ``--only bench`` builds the
 kernels and runs phase 18 alone; ``--only f64`` the float64 kernel
-checks, the float64 solves and entry points, the float64 per-op bench and
-the float64 profiles (no final ``ok`` line in either).
+checks (the batched kernels' included), the float64 solves and entry
+points, phases 19 and 20, the float64 per-op bench and the float64
+profiles (no final ``ok`` line in either).
 """
 
 from __future__ import annotations
@@ -272,6 +288,9 @@ MAX_DEVICE_OPS_PER_PIVOT = 16.0
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_FP64_S = 34e12
+# FP64 on the tensor cores (DMMA; NVIDIA's H100 SXM data sheet): the least time of a
+# float64 product that a DGEMM may run there (the batched pricing's bounds)
+PEAK_FP64_TC_S = 67e12
 GAP_TOL = 1e-5  # fp32 solve against HiGHS in f64 (the JAX package's gate)
 KKT_TOL = 1e-5  # min reduced cost of the f64 duals: dual feasibility at eps
 FEAS_TOL = 1e-5  # f64 bound / row violation of a general-route answer
@@ -285,12 +304,15 @@ SOURCES = {
     "batch_tail": "simplex_tpu_torch/csrc/batch_tail.cu",
     "batch_rank1": "simplex_tpu_torch/csrc/batch_rank1.cu",
 }
-# the single-card kernels' float64 instantiations, each its own record
+# the kernels' float64 instantiations, each its own record
 F64_KERNELS = {
     "pricing_scan_f64": "pricing_scan",
     "ratio_argmin_f64": "ratio_argmin",
     "ratio_eta_f64": "ratio_eta",
     "rank1_update_f64": "rank1_update",
+    "batch_pricing_f64": "batch_pricing",
+    "batch_tail_f64": "batch_tail",
+    "batch_rank1_f64": "batch_rank1",
 }
 REPLACES = {
     "pricing_scan": "simplex_tpu/kernels/pallas_ops.py:140",
@@ -841,15 +863,25 @@ REOPT_M, REOPT_N, REOPT_B = 2048, 4096, 256
 BATCH_PRICING_ATOL = 1.2e-4
 
 
-def batch_pricing_inputs(dev, g, Bn: int, m: int, n: int, shared: bool = False):
-    """y, A, c and basis for the batched pricing; ``shared``: one A (m, n)
-    and one c (n,) for every instance, as the warm re-solve has them."""
+def bits(t):
+    """A float32 / float64 tensor's bits as int32 / int64 (bit-for-bit
+    comparisons that keep -0.0 and NaN payloads apart)."""
     import torch
 
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def batch_pricing_inputs(dev, g, Bn: int, m: int, n: int, shared: bool = False, dtype=None):
+    """y, A, c and basis for the batched pricing in ``dtype`` (default
+    float32); ``shared``: one A (m, n) and one c (n,) for every instance,
+    as the warm re-solve has them."""
+    import torch
+
+    dtype = dtype or torch.float32
     lead = () if shared else (Bn,)
-    y = torch.randn(Bn, m, generator=g, device=dev) / m ** 0.5
-    A = torch.randn(*lead, m, n, generator=g, device=dev)
-    c = torch.randn(*lead, n, generator=g, device=dev)
+    y = torch.randn(Bn, m, generator=g, device=dev, dtype=dtype) / m ** 0.5
+    A = torch.randn(*lead, m, n, generator=g, device=dev, dtype=dtype)
+    c = torch.randn(*lead, n, generator=g, device=dev, dtype=dtype)
     e = (y @ A if shared else torch.bmm(y[:, None, :], A)[:, 0]) - c
     # a basis of m distinct columns holding each instance's best column, so
     # the mask decides the pick
@@ -869,26 +901,29 @@ def check_batch_pricing(tag, dev, y, A, c, basis, bland, at_upper=None) -> float
     p_k, min_k = hopper.choose_entering_batched(y, A, c, 1e-5, bland, basis, at_upper)
     p_p, min_p = hopper.choose_entering_batched_plain(y, A, c, 1e-5, bland, basis, at_upper)
     torch.cuda.synchronize()
+    check(min_k.dtype == c.dtype, f"{tag}: min_e {min_k.dtype} beside {c.dtype} vectors")
     err = float((min_k - min_p).abs().max())
     scale = max(1.0, float(min_p.abs().max()))
-    check(err <= BATCH_PRICING_ATOL * scale, f"{tag}: min_e differs by {err} (scale {scale})")
+    atol = BATCH_PRICING_ATOL if c.dtype == torch.float32 else F64_PRICING_RTOL
+    check(err <= atol * scale, f"{tag}: min_e differs by {err} (scale {scale})")
     bad = int((p_k != p_p).sum())
     check(bad == 0, f"{tag}: {bad} picks differ")
     print(f"{tag}: max abs err {err:.3e}, picks equal ok")
     return err
 
 
-def batch_tail_inputs(dev, g, Bn: int, m: int, L: int = 0):
+def batch_tail_inputs(dev, g, Bn: int, m: int, L: int = 0, dtype=None):
     import torch
 
-    x_b = torch.rand(Bn, m, generator=g, device=dev) * 2
+    f = dict(generator=g, device=dev, dtype=dtype or torch.float32)
+    x_b = torch.rand(Bn, m, **f) * 2
     x_b[:, ::7] = 0.0
     t = dict(
-        x_b=x_b, alpha=torch.randn(Bn, m, generator=g, device=dev),
+        x_b=x_b, alpha=torch.randn(Bn, m, **f),
         basis=torch.rand(Bn, m + 50, generator=g, device=dev).argsort(1)[:, :m].to(torch.int32).contiguous(),
-        y=torch.randn(Bn, m, generator=g, device=dev), c_b=torch.randn(Bn, m, generator=g, device=dev),
-        B_inv=torch.randn(Bn, m, m, generator=g, device=dev),
-        min_e=-torch.rand(Bn, generator=g, device=dev), c_p=torch.randn(Bn, generator=g, device=dev),
+        y=torch.randn(Bn, m, **f), c_b=torch.randn(Bn, m, **f),
+        B_inv=torch.randn(Bn, m, m, **f),
+        min_e=-torch.rand(Bn, **f), c_p=torch.randn(Bn, **f),
         p=torch.randint(0, m + 50, (Bn,), generator=g, device=dev).to(torch.int32),
         iters=torch.randint(0, 100, (Bn,), generator=g, device=dev).to(torch.int32),
         degen=torch.randint(0, 80, (Bn,), generator=g, device=dev).to(torch.int32),
@@ -905,9 +940,9 @@ def batch_tail_inputs(dev, g, Bn: int, m: int, L: int = 0):
     if L:
         t["npend"] = torch.randint(0, L, (Bn,), generator=g, device=dev).to(torch.int32)
         k = torch.arange(L, device=dev)[None, :, None]
-        live = (k < t["npend"][:, None, None]).float()
-        t["U"] = torch.randn(Bn, L, m, generator=g, device=dev) * 0.1 * live
-        t["R"] = torch.randn(Bn, L, m, generator=g, device=dev) * live
+        live = (k < t["npend"][:, None, None]).to(f["dtype"])
+        t["U"] = torch.randn(Bn, L, m, **f) * 0.1 * live
+        t["R"] = torch.randn(Bn, L, m, **f) * live
     return t
 
 
@@ -921,12 +956,13 @@ def check_batch_tail(tag, dev, t, harris) -> None:
     from simplex_tpu_torch.kernels import hopper
 
     outs, bufs = [], []
+    opts = TAIL_OPTS if t["x_b"].dtype == torch.float32 else F64_TAIL_OPTS
     for fn in (hopper.pivot_tail_batched, hopper.pivot_tail_batched_plain):
         extra = {}
         if "U" in t:
             extra = dict(U=t["U"].clone(), R=t["R"].clone(), npend=t["npend"])
             bufs.append(extra)
-        outs.append(fn(*(t[k] for k in TAIL_KEYS), harris=harris, **TAIL_OPTS, **extra))
+        outs.append(fn(*(t[k] for k in TAIL_KEYS), harris=harris, **opts, **extra))
     torch.cuda.synchronize()
     got, want = outs
     for name in got._fields:
@@ -943,21 +979,22 @@ def check_batch_tail(tag, dev, t, harris) -> None:
     print(f"{tag}: every leaf bit for bit ok (takes {int(got.take.sum())} of {got.take.shape[0]})")
 
 
-def check_batch_rank1(tag, dev, g, Bn, m) -> None:
+def check_batch_rank1(tag, dev, g, Bn, m, dtype=None) -> None:
     import torch
 
     from simplex_tpu_torch.kernels import hopper
 
-    B = torch.randn(Bn, m, m, generator=g, device=dev)
+    f = dict(generator=g, device=dev, dtype=dtype or torch.float32)
+    B = torch.randn(Bn, m, m, **f)
     B[:, 0, 0] = -0.0
-    eta = torch.randn(Bn, m, generator=g, device=dev)
-    row = torch.randn(Bn, m, generator=g, device=dev)
+    eta = torch.randn(Bn, m, **f)
+    row = torch.randn(Bn, m, **f)
     take = torch.rand(Bn, generator=g, device=dev) < 0.7
     got = hopper.rank1_update_batched(B.clone(), eta, row, take)
     want = hopper.rank1_update_batched_plain(B.clone(), eta, row, take)
     torch.cuda.synchronize()
     check(torch.equal(got, want), f"{tag}: differs by {float((got - want).abs().max())}")
-    check(torch.equal(got[~take].view(-1).view(torch.int32), B[~take].view(-1).view(torch.int32)),
+    check(torch.equal(bits(got[~take].view(-1)), bits(B[~take].view(-1))),
           f"{tag}: an instance without take changed")
     try:
         hopper.rank1_update_batched(B, eta, B[:, 3], take)
@@ -993,19 +1030,20 @@ def misaligned(t):
     return out
 
 
-def check_shared_is_per_instance(dev, g, Bn: int, m: int, n: int) -> None:
+def check_shared_is_per_instance(dev, g, Bn: int, m: int, n: int, dtype=None) -> None:
     """The shared layout against the per-instance path on the same A
-    expanded to (B, m, n): both sum every e by fmaf in row order from 0, so
+    expanded to (B, m, n): both sum every e by fma in row order from 0, so
     the picks are equal and min_e bit for bit."""
     import torch
 
     from simplex_tpu_torch.kernels import hopper
 
-    y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared=True)
+    y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared=True, dtype=dtype)
     bland = torch.rand(Bn, generator=g, device=dev) < 0.3
     no = torch.zeros(Bn, dtype=torch.bool, device=dev)
     at_upper = torch.rand(Bn, n, generator=g, device=dev) < 0.3
-    for tag, A1, flags, up in (("fp32", A, no, None), ("fp32 bland", A, bland, None),
+    fp = "fp32" if A.dtype == torch.float32 else "f64"
+    for tag, A1, flags, up in ((fp, A, no, None), (f"{fp} bland", A, bland, None),
                                ("bf16", A.to(torch.bfloat16), no, None), ("signed", A, bland, at_upper)):
         A3 = A1.expand(Bn, m, n).contiguous()
         c3 = c.expand(Bn, n).contiguous()
@@ -1014,10 +1052,10 @@ def check_shared_is_per_instance(dev, g, Bn: int, m: int, n: int) -> None:
             p_i, min_i = hopper.choose_entering_batched(y, A3, cc, 1e-5, flags, basis, up)
             torch.cuda.synchronize()
             check(torch.equal(p_s, p_i), f"shared vs per-instance {Bn}x{m}x{n} {tag} ({ctag}): picks differ")
-            check(torch.equal(min_s.view(torch.int32), min_i.view(torch.int32)),
+            check(torch.equal(bits(min_s), bits(min_i)),
                   f"shared vs per-instance {Bn}x{m}x{n} {tag} ({ctag}): min_e not bit for bit")
         del A3
-    print(f"batch_pricing shared vs per-instance {Bn}x{m}x{n} (fp32, bland, bf16, signed): "
+    print(f"batch_pricing shared vs per-instance {Bn}x{m}x{n} ({fp}, bland, bf16, signed): "
           "picks equal, min_e bit for bit ok")
 
 
@@ -1039,13 +1077,13 @@ SEG_PATH = {
 }
 
 
-def window_inputs(dev, g, Bn, m, n, S, shared=False, one_window=False):
+def window_inputs(dev, g, Bn, m, n, S, shared=False, one_window=False, dtype=None):
     """batch_pricing_inputs plus each instance's segment counter (random
     iteration counts, so the windows differ between instances and some
     end at n; ``one_window``: every instance in the same window)."""
     import torch
 
-    y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared)
+    y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared, dtype)
     seg = torch.randint(0, 1000, (Bn,), generator=g, device=dev).to(torch.int32)
     if one_window:
         seg.fill_(5 * S + S // 2)
@@ -1063,7 +1101,7 @@ def window_layout(y, A, w, S) -> str:
     m, n = A.shape[-2:]
     return hopper.batch_pricing_plan(y.shape[0], m, n, shared=A.dim() == 2,
                                      bf16=A.dtype == torch.bfloat16, align=hopper._alignment(y, A),
-                                     window=w, segments=S)["layout"]
+                                     window=w, segments=S, elem=y.element_size())["layout"]
 
 
 def check_window_pricing(tag, dev, y, A, c, basis, bland, w, S, seg, at_upper=None) -> float:
@@ -1088,12 +1126,13 @@ def check_window_pricing(tag, dev, y, A, c, basis, bland, w, S, seg, at_upper=No
     p_p, min_p = hopper.choose_entering_batched_plain(y, A, c, 1e-5, bland, basis, at_upper, win)
     torch.cuda.synchronize()
     check(torch.equal(p_k, (p_s + lo).to(torch.int32)), f"{tag}: picks differ from the call on the slice")
-    check(torch.equal(min_k.view(torch.int32), min_s.view(torch.int32)),
+    check(torch.equal(bits(min_k), bits(min_s)),
           f"{tag}: min_e not bit for bit the call on the slice")
     check(bool(((p_k >= lo) & (p_k < lo + w)).all()), f"{tag}: a pick outside its window")
     err = float((min_k - min_p).abs().max())
     scale = max(1.0, float(min_p.abs().max()))
-    check(err <= BATCH_PRICING_ATOL * scale, f"{tag}: min_e differs from the plain twin by {err}")
+    atol = BATCH_PRICING_ATOL if c.dtype == torch.float32 else F64_PRICING_RTOL
+    check(err <= atol * scale, f"{tag}: min_e differs from the plain twin by {err}")
     bad = int((p_k != p_p).sum())
     check(bad == 0, f"{tag}: {bad} picks differ from the plain twin")
     print(f"{tag} [{window_layout(y, A, w, S)}]: bit for bit the call on the slice, plain twin max abs "
@@ -1122,7 +1161,7 @@ def check_window_groups(dev, g) -> None:
           "1): equal to the plain twin ok")
 
 
-def phase_window_pricing(dev, g) -> dict:
+def phase_window_pricing(dev, g, dtype=None) -> dict:
     """batch_pricing's window mode on every layout: per instance the
     bulk-copy scan (fp32, bf16, tails of a chunk) and the scan / bf16x4
     kernels where the shape or a misaligned base forbids bulk copies;
@@ -1131,11 +1170,16 @@ def phase_window_pricing(dev, g) -> dict:
     S = 1); signed and Bland, windows ending at n, starts that differ
     between instances; the grouping against its plain twin; then times at
     the segmented cell's shape and at the warm re-solve's, with their
-    bounds. Every layout the plan can give a window must have run."""
+    bounds. Every layout the plan can give a window must have run. In
+    ``dtype`` (default float32; float64: the same cases, the vectors and A
+    in double, the shadow bf16)."""
     import torch
 
     from simplex_tpu_torch.kernels import hopper, ops
 
+    dtype = dtype or torch.float32
+    fp, es = ("fp32", 4.0) if dtype == torch.float32 else ("f64", 8.0)
+    peak = PEAK_FP32_S if dtype == torch.float32 else PEAK_FP64_TC_S
     check_window_groups(dev, g)
     worst = 0.0
     rec = {}
@@ -1158,18 +1202,18 @@ def phase_window_pricing(dev, g) -> dict:
              (REOPT_B, 256, REOPT_N, SEG_S, True, True))
     for Bn, m, n, S, shared, one in cases:
         w = n // S
-        y, A, c, basis, seg = window_inputs(dev, g, Bn, m, n, S, shared, one)
+        y, A, c, basis, seg = window_inputs(dev, g, Bn, m, n, S, shared, one, dtype)
         bland = torch.rand(Bn, generator=g, device=dev) < 0.2
         no = torch.zeros(Bn, dtype=torch.bool, device=dev)
         at_upper = torch.rand(Bn, n, generator=g, device=dev) < 0.3
         Ab = A.to(torch.bfloat16)
         kind = ("shared" if shared else "per-instance") + (" one window" if one else "")
-        runs = [("fp32", (y, A, c, basis, no)), ("fp32 bland", (y, A, c, basis, bland)),
+        runs = [(fp, (y, A, c, basis, no)), (f"{fp} bland", (y, A, c, basis, bland)),
                 ("bf16", (y, Ab, c, basis, no)), ("signed", (y, A, c, basis, bland)),
                 ("signed bf16", (y, Ab, c, basis, no))]
         if (Bn, m, n) in ((SEG_B, SEG_M, SEG_N), (REOPT_B, REOPT_M, REOPT_N)):
             # a base one element off 16 bytes: no bulk / 16-byte copies
-            runs += [("fp32 misaligned", (y, misaligned(A), c, basis, bland)),
+            runs += [(f"{fp} misaligned", (y, misaligned(A), c, basis, bland)),
                      ("bf16 misaligned", (y, misaligned(Ab), c, basis, no))]
         for tag, args in runs:
             up = at_upper if tag.startswith("signed") else None
@@ -1179,14 +1223,14 @@ def phase_window_pricing(dev, g) -> dict:
         win = (w, S, seg)
         if (Bn, m, n) == (SEG_B, SEG_M, SEG_N):
             # the windows' A, y, c and the basis read once, p and min_e written
-            nb = Bn * (4.0 * (m * w + 2 * m + w) + 4 + 1 + 8)
+            nb = Bn * (es * (m * w + 2 * m + w) + 4 + 1 + 4 + es)
             A_w = ops.window_slice(A, ops.window_starts(win, n), w)
             rec.update({
                 "window_ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win), 50),
                 "window_plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win), 20),
                 "window_bf16_ms": time_ms(lambda: hopper.choose_entering_batched(y, Ab, c, 1e-5, no, basis, None, win), 50),
-                "window_bound_ms": bound(nb, 2.0 * Bn * m * w)["bound_ms"],
-                "window_bf16_bound_ms": bound(nb - Bn * 2.0 * m * w, 2.0 * Bn * m * w)["bound_ms"],
+                "window_bound_ms": bound(nb, 2.0 * Bn * m * w, peak)["bound_ms"],
+                "window_bf16_bound_ms": bound(nb - Bn * (es - 2) * m * w, 2.0 * Bn * m * w, peak)["bound_ms"],
                 # the product over the windows alone, on slices gathered beforehand
                 "window_library_ms": time_ms(lambda: torch.bmm(y[:, None, :], A_w), 50),
             })
@@ -1194,7 +1238,7 @@ def phase_window_pricing(dev, g) -> dict:
         if shared and (Bn, m, n) == (REOPT_B, REOPT_M, REOPT_N):
             # each distinct window of A read once; 2 B m w operations bound it
             nwin = int(torch.remainder(seg.long(), S).unique().numel())
-            bd = bound(4.0 * nwin * (m * w + w) + Bn * (4.0 * (2 * m) + 4 + 1 + 8), 2.0 * Bn * m * w)
+            bd = bound(es * nwin * (m * w + w) + Bn * (es * (2 * m) + 4 + 1 + 4 + es), 2.0 * Bn * m * w, peak)
             rec.update({
                 "window_shared_ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win), 50),
                 "window_shared_plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win), 10),
@@ -1207,12 +1251,12 @@ def phase_window_pricing(dev, g) -> dict:
         torch.cuda.empty_cache()
     want = {"window_tma", "scan", "bf16x4", "window_group", "window_group_loads"}
     check(want <= seen, f"window layouts run {sorted(seen)}, want every one of {sorted(want)}")
-    print(f"batch_pricing window layouts run: {sorted(seen)}")
+    print(f"batch_pricing window layouts run ({fp}): {sorted(seen)}")
     rec["window_max_abs_err"] = worst
     return rec
 
 
-def phase_batch_kernels(dev) -> dict:
+def phase_batch_kernels(dev, dtype=None) -> dict:
     """The three batched kernels against their plain twins on the card:
     pricing (per-instance A on both the fp32 and the bf16 pair path, and a
     shared A through the tiled product at shapes that leave a tail on every
@@ -1222,42 +1266,53 @@ def phase_batch_kernels(dev) -> dict:
     for bit), the tail (both paths, eager and deferred, Harris and
     classic, finished instances mixed in; bit for bit) and rank-1 (bit for
     bit), at bench.py --mode batch's shape, odd shapes and wide ones; then
-    times at the bench's shape and the warm re-solve's."""
+    times at the bench's shape and the warm re-solve's. ``dtype`` float64:
+    the same cases with every float operand in double (the shadow bf16
+    beside double vectors), bit for bit where float32 is, min_e within
+    F64_PRICING_RTOL of scale; records ``batch_pricing_f64``, ...."""
     import torch
 
     from simplex_tpu_torch.kernels import _build, hopper, ops
 
-    check(_build.load_library().simplex_batch_pricing_record_bytes() == 4 * hopper._BP_RECORD_WORDS,
-          "batch_pricing: the record size differs from the wrapper's")
-    g = torch.Generator(device=dev).manual_seed(11)
+    dtype = dtype or torch.float32
+    f32 = dtype == torch.float32
+    fp, es, sfx = ("fp32", 4.0, "") if f32 else ("f64", 8.0, "_f64")
+    peak = PEAK_FP32_S if f32 else PEAK_FP64_TC_S
+    for code, size in ((0, 4), (1, 8)):
+        check(_build.load_library().simplex_batch_pricing_record_bytes(code) == 4 * hopper._BP_RECORD_WORDS[size],
+              f"batch_pricing: the record size of {size}-byte vectors differs from the wrapper's")
+    g = torch.Generator(device=dev).manual_seed(11 if f32 else 21)
     recs = {}
+    rp, rt, rr = f"batch_pricing{sfx}", f"batch_tail{sfx}", f"batch_rank1{sfx}"
+    tail_opts = TAIL_OPTS if f32 else F64_TAIL_OPTS
     # bench.py --mode batch's shape, odd n (element loads of bf16), n % 4 ==
     # 2 over two chunks (element loads), n % 4 == 0 over three chunks (the
     # four-column bf16 path with a chunk of 4 columns), a wide one
     shapes = ((BATCH_B, BATCH_M, BATCH_N), (3, 17, 45), (5, 33, 258), (7, 9, 516), (8, 2048, 4096))
     worst = 0.0
     for Bn, m, n in shapes:
-        y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n)
+        y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, dtype=dtype)
         bland = torch.rand(Bn, generator=g, device=dev) < 0.2
         no = torch.zeros(Bn, dtype=torch.bool, device=dev)
         at_upper = torch.rand(Bn, n, generator=g, device=dev) < 0.3
         Ab = A.to(torch.bfloat16)
         for tag, args in (
-            ("fp32", (y, A, c, basis, no)), ("fp32 bland", (y, A, c, basis, bland)),
+            (fp, (y, A, c, basis, no)), (f"{fp} bland", (y, A, c, basis, bland)),
             ("bf16", (y, Ab, c, basis, no)), ("signed", (y, A, c, basis, bland, at_upper)),
             ("signed bf16", (y, Ab, c, basis, no, at_upper)),
             ("bf16 misaligned", (y, misaligned(Ab), c, basis, bland)),
         ):
             worst = max(worst, check_batch_pricing(f"batch_pricing {Bn}x{m}x{n} {tag}", dev, *args))
         if (Bn, m, n) == (BATCH_B, BATCH_M, BATCH_N):
-            nb = Bn * (4.0 * (m * n + 2 * m + n) + 9)
-            recs["batch_pricing"] = {
+            # A, y and c read once, the flag read, p and min_e written
+            nb = Bn * (es * (m * n + 2 * m + n) + 1 + 4 + es)
+            recs[rp] = {
                 "ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis), 50),
                 "plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis), 20),
                 "bf16_ms": time_ms(lambda: hopper.choose_entering_batched(y, Ab, c, 1e-5, no, basis), 50),
                 "bf16_plain_ms": time_ms(lambda: ops.choose_entering_batched(y, Ab, c, 1e-5, no, basis), 20),
-                **bound(nb, 2.0 * Bn * m * n),
-                "bf16_bound_ms": bound(nb - Bn * 2.0 * m * n, 2.0 * Bn * m * n)["bound_ms"],
+                **bound(nb, 2.0 * Bn * m * n, peak),
+                "bf16_bound_ms": bound(nb - Bn * (es - 2) * m * n, 2.0 * Bn * m * n, peak)["bound_ms"],
                 # the product alone (no mask, no choice)
                 "library_ms": time_ms(lambda: torch.bmm(y[:, None, :], A), 50),
             }
@@ -1268,22 +1323,22 @@ def phase_batch_kernels(dev) -> dict:
     # --mode reopt's shape
     for Bn, m, n in ((1, 1, 1), (3, 17, 45), (65, 33, 129), (130, 257, 1000), (130, 260, 1000),
                      (REOPT_B, REOPT_M, REOPT_N)):
-        y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared=True)
+        y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared=True, dtype=dtype)
         bland = torch.rand(Bn, generator=g, device=dev) < 0.2
         no = torch.zeros(Bn, dtype=torch.bool, device=dev)
         at_upper = torch.rand(Bn, n, generator=g, device=dev) < 0.3
         Ab = A.to(torch.bfloat16)
         for tag, args in (
-            ("fp32", (y, A, c, basis, no)), ("fp32 bland", (y, A, c, basis, bland)),
+            (fp, (y, A, c, basis, no)), (f"{fp} bland", (y, A, c, basis, bland)),
             ("bf16", (y, Ab, c, basis, no)), ("signed", (y, A, c, basis, bland, at_upper)),
             ("signed bf16", (y, Ab, c, basis, no, at_upper)),
-            ("fp32 misaligned", (misaligned(y), A, c, basis, bland)),
+            (f"{fp} misaligned", (misaligned(y), A, c, basis, bland)),
         ):
             worst = max(worst, check_batch_pricing(f"batch_pricing shared {Bn}x{m}x{n} {tag}", dev, *args))
         if Bn == REOPT_B:
             # A and c are read from memory once; 2 B m n flops bound it
-            bd = bound(4.0 * (m * n + n) + Bn * (4.0 * (2 * m) + 9), 2.0 * Bn * m * n)
-            recs["batch_pricing"].update({
+            bd = bound(es * (m * n + n) + Bn * (es * (2 * m) + 1 + 4 + es), 2.0 * Bn * m * n, peak)
+            recs[rp].update({
                 "reopt_ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis), 50),
                 "reopt_plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis), 20),
                 "reopt_bf16_ms": time_ms(lambda: hopper.choose_entering_batched(y, Ab, c, 1e-5, no, basis), 50),
@@ -1293,10 +1348,10 @@ def phase_batch_kernels(dev) -> dict:
                 "reopt_library_ms": time_ms(lambda: y @ A, 50),
             })
         del A, Ab
-    recs["batch_pricing"]["max_abs_err"] = worst
-    check_shared_is_per_instance(dev, g, 8, REOPT_M, REOPT_N)
-    check_shared_is_per_instance(dev, g, 70, 33, 300)
-    recs["batch_pricing"].update(phase_window_pricing(dev, g))
+    recs[rp]["max_abs_err"] = worst
+    check_shared_is_per_instance(dev, g, 8, REOPT_M, REOPT_N, dtype)
+    check_shared_is_per_instance(dev, g, 70, 33, 300, dtype)
+    recs[rp].update(phase_window_pricing(dev, g, dtype))
     # the tail: the warp path (m <= 256: rows a lane 1, 2, 4, 8, loads of 1,
     # 2 or 4 rows, idle lanes) and the block path (m > 256; and forced at
     # small m), with one input misaligned (single-row loads)
@@ -1304,7 +1359,7 @@ def phase_batch_kernels(dev) -> dict:
                          (37, 33, False), (37, 100, False), (37, 100, True), (37, 129, False),
                          (37, 256, False), (5, 257, False), (8, 2048, False), (37, 1100, False)):
         for L in (0, 4):
-            t = batch_tail_inputs(dev, g, Bn, m, L)
+            t = batch_tail_inputs(dev, g, Bn, m, L, dtype)
             cases = [(f"batch_tail {Bn}x{m} L={L}", t)]
             if m == BATCH_M and not block:
                 cases.append((f"batch_tail {Bn}x{m} L={L} misaligned", dict(t, alpha=misaligned(t["alpha"]))))
@@ -1314,41 +1369,42 @@ def phase_batch_kernels(dev) -> dict:
                     with path:
                         check_batch_tail(f"{tag}{' block path' if block else ''} harris={harris}", dev, tt, harris)
     for tag, Bn, m in (("", BATCH_B, BATCH_M), ("cleanup_", REOPT_B, REOPT_M)):
-        t = batch_tail_inputs(dev, g, Bn, m)
+        t = batch_tail_inputs(dev, g, Bn, m, 0, dtype)
         if tag:
             check_batch_tail(f"batch_tail {Bn}x{m} L=0 harris=True", dev, t, True)
         args = tuple(t[k] for k in TAIL_KEYS)
         r = {
-            f"{tag}ms": time_ms(lambda: hopper.pivot_tail_batched(*args, harris=True, **TAIL_OPTS), 200),
-            f"{tag}plain_ms": time_ms(lambda: hopper.pivot_tail_batched_plain(*args, harris=True, **TAIL_OPTS), 50),
+            f"{tag}ms": time_ms(lambda: hopper.pivot_tail_batched(*args, harris=True, **tail_opts), 200),
+            f"{tag}plain_ms": time_ms(lambda: hopper.pivot_tail_batched_plain(*args, harris=True, **tail_opts), 50),
         }
-        bd = bound(4.0 * Bn * (12 * m + 12), 12.0 * Bn * m)
+        bd = bound(es * Bn * (12 * m + 12), 12.0 * Bn * m, peak)
         r.update({f"{tag}bound_ms": bd["bound_ms"], f"{tag}bound_by": bd["bound_by"]})
         if not tag:
             with tail_block_path():
-                r["block_path_ms"] = time_ms(lambda: hopper.pivot_tail_batched(*args, harris=True, **TAIL_OPTS), 200)
+                r["block_path_ms"] = time_ms(lambda: hopper.pivot_tail_batched(*args, harris=True, **tail_opts), 200)
             r.update({"library_ms": None, "max_abs_err": 0.0})
-        recs.setdefault("batch_tail", {}).update(r)
+        recs.setdefault(rt, {}).update(r)
         del t, args
         torch.cuda.empty_cache()
     for Bn, m in ((BATCH_B, BATCH_M), (3, 17), (8, 2048), (5, 1025)):
-        check_batch_rank1(f"batch_rank1 {Bn}x{m}", dev, g, Bn, m)
+        check_batch_rank1(f"batch_rank1 {fp} {Bn}x{m}", dev, g, Bn, m, dtype)
     for tag, Bn, m in (("", BATCH_B, BATCH_M), ("reopt_", REOPT_B, REOPT_M)):
-        B = torch.randn(Bn, m, m, generator=g, device=dev)
-        eta = torch.randn(Bn, m, generator=g, device=dev) * 1e-6
-        row = torch.randn(Bn, m, generator=g, device=dev)
+        f = dict(generator=g, device=dev, dtype=dtype)
+        B = torch.randn(Bn, m, m, **f)
+        eta = torch.randn(Bn, m, **f) * 1e-6
+        row = torch.randn(Bn, m, **f)
         take = torch.ones(Bn, dtype=torch.bool, device=dev)
         r = {
             f"{tag}ms": time_ms(lambda: hopper.rank1_update_batched(B, eta, row, take), 20),
             f"{tag}plain_ms": time_ms(lambda: hopper.rank1_update_batched_plain(B, eta, row, take), 5),
             f"{tag}library_ms": time_ms(lambda: B.baddbmm_(eta[:, :, None], row[:, None, :]), 20),
         }
-        bd = bound(8.0 * Bn * m * m + 8.0 * Bn * m + Bn, 2.0 * Bn * m * m)
+        bd = bound(2 * es * Bn * m * m + 2 * es * Bn * m + Bn, 2.0 * Bn * m * m, peak)
         r.update({f"{tag}bound_ms": bd["bound_ms"], f"{tag}bound_by": bd["bound_by"]})
-        recs.setdefault("batch_rank1", {}).update(r)
+        recs.setdefault(rr, {}).update(r)
         del B
         torch.cuda.empty_cache()
-    recs["batch_rank1"]["max_abs_err"] = 0.0
+    recs[rr]["max_abs_err"] = 0.0
     for name, r in recs.items():
         print(f"{name}: " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()))
     return recs
@@ -1385,9 +1441,19 @@ def batch_kernel_device_us(dev) -> dict:
     win_r = (REOPT_N // SEG_S, SEG_S, seg_r)
     small = tuple(batch_tail_inputs(dev, g, BATCH_B, BATCH_M)[k] for k in TAIL_KEYS)
     wide = tuple(batch_tail_inputs(dev, g, REOPT_B, REOPT_M)[k] for k in TAIL_KEYS)
+    f64 = torch.float64
+    y64, A64, c64, basis64 = batch_pricing_inputs(dev, g, BATCH_B, BATCH_M, BATCH_N, dtype=f64)
+    ys64, As64, cs64, basis_s64 = batch_pricing_inputs(dev, g, REOPT_B, REOPT_M, REOPT_N, shared=True, dtype=f64)
+    small64 = tuple(batch_tail_inputs(dev, g, BATCH_B, BATCH_M, 0, f64)[k] for k in TAIL_KEYS)
+    mid64 = tuple(batch_tail_inputs(dev, g, BATCH_B, 128, 0, f64)[k] for k in TAIL_KEYS)
+    wide64 = tuple(batch_tail_inputs(dev, g, BATCH_B, 256, 0, f64)[k] for k in TAIL_KEYS)
+    B64 = torch.randn(BATCH_B, BATCH_M, BATCH_M, generator=g, device=dev, dtype=f64)
+    eta64 = torch.randn(BATCH_B, BATCH_M, generator=g, device=dev, dtype=f64) * 1e-6
+    row64 = torch.randn(BATCH_B, BATCH_M, generator=g, device=dev, dtype=f64)
+    take = torch.ones(BATCH_B, dtype=torch.bool, device=dev)
 
-    def tail(args):
-        return lambda: hopper.pivot_tail_batched(*args, harris=True, **TAIL_OPTS)
+    def tail(args, opts=TAIL_OPTS):
+        return lambda: hopper.pivot_tail_batched(*args, harris=True, **opts)
 
     cases = (
         ("batch_pricing shared 256x2048x4096", "batch_pricing_",
@@ -1406,6 +1472,17 @@ def batch_kernel_device_us(dev) -> dict:
         ("batch_tail 4096x64 warp path", "batch_tail_", tail(small), contextlib.nullcontext),
         ("batch_tail 4096x64 block path", "batch_tail_", tail(small), tail_block_path),
         ("batch_tail 256x2048", "batch_tail_", tail(wide), contextlib.nullcontext),
+        ("batch_pricing f64 4096x64x160", "batch_pricing_",
+         lambda: hopper.choose_entering_batched(y64, A64, c64, 1e-5, no_b, basis64), contextlib.nullcontext),
+        ("batch_pricing shared f64 256x2048x4096", "batch_pricing_",
+         lambda: hopper.choose_entering_batched(ys64, As64, cs64, 1e-5, no_r, basis_s64), contextlib.nullcontext),
+        ("batch_tail f64 4096x64 warp path", "batch_tail_", tail(small64, F64_TAIL_OPTS), contextlib.nullcontext),
+        ("batch_tail f64 4096x128 warp path", "batch_tail_", tail(mid64, F64_TAIL_OPTS), contextlib.nullcontext),
+        ("batch_tail f64 4096x128 block path", "batch_tail_", tail(mid64, F64_TAIL_OPTS), tail_block_path),
+        ("batch_tail f64 4096x256 warp path", "batch_tail_", tail(wide64, F64_TAIL_OPTS), contextlib.nullcontext),
+        ("batch_tail f64 4096x256 block path", "batch_tail_", tail(wide64, F64_TAIL_OPTS), tail_block_path),
+        ("batch_rank1 f64 4096x64", "batch_rank1_kernel",
+         lambda: hopper.rank1_update_batched(B64, eta64, row64, take), contextlib.nullcontext),
     )
     out = {}
     calls = 20
@@ -2831,15 +2908,15 @@ def highs_all(problems) -> list:
         return list(pool.map(solve_scipy, *zip(*problems)))
 
 
-def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True, base=None, refs=None) -> dict:
+def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True, base=None, refs=None, gap=GAP_TOL) -> dict:
     """solve_batched once through its entry point with the counters set to
     0 just before; prints solves/s, statuses, pivots, batch steps, host
     reads (control and branch apart), the extra pricing passes by cause
     and launches a batch step; holds BATCH_SAMPLES instances against the
     port's single solve under the same options (the same slack start, so a
     witness on any input) and, when ``highs``, against HiGHS (``refs``: a
-    dict of HiGHS objectives by instance, filled and reused). ``base``
-    replaces bench.py's options."""
+    dict of HiGHS objectives by instance, filled and reused), each within
+    ``gap``. ``base`` replaces bench.py's options."""
     import numpy as np
     import torch
 
@@ -2884,7 +2961,7 @@ def batch_run(dev, tag, As, bs, cs, extra=None, u=None, highs=True, base=None, r
             worst_h = max(worst_h, relative_gap(float(res.z[i]), refs[i]))
     print(f"solve_batched {tag}: {BATCH_SAMPLES} sampled instances, worst rel gap vs the single solve "
           f"{worst_s:.3e}" + (f", vs HiGHS {worst_h:.3e}" if highs else " (HiGHS not held: see the recipe)"))
-    check(worst_s <= GAP_TOL and worst_h <= GAP_TOL, f"solve_batched {tag}: gaps {worst_s}, {worst_h}")
+    check(worst_s <= gap and worst_h <= gap, f"solve_batched {tag}: gaps {worst_s}, {worst_h}")
     return {"counts": counts, "steps": steps, "seconds": dt, "reads": reads, "branches": branches,
             "pivots": int(res.iters.sum()), "max_pivots": int(res.iters.max())}
 
@@ -3062,7 +3139,7 @@ def phase_batch_rules(dev) -> dict:
         paths[f"solve_batched {rule} B={BATCH_B}"] = c
     del As, bs, cs
     As, bs, cs = seg_instances()
-    refs = {}
+    refs = KEPT.setdefault("seg refs", {})
     for tag, extra in (("fp32", {}), ("bf16 shadow", {"pricing_dtype": "bfloat16"})):
         r = batch_run(dev, f"segmented S={SEG_S} {tag} {SEG_B}x{SEG_M}x{SEG_N}", As, bs, cs,
                       dict(partial_pricing=SEG_S, **extra), base={"polish": False}, refs=refs)
@@ -3429,6 +3506,8 @@ def phase_batch_profile(dev) -> dict:
     As, bs, cs = batch_instances(BATCH_B)
     out = {rule: traced(f"B={BATCH_B} {rule}", As, bs, cs, SimplexOptions(**BATCH_OPTS, pricing=rule))
            for rule in ("dantzig", "devex", "steepest")}
+    out["dantzig f64"] = traced(f"B={BATCH_B} dantzig f64", As, bs, cs,
+                                SimplexOptions(**BATCH_OPTS, dtype=torch.float64))
     del As, bs, cs
     As, bs, cs = seg_instances()
     for tag, extra in (("fp32", {}), ("bf16 shadow", {"pricing_dtype": "bfloat16"})):
@@ -4578,6 +4657,272 @@ def phase_f64_entry_points(dev) -> dict:
     return paths
 
 
+F64_REOPT_B = 2  # bench-reopt's scenarios in float64 (bench.py --mode reopt --batch 2)
+F64_SHARD_RANKS = 4  # gloo ranks on the card: 1-D over two of them, 2-D over 2 x 2
+F64_CLASSIC_LP = (16, 40, 3)  # random_dense_lp(m, n, seed) whose float32 keys broke the 2-D classic test
+
+
+def phase_f64_batched(dev) -> dict:
+    """The batched modes in float64 under the default backend (the three
+    batched kernels' float64 instantiations): bench.py --mode batch's
+    recipe at B = 4,096 (its options) with solves/s, launches and reads a
+    batch step, 16 sampled instances within F64_GAP_TOL of the single
+    float64 solve; the recipe with an exact slack identity also against
+    HiGHS; bench-reopt's cold basis and F64_REOPT_B scenarios through
+    ``reoptimize_batched`` against HiGHS; the segmented cell (SEG_B x
+    SEG_M x SEG_N, partial_pricing = SEG_S) against the single solve and
+    HiGHS. Each eager batch step launches each batched kernel once (the
+    segmented cell one pricing launch more a fallback stage)."""
+    import numpy as np
+    import torch
+
+    from simplex_tpu_torch import SimplexOptions, SolveStatus, reoptimize_batched, solve, solve_batched
+    from simplex_tpu_torch.batch import step as bstep
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.reference import relative_gap
+
+    f64 = {"dtype": torch.float64}
+    paths = {}
+    As, bs, cs = batch_instances(BATCH_B)
+    solve_batched(As, bs, cs, options=SimplexOptions(**BATCH_OPTS, **f64), device=dev)  # first launches
+    r = batch_run(dev, f"f64 bench recipe B={BATCH_B}", As, bs, cs, f64, highs=False, gap=F64_GAP_TOL)
+    c, k = r["counts"], r["steps"]
+    check(c["batch_pricing"] == c["batch_tail"] == c["batch_rank1"] == k, f"f64 batch: launches {c} over {k} steps")
+    check(r["reads"]["control"] <= k + 1, f"f64 batch: {r['reads']} reads over {k} steps")
+    paths[f"f64 solve_batched B={BATCH_B}"] = c
+    As, bs, cs = batch_instances(BATCH_B, exact_slack=True)
+    r = batch_run(dev, f"f64 exact slack B={BATCH_B}", As, bs, cs, f64, gap=F64_GAP_TOL)
+    c, k = r["counts"], r["steps"]
+    check(c["batch_pricing"] == c["batch_tail"] == c["batch_rank1"] == k, f"f64 exact slack: launches {c}")
+    paths[f"f64 solve_batched exact slack B={BATCH_B}"] = c
+    del As, bs, cs
+
+    A, b, c0 = instance(REOPT_M, REOPT_N)
+    opts = SimplexOptions(refactor_every=256, **f64)
+    t0 = time.perf_counter()
+    cold = solve(A, b, c0, options=opts, device=dev)
+    check(cold.status == SolveStatus.OPTIMAL, f"f64 reopt base: {cold.status!r}")
+    print(f"f64 reopt base {REOPT_M}x{REOPT_N}: cold OPTIMAL, {cold.iters} pivots in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(1)
+    bsr = np.asarray(b, np.float64)[None, :] * (1 + 0.05 * rng.uniform(-1, 1, (F64_REOPT_B, REOPT_M)))
+    refs = highs_all([(A, bsr[i], c0) for i in range(F64_REOPT_B)])
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    bstep.reset_host_reads()
+    t0 = time.perf_counter()
+    res = reoptimize_batched(A, bsr, c0, cold, options=opts, device=dev)
+    wall = time.perf_counter() - t0
+    counts, steps = dict(hopper.launches), dict(bstep.steps)
+    check(counts["batch_rank1"] >= steps["dual"] and counts["batch_tail"] == counts["batch_pricing"] == steps["primal"],
+          f"f64 reopt: launches {counts}, steps {steps}")
+    worst = 0.0
+    for i, ref in enumerate(refs):
+        check(SolveStatus(int(res.status[i])) == ref.status, f"f64 reopt scenario {i}: status {res.status[i]}")
+        if ref.z is not None:
+            worst = max(worst, relative_gap(float(res.z[i]), ref.z))
+    check(worst <= F64_GAP_TOL, f"f64 reopt: gap {worst:.3e}")
+    print(f"f64 reoptimize_batched {REOPT_M}x{REOPT_N}, {F64_REOPT_B} scenarios: {wall:.3f} s; statuses "
+          f"{res.status.tolist()}; pivots {res.iters.tolist()}; batch steps {steps}; worst rel gap vs HiGHS "
+          f"{worst:.3e}; feas_err {res.feas_err.tolist()}; launches {counts}")
+    paths["f64 reoptimize_batched"] = counts
+
+    As, bs, cs = seg_instances()
+    refs = KEPT.setdefault("seg refs", {})
+    r = batch_run(dev, f"f64 segmented S={SEG_S} {SEG_B}x{SEG_M}x{SEG_N}", As, bs, cs,
+                  dict(partial_pricing=SEG_S, **f64), base={"polish": False}, refs=refs, gap=F64_GAP_TOL)
+    c, k, br = r["counts"], r["steps"], r["branches"]
+    check(c["batch_pricing"] == k + br["segment"] + br["shadow"] and c["batch_tail"] == c["batch_rank1"] == k,
+          f"f64 segmented: launches {c}, passes {br} over {k} steps")
+    paths["f64 solve_batched segmented"] = c
+    return paths
+
+
+def f64_sharded_rank(rank: int, world: int, port: int, dev_type: str, out) -> None:
+    """One of F64_SHARD_RANKS gloo ranks on the card, in float64: the 2-D
+    classic and Harris (Bland from the first degenerate pivot) solves of
+    F64_CLASSIC_LP on a 2 x 2 mesh, then over ranks 0 and 1 ``solve_sharded``
+    at 2048 x 4096 to OPTIMAL and bench-batch through ``solve_batched(mesh=)``
+    (the others wait at the next barrier)."""
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from simplex_tpu_torch import SimplexOptions, solve_batched
+    from simplex_tpu_torch.dist import sharded, sharded2d
+    from simplex_tpu_torch.dist.mesh import COLS_AXIS, ROWS_AXIS, initialize_multihost, make_mesh
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.generator import random_dense_lp
+
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        mesh2 = make_mesh((ROWS_AXIS, COLS_AXIS), shape=(2, 2), device=dev_type)
+        mesh1 = make_mesh((COLS_AXIS,), devices=[0, 1], device=dev_type)
+        bmesh = make_mesh(("batch",), devices=[0, 1], device=dev_type)
+        dev = torch.device("cuda", torch.cuda.current_device()) if dev_type == "cuda" else torch.device("cpu")
+        rec = {}
+        m, n, seed = F64_CLASSIC_LP
+        A, b, c = random_dense_lp(m, n, seed=seed, dtype=np.float64)
+        for tag, kw in (("classic", {"ratio": "classic"}), ("harris, bland_after=1", {"bland_after": 1})):
+            hopper.reset_launches()
+            sharded.reset_collectives()
+            res = sharded2d.solve_sharded_2d(A, b, c, mesh2, options=SimplexOptions(dtype=torch.float64, **kw),
+                                             device=dev)
+            rec[tag] = dict(res=res, counts=dict(hopper.launches), collectives=dict(sharded.collectives))
+        if mesh1.get_coordinate() is not None:
+            A, b, c = instance(SMALL_M, SMALL_N)
+            hopper.reset_launches()
+            sharded.reset_collectives()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sharded.solve_sharded(A, b, c, mesh1, options=SimplexOptions(dtype=torch.float64), device=dev)
+            torch.cuda.synchronize()
+            rec["1-D"] = dict(res=res, wall=time.perf_counter() - t0, counts=dict(hopper.launches),
+                              collectives=dict(sharded.collectives))
+            As, bs, cs = batch_instances(BATCH_B)
+            hopper.reset_launches()
+            t0 = time.perf_counter()
+            res = solve_batched(As, bs, cs, options=SimplexOptions(**BATCH_OPTS, dtype=torch.float64), mesh=bmesh,
+                                device=dev)
+            rec["batch"] = dict(res=res, wall=time.perf_counter() - t0, counts=dict(hopper.launches))
+        dist.barrier()
+        out.put((rank, "ok", rec))
+    except Exception:
+        out.put((rank, "err", traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_f64_sharded(dev) -> dict:
+    """The sharded modes in float64 under the default backend, their MIN
+    keys in float64: at world size 1 over NCCL the 1-D and the 1 x 1 2-D
+    windows of the bench instance (BENCH_WINDOW pivots) against the single
+    float64 window (the same pivots, basis and z; each kernel once a pivot
+    step; two collectives a 1-D pivot step); then F64_SHARD_RANKS gloo
+    ranks on this card: the 2-D solve on 2 x 2 under the classic ratio
+    test and under Harris with Bland's rule from the first degenerate
+    pivot on F64_CLASSIC_LP (the case whose float32 theta key returned a
+    wrong OPTIMAL) against HiGHS and the single solve (F64_GAP_TOL,
+    feas_err at most F64_GAP_TOL, the same z on every rank); over two of
+    them ``solve_sharded`` at 2048 x 4096 to OPTIMAL against HiGHS and
+    bench-batch's ``solve_batched(mesh=)`` against the call without a
+    mesh."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from simplex_tpu_torch import SimplexOptions, solve, solve_batched
+    from simplex_tpu_torch.dist import sharded, sharded2d
+    from simplex_tpu_torch.dist.card_check import count_calls
+    from simplex_tpu_torch.dist.mesh import COLS_AXIS, ROWS_AXIS, free_port, make_mesh
+    from simplex_tpu_torch.kernels import hopper
+    from simplex_tpu_torch.oracle.generator import random_dense_lp
+    from simplex_tpu_torch.oracle.reference import relative_gap, solve_scipy
+
+    if "f64 window" not in KEPT:
+        phase_f64_bench(dev)
+    single, s_wall, s_reads, s_loop = KEPT["f64 window"]
+    window = f64_options(max_iter=BENCH_WINDOW)
+    paths = {}
+    mesh = make_mesh(device=dev.type)
+    try:
+        run = sharded_run(dev, mesh, *instance(BENCH_M, BENCH_N), window)
+    finally:
+        dist.destroy_process_group()
+    check_sharded_window("f64 sharded window, world 1 (nccl)", run, single, s_reads)
+    print(f"f64 solve_sharded world 1 (nccl), {BENCH_M}x{BENCH_N} window: {run['res'].iters} pivots in "
+          f"{run['wall']:.3f} s ({run['res'].iters / run['wall']:.1f} pivots/s; the single float64 solve "
+          f"{single.iters / s_wall:.1f}); same basis and z {run['res'].z!r}; collectives {dict(run['collectives'])}")
+    paths["f64 sharded window, world 1"] = run["counts"]
+    mesh = make_mesh((ROWS_AXIS, COLS_AXIS), shape=(1, 1), device=dev.type)
+    A, b, c = instance(BENCH_M, BENCH_N)
+    hopper.reset_launches()
+    sharded.reset_collectives()
+    try:
+        with count_calls(sharded2d, "_step") as steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sharded2d.solve_sharded_2d(A, b, c, mesh, options=window, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    counts, k = dict(hopper.launches), steps[0]
+    check(res.iters == single.iters == BENCH_WINDOW and bool((res.basis == single.basis).all()) and res.z == single.z,
+          f"f64 2-D window: {res.iters} pivots, z {res.z!r} vs the single window's {single.z!r}")
+    for name in ("pricing_scan", "rank1_update"):
+        check(counts[name] == k, f"f64 2-D window: {name} {counts[name]} launches in {k} pivot steps")
+    print(f"f64 solve_sharded_2d 1x1 (nccl), {BENCH_M}x{BENCH_N} window: {res.iters} pivots in {wall:.3f} s "
+          f"({res.iters / wall:.1f} pivots/s); the same basis and z as the single float64 window; launches "
+          f"{counts} in {k} steps; collectives { {n: v for n, v in sharded.collectives.items() if v} }")
+    paths["f64 2-D window, 1x1 (nccl)"] = counts
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=f64_sharded_rank, args=(r, F64_SHARD_RANKS, port, dev.type, out))
+             for r in range(F64_SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    recs, errors = {}, []
+    try:
+        for _ in procs:
+            rank, kind, val = out.get(timeout=600)
+            if kind == "ok":
+                recs[rank] = val
+            else:
+                errors.append(f"rank {rank}:\n{val}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+    check(not errors, "f64 sharded ranks failed:\n" + "\n".join(errors))
+    m, n, seed = F64_CLASSIC_LP
+    A, b, c = random_dense_lp(m, n, seed=seed, dtype=np.float64)
+    ref = solve_scipy(A, b, c)
+    one = solve(A, b, c, options=f64_options(ratio="classic"), device=dev)
+    for tag in ("classic", "harris, bland_after=1"):
+        res = recs[0][tag]["res"]
+        for r in range(1, F64_SHARD_RANKS):
+            other = recs[r][tag]["res"]
+            check(other.z == res.z and (other.basis == res.basis).all(), f"f64 2-D {tag}: ranks disagree")
+        gap, gap1 = relative_gap(res.z, ref.z), relative_gap(res.z, one.z)
+        check(res.status.name == "OPTIMAL" and gap <= F64_GAP_TOL and gap1 <= F64_GAP_TOL
+              and res.feas_err <= F64_GAP_TOL,
+              f"f64 2-D {tag}: {res.status!r} z {res.z!r} HiGHS {ref.z!r} single {one.z!r} feas_err {res.feas_err}")
+        print(f"f64 solve_sharded_2d 2x2 (gloo) {tag}, random_dense_lp{F64_CLASSIC_LP}: OPTIMAL z {res.z!r} "
+              f"(HiGHS {ref.z!r}, single {one.z!r}) feas_err {res.feas_err:.3e} pivots {res.iters}; every rank "
+              f"the same; collectives {recs[0][tag]['collectives']}")
+        for r in range(F64_SHARD_RANKS):
+            paths[f"f64 2-D {tag}, rank {r}"] = recs[r][tag]["counts"]
+    ref = highs(SMALL_M, SMALL_N)
+    runs = [recs[r]["1-D"] for r in range(2)]
+    res = runs[0]["res"]
+    check(runs[1]["res"].z == res.z and (runs[1]["res"].basis == res.basis).all(), "f64 1-D: ranks disagree")
+    gap = relative_gap(res.z, ref.z)
+    check(res.status.name == "OPTIMAL" and gap <= F64_GAP_TOL, f"f64 1-D: {res.status!r} rel gap {gap:.3e}")
+    col = runs[0]["collectives"]
+    print(f"f64 solve_sharded over 2 ranks (gloo, one card), {SMALL_M}x{SMALL_N}: OPTIMAL z {res.z!r} HiGHS "
+          f"{ref.z!r} rel_gap {gap:.3e} feas_err {res.feas_err:.3e} pivots {res.iters} in {runs[0]['wall']:.2f} s; "
+          f"collectives {col}; launches {runs[0]['counts']}")
+    As, bs, cs = batch_instances(BATCH_B)
+    base = solve_batched(As, bs, cs, options=SimplexOptions(**BATCH_OPTS, dtype=torch.float64), device=dev)
+    for r in range(2):
+        paths[f"f64 sharded 1-D {SMALL_M}x{SMALL_N}, rank {r}"] = runs[r]["counts"]
+        bt = recs[r]["batch"]
+        check((bt["res"].status == base.status).all() and np.allclose(bt["res"].z, base.z, rtol=F64_GAP_TOL, atol=0),
+              f"f64 sharded batch rank {r}: statuses differ, or z beyond {F64_GAP_TOL} of the call without a mesh")
+        paths[f"f64 solve_batched over 2 ranks, rank {r}"] = bt["counts"]
+    print(f"f64 solve_batched over 2 ranks (gloo, one card), B={BATCH_B}: {recs[0]['batch']['wall']:.3f} s; "
+          f"statuses equal and z within {F64_GAP_TOL} of the call without a mesh; launches rank 0 "
+          f"{recs[0]['batch']['counts']}")
+    return paths
+
+
 def phase_f64_bench_ops(dev) -> dict:
     """The per-op bench in float64 on the hopper backend: the path that
     runs ``ratio_argmin`` in float64."""
@@ -4626,6 +4971,8 @@ def f64_kernel_phases(dev) -> dict:
     recs["ratio_eta_f64"], recs["ratio_argmin_f64"] = phase_f64_ratio(dev)
     recs["rank1_update_f64"] = phase_f64_rank1(dev)
     torch.cuda.empty_cache()
+    recs.update(phase_batch_kernels(dev, torch.float64))
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -4657,6 +5004,15 @@ def add_call_device_us(recs: dict, us: dict) -> None:
     recs["batch_tail"]["device_us"] = us["batch_tail 4096x64 warp path"]
     recs["batch_tail"]["block_path_device_us"] = us["batch_tail 4096x64 block path"]
     recs["batch_tail"]["cleanup_device_us"] = us["batch_tail 256x2048"]
+    if "batch_pricing_f64" in recs:
+        recs["batch_pricing_f64"]["device_us"] = us["batch_pricing f64 4096x64x160"]
+        recs["batch_pricing_f64"]["reopt_device_us"] = us["batch_pricing shared f64 256x2048x4096"]
+        recs["batch_tail_f64"]["device_us"] = us["batch_tail f64 4096x64 warp path"]
+        recs["batch_tail_f64"]["m128_warp_device_us"] = us["batch_tail f64 4096x128 warp path"]
+        recs["batch_tail_f64"]["m128_block_device_us"] = us["batch_tail f64 4096x128 block path"]
+        recs["batch_tail_f64"]["m256_warp_device_us"] = us["batch_tail f64 4096x256 warp path"]
+        recs["batch_tail_f64"]["m256_block_device_us"] = us["batch_tail f64 4096x256 block path"]
+        recs["batch_rank1_f64"]["device_us"] = us["batch_rank1 f64 4096x64"]
 
 
 def timed(fn):
@@ -4723,7 +5079,8 @@ def main(argv=None) -> int:
     if args.only == "f64":
         recs = f64_kernel_phases(dev)
         paths = {}
-        for phase in (phase_f64_solve, phase_f64_bench, phase_f64_entry_points):
+        for phase in (phase_f64_solve, phase_f64_bench, phase_f64_entry_points, phase_f64_batched,
+                      phase_f64_sharded):
             paths.update(phase(dev))
             torch.cuda.empty_cache()
         paths["f64 per-op bench (hopper)"] = phase_f64_bench_ops(dev)
@@ -4809,6 +5166,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths.update(phase_sharded_2d(dev))
     torch.cuda.empty_cache()
+    for phase in (phase_f64_batched, phase_f64_sharded):
+        paths.update(phase(dev))
+        torch.cuda.empty_cache()
     # last: a profiler run leaves every later launch of the process dearer
     phase_device_ops(dev)
     add_f64_profile(recs, f64_device_ops(dev), phase_ratio_device_time(dev, torch.float64))
@@ -4817,6 +5177,8 @@ def main(argv=None) -> int:
     bprof = phase_batch_profile(dev)
     for name, us in bprof["kernel_device_us"].items():
         recs[name]["device_us_per_batch_step"] = us
+    for name, us in bprof["rules"]["dantzig f64"]["kernel_device_us"].items():
+        recs[f"{name}_f64"]["device_us_per_batch_step"] = us
     add_call_device_us(recs, bprof["kernel_calls_device_us"])
     phase_warm_and_pdhg_profile(dev)
     recs["ratio_argmin"]["device_us"] = ratio_us["ratio_argmin"]

@@ -10,8 +10,9 @@ batched dual step is :func:`simplex_tpu_torch.core.dual.dual_select` and
             smallest basis index); a scenario whose violations are within
             feas_tol (1 + |x_b|_inf) is primal feasible: its dual loop ends
   btran     the stacked (2B, m) x (m, n) product [y; B_inv[r]] . A: ONE
-            GEMM in full fp32 for a dense A, one SpMM over A^T for a sparse
-            one: the reduced costs and the pivot rows of every scenario
+            GEMM in the working dtype (fp32 without TF32, or fp64) for a
+            dense A, one SpMM over A^T for a sparse one: the reduced costs
+            and the pivot rows of every scenario
   ratio     Harris over the eligible nonbasic columns, or on a bounded
             problem under ``dual_flip`` the long step (a stable argsort per
             scenario); INFEASIBLE where no column is eligible

@@ -16,7 +16,8 @@ One primal batch step, the Dantzig rule:
 
   pricing   e = y.A - c with the basic columns masked, per instance:
             ``choose_entering_batched`` (the batched pricing kernel on the
-            hopper backend, for a per-instance A, fp32 or its bf16 shadow,
+            hopper backend, for a per-instance A, in the working dtype
+            (fp32 or fp64) or its bf16 shadow,
             and for the shared dense A of the warm re-solve; a shared
             sparse A is one SpMM and the masked choice). The shadow's
             winners are rechecked exactly; when any active instance's

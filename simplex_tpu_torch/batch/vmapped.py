@@ -23,8 +23,10 @@ solves its ``tensor_split`` slice of the instances (or scenarios) on its
 own device, and the per-instance results are all-gathered, so every rank
 returns the whole batch's result.
 
-Neither runs the f64 polish: z comes from the fp32 solve, and
-``reoptimize_batched`` reports each scenario's feas_err = max(-min x_b, 0).
+Both run in float32 or float64 (``options.dtype``), through the same three
+kernels. Neither runs the f64 polish: z comes from the solve in its
+working dtype, and ``reoptimize_batched`` reports each scenario's feas_err
+= max(-min x_b, 0).
 Use the single :func:`~simplex_tpu_torch.solve` for audited final numbers.
 """
 
@@ -41,7 +43,6 @@ from simplex_tpu_torch.batch import step as _bs
 from simplex_tpu_torch.config import (
     DEFAULT_OPTIONS,
     SimplexOptions,
-    check_kernel_dtype,
     check_supported,
     pin_full_fp32,
 )
@@ -58,7 +59,7 @@ class BatchSolveResult(NamedTuple):
     basis: np.ndarray  # (B, m)
     status: np.ndarray  # (B,) int32
     iters: np.ndarray  # (B,) int32
-    # worst primal lower-bound violation per instance (fp32; no polish):
+    # worst primal lower-bound violation per instance (working dtype; no polish):
     # None from solve_batched, filled by reoptimize_batched
     feas_err: Optional[np.ndarray] = None
 
@@ -161,7 +162,6 @@ def solve_batched(
     With ``mesh``, the instances are split over the ranks of its axis
     ``batch_axis`` (every rank of it calls this with the whole batch and
     returns the whole result)."""
-    check_kernel_dtype(options, "batched", "solve_batched")
     As, bs, cs = (_array(v) for v in (As, bs, cs))
     if mesh is not None:
         return _over_mesh(mesh, batch_axis, len(As), lambda lo, hi: solve_batched(
@@ -221,7 +221,6 @@ def reoptimize_batched(
     does not poison the batch). No f64 polish: ``feas_err`` is each
     scenario's max(-min x_b, 0). With ``mesh``, the scenarios are split
     over the ranks of its axis ``batch_axis``, as in :func:`solve_batched`."""
-    check_kernel_dtype(options, "batched", "reoptimize_batched")
     if mesh is not None:
         bs_new = _array(bs_new)
         return _over_mesh(mesh, batch_axis, len(bs_new), lambda lo, hi: reoptimize_batched(

@@ -376,8 +376,8 @@ def _common(p) -> None:
     )
     p.add_argument(
         "--fp64", action="store_true",
-        help="solve in float64 (through the kernels under the default backend; "
-        "the batched and sharded modes take float32 only there)",
+        help="solve in float64 (through the kernels' float64 instantiations under the "
+        "default backend)",
     )
     p.add_argument("--max-iter", type=int, default=0)
     # None = "not set by the user", so --fast fills only what is unset

@@ -22,11 +22,11 @@ no segments; steepest edge refuses ``multi_price``, devex drops it). Under
 every rule: the eager rank-1 or the deferred rank-L (``update_defer``)
 update of B_inv; the Harris or the classic ratio test. The dual simplex
 (``solve_dual``) takes ``dual_flip``. In float32 or float64 (``dtype``):
-the single-card kernels run in either; the batched kernels and the sharded
-modes' packed keys are float32 only, so those modes refuse float64 under
-the hopper backend (:func:`check_kernel_dtype`). Options that select another
-path raise ``NotImplementedError`` from :func:`check_supported` or there,
-naming the ROADMAP item that ports them; none is silently ignored.
+every kernel runs in either, in every mode (single, batched, sharded 1-D
+and 2-D, the sharded batch), and the sharded modes carry their MIN keys in
+the working dtype. Options that select another path raise
+``NotImplementedError`` from :func:`check_supported`, naming the ROADMAP
+item that ports them; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -171,23 +171,3 @@ def check_supported(opts: SimplexOptions) -> SimplexOptions:
         opts = dataclasses.replace(opts, multi_price=0)
     return opts
 
-
-# the modes that run float32 only under the hopper backend: what is float32
-# there, and the ROADMAP item that brings float64 to it
-_FP32_KERNEL_MODES = {
-    "batched": ("the batched kernels run in float32 only", "20a"),
-    "sharded": ("the sharded modes exchange float32 keys at their MIN", "20b"),
-}
-
-
-def check_kernel_dtype(opts: SimplexOptions, mode: str, what: str) -> None:
-    """Raise ``NotImplementedError`` for float64 under the hopper backend in
-    a ``mode`` ("batched" or "sharded") that runs float32 only there;
-    ``what`` names the entry point. ``backend="torch"`` runs those modes'
-    plain ops in either dtype."""
-    if opts.backend == "hopper" and opts.dtype == torch.float64:
-        reason, item = _FP32_KERNEL_MODES[mode]
-        raise NotImplementedError(
-            f"{what}: {reason} (float64 there is ROADMAP item {item}); solve in "
-            "float32, or pass backend='torch' for the plain ops"
-        )

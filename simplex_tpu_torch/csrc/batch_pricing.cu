@@ -12,7 +12,7 @@
 // A that every instance shares (the warm re-solve's primal clean-up,
 // simplex_tpu/core/dual.py _warm_jit under vmap with A unbatched).
 //
-// Every e is the sum over the rows, in ascending row order, of fmaf(y[r],
+// Every e is the sum over the rows, in ascending row order, of fma(y[r],
 // A[r, j], acc) from 0, then one subtraction of c[j]: every layout below
 // computes it so, so a shared A gives bit for bit the records of the same A
 // expanded per instance, and a window bit for bit those of the call on the
@@ -20,9 +20,20 @@
 // product, in another order: e agrees to rounding, the picks where no two
 // columns tie.
 //
+// Element types. The vectors y, c, the sums, eps and min e are of one type
+// V, float or double; A is of V's own type or the bf16 shadow (each element
+// widened exactly). A dtype code for each picks the instantiation; eps
+// arrives as a double and is rounded to V once. In double the sums are
+// DFMA on the CUDA cores (the same fma chain; the FP64 tensor cores would
+// sum in another order), the basic penalty is the float 1e30 widened (as
+// the plain version builds it), a record holds a double, and every byte
+// count below doubles: the shared-memory stages keep their bytes by holding
+// half the rows (16 rows of A a stage of the shared product and the grouped
+// window, 16 rows of 2 KB a box of the window's tensor map).
+//
 // 1. Per-instance A (B, m, n), fp32 or the bf16 shadow. Bound on the H100:
 // device-memory bandwidth, every A[i] read once: B * m * n * 4 bytes (160
-// MiB at 4096 x 64 x 160; the bf16 shadow half). A 2-D grid, (column
+// MiB at 4096 x 64 x 160; the bf16 shadow half, fp64 twice). A 2-D grid, (column
 // chunks of 256, instances): a block owns one instance's chunk, walks its
 // m rows (neighbouring threads on neighbouring columns, coalesced) and
 // keeps each column's sum in a register. fp32: one column a thread, 256
@@ -37,7 +48,8 @@
 // with the masked choice in its epilogue. Bound: 2 B m n fp32 operations
 // (4.3 GFLOP at 256 x 2048 x 4096, 0.064 ms at 67 TFLOP/s); the tensor
 // cores take fp32 only as TF32, which the numerics contract forbids, so
-// this is an SGEMM on the CUDA cores. CTA tile 64 instances x 128 columns,
+// this is an SGEMM on the CUDA cores (in fp64 a DGEMM there: 4.3 GFLOP of
+// DFMA, 0.13 ms at the card's 34 TFLOP/s of fp64 FMA). CTA tile 64 instances x 128 columns,
 // 256 threads, 4 x 8 sums a thread in registers (a warp: 32 instances x 32
 // columns); the K-loop walks the rows 32 at a time through a 3-stage ring
 // of dynamic shared memory filled by 16-byte cp.async copies whose sources
@@ -123,24 +135,21 @@ constexpr int kCols = 4;         // columns a thread of the bf16 per-instance pa
 constexpr int kRows = 8;         // rows of A a per-instance thread loads at once
 constexpr int kIntMax = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kPenalty = 1e30f;
+constexpr float kPenalty = 1e30f;  // widened to double in fp64, as the plain version's
 
 // the shared layout's tile (hopper.py _BP_TILE_B / _BP_TILE_N mirror them)
 constexpr int kTileB = 64;   // instances a CTA
 constexpr int kTileN = 128;  // columns a CTA
-constexpr int kTileK = 32;   // rows of A a stage (also of the grouped window)
 constexpr int kTileM = 4;    // y rows a thread
 constexpr int kStages = 3;
 constexpr int kProdThreads = kTileB * kTileN / (8 * kTileM);  // 256
 constexpr int kMaskChunk = 4096;  // mask words a block holds at a time
 
 // the window's bulk-copy scan (hopper.py _BP_TMA_* mirror it): columns a
-// chunk, rows a stage (fp32, bf16), stages; an instance's chunks up to
-// kTmaClusterMax run as one thread block cluster and merge their records
-// through distributed shared memory (no reduction launch)
+// chunk, stages; an instance's chunks up to kTmaClusterMax run as one
+// thread block cluster and merge their records through distributed shared
+// memory (no reduction launch)
 constexpr int kTmaChunk = 256;
-constexpr int kTmaRowsF32 = 32;
-constexpr int kTmaRowsBf16 = 64;
 constexpr int kTmaStages = 4;
 constexpr int kTmaClusterMax = 8;
 // the grouped window (hopper.py _BP_GROUP_* mirror it): at most this many
@@ -151,14 +160,28 @@ constexpr int kGroupWarps = 2;
 constexpr int kGroupTM = 2;
 constexpr int kGroupB = 4 * kGroupTM * kGroupWarps, kGroupN = 32;
 constexpr int kGroupThreads = 32 * kGroupWarps;
-constexpr int kGroupK = 32;
 constexpr int kGroupStages = 4;
 
+// rows of A a stage of the shared product and of the grouped window: 128
+// bytes of y a row of a stage (32 floats, 16 doubles)
+template <typename V>
+__host__ __device__ constexpr int tile_k() { return 128 / (int)sizeof(V); }
+// rows of a box of the window's tensor map: 1 KB a row in fp32, 512 B in
+// bf16, 2 KB in fp64, so a stage is 32 KB in each
+template <typename T>
+__host__ __device__ constexpr int tma_rows() { return 128 / (int)sizeof(T); }
+
+template <typename V>
 struct Rec {
-  float v;  // the minimum
+  V v;      // the minimum
   int i;    // its lowest index
   int neg;  // the lowest index with e < -eps, kIntMax when none
 };
+
+template <typename V>
+__device__ __forceinline__ Rec<V> rec_none() {
+  return Rec<V>{V(INFINITY), kIntMax, kIntMax};
+}
 
 // an instance tile of the grouped window: instances perm[start, start +
 // count), all in window s (count 0: a surplus tile)
@@ -166,64 +189,85 @@ struct Group {
   int s, start, count;
 };
 
+// one rounding an op, in float or in double
+__device__ __forceinline__ float fma_v(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_v(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float sub_v(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_v(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float add_v(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_v(double a, double b) { return __dadd_rn(a, b); }
+
 // a before b: NaN first (torch.min / argmin), then smaller, then lower index
-__device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
+template <typename V>
+__device__ __forceinline__ bool before(V a, int ia, V b, int ib) {
   const bool na = isnan(a), nb = isnan(b);
   if (na != nb) return na;
   if (!na && a != b) return a < b;
   return ia < ib;
 }
 
-__device__ __forceinline__ Rec merge(Rec a, const Rec& b) {
+template <typename V>
+__device__ __forceinline__ Rec<V> merge(Rec<V> a, const Rec<V>& b) {
   if (before(b.v, b.i, a.v, a.i)) { a.v = b.v; a.i = b.i; }
   a.neg = min(a.neg, b.neg);
   return a;
 }
 
-__device__ __forceinline__ Rec shfl_down(const Rec& r, int off) {
-  return Rec{__shfl_down_sync(kFull, r.v, off), __shfl_down_sync(kFull, r.i, off),
-             __shfl_down_sync(kFull, r.neg, off)};
+template <typename V>
+__device__ __forceinline__ Rec<V> shfl_down(const Rec<V>& r, int off) {
+  return Rec<V>{__shfl_down_sync(kFull, r.v, off), __shfl_down_sync(kFull, r.i, off),
+                __shfl_down_sync(kFull, r.neg, off)};
 }
 
-__device__ __forceinline__ Rec warp_merge(Rec r) {
+template <typename V>
+__device__ __forceinline__ Rec<V> shfl_xor(const Rec<V>& r, int off) {
+  return Rec<V>{__shfl_xor_sync(kFull, r.v, off), __shfl_xor_sync(kFull, r.i, off),
+                __shfl_xor_sync(kFull, r.neg, off)};
+}
+
+template <typename V>
+__device__ __forceinline__ Rec<V> warp_merge(Rec<V> r) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) r = merge(r, shfl_down(r, off));
   return r;
 }
 
 // thread 0 gets the block's record
-__device__ Rec block_merge(Rec r, Rec* red) {
+template <typename V>
+__device__ Rec<V> block_merge(Rec<V> r, Rec<V>* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   r = warp_merge(r);
   if (lane == 0) red[warp] = r;
   __syncthreads();
   if (warp == 0) {
-    r = lane < (int)(blockDim.x >> 5) ? red[lane] : Rec{INFINITY, kIntMax, kIntMax};
+    r = lane < (int)(blockDim.x >> 5) ? red[lane] : rec_none<V>();
     r = warp_merge(r);
   }
   return r;
 }
 
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ double load(const double* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
 // e of column j from its sum: - c, signed, the basic penalty; its record
-__device__ __forceinline__ Rec column_rec(float acc, float c, bool upper, bool basic, int j,
-                                          float eps) {
-  float e = __fsub_rn(acc, c);
+template <typename V>
+__device__ __forceinline__ Rec<V> column_rec(V acc, V c, bool upper, bool basic, int j, V eps) {
+  V e = sub_v(acc, c);
   if (upper) e = -e;
-  if (basic) e = __fadd_rn(e, kPenalty);
-  return Rec{e, j, e < -eps ? j : kIntMax};
+  if (basic) e = add_v(e, V(kPenalty));
+  return Rec<V>{e, j, e < -eps ? j : kIntMax};
 }
 
 // lo: the instance's first column (under Bland's rule with no eligible
 // column the pick is lo, the unwindowed call's 0 on the slice)
-__device__ __forceinline__ void choose(const Rec& r, bool bland, int* p_out,
-                                       float* min_out, int i, int lo) {
+template <typename V>
+__device__ __forceinline__ void choose(const Rec<V>& r, bool bland, int* p_out, void* min_out,
+                                       int i, int lo) {
   p_out[i] = bland ? (r.neg == kIntMax ? lo : r.neg) : r.i;
-  min_out[i] = r.v;
+  static_cast<V*>(min_out)[i] = r.v;
 }
 
 // the basic columns of [lo, lo + C) of one instance, in shared memory
@@ -238,35 +282,23 @@ __device__ __forceinline__ void mark_chunk(unsigned char* basic, const int* bi, 
   __syncthreads();
 }
 
-// the block's record: the instance's choice, or its chunk's record
-__device__ __forceinline__ void finish_chunk(Rec rec, Rec* red, const unsigned char* use_bland,
-                                             int inst, int chunks, Rec* recs, int* p_out,
-                                             float* min_out, int lo) {
-  rec = block_merge(rec, red);
-  if (threadIdx.x == 0) {
-    if (chunks == 1)
-      choose(rec, use_bland[inst] != 0, p_out, min_out, inst, lo);
-    else
-      recs[(size_t)inst * chunks + blockIdx.x] = rec;
-  }
-}
-
 struct Args {
-  const float* y;                  // (B, m)
-  const void* A;                   // (B, m, n), or (m, n) shared
-  const float* c;                  // (B, n), or (n,) at c_stride 0
+  const void* y;                   // (B, m) V
+  const void* A;                   // (B, m, n), or (m, n) shared: V or bf16
+  const void* c;                   // (B, n) V, or (n,) at c_stride 0
   const unsigned char* at_upper;   // (B, n) or null
   const int* basis;                // (B, m)
   const unsigned char* use_bland;  // (B,)
   int batch, m, n;
   size_t c_stride;
-  float eps;
+  float eps_f;                     // eps rounded to float, and as the double it came as
+  double eps_d;
   int chunks;                      // records an instance (1: no reduce launch)
   unsigned* mask;                  // (B, words): the shared layouts' basic columns
   int words;
-  Rec* recs;
+  void* recs;                      // (B, chunks) Rec<V>
   int* p_out;
-  float* min_out;
+  void* min_out;                   // (B,) V
   // the window (WIN kernels only): width, segments, the (B,) segment
   // counters, and the elements between two instances' A (0: shared)
   int win, win_s;
@@ -279,6 +311,28 @@ struct Args {
   Group* groups;
   int group_tiles;
 };
+
+template <typename V>
+__device__ __forceinline__ const V* y_of(const Args& P) { return static_cast<const V*>(P.y); }
+template <typename V>
+__device__ __forceinline__ const V* c_of(const Args& P) { return static_cast<const V*>(P.c); }
+template <typename V>
+__device__ __forceinline__ Rec<V>* recs_of(const Args& P) { return static_cast<Rec<V>*>(P.recs); }
+__device__ __forceinline__ float eps_of(const Args& P, float) { return P.eps_f; }
+__device__ __forceinline__ double eps_of(const Args& P, double) { return P.eps_d; }
+
+// the block's record: the instance's choice, or its chunk's record
+template <typename V>
+__device__ __forceinline__ void finish_chunk(Rec<V> rec, Rec<V>* red, const Args& P, int inst,
+                                             int lo) {
+  rec = block_merge(rec, red);
+  if (threadIdx.x == 0) {
+    if (P.chunks == 1)
+      choose(rec, P.use_bland[inst] != 0, P.p_out, P.min_out, inst, lo);
+    else
+      recs_of<V>(P)[(size_t)inst * P.chunks + blockIdx.x] = rec;
+  }
+}
 
 // instance inst's window, seg mod S with a non-negative mod
 __device__ __forceinline__ int window_of(const Args& P, int inst) {
@@ -294,10 +348,11 @@ __device__ __forceinline__ int window_lo(const Args& P, int inst) {
 
 // ---------------------------------------------------------------- per instance
 
-template <typename T, bool WIN>
+// T: A's element (float, double, __nv_bfloat16); V: the vectors'
+template <typename T, typename V, bool WIN>
 __global__ void __launch_bounds__(kThreads) batch_pricing_scan_kernel(const Args P) {
   __shared__ unsigned char basic[kChunk];
-  __shared__ Rec red[32];
+  __shared__ Rec<V> red[32];
   const int inst = blockIdx.y;
   const int base = WIN ? window_lo(P, inst) : 0;
   const int lo = base + blockIdx.x * kChunk;
@@ -306,40 +361,40 @@ __global__ void __launch_bounds__(kThreads) batch_pricing_scan_kernel(const Args
   const int end = WIN ? base + P.win : n;
   mark_chunk(basic, P.basis + (size_t)inst * m, m, lo);
 
-  Rec rec{INFINITY, kIntMax, kIntMax};
+  Rec<V> rec = rec_none<V>();
   if (j < end) {
-    const float* yi = P.y + (size_t)inst * m;
+    const V* yi = y_of<V>(P) + (size_t)inst * m;
     const T* col = static_cast<const T*>(P.A) +
                    (WIN ? (size_t)inst * P.a_stride : (size_t)inst * m * n) + j;
-    float acc = 0.f;
+    V acc = V(0);
     int r = 0;
     for (; r + kRows <= m; r += kRows) {
       // every load of the group first: a warp keeps kRows rows in flight
-      float a[kRows], yr[kRows];
+      V a[kRows], yr[kRows];
 #pragma unroll
       for (int u = 0; u < kRows; ++u) {
         a[u] = load(col + (size_t)(r + u) * n);
         yr[u] = __ldg(yi + r + u);
       }
 #pragma unroll
-      for (int u = 0; u < kRows; ++u) acc = fmaf(yr[u], a[u], acc);
+      for (int u = 0; u < kRows; ++u) acc = fma_v(yr[u], a[u], acc);
     }
-    for (; r < m; ++r) acc = fmaf(__ldg(yi + r), load(col + (size_t)r * n), acc);
+    for (; r < m; ++r) acc = fma_v(__ldg(yi + r), (V)load(col + (size_t)r * n), acc);
     const size_t cn = (size_t)inst * n + j;
-    rec = column_rec(acc, P.c[(size_t)inst * P.c_stride + j],
-                     P.at_upper != nullptr && P.at_upper[cn], basic[threadIdx.x], j, P.eps);
+    rec = column_rec<V>(acc, c_of<V>(P)[(size_t)inst * P.c_stride + j],
+                        P.at_upper != nullptr && P.at_upper[cn], basic[threadIdx.x], j, eps_of(P, V()));
   }
-  finish_chunk(rec, red, P.use_bland, inst, P.chunks, P.recs, P.p_out, P.min_out, base);
+  finish_chunk(rec, red, P, inst, base);
 }
 
 // the bf16 shadow at n % 4 == 0: four adjacent columns a thread from one
 // 8-byte load a row, eight rows in flight (a bf16 is the top half of its
-// fp32 value, so the shifts convert exactly). Windowed: w % 4 == 0, so
+// fp32 value, so the shifts widen it exactly). Windowed: w % 4 == 0, so
 // every window starts on a 4-column boundary.
-template <bool WIN>
+template <typename V, bool WIN>
 __global__ void __launch_bounds__(kChunk / kCols) batch_pricing_bf16x4_kernel(const Args P) {
   __shared__ unsigned char basic[kChunk];
-  __shared__ Rec red[32];
+  __shared__ Rec<V> red[32];
   const int inst = blockIdx.y;
   const int base = WIN ? window_lo(P, inst) : 0;
   const int lo = base + blockIdx.x * kChunk;
@@ -349,19 +404,19 @@ __global__ void __launch_bounds__(kChunk / kCols) batch_pricing_bf16x4_kernel(co
   const int end = WIN ? base + P.win : n;
   mark_chunk(basic, P.basis + (size_t)inst * m, m, lo);
 
-  Rec rec{INFINITY, kIntMax, kIntMax};
+  Rec<V> rec = rec_none<V>();
   if (j < end) {  // n % 4 == 0 (and w % 4 == 0): the four columns are all in
-    const float* yi = P.y + (size_t)inst * m;
+    const V* yi = y_of<V>(P) + (size_t)inst * m;
     const size_t step = (size_t)(n / kCols);  // 8-byte words a row
     const uint2* col = static_cast<const uint2*>(P.A) +
                        (WIN ? (size_t)inst * (P.a_stride / kCols) : (size_t)inst * m * step) +
                        j / kCols;
-    float acc[kCols] = {0.f, 0.f, 0.f, 0.f};
-    auto fma4 = [&](float yr, uint2 v) {
-      acc[0] = fmaf(yr, __uint_as_float(v.x << 16), acc[0]);
-      acc[1] = fmaf(yr, __uint_as_float(v.x & 0xffff0000u), acc[1]);
-      acc[2] = fmaf(yr, __uint_as_float(v.y << 16), acc[2]);
-      acc[3] = fmaf(yr, __uint_as_float(v.y & 0xffff0000u), acc[3]);
+    V acc[kCols] = {V(0), V(0), V(0), V(0)};
+    auto fma4 = [&](V yr, uint2 v) {
+      acc[0] = fma_v(yr, (V)__uint_as_float(v.x << 16), acc[0]);
+      acc[1] = fma_v(yr, (V)__uint_as_float(v.x & 0xffff0000u), acc[1]);
+      acc[2] = fma_v(yr, (V)__uint_as_float(v.y << 16), acc[2]);
+      acc[3] = fma_v(yr, (V)__uint_as_float(v.y & 0xffff0000u), acc[3]);
     };
     int r = 0;
     for (; r + kRows <= m; r += kRows) {
@@ -372,15 +427,15 @@ __global__ void __launch_bounds__(kChunk / kCols) batch_pricing_bf16x4_kernel(co
       for (int u = 0; u < kRows; ++u) fma4(__ldg(yi + r + u), v[u]);
     }
     for (; r < m; ++r) fma4(__ldg(yi + r), __ldg(col + (size_t)r * step));
-    const float* ci = P.c + (size_t)inst * P.c_stride;
+    const V* ci = c_of<V>(P) + (size_t)inst * P.c_stride;
     const size_t cn = (size_t)inst * n + j;
     const bool up = P.at_upper != nullptr;
 #pragma unroll
     for (int q = 0; q < kCols; ++q)
-      rec = merge(rec, column_rec(acc[q], ci[j + q], up && P.at_upper[cn + q], basic[tc + q],
-                                  j + q, P.eps));
+      rec = merge(rec, column_rec<V>(acc[q], ci[j + q], up && P.at_upper[cn + q], basic[tc + q],
+                                     j + q, eps_of(P, V())));
   }
-  finish_chunk(rec, red, P.use_bland, inst, P.chunks, P.recs, P.p_out, P.min_out, base);
+  finish_chunk(rec, red, P, inst, base);
 }
 
 // ---------------------------------------------------------------- async copies
@@ -455,24 +510,44 @@ __device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// four consecutive V of shared memory, 16-byte aligned
+__device__ __forceinline__ void load4v(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load4v(const double* p, double (&v)[4]) {
+  const double2 lo = reinterpret_cast<const double2*>(p)[0];
+  const double2 hi = reinterpret_cast<const double2*>(p)[1];
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+// four adjacent columns of one row of a stage, as V
+__device__ __forceinline__ void load_a4(const float* row, int c0, float (&a)[4]) { load4v(row + c0, a); }
+__device__ __forceinline__ void load_a4(const double* row, int c0, double (&a)[4]) { load4v(row + c0, a); }
+template <typename V>
+__device__ __forceinline__ void load_a4(const uint16_t* row, int c0, V (&a)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(&row[c0]);
+  a[0] = (V)__uint_as_float(v.x << 16); a[1] = (V)__uint_as_float(v.x & 0xffff0000u);
+  a[2] = (V)__uint_as_float(v.y << 16); a[3] = (V)__uint_as_float(v.y & 0xffff0000u);
+}
+
 // ---------------------------------------------------------------- window, bulk copies
 
 // one stage of the ring: R rows of the chunk's C columns, then their y
-// (padded to 128 bytes: the next stage's box lands 128-byte aligned)
-template <typename T, int C, int R>
+// (padded to 32 values: the next stage's box lands 128-byte aligned)
+template <typename T, typename V, int C, int R>
 struct WinStage {
   T a[R][C];
-  float y[(R + 31) / 32 * 32];
+  V y[(R + 31) / 32 * 32];
 };
 
-// T: float, or uint16_t for the bf16 shadow (four columns a thread)
-template <typename T>
+// T: float, double, or uint16_t for the bf16 shadow (four columns a thread)
+template <typename T, typename V>
 struct WinTma {
-  static constexpr int kCpt = sizeof(T) == 4 ? 1 : kCols;  // columns a consumer thread
-  static constexpr int kR = sizeof(T) == 4 ? kTmaRowsF32 : kTmaRowsBf16;
+  static constexpr int kCpt = sizeof(T) == 2 ? kCols : 1;  // columns a consumer thread
+  static constexpr int kR = tma_rows<T>();
   static constexpr int kConsumers = kTmaChunk / kCpt;
   static constexpr int kThreads = kConsumers + 32;  // and the producer warp
-  using Stage = WinStage<T, kTmaChunk, kR>;
+  using Stage = WinStage<T, V, kTmaChunk, kR>;
   static constexpr size_t kSmem = kTmaStages * (sizeof(Stage) + 2 * sizeof(uint64_t));
   static_assert(sizeof(Stage) % 128 == 0, "stages stay 128-byte aligned");
 };
@@ -480,23 +555,24 @@ struct WinTma {
 __device__ __forceinline__ void fma_row(float (&acc)[1], float yr, const float* row, int tc) {
   acc[0] = fmaf(yr, row[tc], acc[0]);
 }
-// four bf16 columns (a bf16 is the top half of its fp32 value, so the
-// shifts convert exactly)
-__device__ __forceinline__ void fma_row(float (&acc)[kCols], float yr, const uint16_t* row,
-                                        int tc) {
-  const uint2 v = *reinterpret_cast<const uint2*>(row + tc);
-  acc[0] = fmaf(yr, __uint_as_float(v.x << 16), acc[0]);
-  acc[1] = fmaf(yr, __uint_as_float(v.x & 0xffff0000u), acc[1]);
-  acc[2] = fmaf(yr, __uint_as_float(v.y << 16), acc[2]);
-  acc[3] = fmaf(yr, __uint_as_float(v.y & 0xffff0000u), acc[3]);
+__device__ __forceinline__ void fma_row(double (&acc)[1], double yr, const double* row, int tc) {
+  acc[0] = fma(yr, row[tc], acc[0]);
+}
+// four bf16 columns
+template <typename V>
+__device__ __forceinline__ void fma_row(V (&acc)[kCols], V yr, const uint16_t* row, int tc) {
+  V a[4];
+  load_a4(row, tc, a);
+#pragma unroll
+  for (int q = 0; q < kCols; ++q) acc[q] = fma_v(yr, a[q], acc[q]);
 }
 
 // grid (chunks, B); the last warp copies (a box of the tensor map and the
 // rows' y a stage), the others sum
-template <typename T, bool CLUSTER>
-__global__ void __launch_bounds__(WinTma<T>::kThreads) batch_pricing_window_tma_kernel(
+template <typename T, typename V, bool CLUSTER>
+__global__ void __launch_bounds__(WinTma<T, V>::kThreads) batch_pricing_window_tma_kernel(
     const Args P, const __grid_constant__ CUtensorMap map) {
-  using W = WinTma<T>;
+  using W = WinTma<T, V>;
   using Stage = typename W::Stage;
   constexpr int R = W::kR, ST = kTmaStages, CPT = W::kCpt;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -504,7 +580,7 @@ __global__ void __launch_bounds__(WinTma<T>::kThreads) batch_pricing_window_tma_
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * sizeof(Stage));
   uint64_t* empty = full + ST;
   __shared__ unsigned char basic[kTmaChunk];
-  __shared__ Rec red[32];
+  __shared__ Rec<V> red[32];
   const int inst = blockIdx.y;
   const int base = window_lo(P, inst);
   const int lo = base + blockIdx.x * kTmaChunk;
@@ -521,16 +597,16 @@ __global__ void __launch_bounds__(WinTma<T>::kThreads) batch_pricing_window_tma_
     mbar_init_fence();
   }
   __syncthreads();
-  const float* y_src = P.y + (size_t)inst * m;
+  const V* y_src = y_of<V>(P) + (size_t)inst * m;
   // tile k's rows into stage k mod ST
   auto fill = [&](int k) {
     Stage& s = st[k % ST];
     uint64_t* bar = &full[k % ST];
     const int r0 = k * R, rows = min(R, m - r0);
     if (lane == 0) {
-      mbar_expect_tx(bar, sizeof(s.a) + rows * 4);
+      mbar_expect_tx(bar, sizeof(s.a) + rows * sizeof(V));
       tensor_copy(&s.a[0][0], &map, lo, r0, inst, bar);
-      bulk_copy(s.y, y_src + r0, rows * 4, bar);
+      bulk_copy(s.y, y_src + r0, rows * sizeof(V), bar);
     }
   };
   // the first stages fly while the chunk's basic columns are marked
@@ -538,7 +614,7 @@ __global__ void __launch_bounds__(WinTma<T>::kThreads) batch_pricing_window_tma_
     for (int k = 0; k < min(ST, tiles); ++k) fill(k);
   mark_chunk<kTmaChunk>(basic, P.basis + (size_t)inst * m, m, lo);
 
-  Rec rec{INFINITY, kIntMax, kIntMax};
+  Rec<V> rec = rec_none<V>();
   if (producer) {
     for (int k = ST; k < tiles; ++k) {
       mbar_wait(&empty[k % ST], ((k / ST) - 1) & 1);  // tile k - ST consumed
@@ -547,9 +623,9 @@ __global__ void __launch_bounds__(WinTma<T>::kThreads) batch_pricing_window_tma_
   } else {
     const int tc = CPT * (int)threadIdx.x;
     const bool in = tc < width;
-    float acc[CPT];
+    V acc[CPT];
 #pragma unroll
-    for (int q = 0; q < CPT; ++q) acc[q] = 0.f;
+    for (int q = 0; q < CPT; ++q) acc[q] = V(0);
     for (int k = 0; k < tiles; ++k) {
       const Stage& s = st[k % ST];
       mbar_wait(&full[k % ST], (k / ST) & 1);
@@ -557,42 +633,43 @@ __global__ void __launch_bounds__(WinTma<T>::kThreads) batch_pricing_window_tma_
       if (in) {
 #pragma unroll 4
         for (int r = 0; r < rows; r += 4) {
-          const float4 yv = *reinterpret_cast<const float4*>(&s.y[r]);
-          fma_row(acc, yv.x, s.a[r], tc);
-          fma_row(acc, yv.y, s.a[r + 1], tc);
-          fma_row(acc, yv.z, s.a[r + 2], tc);
-          fma_row(acc, yv.w, s.a[r + 3], tc);
+          V yv[4];
+          load4v(&s.y[r], yv);
+          fma_row(acc, yv[0], s.a[r], tc);
+          fma_row(acc, yv[1], s.a[r + 1], tc);
+          fma_row(acc, yv[2], s.a[r + 2], tc);
+          fma_row(acc, yv[3], s.a[r + 3], tc);
         }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[k % ST]);
     }
     if (in) {
-      const float* ci = P.c + (size_t)inst * P.c_stride;
+      const V* ci = c_of<V>(P) + (size_t)inst * P.c_stride;
       const size_t cn = (size_t)inst * P.n + lo + tc;
       const bool up = P.at_upper != nullptr;
-#pragma unroll
+  #pragma unroll
       for (int q = 0; q < CPT; ++q)
-        rec = merge(rec, column_rec(acc[q], ci[lo + tc + q], up && P.at_upper[cn + q],
-                                    basic[tc + q], lo + tc + q, P.eps));
+        rec = merge(rec, column_rec<V>(acc[q], ci[lo + tc + q], up && P.at_upper[cn + q],
+                                       basic[tc + q], lo + tc + q, eps_of(P, V())));
     }
   }
   if constexpr (CLUSTER) {
     // the instance's chunks are one cluster: block 0 merges their records
     // in chunk order out of each block's slot
-    __shared__ Rec slot;
+    __shared__ Rec<V> slot;
     cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
     rec = block_merge(rec, red);
     if (threadIdx.x == 0) slot = rec;
     cluster.sync();
     if (cluster.block_rank() == 0 && threadIdx.x == 0) {
-      Rec r = slot;
+      Rec<V> r = slot;
       for (unsigned q = 1; q < cluster.num_blocks(); ++q) r = merge(r, *cluster.map_shared_rank(&slot, q));
       choose(r, P.use_bland[inst] != 0, P.p_out, P.min_out, inst, base);
     }
     cluster.sync();  // no block leaves while its slot may be read
   } else {
-    finish_chunk(rec, red, P.use_bland, inst, P.chunks, P.recs, P.p_out, P.min_out, base);
+    finish_chunk(rec, red, P, inst, base);
   }
 }
 
@@ -617,8 +694,15 @@ EncodeTiled encode_tiled() {
 }
 
 template <typename T>
+constexpr CUtensorMapDataType tensor_map_type() {
+  return sizeof(T) == 8   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+         : sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : CU_TENSOR_MAP_DATA_TYPE_UINT16;
+}
+
+template <typename T, typename V>
 cudaError_t launch_window_tma(const Args& P, cudaStream_t s) {
-  using W = WinTma<T>;
+  using W = WinTma<T, V>;
   // A as (n, m, B) elements, boxes of one stage's rows of a chunk
   CUtensorMap map{};
   const EncodeTiled encode = encode_tiled();
@@ -627,20 +711,19 @@ cudaError_t launch_window_tma(const Args& P, cudaStream_t s) {
   const cuuint64_t strides[2] = {(cuuint64_t)P.n * sizeof(T), (cuuint64_t)P.m * P.n * sizeof(T)};
   const cuuint32_t box[3] = {(cuuint32_t)kTmaChunk, (cuuint32_t)W::kR, 1};
   const cuuint32_t one[3] = {1, 1, 1};
-  if (encode(&map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT16,
-             3, const_cast<void*>(P.A), dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (encode(&map, tensor_map_type<T>(), 3, const_cast<void*>(P.A), dims, strides, box, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   if (P.chunks > kTmaClusterMax) {
-    auto kernel = batch_pricing_window_tma_kernel<T, false>;
+    auto kernel = batch_pricing_window_tma_kernel<T, V, false>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::kSmem);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(P.chunks, P.batch), W::kThreads, W::kSmem, s>>>(P, map);
     return cudaGetLastError();
   }
-  auto kernel = batch_pricing_window_tma_kernel<T, true>;
+  auto kernel = batch_pricing_window_tma_kernel<T, V, true>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::kSmem);
   if (err != cudaSuccess) return err;
@@ -752,28 +835,32 @@ __global__ void __launch_bounds__(kThreads) batch_pricing_mask_kernel(const Args
   }
 }
 
-template <typename T>
+template <typename T, typename V>
 struct Stage {
-  // instance-major, rows padded by 4 floats: the float4 a thread reads (4
-  // rows of one y) sits in other banks for each of 8 consecutive instances
-  float y[kTileB][kTileK + 4];
-  T a[kTileK][kTileN];
+  static constexpr int kK = tile_k<V>();
+  static constexpr int kPad = 16 / (int)sizeof(V);
+  // instance-major, rows padded by 16 bytes: the four V a thread reads (4
+  // rows of one y) sit in other banks for each of 8 consecutive instances
+  V y[kTileB][kK + kPad];
+  T a[kK][kTileN];
 };
 
-// Fills stages: rows [k0, k0 + kTileK) of the tile's y rows and A columns,
-// by the block's threads. VEC: 16-byte copies (m % 4 == 0, n a multiple of
-// 16 bytes, aligned bases), each thread's sources and bounds worked out
-// once; else element loads and stores.
-template <typename T, bool VEC>
+// Fills stages: rows [k0, k0 + K) of the tile's y rows and A columns, by
+// the block's threads. VEC: 16-byte copies (m % 4 == 0, n a multiple of 16
+// bytes, aligned bases), each thread's sources and bounds worked out once;
+// else element loads and stores.
+template <typename T, typename V, bool VEC>
 struct Loader {
-  static constexpr int kPer = 16 / sizeof(T);       // elements a copy
+  static constexpr int kK = Stage<T, V>::kK;
+  static constexpr int kPer = 16 / sizeof(T);       // elements of A a copy
+  static constexpr int kYPer = 16 / sizeof(V);      // elements of y a copy
   static constexpr int kRowCopies = kTileN / kPer;  // copies a row of A's tile
-  static constexpr int kYRow = kTileK / 4;                       // copies a row of y's tile
+  static constexpr int kYRow = kK / kYPer;                       // copies a row of y's tile
   static constexpr int kY = kTileB * kYRow / kProdThreads;       // copies of y a thread
-  static constexpr int kA = kTileK * kRowCopies / kProdThreads;  // copies of A a thread
-  static_assert(kY * kProdThreads == kTileB * kYRow && kA * kProdThreads == kTileK * kRowCopies,
+  static constexpr int kA = kK * kRowCopies / kProdThreads;      // copies of A a thread
+  static_assert(kY * kProdThreads == kTileB * kYRow && kA * kProdThreads == kK * kRowCopies,
                 "every thread makes the same number of copies");
-  const float* ysrc[VEC ? kY : 1];
+  const V* ysrc[VEC ? kY : 1];
   const T* asrc[VEC ? kA : 1];
   int yk[VEC ? kY : 1], ak[VEC ? kA : 1];  // the row offset of each copy (past m: out)
   bool yin[VEC ? kY : 1], ain[VEC ? kA : 1];
@@ -783,9 +870,9 @@ struct Loader {
 #pragma unroll
       for (int u = 0; u < kY; ++u) {
         const int idx = threadIdx.x + u * kProdThreads, b = b0 + idx / kYRow;
-        yk[u] = (idx % kYRow) * 4;
+        yk[u] = (idx % kYRow) * kYPer;
         yin[u] = b < P.batch;
-        ysrc[u] = P.y + (size_t)(yin[u] ? b : 0) * P.m + yk[u];
+        ysrc[u] = y_of<V>(P) + (size_t)(yin[u] ? b : 0) * P.m + yk[u];
       }
 #pragma unroll
       for (int u = 0; u < kA; ++u) {
@@ -797,15 +884,16 @@ struct Loader {
     }
   }
 
-  __device__ __forceinline__ void load(Stage<T>& s, const Args& P, const T* A, int b0,
+  __device__ __forceinline__ void load(Stage<T, V>& s, const Args& P, const T* A, int b0,
                                        int j0, int k0) const {
     const int t = threadIdx.x;
+    const V* y = y_of<V>(P);
     if constexpr (VEC) {
 #pragma unroll
       for (int u = 0; u < kY; ++u) {
         const int idx = t + u * kProdThreads;
         const bool in = yin[u] && k0 + yk[u] < P.m;
-        cp_async16(&s.y[idx / kYRow][yk[u]], in ? ysrc[u] + k0 : P.y, in);
+        cp_async16(&s.y[idx / kYRow][yk[u]], in ? ysrc[u] + k0 : y, in);
       }
 #pragma unroll
       for (int u = 0; u < kA; ++u) {
@@ -815,12 +903,12 @@ struct Loader {
                    in);
       }
     } else {
-      for (int idx = t; idx < kTileB * kTileK; idx += kProdThreads) {
-        const int bi = idx / kTileK, kr = idx % kTileK;
+      for (int idx = t; idx < kTileB * kK; idx += kProdThreads) {
+        const int bi = idx / kK, kr = idx % kK;
         const int b = b0 + bi, k = k0 + kr;
-        s.y[bi][kr] = (b < P.batch && k < P.m) ? P.y[(size_t)b * P.m + k] : 0.f;
+        s.y[bi][kr] = (b < P.batch && k < P.m) ? y[(size_t)b * P.m + k] : V(0);
       }
-      for (int idx = t; idx < kTileK * kTileN; idx += kProdThreads) {
+      for (int idx = t; idx < kK * kTileN; idx += kProdThreads) {
         const int kr = idx / kTileN, jc = idx % kTileN;
         const int k = k0 + kr, j = j0 + jc;
         s.a[kr][jc] = (k < P.m && j < P.n) ? A[(size_t)k * P.n + j] : T(0);
@@ -830,35 +918,30 @@ struct Loader {
 };
 
 // columns c0 + [0, 4) and c0 + 16 + [0, 4) of one row of the stage
-__device__ __forceinline__ void load_a8(const float (&row)[kTileN], int c0, float (&a)[8]) {
-  const float4 lo = *reinterpret_cast<const float4*>(&row[c0]);
-  const float4 hi = *reinterpret_cast<const float4*>(&row[c0 + 16]);
-  a[0] = lo.x; a[1] = lo.y; a[2] = lo.z; a[3] = lo.w;
-  a[4] = hi.x; a[5] = hi.y; a[6] = hi.z; a[7] = hi.w;
-}
-// the bf16 tile is kept as raw 16-bit words
-__device__ __forceinline__ void load_a8(const uint16_t (&row)[kTileN], int c0, float (&a)[8]) {
-  const uint2 lo = *reinterpret_cast<const uint2*>(&row[c0]);
-  const uint2 hi = *reinterpret_cast<const uint2*>(&row[c0 + 16]);
-  const unsigned u[4] = {lo.x, lo.y, hi.x, hi.y};
+template <typename T, typename V>
+__device__ __forceinline__ void load_a8(const T* row, int c0, V (&a)[8]) {
+  V lo[4], hi[4];
+  load_a4(row, c0, lo);
+  load_a4(row, c0 + 16, hi);
 #pragma unroll
   for (int h = 0; h < 4; ++h) {
-    a[2 * h] = __uint_as_float(u[h] << 16);
-    a[2 * h + 1] = __uint_as_float(u[h] & 0xffff0000u);
+    a[h] = lo[h];
+    a[4 + h] = hi[h];
   }
 }
 
 // grid (column tiles, instance tiles). kTileM rows of y a thread (8 apart)
 // and 8 columns: a warp holds 8 x 4 lanes, 32 instances x 32 columns (a
-// warp's load of A is 4 distinct float4, of y 8 on 8 consecutive rows, in
-// distinct banks); the 64 x 128 tile takes 2 x 4 warps.
-template <typename T, bool VEC>
+// warp's load of A is 4 distinct 16-byte pieces a row in fp32, of y 8 on 8
+// consecutive rows, in distinct banks); the 64 x 128 tile takes 2 x 4 warps.
+template <typename T, typename V, bool VEC>
 __global__ void __launch_bounds__(kProdThreads) batch_pricing_product_kernel(const Args P) {
   constexpr int kWarpsN = kTileN / 32;
-  using S = Stage<T>;
+  using S = Stage<T, V>;
+  constexpr int K = S::kK;
   extern __shared__ __align__(16) unsigned char smem[];
   S* st = reinterpret_cast<S*>(smem);
-  Rec(*red)[kTileB] = reinterpret_cast<Rec(*)[kTileB]>(smem + kStages * sizeof(S));
+  Rec<V>(*red)[kTileB] = reinterpret_cast<Rec<V>(*)[kTileB]>(smem + kStages * sizeof(S));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wn = warp % kWarpsN, wb = warp / kWarpsN;
   const int lx = lane & 3, ly = lane >> 2;
@@ -866,43 +949,40 @@ __global__ void __launch_bounds__(kProdThreads) batch_pricing_product_kernel(con
   const int col0 = wn * 32 + lx * 4;  // and columns: col0 + [0, 4), col0 + 16 + [0, 4)
   const int j0 = blockIdx.x * kTileN, b0 = blockIdx.y * kTileB;
   const T* A = static_cast<const T*>(P.A);
-  const int k_tiles = (P.m + kTileK - 1) / kTileK;
-  const Loader<T, VEC> ld(P, A, b0, j0);
+  const int k_tiles = (P.m + K - 1) / K;
+  const Loader<T, V, VEC> ld(P, A, b0, j0);
 
-  float acc[kTileM][8];
+  V acc[kTileM][8];
 #pragma unroll
   for (int i = 0; i < kTileM; ++i)
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
+    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = V(0);
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < k_tiles) ld.load(st[s], P, A, b0, j0, s * kTileK);
+    if (s < k_tiles) ld.load(st[s], P, A, b0, j0, s * K);
     cp_async_commit();
   }
   for (int kt = 0; kt < k_tiles; ++kt) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // tile kt has landed; every thread is done with tile kt - 1
     const int nt = kt + kStages - 1;
-    if (nt < k_tiles) ld.load(st[nt % kStages], P, A, b0, j0, nt * kTileK);
+    if (nt < k_tiles) ld.load(st[nt % kStages], P, A, b0, j0, nt * K);
     cp_async_commit();
     const S& s = st[kt % kStages];
 #pragma unroll
-    for (int k4 = 0; k4 < kTileK; k4 += 4) {
-      float yv[kTileM][4];
+    for (int k4 = 0; k4 < K; k4 += 4) {
+      V yv[kTileM][4];
 #pragma unroll
-      for (int i = 0; i < kTileM; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(&s.y[row0 + 8 * i][k4]);
-        yv[i][0] = v.x; yv[i][1] = v.y; yv[i][2] = v.z; yv[i][3] = v.w;
-      }
+      for (int i = 0; i < kTileM; ++i) load4v(&s.y[row0 + 8 * i][k4], yv[i]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        float a[8];
+        V a[8];
         load_a8(s.a[k4 + kk], col0, a);
 #pragma unroll
         for (int i = 0; i < kTileM; ++i)
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(yv[i][kk], a[jj], acc[i][jj]);
+          for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fma_v(yv[i][kk], a[jj], acc[i][jj]);
       }
     }
   }
@@ -913,9 +993,9 @@ __global__ void __launch_bounds__(kProdThreads) batch_pricing_product_kernel(con
 #pragma unroll
   for (int i = 0; i < kTileM; ++i) {
     const int b = b0 + row0 + 8 * i;
-    Rec rec{INFINITY, kIntMax, kIntMax};
+    Rec<V> rec = rec_none<V>();
     if (b < P.batch) {
-      const float* cb = P.c + (size_t)b * P.c_stride;
+      const V* cb = c_of<V>(P) + (size_t)b * P.c_stride;
       const unsigned* mb = P.mask + (size_t)b * P.words;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
@@ -923,40 +1003,37 @@ __global__ void __launch_bounds__(kProdThreads) batch_pricing_product_kernel(con
         if (j < P.n) {
           const bool up = P.at_upper != nullptr && P.at_upper[(size_t)b * P.n + j];
           const bool basic = (mb[j >> 5] >> (j & 31)) & 1u;
-          rec = merge(rec, column_rec(acc[i][jj], cb[j], up, basic, j, P.eps));
+          rec = merge(rec, column_rec<V>(acc[i][jj], cb[j], up, basic, j, eps_of(P, V())));
         }
       }
     }
     // merge is commutative: every lane of the four ends with the same record
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const Rec o{__shfl_xor_sync(kFull, rec.v, off), __shfl_xor_sync(kFull, rec.i, off),
-                  __shfl_xor_sync(kFull, rec.neg, off)};
-      rec = merge(rec, o);
-    }
+    for (int off = 1; off < 4; off <<= 1) rec = merge(rec, shfl_xor(rec, off));
     if (lx == 0) red[wn][row0 + 8 * i] = rec;
   }
   __syncthreads();
   if (threadIdx.x < kTileB) {
     const int b = b0 + threadIdx.x;
-    Rec rec = red[0][threadIdx.x];
+    Rec<V> rec = red[0][threadIdx.x];
 #pragma unroll
     for (int w = 1; w < kWarpsN; ++w) rec = merge(rec, red[w][threadIdx.x]);
     if (b < P.batch) {
       if (P.chunks == 1)
         choose(rec, P.use_bland[b] != 0, P.p_out, P.min_out, b, 0);
       else
-        P.recs[(size_t)b * P.chunks + blockIdx.x] = rec;
+        recs_of<V>(P)[(size_t)b * P.chunks + blockIdx.x] = rec;
     }
   }
 }
 
 // one launch of the product: the ring and the records in dynamic shared
-// memory (78 KB in fp32, above the 48 KB a launch gets without asking)
-template <typename T, bool VEC>
+// memory (78 KB in fp32, 79 KB in fp64: above the 48 KB a launch gets
+// without asking)
+template <typename T, typename V, bool VEC>
 cudaError_t launch_product(const Args& P, cudaStream_t s) {
-  constexpr size_t smem = kStages * sizeof(Stage<T>) + (kTileN / 32) * kTileB * sizeof(Rec);
-  auto kernel = batch_pricing_product_kernel<T, VEC>;
+  constexpr size_t smem = kStages * sizeof(Stage<T, V>) + (kTileN / 32) * kTileB * sizeof(Rec<V>);
+  auto kernel = batch_pricing_product_kernel<T, V, VEC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -967,27 +1044,30 @@ cudaError_t launch_product(const Args& P, cudaStream_t s) {
 
 // ---------------------------------------------------------------- shared A, grouped window
 
-// a stage of the grouped window's ring: kGroupK rows of the tile's y rows
+// a stage of the grouped window's ring: K rows of the tile's y rows
 // (padded as in Stage) and of its A columns
-template <typename T>
+template <typename T, typename V>
 struct GroupStage {
-  float y[kGroupB][kGroupK + 4];
-  T a[kGroupK][kGroupN];
+  static constexpr int kK = tile_k<V>();
+  V y[kGroupB][kK + 16 / sizeof(V)];
+  T a[kK][kGroupN];
 };
 
 // Fills the grouped window's stages: y rows gathered through the
 // permutation, A's columns [j0, end) of the tile's window; 16-byte copies
 // (VEC) or element loads, zeros past count, m and end.
-template <typename T, bool VEC>
+template <typename T, typename V, bool VEC>
 struct GroupLoader {
-  static constexpr int kPer = 16 / sizeof(T);                     // elements a copy
-  static constexpr int kRowCopies = kGroupN / kPer;               // copies a row of A's tile
-  static constexpr int kYRow = kGroupK / 4;                        // copies a row of y's tile
+  static constexpr int kK = GroupStage<T, V>::kK;
+  static constexpr int kPer = 16 / sizeof(T);                      // elements of A a copy
+  static constexpr int kYPer = 16 / sizeof(V);                     // elements of y a copy
+  static constexpr int kRowCopies = kGroupN / kPer;                // copies a row of A's tile
+  static constexpr int kYRow = kK / kYPer;                         // copies a row of y's tile
   static constexpr int kY = kGroupB * kYRow / kGroupThreads;      // copies of y a thread
-  static constexpr int kA = kGroupK * kRowCopies / kGroupThreads;  // copies of A a thread
-  static_assert(kY * kGroupThreads == kGroupB * kYRow && kA * kGroupThreads == kGroupK * kRowCopies,
+  static constexpr int kA = kK * kRowCopies / kGroupThreads;      // copies of A a thread
+  static_assert(kY * kGroupThreads == kGroupB * kYRow && kA * kGroupThreads == kK * kRowCopies,
                 "every thread makes the same number of copies");
-  const float* ysrc[VEC ? kY : 1];
+  const V* ysrc[VEC ? kY : 1];
   const T* asrc[VEC ? kA : 1];
   int yk[VEC ? kY : 1], ak[VEC ? kA : 1];
   bool yin[VEC ? kY : 1], ain[VEC ? kA : 1];
@@ -998,9 +1078,9 @@ struct GroupLoader {
 #pragma unroll
       for (int u = 0; u < kY; ++u) {
         const int idx = threadIdx.x + u * kGroupThreads, bi = idx / kYRow;
-        yk[u] = (idx % kYRow) * 4;
+        yk[u] = (idx % kYRow) * kYPer;
         yin[u] = bi < g.count;
-        ysrc[u] = P.y + (size_t)(yin[u] ? P.perm[g.start + bi] : 0) * P.m + yk[u];
+        ysrc[u] = y_of<V>(P) + (size_t)(yin[u] ? P.perm[g.start + bi] : 0) * P.m + yk[u];
       }
 #pragma unroll
       for (int u = 0; u < kA; ++u) {
@@ -1012,15 +1092,16 @@ struct GroupLoader {
     }
   }
 
-  __device__ __forceinline__ void load(GroupStage<T>& s, const Args& P, const T* A,
+  __device__ __forceinline__ void load(GroupStage<T, V>& s, const Args& P, const T* A,
                                        const Group& g, int j0, int end, int k0) const {
     const int t = threadIdx.x;
+    const V* y = y_of<V>(P);
     if constexpr (VEC) {
 #pragma unroll
       for (int u = 0; u < kY; ++u) {
         const int idx = t + u * kGroupThreads;
         const bool in = yin[u] && k0 + yk[u] < P.m;
-        cp_async16(&s.y[idx / kYRow][yk[u]], in ? ysrc[u] + k0 : P.y, in);
+        cp_async16(&s.y[idx / kYRow][yk[u]], in ? ysrc[u] + k0 : y, in);
       }
 #pragma unroll
       for (int u = 0; u < kA; ++u) {
@@ -1030,11 +1111,11 @@ struct GroupLoader {
                    in);
       }
     } else {
-      for (int idx = t; idx < kGroupB * kGroupK; idx += kGroupThreads) {
-        const int bi = idx / kGroupK, kr = idx % kGroupK, k = k0 + kr;
-        s.y[bi][kr] = (bi < g.count && k < P.m) ? P.y[(size_t)P.perm[g.start + bi] * P.m + k] : 0.f;
+      for (int idx = t; idx < kGroupB * kK; idx += kGroupThreads) {
+        const int bi = idx / kK, kr = idx % kK, k = k0 + kr;
+        s.y[bi][kr] = (bi < g.count && k < P.m) ? y[(size_t)P.perm[g.start + bi] * P.m + k] : V(0);
       }
-      for (int idx = t; idx < kGroupK * kGroupN; idx += kGroupThreads) {
+      for (int idx = t; idx < kK * kGroupN; idx += kGroupThreads) {
         const int kr = idx / kGroupN, jc = idx % kGroupN;
         const int k = k0 + kr, j = j0 + jc;
         s.a[kr][jc] = (k < P.m && j < end) ? A[(size_t)k * P.n + j] : T(0);
@@ -1043,24 +1124,14 @@ struct GroupLoader {
   }
 };
 
-// four adjacent columns of one row of a stage
-__device__ __forceinline__ void load_a4(const float* row, int c0, float (&a)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(&row[c0]);
-  a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
-}
-__device__ __forceinline__ void load_a4(const uint16_t* row, int c0, float (&a)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(&row[c0]);
-  a[0] = __uint_as_float(v.x << 16); a[1] = __uint_as_float(v.x & 0xffff0000u);
-  a[2] = __uint_as_float(v.y << 16); a[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-
 // grid (column tiles of the window, instance tiles of the table). A warp:
 // lanes 4 (instance groups) x 8 (column groups); a thread kGroupTM
-// instances, 4 apart (their float4 of y in distinct banks), x 4 adjacent
-// columns (a warp's load of A is 32 consecutive floats).
-template <typename T, bool VEC>
+// instances, 4 apart (their 16 bytes of y in distinct banks), x 4 adjacent
+// columns (a warp's load of A is 32 consecutive elements).
+template <typename T, typename V, bool VEC>
 __global__ void __launch_bounds__(kGroupThreads) batch_pricing_group_kernel(const Args P) {
-  using S = GroupStage<T>;
+  using S = GroupStage<T, V>;
+  constexpr int K = S::kK;
   extern __shared__ __align__(16) unsigned char smem[];
   S* st = reinterpret_cast<S*>(smem);
   const Group g = P.groups[blockIdx.y];
@@ -1071,43 +1142,40 @@ __global__ void __launch_bounds__(kGroupThreads) batch_pricing_group_kernel(cons
   const int row0 = warp * 4 * kGroupTM + (lane & 3);  // this thread's rows of the tile: row0 + 4 i
   const int col0 = (lane >> 2) * 4;                     // and columns: col0 + [0, 4)
   const T* A = static_cast<const T*>(P.A);
-  const int k_tiles = (P.m + kGroupK - 1) / kGroupK;
-  const GroupLoader<T, VEC> ld(P, A, g, j0, end);
+  const int k_tiles = (P.m + K - 1) / K;
+  const GroupLoader<T, V, VEC> ld(P, A, g, j0, end);
 
-  float acc[kGroupTM][4];
+  V acc[kGroupTM][4];
 #pragma unroll
   for (int i = 0; i < kGroupTM; ++i)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
+    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = V(0);
 
 #pragma unroll
   for (int s = 0; s < kGroupStages - 1; ++s) {
-    if (s < k_tiles) ld.load(st[s], P, A, g, j0, end, s * kGroupK);
+    if (s < k_tiles) ld.load(st[s], P, A, g, j0, end, s * K);
     cp_async_commit();
   }
   for (int kt = 0; kt < k_tiles; ++kt) {
     cp_async_wait<kGroupStages - 2>();
     __syncthreads();  // tile kt has landed; every thread is done with tile kt - 1
     const int nt = kt + kGroupStages - 1;
-    if (nt < k_tiles) ld.load(st[nt % kGroupStages], P, A, g, j0, end, nt * kGroupK);
+    if (nt < k_tiles) ld.load(st[nt % kGroupStages], P, A, g, j0, end, nt * K);
     cp_async_commit();
     const S& s = st[kt % kGroupStages];
 #pragma unroll
-    for (int k4 = 0; k4 < kGroupK; k4 += 4) {
-      float yv[kGroupTM][4];
+    for (int k4 = 0; k4 < K; k4 += 4) {
+      V yv[kGroupTM][4];
 #pragma unroll
-      for (int i = 0; i < kGroupTM; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(&s.y[row0 + 4 * i][k4]);
-        yv[i][0] = v.x; yv[i][1] = v.y; yv[i][2] = v.z; yv[i][3] = v.w;
-      }
+      for (int i = 0; i < kGroupTM; ++i) load4v(&s.y[row0 + 4 * i][k4], yv[i]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        float a[4];
+        V a[4];
         load_a4(s.a[k4 + kk], col0, a);
 #pragma unroll
         for (int i = 0; i < kGroupTM; ++i)
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(yv[i][kk], a[jj], acc[i][jj]);
+          for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fma_v(yv[i][kk], a[jj], acc[i][jj]);
       }
     }
   }
@@ -1119,9 +1187,9 @@ __global__ void __launch_bounds__(kGroupThreads) batch_pricing_group_kernel(cons
   for (int i = 0; i < kGroupTM; ++i) {
     const int bi = row0 + 4 * i;
     const int b = bi < g.count ? P.perm[g.start + bi] : 0;
-    Rec rec{INFINITY, kIntMax, kIntMax};
+    Rec<V> rec = rec_none<V>();
     if (bi < g.count) {
-      const float* cb = P.c + (size_t)b * P.c_stride;
+      const V* cb = c_of<V>(P) + (size_t)b * P.c_stride;
       const unsigned* mb = P.mask + (size_t)b * P.words;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -1129,30 +1197,26 @@ __global__ void __launch_bounds__(kGroupThreads) batch_pricing_group_kernel(cons
         if (j < end) {
           const bool up = P.at_upper != nullptr && P.at_upper[(size_t)b * P.n + j];
           const bool basic = (mb[j >> 5] >> (j & 31)) & 1u;
-          rec = merge(rec, column_rec(acc[i][jj], cb[j], up, basic, j, P.eps));
+          rec = merge(rec, column_rec<V>(acc[i][jj], cb[j], up, basic, j, eps_of(P, V())));
         }
       }
     }
     // merge is commutative: every lane of the eight ends with the same record
 #pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      const Rec o{__shfl_xor_sync(kFull, rec.v, off), __shfl_xor_sync(kFull, rec.i, off),
-                  __shfl_xor_sync(kFull, rec.neg, off)};
-      rec = merge(rec, o);
-    }
+    for (int off = 4; off < 32; off <<= 1) rec = merge(rec, shfl_xor(rec, off));
     if ((lane >> 2) == 0 && bi < g.count) {
       if (P.chunks == 1)
         choose(rec, P.use_bland[b] != 0, P.p_out, P.min_out, b, lo);
       else
-        P.recs[(size_t)b * P.chunks + blockIdx.x] = rec;
+        recs_of<V>(P)[(size_t)b * P.chunks + blockIdx.x] = rec;
     }
   }
 }
 
-template <typename T, bool VEC>
+template <typename T, typename V, bool VEC>
 cudaError_t launch_group(const Args& P, cudaStream_t s) {
-  constexpr size_t smem = kGroupStages * sizeof(GroupStage<T>);
-  auto kernel = batch_pricing_group_kernel<T, VEC>;
+  constexpr size_t smem = kGroupStages * sizeof(GroupStage<T, V>);
+  auto kernel = batch_pricing_group_kernel<T, V, VEC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1162,13 +1226,14 @@ cudaError_t launch_group(const Args& P, cudaStream_t s) {
 
 // ---------------------------------------------------------------- records
 
-template <bool WIN>
+template <typename V, bool WIN>
 __global__ void __launch_bounds__(kThreads) batch_pricing_reduce_kernel(const Args P) {
-  __shared__ Rec red[32];
+  __shared__ Rec<V> red[32];
   const int inst = blockIdx.x;
-  Rec rec{INFINITY, kIntMax, kIntMax};
+  const Rec<V>* recs = recs_of<V>(P);
+  Rec<V> rec = rec_none<V>();
   for (int k = threadIdx.x; k < P.chunks; k += kThreads)
-    rec = merge(rec, P.recs[(size_t)inst * P.chunks + k]);
+    rec = merge(rec, recs[(size_t)inst * P.chunks + k]);
   rec = block_merge(rec, red);
   if (threadIdx.x == 0)
     choose(rec, P.use_bland[inst] != 0, P.p_out, P.min_out, inst, WIN ? window_lo(P, inst) : 0);
@@ -1182,6 +1247,58 @@ void carve_groups(Args& P, void* group, int batch, int win_s) {
   P.groups = reinterpret_cast<Group*>(P.win_off + win_s + 1);
 }
 
+// the bf16 shadow as the kernels of shared memory keep it: raw 16-bit words
+template <typename T>
+struct Raw {
+  using type = T;
+};
+template <>
+struct Raw<__nv_bfloat16> {
+  using type = uint16_t;
+};
+
+// every launch of one call, A's elements T (float, double or
+// __nv_bfloat16), the vectors' V
+template <typename T, typename V>
+cudaError_t run(const Args& P, int layout, cudaStream_t s) {
+  using TR = typename Raw<T>::type;
+  const bool windowed = P.win > 0;
+  const int chunks = P.chunks;
+  cudaError_t err = cudaSuccess;
+  if (layout == 4) {
+    err = launch_window_tma<TR, V>(P, s);
+  } else if (layout == 0 || layout == 1) {
+    const dim3 grid(chunks, P.batch);
+    if (layout == 1) {
+      if (windowed)
+        batch_pricing_bf16x4_kernel<V, true><<<grid, kChunk / kCols, 0, s>>>(P);
+      else
+        batch_pricing_bf16x4_kernel<V, false><<<grid, kChunk / kCols, 0, s>>>(P);
+    } else if (windowed) {
+      batch_pricing_scan_kernel<T, V, true><<<grid, kThreads, 0, s>>>(P);
+    } else {
+      batch_pricing_scan_kernel<T, V, false><<<grid, kThreads, 0, s>>>(P);
+    }
+    err = cudaGetLastError();
+  } else if (layout == 5 || layout == 6) {
+    batch_pricing_mask_kernel<true><<<P.batch + 1, kThreads, 0, s>>>(P);
+    err = cudaGetLastError();
+    if (err == cudaSuccess)
+      err = layout == 5 ? launch_group<TR, V, true>(P, s) : launch_group<TR, V, false>(P, s);
+  } else {
+    batch_pricing_mask_kernel<false><<<P.batch, kThreads, 0, s>>>(P);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = layout == 2 ? launch_product<TR, V, true>(P, s) : launch_product<TR, V, false>(P, s);
+  }
+  if (err != cudaSuccess || chunks == 1 || (layout == 4 && chunks <= kTmaClusterMax)) return err;
+  if (windowed)
+    batch_pricing_reduce_kernel<V, true><<<P.batch, kThreads, 0, s>>>(P);
+  else
+    batch_pricing_reduce_kernel<V, false><<<P.batch, kThreads, 0, s>>>(P);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // layout 0: per-instance A (B, m, n), a column a thread; 1: per-instance
@@ -1192,25 +1309,27 @@ void carve_groups(Args& P, void* group, int batch, int win_s) {
 // A 16-byte aligned); 5: a shared A's window, instances grouped by window,
 // the product on 16-byte copies (layout 2's conditions and win * elem %
 // 16 == 0); 6: the same on element loads.
-// a_dtype 0: A fp32, 1: bf16. y (B, m) fp32; c (B, n) fp32, or one (n,)
-// with c_shared; at_upper (B, n) bool bytes or null (the unsigned mode);
-// basis (B, m) int32; use_bland (B,) bool bytes. chunks: records an
-// instance, ceil(span / 256) (layouts 0, 1, 4), ceil(n / 128) (2, 3) or
-// ceil(win / 64) (5, 6), span = win or n; words: ceil(n / 32) (2, 3, 5, 6;
-// else 0). Scratch: mask, B * words uint32 (2, 3, 5, 6); recs, B * chunks
-// 12-byte records where chunks > 1; group (5, 6): B + win_s + 1 + 3 *
-// group_tiles int32, group_tiles = ceil(B / 32) + win_s - 1. Outputs: p
-// (B,) int32, min_e (B,) fp32. The window: win = 0 prices every column (0
-// to 3); win > 0 (0, 1, 4 to 6; chunks as above, win * win_s <= n, layout 1
-// also win % 4 == 0) prices [(win_seg[i] mod win_s) * win, + win) of
-// instance i, win_seg (B,) int32; a_shared (windowed only): one A (m, n)
-// for every instance (layouts 0 and 1 at an instance stride of 0, and 5,
-// 6; at most 1024 windows for 5, 6). Returns a cudaError_t; an
-// inconsistent plan is cudaErrorInvalidValue.
-extern "C" int simplex_batch_pricing(int layout, int a_dtype, const void* y, const void* A,
-                                     const void* c, const void* at_upper, const void* basis,
-                                     const void* use_bland, int batch, int m, int n,
-                                     int c_shared, float eps, int chunks, int words,
+// a_dtype 0: A fp32, 1: bf16, 2: fp64; v_dtype 0: the vectors fp32, 1:
+// fp64 (A fp32 with fp32 vectors, fp64 with fp64 ones, bf16 with either).
+// y (B, m) V; c (B, n) V, or one (n,) with c_shared; at_upper (B, n) bool
+// bytes or null (the unsigned mode); basis (B, m) int32; use_bland (B,)
+// bool bytes; eps rounded to V. chunks: records an instance, ceil(span /
+// 256) (layouts 0, 1, 4), ceil(n / 128) (2, 3) or ceil(win / 32) (5, 6),
+// span = win or n; words: ceil(n / 32) (2, 3, 5, 6; else 0). Scratch: mask,
+// B * words uint32 (2, 3, 5, 6); recs, B * chunks records of
+// simplex_batch_pricing_record_bytes(v_dtype) bytes, aligned to 8 in fp64,
+// where chunks > 1; group (5, 6): B + win_s + 1 + 3 * group_tiles int32,
+// group_tiles = ceil(B / 16) + win_s - 1. Outputs: p (B,) int32, min_e (B,)
+// V. The window: win = 0 prices every column (0 to 3); win > 0 (0, 1, 4 to
+// 6; chunks as above, win * win_s <= n, layout 1 also win % 4 == 0) prices
+// [(win_seg[i] mod win_s) * win, + win) of instance i, win_seg (B,) int32;
+// a_shared (windowed only): one A (m, n) for every instance (layouts 0 and
+// 1 at an instance stride of 0, and 5, 6; at most 1024 windows for 5, 6).
+// Returns a cudaError_t; an inconsistent plan is cudaErrorInvalidValue.
+extern "C" int simplex_batch_pricing(int layout, int a_dtype, int v_dtype, const void* y,
+                                     const void* A, const void* c, const void* at_upper,
+                                     const void* basis, const void* use_bland, int batch, int m,
+                                     int n, int c_shared, double eps, int chunks, int words,
                                      void* mask, void* recs, void* p, void* min_e, int win,
                                      int win_s, const void* win_seg, int a_shared, void* group,
                                      int group_tiles, void* stream) {
@@ -1219,18 +1338,21 @@ extern "C" int simplex_batch_pricing(int layout, int a_dtype, const void* y, con
   const bool shared = layout == 2 || layout == 3 || grouped;
   const bool windowed = win > 0;
   const bool bf16 = a_dtype == 1;
-  const int elem = bf16 ? 2 : 4;
+  const int elem = a_dtype == 0 ? 4 : a_dtype == 1 ? 2 : 8;
   const int tile = layout == 4 ? kTmaChunk : grouped ? kGroupN : shared ? kTileN : kChunk;
   const int span = windowed ? win : n;
   const uintptr_t ya = reinterpret_cast<uintptr_t>(y), aa = reinterpret_cast<uintptr_t>(A);
   const bool copies16 = m % 4 == 0 && (n * elem) % 16 == 0 && ya % 16 == 0 && aa % 16 == 0;
   const bool win16 = (win * elem) % 16 == 0;
-  if (layout < 0 || layout > 6 || a_dtype < 0 || a_dtype > 1 || batch < 1 || m < 1 || n < 1 ||
-      win < 0 || chunks != (span + tile - 1) / tile || words != (shared ? (n + 31) / 32 : 0) ||
+  if (layout < 0 || layout > 6 || a_dtype < 0 || a_dtype > 2 || v_dtype < 0 || v_dtype > 1 ||
+      (a_dtype == 0 && v_dtype != 0) || (a_dtype == 2 && v_dtype != 1) || batch < 1 || m < 1 ||
+      n < 1 || win < 0 || chunks != (span + tile - 1) / tile ||
+      words != (shared ? (n + 31) / 32 : 0) ||
       (layout == 1 && (!bf16 || n % kCols != 0 || aa % 8 != 0 ||
                        (windowed && win % kCols != 0))) ||
       ((layout == 2 || layout == 5) && !copies16) || (shared && mask == nullptr) ||
       (chunks > 1 && recs == nullptr && !(layout == 4 && chunks <= kTmaClusterMax)) ||
+      (recs != nullptr && reinterpret_cast<uintptr_t>(recs) % (v_dtype == 1 ? 8 : 4) != 0) ||
       (a_shared && !windowed) ||
       ((layout == 2 || layout == 3) && windowed) ||
       (layout == 4 && (!copies16 || !win16 || a_shared)) ||
@@ -1241,9 +1363,9 @@ extern "C" int simplex_batch_pricing(int layout, int a_dtype, const void* y, con
       (windowed && (win_s < 1 || (long long)win * win_s > n || win_seg == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args P;
-  P.y = static_cast<const float*>(y);
+  P.y = y;
   P.A = A;
-  P.c = static_cast<const float*>(c);
+  P.c = c;
   P.at_upper = static_cast<const unsigned char*>(at_upper);
   P.basis = static_cast<const int*>(basis);
   P.use_bland = static_cast<const unsigned char*>(use_bland);
@@ -1251,68 +1373,30 @@ extern "C" int simplex_batch_pricing(int layout, int a_dtype, const void* y, con
   P.m = m;
   P.n = n;
   P.c_stride = c_shared ? 0 : (size_t)n;
-  P.eps = eps;
+  P.eps_f = (float)eps;
+  P.eps_d = eps;
   P.chunks = chunks;
   P.mask = static_cast<unsigned*>(mask);
   P.words = words;
-  P.recs = static_cast<Rec*>(recs);
+  P.recs = recs;
   P.p_out = static_cast<int*>(p);
-  P.min_out = static_cast<float*>(min_e);
+  P.min_out = min_e;
   P.win = win;
   P.win_s = win_s;
   P.win_seg = static_cast<const int*>(win_seg);
   P.a_stride = a_shared ? 0 : (size_t)m * n;
   P.group_tiles = group_tiles;
   if (grouped) carve_groups(P, group, batch, win_s);
-  cudaError_t err = cudaSuccess;
-  if (layout == 4) {
-    err = bf16 ? launch_window_tma<uint16_t>(P, s) : launch_window_tma<float>(P, s);
-  } else if (!shared) {
-    const dim3 grid(chunks, batch);
-    if (windowed) {
-      if (layout == 1)
-        batch_pricing_bf16x4_kernel<true><<<grid, kChunk / kCols, 0, s>>>(P);
-      else if (bf16)
-        batch_pricing_scan_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, s>>>(P);
-      else
-        batch_pricing_scan_kernel<float, true><<<grid, kThreads, 0, s>>>(P);
-    } else if (layout == 1) {
-      batch_pricing_bf16x4_kernel<false><<<grid, kChunk / kCols, 0, s>>>(P);
-    } else if (bf16) {
-      batch_pricing_scan_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, s>>>(P);
-    } else {
-      batch_pricing_scan_kernel<float, false><<<grid, kThreads, 0, s>>>(P);
-    }
-    err = cudaGetLastError();
-  } else if (grouped) {
-    batch_pricing_mask_kernel<true><<<batch + 1, kThreads, 0, s>>>(P);
-    err = cudaGetLastError();
-    if (err == cudaSuccess) {
-      if (layout == 5)
-        err = bf16 ? launch_group<uint16_t, true>(P, s) : launch_group<float, true>(P, s);
-      else
-        err = bf16 ? launch_group<uint16_t, false>(P, s) : launch_group<float, false>(P, s);
-    }
-  } else {
-    batch_pricing_mask_kernel<false><<<batch, kThreads, 0, s>>>(P);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    if (layout == 2 && bf16)
-      err = launch_product<uint16_t, true>(P, s);
-    else if (layout == 2)
-      err = launch_product<float, true>(P, s);
-    else if (bf16)
-      err = launch_product<uint16_t, false>(P, s);
-    else
-      err = launch_product<float, false>(P, s);
-  }
-  if (err != cudaSuccess || chunks == 1 || (layout == 4 && chunks <= kTmaClusterMax))
-    return (int)err;
-  if (windowed)
-    batch_pricing_reduce_kernel<true><<<batch, kThreads, 0, s>>>(P);
+  cudaError_t err;
+  if (a_dtype == 0)
+    err = run<float, float>(P, layout, s);
+  else if (a_dtype == 2)
+    err = run<double, double>(P, layout, s);
+  else if (v_dtype == 0)
+    err = run<__nv_bfloat16, float>(P, layout, s);
   else
-    batch_pricing_reduce_kernel<false><<<batch, kThreads, 0, s>>>(P);
-  return (int)cudaGetLastError();
+    err = run<__nv_bfloat16, double>(P, layout, s);
+  return (int)err;
 }
 
 // The grouped window's first step alone (block 0 of layouts 5 and 6's first
@@ -1334,5 +1418,8 @@ extern "C" int simplex_batch_pricing_groups(const void* win_seg, int batch, int 
   return (int)cudaGetLastError();
 }
 
-// the size of one chunk record, for the wrapper's scratch
-extern "C" int simplex_batch_pricing_record_bytes() { return (int)sizeof(Rec); }
+// the size of one chunk record with the vectors of v_dtype (0 fp32, 1
+// fp64), for the wrapper's scratch
+extern "C" int simplex_batch_pricing_record_bytes(int v_dtype) {
+  return v_dtype == 1 ? (int)sizeof(Rec<double>) : (int)sizeof(Rec<float>);
+}

@@ -2,7 +2,7 @@
 
     python -m simplex_tpu_torch.dist.card_check [--mode 1d|2d|pdhg] [--rows 2]
         [--ranks 4] [--m 32768 --n 131072] [--window 512] [--out FILE]
-        [--device cuda] [--collectives-only]
+        [--device cuda] [--collectives-only] [--dtype float32|float64]
 
 Needs ``--ranks`` CUDA cards (``--device cpu`` rehearses the run on gloo CPU
 ranks at a small size: no device numbers). It builds the kernels, writes
@@ -42,8 +42,12 @@ and one window of each under the profiler: iterations/s, device and NCCL
 time an iteration; then ``solve_pdhg_sharded`` itself over the ranks to
 MAX_ITER, whose exit certifies from the shards.
 
-The last line of standard output is one JSON record (also written to
-``--out``), with every card's ``nvidia-smi`` name and power limit. Exit
+``--dtype float64`` runs the simplex modes in float64 (each rank moves its
+columns to the card as doubles: 8 GiB a rank at the default size, B_inv
+8 GiB more in the 1-D mode; the collectives alone take the float64 keys,
+an all-gather of (key, index) pairs, and a SUM of doubles). The last line
+of standard output is one JSON record (also written to ``--out``), with
+the dtype and every card's ``nvidia-smi`` name and power limit. Exit
 code 0 only when every rank ran and the answers match: the 1-D window the
 single solve's; the 2-D window on every rank the same basis and z, all its
 pivots taken, the single solve's basis and its z within ``TWO_D_Z_TOL``;
@@ -215,18 +219,23 @@ def _device_us(prof, steps: int, cuda: bool) -> dict:
             "top_us": {k: round(v / steps, 2) for k, v in dev_us.most_common(6)}}
 
 
-def _collectives_alone(m: int, dev, group) -> dict:
+def _collectives_alone(m: int, dev, group, dtype=None) -> dict:
     """The pivot step's two collectives alone, on tensors of its shapes (two
-    int64 keys under MIN, m + 1 floats under SUM): host-clock microseconds
+    keys under the MIN of ``dtype``'s keys, ``dist.sharded.key_codec``, and
+    m + 1 ``dtype`` values under SUM; default float32): host-clock microseconds
     an iteration back to back, and paced as in the pivot loop (device work
     of ``PACED_MS`` before and after them and one host read an iteration)
     less the same paced loop without them."""
     import torch
     import torch.distributed as dist
 
+    from simplex_tpu_torch.dist.sharded import key_codec
+
+    dtype = dtype or torch.float32
     cuda = dev.type == "cuda"
-    keys = torch.zeros(2, dtype=torch.int64, device=dev)
-    col = torch.zeros(m + 1, dtype=torch.float32, device=dev)
+    codec = key_codec(dtype)
+    keys = codec.pack(torch.zeros(2, dtype=dtype, device=dev), 0)
+    col = torch.zeros(m + 1, dtype=dtype, device=dev)
     per_ms = 0.0
     if cuda:
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -246,7 +255,7 @@ def _collectives_alone(m: int, dev, group) -> dict:
             if paced:
                 work(PACED_MS[0])
             if collect:
-                dist.all_reduce(keys, op=dist.ReduceOp.MIN, group=group)
+                codec.reduce(keys, group, "alone")
                 dist.all_reduce(col, op=dist.ReduceOp.SUM, group=group)
             if paced:
                 work(PACED_MS[1])
@@ -406,7 +415,7 @@ def _pdhg_runs(A, b, c, mesh, dev, rank: int, iters: int, cuda: bool) -> dict:
 
 
 def _rank(rank: int, world: int, port: int, dev_type: str, a_path: str, b, c, window: int, mode: str,
-          rows: int, out) -> None:
+          rows: int, dtype: str, out) -> None:
     import traceback
 
     import torch
@@ -422,8 +431,9 @@ def _rank(rank: int, world: int, port: int, dev_type: str, a_path: str, b, c, wi
         mesh = make_mesh(device=dev_type)
         dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
         rec = {"rank": rank, "card": torch.cuda.get_device_name(dev) if cuda else "cpu"}
+        dt = getattr(torch, dtype)
         if mode != "pdhg":
-            rec["collectives_alone"] = _collectives_alone(len(b), dev, mesh.get_group(COLS_AXIS))
+            rec["collectives_alone"] = _collectives_alone(len(b), dev, mesh.get_group(COLS_AXIS), dt)
         if a_path is None:
             out.put((rank, "ok", rec))
             return
@@ -432,8 +442,8 @@ def _rank(rank: int, world: int, port: int, dev_type: str, a_path: str, b, c, wi
             rec["pdhg"] = _pdhg_runs(A, b, c, mesh, dev, rank, window, cuda)
             out.put((rank, "ok", rec))
             return
-        opts = SimplexOptions(max_iter=window)
-        short = SimplexOptions(max_iter=PROFILED_PIVOTS)
+        opts = SimplexOptions(max_iter=window, dtype=dt)
+        short = SimplexOptions(max_iter=PROFILED_PIVOTS, dtype=dt)
         if mode == "2d":
             mesh2 = make_mesh((ROWS_AXIS, COLS_AXIS), shape=(rows, world // rows), device=dev_type)
             _, rec["two_d"], _ = _run(
@@ -476,6 +486,8 @@ def main(argv=None) -> int:
                     help="1d: the column-sharded solve; 2d: the 2-D solve first, then the 1-D one; "
                          "pdhg: the column-sharded PDHG against one card's")
     ap.add_argument("--rows", type=int, default=2, help="the 2-D mesh's rows axis (--mode 2d)")
+    ap.add_argument("--dtype", choices=["float32", "float64"], default="float32",
+                    help="the simplex modes' working dtype (PDHG runs in float32 either way)")
     args = ap.parse_args(argv)
     if args.mode == "2d" and (args.ranks % args.rows or args.m % args.rows):
         print(f"card_check: --rows {args.rows} must divide --ranks and --m", file=sys.stderr)
@@ -510,7 +522,7 @@ def main(argv=None) -> int:
     procs = [
         ctx.Process(target=_rank,
                     args=(r, args.ranks, port, args.device, a_path and str(a_path), b, c, args.window, args.mode,
-                          args.rows, out))
+                          args.rows, args.dtype, out))
         for r in range(args.ranks)
     ]
     for p in procs:
@@ -558,7 +570,7 @@ def main(argv=None) -> int:
         return _emit(record, args.out, ok)
     alone = {r: recs[r]["collectives_alone"] for r in range(args.ranks)}
     if args.collectives_only:
-        return _emit({"m": args.m, "cards": cards, "collectives_alone": alone}, args.out, True)
+        return _emit({"m": args.m, "dtype": args.dtype, "cards": cards, "collectives_alone": alone}, args.out, True)
     sh = [recs[r]["sharded"] for r in range(args.ranks)]
     one = recs[0]["single"]
     res, ref = sh[0]["res"], one["res"]
@@ -570,6 +582,7 @@ def main(argv=None) -> int:
     k = sh[0]["steps"]
     record = {
         "instance": f"random_dense_lp({args.m}, {args.n}, seed=0)",
+        "dtype": args.dtype,
         "window": args.window,
         "cards": cards,
         "ranks_agree": bool(agree),

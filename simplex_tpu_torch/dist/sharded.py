@@ -15,14 +15,14 @@ read a pivot, the step's counted flag reads) reads replicated values.
 
   choose_entering     the rank's pricing pass over its shard
                       (``pricing_scan``: mask, min, lowest argmin and first
-                      index below -eps), then ONE all-reduce MIN of two
-                      packed int64 keys: (order-preserving bits of min e,
-                      global index) for Dantzig, the first global index
-                      below -eps for Bland's rule
+                      index below -eps), then ONE MIN over the ranks of two
+                      keys: (order-preserving bits of min e, global index)
+                      for Dantzig, the first global index below -eps for
+                      Bland's rule
   gather_column_cost  ONE all-reduce SUM of the entering column with its
                       cost appended, zero on every rank but the owner
-  devex_choose        ONE all-reduce MIN of three packed keys (the score's
-                      argmax, Bland's candidate, min e)
+  devex_choose        ONE MIN of three keys (the score's argmax, Bland's
+                      candidate, min e)
   gather_cost         an owner-masked SUM (devex's gamma_p)
   gather_basis_matrix an owner-masked SUM of the basis columns
                       (refactorization)
@@ -30,8 +30,13 @@ read a pivot, the step's counted flag reads) reads replicated values.
                       the shard-local ``pricing_update``: the single
                       solve's ops, kernels on the hopper backend
 
-So a Dantzig pivot takes two collectives. Ties break to the lowest global
-index, as in the single solve and the reference. The pricing pass chunks
+So a Dantzig pivot takes two collectives. A MIN's keys are of the working
+dtype (:func:`key_codec`): in float32 one int64 a key (the value's 32
+order bits above the index) and one all-reduce MIN; in float64 an int64
+pair (the value's 64 order bits, the index) a key and one all-gather, then
+the same lexicographic minimum on every rank, so that the value compared is
+the float64 minimum itself. Ties break to the lowest global index, as in
+the single solve and the reference. The pricing pass chunks
 its rows as the pass over all n columns does, so each column's reduced
 cost is bit for bit the single solve's and, on the default path, the
 sharded solve follows the single solve pivot for pivot.
@@ -56,7 +61,6 @@ from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch.config import (
     DEFAULT_OPTIONS,
     SimplexOptions,
-    check_kernel_dtype,
     check_supported,
     pin_full_fp32,
 )
@@ -104,6 +108,7 @@ def default_device(mesh, device=None) -> torch.device:
 
 _NONE = 1 << 62  # the first-index key of "no candidate": above every column index
 _LOW32 = 0xFFFFFFFF
+_LOW63 = (1 << 63) - 1
 
 
 def _order_bits(v: torch.Tensor) -> torch.Tensor:
@@ -114,6 +119,21 @@ def _order_bits(v: torch.Tensor) -> torch.Tensor:
     bits = v.view(torch.int32)
     key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
     return torch.where(torch.isnan(v), -(2**31), key).to(torch.int64)
+
+
+def _order_bits64(v: torch.Tensor) -> torch.Tensor:
+    """float64 values as int64 keys that sort as the values do (all 64
+    bits: the same sign flip as :func:`_order_bits`, -0.0 as +0.0, NaN
+    first)."""
+    v = torch.where(v == 0, 0.0, v.to(torch.float64)).contiguous()
+    bits = v.view(torch.int64)
+    key = torch.where(bits < 0, bits ^ _LOW63, bits)
+    return torch.where(torch.isnan(v), -(2**63), key)
+
+
+def _from_order_bits64(key: torch.Tensor) -> torch.Tensor:
+    """The float64 value of an :func:`_order_bits64` key."""
+    return torch.where(key < 0, key ^ _LOW63, key).contiguous().view(torch.float64)
 
 
 def _pack(v: torch.Tensor, idx) -> torch.Tensor:
@@ -133,16 +153,100 @@ def _first(key: torch.Tensor) -> torch.Tensor:
     return torch.where(key == _NONE, 0, key)
 
 
+class PackedKeys:
+    """The keys of a float32 solve: (value, index) packed into one int64
+    (:func:`_pack`), an index-only key as the int64 itself; a MIN over the
+    ranks is ONE all-reduce MIN of the key vector."""
+
+    def pack(self, v: torch.Tensor, idx) -> torch.Tensor:
+        return _pack(v, idx)
+
+    def plain(self, i: torch.Tensor) -> torch.Tensor:
+        return i.to(torch.int64)
+
+    def reduce(self, keys: torch.Tensor, group, name: str) -> torch.Tensor:
+        return all_reduce(keys, dist.ReduceOp.MIN, group, name)
+
+    def smallest(self, keys: torch.Tensor, k: int) -> torch.Tensor:
+        """The k smallest keys of a (N,) vector, ascending."""
+        return torch.topk(keys, k, largest=False).values
+
+    def value(self, key: torch.Tensor) -> torch.Tensor:
+        return _value(key)
+
+    def index(self, key: torch.Tensor) -> torch.Tensor:
+        return key & _LOW32
+
+    def plain_of(self, key: torch.Tensor) -> torch.Tensor:
+        return key
+
+
+class PairKeys:
+    """The keys of a float64 solve, whose value key takes all 64 bits
+    (:func:`_order_bits64`): a key is an int64 pair (value key, index), an
+    index-only key the pair (index, 0), ordered lexicographically. A MIN
+    over the ranks is ONE all-gather of the (k, 2) keys (16 bytes a key a
+    rank), then the same lexicographic minimum on every rank, in rank
+    order: as many collectives as :class:`PackedKeys`, and the minimum of
+    each value in its own dtype (the reference's ``pmin``)."""
+
+    def pack(self, v: torch.Tensor, idx) -> torch.Tensor:
+        hi = _order_bits64(v)
+        lo = torch.as_tensor(idx, device=v.device).to(torch.int64).expand_as(hi)
+        return torch.stack([hi, lo], -1)
+
+    def plain(self, i: torch.Tensor) -> torch.Tensor:
+        hi = i.to(torch.int64)
+        return torch.stack([hi, torch.zeros_like(hi)], -1)
+
+    def reduce(self, keys: torch.Tensor, group, name: str) -> torch.Tensor:
+        collectives[name] += 1
+        parts = [torch.empty_like(keys) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, keys.contiguous(), group=group)
+        return _lex_min(torch.stack(parts))
+
+    def smallest(self, keys: torch.Tensor, k: int) -> torch.Tensor:
+        """The k smallest pairs of a (N, 2) stack, ascending."""
+        by_index = torch.sort(keys[:, 1], stable=True).indices
+        order = by_index[torch.sort(keys[by_index, 0], stable=True).indices]
+        return keys[order[:k]]
+
+    def value(self, key: torch.Tensor) -> torch.Tensor:
+        return _from_order_bits64(key[..., 0])
+
+    def index(self, key: torch.Tensor) -> torch.Tensor:
+        return key[..., 1]
+
+    def plain_of(self, key: torch.Tensor) -> torch.Tensor:
+        return key[..., 0]
+
+
+def _lex_min(keys: torch.Tensor) -> torch.Tensor:
+    """The lexicographic minimum over dim 0 of (..., 2) int64 pairs."""
+    hi = keys[..., 0].min(0).values
+    lo = torch.where(keys[..., 0] == hi, keys[..., 1], torch.iinfo(torch.int64).max).min(0).values
+    return torch.stack([hi, lo], -1)
+
+
+def key_codec(dtype: torch.dtype):
+    """The keys of a solve in ``dtype``: :class:`PairKeys` for float64,
+    :class:`PackedKeys` (the float32 path's, unchanged) otherwise."""
+    return PairKeys() if dtype == torch.float64 else PackedKeys()
+
+
 def make_collective_backend(
-    group, base: int, n_loc: int, *, n: Optional[int] = None, kernels: str = "hopper"
+    group, base: int, n_loc: int, *, n: Optional[int] = None, kernels: str = "hopper",
+    dtype: torch.dtype = torch.float32,
 ) -> types.SimpleNamespace:
     """The backend of a rank that owns columns [base, base + n_loc) of an
-    (m, n) problem, communicating over ``group``. ``kernels`` names the
-    rank's own op set (``"hopper"`` or ``"torch"``, as ``options.backend``);
-    ``n`` (default ``n_loc``) sets the row chunks of a pricing pass over
-    the whole shard. Column indices in and out are global."""
+    (m, n) problem in ``dtype``, communicating over ``group``. ``kernels``
+    names the rank's own op set (``"hopper"`` or ``"torch"``, as
+    ``options.backend``); ``n`` (default ``n_loc``) sets the row chunks of a
+    pricing pass over the whole shard; ``dtype`` the keys of its MINs
+    (:func:`key_codec`). Column indices in and out are global."""
     local = get_backend(kernels)
     n = n_loc if n is None else int(n)
+    keys_of = key_codec(dtype)
 
     def reduce(t, op, name):
         return all_reduce(t, op, group, name)
@@ -169,27 +273,27 @@ def make_collective_backend(
         # shard column base_col
         lo = base + base_col
         min_e, arg, neg = scan(y, A, c, eps, basis, lo)
-        keys = torch.stack([
-            _pack(min_e, arg.to(torch.int64) + lo),
-            torch.where(neg == _ops.INT_MAX, _NONE, neg.to(torch.int64) + lo),
-        ])
-        reduce(keys, dist.ReduceOp.MIN, "choose_entering")
-        p = torch.where(use_bland.view(()).to(torch.bool), _first(keys[1]), keys[0] & _LOW32)
-        return p.to(torch.int32), _value(keys[0])
+        keys = keys_of.reduce(torch.cat([
+            keys_of.pack(min_e.view(1), arg.to(torch.int64).view(1) + lo),
+            keys_of.plain(torch.where(neg == _ops.INT_MAX, _NONE, neg.to(torch.int64) + lo).view(1)),
+        ]), group, "choose_entering")
+        first = _first(keys_of.plain_of(keys[1]))
+        p = torch.where(use_bland.view(()).to(torch.bool), first, keys_of.index(keys[0]))
+        return p.to(torch.int32), keys_of.value(keys[0])
 
     def devex_choose(e, gamma, eps, use_bland):
         neg = e < -eps
         score = torch.where(neg, (e * e) / gamma, -math.inf)
         s = torch.argmax(score).view(1)
         first = torch.argmax(neg.to(torch.int32)).view(1)
-        keys = torch.cat([
-            _pack(-score.index_select(0, s), s + base),
-            torch.where(neg.any(), first + base, _NONE),
-            _pack(e.min().view(1), 0),
-        ])
-        reduce(keys, dist.ReduceOp.MIN, "devex_choose")
-        p = torch.where(use_bland.view(()).to(torch.bool), _first(keys[1]), keys[0] & _LOW32)
-        return p.to(torch.int32), _value(keys[2])
+        keys = keys_of.reduce(torch.cat([
+            keys_of.pack(-score.index_select(0, s), s + base),
+            keys_of.plain(torch.where(neg.any(), first + base, _NONE)),
+            keys_of.pack(e.min().view(1), 0),
+        ]), group, "devex_choose")
+        p_bland = _first(keys_of.plain_of(keys[1]))
+        p = torch.where(use_bland.view(()).to(torch.bool), p_bland, keys_of.index(keys[0]))
+        return p.to(torch.int32), keys_of.value(keys[2])
 
     def gather_column_cost(A, c, p):
         mine, loc = owned(p.view(1))
@@ -317,7 +421,6 @@ def solve_sharded(
     A[:, basis0] = I. The result is polished in float64 as the single
     solve's is, with the basis columns gathered from their ranks."""
     options = check_supported(options)
-    check_kernel_dtype(options, "sharded", "solve_sharded")
     if options.multi_price > 0:
         get_logger("dist").warning(
             "multi_price=%d is inert in the 1-D sharded mode (supported "
@@ -369,7 +472,7 @@ def solve_sharded(
         c=torch.as_tensor(c[lo:hi], device=device).to(dtype).contiguous(),
     )
     prob = with_pricing_shadow(prob, options.pricing_dtype, options.pricing)
-    backend = make_collective_backend(group, lo, hi - lo, n=n, kernels=options.backend)
+    backend = make_collective_backend(group, lo, hi - lo, n=n, kernels=options.backend, dtype=dtype)
     basis0 = np.arange(n - m, n) if basis0 is None else np.asarray(basis0)
     basis0 = torch.as_tensor(basis0.astype(np.int32), device=device)
     state0 = _initial_state_sharded(prob, basis0, backend, options)

@@ -20,8 +20,8 @@ recompute; Bland's rule after ``bland_after`` degenerate pivots,
 
   basis mask    SUM over "rows" of the row blocks' basis ids (m ints)
   pricing       ``pricing_scan`` on the rank's columns (the whole matrix's
-                row chunks), then ONE MIN over all ranks of the packed
-                (min e, global index) and Bland keys (the 1-D mode's backend)
+                row chunks), then ONE MIN over all ranks of the (min e,
+                global index) and Bland keys (the 1-D mode's backend)
   column        ONE owner-masked SUM over all ranks of A_p and c_p
   ratio pass 1  ONE MIN over "rows": the no-candidate flag, min theta and
                 (Harris) the relaxed bound
@@ -42,6 +42,11 @@ control read a pivot plus the shadow / segment rechecks' counted reads
 (``core.step.host_reads``). Each value a branch depends on is bit for bit
 the same on every rank: owner-masked sums, MIN / MAX, and row-ordered
 gathers; collectives are counted by op in ``dist.sharded.collectives``.
+Every MIN's keys are of the working dtype (``dist.sharded.key_codec``: one
+packed int64 and an all-reduce MIN in float32; int64 pairs, one
+all-gather and a lexicographic minimum in float64), so that theta's
+minimum and the Harris bound come back exact and ``theta == tmin`` finds
+the rows that attain it in float64 too.
 
 Shards of A may be uneven (``torch.tensor_split``'s split over the
 flattened mesh) where the reference asks for n divisible by R C; m must
@@ -62,13 +67,7 @@ import torch
 import torch.distributed as dist
 
 from simplex_tpu_torch import sparse as _sp
-from simplex_tpu_torch.config import (
-    DEFAULT_OPTIONS,
-    SimplexOptions,
-    check_kernel_dtype,
-    check_supported,
-    pin_full_fp32,
-)
+from simplex_tpu_torch.config import DEFAULT_OPTIONS, SimplexOptions, check_supported, pin_full_fp32
 from simplex_tpu_torch.core import step as _step_mod
 from simplex_tpu_torch.core.solver import MAX_VERIFY_ROUNDS, SolveResult, finalize_result
 from simplex_tpu_torch.core.state import Problem, SolverState, with_pricing_shadow
@@ -77,11 +76,10 @@ from simplex_tpu_torch.dist.sharded import (
     _LOW32,
     _NONE,
     _local_columns,
-    _pack,
-    _value,
     all_reduce,
     collectives,
     default_device,
+    key_codec,
     make_collective_backend,
     shard_bounds,
 )
@@ -121,6 +119,7 @@ class Ctx:
     rows_order: list  # rows-group position -> row block, for ordered gathers
     slot: int  # the rank's place along the flattened mesh
     backend: object  # the 1-D mode's collective backend over all ranks
+    keys: object  # the MINs' keys in the working dtype (dist.sharded.key_codec)
     partial: bool
     K: int  # multiple-pricing buffer (0 = off)
     L: int  # pending-pair buffer (0 = eager)
@@ -144,10 +143,6 @@ class Ctx:
 
 def _rows_sum(cx: Ctx, t: torch.Tensor, name: str) -> torch.Tensor:
     return all_reduce(t, dist.ReduceOp.SUM, cx.rows, name)
-
-
-def _rows_min(cx: Ctx, t: torch.Tensor, name: str) -> torch.Tensor:
-    return all_reduce(t, dist.ReduceOp.MIN, cx.rows, name)
 
 
 def _rows_gather(cx: Ctx, t: torch.Tensor, name: str) -> torch.Tensor:
@@ -294,20 +289,21 @@ def _refill(cx: Ctx, s: dict, ctl: Control, bland: bool):
         _ops.reduced_costs(s["y"], cx.prob.A, cx.prob.c).to(dtype), basis_full(cx, s), cx.lo
     )
     cols = torch.arange(cx.lo, cx.hi, device=dev)
-    keys = _pack(e_loc, cols)
-    top = torch.topk(keys, K, largest=False).values
+    kc = cx.keys
+    top = kc.smallest(kc.pack(e_loc, cols), K)
     neg = e_loc < -eps
     first = torch.where(neg.any(), torch.argmax(neg.to(torch.int32)).to(torch.int64) + cx.lo, _NONE)
-    slots = torch.zeros((cx.R * cx.C, K + 2), dtype=torch.int64, device=dev)
-    slots[cx.slot] = torch.cat([top, first.view(1), _pack(e_loc.min().view(1), 0)])
+    mine = torch.cat([top, kc.plain(first.view(1)), kc.pack(e_loc.min().view(1), 0)])
+    slots = torch.zeros((cx.R * cx.C, *mine.shape), dtype=torch.int64, device=dev)
+    slots[cx.slot] = mine
     slots = all_reduce(slots, dist.ReduceOp.SUM, cx.everyone, "refill_topk")
-    best = torch.topk(slots[:, :K].reshape(-1), K, largest=False).values
-    cidx = (best & _LOW32).to(torch.int32)
-    valid = _value(best) < -eps
-    min_exact = _value(slots[:, K + 1].min())
+    best = kc.smallest(slots[:, :K].reshape(-1, *mine.shape[1:]), K)
+    cidx = kc.index(best).to(torch.int32)
+    valid = kc.value(best) < -eps
+    min_exact = kc.value(kc.smallest(slots[:, K + 1], 1)[0])
     if bland:
         # the single lowest improving index, refilled every pivot
-        p_b = slots[:, K].min()
+        p_b = kc.plain_of(slots[:, K]).min()
         any_b = p_b != _NONE
         cidx = torch.where(any_b, p_b, 0).to(torch.int32).expand(K).contiguous()
         valid = torch.zeros(K, dtype=torch.bool, device=dev)
@@ -347,34 +343,37 @@ def _ratio_rows(cx: Ctx, s: dict, alpha: torch.Tensor, bland: bool):
     safe = torch.where(mask, alpha, 1)
     theta = torch.where(mask, x_pos / safe, math.inf)
     harris = opts.ratio == "harris"
-    pass1 = [(~mask.any()).to(torch.int64).view(1), _pack(theta.min().view(1), 0)]
+    kc = cx.keys
+    # theta's minimum and the Harris bound travel as keys of the working
+    # dtype, so that tmin is the minimum itself and theta == tmin finds it
+    pass1 = [kc.plain((~mask.any()).view(1)), kc.pack(theta.min().view(1), 0)]
     if harris:
         relaxed = torch.where(mask, (x_pos + opts.feas_tol) / safe, math.inf).min()
-        pass1.append(_pack(relaxed.view(1), 0))
-    pass1 = _rows_min(cx, torch.cat(pass1), "ratio_rows")
-    unbounded = pass1[0] == 1
-    tmin = _value(pass1[1])
+        pass1.append(kc.pack(relaxed.view(1), 0))
+    pass1 = kc.reduce(torch.cat(pass1), cx.rows, "ratio_rows")
+    unbounded = kc.plain_of(pass1[0]) == 1
+    tmin = kc.value(pass1[1])
     rows = torch.arange(cx.row_base, cx.row_base + cx.m_loc, device=dev)
     if harris:
-        ok = mask & (theta <= _value(pass1[2]))
+        ok = mask & (theta <= kc.value(pass1[2]))
         amax = torch.where(ok, alpha, -math.inf).max()
         i_loc = torch.where(ok & (alpha == amax), rows, INT_MAX).min()
-        pass2 = [_pack((-amax).view(1), i_loc.view(1))]
+        pass2 = [kc.pack((-amax).view(1), i_loc.view(1))]
     else:
-        pass2 = [torch.where(theta == tmin, rows, INT_MAX).min().to(torch.int64).view(1)]
+        pass2 = [kc.plain(torch.where(theta == tmin, rows, INT_MAX).min().view(1))]
     if bland:
         # the lowest basis id among the rows at the exact minimum ratio
         tie = theta == tmin
         bmin = torch.where(tie, s["basis"], INT_MAX).min()
         ib = torch.where(tie & (s["basis"] == bmin), rows, INT_MAX).min()
-        pass2.append(((bmin.to(torch.int64) << 32) | ib.to(torch.int64)).view(1))
-    pass2 = _rows_min(cx, torch.cat(pass2), "ratio_rows")
+        pass2.append(kc.plain(((bmin.to(torch.int64) << 32) | ib.to(torch.int64)).view(1)))
+    pass2 = kc.reduce(torch.cat(pass2), cx.rows, "ratio_rows")
     if bland:
-        q = pass2[1] & _LOW32
+        q = kc.plain_of(pass2[1]) & _LOW32
     elif harris:
-        q = pass2[0] & _LOW32
+        q = kc.index(pass2[0])
     else:
-        q = pass2[0]
+        q = kc.plain_of(pass2[0])
     q = torch.where(q == INT_MAX, 0, q)
     return q, theta, unbounded
 
@@ -691,7 +690,6 @@ def make_context(A, b, c, mesh, options: SimplexOptions, device=None) -> Ctx:
         )
         options = dataclasses.replace(options, multi_price=0)
     options = check_supported(options)
-    check_kernel_dtype(options, "sharded", "solve_sharded_2d")
     mesh = require_mesh(mesh)
     if tuple(mesh.mesh_dim_names or ()) != (ROWS_AXIS, COLS_AXIS):
         raise ValueError(f"mesh axes must be {(ROWS_AXIS, COLS_AXIS)}, got {mesh.mesh_dim_names}")
@@ -740,7 +738,8 @@ def make_context(A, b, c, mesh, options: SimplexOptions, device=None) -> Ctx:
     return Ctx(
         opts=options, m=m, n=n, R=R, C=C, r_ix=r_ix, lo=lo, hi=hi, prob=prob, rows=rows,
         everyone=everyone, rows_order=rows_order, slot=slot,
-        backend=make_collective_backend(everyone, lo, hi - lo, n=n, kernels=options.backend),
+        backend=make_collective_backend(everyone, lo, hi - lo, n=n, kernels=options.backend, dtype=dtype),
+        keys=key_codec(dtype),
         partial=active.pop(),
         K=min(options.multi_price, n // (R * C)) if multi else 0,
         L=max(options.resolve_defer(), 1) if defer else 0,

@@ -38,12 +38,11 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 _L = ctypes.c_longlong
 _D = ctypes.c_double
-# The four single-card kernels take a dtype code first (0 float32, 1
-# float64; pricing: A's code, then the vectors') and their tolerances as
-# doubles, which each rounds to its element type.
+# Every kernel takes a dtype code first (0 float32, 1 float64; the pricing
+# kernels after a layout: A's code, then the vectors') and its tolerances as
+# doubles, which it rounds to its element type.
 _SIGNATURES = {
     "simplex_pricing_scan": (
         _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _D, _I, _I, _I, _P, _I, _I,
@@ -59,21 +58,21 @@ _SIGNATURES = {
     ),
     "simplex_rank1_update": (_I, _P, _P, _P, _I, _I, _I, _P),
     "simplex_batch_pricing": (
-        _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,  # layout .. words
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _I, _I,  # layout .. words
         _P, _P, _P, _P,  # mask, recs, p, min_e
         _I, _I, _P, _I,  # win, win_s, win_seg, a_shared
         _P, _I, _P,  # group, group_tiles, stream
     ),
     "simplex_batch_pricing_groups": (_P, _I, _I, _I, _P, _P),
-    "simplex_batch_pricing_record_bytes": (),
+    "simplex_batch_pricing_record_bytes": (_I,),
     "simplex_batch_tail": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,  # vectors, B_inv, U, R, npend, L
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,  # dtype, vectors, B_inv, U, R, npend, L
         _P, _P, _P, _P, _P, _P, _P, _P,  # min_e .. active
-        _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,  # batch .. st_singular
+        _I, _I, _D, _D, _D, _D, _I, _I, _I, _I, _I, _I,  # batch .. st_singular
         _I, _I, _I,  # threads, rows_per_lane, vec
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs, stream
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs (theta_q apart), stream
     ),
-    "simplex_batch_rank1": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "simplex_batch_rank1": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

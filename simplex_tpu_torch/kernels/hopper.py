@@ -24,9 +24,9 @@ Each wrapper stands beside its plain PyTorch version and a launch counter:
   =================  ==========================  =============================
 
 A wrapper checks its inputs and raises on anything its kernel does not take.
-The four single-card kernels run in float32 or float64: every float operand
-of a call in one of the two (A also the bfloat16 shadow), a mixed call
-raises; the batched kernels take float32 only. Given CPU tensors a wrapper
+Every kernel runs in float32 or float64: every float operand of a call in
+one of the two (A also the bfloat16 shadow), a mixed call raises. Given CPU
+tensors a wrapper
 returns the plain version's result (that is how the CPU
 tests run the hopper backend); given CUDA tensors it launches the kernel on
 the current stream or raises: there is no fallback. ``launches[name]`` counts
@@ -670,12 +670,13 @@ def _batched(t: torch.Tensor, shape: tuple, dtype: torch.dtype, name: str) -> No
 _BATCH_GRID_MAX = 65535  # grid.y: the instances, or the shared layout's instance tiles
 
 # csrc/batch_pricing.cu: the per-instance chunk (columns a block), the shared
-# layout's CTA tile (instances x columns), a record's 32-bit words; the
-# window's bulk-copy chunk and its threads (fp32, bf16), the grouped window's
+# layout's CTA tile (instances x columns), a record's 32-bit words by the
+# vectors' bytes (simplex_batch_pricing_record_bytes); the window's
+# bulk-copy chunk and its threads (fp32 or fp64, bf16), the grouped window's
 # CTA tile and most windows; the launch's layout codes
 _BP_CHUNK = 256
 _BP_TILE_B, _BP_TILE_N = 64, 128
-_BP_RECORD_WORDS = 3
+_BP_RECORD_WORDS = {4: 3, 8: 4}
 _BP_TMA_CHUNK = 256
 _BP_TMA_THREADS = {False: 256 + 32, True: 64 + 32}
 _BP_TMA_CLUSTER_MAX = 8  # chunks an instance that merge in one cluster
@@ -697,13 +698,15 @@ def _alignment(*ts: torch.Tensor) -> int:
 
 def batch_pricing_plan(
     Bn: int, m: int, n: int, *, shared: bool, bf16: bool, align: int, window: int = 0,
-    segments: int = 0,
+    segments: int = 0, elem: int = 4,
 ) -> dict:
     """How :func:`choose_entering_batched` launches ``csrc/batch_pricing.cu``
-    for B = ``Bn`` instances of m x n, A per instance or ``shared``, fp32 or
-    ``bf16``, its pointers aligned to ``align`` bytes (y's and A's), every
-    column or a ``window`` of that many columns an instance out of
-    ``segments`` (S):
+    for B = ``Bn`` instances of m x n, A per instance or ``shared``, the
+    vectors of ``elem`` bytes (4: fp32, 8: fp64) and A of their type or the
+    ``bf16`` shadow, its pointers aligned to ``align`` bytes (y's and A's),
+    every column or a ``window`` of that many columns an instance out of
+    ``segments`` (S). The 16-byte copy conditions below count A's bytes (2,
+    4 or 8 an element):
 
     ``layout``: "scan" (per instance, a column a thread), "bf16x4" (per
     instance, the bf16 shadow at n % 4 == 0: four columns a thread), "shared"
@@ -727,11 +730,13 @@ def batch_pricing_plan(
     through distributed shared memory); ``words`` of the
     basic-column mask an instance; ``group_tiles``; ``scratch_words``, the
     int32 words of scratch (mask, the grouping's permutation, offsets and
-    tiles, then records); ``launches``, the kernels the call runs. Raises
-    where a grid would be too tall."""
+    tiles, then the records, 8-byte aligned in fp64); ``launches``, the
+    kernels the call runs. Raises where a grid would be too tall."""
     if window and segments < 1:
         raise ValueError("batch_pricing_plan: a window needs its number of segments")
-    elem = 2 if bf16 else 4
+    if elem not in _BP_RECORD_WORDS:
+        raise ValueError(f"batch_pricing_plan: vectors of {elem} bytes (want 4 or 8)")
+    vec_bytes, elem = elem, 2 if bf16 else elem
     copies = m % 4 == 0 and (n * elem) % 16 == 0 and align >= 16
     words = tiles = group = 0
     if window and shared and segments <= _BP_GROUP_MAX_S:
@@ -762,9 +767,10 @@ def batch_pricing_plan(
     if grid[1] > _BATCH_GRID_MAX:
         raise ValueError(f"batch_pricing: {Bn} instances need a grid taller than {_BATCH_GRID_MAX}")
     reduce = chunks > (_BP_TMA_CLUSTER_MAX if layout == "window_tma" else 1)
-    recs = Bn * chunks * _BP_RECORD_WORDS if reduce else 0
+    recs = Bn * chunks * _BP_RECORD_WORDS[vec_bytes] if reduce else 0
+    pad = (Bn * words + group) % 2 if recs and vec_bytes == 8 else 0
     return dict(layout=layout, grid=grid, threads=threads, chunks=chunks, reduce=reduce,
-                words=words, group_tiles=tiles, scratch_words=Bn * words + group + recs,
+                words=words, group_tiles=tiles, scratch_words=Bn * words + group + pad + recs,
                 launches=int(words > 0) + 1 + int(reduce))
 
 
@@ -816,21 +822,24 @@ def choose_entering_batched(
     starts (seg[i] mod S) * w worked out on the device from seg, an int32
     (B,) tensor; bit for bit the unwindowed call on each instance's slice
     with the start added to the pick).
-    A is dense float32 or bfloat16, contiguous: per instance (B, m, n), or
-    one (m, n) every instance shares; c is (B, n) or a shared (n,) float32.
-    y (B, m) float32; use_bland (B,) bool; basis (B, m) int32; at_upper
-    (B, n) bool for the signed mode. A sparse A has no kernel here: its
-    caller prices it (``simplex_tpu_torch.batch.step``)."""
+    y (B, m) and c, (B, n) or a shared (n,), both float32 or both float64
+    (the working dtype, in which the sums run and min_e comes out); A
+    dense, contiguous, of the same dtype or the bfloat16 shadow: per
+    instance (B, m, n), or one (m, n) every instance shares. use_bland (B,)
+    bool; basis (B, m) int32; at_upper (B, n) bool for the signed mode. A
+    sparse A has no kernel here: its caller prices it
+    (``simplex_tpu_torch.batch.step``)."""
     if not isinstance(A, torch.Tensor) or A.dim() not in (2, 3) or 0 in A.shape:
         raise ValueError("A: want a dense (B, m, n) stack or a shared (m, n) matrix")
     m, n = A.shape[-2:]
     Bn = y.shape[0]
     if A.dim() == 3 and A.shape[0] != Bn:
         raise ValueError(f"A: {A.shape[0]} instances, y has {Bn}")
-    if A.dtype not in (torch.float32, torch.bfloat16) or not A.is_contiguous():
-        raise ValueError(f"A: want contiguous float32 or bfloat16, got {A.dtype}")
-    _batched(y, (Bn, m), torch.float32, "y")
-    _batched(c, (n,) if c.dim() == 1 else (Bn, n), torch.float32, "c")
+    dt = _working_dtype(c, "c")
+    if A.dtype not in (dt, torch.bfloat16) or not A.is_contiguous():
+        raise ValueError(f"A: want contiguous {dt} or bfloat16 beside {dt} vectors, got {A.dtype}")
+    _batched(y, (Bn, m), dt, "y")
+    _batched(c, (n,) if c.dim() == 1 else (Bn, n), dt, "c")
     _batched(use_bland, (Bn,), torch.bool, "use_bland")
     _batched(basis, (Bn, m), torch.int32, "basis")
     ins = [y, A, c, use_bland, basis]
@@ -847,7 +856,7 @@ def choose_entering_batched(
     if dev.type == "cpu":
         return choose_entering_batched_plain(y, A, c, eps, use_bland, basis, at_upper, window)
     plan = batch_pricing_plan(Bn, m, n, shared=A.dim() == 2, bf16=A.dtype == torch.bfloat16,
-                              align=_alignment(y, A), window=w, segments=S)
+                              align=_alignment(y, A), window=w, segments=S, elem=dt.itemsize)
     lib = _build.load_library()
     scratch = None
     if plan["scratch_words"]:
@@ -856,20 +865,24 @@ def choose_entering_batched(
     group = scratch[Bn * plan["words"]:] if plan["group_tiles"] else None
     recs = None
     if plan["reduce"]:
-        recs = scratch[scratch.numel() - Bn * plan["chunks"] * _BP_RECORD_WORDS:]
-    out = torch.empty((2, Bn), dtype=torch.int32, device=dev)
+        recs = scratch[scratch.numel() - Bn * plan["chunks"] * _BP_RECORD_WORDS[dt.itemsize]:]
+    # p and min_e: rows 0 and 1 in float32; in float64 min_e's doubles in
+    # rows 0-1 (8-byte aligned), p in row 2
+    wd = dt.itemsize // 4
+    out = torch.empty((1 + wd, Bn), dtype=torch.int32, device=dev)
+    p_out, min_out = (out[0], out[1]) if wd == 1 else (out[wd], out[:wd].reshape(-1))
     err = lib.simplex_batch_pricing(
-        _BP_LAYOUTS[plan["layout"]], 0 if A.dtype == torch.float32 else 1, y.data_ptr(),
+        _BP_LAYOUTS[plan["layout"]], _A_CODE[A.dtype], _DTYPE_CODE[dt], y.data_ptr(),
         A.data_ptr(), c.data_ptr(), None if at_upper is None else at_upper.data_ptr(),
         basis.data_ptr(), use_bland.data_ptr(), Bn, m, n, int(c.dim() == 1), eps,
         plan["chunks"], plan["words"], None if mask is None else mask.data_ptr(),
-        None if recs is None else recs.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        None if recs is None else recs.data_ptr(), p_out.data_ptr(), min_out.data_ptr(),
         w, S, None if window is None else seg.data_ptr(), int(window is not None and A.dim() == 2),
         None if group is None else group.data_ptr(), plan["group_tiles"], _stream(dev),
     )
     _build.check(err, "batch_pricing")
     launches["batch_pricing"] += 1
-    return out[0], out[1].view(torch.float32)
+    return p_out, min_out.view(dt)
 
 
 _BSCAL, _BFLAGS = 6, 4  # csrc/batch_tail.cu: the scalar rows, the flag rows
@@ -880,20 +893,22 @@ _TAIL_WARPS = 4
 _TAIL_BLOCK_THREADS = 512
 
 
-def batch_tail_plan(Bn: int, m: int, align: int) -> dict:
+def batch_tail_plan(Bn: int, m: int, align: int, elem: int = 4) -> dict:
     """How :func:`pivot_tail_batched` launches ``csrc/batch_tail.cu`` for B
-    = ``Bn`` instances of m rows, every pointer aligned to ``align`` bytes:
-    ``path`` "warp" (m <= ``_TAIL_WARP_MAX_M``: one warp an instance,
-    ``rows_per_lane`` in 1, 2, 4, 8, ``vec`` rows a load, 1 or
-    min(rows_per_lane, 4) where m and the alignment allow) or "block" (one
-    block of ``threads``, a row a thread up to 512, an instance); ``blocks``
-    of the launch."""
+    = ``Bn`` instances of m rows of ``elem``-byte floats (4 or 8), every
+    pointer aligned to ``align`` bytes: ``path`` "warp" (m <=
+    ``_TAIL_WARP_MAX_M``: one warp an instance, ``rows_per_lane`` in 1, 2,
+    4, 8, ``vec`` rows a load, 1 or min(rows_per_lane, 4) where m and the
+    alignment allow: vec floats in pieces of at most 16 bytes, vec int32 of
+    the basis) or "block" (one block of ``threads``, a row a thread up to
+    512, an instance); ``blocks`` of the launch."""
     if m <= _TAIL_WARP_MAX_M:
         rpl = 1
         while 32 * rpl < m:
             rpl *= 2
         v = min(rpl, 4)
-        vec = v if v > 1 and m % v == 0 and align >= 4 * v else 1
+        need = max(4 * v, min(16, elem * v))
+        vec = v if v > 1 and m % v == 0 and align >= need else 1
         return dict(path="warp", rows_per_lane=rpl, vec=vec, threads=32 * _TAIL_WARPS,
                     blocks=-(-Bn // _TAIL_WARPS))
     return dict(path="block", rows_per_lane=0, vec=1,
@@ -917,21 +932,23 @@ def pivot_tail_batched(
     ``csrc/batch_tail.cu`` (one warp an instance up to 256 rows, one block
     beyond: :func:`batch_tail_plan`); the contract of
     :func:`simplex_tpu_torch.kernels.ops.pivot_tail_batched`, bit for bit.
-    Vectors (B, m) float32 (basis int32), B_inv (B, m, m) float32,
-    contiguous; min_e, e_p, c_p (B,) float32; p, iters, degen, status (B,)
-    int32; active (B,) bool. Deferred: U, R (B, L, m) float32 and npend
-    (B,) int32 (each below L), the new pairs written in place. Three
-    allocations: the vector block, the (6, B) scalars and the (4, B)
-    flags."""
+    Every float operand in one dtype, float32 or float64: vectors (B, m)
+    (basis int32), B_inv (B, m, m), contiguous; min_e, e_p, c_p (B,); p,
+    iters, degen, status (B,) int32; active (B,) bool. Deferred: U, R (B, L,
+    m) and npend (B,) int32 (each below L), the new pairs written in place.
+    Three allocations: the vector block, the int32 scalars ((6, B); in
+    float64 two rows more, which hold theta_q as (B,) doubles) and the (4,
+    B) flags."""
     if x_b.dim() != 2 or 0 in x_b.shape:
         raise ValueError(f"x_b: want a non-empty (B, m) stack, got {tuple(x_b.shape)}")
     Bn, m = x_b.shape
+    dt = _working_dtype(x_b, "x_b")
     for name, t in (("x_b", x_b), ("alpha", alpha), ("y", y), ("c_b", c_b)):
-        _batched(t, (Bn, m), torch.float32, name)
+        _batched(t, (Bn, m), dt, name)
     _batched(basis, (Bn, m), torch.int32, "basis")
-    _batched(B_inv, (Bn, m, m), torch.float32, "B_inv")
+    _batched(B_inv, (Bn, m, m), dt, "B_inv")
     for name, t in (("min_e", min_e), ("e_p", e_p), ("c_p", c_p)):
-        _batched(t, (Bn,), torch.float32, name)
+        _batched(t, (Bn,), dt, name)
     for name, t in (("p", p), ("iters", iters), ("degen", degen), ("status", status)):
         _batched(t, (Bn,), torch.int32, name)
     _batched(active, (Bn,), torch.bool, "active")
@@ -942,8 +959,8 @@ def pivot_tail_batched(
     L = 0
     if defer:
         L = U.shape[1] if U.dim() == 3 else -1
-        _batched(U, (Bn, L, m), torch.float32, "U")
-        _batched(R, (Bn, L, m), torch.float32, "R")
+        _batched(U, (Bn, L, m), dt, "U")
+        _batched(R, (Bn, L, m), dt, "R")
         _batched(npend, (Bn,), torch.int32, "npend")
         ins += [U, R, npend]
     kw = dict(eps=eps, pivot_tol=pivot_tol, feas_tol=feas_tol, harris=harris,
@@ -955,15 +972,21 @@ def pivot_tail_batched(
             active, **kw,
         )
     lib = _build.load_library()
-    vecs = torch.empty((6, Bn, m), dtype=torch.float32, device=dev).unbind(0)
-    scal = torch.empty((_BSCAL, Bn), dtype=torch.int32, device=dev)
+    vecs = torch.empty((6, Bn, m), dtype=dt, device=dev).unbind(0)
+    # the int32 scalars; theta_q in row 1 (float32), or as doubles in the
+    # two rows past the six (8-byte aligned: 24 B bytes in)
+    w = dt.itemsize // 4
+    scal = torch.empty((_BSCAL + (w if w > 1 else 0), Bn), dtype=torch.int32, device=dev)
+    theta = (scal[1] if w == 1 else scal[_BSCAL:].reshape(-1)).view(dt)
     flags = torch.empty((_BFLAGS, Bn), dtype=torch.bool, device=dev)
-    basis_out = vecs[5].view(torch.int32)
+    basis_out = vecs[5].reshape(-1).view(torch.int32)[: Bn * m].view(Bn, m)
     plan = batch_tail_plan(
-        Bn, m, _alignment(x_b, alpha, basis, y, c_b, B_inv, *vecs, *((U, R) if defer else ())))
+        Bn, m, _alignment(x_b, alpha, basis, y, c_b, B_inv, *vecs, *((U, R) if defer else ())),
+        dt.itemsize)
     st = SolveStatus
     err = lib.simplex_batch_tail(
-        x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), y.data_ptr(), c_b.data_ptr(),
+        _DTYPE_CODE[dt], x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), y.data_ptr(),
+        c_b.data_ptr(),
         B_inv.data_ptr(), U.data_ptr() if defer else None, R.data_ptr() if defer else None,
         npend.data_ptr() if defer else None, L, min_e.data_ptr(), e_p.data_ptr(),
         c_p.data_ptr(), p.data_ptr(), iters.data_ptr(), degen.data_ptr(),
@@ -972,16 +995,16 @@ def pivot_tail_batched(
         int(st.UNBOUNDED), int(st.SINGULAR), plan["threads"], plan["rows_per_lane"],
         plan["vec"], vecs[0].data_ptr(),
         vecs[1].data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(), vecs[4].data_ptr(),
-        basis_out.data_ptr(), scal.data_ptr(), flags.data_ptr(), _stream(dev),
+        basis_out.data_ptr(), scal.data_ptr(), theta.data_ptr(), flags.data_ptr(), _stream(dev),
     )
     _build.check(err, "batch_tail")
     launches["batch_tail"] += 1
-    q, theta, it, status_o, dg, np_o = scal.unbind(0)
+    q, _, it, status_o, dg, np_o = scal[:_BSCAL].unbind(0)
     optimal, unbounded, bad, take = flags.unbind(0)
     return PivotTail(
         x_b=vecs[2], y=vecs[3], c_b=vecs[4], basis=basis_out, iters=it, status=status_o,
         degen=dg, npend=np_o if defer else None, eta=vecs[0], row=vecs[1], q=q,
-        theta_q=theta.view(torch.float32), optimal=optimal, unbounded=unbounded, bad=bad,
+        theta_q=theta, optimal=optimal, unbounded=unbounded, bad=bad,
         take=take,
     )
 
@@ -997,17 +1020,19 @@ def rank1_update_batched(
 ) -> torch.Tensor:
     """``B_inv[i] += eta[i] (x) row[i]`` IN PLACE for every instance with
     ``take[i]`` (read on the device), in one launch of
-    ``csrc/batch_rank1.cu``; the others untouched. B_inv (B, m, m) float32
-    contiguous; eta, row (B, m) float32 contiguous, not overlapping B_inv;
-    take (B,) bool. Equal to the plain version bit for bit."""
+    ``csrc/batch_rank1.cu``; the others untouched. B_inv (B, m, m)
+    contiguous; eta, row (B, m) contiguous, not overlapping B_inv; all three
+    float32 or all three float64; take (B,) bool. Equal to the plain version
+    bit for bit."""
     _require(
         B_inv.dim() == 3 and B_inv.shape[1] == B_inv.shape[2] and B_inv.numel() > 0,
         f"B_inv: want a non-empty (B, m, m) stack, got {tuple(B_inv.shape)}",
     )
     Bn, m, _ = B_inv.shape
-    _batched(B_inv, (Bn, m, m), torch.float32, "B_inv")
-    _batched(eta, (Bn, m), torch.float32, "eta")
-    _batched(row, (Bn, m), torch.float32, "row")
+    dt = _working_dtype(B_inv, "B_inv")
+    _batched(B_inv, (Bn, m, m), dt, "B_inv")
+    _batched(eta, (Bn, m), dt, "eta")
+    _batched(row, (Bn, m), dt, "row")
     _batched(take, (Bn,), torch.bool, "take")
     dev = _same_device(B_inv, eta, row, take)
     _require(
@@ -1020,7 +1045,7 @@ def rank1_update_batched(
     lib = _build.load_library()
     vec = m % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (B_inv, row))
     err = lib.simplex_batch_rank1(
-        B_inv.data_ptr(), eta.data_ptr(), row.data_ptr(), take.data_ptr(), Bn, m,
+        _DTYPE_CODE[dt], B_inv.data_ptr(), eta.data_ptr(), row.data_ptr(), take.data_ptr(), Bn, m,
         int(vec), _stream(dev),
     )
     _build.check(err, "batch_rank1")

@@ -10,8 +10,8 @@ and ``simplex_tpu.kernels.xla``'s op in float64, mixed float dtypes must
 raise, and the JAX suite's float64 scenarios (``tests/test_golden.py``,
 ``tests/test_corpus.py``: the golden sample, Beale's cycler, the
 Klee-Minty ladder, the structured corpus and the MPS fixtures) run
-through the port. The batched and sharded modes, whose kernels take
-float32 only, refuse float64 under the hopper backend.
+through the port. The batched and sharded modes in float64 under the
+hopper backend: ``tests/test_torch_fp64_modes.py``.
 
 Tolerances: indices, flags, pivot counts and bases exactly; the ratio
 test's values, eta and x_b bit for bit (the same IEEE float64 ops on both
@@ -48,13 +48,10 @@ from simplex_tpu_torch import (
     solve,
     solve_batched,
     solve_general,
-    solve_sharded,
-    solve_sharded_2d,
     solve_with_checkpoints,
     trace_pivots,
 )
 from simplex_tpu_torch import cli
-from simplex_tpu_torch.batch.vmapped import reoptimize_batched
 from simplex_tpu_torch.core.state import state_from_numpy
 from simplex_tpu_torch.io.text import load_lp
 from simplex_tpu_torch.kernels import _build, hopper
@@ -487,28 +484,8 @@ def test_cli_fp64_under_the_default_backend(capsys):
 
 
 # --------------------------------------------------------------------------
-# the batched and sharded modes take float32 kernels only
+# the batched mode under the plain ops (the kernels' float64 runs: tests/test_torch_fp64_modes.py)
 # --------------------------------------------------------------------------
-
-
-def refusals():
-    A, b, c = tgen.random_dense_lp(4, 10, seed=1)
-    As, bs, cs = A[None], b[None], c[None]
-    return {
-        "solve_batched": ("20a", lambda o, mesh: solve_batched(As, bs, cs, options=o, mesh=mesh, device="cpu")),
-        "reoptimize_batched": ("20a", lambda o, mesh: reoptimize_batched(
-            A, bs, c, np.arange(6, 10), options=o, mesh=mesh, device="cpu")),
-        "solve_sharded": ("20b", lambda o, mesh: solve_sharded(A, b, c, mesh, options=o, device="cpu")),
-        "solve_sharded_2d": ("20b", lambda o, mesh: solve_sharded_2d(A, b, c, mesh, options=o, device="cpu")),
-    }
-
-
-@pytest.mark.parametrize("mode", ["solve_batched", "reoptimize_batched", "solve_sharded", "solve_sharded_2d"])
-@pytest.mark.parametrize("mesh", [None, object()])
-def test_batched_and_sharded_refuse_f64_on_the_kernels(mode, mesh):
-    item, call = refusals()[mode]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        call(F64, mesh)
 
 
 def test_batched_f64_under_the_torch_backend_runs():
