@@ -1222,8 +1222,9 @@ def phase_window_pricing(dev, g, dtype=None) -> dict:
                 f"batch_pricing window {kind} {Bn}x{m}x{n} w={w} S={S} {tag}", dev, *args, w, S, seg, up))
         win = (w, S, seg)
         if (Bn, m, n) == (SEG_B, SEG_M, SEG_N):
-            # the windows' A, y, c and the basis read once, p and min_e written
-            nb = Bn * (es * (m * w + 2 * m + w) + 4 + 1 + 4 + es)
+            # the windows' A, y, c, the basis (int32), the segment counter
+            # and the flag read once, p and min_e written
+            nb = Bn * (es * (m * w + m + w) + 4 * m + 4 + 1 + 4 + es)
             A_w = ops.window_slice(A, ops.window_starts(win, n), w)
             rec.update({
                 "window_ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win), 50),
@@ -1238,7 +1239,7 @@ def phase_window_pricing(dev, g, dtype=None) -> dict:
         if shared and (Bn, m, n) == (REOPT_B, REOPT_M, REOPT_N):
             # each distinct window of A read once; 2 B m w operations bound it
             nwin = int(torch.remainder(seg.long(), S).unique().numel())
-            bd = bound(es * nwin * (m * w + w) + Bn * (es * (2 * m) + 4 + 1 + 4 + es), 2.0 * Bn * m * w, peak)
+            bd = bound(es * nwin * (m * w + w) + Bn * (es * m + 4 * m + 4 + 1 + 4 + es), 2.0 * Bn * m * w, peak)
             rec.update({
                 "window_shared_ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win), 50),
                 "window_shared_plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis, None, win), 10),
@@ -1304,8 +1305,9 @@ def phase_batch_kernels(dev, dtype=None) -> dict:
         ):
             worst = max(worst, check_batch_pricing(f"batch_pricing {Bn}x{m}x{n} {tag}", dev, *args))
         if (Bn, m, n) == (BATCH_B, BATCH_M, BATCH_N):
-            # A, y and c read once, the flag read, p and min_e written
-            nb = Bn * (es * (m * n + 2 * m + n) + 1 + 4 + es)
+            # A, y and c read once, the basis (int32) and the flag read, p
+            # and min_e written
+            nb = Bn * (es * (m * n + m + n) + 4 * m + 1 + 4 + es)
             recs[rp] = {
                 "ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis), 50),
                 "plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis), 20),
@@ -1337,7 +1339,7 @@ def phase_batch_kernels(dev, dtype=None) -> dict:
             worst = max(worst, check_batch_pricing(f"batch_pricing shared {Bn}x{m}x{n} {tag}", dev, *args))
         if Bn == REOPT_B:
             # A and c are read from memory once; 2 B m n flops bound it
-            bd = bound(es * (m * n + n) + Bn * (es * (2 * m) + 1 + 4 + es), 2.0 * Bn * m * n, peak)
+            bd = bound(es * (m * n + n) + Bn * (es * m + 4 * m + 1 + 4 + es), 2.0 * Bn * m * n, peak)
             recs[rp].update({
                 "reopt_ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis), 50),
                 "reopt_plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis), 20),
@@ -1377,7 +1379,11 @@ def phase_batch_kernels(dev, dtype=None) -> dict:
             f"{tag}ms": time_ms(lambda: hopper.pivot_tail_batched(*args, harris=True, **tail_opts), 200),
             f"{tag}plain_ms": time_ms(lambda: hopper.pivot_tail_batched_plain(*args, harris=True, **tail_opts), 50),
         }
-        bd = bound(es * Bn * (12 * m + 12), 12.0 * Bn * m, peak)
+        # each operand at its own size: rows x_b, alpha, y, c_b, B_inv's row
+        # in and eta, row, x_b, y, c_b out (es), the basis in and out (int32);
+        # min_e, e_p, c_p (es), p, iters, degen, status (int32) and active
+        # in, q, iters, status, degen (int32), theta_q (es) and 4 flags out
+        bd = bound(Bn * (es * 10 * m + 4 * 2 * m + 3 * es + 4 * 4 + 1 + 4 * 4 + es + 4), 12.0 * Bn * m, peak)
         r.update({f"{tag}bound_ms": bd["bound_ms"], f"{tag}bound_by": bd["bound_by"]})
         if not tag:
             with tail_block_path():

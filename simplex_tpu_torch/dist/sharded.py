@@ -99,6 +99,22 @@ def all_reduce(t: torch.Tensor, op, group, name: str) -> torch.Tensor:
     return t
 
 
+# one all-gather into one buffer (all_gather_single where this torch has
+# it, all_gather_into_tensor, its older name, elsewhere)
+_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def all_gather(t: torch.Tensor, group, name: str) -> torch.Tensor:
+    """Every rank's ``t`` over ``group``, stacked in group-rank order as
+    (world, *t.shape), through ONE all-gather into one buffer; counted
+    under ``name``."""
+    collectives[name] += 1
+    world = dist.get_world_size(group)
+    out = t.new_empty((world * t.numel(),))
+    _gather_into(out, t.contiguous().reshape(-1), group=group)
+    return out.view(world, *t.shape)
+
+
 def default_device(mesh, device=None) -> torch.device:
     """``device``, or the mesh's device type on the current card."""
     if device is None:
@@ -200,10 +216,7 @@ class PairKeys:
         return torch.stack([hi, torch.zeros_like(hi)], -1)
 
     def reduce(self, keys: torch.Tensor, group, name: str) -> torch.Tensor:
-        collectives[name] += 1
-        parts = [torch.empty_like(keys) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, keys.contiguous(), group=group)
-        return _lex_min(torch.stack(parts))
+        return _lex_min(all_gather(keys, group, name))
 
     def smallest(self, keys: torch.Tensor, k: int) -> torch.Tensor:
         """The k smallest pairs of a (N, 2) stack, ascending."""
@@ -359,6 +372,9 @@ def _host_csc(A):
     return A.tocsc()
 
 
+_UPLOAD_BYTES = 1 << 28  # bytes of A a block of rows of _local_columns
+
+
 def _local_columns(A, lo: int, hi: int, dtype, device):
     """Columns [lo, hi) of the full A on ``device``: a sparse A (scipy, a
     sparse tensor or a :class:`~simplex_tpu_torch.sparse.SparseA`) as a
@@ -368,7 +384,13 @@ def _local_columns(A, lo: int, hi: int, dtype, device):
         return _sp.from_scipy(_host_csc(A)[:, lo:hi], dtype, device)
     if isinstance(A, torch.Tensor):
         return A[:, lo:hi].to(device=device, dtype=dtype).contiguous()
-    return torch.as_tensor(np.ascontiguousarray(A[:, lo:hi]), device=device).to(dtype).contiguous()
+    # a block of rows at a time, each converted on the host as it is copied
+    # in: no whole staging copy in A's own dtype beside the result
+    out = torch.empty((A.shape[0], hi - lo), dtype=dtype, device=device)
+    rows = max(1, _UPLOAD_BYTES // max(1, (hi - lo) * A.dtype.itemsize))
+    for r in range(0, A.shape[0], rows):
+        out[r : r + rows].copy_(torch.from_numpy(np.ascontiguousarray(A[r : r + rows, lo:hi])))
+    return out
 
 
 def _initial_state_sharded(prob: Problem, basis0: torch.Tensor, backend, opts) -> SolverState:

@@ -76,8 +76,8 @@ from simplex_tpu_torch.dist.sharded import (
     _LOW32,
     _NONE,
     _local_columns,
+    all_gather,
     all_reduce,
-    collectives,
     default_device,
     key_codec,
     make_collective_backend,
@@ -148,10 +148,8 @@ def _rows_sum(cx: Ctx, t: torch.Tensor, name: str) -> torch.Tensor:
 def _rows_gather(cx: Ctx, t: torch.Tensor, name: str) -> torch.Tensor:
     """The row blocks ``t`` of every rank of the rank's "rows" group,
     stacked in row-block order: (R * len(t), ...)."""
-    parts = [torch.empty_like(t) for _ in range(cx.R)]
-    collectives[name] += 1
-    dist.all_gather(parts, t.contiguous(), group=cx.rows)
-    return torch.cat([parts[cx.rows_order.index(r)] for r in range(cx.R)])
+    parts = all_gather(t, cx.rows, name)
+    return parts[[cx.rows_order.index(r) for r in range(cx.R)]].flatten(0, 1)
 
 
 def _own_rows(cx: Ctx, q: torch.Tensor):

@@ -180,6 +180,21 @@ def test_pair_keys_order_as_float64_values():
     np.testing.assert_array_equal(tsh._lex_min(tie[:2].unsqueeze(1))[0].numpy(), tie[1].numpy())
 
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_local_columns_upload_in_row_blocks(monkeypatch, dtype):
+    """A dense numpy shard is copied in blocks of rows, each converted to
+    the working dtype as it is copied: the same values as one conversion of
+    the whole slice, at any block size."""
+    A = np.random.default_rng(0).standard_normal((7, 10)).astype(np.float32)
+    want = torch.from_numpy(A[:, 2:9]).to(dtype)
+    for nbytes in (1, 60, 1 << 28):  # a row a block, 2 rows, the whole shard
+        monkeypatch.setattr(tsh, "_UPLOAD_BYTES", nbytes)
+        got = tsh._local_columns(A, 2, 9, dtype, "cpu")
+        assert got.dtype == dtype and got.is_contiguous()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 # ---- the batched modes in float64 --------------------------------------------
 
 BATCH_SETS = {

@@ -192,7 +192,7 @@ def test_import_leaves_jax_out():
         "simplex_tpu_torch.kernels.hopper, simplex_tpu_torch.oracle.generator, "
         "simplex_tpu_torch.oracle.reference, simplex_tpu_torch.fo.sharded, "
         "simplex_tpu_torch.dist.sharded2d, simplex_tpu_torch.dist.checkpoint2d, "
-        "simplex_tpu_torch.dist.dryrun\n"
+        "simplex_tpu_torch.dist.dryrun, simplex_tpu_torch.bench.sass_ops\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'simplex_tpu.'))]\n"
         "assert not bad, bad\n"
         "assert 'simplex_tpu' not in sys.modules\n"
