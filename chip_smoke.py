@@ -28,8 +28,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      bf16 shadow, the signed mode, Bland's choice), odd and multi-chunk
      shapes and 8 x 2048 x 4096 (1.2e-4 of scale, every pick equal); the
      shared-A layout (the tiled product) at 1 x 1 x 1, 3 x 17 x 45, 65 x 33
-     x 129, 130 x 257 x 1000, 130 x 260 x 1000 (a tail on every tile axis,
-     with and without 16-byte copies) and the warm re-solve's 256 x 2048 x
+     x 129, 130 x 257 x 1000, 130 x 260 x 1000, 129 x 36 x 130, 129 x 33 x
+     65 (a tail on every axis of the fp32 and the float64 tile, with and
+     without 16-byte copies) and the warm re-solve's 256 x 2048 x
      4096, and bit for bit against the per-instance path on the same A
      expanded (8 x 2048 x 4096, 70 x 33 x 300); its window mode (segmented
      pricing) on every layout the plan gives it (the bulk-copy scan, the
@@ -53,7 +54,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      outer(eta, row) on the whole inverse and on row blocks; each timed
      beside its plain version, its library call and its bound; and the
      three batched kernels in float64 at the float32 checks' shapes and
-     layouts (bit for bit where float32 is, min_e within 1e-12 of scale);
+     layouts (bit for bit where float32 is, min_e within 1e-12 of scale),
+     after the sum-order probe (``bench/dmma_probe.py``: every f64 shape of
+     ``mma.sync`` against the ascending fma chain on 2^20 random tiles and
+     adversarial ones, a verdict printed a shape; the shape the float64
+     shared layouts run on must equal the chain);
   3. ``simplex_tpu_torch.solve`` through its normal entry point with the
      default options: the sample LP (z = 9), a 2048 x 4096 random LP
      against HiGHS, and the benchmark's 8192 x 16384 instance over its
@@ -149,8 +154,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and bf16): device ops and device us a batch step, and each batched
      kernel's; the
      device us a call of the redesigned batched kernels (shared-A and bf16
-     pricing, the windows per instance and on a shared A, the tail's two
-     paths and its 256 x 2048 shape); of
+     pricing, the windows per instance and on a shared A, in float64 too,
+     the tail's two paths and its 256 x 2048 shape); of
      one ``reoptimize_batched`` call (phase 16's) a dual batch step; and of
      640 PDHG iterations (phase 17's 256 x 640 and T = 64 sparse) an
      iteration. It runs last: after a profiler run every later launch of the process
@@ -1190,7 +1195,9 @@ def phase_window_pricing(dev, g, dtype=None) -> dict:
     # four-column scan), 15, 1024 (S = 1), 4096 (16 chunks: a reduction
     # launch), all in one window; shared at the warm
     # re-solve's shape, odd ones (element loads), 520 (a tail tile of 8
-    # columns), B = 100 (not a multiple of 32), S = 1, all in one window
+    # columns), B = 100 (not a multiple of 32), S = 1, B = 33 at w = 72
+    # and m = 36 (one past the float64 tile: 32 instances, 64 columns, 32
+    # rows), all in one window
     cases = ((SEG_B, SEG_M, SEG_N, SEG_S, False, False), (5, 33, 1000, 4, False, False),
              (7, 9, 1032, 4, False, False), (6, 20, 1040, 2, False, False),
              (6, 21, 1040, 2, False, False), (3, 17, 45, 3, False, False), (40, 64, 1024, 1, False, False),
@@ -1199,7 +1206,7 @@ def phase_window_pricing(dev, g, dtype=None) -> dict:
              (REOPT_B, REOPT_M, REOPT_N, SEG_S, True, False), (70, 33, 300, 3, True, False),
              (65, 257, 1032, 4, True, False), (9, 16, 1040, 2, True, False),
              (100, 128, 2048, 8, True, False), (96, 64, 1024, 1, True, False),
-             (REOPT_B, 256, REOPT_N, SEG_S, True, True))
+             (33, 36, 576, 8, True, False), (REOPT_B, 256, REOPT_N, SEG_S, True, True))
     for Bn, m, n, S, shared, one in cases:
         w = n // S
         y, A, c, basis, seg = window_inputs(dev, g, Bn, m, n, S, shared, one, dtype)
@@ -1257,6 +1264,26 @@ def phase_window_pricing(dev, g, dtype=None) -> dict:
     return rec
 
 
+def dmma_verdict(dev) -> dict:
+    """The sum-order probe (``simplex_tpu_torch.bench.dmma_probe``): every
+    f64 shape of ``mma.sync`` the build holds against the ascending fma
+    chain, a verdict line a shape. Fails unless the shape on which
+    batch_pricing's float64 shared layouts run (``hopper._BP_DMMA_K``)
+    equals the chain bit for bit: their bit-for-bit checks rest on it."""
+    from simplex_tpu_torch.bench import dmma_probe
+    from simplex_tpu_torch.kernels import hopper
+
+    t0 = time.perf_counter()
+    res = dmma_probe.probe(dev)
+    for line in dmma_probe.verdict_lines(res):
+        print(line)
+    print(f"dmma probe: {time.perf_counter() - t0:.1f} s")
+    used = f"m16n8k{hopper._BP_DMMA_K}"
+    check(res[used].get("equals_ascending_chain", False),
+          f"dmma probe: {used}, on which the float64 shared layouts sum, is not the ascending fma chain")
+    return {name: r.get("equals_ascending_chain") for name, r in res.items()}
+
+
 def phase_batch_kernels(dev, dtype=None) -> dict:
     """The three batched kernels against their plain twins on the card:
     pricing (per-instance A on both the fp32 and the bf16 pair path, and a
@@ -1285,6 +1312,8 @@ def phase_batch_kernels(dev, dtype=None) -> dict:
     g = torch.Generator(device=dev).manual_seed(11 if f32 else 21)
     recs = {}
     rp, rt, rr = f"batch_pricing{sfx}", f"batch_tail{sfx}", f"batch_rank1{sfx}"
+    if not f32:
+        recs[rp] = {"dmma_probe": dmma_verdict(dev)}
     tail_opts = TAIL_OPTS if f32 else F64_TAIL_OPTS
     # bench.py --mode batch's shape, odd n (element loads of bf16), n % 4 ==
     # 2 over two chunks (element loads), n % 4 == 0 over three chunks (the
@@ -1308,7 +1337,7 @@ def phase_batch_kernels(dev, dtype=None) -> dict:
             # A, y and c read once, the basis (int32) and the flag read, p
             # and min_e written
             nb = Bn * (es * (m * n + m + n) + 4 * m + 1 + 4 + es)
-            recs[rp] = {
+            recs.setdefault(rp, {}).update({
                 "ms": time_ms(lambda: hopper.choose_entering_batched(y, A, c, 1e-5, no, basis), 50),
                 "plain_ms": time_ms(lambda: ops.choose_entering_batched(y, A, c, 1e-5, no, basis), 20),
                 "bf16_ms": time_ms(lambda: hopper.choose_entering_batched(y, Ab, c, 1e-5, no, basis), 50),
@@ -1317,14 +1346,15 @@ def phase_batch_kernels(dev, dtype=None) -> dict:
                 "bf16_bound_ms": bound(nb - Bn * (es - 2) * m * n, 2.0 * Bn * m * n, peak)["bound_ms"],
                 # the product alone (no mask, no choice)
                 "library_ms": time_ms(lambda: torch.bmm(y[:, None, :], A), 50),
-            }
+            })
         del A, Ab
     # one A and c shared by the batch (the warm re-solve's primal clean-up):
-    # tails on every tile axis (64 instances, 16 rows, 128 columns), with
-    # 16-byte copies (m % 4 == 0 and n % 8 == 0) and without, and bench.py
+    # tails on every tile axis (fp32: 64 instances, 32 rows, 128 columns;
+    # float64: 128 instances, 32 rows, 64 columns), with 16-byte copies (m %
+    # 4 == 0 and rows of a multiple of 16 bytes) and without, and bench.py
     # --mode reopt's shape
     for Bn, m, n in ((1, 1, 1), (3, 17, 45), (65, 33, 129), (130, 257, 1000), (130, 260, 1000),
-                     (REOPT_B, REOPT_M, REOPT_N)):
+                     (129, 36, 130), (129, 33, 65), (REOPT_B, REOPT_M, REOPT_N)):
         y, A, c, basis = batch_pricing_inputs(dev, g, Bn, m, n, shared=True, dtype=dtype)
         bland = torch.rand(Bn, generator=g, device=dev) < 0.2
         no = torch.zeros(Bn, dtype=torch.bool, device=dev)
@@ -1482,6 +1512,9 @@ def batch_kernel_device_us(dev) -> dict:
          lambda: hopper.choose_entering_batched(y64, A64, c64, 1e-5, no_b, basis64), contextlib.nullcontext),
         ("batch_pricing shared f64 256x2048x4096", "batch_pricing_",
          lambda: hopper.choose_entering_batched(ys64, As64, cs64, 1e-5, no_r, basis_s64), contextlib.nullcontext),
+        ("batch_pricing window shared f64 256x2048x4096", "batch_pricing_",
+         lambda: hopper.choose_entering_batched(ys64, As64, cs64, 1e-5, no_r, basis_s64, None, win_r),
+         contextlib.nullcontext),
         ("batch_tail f64 4096x64 warp path", "batch_tail_", tail(small64, F64_TAIL_OPTS), contextlib.nullcontext),
         ("batch_tail f64 4096x128 warp path", "batch_tail_", tail(mid64, F64_TAIL_OPTS), contextlib.nullcontext),
         ("batch_tail f64 4096x128 block path", "batch_tail_", tail(mid64, F64_TAIL_OPTS), tail_block_path),
@@ -5013,6 +5046,7 @@ def add_call_device_us(recs: dict, us: dict) -> None:
     if "batch_pricing_f64" in recs:
         recs["batch_pricing_f64"]["device_us"] = us["batch_pricing f64 4096x64x160"]
         recs["batch_pricing_f64"]["reopt_device_us"] = us["batch_pricing shared f64 256x2048x4096"]
+        recs["batch_pricing_f64"]["window_shared_device_us"] = us["batch_pricing window shared f64 256x2048x4096"]
         recs["batch_tail_f64"]["device_us"] = us["batch_tail f64 4096x64 warp path"]
         recs["batch_tail_f64"]["m128_warp_device_us"] = us["batch_tail f64 4096x128 warp path"]
         recs["batch_tail_f64"]["m128_block_device_us"] = us["batch_tail f64 4096x128 block path"]

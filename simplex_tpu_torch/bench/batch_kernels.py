@@ -14,6 +14,20 @@ run them, one call at a time:
     S=8                         bf16, and on a shared A; starts that differ
                                 between instances
 
+``--dtype float64`` times the float64 cases instead, every float operand
+in double:
+
+  pricing f64 4096x64x160       per-instance A
+  pricing shared f64            the shared product (FP64 tensor cores)
+    256x2048x4096
+  window f64 64x512x4096 S=8    the windows, per instance and on a shared A
+  window shared f64             (the grouped window, FP64 tensor cores)
+    256x2048x4096 S=8
+  rank1 f64 4096x64             rank1_update_batched, every instance taking
+  dgemm f64 256x2048x4096       library calls beside them, which the port
+  dgemm window f64 256x2048x512 never makes: y @ A, y @ A[:, :w] (one
+  baddbmm f64 4096x64           window's GEMM), B.baddbmm_(eta, row)
+
 For each: ``events_ms``, the mean of 200 back-to-back calls between CUDA
 events, and ``device_us``, the device time of every kernel one call
 launches, from a ``torch.profiler`` trace of 20 calls. Inputs are random,
@@ -27,6 +41,8 @@ skips the window cases); run the two in turns in one call:
 
     python -m simplex_tpu_torch.bench.batch_kernels --tag change
     PYTHONPATH=path/to/parent python3 simplex_tpu_torch/bench/batch_kernels.py --tag parent
+
+(``--dtype float64`` likewise: a checkout whose wrappers take float64.)
 """
 
 from __future__ import annotations
@@ -69,17 +85,18 @@ def device_us(fn, calls: int = CALLS_TRACE) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / calls
 
 
-def cases(dev: torch.device) -> dict:
-    """name -> a call of one wrapper on fixed random inputs."""
+def cases(dev: torch.device, f64: bool = False) -> dict:
+    """name -> a call of one wrapper (or ``f64``: a float64 wrapper or
+    library call) on fixed random inputs."""
     from simplex_tpu_torch.kernels import hopper
 
     g = torch.Generator(device=dev).manual_seed(11)
 
-    def pricing(Bn, m, n, shared, dtype=torch.float32, S=0):
-        y = torch.randn(Bn, m, generator=g, device=dev) / m ** 0.5
+    def pricing(Bn, m, n, shared, dtype=torch.float32, S=0, vt=torch.float32):
+        y = torch.randn(Bn, m, generator=g, device=dev, dtype=vt) / m ** 0.5
         lead = () if shared else (Bn,)
-        A = torch.randn(*lead, m, n, generator=g, device=dev).to(dtype)
-        c = torch.randn(*lead, n, generator=g, device=dev)
+        A = torch.randn(*lead, m, n, generator=g, device=dev, dtype=vt).to(dtype)
+        c = torch.randn(*lead, n, generator=g, device=dev, dtype=vt)
         basis = torch.rand(Bn, n, generator=g, device=dev).argsort(1)[:, :m]
         basis = basis.to(torch.int32).contiguous()
         no = torch.zeros(Bn, dtype=torch.bool, device=dev)
@@ -100,6 +117,30 @@ def cases(dev: torch.device) -> dict:
                 zeros.clone(), zeros.clone(), torch.ones(Bn, dtype=torch.bool, device=dev))
         return lambda: hopper.pivot_tail_batched(*args, **TAIL_OPTS)
 
+    if f64:
+        d = torch.float64
+
+        def rank1(lib):
+            f = dict(generator=g, device=dev, dtype=d)
+            B, row = torch.randn(4096, 64, 64, **f), torch.randn(4096, 64, **f)
+            eta = torch.randn(4096, 64, **f) * 1e-6
+            take = torch.ones(4096, dtype=torch.bool, device=dev)
+            if lib:
+                return lambda: B.baddbmm_(eta[:, :, None], row[:, None, :])
+            return lambda: hopper.rank1_update_batched(B, eta, row, take)
+
+        y = torch.randn(256, 2048, generator=g, device=dev, dtype=d)
+        A = torch.randn(2048, 4096, generator=g, device=dev, dtype=d)
+        return {
+            "pricing f64 4096x64x160": pricing(4096, 64, 160, False, d, vt=d),
+            "pricing shared f64 256x2048x4096": pricing(256, 2048, 4096, True, d, vt=d),
+            "window f64 64x512x4096 S=8": pricing(64, 512, 4096, False, d, S=8, vt=d),
+            "window shared f64 256x2048x4096 S=8": pricing(256, 2048, 4096, True, d, S=8, vt=d),
+            "rank1 f64 4096x64": rank1(False),
+            "dgemm f64 256x2048x4096": lambda: y @ A,
+            "dgemm window f64 256x2048x512": lambda: y @ A[:, :512],
+            "baddbmm f64 4096x64": rank1(True),
+        }
     out = {
         "pricing fp32 4096x64x160": pricing(4096, 64, 160, False),
         "pricing bf16 4096x64x160": pricing(4096, 64, 160, False, torch.bfloat16),
@@ -121,19 +162,21 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(prog="python -m simplex_tpu_torch.bench.batch_kernels")
     ap.add_argument("--tag", default="", help="a name for the line (which checkout ran)")
+    ap.add_argument("--dtype", choices=["float32", "float64"], default="float32",
+                    help="float64: the float64 cases and their library calls")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("batch_kernels: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    calls = cases(dev)
+    calls = cases(dev, args.dtype == "float64")
     out = {name: {"events_ms": events_ms(fn)} for name, fn in calls.items()}
     for name, fn in calls.items():  # the traces last: a profiler run slows later launches
         out[name]["device_us"] = device_us(fn)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"tag": args.tag, "card": card, "cases": out}))
+    print(json.dumps({"tag": args.tag, "dtype": args.dtype, "card": card, "cases": out}))
     return 0
 
 

@@ -7,7 +7,12 @@ which tell how a kernel's addresses are computed). Needs ``cuobjdump``
     python -m simplex_tpu_torch.bench.sass_ops --kernel 'bf16x4_kernelIfLb0E' build/kernels
     python -m simplex_tpu_torch.bench.sass_ops --kernel 'bf16x4_kernelILb0E' path/to/parent/build/kernels
 
-``--kernel`` is a regular expression searched in the mangled names.
+``--kernel`` is a regular expression searched in the mangled names. An
+opcode in ``--ops`` with a modifier (``IMAD.X``) counts that opcode alone;
+one without (``DMMA``) counts it under every modifier (``DMMA.884``,
+``DMMA.16816``, ...):
+
+    python -m simplex_tpu_torch.bench.sass_ops --kernel 'dmma_kernelId' --ops DMMA,DFMA build/kernels
 """
 
 from __future__ import annotations
@@ -35,6 +40,14 @@ def opcode_counts(lib: Path, kernel: str) -> dict:
     return found
 
 
+def count(c: collections.Counter, op: str) -> int:
+    """Instructions of opcode ``op``: exactly, or under any modifier where
+    ``op`` names none."""
+    if "." in op:
+        return c[op]
+    return sum(k for name, k in c.items() if name == op or name.startswith(op + "."))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m simplex_tpu_torch.bench.sass_ops")
     ap.add_argument("--kernel", required=True, help="a regular expression on the mangled name")
@@ -44,7 +57,7 @@ def main(argv=None) -> int:
     for d in args.dirs:
         for lib in sorted(Path(d).glob("libsimplex_kernels_*.so")):
             for name, c in opcode_counts(lib, args.kernel).items():
-                ops = " ".join(f"{op} {c[op]}" for op in args.ops.split(","))
+                ops = " ".join(f"{op} {count(c, op)}" for op in args.ops.split(","))
                 print(f"{lib}: {name}: instructions {sum(c.values())} {ops}")
     return 0
 

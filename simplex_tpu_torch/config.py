@@ -24,9 +24,9 @@ update of B_inv; the Harris or the classic ratio test. The dual simplex
 (``solve_dual``) takes ``dual_flip``. In float32 or float64 (``dtype``):
 every kernel runs in either, in every mode (single, batched, sharded 1-D
 and 2-D, the sharded batch), and the sharded modes carry their MIN keys in
-the working dtype. Options that select another path raise
-``NotImplementedError`` from :func:`check_supported`, naming the ROADMAP
-item that ports them; none is silently ignored.
+the working dtype. An option that selects a path the port does not run
+raises from :func:`check_supported` (steepest edge with ``multi_price``,
+as in ``simplex_tpu.solve``); none is silently ignored.
 """
 
 from __future__ import annotations

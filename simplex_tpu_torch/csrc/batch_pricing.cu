@@ -14,22 +14,21 @@
 //
 // Every e is the sum over the rows, in ascending row order, of fma(y[r],
 // A[r, j], acc) from 0, then one subtraction of c[j]: every layout below
-// computes it so, so a shared A gives bit for bit the records of the same A
-// expanded per instance, and a window bit for bit those of the call on the
-// instance's slice. The plain PyTorch version sums through a matrix
-// product, in another order: e agrees to rounding, the picks where no two
-// columns tie.
+// computes it so (in double on the shared layouts through the FP64 tensor
+// cores, whose mma equals that chain: 4), so a shared A gives bit for bit
+// the records of the same A expanded per instance, and a window bit for bit
+// those of the call on the instance's slice. The plain PyTorch version sums
+// through a matrix product, in another order: e agrees to rounding, the
+// picks where no two columns tie.
 //
 // Element types. The vectors y, c, the sums, eps and min e are of one type
 // V, float or double; A is of V's own type or the bf16 shadow (each element
 // widened exactly). A dtype code for each picks the instantiation; eps
-// arrives as a double and is rounded to V once. In double the sums are
-// DFMA on the CUDA cores (the same fma chain; the FP64 tensor cores would
-// sum in another order), the basic penalty is the float 1e30 widened (as
-// the plain version builds it), a record holds a double, and every byte
-// count below doubles: the shared-memory stages keep their bytes by holding
-// half the rows (16 rows of A a stage of the shared product and the grouped
-// window, 16 rows of 2 KB a box of the window's tensor map).
+// arrives as a double and is rounded to V once. In double the basic
+// penalty is the float 1e30 widened (as the plain version builds it), a
+// record holds a double, and every byte count below doubles; the
+// per-instance layouts run DFMA on the CUDA cores (16 rows of 2 KB a box
+// of the window's tensor map), the shared ones the FP64 tensor cores (4).
 //
 // 1. Per-instance A (B, m, n), fp32 or the bf16 shadow. Bound on the H100:
 // device-memory bandwidth, every A[i] read once: B * m * n * 4 bytes (160
@@ -45,11 +44,11 @@
 // instance's basis row first.
 //
 // 2. One A (m, n) for the whole batch: the (B, m) x (m, n) product Y . A
-// with the masked choice in its epilogue. Bound: 2 B m n fp32 operations
-// (4.3 GFLOP at 256 x 2048 x 4096, 0.064 ms at 67 TFLOP/s); the tensor
-// cores take fp32 only as TF32, which the numerics contract forbids, so
-// this is an SGEMM on the CUDA cores (in fp64 a DGEMM there: 4.3 GFLOP of
-// DFMA, 0.13 ms at the card's 34 TFLOP/s of fp64 FMA). CTA tile 64 instances x 128 columns,
+// with the masked choice in its epilogue. Bound: 2 B m n operations (4.3
+// GFLOP at 256 x 2048 x 4096, 0.064 ms at 67 TFLOP/s: fp32 on the CUDA
+// cores, fp64 on the tensor cores). In fp32 the tensor cores take fp32 only
+// as TF32, which the numerics contract forbids, so this is an SGEMM on the
+// CUDA cores (fp64: 4). CTA tile 64 instances x 128 columns,
 // 256 threads, 4 x 8 sums a thread in registers (a warp: 32 instances x 32
 // columns); the K-loop walks the rows 32 at a time through a 3-stage ring
 // of dynamic shared memory filled by 16-byte cp.async copies whose sources
@@ -100,9 +99,10 @@
 // inside each window) and writes a table of instance tiles, each inside
 // one window; the other blocks write the bit mask as in 2. The grid of the
 // product comes from host-known B, S and w: ceil(B / 16) + S - 1 instance
-// tiles can exist over all windows, and the surplus CTAs return at once.
+// tiles (fp64: ceil(B / 32) + S - 1) can exist over all windows, and the
+// surplus CTAs return at once.
 // Bound: 2 B m w operations (0.0080 ms at 256 x 2048 x 4096 with S = 8)
-// over the distinct windows' bytes. There a window holds about 32
+// or the distinct windows' bytes (fp64: 4). In fp32 a window holds about 32
 // instances, 1 M sums in all, each a 2,048-row chain: about 1,000 sums an
 // SM. A thread of 4 x 4 sums reads 8 floats out of shared memory for 16
 // FMAs a row, but leaves 2 or 3 warps an SM, one a scheduler, which run
@@ -112,6 +112,43 @@
 // of their window (A's columns at lo_s + the tile), on layout 2's cp.async
 // ring (4 stages of 32 rows) and zero fill: about 320 CTAs at that shape.
 // More than 1024 windows (S) take the scan at an instance stride of 0.
+//
+// 4. The shared layouts in double (2 and 3b with V = double: A double or
+// the bf16 shadow, widened between shared memory and the fragment) run
+// their product on the FP64 tensor cores, mma.sync m16n8k4 .f64 (wgmma has
+// no f64 form). csrc/dmma_probe.cu holds every f64 mma shape against the
+// ascending chain acc = fma(a_k, b_k, acc) from C on 1.5 M tiles a shape,
+// random and adversarial (cancellation, 2^+-500, subnormal products,
+// overflow, +-0, inf, NaN): on the H100 each output of m8n8k4, m16n8k4,
+// m16n8k8 and m16n8k16 equals it bit for bit. So an accumulator that starts
+// at 0 and takes one mma a k-step, the steps ascending from row 0, sums as
+// the per-instance DFMA chain does: no split of the rows over CTAs, no
+// atomics, and every bit-for-bit check above stands in fp64 too. Zero fill
+// past m, B and n (w) as in fp32: an added fma(0, 0, acc) leaves acc.
+// Fragments come out of shared memory as 8-byte loads (ldmatrix has no
+// 64-bit form) from rows padded so that the 16 lanes of each phase of a
+// fragment load (4 rows x 4 columns) fall in distinct banks: y rows of 36
+// doubles, A rows of TN + 4 doubles (TN + 8 bf16 words, each word's pair
+// read together); 32 rows a stage. A warp holds 32 x 32 (or 16 x 16)
+// accumulators: one 8-byte load a lane for each mma (1.5 for 16 x 16).
+// Shared product (2): CTA 128 instances x 64 columns, 8 mma warps of 32 x
+// 32 and a producer warp that streams the stages by bulk tensor copies
+// (one box of y's tensor map, 36 x 128, and one of A's, 68 x 32, a stage;
+// zeros past m, n and B come from the copy) into a ring of 3 full / empty
+// mbarrier pairs (163 KB): 128 CTAs at 256 x 2048 x 4096, one an SM. A CTA
+// reads 8 m (TB + TN) bytes, 403 MB at that shape. Measured on the H100
+// against this design's variants (PERF.md section 6): the same tile fed by
+// cp.async and block barriers took 110 device us, 64 x 64 tiles two CTAs
+// an SM (537 MB) 105-107, warps of 32 x 16 or 16 x 32 (1.5 loads an mma)
+// 117, m16n8k8 / k16 for k4 114 / 123; the bulk copies 89-97.
+// Grouped window (5): the grouping launch as in fp32, its table in tiles of
+// 32 instances (two m16 row blocks); a CTA is a tile x 64 of its window's
+// columns, 8 warps of 16 x 16, fed by layout 2's cp.async ring of 4 stages
+// (106 KB), since its y rows are gathered through the permutation (a bulk
+// copy a row took twice as long). Bound: the windows' bytes, 0.0219 ms at
+// 256 x 2048 x 4096 with S = 8; each of a window's one or two instance
+// tiles reads its columns from L2 again. Element loads (3, 6) run the same
+// tiles through the same ring by plain loads and stores.
 //
 // Records: (min e, lowest argmin, NaN first as torch.argmin puts it;
 // lowest index with e < -eps), merged by warp shuffles and shared memory.
@@ -515,6 +552,16 @@ __device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// the box (x, r) of a 2-D tensor map into shared memory, counted on bar
+__device__ __forceinline__ void tensor_copy2(void* dst, const CUtensorMap* map, int x, int r,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(r), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // four consecutive V of shared memory, 16-byte aligned
 __device__ __forceinline__ void load4v(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
@@ -753,10 +800,11 @@ cudaError_t launch_window_tma(const Args& P, cudaStream_t s) {
 
 // block 0 of the grouped window's first launch: the instances sorted by
 // window, stably (a counting sort), and the table of instance tiles
+template <int TB>
 __device__ void group_windows(const Args& P) {
   __shared__ int cnt[kGroupBins], off[kGroupBins], first[kGroupBins];
   __shared__ int total;
-  const int lane = threadIdx.x & 31, S = P.win_s, tb = kGroupB;
+  const int lane = threadIdx.x & 31, S = P.win_s, tb = TB;
   for (int s = threadIdx.x; s < S; s += blockDim.x) cnt[s] = 0;
   __syncthreads();
   for (int i = threadIdx.x; i < P.batch; i += blockDim.x) atomicAdd(&cnt[window_of(P, i)], 1);
@@ -812,12 +860,13 @@ __device__ void group_windows(const Args& P) {
 }
 
 // bit j % 32 of word j / 32 of row i: column j is basic in instance i
-// (GROUP: block 0 groups the instances by window, the others make the mask)
-template <bool GROUP>
+// (GROUP: block 0 groups the instances by window into tiles of TB, the
+// others make the mask)
+template <bool GROUP, int TB = kGroupB>
 __global__ void __launch_bounds__(kThreads) batch_pricing_mask_kernel(const Args P) {
   if constexpr (GROUP) {
     if (blockIdx.x == 0) {
-      group_windows(P);
+      group_windows<TB>(P);
       return;
     }
   }
@@ -1229,6 +1278,383 @@ cudaError_t launch_group(const Args& P, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- float64 on the tensor cores
+
+// D += A B on one m16n8k4 f64 fragment (.row.col): lane 4 g + t holds A's
+// rows g and g + 8 at column t, B's column g at row t, and D's rows g, g +
+// 8 at columns 2 t, 2 t + 1 (d[0], d[1] and d[2], d[3])
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[2], const double (&b)[1]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+}
+
+// A CTA tile of the float64 product: TB instances x TN columns, WB x WN
+// warps, the ring's stages of kDmmaRows rows
+template <int TB, int TN, int WB, int WN, int STAGES>
+struct DmmaCfg {
+  static constexpr int kTB = TB, kTN = TN, kWN = WN, kStages = STAGES;
+  static constexpr int kThreads = 32 * WB * WN;
+  static constexpr int kFM = TB / WB / 16, kFN = TN / WN / 8;  // fragments a warp
+  static_assert(kFM * 16 * WB == TB && kFN * 8 * WN == TN, "whole fragments a warp");
+};
+using DmmaProduct = DmmaCfg<128, 64, 4, 2, 3>;  // hopper.py _BP_DMMA_TILE mirrors it
+using DmmaGroup = DmmaCfg<32, 64, 2, 4, 4>;  // and _BP_DMMA_GROUP_TILE this
+constexpr int kDmmaK = 4;     // rows an mma (hopper.py _BP_DMMA_K mirrors it)
+constexpr int kDmmaRows = 32;  // rows of A a stage
+
+// a stage: the tile's y rows (instance-major) and A's rows; each row padded
+// so that a fragment's 16 lanes of a phase (4 rows x 4 columns of 8 bytes)
+// fall in distinct banks: rows of 36 doubles for y, TN + 4 doubles or TN + 8
+// bf16 words for A (the bf16 pairs of a word are read together)
+template <typename T, int TB, int TN>
+struct DmmaStage {
+  static constexpr int kYPad = 4, kAPad = sizeof(T) == 8 ? 4 : 8;
+  double y[TB][kDmmaRows + kYPad];
+  T a[kDmmaRows][TN + kAPad];
+};
+
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ double widen(uint16_t v) {
+  return (double)__uint_as_float((unsigned)v << 16);
+}
+
+// One stage's product into a warp's accumulators: kDmmaRows / kDmmaK
+// m16n8k4 mma a fragment pair, the k-steps ascending. r0, c0: the warp's
+// first row and column of the tile; g, t: the lane's group and place.
+template <typename T, class C>
+__device__ __forceinline__ void dmma_stage(double (&acc)[C::kFM][C::kFN][4],
+                                           const DmmaStage<T, C::kTB, C::kTN>& s, int r0, int c0,
+                                           int g, int t) {
+  constexpr int FM = C::kFM, FN = C::kFN;
+#pragma unroll
+  for (int kb = 0; kb < kDmmaRows; kb += kDmmaK) {
+    double fa[FM][2], fb[FN][1];
+#pragma unroll
+    for (int i = 0; i < FM; ++i) {
+      fa[i][0] = s.y[r0 + 16 * i + g][kb + t];
+      fa[i][1] = s.y[r0 + 16 * i + g + 8][kb + t];
+    }
+#pragma unroll
+    for (int jn = 0; jn < FN; ++jn) fb[jn][0] = widen(s.a[kb + t][c0 + 8 * jn + g]);
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int jn = 0; jn < FN; ++jn) dmma(acc[i][jn], fa[i], fb[jn]);
+  }
+}
+
+// The tile a CTA of the float64 product owns: instances perm[start, start +
+// count) (perm null: start + i), columns [j0, j0 + TN) below end; lo the
+// first column of the window (0 unwindowed). A surplus tile of the grouped
+// window has count 0.
+struct DmmaTile {
+  const int* perm;
+  int start, count, lo, end, j0;
+};
+
+template <bool GROUP, class C>
+__device__ __forceinline__ DmmaTile dmma_tile(const Args& P) {
+  DmmaTile d{nullptr, 0, 0, 0, P.n, 0};
+  if constexpr (GROUP) {
+    const Group g = P.groups[blockIdx.y];
+    d = DmmaTile{P.perm, g.start, g.count, g.s * P.win, g.s * P.win + P.win, 0};
+  } else {
+    d.start = blockIdx.y * C::kTB;
+    d.count = min(C::kTB, P.batch - d.start);
+  }
+  d.j0 = d.lo + (int)blockIdx.x * C::kTN;
+  return d;
+}
+
+// The masked choice on the accumulators: each of a consumer thread's rows'
+// record over its 2 FN columns, then over the 4 lanes of its row, then
+// over the tile's WN warps of columns (red, through shared memory; every
+// thread of the block calls it, others with consumer false), then the
+// choice or the chunk's record.
+template <class C>
+__device__ __forceinline__ void dmma_epilogue(const Args& P, const double (&acc)[C::kFM][C::kFN][4],
+                                              Rec<double> (*red)[C::kTB], const DmmaTile& d,
+                                              bool consumer) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wn = warp % C::kWN, r0 = warp / C::kWN * 16 * C::kFM, c0 = wn * 8 * C::kFN;
+  if (consumer) {
+#pragma unroll
+    for (int i = 0; i < C::kFM; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 16 * i + g + 8 * h;
+        Rec<double> rec = rec_none<double>();
+        if (row < d.count) {
+          const int b = d.perm ? d.perm[d.start + row] : d.start + row;
+          const double* cb = c_of<double>(P) + (size_t)b * P.c_stride;
+          const unsigned* mb = P.mask + (size_t)b * P.words;
+#pragma unroll
+          for (int jn = 0; jn < C::kFN; ++jn)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int j = d.j0 + c0 + 8 * jn + 2 * t + q;
+              if (j < d.end) {
+                const bool up = P.at_upper != nullptr && P.at_upper[(size_t)b * P.n + j];
+                const bool basic = (mb[j >> 5] >> (j & 31)) & 1u;
+                rec = merge(rec, column_rec<double>(acc[i][jn][2 * h + q], cb[j], up, basic, j, P.eps_d));
+              }
+            }
+        }
+        // merge is commutative: every lane of the four ends with the same record
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) rec = merge(rec, shfl_xor(rec, off));
+        if (t == 0) red[wn][row] = rec;
+      }
+    }
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < d.count) {
+    const int b = d.perm ? d.perm[d.start + threadIdx.x] : d.start + threadIdx.x;
+    Rec<double> rec = red[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < C::kWN; ++w) rec = merge(rec, red[w][threadIdx.x]);
+    if (P.chunks == 1)
+      choose(rec, P.use_bland[b] != 0, P.p_out, P.min_out, b, d.lo);
+    else
+      recs_of<double>(P)[(size_t)b * P.chunks + blockIdx.x] = rec;
+  }
+}
+
+template <class C>
+__device__ __forceinline__ void dmma_zero(double (&acc)[C::kFM][C::kFN][4]) {
+#pragma unroll
+  for (int i = 0; i < C::kFM; ++i)
+#pragma unroll
+    for (int jn = 0; jn < C::kFN; ++jn)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][jn][q] = 0.0;
+}
+
+// Fills a stage of the ring: rows [k0, k0 + kDmmaRows) of the tile's y
+// rows (instance rows of the tile, zeros past count and m) and of A's
+// columns [j0, j0 + TN) (zeros past end and m). VEC: 16-byte cp.async
+// copies, each thread's sources and bounds worked out once; else element
+// loads.
+template <typename T, class C, bool VEC>
+struct DmmaLoader {
+  static constexpr int K = kDmmaRows, kTh = C::kThreads;
+  static constexpr int kPer = 16 / sizeof(T);        // elements of A a copy
+  static constexpr int kRowCopies = C::kTN / kPer;   // copies a row of A's tile
+  static constexpr int kYRow = K / 2;                // copies a row of y's tile
+  static constexpr int kY = C::kTB * kYRow / kTh;    // copies of y a thread
+  static constexpr int kA = K * kRowCopies / kTh;    // copies of A a thread
+  static_assert(kY * kTh == C::kTB * kYRow && kA * kTh == K * kRowCopies,
+                "every thread makes the same number of copies");
+  const double* ysrc[VEC ? kY : 1];
+  const T* asrc[VEC ? kA : 1];
+  int yk[VEC ? kY : 1], ak[VEC ? kA : 1];
+  bool yin[VEC ? kY : 1], ain[VEC ? kA : 1];
+
+  __device__ __forceinline__ DmmaLoader(const Args& P, const T* A, const DmmaTile& d) {
+    if constexpr (VEC) {
+#pragma unroll
+      for (int u = 0; u < kY; ++u) {
+        const int idx = threadIdx.x + u * kTh, bi = idx / kYRow;
+        yk[u] = (idx % kYRow) * 2;
+        yin[u] = bi < d.count;
+        const int b = yin[u] ? (d.perm ? d.perm[d.start + bi] : d.start + bi) : 0;
+        ysrc[u] = y_of<double>(P) + (size_t)b * P.m + yk[u];
+      }
+#pragma unroll
+      for (int u = 0; u < kA; ++u) {
+        const int idx = threadIdx.x + u * kTh, j = d.j0 + (idx % kRowCopies) * kPer;
+        ak[u] = idx / kRowCopies;
+        ain[u] = j < d.end;
+        asrc[u] = A + (size_t)ak[u] * P.n + (ain[u] ? j : 0);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void load(DmmaStage<T, C::kTB, C::kTN>& s, const Args& P, const T* A,
+                                       const DmmaTile& d, int k0) const {
+    const int t = threadIdx.x;
+    const double* y = y_of<double>(P);
+    if constexpr (VEC) {
+#pragma unroll
+      for (int u = 0; u < kY; ++u) {
+        const int idx = t + u * kTh;
+        const bool in = yin[u] && k0 + yk[u] < P.m;
+        cp_async16(&s.y[idx / kYRow][yk[u]], in ? ysrc[u] + k0 : y, in);
+      }
+#pragma unroll
+      for (int u = 0; u < kA; ++u) {
+        const int idx = t + u * kTh;
+        const bool in = ain[u] && k0 + ak[u] < P.m;
+        cp_async16(&s.a[ak[u]][(idx % kRowCopies) * kPer], in ? asrc[u] + (size_t)k0 * P.n : A,
+                   in);
+      }
+    } else {
+      for (int idx = t; idx < C::kTB * K; idx += kTh) {
+        const int bi = idx / K, kr = idx % K, k = k0 + kr;
+        const int b = d.perm ? d.perm[d.start + min(bi, d.count - 1)] : d.start + bi;
+        s.y[bi][kr] = (bi < d.count && k < P.m) ? y[(size_t)b * P.m + k] : 0.0;
+      }
+      for (int idx = t; idx < K * C::kTN; idx += kTh) {
+        const int kr = idx / C::kTN, jc = idx % C::kTN;
+        const int k = k0 + kr, j = d.j0 + jc;
+        s.a[kr][jc] = (k < P.m && j < d.end) ? A[(size_t)k * P.n + j] : T(0);
+      }
+    }
+  }
+};
+
+// The float64 product Y . A on the FP64 tensor cores with the masked choice
+// in its epilogue, fed through a ring of cp.async copies (VEC; layout 5)
+// or element loads (layouts 3 and 6). GROUP false: the shared layout,
+// grid (column tiles, instance tiles of TB); true: the grouped window,
+// grid (column tiles of the window, the table's instance tiles). T:
+// double, or uint16_t for the bf16 shadow (widened exactly between shared
+// memory and the fragment). Every accumulator starts at 0 and walks the
+// rows in ascending steps of kDmmaK from row 0.
+template <typename T, bool VEC, bool GROUP, class C>
+__global__ void __launch_bounds__(C::kThreads) batch_pricing_dmma_kernel(const Args P) {
+  using S = DmmaStage<T, C::kTB, C::kTN>;
+  constexpr int K = kDmmaRows;
+  extern __shared__ __align__(16) unsigned char smem[];
+  S* st = reinterpret_cast<S*>(smem);
+  Rec<double>(*red)[C::kTB] =
+      reinterpret_cast<Rec<double>(*)[C::kTB]>(smem + C::kStages * sizeof(S));
+  const DmmaTile d = dmma_tile<GROUP, C>(P);
+  if (d.count == 0) return;  // a surplus tile: the whole CTA leaves
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp / C::kWN * 16 * C::kFM, c0 = warp % C::kWN * 8 * C::kFN;
+  const T* A = static_cast<const T*>(P.A);
+  const int k_tiles = (P.m + K - 1) / K;
+  const DmmaLoader<T, C, VEC> ld(P, A, d);
+  double acc[C::kFM][C::kFN][4];
+  dmma_zero<C>(acc);
+#pragma unroll
+  for (int s = 0; s < C::kStages - 1; ++s) {
+    if (s < k_tiles) ld.load(st[s], P, A, d, s * K);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<C::kStages - 2>();
+    __syncthreads();  // tile kt has landed; every thread is done with tile kt - 1
+    const int nt = kt + C::kStages - 1;
+    if (nt < k_tiles) ld.load(st[nt % C::kStages], P, A, d, nt * K);
+    cp_async_commit();
+    dmma_stage<T, C>(acc, st[kt % C::kStages], r0, c0, lane >> 2, lane & 3);
+  }
+  cp_async_wait<0>();
+  dmma_epilogue<C>(P, acc, red, d, true);
+}
+
+// The shared product fed by bulk tensor copies (layout 2 in double): a
+// producer warp streams the stages into the ring and the consumer warps
+// run the mma out of it, a full and an empty mbarrier a stage. A stage is
+// one box of y's 2-D tensor map (m, B), 36 columns of TB instances, and one
+// of A's (n, m), kDmmaRows rows of TN + kAPad columns: the pad columns
+// hold the next tile's values or zeros and are never read; past m, n and B
+// the boxes land as zeros.
+template <typename T, class C>
+__global__ void __launch_bounds__(C::kThreads + 32) batch_pricing_dmma_tma_kernel(
+    const Args P, const __grid_constant__ CUtensorMap ymap, const __grid_constant__ CUtensorMap amap) {
+  using S = DmmaStage<T, C::kTB, C::kTN>;
+  constexpr int K = kDmmaRows, ST = C::kStages, NW = C::kThreads / 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  S* st = reinterpret_cast<S*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * sizeof(S));
+  uint64_t* empty = full + ST;
+  Rec<double>(*red)[C::kTB] = reinterpret_cast<Rec<double>(*)[C::kTB]>(empty + ST);
+  const DmmaTile d = dmma_tile<false, C>(P);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k_tiles = (P.m + K - 1) / K;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NW);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  double acc[C::kFM][C::kFN][4];
+  if (warp == NW) {  // the producer
+    if (lane == 0) {
+      for (int k = 0; k < k_tiles; ++k) {
+        S& s = st[k % ST];
+        uint64_t* bar = &full[k % ST];
+        if (k >= ST) mbar_wait(&empty[k % ST], ((k / ST) - 1) & 1);  // tile k - ST consumed
+        mbar_expect_tx(bar, sizeof(S));
+        tensor_copy2(&s.y[0][0], &ymap, k * K, d.start, bar);
+        tensor_copy2(&s.a[0][0], &amap, d.j0, k * K, bar);
+      }
+    }
+  } else {
+    const int r0 = warp / C::kWN * 16 * C::kFM, c0 = warp % C::kWN * 8 * C::kFN;
+    dmma_zero<C>(acc);
+    for (int k = 0; k < k_tiles; ++k) {
+      mbar_wait(&full[k % ST], (k / ST) & 1);
+      dmma_stage<T, C>(acc, st[k % ST], r0, c0, lane >> 2, lane & 3);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[k % ST]);
+    }
+  }
+  dmma_epilogue<C>(P, acc, red, d, warp < NW);
+}
+
+// one launch of the float64 product: the ring and the records in dynamic
+// shared memory. bulk (the shared layout's 16-byte case): the bulk-copy
+// kernel (163 KB with double A, 126 KB with the bf16 shadow); else the
+// cp.async ring (VEC, the grouped window's 16-byte case: 106 KB, 55 KB)
+// or element loads.
+template <typename T, bool VEC, bool GROUP, class C>
+cudaError_t launch_dmma(const Args& P, bool bulk, cudaStream_t s) {
+  using S = DmmaStage<T, C::kTB, C::kTN>;
+  static_assert(sizeof(S::y) % 128 == 0 && sizeof(S) % 128 == 0, "boxes land 128-byte aligned");
+  const dim3 grid(P.chunks, GROUP ? P.group_tiles : (P.batch + C::kTB - 1) / C::kTB);
+  const size_t recs = C::kWN * C::kTB * sizeof(Rec<double>);
+  if (!bulk) {
+    const size_t smem = C::kStages * sizeof(S) + recs;
+    auto kernel = batch_pricing_dmma_kernel<T, VEC, GROUP, C>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, C::kThreads, smem, s>>>(P);
+    return cudaGetLastError();
+  }
+  if constexpr (!GROUP) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint32_t one[2] = {1, 1};
+    CUtensorMap ymap{}, amap{};
+    {  // y as (m, B) doubles, boxes of 36 x TB
+      const cuuint64_t dims[2] = {(cuuint64_t)P.m, (cuuint64_t)P.batch};
+      const cuuint64_t strides[1] = {(cuuint64_t)P.m * sizeof(double)};
+      const cuuint32_t box[2] = {(cuuint32_t)(kDmmaRows + S::kYPad), (cuuint32_t)C::kTB};
+      if (encode(&ymap, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 2, const_cast<void*>(P.y), dims, strides,
+                 box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return cudaErrorInvalidValue;
+    }
+    {  // A as (n, m), boxes of TN + kAPad x kDmmaRows
+      const cuuint64_t dims[2] = {(cuuint64_t)P.n, (cuuint64_t)P.m};
+      const cuuint64_t strides[1] = {(cuuint64_t)P.n * sizeof(T)};
+      const cuuint32_t box[2] = {(cuuint32_t)(C::kTN + S::kAPad), (cuuint32_t)kDmmaRows};
+      if (encode(&amap, tensor_map_type<T>(), 2, const_cast<void*>(P.A), dims, strides, box, one,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return cudaErrorInvalidValue;
+    }
+    const size_t smem = C::kStages * (sizeof(S) + 2 * sizeof(uint64_t)) + recs;
+    auto kernel = batch_pricing_dmma_tma_kernel<T, C>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, C::kThreads + 32, smem, s>>>(P, ymap, amap);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------- records
 
 template <typename V, bool WIN>
@@ -1286,15 +1712,26 @@ cudaError_t run(const Args& P, int layout, cudaStream_t s) {
     }
     err = cudaGetLastError();
   } else if (layout == 5 || layout == 6) {
-    batch_pricing_mask_kernel<true><<<P.batch + 1, kThreads, 0, s>>>(P);
-    err = cudaGetLastError();
-    if (err == cudaSuccess)
+    if constexpr (sizeof(V) == 8) {
+      batch_pricing_mask_kernel<true, DmmaGroup::kTB><<<P.batch + 1, kThreads, 0, s>>>(P);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      err = layout == 5 ? launch_dmma<TR, true, true, DmmaGroup>(P, false, s)
+                        : launch_dmma<TR, false, true, DmmaGroup>(P, false, s);
+    } else {
+      batch_pricing_mask_kernel<true><<<P.batch + 1, kThreads, 0, s>>>(P);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
       err = layout == 5 ? launch_group<TR, V, true>(P, s) : launch_group<TR, V, false>(P, s);
+    }
   } else {
     batch_pricing_mask_kernel<false><<<P.batch, kThreads, 0, s>>>(P);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = layout == 2 ? launch_product<TR, V, true>(P, s) : launch_product<TR, V, false>(P, s);
+    if constexpr (sizeof(V) == 8)
+      err = launch_dmma<TR, false, false, DmmaProduct>(P, layout == 2, s);
+    else
+      err = layout == 2 ? launch_product<TR, V, true>(P, s) : launch_product<TR, V, false>(P, s);
   }
   if (err != cudaSuccess || chunks == 1 || (layout == 4 && chunks <= kTmaClusterMax)) return err;
   if (windowed)
@@ -1320,11 +1757,13 @@ cudaError_t run(const Args& P, int layout, cudaStream_t s) {
 // bytes or null (the unsigned mode); basis (B, m) int32; use_bland (B,)
 // bool bytes; eps rounded to V. chunks: records an instance, ceil(span /
 // 256) (layouts 0, 1, 4), ceil(n / 128) (2, 3) or ceil(win / 32) (5, 6),
+// with fp64 vectors ceil(n / 64) (2, 3) or ceil(win / 64) (5, 6),
 // span = win or n; words: ceil(n / 32) (2, 3, 5, 6; else 0). Scratch: mask,
 // B * words uint32 (2, 3, 5, 6); recs, B * chunks records of
 // simplex_batch_pricing_record_bytes(v_dtype) bytes, aligned to 8 in fp64,
 // where chunks > 1; group (5, 6): B + win_s + 1 + 3 * group_tiles int32,
-// group_tiles = ceil(B / 16) + win_s - 1. Outputs: p (B,) int32, min_e (B,)
+// group_tiles = ceil(B / 16) + win_s - 1 (fp64 vectors: ceil(B / 32) +
+// win_s - 1). Outputs: p (B,) int32, min_e (B,)
 // V. The window: win = 0 prices every column (0 to 3); win > 0 (0, 1, 4 to
 // 6; chunks as above, win * win_s <= n, layout 1 also win % 4 == 0) prices
 // [(win_seg[i] mod win_s) * win, + win) of instance i, win_seg (B,) int32;
@@ -1344,7 +1783,12 @@ extern "C" int simplex_batch_pricing(int layout, int a_dtype, int v_dtype, const
   const bool windowed = win > 0;
   const bool bf16 = a_dtype == 1;
   const int elem = a_dtype == 0 ? 4 : a_dtype == 1 ? 2 : 8;
-  const int tile = layout == 4 ? kTmaChunk : grouped ? kGroupN : shared ? kTileN : kChunk;
+  const bool f64 = v_dtype == 1;  // the shared layouts' product on the FP64 tensor cores
+  const int group_b = f64 ? DmmaGroup::kTB : kGroupB;  // instances a grouped tile
+  const int tile = layout == 4 ? kTmaChunk
+                   : grouped   ? (f64 ? DmmaGroup::kTN : kGroupN)
+                   : shared    ? (f64 ? DmmaProduct::kTN : kTileN)
+                               : kChunk;
   const int span = windowed ? win : n;
   const uintptr_t ya = reinterpret_cast<uintptr_t>(y), aa = reinterpret_cast<uintptr_t>(A);
   const bool copies16 = m % 4 == 0 && (n * elem) % 16 == 0 && ya % 16 == 0 && aa % 16 == 0;
@@ -1363,7 +1807,7 @@ extern "C" int simplex_batch_pricing(int layout, int a_dtype, int v_dtype, const
       (layout == 4 && (!copies16 || !win16 || a_shared)) ||
       (layout == 5 && !win16) ||
       (grouped && (!a_shared || win_s > kGroupBins || group == nullptr ||
-                   group_tiles != (batch + kGroupB - 1) / kGroupB + win_s - 1)) ||
+                   group_tiles != (batch + group_b - 1) / group_b + win_s - 1)) ||
       (layout >= 4 && !windowed) ||
       (windowed && (win_s < 1 || (long long)win * win_s > n || win_seg == nullptr)))
     return (int)cudaErrorInvalidValue;

@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 
 SOURCES = (
     "pricing_scan.cu", "ratio_argmin.cu", "ratio_eta.cu", "rank1_update.cu",
-    "batch_pricing.cu", "batch_tail.cu", "batch_rank1.cu",
+    "batch_pricing.cu", "batch_tail.cu", "batch_rank1.cu", "dmma_probe.cu",
 )
 # included by the sources: part of the build's name, so an edited header
 # rebuilds every object
@@ -73,6 +73,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs (theta_q apart), stream
     ),
     "simplex_batch_rank1": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "simplex_dmma_probe": (_I, _P, _P, _P, _P, _P, _I, _I, _P),
+    "simplex_dmma_probe_shapes": (),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -673,9 +673,15 @@ _BATCH_GRID_MAX = 65535  # grid.y: the instances, or the shared layout's instanc
 # layout's CTA tile (instances x columns), a record's 32-bit words by the
 # vectors' bytes (simplex_batch_pricing_record_bytes); the window's
 # bulk-copy chunk and its threads (fp32 or fp64, bf16), the grouped window's
-# CTA tile and most windows; the launch's layout codes
+# CTA tile and most windows; with float64 vectors the shared product's and
+# the grouped window's CTA tiles on the FP64 tensor cores (instances,
+# columns, threads of the mma; the shared product by bulk copies adds a
+# producer warp); the launch's layout codes
 _BP_CHUNK = 256
 _BP_TILE_B, _BP_TILE_N = 64, 128
+_BP_DMMA_TILE = (128, 64, 256)
+_BP_DMMA_GROUP_TILE = (32, 64, 256)
+_BP_DMMA_K = 4  # the m16n8kK mma shape of both (csrc/batch_pricing.cu kDmmaK)
 _BP_RECORD_WORDS = {4: 3, 8: 4}
 _BP_TMA_CHUNK = 256
 _BP_TMA_THREADS = {False: 256 + 32, True: 64 + 32}
@@ -720,7 +726,12 @@ def batch_pricing_plan(
     grouped by window on the device, then the tiled product on 16-byte
     copies: the shared layout's conditions and w of a multiple of 16 bytes)
     or "window_group_loads" (element loads), and the scan at an instance
-    stride of 0 beyond ``_BP_GROUP_MAX_S`` windows. ``grid`` and
+    stride of 0 beyond ``_BP_GROUP_MAX_S`` windows. With 8-byte vectors
+    the shared product and the grouped window run on the FP64 tensor cores
+    in CTA tiles of ``_BP_DMMA_TILE`` and ``_BP_DMMA_GROUP_TILE``
+    (instances, columns, threads; "shared" then streams by bulk tensor
+    copies through a producer warp of 32 threads more), the grouped window
+    in instance tiles of 32. ``grid`` and
     ``threads`` of the main launch (the grouped window: one row of
     ``ceil(B / 16) + S - 1`` instance tiles, the surplus returning at
     once); ``chunks`` records an instance; ``reduce``, whether a
@@ -741,10 +752,13 @@ def batch_pricing_plan(
     words = tiles = group = 0
     if window and shared and segments <= _BP_GROUP_MAX_S:
         tb, tn = _BP_GROUP_TILE
+        threads = 64
+        if vec_bytes == 8:
+            tb, tn, threads = _BP_DMMA_GROUP_TILE
         chunks, words = -(-window // tn), -(-n // 32)
         tiles = -(-Bn // tb) + segments - 1
         layout = "window_group" if copies and (window * elem) % 16 == 0 else "window_group_loads"
-        threads, grid = 64, (chunks, tiles)
+        grid = (chunks, tiles)
         group = Bn + segments + 1 + 3 * tiles
     elif window and not shared and copies and (window * elem) % 16 == 0:
         chunks = -(-window // _BP_TMA_CHUNK)
@@ -756,9 +770,11 @@ def batch_pricing_plan(
         layout, threads = ("bf16x4", 64) if quads else ("scan", 256)
         grid = (chunks, Bn)
     elif shared:
-        chunks, words = -(-n // _BP_TILE_N), -(-n // 32)
-        layout, threads = ("shared" if copies else "shared_loads"), 256
-        grid = (chunks, -(-Bn // _BP_TILE_B))
+        tb, tn, threads = _BP_DMMA_TILE if vec_bytes == 8 else (_BP_TILE_B, _BP_TILE_N, 256)
+        chunks, words = -(-n // tn), -(-n // 32)
+        layout = "shared" if copies else "shared_loads"
+        threads += 32 if vec_bytes == 8 and copies else 0
+        grid = (chunks, -(-Bn // tb))
     else:
         chunks = -(-n // _BP_CHUNK)
         quads = bf16 and n % 4 == 0 and align >= 8
@@ -814,11 +830,13 @@ def choose_entering_batched(
     :func:`simplex_tpu_torch.kernels.ops.choose_entering_batched` in one
     call of ``csrc/batch_pricing.cu`` (:func:`batch_pricing_plan`: per
     instance one launch where 256 columns cover n, two beyond; a shared A
-    a mask launch, the tiled product and a reduction beyond 128 columns;
+    a mask launch, the tiled product and a reduction beyond 128 columns
+    (float64: the product on the FP64 tensor cores, a reduction beyond 64);
     a ``window = (w, S, seg)`` of a per-instance A one launch of the
     bulk-copy scan up to 8 chunks of 256 columns, two beyond, of a shared A a
     launch that groups the instances by window (and writes the mask), the
-    tiled product over each window and a reduction beyond 32 columns; its
+    tiled product over each window and a reduction beyond 32 columns
+    (float64: beyond 64); its
     starts (seg[i] mod S) * w worked out on the device from seg, an int32
     (B,) tensor; bit for bit the unwindowed call on each instance's slice
     with the start added to the pick).

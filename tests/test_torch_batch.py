@@ -363,20 +363,24 @@ def _g(seed=0):
 
 @pytest.mark.parametrize("layout", ["stack", "shared", "shared tile tails"])
 @pytest.mark.parametrize("signed", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
 def test_choose_entering_batched_is_a_loop_of_the_single_op(signed, dtype, layout):
     """Per instance A and c: bit for bit the single op's. One A and c that
     every instance shares (the warm re-solve's clean-up): one matrix
     product sums in another order than the single op's, so e agrees to
     rounding and every pick is the same; also at 65 x 33 x 129, one past
-    the kernel's tile on every axis (64 instances, 32 rows a stage, 128
-    columns)."""
+    the fp32 kernel's tile on every axis (64 instances, 32 rows a stage,
+    128 columns; in float64 past 32 rows and 64 columns, and 129 x 33 x 129
+    past 128 instances). float64: A, y and c in double."""
     g = _g(1)
     B, m, n = (65, 33, 129) if layout == "shared tile tails" else (6, 17, 45)
+    vt = torch.float64 if dtype == torch.float64 else torch.float32
+    if layout == "shared tile tails" and vt == torch.float64:
+        B = 129
     shared = layout != "stack"
-    y = torch.randn(B, m, generator=g)
-    c = torch.randn(n, generator=g) if shared else torch.randn(B, n, generator=g)
-    A = torch.randn(*(() if shared else (B,)), m, n, generator=g).to(dtype)
+    y = torch.randn(B, m, generator=g, dtype=vt)
+    c = torch.randn(n, generator=g, dtype=vt) if shared else torch.randn(B, n, generator=g, dtype=vt)
+    A = torch.randn(*(() if shared else (B,)), m, n, generator=g, dtype=vt).to(dtype)
     basis = torch.stack([torch.randperm(n, generator=g)[:m] for _ in range(B)]).to(torch.int32)
     bland = torch.arange(B) % 6 % 2 == 1
     up = torch.rand(B, n, generator=g) < 0.3 if signed else None

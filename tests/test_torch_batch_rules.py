@@ -504,15 +504,17 @@ def test_window_groups(B, S, spread):
         hopper.window_groups(seg_t, 1025)
 
 
-@pytest.mark.parametrize("layout", ["stack", "shared"])
+@pytest.mark.parametrize("layout", ["stack", "shared", "stack float64", "shared float64"])
 @pytest.mark.parametrize("bland", [False, True])
 def test_windowed_choose_matches_jax_segments(layout, bland):
     """The windowed twin against the JAX package's segment switch
     (``simplex_tpu/core/step.py:616-640``): ``jax.vmap`` of
     ``kernels.xla.choose_entering`` over each instance's static slice,
     chosen by ``lax.switch`` on iters mod S, with c masked by
-    ``xla.mask_basic``; seeded numpy fp32 inputs. Picks equal (no ties),
-    min_e within rtol / atol 1e-5 (fp32 sums in another order)."""
+    ``xla.mask_basic``; seeded numpy fp32 inputs (float64 in the float64
+    layouts: y, A and c in double in both packages). Picks equal (no ties),
+    min_e within rtol / atol 1e-5 (fp32 sums in another order; 1e-12 in
+    float64)."""
     import jax
     import jax.numpy as jnp
 
@@ -521,10 +523,11 @@ def test_windowed_choose_matches_jax_segments(layout, bland):
     rng = np.random.default_rng(17)
     B, m, n, S = 6, 7, 48, 4
     w = n // S
-    shared = layout == "shared"
-    y = rng.standard_normal((B, m)).astype(np.float32)
-    A = rng.standard_normal((m, n) if shared else (B, m, n)).astype(np.float32)
-    c = rng.standard_normal((B, n)).astype(np.float32)
+    shared = layout.startswith("shared")
+    dt, tol = (np.float64, 1e-12) if layout.endswith("float64") else (np.float32, 1e-5)
+    y = rng.standard_normal((B, m)).astype(dt)
+    A = rng.standard_normal((m, n) if shared else (B, m, n)).astype(dt)
+    c = rng.standard_normal((B, n)).astype(dt)
     basis = np.stack([rng.permutation(n)[:m] for _ in range(B)]).astype(np.int32)
     iters = rng.integers(-50, 100, B).astype(np.int32)
     flags = np.full(B, bland)
@@ -548,8 +551,9 @@ def test_windowed_choose_matches_jax_segments(layout, bland):
     p, min_e = ops.choose_entering_batched(
         torch.as_tensor(y), torch.as_tensor(A), torch.as_tensor(c), 1e-5, torch.as_tensor(flags),
         torch.as_tensor(basis), None, (w, S, torch.as_tensor(iters)))
+    assert min_e.dtype == torch.from_numpy(y).dtype and np.asarray(min_j).dtype == dt
     np.testing.assert_array_equal(p.numpy(), np.asarray(p_j))
-    np.testing.assert_allclose(min_e.numpy(), np.asarray(min_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(min_e.numpy(), np.asarray(min_j), rtol=tol, atol=tol)
 
 
 def test_segments_follow_the_static_test():

@@ -316,20 +316,47 @@ def test_batched_wrappers_take_f64_and_refuse_a_mixed_call():
         ((4096, 64, 160), False, False, 16, 0, dict(layout="scan", chunks=1, scratch_words=0, launches=1)),
         # the bf16 shadow beside float64 vectors: four columns a thread
         ((4096, 64, 160), False, True, 16, 0, dict(layout="bf16x4", threads=64)),
-        # the shared product: 16-byte copies of 8-byte elements, 4-word records
-        ((256, 2048, 4096), True, False, 16, 0, dict(layout="shared", chunks=32, words=128,
-                                                   scratch_words=256 * 128 + 256 * 32 * 4)),
+        # the shared product on the FP64 tensor cores: bulk copies of 8-byte
+        # elements, CTAs of 128 instances x 64 columns (8 warps of mma and a
+        # producer warp), 4-word records
+        ((256, 2048, 4096), True, False, 16, 0, dict(layout="shared", chunks=64, words=128,
+                                                   grid=(64, 2), threads=288, launches=3,
+                                                   scratch_words=256 * 128 + 256 * 64 * 4)),
         # n odd: rows of 8 n bytes are not a multiple of 16
         ((130, 260, 1001), True, False, 16, 0, dict(layout="shared_loads")),
         # 325 mask words: one pad word keeps the records 8-byte aligned
-        ((65, 33, 129), True, False, 16, 0, dict(layout="shared_loads", chunks=2,
-                                                 scratch_words=65 * 5 + 1 + 65 * 2 * 4)),
+        ((65, 33, 129), True, False, 16, 0, dict(layout="shared_loads", chunks=3,
+                                                 scratch_words=65 * 5 + 1 + 65 * 3 * 4)),
+        # one past the tile on B and n (129 instances, 130 columns), copies
+        ((129, 64, 130), True, False, 16, 0, dict(layout="shared", chunks=3, grid=(3, 2),
+                                                  threads=288, reduce=True, launches=3)),
+        # one tile covers n: no reduction launch
+        ((3, 16, 64), True, False, 16, 0, dict(layout="shared", chunks=1, grid=(1, 1),
+                                               reduce=False, launches=2, scratch_words=3 * 2)),
+        # y or A one element off 16 bytes: element loads; the bf16 shadow too
+        ((256, 2048, 4096), True, False, 8, 0, dict(layout="shared_loads", chunks=64, grid=(64, 2),
+                                                  threads=256)),
+        ((256, 2048, 4096), True, True, 2, 0, dict(layout="shared_loads", chunks=64)),
+        ((256, 2048, 4096), True, True, 16, 0, dict(layout="shared", chunks=64, threads=288)),
         # the window by bulk copies: w = 512 is 4 KB a row of the box
         ((64, 512, 4096), False, False, 16, 512, dict(layout="window_tma", threads=288, chunks=2, reduce=False)),
         # w = 15: 120 bytes, no bulk copy
         ((64, 512, 4096), False, False, 16, 15, dict(layout="scan")),
-        ((256, 2048, 4096), True, False, 16, 512, dict(layout="window_group")),
-        ((256, 2048, 4096), True, False, 8, 512, dict(layout="window_group_loads")),
+        # the grouped window on the FP64 tensor cores: tiles of 32 grouped
+        # instances x 64 window columns, 256 threads, the grouping table in
+        # tiles of 32 (ceil(B / 32) + S - 1 instance tiles)
+        ((256, 2048, 4096), True, False, 16, 512, dict(layout="window_group", chunks=8, grid=(8, 15),
+                                                     threads=256, group_tiles=15, launches=3)),
+        ((256, 2048, 4096), True, False, 8, 512, dict(layout="window_group_loads", chunks=8)),
+        ((256, 2048, 4096), True, True, 2, 512, dict(layout="window_group_loads", chunks=8)),
+        # tails: B = 33 (two table tiles), w = 72 (a tile of 8 columns), copies
+        ((33, 64, 576), True, False, 16, 72, dict(layout="window_group", chunks=2, grid=(2, 9),
+                                                 group_tiles=9, reduce=True, launches=3)),
+        # w = 65: 520 bytes, element loads; one tile of 64 columns and one of 1
+        ((37, 16, 520), True, False, 16, 65, dict(layout="window_group_loads", chunks=2, grid=(2, 9))),
+        # w = 64: one tile covers the window, no reduction launch
+        ((1, 16, 512), True, False, 16, 64, dict(layout="window_group", chunks=1, grid=(1, 8),
+                                                reduce=False, launches=2)),
     ],
 )
 def test_batch_pricing_plan_8_byte_vectors(shape, shared, bf16, align, window, want):
