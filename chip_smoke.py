@@ -51,7 +51,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      route's shapes; ``ratio_eta`` (tail off), ``ratio_argmin`` and
      ``pivot_tail`` eager bit for bit, deferred within 1e-12, at m = 17,
      1024, 1025, 8192, 9000; ``rank1_update`` bit for bit the unfused B +
-     outer(eta, row) on the whole inverse and on row blocks; each timed
+     outer(eta, row) on the whole inverse (m = 8192, 8191, 1088, 1004)
+     and on row blocks; pricing in the layout its wrapper picks (the
+     stream layout at the bench's shape, the general route's C and
+     8192 x 16380) bit for bit its older split layout on the same inputs
+     (every shape above, both segment views, the signed mode at the
+     route's B, a shard of 2 and of 4 ranks summed in the whole width's
+     chunks), both layouts timed in turns; each timed
      beside its plain version, its library call and its bound; and the
      three batched kernels in float64 at the float32 checks' shapes and
      layouts (bit for bit where float32 is, min_e within 1e-12 of scale),
@@ -214,8 +220,8 @@ must move at the main path's shape (each input read once, each output
 written once) over the card's 3.35 TB/s, or its operations over the fp32
 (float64: fp64) peak, whichever is larger; and ``library_ms``, the time of
 the one PyTorch call that computes the same function where there is one
-(``Tensor.addr_`` for rank1_update; for float64 pricing ``torch.mv(A.T,
-y)``, the product alone), timed here and used nowhere in the port. The last
+(``Tensor.addr_`` for rank1_update; for pricing ``torch.mv(A.T, y)``,
+the product alone), timed here and used nowhere in the port. The last
 lines are the kernels' JSON record, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
 checkout of the repository, the script exits non-zero at once.
@@ -452,65 +458,218 @@ def check_choose(tag, dev, y, Av, cv, basis, lo, eps) -> float:
     return worst
 
 
-def phase_pricing(dev) -> dict:
+# the shapes pricing is held at, by dtype: the bench's, one less each way
+# (element loads), the general route's C (n % 256 = 64: a part-filled last
+# column tile, 16 row chunks), (9000, 1001): narrow enough for pass 2's
+# shared-memory tiles with more row chunks than one tile holds, (24, 4099):
+# one row chunk, the single-launch form, and in float64 the bench's m with
+# n % 256 = 252
+PRICING_SHAPES = {
+    "float32": ((BENCH_M, BENCH_N), (BENCH_M - 1, BENCH_N - 1), ROUTE_C, (9000, 1001), (24, 4099)),
+    "float64": ((BENCH_M, BENCH_N), (BENCH_M - 1, BENCH_N - 1), ROUTE_C, (BENCH_M, BENCH_N - 4), (9000, 1001),
+                (24, 4099)),
+}
+# the float64 shapes above that take the stream layout (the rest: n % 4 or
+# one row chunk)
+F64_STREAM_SHAPES = ((BENCH_M, BENCH_N), ROUTE_C, (BENCH_M, BENCH_N - 4))
+
+
+def check_scan32(tag, y, Av, cv, eps) -> float:
+    """The three-output scan in fp32 against its plain version: min_e
+    within PRICING_RTOL, the kernel's argmin a column within it of the
+    minimum (a tie in the summation-order noise may move it), the first
+    index below -eps equal. Returns |min_e error|."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    min_k, p_k, neg_k = hopper.pricing_scan(y, Av, cv, eps)
+    min_p, p_p, neg_p = hopper.pricing_scan_plain(y, Av, cv, eps)
+    e = (y @ Av.float()) - cv
+    torch.cuda.synchronize()
+    min_k, p_k, neg_k, min_p = float(min_k), int(p_k), int(neg_k), float(min_p)
+    err = abs(min_k - min_p)
+    check(err <= PRICING_RTOL * abs(min_p), f"{tag}: min {min_k} vs {min_p}")
+    check(
+        abs(float(e[p_k]) - min_p) <= PRICING_RTOL * abs(min_p),
+        f"{tag}: e[p_kernel={p_k}] = {float(e[p_k])} vs min {min_p} (plain p {int(p_p)})",
+    )
+    check(neg_k == int(neg_p), f"{tag}: first negative {neg_k} vs {int(neg_p)}")
+    print(f"{tag}: min_e {min_k:.6f} (plain {min_p:.6f}) p {p_k} abs err {err:.3e}")
+    return err
+
+
+def check_layouts(tag, y, Av, cv, eps, basis, lo, at_upper=None, chunk_n=None, want=None) -> str:
+    """Float64 pricing in the layout its wrapper picks against the split
+    layout (the two-launch kernel, kept reachable for this check) on the
+    same inputs: min_e's bits, argmin, the first index below -eps and the
+    choice equal, Bland off and on; ``want`` is the layout the call must
+    take. Returns the layout taken."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    picked = hopper.pricing_layout(Av.dtype, cv.dtype, Av.shape[0], Av.shape[1], Av.stride(0),
+                                   Av.data_ptr() % 16 == 0, chunk_n)
+    check(want is None or picked == want, f"{tag}: layout {picked}, want {want}")
+    for bland in (False, True):
+        flag = torch.tensor(bland, device=y.device)
+        new = hopper._pricing_call(y, Av, cv, eps, at_upper, basis, lo, flag, lo, chunk_n)
+        old = hopper._pricing_call(y, Av, cv, eps, at_upper, basis, lo, flag, lo, chunk_n, "split")
+        torch.cuda.synchronize()
+        check(bits(new[0]).item() == bits(old[0]).item() and all(torch.equal(a, b) for a, b in zip(new[1:], old[1:])),
+              f"{tag} bland={bland}: {picked} {[float(t) for t in new]} vs split {[float(t) for t in old]}")
+    print(f"{tag}: " + ("the stream layout bit for bit the split layout (min_e, argmin, first below, choice; "
+                        "Bland off and on)" if picked == "stream" else "takes the split layout (shape or alignment)"))
+    return picked
+
+
+def phase_pricing(dev, dtype) -> dict:
+    """``pricing_scan`` against its plain version in ``dtype`` (float32:
+    the fp32 sums within PRICING_RTOL, a pick moved only by a tie in that
+    noise; float64: min_e within F64_PRICING_RTOL, every pick equal) at
+    PRICING_SHAPES, an exact tie across blocks, the one-call form with the
+    basic-column mask; in float64 also the strided segment view (aligned
+    and not), the bf16 shadow with float64 y and c (full and a segment),
+    the signed mode at the bounded route's shapes, and the layout the
+    wrapper picks bit for bit the split layout (every shape above, both
+    segment views, the signed mode at B's shape, a shard of 2 and of 4
+    ranks summed in the whole width's chunks). Timed at the bench's shape
+    beside the plain version, ``torch.mv(A.T, y)`` (the product alone: the
+    pass without its mask and choice) and the bound; in float64 each
+    layout's one-call time too."""
     import torch
 
     from simplex_tpu_torch.kernels import hopper, ops
 
-    g = torch.Generator(device=dev).manual_seed(0)
-    rec = {}
-    # (9000, 1001) is narrow enough for pass 2's shared-memory tiles and has
-    # more row chunks than one tile holds; the last shape takes one row
-    # chunk: the single-launch form
-    for m, n in ((BENCH_M, BENCH_N), (BENCH_M - 1, BENCH_N - 1), ROUTE_C, (9000, 1001), (24, 4099)):
-        check((hopper._pricing_chunks(m, n)[1] > 256) == (m == 9000), f"pricing {m}x{n}: row chunks")
-        check((hopper._pricing_chunks(m, n)[1] == 1) == (m == 24), f"pricing {m}x{n}: row chunks")
-        y = torch.randn(m, generator=g, device=dev)
-        A = torch.randn(m, n, generator=g, device=dev)
-        c = torch.randn(n, generator=g, device=dev)
-        eps = 1e-5
-        min_k, p_k, neg_k = hopper.pricing_scan(y, A, c, eps)
-        min_p, p_p, neg_p = hopper.pricing_scan_plain(y, A, c, eps)
-        e = (y @ A) - c
-        torch.cuda.synchronize()
-        min_k, p_k, neg_k = float(min_k), int(p_k), int(neg_k)
-        min_p = float(min_p)
-        err = abs(min_k - min_p)
-        check(err <= PRICING_RTOL * abs(min_p), f"pricing {m}x{n}: min {min_k} vs {min_p}")
-        check(
-            abs(float(e[p_k]) - min_p) <= PRICING_RTOL * abs(min_p),
-            f"pricing {m}x{n}: e[p_kernel={p_k}] = {float(e[p_k])} vs min {min_p} (plain p {int(p_p)})",
-        )
-        check(neg_k == int(neg_p), f"pricing {m}x{n}: first negative {neg_k} vs {int(neg_p)}")
+    f64 = dtype == torch.float64
+    g = torch.Generator(device=dev).manual_seed(10 if f64 else 0)
+    eps = 1e-9 if f64 else 1e-5
+    rec, worst = {}, 0.0
+    for m, n in PRICING_SHAPES[str(dtype).removeprefix("torch.")]:
+        if not f64:
+            check((hopper._pricing_chunks(m, n)[1] > 256) == (m == 9000), f"pricing {m}x{n}: row chunks")
+            check((hopper._pricing_chunks(m, n)[1] == 1) == (m == 24), f"pricing {m}x{n}: row chunks")
+        y = torch.randn(m, generator=g, device=dev, dtype=dtype)
+        A = torch.randn(m, n, generator=g, device=dev, dtype=dtype)
+        c = torch.randn(n, generator=g, device=dev, dtype=dtype)
+        if f64:
+            worst = max(worst, f64_check_scan(f"pricing_scan f64 {m}x{n}", y, A, c, eps))
+        else:
+            worst = max(worst, check_scan32(f"pricing_scan {m}x{n}", y, A, c, eps))
         # an exact tie across blocks: e = -c with equal minima at 40 and
         # n - 100; the lowest index must win
-        c_tie = torch.zeros(n, device=dev)
-        c_tie[40] = 5.0
-        c_tie[n - 100] = 5.0
+        c_tie = torch.zeros(n, device=dev, dtype=dtype)
+        c_tie[40] = c_tie[n - 100] = 5.0
         _, p_tie, neg_tie = hopper.pricing_scan(torch.zeros_like(y), A, c_tie, eps)
-        check(int(p_tie) == 40 and int(neg_tie) == 40, f"pricing tie: {int(p_tie)}, {int(neg_tie)}")
-        print(f"pricing_scan {m}x{n}: min_e {min_k:.6f} (plain {min_p:.6f}) p {p_k} abs err {err:.3e}")
+        check(int(p_tie) == 40 and int(neg_tie) == 40, f"pricing {dtype} tie: {int(p_tie)}, {int(neg_tie)}")
         # the one-call form the step uses: mask, choice, offset in the kernel
         # (a range narrower than m is a column segment of a wider problem)
+        e = y @ A - c
         n_total, lo = (n, 0) if n >= m else (2 * m, m // 2)
         basis = masked_basis(e, m, g, n_total, lo)
-        err = max(err, check_choose(f"fp32 {m}x{n}", dev, y, A, c, basis, lo, eps))
-        if (m, n) == (BENCH_M, BENCH_N):
-            no = torch.tensor(False, device=dev)
-            # bytes: A, y, c, the basis; 2 flops per element of A
-            rec = {
-                "max_abs_err": err,
-                "ms": time_ms(lambda: hopper.choose_entering(y, A, c, eps, no, basis)),
-                "plain_ms": time_ms(lambda: ops.choose_entering(y, A, c, eps, no, basis)),
-                "scan_ms": time_ms(lambda: hopper.pricing_scan(y, A, c, eps)),
-                "scan_plain_ms": time_ms(lambda: hopper.pricing_scan_plain(y, A, c, eps)),
-                **bound(4.0 * (m * n + 2 * m + n) + 16, 2.0 * m * n),
-                "library_ms": None,
+        if f64:
+            worst = max(worst, f64_check_choose(f"choose_entering f64 {m}x{n}", dev, y, A, c, basis, lo, eps))
+            check_layouts(f"pricing f64 layouts {m}x{n}", y, A, c, eps, basis, lo,
+                          want="stream" if (m, n) in F64_STREAM_SHAPES else "split")
+        else:
+            worst = max(worst, check_choose(f"fp32 {m}x{n}", dev, y, A, c, basis, lo, eps))
+        if (m, n) != (BENCH_M, BENCH_N):
+            del A
+            continue
+        no = torch.tensor(False, device=dev)
+        w = n // FLAGSHIP["partial_pricing"]
+        if f64:
+            views = {"segment": (3 * w, A[:, 3 * w : 4 * w], "stream"),
+                     "segment, unaligned": (1, A[:, 1 : 1 + w], "split")}
+            for tag, (v0, Av, want) in views.items():
+                cv = c[v0 : v0 + w]
+                worst = max(worst, f64_check_scan(f"pricing_scan f64 {tag} {tuple(Av.shape)}", y, Av, cv, eps))
+                worst = max(worst, f64_check_choose(f"choose_entering f64 {tag}", dev, y, Av, cv, basis, v0, eps))
+                check_layouts(f"pricing f64 layouts, {tag}", y, Av, cv, eps, basis, v0, want=want)
+            for R in (2, 4):  # the last shard of R ranks: its own copy, the whole width's chunks
+                v0 = n - n // R
+                check_layouts(f"pricing f64 layouts, shard {R} of {R} ({m}x{n // R})", y,
+                              A[:, v0:].contiguous(), c[v0:].contiguous(), eps, basis, v0, chunk_n=n,
+                              want="stream")
+        # bytes: A, y, c, the basis; 2 flops per element of A
+        w8 = dtype.itemsize
+        rec = {
+            "ms": time_ms(lambda: hopper.choose_entering(y, A, c, eps, no, basis)),
+            "plain_ms": time_ms(lambda: ops.choose_entering(y, A, c, eps, no, basis)),
+            "scan_ms": time_ms(lambda: hopper.pricing_scan(y, A, c, eps)),
+            # the product alone (cuBLAS GEMV): the pass without its mask and choice
+            "library_ms": time_ms(lambda: torch.mv(A.T, y)),
+            **(bound(8.0 * (m * n + 2 * m + n) + 4 * m + 24, 2.0 * m * n, PEAK_FP64_S) if f64
+               else bound(4.0 * (m * n + 2 * m + n) + 16, 2.0 * m * n)),
+        }
+        if f64:
+            # each layout's one call, in turns: split, stream, stream, split
+            call = {lay: (lambda lay=lay: hopper._pricing_call(y, A, c, eps, None, basis, 0, no, 0, None, lay))
+                    for lay in ("split", "stream")}
+            t = {lay: [] for lay in call}
+            for lay in ("split", "stream", "stream", "split"):
+                t[lay].append(time_ms(call[lay]))
+            rec["layouts"] = {lay: {"ms": min(v), "ms_runs": v} for lay, v in t.items()}
+        else:
+            rec["scan_plain_ms"] = time_ms(lambda: hopper.pricing_scan_plain(y, A, c, eps))
+        print(f"pricing_scan {w8 * 8}-bit {m}x{n}, ms: one-call {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}), "
+              f"scan {rec['scan_ms']:.4f}, torch.mv(A.T, y) {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}"
+              + (f"; layouts {json.dumps(rec['layouts'])}" if f64 else ""))
+        if f64:
+            # the bf16 shadow with float64 y and c: the sums in float64
+            Ab = A.to(torch.bfloat16)
+            del A
+            shadow = {"bf16": (0, Ab, c), "bf16 segment": (3 * w, Ab[:, 3 * w : 4 * w], c[3 * w : 4 * w])}
+            for tag, (v0, Av, cv) in shadow.items():
+                worst = max(worst, f64_check_scan(f"pricing_scan f64 {tag} {tuple(Av.shape)}", y, Av, cv, eps))
+                worst = max(worst, f64_check_choose(f"choose_entering f64 {tag}", dev, y, Av, cv, basis, v0, eps))
+            rec["bf16"] = {
+                "ms": time_ms(lambda: hopper.choose_entering(y, Ab, c, eps, no, basis)),
+                "plain_ms": time_ms(lambda: ops.choose_entering(y, Ab, c, eps, no, basis)),
+                **bound(2.0 * m * n + 8.0 * (2 * m + n) + 4 * m + 24, 2.0 * m * n, PEAK_FP64_S),
             }
-            print(f"pricing_scan {m}x{n} fp32, ms: one-call {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}), "
-                  f"three-output scan {rec['scan_ms']:.4f} (plain {rec['scan_plain_ms']:.4f}), "
-                  f"bound {rec['bound_ms']:.4f}")
-        del A
+            seg = Ab[:, 3 * w : 4 * w]
+            rec["bf16_segment"] = {
+                "ms": time_ms(lambda: hopper.choose_entering(y, seg, c[3 * w : 4 * w], eps, no, basis, 3 * w), 100),
+                "plain_ms": time_ms(lambda: ops.choose_entering(y, seg, c[3 * w : 4 * w], eps, no, basis, 3 * w), 100),
+                **bound(2.0 * m * w + 8.0 * (2 * m + w) + 4 * m + 24, 2.0 * m * w, PEAK_FP64_S),
+            }
+            print(f"pricing_scan f64 y / c on the bf16 shadow, ms: full {rec['bf16']['ms']:.4f} "
+                  f"(plain {rec['bf16']['plain_ms']:.4f}, bound {rec['bf16']['bound_ms']:.4f}); segment "
+                  f"{rec['bf16_segment']['ms']:.4f} (plain {rec['bf16_segment']['plain_ms']:.4f}, bound "
+                  f"{rec['bf16_segment']['bound_ms']:.4f})")
+            del Ab, seg
+        else:
+            del A
+    if f64:
+        # the signed mode (the bounded rule) at the bounded route's shapes
+        for m, n in (ROUTE_A, ROUTE_B):
+            w = n // GENERAL_BENCH["partial_pricing"]
+            y = torch.randn(m, generator=g, device=dev, dtype=torch.float64)
+            A = torch.randn(m, n, generator=g, device=dev, dtype=torch.float64)
+            Ab = A.to(torch.bfloat16)
+            c = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+            at_up = torch.rand(n, generator=g, device=dev) < 0.4
+            basis = torch.randperm(n, generator=g, device=dev)[:m].to(torch.int32)
+            for tag, Av, v0, wv in (("f64", A, 0, n), ("bf16", Ab, 0, n), ("bf16 segment", Ab[:, 3 * w : 4 * w], 3 * w, w)):
+                worst = max(worst, f64_check_choose(
+                    f"bounded pricing f64 y / c, {tag} A {m}x{wv} (base {v0})", dev, y, Av, c[v0 : v0 + wv],
+                    basis, v0, eps, at_up[v0 : v0 + wv]))
+            if (m, n) == ROUTE_B:
+                check_layouts(f"pricing f64 layouts, signed {m}x{n}", y, A, c, eps, basis, 0, at_up, want="stream")
+                no = torch.tensor(False, device=dev)
+                args = (y, A, c, at_up, basis, 0, eps, no)
+                rec["signed"] = {
+                    "shape": f"{m}x{n}",
+                    "ms": time_ms(lambda: hopper.choose_entering_bounded(*args)),
+                    "plain_ms": time_ms(lambda: ops.choose_entering_bounded(*args)),
+                    **bound(8.0 * (m * n + 2 * m + n) + n + 4 * m + 24, 3.0 * m * n, PEAK_FP64_S),
+                }
+                print(f"bounded pricing f64 {m}x{n}, ms: {rec['signed']['ms']:.4f} (plain "
+                      f"{rec['signed']['plain_ms']:.4f}), bound {rec['signed']['bound_ms']:.4f}")
+            del A, Ab
+    rec["max_abs_err"] = worst
     return rec
 
 
@@ -671,42 +830,83 @@ def phase_ratio_eta(dev) -> dict:
     return rec
 
 
-def phase_rank1(dev) -> dict:
+# the widths the rank-1 update is held at, by dtype: the bench's m (16-byte
+# accesses), one less (element accesses), the general route's m = 1088
+# (1088 % 1024 = 64: a part-filled last block of columns) and, in fp32,
+# 4352; in float64 also m = 1004 (16-byte accesses with a part-filled last
+# block of 8 rows and of 1,024 columns)
+RANK1_SHAPES = {
+    "float32": (BENCH_M, BENCH_M - 1, ROUTE_A[0], ROUTE_B[0]),
+    "float64": (BENCH_M, BENCH_M - 1, ROUTE_A[0], 1004),
+}
+
+
+def phase_rank1(dev, dtype) -> dict:
+    """``rank1_update`` in ``dtype`` against its plain version (``addr_``,
+    which may fuse the multiply-add: within RANK1_ATOL, F64_RANK1_ATOL) at
+    RANK1_SHAPES; bit for bit the unfused B +
+    outer(eta, row) (fp32 on the row blocks, float64 everywhere); a row
+    that aliases B_inv refused; the 2-D solve's row blocks of R = 2 and 4
+    ranks bit for bit the whole update's rows. Timed at m = 8192 (and on
+    the row blocks in fp32) beside the plain version, ``Tensor.addr_`` and
+    the bound."""
     import torch
 
     from simplex_tpu_torch.kernels import hopper
 
-    g = torch.Generator(device=dev).manual_seed(2)
-    rec = {}
-    worst = 0.0
-    for m in (BENCH_M, BENCH_M - 1, ROUTE_A[0], ROUTE_B[0]):
-        B = torch.randn(m, m, generator=g, device=dev)
-        eta = torch.randn(m, generator=g, device=dev)
+    f64 = dtype == torch.float64
+    g = torch.Generator(device=dev).manual_seed(12 if f64 else 2)
+    atol = F64_RANK1_ATOL if f64 else RANK1_ATOL
+    w8 = dtype.itemsize
+    rec, worst = {}, 0.0
+    for m in RANK1_SHAPES[str(dtype).removeprefix("torch.")]:
+        B = torch.randn(m, m, generator=g, device=dev, dtype=dtype)
+        eta = torch.randn(m, generator=g, device=dev, dtype=dtype)
         row = B[m // 3].clone()
         got = hopper.rank1_update(B.clone(), eta, row)
-        want = hopper.rank1_update_plain(B.clone(), eta, row)
-        err = float((got - want).abs().max())
-        check(err <= RANK1_ATOL, f"rank1_update m={m}: max abs err {err}")
+        err = float((got - hopper.rank1_update_plain(B.clone(), eta, row)).abs().max())
+        check(err <= atol, f"rank1_update {dtype} m={m}: {err} from addr_")
+        worst = max(worst, err)
         try:
             hopper.rank1_update(B, eta, B[m // 3])
         except ValueError:
             pass
         else:
             raise AssertionError("rank1_update accepted a row that aliases B_inv")
-        worst = max(worst, err)
-        print(f"rank1_update m={m}: max abs err {err:.3e}")
+        if f64:
+            want = B + torch.outer(eta, row)
+            torch.cuda.synchronize()
+            check(torch.equal(bits(got), bits(want)), f"rank1_update f64 m={m}: differs from B + outer(eta, row)")
+            print(f"rank1_update f64 m={m}: bit for bit B + outer(eta, row); {err:.3e} from addr_")
+            del want
+            if m == BENCH_M:
+                for R in (2, 4):
+                    r0 = (R - 1) * (m // R)
+                    blk = B[r0 : r0 + m // R].clone()
+                    out = hopper.rank1_update(blk, eta[r0 : r0 + m // R].clone(), row)
+                    torch.cuda.synchronize()
+                    check(torch.equal(bits(out), bits(got[r0 : r0 + m // R])), f"rank1_update f64 row block {m // R}x{m}")
+                    print(f"rank1_update f64 row block {m // R}x{m} (rows {r0}..): bit for bit the whole update's rows")
+                    del blk, out
+        else:
+            print(f"rank1_update m={m}: max abs err {err:.3e}")
         if m == BENCH_M:
             small = eta * 1e-6
             # bytes: B_inv read and written, eta and row read; one multiply
-            # and one add an element. The library call is the plain version
+            # and one add an element
             rec = {
                 "ms": time_ms(lambda: hopper.rank1_update(B, small, row)),
                 "plain_ms": time_ms(lambda: hopper.rank1_update_plain(B, small, row)),
-                **bound(8.0 * m * m + 8 * m, 2.0 * m * m),
+                **(bound(16.0 * m * m + 16 * m, 2.0 * m * m, PEAK_FP64_S) if f64
+                   else bound(8.0 * m * m + 8 * m, 2.0 * m * m)),
                 "library_ms": time_ms(lambda: B.addr_(small, row)),
             }
-        del B, got, want
+            print(f"rank1_update {w8 * 8}-bit m={m}, ms: {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}, addr_ "
+                  f"{rec['library_ms']:.4f}), bound {rec['bound_ms']:.4f}")
+        del B, got
     rec["max_abs_err"] = worst
+    if f64:
+        return rec
     # the 2-D solve's row blocks: a rank of R rows groups updates its
     # (m / R, m) rows of the inverse; bit for bit the unfused plain form
     # B + outer(eta, row) and the whole matrix's update on those rows
@@ -4152,6 +4352,11 @@ F64_CORPUS_GAP = 1e-6  # tests/test_corpus.py's gate
 F64_TAIL_M = (17, 1024, 1025, BENCH_M, 9000)
 F64_TRACE_PIVOTS = 64
 F64_TAIL_OPTS = dict(TAIL_OPTS, eps=1e-9)  # the float64 default eps
+# the float64 default path's (pivots, z) under pricing's split layout
+# (measured on the H100): the stream layout is the same arithmetic bit for
+# bit, so the path must not move
+F64_SMALL_PATH = (2258, 1.815814615620253)  # random_dense_lp(2048, 4096)
+F64_BENCH_PATH = (17157, 1.8231971592987677)  # random_dense_lp(8192, 16384) to OPTIMAL
 
 
 def f64_options(**kw):
@@ -4212,109 +4417,6 @@ def f64_check_choose(tag, dev, y, Av, cv, basis, lo, eps, at_upper=None) -> floa
         worst = max(worst, err)
         print(f"{name}: p {p_k} min {min_k!r} ok")
     return worst
-
-
-def phase_f64_pricing(dev) -> dict:
-    """``pricing_scan`` in float64 against its plain version: the bench's
-    8192 x 16384 (16-byte loads), odd shapes (element loads; more row
-    chunks than pass 2's float64 tile; one row chunk), an exact tie, the
-    strided segment view (aligned and not), the bf16 shadow with float64
-    y and c (full and a segment), the one-call form with the basic-column
-    mask and the signed mode at the bounded route's shapes; timed beside
-    its plain version, ``torch.mv(A.T, y)`` (the product alone) and its
-    bound."""
-    import torch
-
-    from simplex_tpu_torch.kernels import hopper, ops
-
-    g = torch.Generator(device=dev).manual_seed(10)
-    eps = 1e-9
-    rec = {}
-    worst = 0.0
-    for m, n in ((BENCH_M, BENCH_N), (BENCH_M - 1, BENCH_N - 1), (9000, 1001), (24, 4099)):
-        y = torch.randn(m, generator=g, device=dev, dtype=torch.float64)
-        A = torch.randn(m, n, generator=g, device=dev, dtype=torch.float64)
-        c = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
-        worst = max(worst, f64_check_scan(f"pricing_scan f64 {m}x{n}", y, A, c, eps))
-        c_tie = torch.zeros(n, device=dev, dtype=torch.float64)
-        c_tie[40] = c_tie[n - 100] = 5.0
-        _, p_tie, neg_tie = hopper.pricing_scan(torch.zeros_like(y), A, c_tie, eps)
-        check(int(p_tie) == 40 and int(neg_tie) == 40, f"pricing f64 tie: {int(p_tie)}, {int(neg_tie)}")
-        e = y @ A - c
-        n_total, lo = (n, 0) if n >= m else (2 * m, m // 2)
-        basis = masked_basis(e, m, g, n_total, lo)
-        worst = max(worst, f64_check_choose(f"choose_entering f64 {m}x{n}", dev, y, A, c, basis, lo, eps))
-        if (m, n) == (BENCH_M, BENCH_N):
-            no = torch.tensor(False, device=dev)
-            w = n // FLAGSHIP["partial_pricing"]
-            views = {"segment": (3 * w, A[:, 3 * w : 4 * w]), "segment, unaligned": (1, A[:, 1 : 1 + w])}
-            for tag, (v0, Av) in views.items():
-                cv = c[v0 : v0 + w]
-                worst = max(worst, f64_check_scan(f"pricing_scan f64 {tag} {tuple(Av.shape)}", y, Av, cv, eps))
-                worst = max(worst, f64_check_choose(f"choose_entering f64 {tag}", dev, y, Av, cv, basis, v0, eps))
-            rec = {
-                "ms": time_ms(lambda: hopper.choose_entering(y, A, c, eps, no, basis)),
-                "plain_ms": time_ms(lambda: ops.choose_entering(y, A, c, eps, no, basis)),
-                "scan_ms": time_ms(lambda: hopper.pricing_scan(y, A, c, eps)),
-                # the product alone (cuBLAS DGEMV): the pass without its choice
-                "library_ms": time_ms(lambda: torch.mv(A.T, y)),
-                **bound(8.0 * (m * n + 2 * m + n) + 4 * m + 24, 2.0 * m * n, PEAK_FP64_S),
-            }
-            print(f"pricing_scan f64 {m}x{n}, ms: one-call {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}), "
-                  f"scan {rec['scan_ms']:.4f}, torch.mv(A.T, y) {rec['library_ms']:.4f}, "
-                  f"bound {rec['bound_ms']:.4f}")
-            # the bf16 shadow with float64 y and c: the sums in float64
-            Ab = A.to(torch.bfloat16)
-            del A
-            shadow = {"bf16": (0, Ab, c), "bf16 segment": (3 * w, Ab[:, 3 * w : 4 * w], c[3 * w : 4 * w])}
-            for tag, (v0, Av, cv) in shadow.items():
-                worst = max(worst, f64_check_scan(f"pricing_scan f64 {tag} {tuple(Av.shape)}", y, Av, cv, eps))
-                worst = max(worst, f64_check_choose(f"choose_entering f64 {tag}", dev, y, Av, cv, basis, v0, eps))
-            rec["bf16"] = {
-                "ms": time_ms(lambda: hopper.choose_entering(y, Ab, c, eps, no, basis)),
-                "plain_ms": time_ms(lambda: ops.choose_entering(y, Ab, c, eps, no, basis)),
-                **bound(2.0 * m * n + 8.0 * (2 * m + n) + 4 * m + 24, 2.0 * m * n, PEAK_FP64_S),
-            }
-            seg = Ab[:, 3 * w : 4 * w]
-            rec["bf16_segment"] = {
-                "ms": time_ms(lambda: hopper.choose_entering(y, seg, c[3 * w : 4 * w], eps, no, basis, 3 * w), 100),
-                "plain_ms": time_ms(lambda: ops.choose_entering(y, seg, c[3 * w : 4 * w], eps, no, basis, 3 * w), 100),
-                **bound(2.0 * m * w + 8.0 * (2 * m + w) + 4 * m + 24, 2.0 * m * w, PEAK_FP64_S),
-            }
-            print(f"pricing_scan f64 y / c on the bf16 shadow, ms: full {rec['bf16']['ms']:.4f} "
-                  f"(plain {rec['bf16']['plain_ms']:.4f}, bound {rec['bf16']['bound_ms']:.4f}); segment "
-                  f"{rec['bf16_segment']['ms']:.4f} (plain {rec['bf16_segment']['plain_ms']:.4f}, bound "
-                  f"{rec['bf16_segment']['bound_ms']:.4f})")
-            del Ab, seg
-        else:
-            del A
-    # the signed mode (the bounded rule) at the bounded route's shapes
-    for m, n in (ROUTE_A, ROUTE_B):
-        w = n // GENERAL_BENCH["partial_pricing"]
-        y = torch.randn(m, generator=g, device=dev, dtype=torch.float64)
-        A = torch.randn(m, n, generator=g, device=dev, dtype=torch.float64)
-        Ab = A.to(torch.bfloat16)
-        c = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
-        at_up = torch.rand(n, generator=g, device=dev) < 0.4
-        basis = torch.randperm(n, generator=g, device=dev)[:m].to(torch.int32)
-        for tag, Av, v0, wv in (("f64", A, 0, n), ("bf16", Ab, 0, n), ("bf16 segment", Ab[:, 3 * w : 4 * w], 3 * w, w)):
-            worst = max(worst, f64_check_choose(
-                f"bounded pricing f64 y / c, {tag} A {m}x{wv} (base {v0})", dev, y, Av, c[v0 : v0 + wv],
-                basis, v0, eps, at_up[v0 : v0 + wv]))
-        if (m, n) == ROUTE_B:
-            no = torch.tensor(False, device=dev)
-            args = (y, A, c, at_up, basis, 0, eps, no)
-            rec["signed"] = {
-                "shape": f"{m}x{n}",
-                "ms": time_ms(lambda: hopper.choose_entering_bounded(*args)),
-                "plain_ms": time_ms(lambda: ops.choose_entering_bounded(*args)),
-                **bound(8.0 * (m * n + 2 * m + n) + n + 4 * m + 24, 3.0 * m * n, PEAK_FP64_S),
-            }
-            print(f"bounded pricing f64 {m}x{n}, ms: {rec['signed']['ms']:.4f} (plain "
-                  f"{rec['signed']['plain_ms']:.4f}), bound {rec['signed']['bound_ms']:.4f}")
-        del A, Ab
-    rec["max_abs_err"] = worst
-    return rec
 
 
 def tail_inputs64(dev, g, m: int) -> dict:
@@ -4400,53 +4502,6 @@ def phase_f64_ratio(dev) -> tuple:
         del t
     rec["max_abs_err"] = rec_arg["max_abs_err"] = worst
     return rec, rec_arg
-
-
-def phase_f64_rank1(dev) -> dict:
-    """``rank1_update`` in float64: bit for bit the unfused B + outer(eta,
-    row) (the plain expression without a fused multiply-add) on the whole
-    inverse (16-byte accesses, and element accesses at m - 1) and on row
-    blocks (the whole update's rows); ``addr_`` within F64_RANK1_ATOL;
-    timed beside ``addr_`` and its bound."""
-    import torch
-
-    from simplex_tpu_torch.kernels import hopper
-
-    g = torch.Generator(device=dev).manual_seed(12)
-    rec, worst = {}, 0.0
-    for m in (BENCH_M, BENCH_M - 1):
-        B = torch.randn(m, m, generator=g, device=dev, dtype=torch.float64)
-        eta = torch.randn(m, generator=g, device=dev, dtype=torch.float64)
-        row = B[m // 3].clone()
-        got = hopper.rank1_update(B.clone(), eta, row)
-        want = B + torch.outer(eta, row)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"rank1_update f64 m={m}: differs from B + outer(eta, row)")
-        err = float((got - hopper.rank1_update_plain(B.clone(), eta, row)).abs().max())
-        check(err <= F64_RANK1_ATOL, f"rank1_update f64 m={m}: {err} from addr_")
-        worst = max(worst, err)
-        print(f"rank1_update f64 m={m}: bit for bit B + outer(eta, row); {err:.3e} from addr_")
-        if m == BENCH_M:
-            for R in (2, 4):
-                r0 = (R - 1) * (m // R)
-                blk = B[r0 : r0 + m // R].clone()
-                out = hopper.rank1_update(blk, eta[r0 : r0 + m // R].clone(), row)
-                torch.cuda.synchronize()
-                check(torch.equal(out, got[r0 : r0 + m // R]), f"rank1_update f64 row block {m // R}x{m}")
-                print(f"rank1_update f64 row block {m // R}x{m} (rows {r0}..): bit for bit the whole update's rows")
-                del blk, out
-            small = eta * 1e-6
-            rec = {
-                "ms": time_ms(lambda: hopper.rank1_update(B, small, row)),
-                "plain_ms": time_ms(lambda: hopper.rank1_update_plain(B, small, row)),
-                **bound(16.0 * m * m + 16 * m, 2.0 * m * m, PEAK_FP64_S),
-                "library_ms": time_ms(lambda: B.addr_(small, row)),
-            }
-            print(f"rank1_update f64 m={m}, ms: {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}, addr_ "
-                  f"{rec['library_ms']:.4f}), bound {rec['bound_ms']:.4f}")
-        del B, got, want
-    rec["max_abs_err"] = worst
-    return rec
 
 
 def f64_kernel_counts(tag, counts, steps) -> None:
@@ -4535,6 +4590,8 @@ def phase_f64_solve(dev) -> dict:
     ref = highs(SMALL_M, SMALL_N)
     gap = relative_gap(res.z, ref.z)
     check(res.status == SolveStatus.OPTIMAL and gap <= F64_GAP_TOL, f"f64 {SMALL_M}x{SMALL_N}: {res.status!r} gap {gap:.3e}")
+    check((res.iters, res.z) == F64_SMALL_PATH,
+          f"f64 {SMALL_M}x{SMALL_N}: {res.iters} pivots, z {res.z!r}; the split layout's {F64_SMALL_PATH}")
     f64_kernel_counts(f"f64 {SMALL_M}x{SMALL_N}", counts, steps)
     KEPT[("f64", SMALL_M, SMALL_N)] = res
     print(f"random_dense_lp({SMALL_M}, {SMALL_N}) f64: OPTIMAL z {res.z!r} HiGHS {ref.z!r} rel_gap {gap:.3e} "
@@ -4563,6 +4620,8 @@ def phase_f64_bench(dev) -> dict:
     paths["f64 default window"] = counts
     res, wall, counts, steps, _ = timed_solve(dev, BENCH_M, BENCH_N, f64_options())
     check(res.status == SolveStatus.OPTIMAL, f"f64 full solve: {res.status!r}")
+    check((res.iters, res.z) == F64_BENCH_PATH,
+          f"f64 full solve: {res.iters} pivots, z {res.z!r}; the split layout's {F64_BENCH_PATH}")
     f64_kernel_counts("f64 full solve", counts, steps)
     fp32 = KEPT.get((BENCH_M, BENCH_N))
     print(f"full solve random_dense_lp({BENCH_M}, {BENCH_N}) f64: OPTIMAL z {res.z!r} after {res.iters} pivots "
@@ -5005,10 +5064,10 @@ def f64_kernel_phases(dev) -> dict:
     """The float64 kernel checks; their records by name."""
     import torch
 
-    recs = {"pricing_scan_f64": phase_f64_pricing(dev)}
+    recs = {"pricing_scan_f64": phase_pricing(dev, torch.float64)}
     torch.cuda.empty_cache()
     recs["ratio_eta_f64"], recs["ratio_argmin_f64"] = phase_f64_ratio(dev)
-    recs["rank1_update_f64"] = phase_f64_rank1(dev)
+    recs["rank1_update_f64"] = phase_rank1(dev, torch.float64)
     torch.cuda.empty_cache()
     recs.update(phase_batch_kernels(dev, torch.float64))
     torch.cuda.empty_cache()
@@ -5022,15 +5081,37 @@ def add_f64_profile(recs: dict, prof: dict, ratio_us: dict) -> None:
     for name in ("pricing_scan_f64", "ratio_eta_f64", "rank1_update_f64"):
         recs[name]["f64_default_pivot_device_us"] = prof["device_us_per_pivot"]
         recs[name]["f64_default_device_ops_per_pivot"] = prof["device_ops_per_pivot"]
+    # each kernel's float64 symbols: its template instances, and pricing's
+    # stream layout's kernel (not a template)
+    symbols = {
+        "pricing_scan_f64": ("pricing_partial_kernel<double", "pricing_columns_kernel<double",
+                             "pricing_stream_kernel"),
+        "ratio_eta_f64": ("pivot_tail_kernel<double",),
+        "rank1_update_f64": ("rank1_kernel<double",),
+    }
     for key, us in prof["top_us_per_pivot"].items():
-        for name, symbol in (("pricing_scan_f64", "pricing_"), ("ratio_eta_f64", "pivot_tail_kernel"),
-                             ("rank1_update_f64", "rank1_kernel")):
-            if symbol in key and "<double" in key:
+        for name, syms in symbols.items():
+            if any(sym in key for sym in syms):
                 dev_us = recs[name].setdefault("device_us_per_pivot", 0.0)
                 recs[name]["device_us_per_pivot"] = dev_us + us
     recs["ratio_argmin_f64"]["device_us"] = ratio_us["ratio_argmin"]
     recs["ratio_eta_f64"]["ratio_only_device_us"] = ratio_us["ratio_eta, harris, tail off"]
     recs["ratio_eta_f64"]["ratio_only_classic_device_us"] = ratio_us["ratio_eta, classic, tail off"]
+
+
+def add_layout_device_us(recs: dict, dev) -> None:
+    """The device us of one call of each float64 layout of pricing and of
+    its library call at the bench's shape, from a trace
+    (``bench.kernels.layout_device_us``), into pricing's float64 record."""
+    from simplex_tpu_torch.bench.kernels import layout_device_us
+
+    us = layout_device_us(BENCH_M, BENCH_N, device=dev)
+    print(f"f64 layouts, device us a call at {BENCH_M}x{BENCH_N}: {json.dumps(us)}")
+    rec = recs["pricing_scan_f64"]
+    for lay, r in rec["layouts"].items():
+        r["device_us"] = us[f"pricing {lay}"]
+    rec["device_us"] = us["pricing stream"]  # the layout the bench's shape takes
+    rec["library_device_us"] = us["torch.mv(A.T, y)"]
 
 
 def add_call_device_us(recs: dict, us: dict) -> None:
@@ -5125,6 +5206,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         paths["f64 per-op bench (hopper)"] = phase_f64_bench_ops(dev)
         add_f64_profile(recs, f64_device_ops(dev), phase_ratio_device_time(dev, torch.float64))
+        add_layout_device_us(recs, dev)
         for tag, counts in paths.items():
             print(f"launches on path '{tag}': {counts}")
         print(f"f64 phases: {time.perf_counter() - t_start:.1f} s")
@@ -5132,7 +5214,7 @@ def main(argv=None) -> int:
         print(card)
         return 0
     if args.only == "sharded":
-        phase_rank1(dev)
+        phase_rank1(dev, torch.float32)
         phase_shard_pricing(dev)
         paths = {"default window": phase_solve(dev)}
         paths.update(phase_sharded(dev))
@@ -5144,10 +5226,10 @@ def main(argv=None) -> int:
         print(card)
         return 0
     recs = {
-        "pricing_scan": phase_pricing(dev),
+        "pricing_scan": phase_pricing(dev, torch.float32),
         "ratio_argmin": phase_ratio_argmin(dev),
         "ratio_eta": phase_ratio_eta(dev),
-        "rank1_update": phase_rank1(dev),
+        "rank1_update": phase_rank1(dev, torch.float32),
     }
     bf16 = phase_pricing_bf16(dev)
     recs["pricing_scan"]["shapes"] = {f"bf16 {tag}": r for tag, r in bf16.items()}
@@ -5212,6 +5294,7 @@ def main(argv=None) -> int:
     # last: a profiler run leaves every later launch of the process dearer
     phase_device_ops(dev)
     add_f64_profile(recs, f64_device_ops(dev), phase_ratio_device_time(dev, torch.float64))
+    add_layout_device_us(recs, dev)
     phase_sparse_profile(dev)
     ratio_us = phase_ratio_device_time(dev)
     bprof = phase_batch_profile(dev)

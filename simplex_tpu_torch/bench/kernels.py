@@ -29,11 +29,19 @@ JAX package's names:
 The products are library calls in full fp32 on both backends (the JAX
 package leaves them to XLA): they are timed here, not replaced.
 
+In float64 on the hopper backend a second line times pricing's one-call
+form in both of its layouts, stream and split, with the library call
+beside them, which the port never makes, ``torch.mv(A.T, y)`` (the
+product alone; :func:`layout_ops`); in turns (new, old, old, new), ms a
+call.
+
 ``--device-time`` adds, from a ``torch.profiler`` trace of the same loops,
 the device time of one launch of each ratio kernel (``ratio_argmin``,
 ``ratio_eta`` with its tail off): between events those two are bound by the
-host's launch rate, not by the card. It runs last: after a profiler run
-every later launch of the process costs more host time.
+host's launch rate, not by the card; with the second line, also the device
+time of one call of each of its cases (:func:`layout_device_us`). It runs
+last: after a profiler run every later launch of the process costs more
+host time.
 
 ``backend`` is ``"hopper"`` (the CUDA kernels) or ``"torch"`` (plain
 PyTorch); the sparse products are cuSPARSE on both. ``dtype`` is the
@@ -270,6 +278,63 @@ def ratio_device_us(
     return out
 
 
+def _layout_calls(m: int, n: int, device) -> Dict[str, Callable[[], object]]:
+    """name -> one call, on fixed float64 inputs at (m, n): each layout of
+    ``pricing_scan`` (the one-call form, basic-column mask in) and the
+    library call beside them."""
+    from simplex_tpu_torch.kernels import hopper
+
+    dev = torch.device(device)
+    d = torch.float64
+    g = torch.Generator(device=dev).manual_seed(0)
+    y = torch.randn(m, generator=g, device=dev, dtype=d)
+    A = torch.randn(m, n, generator=g, device=dev, dtype=d)
+    c = torch.randn(n, generator=g, device=dev, dtype=d)
+    basis = torch.randperm(n, generator=g, device=dev)[:m].to(torch.int32)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    calls = {
+        f"pricing {lay}": (lambda lay=lay: hopper._pricing_call(y, A, c, 1e-9, None, basis, 0, no, 0, None, lay))
+        for lay in ("stream", "split")
+    }
+    calls["torch.mv(A.T, y)"] = lambda: torch.mv(A.T, y)
+    return calls
+
+
+def layout_ops(m: int, n: int, k: int = 32, device="cuda") -> Dict[str, dict]:
+    """ms a call of each of :func:`_layout_calls`' cases, k calls between
+    CUDA events, in turns (forward, then backward: parent and change on
+    one card alike), the best of the two passes and both runs."""
+    dev = torch.device(device)
+    calls = _layout_calls(m, n, dev)
+    runs: Dict[str, list] = {name: [] for name in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for name in order:
+            fn = calls[name]
+            fn()  # warm-up (and the kernels' build)
+            runs[name].append(elapsed_ms(lambda: [fn() for _ in range(k)], dev) / k)
+    return {name: {"ms": round(min(v), 4), "ms_runs": [round(t, 4) for t in v]} for name, v in runs.items()}
+
+
+def layout_device_us(m: int, n: int, k: int = 20, device="cuda") -> Dict[str, float]:
+    """Device microseconds of ONE call of each of :func:`_layout_calls`'
+    cases, from a ``torch.profiler`` trace of k calls: every device kernel
+    of a call summed (the split layout launches two)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device(device)
+    out = {}
+    for name, fn in _layout_calls(m, n, dev).items():
+        fn()
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(k):
+                fn()
+            torch.cuda.synchronize(dev)
+        out[name] = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / k
+    return out
+
+
 def record_line(m: int, n: int, backend: str, device, ops: Dict[str, dict],
                 dtype: torch.dtype = torch.float32) -> str:
     """The bench's JSON line: shape, backend, dtype, the card's name, the
@@ -302,9 +367,16 @@ def main(argv=None) -> None:
     dtype = getattr(torch, args.dtype)
     res = bench_ops(args.m, args.n, args.k, args.backend, args.device, dtype)
     print(record_line(args.m, args.n, args.backend, args.device, res, dtype))
+    layouts = dtype == torch.float64 and args.backend == "hopper"
+    if layouts:
+        lay = layout_ops(args.m, args.n, args.k, args.device)
+        print(json.dumps({"m": args.m, "n": args.n, "dtype": args.dtype, "layouts": lay}))
     if args.device_time:
         us = ratio_device_us(args.m, device=args.device, dtype=dtype)
         print(json.dumps({"m": args.m, "dtype": args.dtype, "device_us_per_launch": us}))
+        if layouts:
+            us = layout_device_us(args.m, args.n, device=args.device)
+            print(json.dumps({"m": args.m, "n": args.n, "dtype": args.dtype, "layouts_device_us": us}))
     total_ms = sum(v["ms"] for v in res.values())
     print(f"-> {1000.0 / total_ms:.0f} pivots/s roofline from phases", file=sys.stderr)
 

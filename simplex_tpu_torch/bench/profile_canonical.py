@@ -30,9 +30,12 @@ scale`` of its value (far outside the ranging band), and the dual loop
 starts from the old basis. The stretches are shorter (``--window`` / 4):
 the loop ends when the basis is primal-feasible again.
 
+``--dtype float64`` runs every option set (and the dual loop) in float64
+(``SimplexOptions(dtype=torch.float64)``).
+
     python -m simplex_tpu_torch.bench.profile_canonical [--m 8192 --n 16384]
-        [--warm 64 --window 256] [--only NAME] [--dual] [--device cuda]
-        [--out profile.json]
+        [--warm 64 --window 256] [--only NAME] [--dual] [--dtype float64]
+        [--device cuda] [--out profile.json]
 
 ``--device cpu`` rehearses the control flow at a tiny size (CPU activity, no
 device numbers).
@@ -41,6 +44,7 @@ device numbers).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -190,9 +194,12 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None, help="run the option sets whose name contains this")
     ap.add_argument("--dual", action="store_true", help="add the dual loop's stretch")
     ap.add_argument("--dual-scale", type=float, default=0.05, help="relative move of every b_i")
+    ap.add_argument("--dtype", choices=["float32", "float64"], default="float32",
+                    help="the working dtype of every option set")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="also write the records to this JSON file")
     args = ap.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
     small = torch.device(args.device).type == "cpu"
     m, n = args.m or (48 if small else 8192), args.n or (160 if small else 16384)
     warm, window = args.warm or (4 if small else 64), args.window or (6 if small else 256)
@@ -202,15 +209,15 @@ def main(argv=None) -> int:
     for tag, opts in option_sets(small).items():
         if args.only is not None and args.only not in tag:
             continue
-        rec = profile_loop(A, b, c, opts, args.device, warm, window)
+        rec = profile_loop(A, b, c, dataclasses.replace(opts, dtype=dtype), args.device, warm, window)
         out[tag] = rec
         print(tag, json.dumps(rec), flush=True)
         if not small:
             torch.cuda.empty_cache()
     if args.dual:
-        prev = solve(A, b, c, device=args.device)
+        prev = solve(A, b, c, device=args.device, options=SimplexOptions(dtype=dtype))
         rec = profile_dual(
-            A, b, c, prev, SimplexOptions(), args.device, max(1, warm // 4),
+            A, b, c, prev, SimplexOptions(dtype=dtype), args.device, max(1, warm // 4),
             max(1, window // 4), args.dual_scale,
         )
         rec["cold_pivots"] = prev.iters

@@ -13,6 +13,16 @@ one without (``DMMA``) counts it under every modifier (``DMMA.884``,
 ``DMMA.16816``, ...):
 
     python -m simplex_tpu_torch.bench.sass_ops --kernel 'dmma_kernelId' --ops DMMA,DFMA build/kernels
+
+``--compare`` holds two builds against each other (a parent checkout's
+and a change's): every matching kernel's count of every opcode, keyed by
+its mangled name without the hash nvcc gives a source's anonymous
+namespace (which changes with the source's text); one line a kernel, then
+the verdict, exit 1 unless both builds hold the same kernels with the same
+counts:
+
+    python -m simplex_tpu_torch.bench.sass_ops --kernel 'batch_pricing' --compare \
+        path/to/parent/build/kernels build/kernels
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ from pathlib import Path
 
 CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 _OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]+)")
+# nvcc's name of a source's anonymous namespace: a hash of the file's text
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_[0-9]+_(\w+?)_cu_[0-9a-f]{8}")
 
 
 def opcode_counts(lib: Path, kernel: str) -> dict:
@@ -48,12 +60,44 @@ def count(c: collections.Counter, op: str) -> int:
     return sum(k for name, k in c.items() if name == op or name.startswith(op + "."))
 
 
+def stable_counts(d: str, kernel: str) -> dict:
+    """{mangled name without the anonymous namespace's hash: Counter} over
+    the libraries in directory ``d``."""
+    out = {}
+    for lib in sorted(Path(d).glob("libsimplex_kernels_*.so")):
+        for name, c in opcode_counts(lib, kernel).items():
+            out[_ANON.sub(r"anon_\1", name)] = c
+    return out
+
+
+def compare(a: str, b: str, kernel: str) -> int:
+    ca, cb = stable_counts(a, kernel), stable_counts(b, kernel)
+    same = 0
+    for name in sorted(set(ca) | set(cb)):
+        if ca.get(name) == cb.get(name):
+            same += 1
+            print(f"same: {name}: instructions {sum(ca[name].values())}")
+        else:
+            na = sum(ca[name].values()) if name in ca else "absent"
+            nb = sum(cb[name].values()) if name in cb else "absent"
+            print(f"DIFFERENT: {name}: instructions {na} vs {nb}")
+    total = len(set(ca) | set(cb))
+    print(f"{same} of {total} kernels matching {kernel!r} have the same opcode counts in both builds")
+    return 0 if total and same == total else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m simplex_tpu_torch.bench.sass_ops")
     ap.add_argument("--kernel", required=True, help="a regular expression on the mangled name")
     ap.add_argument("--ops", default="IMAD.X,IADD3.X", help="opcodes to count, comma-separated")
+    ap.add_argument("--compare", action="store_true",
+                    help="two directories: every opcode count of each kernel, one build against the other")
     ap.add_argument("dirs", nargs="+", help="directories of libsimplex_kernels_*.so")
     args = ap.parse_args(argv)
+    if args.compare:
+        if len(args.dirs) != 2:
+            ap.error("--compare takes two directories")
+        return compare(*args.dirs, args.kernel)
     for d in args.dirs:
         for lib in sorted(Path(d).glob("libsimplex_kernels_*.so")):
             for name, c in opcode_counts(lib, args.kernel).items():

@@ -59,6 +59,11 @@
 // them), so a segment's result does not depend on the matrix around it.
 // The scratch (partials, per-block results, ticket) belongs to the wrapper's
 // cached workspace; one stream orders the calls that share it.
+//
+// Float64 A with float64 vectors has a second layout, "stream", at the end
+// of this file: pass 2 folded into a persistent pass 1, one launch, the
+// same sums to the bit. This two-launch layout ("split") keeps every other
+// pair of types and the shapes the stream layout does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -403,8 +408,261 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- stream layout
+//
+// Float64 A with float64 vectors (layout 1, "stream"). The split layout
+// above runs pass 1 as 1,056 blocks of 256 threads, then pass 2 as a second
+// launch whose 64 blocks of 256 columns at n = 16384 each wait out 66
+// rounds of dependent loads and scan the whole basis: 11.4-11.8 of its
+// 360-374 device us, on the critical path after pass 1. Here pass 2 is
+// folded into pass 1, and pass 1 is a persistent grid (the wrapper's plan:
+// kStreamCtas CTAs an SM) walking work items (column tile of kStreamCols,
+// row chunk) chunk by chunk: item w is chunk w / col_tiles, tile w %
+// col_tiles, for w = blockIdx.x, + gridDim.x, ..., so that at any time the
+// CTAs read whole rows of A (every DRAM channel) a few chunks apart. A
+// thread owns two adjacent columns and keeps kStreamRows 16-byte loads
+// (read-only path) in flight, loaded before their FMAs, down the chunk's
+// rows: the same ascending fma chain from 0 as the split layout, so a
+// partial is its partial to the bit; it is stored into the same (chunks, n)
+// scratch. The CTA that finishes a tile's last chunk (a counter a tile,
+// taken after __threadfence) adds the tile's partials in chunk order,
+// masks, flips and reduces it, with its loads in batches of 32, while the
+// other CTAs stream on; the CTA that finishes the last tile (the ticket)
+// reduces the tiles' records and writes the choice. So min_e, argmin,
+// first-below and the choice equal the split layout's bit for bit, in one
+// launch. Measured on the H100: a ring of bulk tensor copies (TMA) fed by
+// a producer warp streamed A on the same schedule at 2.93 TB/s with its
+// consumers idle, below these loads' rate, so TMA is not used here; and
+// evict-first loads, no slower alone, left the pivot's next kernel (the
+// ftran's GEMV) 6 us slower.
+constexpr int kStreamThreads = 128;
+constexpr int kStreamCols = 2 * kStreamThreads;    // a tile: two columns a thread (hopper._PRICING_STREAM_COLS)
+constexpr int kStreamCtas = 3;                     // CTAs an SM (hopper._PRICING_STREAM_CTAS)
+constexpr int kStreamRows = 16;                    // rows of loads in flight a thread
+// loads in flight a thread in a tile's pass 2: its columns' partials (66
+// chunks in three rounds), then the basis (8192 rows in two)
+constexpr int kStreamSumBatch = 32;
+constexpr int kStreamScanBatch = 32;
+
+struct StreamArgs {
+  const double *y, *c;
+  const unsigned char* flip;
+  const int* basis;
+  int m_basis, base_col, m, n, rows_per_chunk, chunks, col_tiles;
+  double neg_eps;
+  const void* use_bland;
+  int bland_is_byte, p_offset;
+  double *partial, *blk_min;
+  int *blk_arg, *blk_neg;
+  unsigned int* ticket;  // [0] the tiles' ticket, [1 + t] tile t's chunks done; 0 between calls
+  int* out;
+};
+
+// reduces (v, arg, neg) over the CTA; valid in thread 0
+__device__ __forceinline__ void stream_reduce(double& v, int& arg, int& neg) {
+  constexpr int kWarps = kStreamThreads / 32;
+  __shared__ double s_v[kWarps];
+  __shared__ int s_arg[kWarps];
+  __shared__ int s_neg[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  warp_reduce(v, arg, neg);
+  if (lane == 0) { s_v[warp] = v; s_arg[warp] = arg; s_neg[warp] = neg; }
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < kWarps ? s_v[lane] : INFINITY;
+    arg = lane < kWarps ? s_arg[lane] : kIntMax;
+    neg = lane < kWarps ? s_neg[lane] : kIntMax;
+    warp_reduce(v, arg, neg);
+  }
+  __syncthreads();  // the buffers are free again
+}
+
+// pass 2 of column tile `tile`, by the CTA that finished its last chunk;
+// the CTA that finishes the last tile also writes the choice
+__device__ void stream_tile(const StreamArgs& P, int tile) {
+  __shared__ unsigned char s_basic[kStreamCols];
+  __shared__ bool s_last;
+  const int tid = threadIdx.x;
+  const int j0 = tile * kStreamCols;
+  const int j = j0 + 2 * tid;  // n is even: j + 1 < n with j
+  __threadfence();  // the other CTAs' partials, published before their counts
+  double e0 = 0, e1 = 0;
+  if (j < P.n) {
+    for (int k0 = 0; k0 < P.chunks; k0 += kStreamSumBatch) {
+      double2 p[kStreamSumBatch];
+#pragma unroll
+      for (int u = 0; u < kStreamSumBatch; ++u)
+        p[u] = k0 + u < P.chunks
+                   ? __ldcg(reinterpret_cast<const double2*>(P.partial + (size_t)(k0 + u) * P.n + j))
+                   : make_double2(0.0, 0.0);
+#pragma unroll
+      for (int u = 0; u < kStreamSumBatch; ++u)
+        if (k0 + u < P.chunks) { e0 += p[u].x; e1 += p[u].y; }
+    }
+  }
+  if (P.basis != nullptr) {
+    s_basic[2 * tid] = s_basic[2 * tid + 1] = 0;
+    __syncthreads();
+    const int first = P.base_col + j0;
+    for (int i0 = tid; i0 < P.m_basis; i0 += kStreamScanBatch * kStreamThreads) {
+      int col[kStreamScanBatch];
+#pragma unroll
+      for (int u = 0; u < kStreamScanBatch; ++u) {
+        const int i = i0 + u * kStreamThreads;
+        col[u] = i < P.m_basis ? __ldg(P.basis + i) : first - 1;
+      }
+#pragma unroll
+      for (int u = 0; u < kStreamScanBatch; ++u) {
+        const int k = col[u] - first;
+        if (k >= 0 && k < kStreamCols) s_basic[k] = 1;
+      }
+    }
+    __syncthreads();
+  }
+  double v = INFINITY;
+  int arg = kIntMax;
+  int neg = kIntMax;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int jq = j + q;
+    if (jq < P.n) {
+      double e = q ? e1 : e0;
+      e -= P.c[jq];
+      if (P.flip != nullptr && P.flip[jq]) e = -e;
+      if (P.basis != nullptr && s_basic[2 * tid + q]) e += (double)kBasicPenalty;
+      if (min_before(e, jq, v, arg)) { v = e; arg = jq; }
+      if (e < P.neg_eps) neg = min(neg, jq);
+    }
+  }
+  stream_reduce(v, arg, neg);
+  if (tid == 0) {
+    P.blk_min[tile] = v;
+    P.blk_arg[tile] = arg;
+    P.blk_neg[tile] = neg;
+    P.ticket[1 + tile] = 0;  // every chunk of this call is counted: ready for the next call
+    __threadfence();  // the record is visible before the ticket is
+    s_last = atomicAdd(P.ticket, 1u) == (unsigned)P.col_tiles - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  v = INFINITY;
+  arg = kIntMax;
+  neg = kIntMax;
+  for (int b = tid; b < P.col_tiles; b += kStreamThreads) {
+    const double bv = __ldcg(P.blk_min + b);
+    const int ba = __ldcg(P.blk_arg + b);
+    if (min_before(bv, ba, v, arg)) { v = bv; arg = ba; }
+    neg = min(neg, __ldcg(P.blk_neg + b));
+  }
+  stream_reduce(v, arg, neg);
+  if (tid == 0) {
+    bool bland = false;
+    if (P.use_bland != nullptr)
+      bland = P.bland_is_byte ? *static_cast<const unsigned char*>(P.use_bland) != 0
+                              : *static_cast<const int*>(P.use_bland) != 0;
+    const int p_dantzig = arg == kIntMax ? 0 : arg;
+    const int p_bland = neg == kIntMax ? 0 : neg;
+    *reinterpret_cast<double*>(P.out) = v;
+    P.out[Out<double>::kArg] = p_dantzig;
+    P.out[Out<double>::kNeg] = neg;
+    P.out[Out<double>::kP] = (bland ? p_bland : p_dantzig) + P.p_offset;
+    *P.ticket = 0;  // ready for the next call on this workspace
+  }
+}
+
+__global__ void __launch_bounds__(kStreamThreads, kStreamCtas)
+pricing_stream_kernel(const StreamArgs P, const double* __restrict__ A, size_t lda) {
+  __shared__ bool s_done;
+  const int tid = threadIdx.x;
+  const int items = P.col_tiles * P.chunks;
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const int chunk = w / P.col_tiles, tile = w - chunk * P.col_tiles;
+    const int r0 = chunk * P.rows_per_chunk;
+    const int r1 = min(P.m, r0 + P.rows_per_chunk);
+    const int j = tile * kStreamCols + 2 * tid;
+    if (j < P.n) {
+      double acc0 = 0, acc1 = 0;
+      const double* a = A + (size_t)r0 * lda + j;
+      int i = r0;
+      for (; i + kStreamRows <= r1; i += kStreamRows, a += kStreamRows * lda) {
+        double2 v[kStreamRows];
+        double yv[kStreamRows];
+#pragma unroll
+        for (int u = 0; u < kStreamRows; ++u) {
+          v[u] = __ldg(reinterpret_cast<const double2*>(a + u * lda));
+          yv[u] = __ldg(P.y + i + u);
+        }
+#pragma unroll
+        for (int u = 0; u < kStreamRows; ++u) {
+          acc0 = __fma_rn(yv[u], v[u].x, acc0);
+          acc1 = __fma_rn(yv[u], v[u].y, acc1);
+        }
+      }
+      if (i < r1) {  // the chunk's last rows, their loads in flight together
+        double2 v[kStreamRows];
+        double yv[kStreamRows];
+#pragma unroll
+        for (int u = 0; u < kStreamRows; ++u) {
+          if (i + u < r1) {
+            v[u] = __ldg(reinterpret_cast<const double2*>(a + u * lda));
+            yv[u] = __ldg(P.y + i + u);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kStreamRows; ++u) {
+          if (i + u < r1) {
+            acc0 = __fma_rn(yv[u], v[u].x, acc0);
+            acc1 = __fma_rn(yv[u], v[u].y, acc1);
+          }
+        }
+      }
+      *reinterpret_cast<double2*>(P.partial + (size_t)chunk * P.n + j) = make_double2(acc0, acc1);
+    }
+    __threadfence();  // the partials are visible before the count is
+    __syncthreads();
+    if (tid == 0) s_done = atomicAdd(P.ticket + 1 + tile, 1u) == (unsigned)P.chunks - 1;
+    __syncthreads();
+    if (s_done) stream_tile(P, tile);
+  }
+}
+
+int launch_stream(const Args& a, int grid, int col_tiles, cudaStream_t stream) {
+  if (grid <= 0 || col_tiles != (a.n + kStreamCols - 1) / kStreamCols) return (int)cudaErrorInvalidValue;
+  StreamArgs P = {};
+  P.y = static_cast<const double*>(a.y);
+  P.c = static_cast<const double*>(a.c);
+  P.flip = a.flip;
+  P.basis = a.basis;
+  P.m_basis = a.m_basis;
+  P.base_col = a.base_col;
+  P.m = a.m;
+  P.n = a.n;
+  P.rows_per_chunk = a.rows_per_chunk;
+  P.chunks = a.chunks;
+  P.col_tiles = col_tiles;
+  P.neg_eps = -a.eps;
+  P.use_bland = a.use_bland;
+  P.bland_is_byte = a.bland_is_byte;
+  P.p_offset = a.p_offset;
+  P.partial = static_cast<double*>(a.partial);
+  P.blk_min = static_cast<double*>(a.blk_min);
+  P.blk_arg = a.blk_arg;
+  P.blk_neg = a.blk_neg;
+  P.ticket = a.ticket;
+  P.out = a.out;
+  pricing_stream_kernel<<<grid, kStreamThreads, 0, stream>>>(P, static_cast<const double*>(a.A), a.lda);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// layout: 0 = split (pass 1 over a (column tiles, row chunks) grid, then
+// pass 2's launch: every pair of types), 1 = stream (float64 A and vectors
+// only: one persistent launch of `grid` CTAs over col_tiles = ceil(n / 256)
+// column tiles, the wrapper's plan; needs vec and chunks > 1, and a ticket
+// of 1 + col_tiles words).
 // a_dtype: 0 = fp32 A, 1 = bf16 A, 2 = fp64 A; v_dtype: 0 = fp32, 1 = fp64,
 // the type T of y, c, the scratch and min_e (A is T or bf16; another pair
 // returns cudaErrorInvalidValue). lda: elements between rows of A (>= n).
@@ -415,11 +673,11 @@ int launch(const Args& a, cudaStream_t stream) {
 // chosen column. eps is rounded to T. vec (16-byte fp32 / fp64 and 8-byte
 // bf16 loads) needs n % 4 == 0, lda % 4 == 0 and an aligned A; the wrapper
 // checks. Scratch: partial (chunks, n) T; blk_min T and blk_arg, blk_neg
-// int32 (ceil(n / 32) each, room for either layout of pass 2); ticket, one
-// uint32 that is 0 between calls. out: min_e as a T, then 3 int32 words
+// int32 (ceil(n / 32) each, room for either layout of pass 2 and the
+// stream layout's tiles); ticket, uint32 words that are 0 between calls. out: min_e as a T, then 3 int32 words
 // (argmin, first below -eps or INT_MAX, the chosen column). Returns the CUDA
 // error code of the launches.
-extern "C" int simplex_pricing_scan(int a_dtype, int v_dtype, const void* y, const void* A,
+extern "C" int simplex_pricing_scan(int layout, int a_dtype, int v_dtype, const void* y, const void* A,
                                     const void* c, const void* flip,
                                     const void* basis, int m_basis, int base_col,
                                     int m, int n, long long lda, double eps,
@@ -427,7 +685,7 @@ extern "C" int simplex_pricing_scan(int a_dtype, int v_dtype, const void* y, con
                                     const void* use_bland, int bland_is_byte,
                                     int p_offset, void* partial, void* blk_min,
                                     void* blk_arg, void* blk_neg, void* ticket,
-                                    void* out, void* stream) {
+                                    void* out, int grid, int col_tiles, void* stream) {
   Args a = {};
   a.y = y;
   a.A = A;
@@ -453,6 +711,10 @@ extern "C" int simplex_pricing_scan(int a_dtype, int v_dtype, const void* y, con
   a.ticket = static_cast<unsigned int*>(ticket);
   a.out = static_cast<int*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (layout == 1)
+    return v_dtype == 1 && a_dtype == 2 && vec && chunks > 1 ? launch_stream(a, grid, col_tiles, s)
+                                                             : (int)cudaErrorInvalidValue;
+  if (layout != 0) return (int)cudaErrorInvalidValue;
   if (v_dtype == 0 && a_dtype == 0) return launch<float, float>(a, s);
   if (v_dtype == 0 && a_dtype == 1) return launch<__nv_bfloat16, float>(a, s);
   if (v_dtype == 1 && a_dtype == 2) return launch<double, double>(a, s);

@@ -45,8 +45,8 @@ _D = ctypes.c_double
 # doubles, which it rounds to its element type.
 _SIGNATURES = {
     "simplex_pricing_scan": (
-        _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _D, _I, _I, _I, _P, _I, _I,
-        _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _D, _I, _I, _I, _P, _I, _I,
+        _P, _P, _P, _P, _P, _P, _I, _I, _P,  # scratch, out, grid, col_tiles, stream
     ),
     "simplex_ratio_argmin": (_I, _P, _P, _P, _P, _I, _I, _D, _I, _P, _P, _P, _P),
     "simplex_ratio_eta": (_I, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I, _P, _P, _P, _P, _P),

@@ -33,6 +33,14 @@ the current stream or raises: there is no fallback. ``launches[name]`` counts
 kernel launches only, so a run can show that its main path went through the
 kernels. The library is built at the first launch
 (:mod:`simplex_tpu_torch.kernels._build`).
+
+In float64, ``pricing_scan`` has a second layout, redesigned for the H100
+("stream": :func:`pricing_layout`), which its wrapper takes from the
+dtypes, shape and alignment alone; the older layout ("split") keeps the
+shapes the new one does not take, gives the same bits, and is reachable by
+name (``layout=``) only for the tools that hold the two against each other
+(``chip_smoke.py``, ``bench/kernels.py``). No option selects a layout, and
+a failed launch raises.
 """
 
 from __future__ import annotations
@@ -60,6 +68,9 @@ _PRICING_TARGET_BLOCKS = 1056
 _PRICING_COLS_PER_BLOCK = 1024
 _PRICING_MIN_ROWS = 32
 _PRICING_REDUCE_COLS = 32  # columns a block of pass 2 owns
+# the stream layout of float64 pricing (csrc/pricing_scan.cu kStream*): a
+# work item's columns (two a thread of a 128-thread CTA) and the CTAs an SM
+_PRICING_STREAM_COLS, _PRICING_STREAM_CTAS = 256, 3
 
 
 def reset_launches() -> None:
@@ -172,10 +183,53 @@ def _pricing_chunks(m: int, n: int) -> Tuple[int, int]:
     return rows, -(-m // rows)
 
 
+_LAYOUT_CODE = {"split": 0, "stream": 1}
+_sms: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    """The card's streaming multiprocessors: the stream layout's CTAs."""
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sms[dev]
+
+
+def pricing_layout(
+    a_dtype: torch.dtype, dtype: torch.dtype, m: int, n: int, lda: int, aligned: bool,
+    chunk_n: Optional[int] = None,
+) -> str:
+    """The layout of a ``pricing_scan`` call, from its dtypes, shape and
+    alignment alone: ``"stream"`` (one persistent launch, pass 2 folded in;
+    ``csrc/pricing_scan.cu``) for float64 A with float64 vectors where A's
+    rows are whole 16-byte runs (n and lda multiples of 4, A 16-byte
+    aligned: ``aligned``) and fall in more than one row chunk; else
+    ``"split"`` (the two launches every dtype takes; one where a single
+    chunk covers m). Both give the same results to the bit."""
+    chunks = _pricing_chunks(m, n if chunk_n is None else chunk_n)[1]
+    stream = (
+        a_dtype == dtype == torch.float64 and aligned and n % 4 == 0 and lda % 4 == 0 and chunks > 1
+    )
+    return "stream" if stream else "split"
+
+
+def pricing_stream_plan(m: int, n: int, chunk_n: Optional[int] = None, sms: int = 132) -> dict:
+    """The stream layout's launch, every number of which the kernel takes
+    from here: the row chunks of (m, ``chunk_n``) (``rows`` a chunk,
+    ``chunks``), ``col_tiles`` of ``_PRICING_STREAM_COLS`` columns (the
+    kernel refuses another count) and ``grid`` persistent CTAs,
+    ``_PRICING_STREAM_CTAS`` an SM. CTA b walks items w = b, b + grid, ...
+    below col_tiles x chunks: chunk w // col_tiles, tile w % col_tiles."""
+    rows, chunks = _pricing_chunks(m, n if chunk_n is None else chunk_n)
+    col_tiles = -(-n // _PRICING_STREAM_COLS)
+    grid = min(col_tiles * chunks, sms * _PRICING_STREAM_CTAS)
+    return dict(rows=rows, chunks=chunks, col_tiles=col_tiles, grid=grid)
+
+
 class _PricingWorkspace:
     """The scratch of one pricing shape and working dtype: the (chunks, n)
-    partial sums, the per-block results and the ticket (0 between calls).
-    The row chunks are those of an (m, chunk_n) pass."""
+    partial sums, the per-block results and the tickets (the split layout's
+    one, and the stream layout's one a column tile; 0 between calls). The
+    row chunks are those of an (m, chunk_n) pass."""
 
     def __init__(self, dev: torch.device, m: int, n: int, chunk_n: int, dtype: torch.dtype):
         self.rows, self.chunks = _pricing_chunks(m, chunk_n)
@@ -183,7 +237,7 @@ class _PricingWorkspace:
         self.partial = torch.empty((self.chunks, n), dtype=dtype, device=dev)
         self.blk_min = torch.empty(nblk, dtype=dtype, device=dev)
         self.blk_idx = torch.empty((2, nblk), dtype=torch.int32, device=dev)
-        self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.ticket = torch.zeros(1 + -(-n // _PRICING_STREAM_COLS), dtype=torch.int32, device=dev)
 
 
 # (device, stream, m, n, chunk_n, dtype) -> workspace; emptied when it
@@ -204,12 +258,17 @@ def _pricing_workspace(
     return ws
 
 
-def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset, chunk_n=None):
-    """Checks, then the plain version (CPU tensors) or the two launches.
-    Returns ``(min_e, argmin, first_below, p)``; ``p`` is the entering
-    column chosen under ``use_bland`` plus ``p_offset`` (None when
-    ``use_bland`` is None). The row chunks are those of an (m, ``chunk_n``)
-    pass (default: A's own width)."""
+def _pricing_call(
+    y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset, chunk_n=None, layout=None
+):
+    """Checks, then the plain version (CPU tensors) or the kernel's
+    launches in the layout :func:`pricing_layout` picks. Returns ``(min_e,
+    argmin, first_below, p)``; ``p`` is the entering column chosen under
+    ``use_bland`` plus ``p_offset`` (None when ``use_bland`` is None). The
+    row chunks are those of an (m, ``chunk_n``) pass (default: A's own
+    width). ``layout`` names a layout the call must take (``"split"`` or
+    ``"stream"``; ValueError where the call cannot), for the tools that
+    hold the two against each other; the solver never passes it."""
     if A.dim() != 2 or A.shape[0] == 0 or A.shape[1] == 0:
         raise ValueError(f"A: want a non-empty matrix, got {tuple(A.shape)}")
     m, n = A.shape
@@ -236,6 +295,8 @@ def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset, 
         _flag(use_bland, "use_bland")
         ins += (use_bland,)
     dev = _same_device(*ins)
+    if layout is not None and layout not in _LAYOUT_CODE:
+        raise ValueError(f"pricing_scan: no layout {layout!r}")
     if dev.type == "cpu":
         min_e, p_dantzig, p_neg = pricing_scan_plain(y, A, c, eps, at_upper, basis, base_col)
         p = None
@@ -252,18 +313,25 @@ def _pricing_call(y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset, 
     w = dt.itemsize // 4
     out = torch.empty(w + 3, dtype=torch.int32, device=dev)
     align = 8 if A.dtype == torch.bfloat16 else 16
-    vec = n % 4 == 0 and lda % 4 == 0 and A.data_ptr() % align == 0
+    aligned = A.data_ptr() % align == 0
+    vec = n % 4 == 0 and lda % 4 == 0 and aligned
+    picked = pricing_layout(A.dtype, dt, m, n, lda, aligned, chunk_n)
+    if layout is not None and layout != picked and layout != "split":
+        raise ValueError(f"pricing_scan: layout {layout!r} does not take this call (it takes {picked!r})")
+    layout = layout or picked
+    plan = (pricing_stream_plan(m, n, chunk_n, _sm_count(dev)) if layout == "stream"
+            else dict(rows=ws.rows, chunks=ws.chunks, col_tiles=0, grid=0))
     err = lib.simplex_pricing_scan(
-        _A_CODE[A.dtype], _DTYPE_CODE[dt],
+        _LAYOUT_CODE[layout], _A_CODE[A.dtype], _DTYPE_CODE[dt],
         y.data_ptr(), A.data_ptr(), c.data_ptr(),
         None if at_upper is None else at_upper.data_ptr(),
         None if basis is None else basis.data_ptr(), m, int(base_col),
-        m, n, lda, eps, ws.rows, ws.chunks, int(vec),
+        m, n, lda, eps, plan["rows"], plan["chunks"], int(vec),
         None if use_bland is None else use_bland.data_ptr(),
         int(use_bland is not None and use_bland.dtype == torch.bool),
         int(p_offset), ws.partial.data_ptr(), ws.blk_min.data_ptr(),
         ws.blk_idx[0].data_ptr(), ws.blk_idx[1].data_ptr(),
-        ws.ticket.data_ptr(), out.data_ptr(), stream,
+        ws.ticket.data_ptr(), out.data_ptr(), plan["grid"], plan["col_tiles"], stream,
     )
     if err != 0:
         # a refused launch may leave the ticket taken: drop the workspace
@@ -293,10 +361,11 @@ def pricing_scan(
     (m,)), the scan runs over s = (at_upper ? -e : e) plus that penalty.
 
     Two launches on the current stream (one where a single row chunk covers
-    m, as for m <= 32). The scratch (partial sums, per-block
-    results, the ticket that elects the reducing block) is kept per (device,
+    m, as for m <= 32), or in float64 one (the stream layout,
+    :func:`pricing_layout`). The scratch (partial sums, per-block
+    results, the tickets that elect the reducing blocks) is kept per (device,
     stream, m, n, chunk_n, dtype) and reused: the calls that share it are ordered by their
-    stream, and the second launch resets the ticket. Launching the same
+    stream, and the last launch resets the tickets. Launching the same
     shape on one stream from two host threads at once, or replaying a
     captured call beside a live one, would break that; a launch error drops
     the workspace. Only the 4-word output block is allocated per call.
