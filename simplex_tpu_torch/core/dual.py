@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from simplex_tpu_torch import sparse as _sp
+from simplex_tpu_torch import spans
 from simplex_tpu_torch.config import (
     DEFAULT_OPTIONS,
     SimplexOptions,
@@ -243,7 +244,10 @@ def dual_control(prob: Problem, state: SolverState, opts: SimplexOptions, backen
     fields = [state.status, state.iters, state.degen, state.last_refac, pick.take, pick.status]
     if pick.any_flip is not None:
         fields.append(pick.any_flip)
-    vals = torch.stack([f.to(torch.int32) for f in fields]).tolist()
+    packed = torch.stack([f.to(torch.int32) for f in fields])
+    span = spans.start("read", "control")
+    vals = packed.tolist()
+    spans.stop(span)
     _step.host_reads["control"] += 1
     return DualControl(
         status=vals[0], iters=vals[1], degen=vals[2], last_refac=vals[3],

@@ -10,7 +10,9 @@ rhs perturbation and runs the optional periodic recompute /
 refactorization, re-reading the control after any of them; after the loop,
 the verify-terminal rounds re-check every terminal decision against a
 re-inverted basis. The returned basis is then polished in float64 on the
-same device.
+same device. While spans are recorded (:mod:`simplex_tpu_torch.spans`), the
+solve, each pivot, the upkeep, the verify rounds and the polish are host
+spans.
 
 A sparse A (scipy.sparse, or a :class:`~simplex_tpu_torch.sparse.SparseA`)
 stays sparse on the device: every op that reads A dispatches on it, the
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from simplex_tpu_torch import sparse as _sp
+from simplex_tpu_torch import spans
 from simplex_tpu_torch.config import (
     DEFAULT_OPTIONS,
     SimplexOptions,
@@ -81,6 +84,7 @@ def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
     pa = opts.perturb_after
     defer = opts.resolve_defer() > 0
     while ctl.status == SolveStatus.RUNNING and ctl.iters < max_iter:
+        span = spans.start_pivot(ctl.iters)
         s = pivot_step(prob, s, opts, backend, ctl)
         ctl = read_control(s, opts, prob, backend)
         running = ctl.status == SolveStatus.RUNNING
@@ -92,7 +96,9 @@ def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
             and ctl.degen >= pa
             and ctl.degen % pa == 0
         ):
+            up = spans.start("maintain", "perturb")
             s = perturb_activate(prob, s, backend, perturb_scale(opts, ctl.pert_rounds))
+            spans.stop(up)
             touched = True
         if (
             opts.recompute_every > 0
@@ -100,7 +106,9 @@ def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
             and ctl.iters > 0
             and ctl.iters % opts.recompute_every == 0
         ):
+            up = spans.start("maintain", "recompute")
             s = recompute_xy(prob, s, defer)
+            spans.stop(up)
             touched = True
         if (
             opts.refactor_every > 0
@@ -108,11 +116,14 @@ def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
             and ctl.iters > 0
             and ctl.iters % opts.refactor_every == 0
         ):
+            up = spans.start("maintain", "refactorize")
             s = refactorize(prob, s, backend, defer, opts.pricing)
+            spans.stop(up)
             touched = True
         if touched:
             # the next step branches on the state as it is now
             ctl = read_control(s, opts, prob, backend)
+        spans.stop(span)
     return s, ctl
 
 
@@ -127,6 +138,14 @@ def solve_state(
     still-running status to MAX_ITER."""
     if backend is None:
         backend = get_backend(opts.backend)
+    root = spans.start_solve()
+    try:
+        return _solve_state(prob, state0, opts, max_iter, backend)
+    finally:
+        spans.stop(root)
+
+
+def _solve_state(prob, state0, opts, max_iter, backend):
     perturb = opts.perturb_after > 0 and state0.pert is not None
     defer = opts.resolve_defer() > 0
     ctl = read_control(state0, opts, prob, backend)
@@ -142,12 +161,14 @@ def solve_state(
             and ctl.iters < max_iter
             and (ctl.iters > ctl.last_refac or (perturb and ctl.pert_on))
         ):
+            span = spans.start("verify")
             if perturb and ctl.pert_on:
                 s = perturb_clear(s)
             s = refactorize(prob, s, backend, defer, opts.pricing)
             s.status = torch.full_like(s.status, int(SolveStatus.RUNNING))
             ctl = read_control(s, opts, prob, backend)
             s, ctl = _pivot_loop(prob, s, ctl, opts, max_iter, backend)
+            spans.stop(span)
             rounds += 1
 
     if perturb and ctl.pert_on:
@@ -290,6 +311,14 @@ def finalize_result(
     ``precondition(r)`` applies the solve's inverse to an f64 residual
     (default: ``final.B_inv`` with the pending pairs folded in; the 2-D
     solve applies its row-sharded inverse)."""
+    span = spans.start("polish")
+    try:
+        return _finalize_result(prob, b, c, final, options, u_np, basis_columns, precondition)
+    finally:
+        spans.stop(span)
+
+
+def _finalize_result(prob, b, c, final, options, u_np, basis_columns, precondition):
     x_b_np = final.x_b.cpu().numpy()
     basis_np = final.basis.cpu().numpy()
     c_b_np = final.c_b.cpu().numpy()

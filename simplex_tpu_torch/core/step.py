@@ -76,7 +76,9 @@ branch not taken costs nothing:
     value the step itself computed: whether a shadow or segment winner
     failed its exact recheck (then the fallback pass runs).
 
-``host_reads`` counts both kinds of read.
+``host_reads`` counts both kinds of read. Each read, and each section of
+the step (pricing, ftran, ratio test and tail, update, weights), is a host
+span while spans are recorded (:mod:`simplex_tpu_torch.spans`).
 
 Matrix products run in full fp32 (the solver turns TF32 off), the
 counterpart of the JAX package's ``Precision.HIGHEST`` pins.
@@ -92,6 +94,7 @@ import numpy as np
 import torch
 
 from simplex_tpu_torch import sparse as _sp
+from simplex_tpu_torch import spans
 from simplex_tpu_torch.config import SimplexOptions
 from simplex_tpu_torch.core.linalg import inverse_newton
 from simplex_tpu_torch.core.state import CandBuffer, Problem, SolverState, bounded_rhs
@@ -111,7 +114,10 @@ def reset_host_reads() -> None:
 def read_flag(t: torch.Tensor) -> bool:
     """A device bool on the host: one explicit, counted sync."""
     host_reads["branch"] += 1
-    return bool(t)
+    span = spans.start("read", "branch")
+    flag = bool(t)
+    spans.stop(span)
+    return flag
 
 
 class Control(NamedTuple):
@@ -226,7 +232,10 @@ def read_control(
     pick = None
     if opts is not None and prob is not None and _weighted_active(opts, state):
         pick, fields["stale"] = _weighted_pick(prob, state, opts, backend)
-    vals = torch.stack([v.to(torch.int32) for v in fields.values()]).tolist()
+    packed = torch.stack([v.to(torch.int32) for v in fields.values()])
+    span = spans.start("read", "control")
+    vals = packed.tolist()
+    spans.stop(span)
     host_reads["control"] += 1
     ctl = dict(zip(fields, vals))
     for k in ("pert_on", "need_refill", "stale"):
@@ -391,9 +400,11 @@ def _pre_pivot_u(state, opts, alpha, defer):
     Must be taken before the step rewrites B_inv or appends to U / R."""
     if opts.pricing != "steepest" or state.e is None:
         return None
+    span = spans.start("weights")
     u = alpha @ state.B_inv
     if defer:
         u = u + (alpha @ state.U.T) @ state.R
+    spans.stop(span)
     return u
 
 
@@ -546,6 +557,7 @@ def _finish_unbounded(prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, 
     extra = {}
     if defer:
         extra = dict(U=state.U, R=state.R, npend=npend, npend_t=state.npend)
+    span = spans.start("tail")
     t = backend.pivot_tail(
         state.x_b, alpha, state.basis, state.y, state.c_b, state.B_inv,
         min_e, e_p, c_p, p, state.iters, state.degen,
@@ -553,6 +565,8 @@ def _finish_unbounded(prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, 
         harris=opts.ratio == "harris", degen_tol=opts.degen_tol,
         bland_after=opts.bland_after, **extra,
     )
+    spans.stop(span)
+    span = spans.start("update")
     U, R, npend_new = state.U, state.R, t.npend
     if defer:
         B_inv = state.B_inv
@@ -566,11 +580,14 @@ def _finish_unbounded(prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, 
     else:
         # a no-op when not pivoting: eta and row are zero then
         B_inv = backend.rank1_update(state.B_inv, t.eta, t.row)
+    spans.stop(span)
     e, gamma = state.e, state.gamma
     if _weighted_active(opts, state):
+        span = spans.start("weights")
         e, gamma = _update_weights(
             prob, state, opts, backend, p, e_p, alpha, u, t.row, t.q, t.take
         )
+        spans.stop(span)
     return SolverState(
         B_inv=B_inv, x_b=t.x_b, y=t.y, c_b=t.c_b, basis=t.basis, iters=t.iters,
         status=t.status, degen=t.degen, last_refac=state.last_refac,
@@ -603,6 +620,7 @@ def pivot_step(
     npend = ctl.npend
 
     # ---- pricing over the nonbasic columns (signed under bounds) ----
+    span = spans.start("price")
     col = None
     if multi:
         p, min_e, alpha0_p, state, npend = _multi_pricing(prob, state, opts, ctl, bland)
@@ -619,9 +637,11 @@ def pivot_step(
         p, min_e = backend.choose_entering(
             state.y, prob.A, prob.c, eps, use_bland, state.basis
         )
+    spans.stop(span)
 
     # ---- ftran ----
     # e_p == min_e under Dantzig
+    span = spans.start("ftran")
     A_p, c_p, e_p = col if col is not None else _entering_column(prob, state, p, backend)
     if multi:
         # the buffered base column plus every pending pair: O(L m), no m^2 read
@@ -631,6 +651,7 @@ def pivot_step(
         alpha = torch.mv(state.B_inv, A_p) + state.U.T @ (state.R @ A_p)
     else:
         alpha = torch.mv(state.B_inv, A_p)
+    spans.stop(span)
 
     # steepest edge: before anything below rewrites B_inv, U or R
     u_se = _pre_pivot_u(state, opts, alpha, defer)
@@ -641,6 +662,7 @@ def pivot_step(
         )
 
     # ---- ratio test (+ eta and the stepped x_b) ----
+    span = spans.start("tail")
     optimal = min_e >= -eps
     if bounded:
         # d = sigma alpha: an entering column that leaves its upper bound
@@ -690,8 +712,10 @@ def pivot_step(
     if defer:
         # row q of the TRUE inverse: base row + pending corrections
         binv_q = binv_q + state.U.index_select(1, q.view(1)).view(-1) @ state.R
+    spans.stop(span)
 
     # ---- B_inv update, a no-op when not pivoting ----
+    span = spans.start("update")
     U, R, npend_new = state.U, state.R, state.npend
     if defer:
         # append (eta, row) at slot npend; a zero pair when not pivoting
@@ -713,8 +737,10 @@ def pivot_step(
             torch.where(do_pivot, eta, 0),
             torch.where(do_pivot, binv_q, 0),
         )
+    spans.stop(span)
 
     # ---- O(m) updates ----
+    span = spans.start("tail")
     y_new = state.y - (e_p * inv_aq) * binv_q
     at_q = is_q & do_pivot
     if bounded:
@@ -744,11 +770,6 @@ def pivot_step(
             torch.where(bad, int(SolveStatus.SINGULAR), int(SolveStatus.RUNNING)),
         ),
     ).to(torch.int32)
-    e_out, gamma_out = state.e, state.gamma
-    if _weighted_active(opts, state):
-        e_out, gamma_out = _update_weights(
-            prob, state, opts, backend, p, e_p, alpha, u_se, binv_q, q, do_pivot
-        )
     degen_keep = state.degen
     cand_new = state.cand
     if multi:
@@ -764,6 +785,14 @@ def pivot_step(
             e=torch.where(do_pivot, cand_mid.e - (e_p * inv_aq) * w_c, cand_mid.e),
             valid=torch.where(drop, cand_mid.valid & (cand_mid.idx != p), cand_mid.valid),
         )
+    spans.stop(span)
+    e_out, gamma_out = state.e, state.gamma
+    if _weighted_active(opts, state):
+        span = spans.start("weights")
+        e_out, gamma_out = _update_weights(
+            prob, state, opts, backend, p, e_p, alpha, u_se, binv_q, q, do_pivot
+        )
+        spans.stop(span)
     return SolverState(
         B_inv=B_inv,
         x_b=x_b_out,

@@ -67,6 +67,7 @@ import torch
 import torch.distributed as dist
 
 from simplex_tpu_torch import sparse as _sp
+from simplex_tpu_torch import spans
 from simplex_tpu_torch.config import DEFAULT_OPTIONS, SimplexOptions, check_supported, pin_full_fp32
 from simplex_tpu_torch.core import step as _step_mod
 from simplex_tpu_torch.core.solver import MAX_VERIFY_ROUNDS, SolveResult, finalize_result
@@ -224,7 +225,10 @@ def read_control(cx: Ctx, s: dict) -> Control:
     if cx.opts.pricing == "devex":
         bfull = basis_full(cx, s)
         pick, fields["stale"] = _devex_pick(cx, s, bfull)
-    vals = torch.stack([v.to(torch.int32) for v in fields.values()]).tolist()
+    packed = torch.stack([v.to(torch.int32) for v in fields.values()])
+    span = spans.start("read", "control")
+    vals = packed.tolist()
+    spans.stop(span)
     _step_mod.host_reads["control"] += 1
     ctl = dict(zip(fields, vals))
     for k in ("need_refill", "stale"):

@@ -31,7 +31,9 @@ returns the plain version's result (that is how the CPU
 tests run the hopper backend); given CUDA tensors it launches the kernel on
 the current stream or raises: there is no fallback. ``launches[name]`` counts
 kernel launches only, so a run can show that its main path went through the
-kernels. The library is built at the first launch
+kernels; while host spans are recorded, each library call is preceded by a
+zero-length ``launch:<wrapper>`` mark (:mod:`simplex_tpu_torch.spans`). The
+library is built at the first launch
 (:mod:`simplex_tpu_torch.kernels._build`).
 
 In float64, ``pricing_scan`` has a second layout, redesigned for the H100
@@ -50,6 +52,7 @@ from typing import Optional, Tuple
 import torch
 
 from simplex_tpu_torch import sparse as _sp
+from simplex_tpu_torch import spans
 from simplex_tpu_torch.kernels import _build
 from simplex_tpu_torch.kernels import ops as _ops
 from simplex_tpu_torch.status import SolveStatus
@@ -321,6 +324,7 @@ def _pricing_call(
     layout = layout or picked
     plan = (pricing_stream_plan(m, n, chunk_n, _sm_count(dev)) if layout == "stream"
             else dict(rows=ws.rows, chunks=ws.chunks, col_tiles=0, grid=0))
+    spans.mark("launch:pricing_scan")
     err = lib.simplex_pricing_scan(
         _LAYOUT_CODE[layout], _A_CODE[A.dtype], _DTYPE_CODE[dt],
         y.data_ptr(), A.data_ptr(), c.data_ptr(),
@@ -467,6 +471,7 @@ def ratio_argmin(
     # last word's first byte
     w = dt.itemsize // 4
     out = torch.empty(2 * w + 1, dtype=torch.int32, device=dev)
+    spans.mark("launch:ratio_argmin")
     err = lib.simplex_ratio_argmin(
         _DTYPE_CODE[dt], x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(),
         use_bland.data_ptr(), int(use_bland.dtype == torch.bool), m, pivot_tol,
@@ -547,6 +552,7 @@ def ratio_eta(
     scal = _scalar_block(dev, dt)
     flags = torch.empty(_FLAG_BYTES, dtype=torch.bool, device=dev)
     eta, x_b_new = torch.empty((2, m), dtype=dt, device=dev).unbind(0)
+    spans.mark("launch:ratio_eta")
     err = lib.simplex_ratio_eta(
         _DTYPE_CODE[dt], x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), use_bland.data_ptr(),
         int(use_bland.dtype == torch.bool), m, pivot_tol, feas_tol,
@@ -652,6 +658,7 @@ def pivot_tail(
     eta, row = (U[npend], R[npend]) if defer else vecs[4:]
     basis_out = vecs[3].view(torch.int32)[:m]
     st = SolveStatus
+    spans.mark("launch:pivot_tail")
     err = lib.simplex_pivot_tail(
         _DTYPE_CODE[dt], x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), y.data_ptr(),
         c_b.data_ptr(), B_inv.data_ptr(),
@@ -712,6 +719,7 @@ def rank1_update(
         return rank1_update_plain(B_inv, eta, binv_q)
     lib = _build.load_library()
     vec = m % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (B_inv, binv_q))
+    spans.mark("launch:rank1_update")
     err = lib.simplex_rank1_update(
         _DTYPE_CODE[dt], B_inv.data_ptr(), eta.data_ptr(), binv_q.data_ptr(), r, m, int(vec),
         _stream(dev),
@@ -958,6 +966,7 @@ def choose_entering_batched(
     wd = dt.itemsize // 4
     out = torch.empty((1 + wd, Bn), dtype=torch.int32, device=dev)
     p_out, min_out = (out[0], out[1]) if wd == 1 else (out[wd], out[:wd].reshape(-1))
+    spans.mark("launch:batch_pricing")
     err = lib.simplex_batch_pricing(
         _BP_LAYOUTS[plan["layout"]], _A_CODE[A.dtype], _DTYPE_CODE[dt], y.data_ptr(),
         A.data_ptr(), c.data_ptr(), None if at_upper is None else at_upper.data_ptr(),
@@ -1071,6 +1080,7 @@ def pivot_tail_batched(
         Bn, m, _alignment(x_b, alpha, basis, y, c_b, B_inv, *vecs, *((U, R) if defer else ())),
         dt.itemsize)
     st = SolveStatus
+    spans.mark("launch:batch_tail")
     err = lib.simplex_batch_tail(
         _DTYPE_CODE[dt], x_b.data_ptr(), alpha.data_ptr(), basis.data_ptr(), y.data_ptr(),
         c_b.data_ptr(),
@@ -1131,6 +1141,7 @@ def rank1_update_batched(
     _require(Bn <= _BATCH_GRID_MAX, f"batch_rank1: at most {_BATCH_GRID_MAX} instances")
     lib = _build.load_library()
     vec = m % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (B_inv, row))
+    spans.mark("launch:batch_rank1")
     err = lib.simplex_batch_rank1(
         _DTYPE_CODE[dt], B_inv.data_ptr(), eta.data_ptr(), row.data_ptr(), take.data_ptr(), Bn, m,
         int(vec), _stream(dev),
