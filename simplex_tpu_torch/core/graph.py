@@ -1,0 +1,264 @@
+"""The default pivot step replayed as one CUDA graph.
+
+The default step on dense A (Dantzig pricing over all of A, no shadow, no
+segments, no candidate buffer, eager rank-1 updates, no bounds, Bland's rule
+off; :func:`simplex_tpu_torch.core.step.graph_path`) has no host branch
+between its kernels, and its shapes are fixed. Run eagerly, its launches cost
+the host more time than the card spends on them. :class:`StepGraphs`, kept
+on the single-card hopper backend (``kernels.dispatch.get_backend``),
+records the eager step once with ``torch.cuda.CUDAGraph`` and replays it:
+pricing (both passes), the entering column and its exact reduced cost, the
+ftran GEMV, ``pivot_tail``, ``rank1_update``, and the packing of the
+control words that ``step.read_control`` copies to the host. The same
+kernels get the same arguments, so a replay gives the eager step's results
+bit for bit.
+
+A graph holds addresses, so graphs are kept by key: the addresses, shapes
+and dtypes of A, c and B_inv, whether the state carries the perturbation,
+and the option scalars the launches bake in. B_inv is updated in place, as
+eagerly; a new B_inv (a restart, a re-inversion) is a new key. A key is
+captured only once it has run one eager step, so a short solve pays for no
+capture. At most ``MAX_KEYS`` keys are kept.
+
+Buffers. Each key has two slots, each the three output blocks of
+``pivot_tail`` (x_b, y, c_b, basis, iters, status, degen: views of them), and
+two graphs: graph i reads slot i and writes slot 1 - i. So a state returned
+by step k (in one slot) stays valid through step k + 1, which writes the
+other; the benchmark's step recorder copies a step's input basis only after
+the step returns. A state that is not the last replay's output is copied
+into the slot it shares leaves with (else into the one the last replay did
+not write) before the replay. last_refac and the perturbation's rounds and
+flag, which the step passes through, are copied as int32 words into one
+block per key when they change; the graph's packing reads them there, so it
+is one concatenation. ``core.solver._pivot_loop`` hands no state back that
+shares memory with a slot (:meth:`StepGraphs.detach`).
+
+Counters: ``step.graph_steps`` (captured, replayed, eager); a replay adds to
+``hopper.launches`` the launches its capture recorded (a capture launches
+nothing, so the counts it made are taken back), so the counts a pivot are
+those of the eager step. While spans are recorded, a replay is a ``graph``
+span with a ``launch:pivot_graph`` mark before it.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+import types
+from typing import Optional
+
+import torch
+
+from simplex_tpu_torch import spans
+from simplex_tpu_torch.core import step as _step
+from simplex_tpu_torch.core.state import SolverState
+from simplex_tpu_torch.kernels import hopper
+
+MAX_KEYS = 2
+# the leaves a slot holds, and those of them the step reads
+_LEAVES = ("x_b", "y", "c_b", "basis", "iters", "status", "degen")
+_READ = ("x_b", "y", "c_b", "basis", "iters", "degen")
+
+
+def _key(prob, state, opts) -> tuple:
+    A, c, B = prob.A, prob.c, state.B_inv
+    return (
+        A.data_ptr(), A.shape, A.stride(), A.dtype, c.data_ptr(), c.shape, c.dtype,
+        B.data_ptr(), B.shape, B.dtype, state.pert is not None, opts.resolve_eps(),
+        opts.pivot_tol, opts.feas_tol, opts.ratio == "harris", opts.degen_tol, opts.bland_after,
+    )
+
+
+def _passed(state) -> tuple:
+    """The leaves the step passes through that the control words hold."""
+    if state.pert is None:
+        return (state.last_refac,)
+    return state.last_refac, state.pert.rounds, state.pert.on
+
+
+class _Slot:
+    """One set of the step's O(m) leaves and scalars: ``pivot_tail``'s
+    output blocks and the views the step's state takes of them."""
+
+    def __init__(self, dev, dtype, m: int):
+        self.blocks = hopper.tail_blocks(dev, dtype, m)
+        t = hopper.tail_outputs(self.blocks, dtype)
+        for name in _LEAVES:
+            setattr(self, name, getattr(t, name))
+
+    def shares(self, state) -> bool:
+        return any(getattr(state, name) is getattr(self, name) for name in _READ)
+
+
+class _Key:
+    """The two slots and two graphs of one key, and every tensor whose
+    address a captured launch took (A, c, B_inv, the slots, the words, the
+    capture stream's pricing scratch)."""
+
+    def __init__(self, prob, state, stream):
+        B = state.B_inv
+        self.slots = (_Slot(B.device, B.dtype, B.shape[0]), _Slot(B.device, B.dtype, B.shape[0]))
+        self.graphs: list = [None, None]
+        self.packed: list = [None, None]  # graph i's control words
+        self.launched: dict = {}  # hopper launches a replay stands for
+        self.words = torch.empty(len(_passed(state)), dtype=torch.int32, device=B.device)
+        self.words_of: Optional[tuple] = None  # the tensors the words hold
+        self.written = 1  # the slot the last replay wrote: the first load goes to slot 0
+        self.keep = (prob.A, prob.c, B, hopper.pricing_scratch(prob.A, prob.c.dtype, stream))
+
+    def source(self, state) -> int:
+        """The slot the step reads ``state`` from: the one that holds its
+        leaves, the last written first; else the other."""
+        for i in (self.written, 1 - self.written):
+            if self.slots[i].shares(state):
+                return i
+        return 1 - self.written
+
+    def load(self, state, i: int) -> None:
+        slot = self.slots[i]
+        for name in _READ:
+            src, dst = getattr(state, name), getattr(slot, name)
+            if src is not dst:
+                dst.copy_(src)
+        passed = _passed(state)
+        if self.words_of is None or any(a is not b for a, b in zip(passed, self.words_of)):
+            for word, src in zip(self.words, passed):
+                word.copy_(src)
+            self.words_of = passed
+
+    def passes(self, state) -> bool:
+        """Whether the words hold ``state``'s passed-through leaves."""
+        return self.words_of is not None and all(a is b for a, b in zip(_passed(state), self.words_of))
+
+
+class StepGraphs:
+    """The captured default steps of one backend, by key (module docstring).
+    :meth:`step` runs one step; :meth:`control_block` gives
+    ``step.read_control`` the last replay's control words;
+    :meth:`detach` copies a state out of the slots."""
+
+    def __init__(self):
+        self._keys: collections.OrderedDict = collections.OrderedDict()
+        self._seen: collections.OrderedDict = collections.OrderedDict()  # keys that ran eagerly
+        self._last = None  # (key entry, slot) of the last replay
+        self._streams: dict = {}  # device -> capture stream
+
+    def step(self, prob, state, opts, backend, ctl) -> SolverState:
+        """One default step: eager the first time its key is seen, then by
+        replay, captured on first need."""
+        key = _key(prob, state, opts)
+        entry = self._keys.get(key)
+        if entry is not None:
+            self._keys.move_to_end(key)
+        else:
+            if key not in self._seen:
+                self._remember(self._seen, key, True)
+                _step.graph_steps["eager"] += 1
+                return _step.eager_step(prob, state, opts, backend, ctl)
+            entry = _Key(prob, state, self._stream(state))
+            self._remember(self._keys, key, entry)
+        span = spans.start("graph")
+        i = entry.source(state)
+        entry.load(state, i)
+        if entry.graphs[i] is None:
+            self._capture(entry, i, prob, state, opts, backend, ctl)
+        spans.mark("launch:pivot_graph")
+        entry.graphs[i].replay()
+        spans.stop(span)
+        for name, n in entry.launched.items():
+            hopper.launches[name] += n
+        _step.graph_steps["replayed"] += 1
+        entry.written = 1 - i
+        self._last = (entry, 1 - i)
+        out = entry.slots[1 - i]
+        return SolverState(
+            B_inv=state.B_inv, x_b=out.x_b, y=out.y, c_b=out.c_b, basis=out.basis,
+            iters=out.iters, status=out.status, degen=out.degen,
+            last_refac=state.last_refac, pert=state.pert,
+        )
+
+    def _stream(self, state) -> torch.cuda.Stream:
+        """The capture stream of the state's device."""
+        dev = state.B_inv.device
+        stream = self._streams.get(dev)
+        if stream is None:
+            stream = self._streams[dev] = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                # cuBLAS sets itself up on a stream's first product: not inside a capture
+                torch.mv(state.B_inv, state.y)
+                torch.dot(state.y, state.y)
+        return stream
+
+    def _remember(self, table, key, value) -> None:
+        table[key] = value
+        table.move_to_end(key)
+        while len(table) > MAX_KEYS:
+            _, dropped = table.popitem(last=False)
+            if self._last is not None and self._last[0] is dropped:
+                self._last = None
+
+    def _capture(self, entry: _Key, i: int, prob, state, opts, backend, ctl) -> None:
+        """Record the eager step from slot i into slot 1 - i and the packing
+        of its control words, on the key's capture stream."""
+        src, dst = entry.slots[i], entry.slots[1 - i]
+        stream = self._streams[state.B_inv.device]
+        # the step's input as the graph reads it: the slot, and the words
+        # in place of the passed-through leaves (int32, so that the packing
+        # converts nothing)
+        words = entry.words.unbind(0)
+        pert = None
+        if state.pert is not None:
+            pert = type(state.pert)(w=state.pert.w, rounds=words[1], on=words[2])
+        ins = SolverState(
+            B_inv=state.B_inv, last_refac=words[0], pert=pert,
+            **{name: getattr(src, name) for name in _LEAVES},
+        )
+        cap = types.SimpleNamespace(**vars(backend))
+        cap.pivot_tail = functools.partial(backend.pivot_tail, out=dst.blocks)
+        before = dict(hopper.launches)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(stream):
+                # thread-local: the profiler's own threads may call the runtime meanwhile
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    new = _step.eager_step(prob, ins, opts, cap, ctl)
+                    packed = _step.pack_control(_step.control_fields(new, opts)[0])
+                finally:
+                    graph.capture_end()
+        finally:
+            # nothing ran: the captured launches count at each replay
+            entry.launched = {k: v - before[k] for k, v in hopper.launches.items() if v != before[k]}
+            hopper.launches.update(before)
+        entry.graphs[i], entry.packed[i] = graph, packed
+        _step.graph_steps["captured"] += 1
+
+    def control_block(self, state) -> Optional[torch.Tensor]:
+        """The control words of ``state`` as the last replay packed them,
+        when ``state`` is that replay's output as to every word; else None."""
+        if self._last is None:
+            return None
+        entry, j = self._last
+        out = entry.slots[j]
+        if state.status is out.status and state.iters is out.iters and state.degen is out.degen \
+                and entry.passes(state):
+            return entry.packed[1 - j]
+        return None
+
+    def detach(self, state: SolverState) -> SolverState:
+        """``state`` with every leaf that lies in a slot copied out, so
+        that no later replay writes it."""
+        held = {
+            block.untyped_storage().data_ptr()
+            for entry in self._keys.values() for slot in entry.slots for block in slot.blocks
+        }
+        if not held:
+            return state
+        copies = {}
+        for name in _LEAVES:
+            t = getattr(state, name)
+            if t.untyped_storage().data_ptr() in held:
+                copies[name] = t.clone()
+        return dataclasses.replace(state, **copies) if copies else state

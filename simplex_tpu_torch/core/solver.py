@@ -10,9 +10,10 @@ rhs perturbation and runs the optional periodic recompute /
 refactorization, re-reading the control after any of them; after the loop,
 the verify-terminal rounds re-check every terminal decision against a
 re-inverted basis. The returned basis is then polished in float64 on the
-same device. While spans are recorded (:mod:`simplex_tpu_torch.spans`), the
-solve, each pivot, the upkeep, the verify rounds and the polish are host
-spans.
+same device. A state the loop returns shares no memory with the buffers of
+the backend's step graphs (:mod:`simplex_tpu_torch.core.graph`). While
+spans are recorded (:mod:`simplex_tpu_torch.spans`), the solve, each pivot,
+the upkeep, the verify rounds and the polish are host spans.
 
 A sparse A (scipy.sparse, or a :class:`~simplex_tpu_torch.sparse.SparseA`)
 stays sparse on the device: every op that reads A dispatches on it, the
@@ -124,6 +125,10 @@ def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
             # the next step branches on the state as it is now
             ctl = read_control(s, opts, prob, backend)
         spans.stop(span)
+    graphs = getattr(backend, "step_graphs", None)
+    if graphs is not None:
+        # no state leaves the loop in the step graphs' buffers
+        s = graphs.detach(s)
     return s, ctl
 
 

@@ -80,6 +80,11 @@ branch not taken costs nothing:
 the step (pricing, ftran, ratio test and tail, update, weights), is a host
 span while spans are recorded (:mod:`simplex_tpu_torch.spans`).
 
+The default step on dense CUDA tensors (:func:`graph_path`) runs as one
+replay of a CUDA graph of the same launches (:mod:`simplex_tpu_torch.core.
+graph`), once its key has run one eager step; ``graph_steps`` counts the
+steps by how they ran.
+
 Matrix products run in full fp32 (the solver turns TF32 off), the
 counterpart of the JAX package's ``Precision.HIGHEST`` pins.
 """
@@ -104,11 +109,20 @@ from simplex_tpu_torch.status import SolveStatus
 # device-to-host reads since the last reset: "control" (one per pivot, by
 # read_control) and "branch" (read_flag, inside a step)
 host_reads = {"control": 0, "branch": 0}
+# pivot steps since the last reset by how they ran: "eager" (launched op by
+# op), "captured" (default steps recorded as a CUDA graph, simplex_tpu_torch.
+# core.graph) and "replayed" (steps run as one replay of such a graph)
+graph_steps = {"captured": 0, "replayed": 0, "eager": 0}
 
 
 def reset_host_reads() -> None:
     for k in host_reads:
         host_reads[k] = 0
+
+
+def reset_graph_steps() -> None:
+    for k in graph_steps:
+        graph_steps[k] = 0
 
 
 def read_flag(t: torch.Tensor) -> bool:
@@ -205,16 +219,15 @@ def _weighted_pick(prob: Problem, state: SolverState, opts: SimplexOptions, back
     return (p1, min1 if state.at_upper is None else s_p1, col), stale
 
 
-def read_control(
+def control_fields(
     state: SolverState,
     opts: Optional[SimplexOptions] = None,
     prob: Optional[Problem] = None,
     backend=None,
-) -> Control:
-    """The loop's control scalars and the next step's branch flags in ONE
-    device-to-host read. ``need_refill`` needs ``opts``; the devex /
-    steepest-edge pick and its ``stale`` flag need ``prob`` and ``backend``
-    too."""
+):
+    """``(fields, pick)``: the device scalars :func:`read_control` reads,
+    by :class:`Control` field, and the devex / steepest-edge pick (None
+    under the other rules)."""
     fields = {
         "status": state.status,
         "iters": state.iters,
@@ -232,7 +245,30 @@ def read_control(
     pick = None
     if opts is not None and prob is not None and _weighted_active(opts, state):
         pick, fields["stale"] = _weighted_pick(prob, state, opts, backend)
-    packed = torch.stack([v.to(torch.int32) for v in fields.values()])
+    return fields, pick
+
+
+def pack_control(fields: dict) -> torch.Tensor:
+    """The control words in one int32 block, in the order of ``fields``."""
+    return torch.stack([v.to(torch.int32) for v in fields.values()])
+
+
+def read_control(
+    state: SolverState,
+    opts: Optional[SimplexOptions] = None,
+    prob: Optional[Problem] = None,
+    backend=None,
+) -> Control:
+    """The loop's control scalars and the next step's branch flags in ONE
+    device-to-host read. ``need_refill`` needs ``opts``; the devex /
+    steepest-edge pick and its ``stale`` flag need ``prob`` and ``backend``
+    too. A state that a replay of the backend's step graph returned is read
+    from the block the graph packed (:mod:`simplex_tpu_torch.core.graph`)."""
+    fields, pick = control_fields(state, opts, prob, backend)
+    graphs = getattr(backend, "step_graphs", None)
+    packed = graphs.control_block(state) if graphs is not None else None
+    if packed is None:
+        packed = pack_control(fields)
     span = spans.start("read", "control")
     vals = packed.tolist()
     spans.stop(span)
@@ -596,6 +632,35 @@ def _finish_unbounded(prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, 
     )
 
 
+def graph_path(prob: Problem, state: SolverState, opts: SimplexOptions, backend, ctl: Control) -> bool:
+    """Whether this step is the default one that a CUDA graph of the
+    backend may replay (:mod:`simplex_tpu_torch.core.graph`), the device
+    aside: a backend that keeps step graphs (the single-card hopper one), a
+    dense A, Dantzig pricing over all of A (no shadow, no segments, no
+    candidate buffer), eager updates, no bounds, no devex / steepest-edge
+    leaves, and Bland's rule off on the host."""
+    return (
+        getattr(backend, "step_graphs", None) is not None
+        and opts.pricing == "dantzig"
+        and opts.update_defer == 0
+        and not isinstance(prob.A, _sp.SparseA)
+        and prob.A_price is None
+        and prob.u is None
+        and state.U is None
+        and state.cand is None
+        and state.e is None
+        and state.at_upper is None
+        and not _partial_active(opts, prob)
+        and not (opts.bland_after > 0 and ctl.degen >= opts.bland_after)
+    )
+
+
+def graph_engages(prob: Problem, state: SolverState, opts: SimplexOptions, backend, ctl: Control) -> bool:
+    """:func:`graph_path` on CUDA tensors: the step runs from the
+    backend's graphs."""
+    return graph_path(prob, state, opts, backend, ctl) and prob.A.is_cuda and state.B_inv.is_cuda
+
+
 def pivot_step(
     prob: Problem,
     state: SolverState,
@@ -606,9 +671,26 @@ def pivot_step(
     """Apply one pivot, or set a terminal status. ``ctl`` is this state's
     :func:`read_control` (read here when not given). Updates
     ``state.B_inv``, ``state.U`` and ``state.R`` in place and returns the
-    new state."""
+    new state.
+
+    Where :func:`graph_engages`, the step runs through the backend's
+    :class:`~simplex_tpu_torch.core.graph.StepGraphs`: its O(m) leaves and
+    scalars then lie in buffers that a later step writes again, and stay
+    valid through the next step only (``core.solver._pivot_loop`` copies
+    the state it returns out of them)."""
     if ctl is None:
         ctl = read_control(state, opts, prob, backend)
+    if graph_engages(prob, state, opts, backend, ctl):
+        return backend.step_graphs.step(prob, state, opts, backend, ctl)
+    graph_steps["eager"] += 1
+    return eager_step(prob, state, opts, backend, ctl)
+
+
+def eager_step(
+    prob: Problem, state: SolverState, opts: SimplexOptions, backend, ctl: Control
+) -> SolverState:
+    """:func:`pivot_step` op by op: the definition that a step graph
+    records."""
     dtype = state.B_inv.dtype
     eps = opts.resolve_eps()
     # the host's copy of the same comparison: ctl is this state's control

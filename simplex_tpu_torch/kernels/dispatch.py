@@ -24,6 +24,13 @@ rather than through an fp32 copy of it.
 On a sparse A (:class:`~simplex_tpu_torch.sparse.SparseA`) the hopper
 backend's pricing takes the plain ops (an SpMV and the masked argmin); the
 ops that do not read A launch the same kernels as on dense A.
+
+The hopper namespace also keeps ``step_graphs``
+(:class:`~simplex_tpu_torch.core.graph.StepGraphs`): the CUDA graphs of the
+default pivot step that ``core.step.pivot_step`` replays on CUDA tensors,
+for as long as the namespace lives. No other namespace has it (the torch
+one, the collective ones of ``dist/sharded.py``), so their steps launch op
+by op.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from __future__ import annotations
 import types
 
 from simplex_tpu_torch.config import BACKENDS
+from simplex_tpu_torch.core.graph import StepGraphs
 from simplex_tpu_torch.kernels import hopper as _hopper
 from simplex_tpu_torch.kernels import ops as _ops
 
@@ -70,4 +78,5 @@ def get_backend(name: str) -> types.SimpleNamespace:
         gather_cost=_ops.gather_cost,
         gather_column_cost=_ops.gather_column_cost,
         gather_basis_matrix=_ops.gather_basis_matrix,
+        step_graphs=StepGraphs() if fast else None,
     )

@@ -586,6 +586,7 @@ def pivot_tail(
     degen_tol: float, bland_after: int,
     U: Optional[torch.Tensor] = None, R: Optional[torch.Tensor] = None,
     npend: int = 0, npend_t: Optional[torch.Tensor] = None,
+    out: Optional[tuple] = None,
 ) -> PivotTail:
     """Everything an unbounded pivot step does after the ftran, in ONE
     launch: the ratio test on (x_b, alpha, basis) with Bland's rule on when
@@ -610,7 +611,10 @@ def pivot_tail(
 
     Three allocations: one (k, m) block for the vector outputs, one block
     for the int32 scalars and one for the four flags; every result is a
-    view of one of them."""
+    view of one of them. ``out`` (CUDA only) gives the three blocks
+    instead, as :func:`tail_blocks` makes them: a CUDA graph of the step
+    writes its state into buffers that outlive the capture
+    (:mod:`simplex_tpu_torch.core.graph`)."""
     m = x_b.shape[0] if x_b.dim() == 1 else -1
     if m <= 0:
         raise ValueError(f"x_b: want a non-empty vector, got {tuple(x_b.shape)}")
@@ -645,16 +649,20 @@ def pivot_tail(
         raise ValueError("npend without U and R")
     dev = _same_device(*ins)
     if dev.type == "cpu":
+        _require(out is None, "pivot_tail: out takes CUDA blocks only")
         return pivot_tail_plain(
             x_b, alpha, basis, y, c_b, B_inv, min_e, e_p, c_p, p, iters, degen,
             eps=eps, pivot_tol=pivot_tol, feas_tol=feas_tol, harris=harris,
             degen_tol=degen_tol, bland_after=bland_after, U=U, R=R, npend=npend,
             npend_t=npend_t,
         )
+    if out is None:
+        out = tail_blocks(dev, dt, m, defer)
+    else:
+        _tail_out(out, dev, dt, m, defer, ins)
     lib = _build.load_library()
-    scal = _scalar_block(dev, dt)
-    flags = torch.empty(_FLAG_BYTES, dtype=torch.bool, device=dev)
-    vecs = torch.empty((4 if defer else 6, m), dtype=dt, device=dev).unbind(0)
+    block, scal, flags = out
+    vecs = block.unbind(0)
     eta, row = (U[npend], R[npend]) if defer else vecs[4:]
     basis_out = vecs[3].view(torch.int32)[:m]
     st = SolveStatus
@@ -673,13 +681,59 @@ def pivot_tail(
     )
     _build.check(err, "ratio_eta")
     launches["ratio_eta"] += 1
+    return _tail_views(vecs, basis_out, scal, flags, dt, eta, row, defer)
+
+
+def _tail_views(vecs, basis, scal, flags, dt, eta, row, defer: bool) -> PivotTail:
     v = _scalar_views(scal, flags, dt)
     return PivotTail(
-        x_b=vecs[0], y=vecs[1], c_b=vecs[2], basis=basis_out, iters=v["iters"],
+        x_b=vecs[0], y=vecs[1], c_b=vecs[2], basis=basis, iters=v["iters"],
         status=v["status"], degen=v["degen"], npend=v["npend"] if defer else None,
         eta=eta, row=row, q=v["q"], theta_q=v["theta_q"], optimal=v["optimal"],
         unbounded=v["unbounded"], bad=v["bad"], take=v["take"],
     )
+
+
+def tail_blocks(dev: torch.device, dtype: torch.dtype, m: int, defer: bool = False) -> tuple:
+    """New output blocks of one :func:`pivot_tail` call, ``(vectors,
+    scalars, flags)``: (k, m) ``dtype`` rows x_b, y, c_b and the basis (its
+    int32 words at the start of the fourth row), then eta and row unless
+    ``defer`` (k = 6, else 4); the int32 scalar block; the four flags."""
+    block = torch.empty((4 if defer else 6, m), dtype=dtype, device=dev)
+    return block, _scalar_block(dev, dtype), torch.empty(_FLAG_BYTES, dtype=torch.bool, device=dev)
+
+
+def tail_outputs(out: tuple, dtype: torch.dtype) -> PivotTail:
+    """The views a non-deferred :func:`pivot_tail` call returns when it
+    writes into ``out`` (:func:`tail_blocks`)."""
+    block, scal, flags = out
+    vecs = block.unbind(0)
+    basis = vecs[3].view(torch.int32)[: block.shape[1]]
+    return _tail_views(vecs, basis, scal, flags, dtype, vecs[4], vecs[5], False)
+
+
+def _tail_out(out, dev, dt, m, defer, ins) -> None:
+    """Checks of the blocks a caller gives :func:`pivot_tail`: as
+    :func:`tail_blocks` makes them, on ``dev``, and apart from every
+    input (the kernel reads the inputs while it writes the blocks)."""
+    _require(isinstance(out, tuple) and len(out) == 3, "out: want (vectors, scalars, flags)")
+    block, scal, flags = out
+    want = ((block, (4 if defer else 6, m), dt), (scal, (2 * (dt.itemsize // 4) + 4,), torch.int32),
+            (flags, (_FLAG_BYTES,), torch.bool))
+    for t, shape, dtype in want:
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"out: want contiguous {dtype} {shape} on {dev}, got {tuple(t.shape)} {t.dtype}")
+        _require(not any(_overlaps(t, x) for x in ins), "out: overlaps an input")
+
+
+def pricing_scratch(A: torch.Tensor, dtype: torch.dtype, stream: torch.cuda.Stream):
+    """The scratch of a :func:`pricing_scan` over all of A with ``dtype``
+    vectors launched on ``stream``, made now if it is not kept yet. A CUDA
+    graph captured on ``stream`` has to find it made (a capture would
+    record the zeroing of its tickets into every replay) and must hold it
+    for as long as it lives (the cache here may drop it)."""
+    m, n = A.shape
+    return _pricing_workspace(A.device, stream.cuda_stream, m, n, n, dtype)
 
 
 # --------------------------------------------------------------------------

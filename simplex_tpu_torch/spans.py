@@ -11,6 +11,9 @@ opens and closes spans at its stage boundaries:
                 the sections of ``core.step.pivot_step``: pricing, the ftran,
                 the ratio test and the O(m) tail, the B_inv update or flush,
                 the devex / steepest-edge e / gamma update
+  graph         a default step run from a CUDA graph (``core.graph``): the
+                copy of its input into the graph's buffers, the capture when
+                one is due (the sections above inside it), the replay
   read          a device-to-host read that ``core.step.host_reads`` counts,
                 of kind ``control`` or ``branch``
   maintain      upkeep between pivots, of kind ``perturb``, ``recompute`` or
@@ -19,7 +22,8 @@ opens and closes spans at its stage boundaries:
   polish        ``core.solver.finalize_result``
 
 and the hand-written kernels' wrappers (``kernels.hopper``) stamp a
-zero-length ``launch:<wrapper>`` mark immediately before each library call.
+zero-length ``launch:<wrapper>`` mark immediately before each library call,
+as ``core.graph`` stamps ``launch:pivot_graph`` before each replay.
 
 Spans are recorded only while a ``torch.profiler`` session is active (the
 flag torch keeps for fast Python checks) or inside ``with recording():``,
