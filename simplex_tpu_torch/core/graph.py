@@ -34,10 +34,10 @@ is one concatenation. ``core.solver._pivot_loop`` hands no state back that
 shares memory with a slot (:meth:`StepGraphs.detach`).
 
 Counters: ``step.graph_steps`` (captured, replayed, eager); a replay adds to
-``hopper.launches`` the launches its capture recorded (a capture launches
-nothing, so the counts it made are taken back), so the counts a pivot are
-those of the eager step. While spans are recorded, a replay is a ``graph``
-span with a ``launch:pivot_graph`` mark before it.
+``hopper.launches`` and ``hopper.pricing_layouts`` the counts its capture
+recorded (a capture launches nothing, so the counts it made are taken back),
+so the counts a pivot are those of the eager step. While spans are recorded,
+a replay is a ``graph`` span with a ``launch:pivot_graph`` mark before it.
 """
 
 from __future__ import annotations
@@ -56,6 +56,8 @@ from simplex_tpu_torch.core.state import SolverState
 from simplex_tpu_torch.kernels import hopper
 
 MAX_KEYS = 2
+# the counters a replay adds to as the eager step would
+_COUNTERS = (hopper.launches, hopper.pricing_layouts)
 # the leaves a slot holds, and those of them the step reads
 _LEAVES = ("x_b", "y", "c_b", "basis", "iters", "status", "degen")
 _READ = ("x_b", "y", "c_b", "basis", "iters", "degen")
@@ -101,7 +103,7 @@ class _Key:
         self.slots = (_Slot(B.device, B.dtype, B.shape[0]), _Slot(B.device, B.dtype, B.shape[0]))
         self.graphs: list = [None, None]
         self.packed: list = [None, None]  # graph i's control words
-        self.launched: dict = {}  # hopper launches a replay stands for
+        self.launched: tuple = ({}, {})  # what a replay adds to each of _COUNTERS
         self.words = torch.empty(len(_passed(state)), dtype=torch.int32, device=B.device)
         self.words_of: Optional[tuple] = None  # the tensors the words hold
         self.written = 1  # the slot the last replay wrote: the first load goes to slot 0
@@ -166,8 +168,9 @@ class StepGraphs:
         spans.mark("launch:pivot_graph")
         entry.graphs[i].replay()
         spans.stop(span)
-        for name, n in entry.launched.items():
-            hopper.launches[name] += n
+        for counter, launched in zip(_COUNTERS, entry.launched):
+            for name, n in launched.items():
+                counter[name] += n
         _step.graph_steps["replayed"] += 1
         entry.written = 1 - i
         self._last = (entry, 1 - i)
@@ -217,7 +220,7 @@ class StepGraphs:
         )
         cap = types.SimpleNamespace(**vars(backend))
         cap.pivot_tail = functools.partial(backend.pivot_tail, out=dst.blocks)
-        before = dict(hopper.launches)
+        before = [dict(counter) for counter in _COUNTERS]
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.stream(stream):
@@ -230,8 +233,12 @@ class StepGraphs:
                     graph.capture_end()
         finally:
             # nothing ran: the captured launches count at each replay
-            entry.launched = {k: v - before[k] for k, v in hopper.launches.items() if v != before[k]}
-            hopper.launches.update(before)
+            entry.launched = tuple(
+                {k: v - was[k] for k, v in counter.items() if v != was[k]}
+                for counter, was in zip(_COUNTERS, before)
+            )
+            for counter, was in zip(_COUNTERS, before):
+                counter.update(was)
         entry.graphs[i], entry.packed[i] = graph, packed
         _step.graph_steps["captured"] += 1
 

@@ -42,7 +42,8 @@ dtypes, shape and alignment alone; the older layout ("split") keeps the
 shapes the new one does not take, gives the same bits, and is reachable by
 name (``layout=``) only for the tools that hold the two against each other
 (``chip_smoke.py``, ``bench/kernels.py``). No option selects a layout, and
-a failed launch raises.
+a failed launch raises; ``pricing_layouts`` counts the calls each layout
+took.
 """
 
 from __future__ import annotations
@@ -64,6 +65,9 @@ launches = {
     "pricing_scan": 0, "ratio_argmin": 0, "ratio_eta": 0, "rank1_update": 0,
     "batch_pricing": 0, "batch_tail": 0, "batch_rank1": 0,
 }
+# pricing_scan calls per layout that ran (pricing_layout) since the last
+# reset_launches(): a float64 call that falls back to "split" shows here
+pricing_layouts = {"split": 0, "stream": 0}
 
 # pricing pass 1 splits the rows into chunks so that about this many blocks
 # of 1024 columns are in flight (8 per SM on a 132-SM H100)
@@ -77,8 +81,9 @@ _PRICING_STREAM_COLS, _PRICING_STREAM_CTAS = 256, 3
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counter in (launches, pricing_layouts):
+        for name in counter:
+            counter[name] = 0
 
 
 def _require(cond: bool, what: str) -> None:
@@ -342,6 +347,7 @@ def _pricing_call(
         _workspaces.pop((dev, stream, m, n, chunk_n, dt), None)
     _build.check(err, "pricing_scan")
     launches["pricing_scan"] += 1
+    pricing_layouts[layout] += 1
     p_dantzig, p_neg, p = out[w:].unbind(0)
     return _value(out, dt), p_dantzig, p_neg, p
 
