@@ -8,10 +8,10 @@ the host more time than the card spends on them. :class:`StepGraphs`, kept
 on the single-card hopper backend (``kernels.dispatch.get_backend``),
 records the eager step once with ``torch.cuda.CUDAGraph`` and replays it:
 pricing (both passes), the entering column and its exact reduced cost, the
-ftran GEMV, ``pivot_tail``, ``rank1_update``, and the packing of the
-control words that ``step.read_control`` copies to the host. The same
-kernels get the same arguments, so a replay gives the eager step's results
-bit for bit.
+ftran GEMV, ``pivot_tail``, ``rank1_update``, the packing of the
+control words and their copy into a pinned host buffer of the graph's own.
+The same kernels get the same arguments, so a replay gives the eager step's
+results bit for bit.
 
 A graph holds addresses, so graphs are kept by key: the addresses, shapes
 and dtypes of A, c and B_inv, whether the state carries the perturbation,
@@ -33,11 +33,20 @@ block per key when they change; the graph's packing reads them there, so it
 is one concatenation. ``core.solver._pivot_loop`` hands no state back that
 shares memory with a slot (:meth:`StepGraphs.detach`).
 
-Counters: ``step.graph_steps`` (captured, replayed, eager); a replay adds to
-``hopper.launches`` and ``hopper.pricing_layouts`` the counts its capture
+Control words. An event is recorded after each replay; ``step.read_control``
+reads a replay's output by waiting on that event alone and reading the
+replay's pinned words (:meth:`StepGraphs.control_block`), so a replay
+enqueued after it (``core.solver._pivot_loop`` runs one step ahead) does not
+hold the read back. Each graph has its own words: replay k + 1 does not
+overwrite those of replay k, and replay k + 2 comes only after they are read.
+
+Counters: ``step.graph_steps`` (captured, replayed, eager, and ahead: replays
+from a replay's output whose control words the host has not read); a replay
+adds to ``hopper.launches`` and ``hopper.pricing_layouts`` the counts its capture
 recorded (a capture launches nothing, so the counts it made are taken back),
 so the counts a pivot are those of the eager step. While spans are recorded,
-a replay is a ``graph`` span with a ``launch:pivot_graph`` mark before it.
+a replay is a ``graph`` span (of kind ``ahead`` where it counts so) with a
+``launch:pivot_graph`` mark before it.
 """
 
 from __future__ import annotations
@@ -102,7 +111,9 @@ class _Key:
         B = state.B_inv
         self.slots = (_Slot(B.device, B.dtype, B.shape[0]), _Slot(B.device, B.dtype, B.shape[0]))
         self.graphs: list = [None, None]
-        self.packed: list = [None, None]  # graph i's control words
+        self.host: list = [None, None]  # graph i's control words, pinned on the host
+        self.done = (torch.cuda.Event(), torch.cuda.Event())  # recorded after the replay that wrote slot j
+        self.unread = [False, False]  # the control words of slot j's last replay are not read yet
         self.launched: tuple = ({}, {})  # what a replay adds to each of _COUNTERS
         self.words = torch.empty(len(_passed(state)), dtype=torch.int32, device=B.device)
         self.words_of: Optional[tuple] = None  # the tensors the words hold
@@ -116,6 +127,14 @@ class _Key:
             if self.slots[i].shares(state):
                 return i
         return 1 - self.written
+
+    def output_of(self, state) -> Optional[int]:
+        """The slot whose status, iters and degen are ``state``'s, as a
+        replay wrote them, or None."""
+        for j, slot in enumerate(self.slots):
+            if state.status is slot.status and state.iters is slot.iters and state.degen is slot.degen:
+                return j
+        return None
 
     def load(self, state, i: int) -> None:
         slot = self.slots[i]
@@ -136,14 +155,14 @@ class _Key:
 
 class StepGraphs:
     """The captured default steps of one backend, by key (module docstring).
-    :meth:`step` runs one step; :meth:`control_block` gives
-    ``step.read_control`` the last replay's control words;
-    :meth:`detach` copies a state out of the slots."""
+    :meth:`step` runs one step; :meth:`ready` says whether the step from
+    a state would replay a captured graph ahead of its control read;
+    :meth:`control_block` gives ``step.read_control`` a replay's control
+    words; :meth:`detach` copies a state out of the slots."""
 
     def __init__(self):
         self._keys: collections.OrderedDict = collections.OrderedDict()
         self._seen: collections.OrderedDict = collections.OrderedDict()  # keys that ran eagerly
-        self._last = None  # (key entry, slot) of the last replay
         self._streams: dict = {}  # device -> capture stream
 
     def step(self, prob, state, opts, backend, ctl) -> SolverState:
@@ -160,20 +179,23 @@ class StepGraphs:
                 return _step.eager_step(prob, state, opts, backend, ctl)
             entry = _Key(prob, state, self._stream(state))
             self._remember(self._keys, key, entry)
-        span = spans.start("graph")
         i = entry.source(state)
+        ahead = entry.unread[i] and entry.output_of(state) == i
+        span = spans.start("graph", "ahead" if ahead else "")
         entry.load(state, i)
         if entry.graphs[i] is None:
             self._capture(entry, i, prob, state, opts, backend, ctl)
         spans.mark("launch:pivot_graph")
         entry.graphs[i].replay()
+        entry.done[1 - i].record()
         spans.stop(span)
         for counter, launched in zip(_COUNTERS, entry.launched):
             for name, n in launched.items():
                 counter[name] += n
         _step.graph_steps["replayed"] += 1
+        _step.graph_steps["ahead"] += ahead
         entry.written = 1 - i
-        self._last = (entry, 1 - i)
+        entry.unread[1 - i] = True
         out = entry.slots[1 - i]
         return SolverState(
             B_inv=state.B_inv, x_b=out.x_b, y=out.y, c_b=out.c_b, basis=out.basis,
@@ -198,9 +220,7 @@ class StepGraphs:
         table[key] = value
         table.move_to_end(key)
         while len(table) > MAX_KEYS:
-            _, dropped = table.popitem(last=False)
-            if self._last is not None and self._last[0] is dropped:
-                self._last = None
+            table.popitem(last=False)
 
     def _capture(self, entry: _Key, i: int, prob, state, opts, backend, ctl) -> None:
         """Record the eager step from slot i into slot 1 - i and the packing
@@ -220,6 +240,8 @@ class StepGraphs:
         )
         cap = types.SimpleNamespace(**vars(backend))
         cap.pivot_tail = functools.partial(backend.pivot_tail, out=dst.blocks)
+        # status, iters, degen and the passed-through words
+        host = torch.empty(3 + len(words), dtype=torch.int32, pin_memory=True)
         before = [dict(counter) for counter in _COUNTERS]
         graph = torch.cuda.CUDAGraph()
         try:
@@ -229,6 +251,7 @@ class StepGraphs:
                 try:
                     new = _step.eager_step(prob, ins, opts, cap, ctl)
                     packed = _step.pack_control(_step.control_fields(new, opts)[0])
+                    host.copy_(packed, non_blocking=True)
                 finally:
                     graph.capture_end()
         finally:
@@ -239,20 +262,40 @@ class StepGraphs:
             )
             for counter, was in zip(_COUNTERS, before):
                 counter.update(was)
-        entry.graphs[i], entry.packed[i] = graph, packed
+        entry.graphs[i], entry.host[i] = graph, host
         _step.graph_steps["captured"] += 1
 
-    def control_block(self, state) -> Optional[torch.Tensor]:
-        """The control words of ``state`` as the last replay packed them,
-        when ``state`` is that replay's output as to every word; else None."""
-        if self._last is None:
-            return None
-        entry, j = self._last
-        out = entry.slots[j]
-        if state.status is out.status and state.iters is out.iters and state.degen is out.degen \
-                and entry.passes(state):
-            return entry.packed[1 - j]
+    def _output(self, state) -> Optional[tuple]:
+        """``(entry, slot)`` of the replay whose output ``state`` is, or None."""
+        for entry in self._keys.values():
+            j = entry.output_of(state)
+            if j is not None:
+                return entry, j
         return None
+
+    def ready(self, prob, state, opts) -> bool:
+        """Whether ``state`` is the output of a replay whose control words
+        the host has not read, and the default step from it would replay a
+        graph already captured: the graphs' part of the rule by which the
+        solve loop runs a step ahead (``core.solver.may_run_ahead``)."""
+        found = self._output(state)
+        if found is None:
+            return False
+        entry, j = found
+        return (entry.unread[j] and entry.graphs[j] is not None
+                and self._keys.get(_key(prob, state, opts)) is entry)
+
+    def control_block(self, state) -> Optional[tuple]:
+        """``(event, words)`` when ``state`` is a replay's output as to every
+        control word: the event recorded after that replay, and the pinned
+        int32 words it copied, to be read once the event has completed. Else
+        None."""
+        found = self._output(state)
+        if found is None or not found[0].passes(state):
+            return None
+        entry, j = found
+        entry.unread[j] = False
+        return entry.done[j], entry.host[1 - j]
 
     def detach(self, state: SolverState) -> SolverState:
         """``state`` with every leaf that lies in a slot copied out, so

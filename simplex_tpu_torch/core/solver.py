@@ -11,7 +11,10 @@ refactorization, re-reading the control after any of them; after the loop,
 the verify-terminal rounds re-check every terminal decision against a
 re-inverted basis. The returned basis is then polished in float64 on the
 same device. A state the loop returns shares no memory with the buffers of
-the backend's step graphs (:mod:`simplex_tpu_torch.core.graph`). While
+the backend's step graphs (:mod:`simplex_tpu_torch.core.graph`). Where
+those graphs replay the default step, the loop enqueues the step after a
+replay before it reads that replay's control (:func:`may_run_ahead`), so
+the card does not wait on the read and the host between steps. While
 spans are recorded (:mod:`simplex_tpu_torch.spans`), the solve, each pivot,
 the upkeep, the verify rounds and the polish are host spans.
 
@@ -46,6 +49,7 @@ from simplex_tpu_torch.core.state import (
     with_pricing_shadow,
 )
 from simplex_tpu_torch.core.step import (
+    Control,
     perturb_activate,
     perturb_clear,
     perturb_scale,
@@ -80,13 +84,52 @@ class SolveResult(NamedTuple):
     at_upper: Optional[np.ndarray] = None  # (n,) bounded solves only
 
 
+def may_run_ahead(ctl: Control, opts: SimplexOptions, max_iter: int, replayed: bool) -> bool:
+    """Whether the loop may enqueue the step from s_{k+1} before it reads
+    s_{k+1}'s control, knowing only ``ctl`` (s_k's) and ``replayed``: step k
+    ran as a graph replay, and the step from its output would replay a graph
+    of the same key already captured (:meth:`~simplex_tpu_torch.core.graph.
+    StepGraphs.ready`).
+
+    A step moves iters and degen by at most +1 (degen otherwise back to 0)
+    and leaves the perturbation's rounds, so the step from s_{k+1} is the one
+    the serial loop would run when, for either value: it stays within
+    ``max_iter``, Bland's rule stays off, and no upkeep falls between the two
+    steps (a perturbation trigger, a recompute or a refactorization at iters
+    k or k + 1). The status is the one word the host cannot foresee; a step
+    from an OPTIMAL, UNBOUNDED or SINGULAR state re-derives the same decision
+    and leaves the state as it is (zero eta and row, iters and degen kept),
+    so the loop still ends where the serial one does."""
+    if not replayed or ctl.status != SolveStatus.RUNNING or ctl.iters + 2 > max_iter:
+        return False
+    degen = ctl.degen + 1
+    if opts.bland_after > 0 and degen >= opts.bland_after:
+        return False
+    pa = opts.perturb_after
+    if pa > 0 and ctl.pert_rounds < MAX_PERTURB_ROUNDS and degen >= pa and degen % pa == 0:
+        return False
+    for every in (opts.recompute_every, opts.refactor_every):
+        if every > 0 and ((ctl.iters > 0 and ctl.iters % every == 0) or (ctl.iters + 1) % every == 0):
+            return False
+    return True
+
+
 def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
     perturb = opts.perturb_after > 0 and s.pert is not None
     pa = opts.perturb_after
     defer = opts.resolve_defer() > 0
+    graphs = getattr(backend, "step_graphs", None)
+    ahead = None  # the step from s, enqueued before s's control was read
     while ctl.status == SolveStatus.RUNNING and ctl.iters < max_iter:
         span = spans.start_pivot(ctl.iters)
-        s = pivot_step(prob, s, opts, backend, ctl)
+        new = pivot_step(prob, s, opts, backend, ctl) if ahead is None else ahead
+        ahead = None
+        if graphs is not None and may_run_ahead(ctl, opts, max_iter, graphs.ready(prob, new, opts)):
+            # iters and degen at the most this step can have made them: the
+            # step from new reads them only for Bland's rule, off for either
+            guess = ctl._replace(iters=ctl.iters + 1, degen=ctl.degen + 1)
+            ahead = pivot_step(prob, new, opts, backend, guess)
+        s = new
         ctl = read_control(s, opts, prob, backend)
         running = ctl.status == SolveStatus.RUNNING
         touched = False

@@ -111,8 +111,10 @@ from simplex_tpu_torch.status import SolveStatus
 host_reads = {"control": 0, "branch": 0}
 # pivot steps since the last reset by how they ran: "eager" (launched op by
 # op), "captured" (default steps recorded as a CUDA graph, simplex_tpu_torch.
-# core.graph) and "replayed" (steps run as one replay of such a graph)
-graph_steps = {"captured": 0, "replayed": 0, "eager": 0}
+# core.graph) and "replayed" (steps run as one replay of such a graph); of
+# the replayed, "ahead": those enqueued before the previous step's control
+# words were read
+graph_steps = {"captured": 0, "replayed": 0, "eager": 0, "ahead": 0}
 
 
 def reset_host_reads() -> None:
@@ -263,14 +265,20 @@ def read_control(
     device-to-host read. ``need_refill`` needs ``opts``; the devex /
     steepest-edge pick and its ``stale`` flag need ``prob`` and ``backend``
     too. A state that a replay of the backend's step graph returned is read
-    from the block the graph packed (:mod:`simplex_tpu_torch.core.graph`)."""
+    from the words the graph copied to the host, once the event after that
+    replay has completed (:mod:`simplex_tpu_torch.core.graph`): a step
+    enqueued after it does not hold the read back."""
     fields, pick = control_fields(state, opts, prob, backend)
     graphs = getattr(backend, "step_graphs", None)
-    packed = graphs.control_block(state) if graphs is not None else None
-    if packed is None:
-        packed = pack_control(fields)
+    block = graphs.control_block(state) if graphs is not None else None
+    packed = pack_control(fields) if block is None else None
     span = spans.start("read", "control")
-    vals = packed.tolist()
+    if block is None:
+        vals = packed.tolist()
+    else:
+        done, words = block
+        done.synchronize()
+        vals = words.tolist()
     spans.stop(span)
     host_reads["control"] += 1
     ctl = dict(zip(fields, vals))

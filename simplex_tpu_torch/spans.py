@@ -13,7 +13,9 @@ opens and closes spans at its stage boundaries:
                 the devex / steepest-edge e / gamma update
   graph         a default step run from a CUDA graph (``core.graph``): the
                 copy of its input into the graph's buffers, the capture when
-                one is due (the sections above inside it), the replay
+                one is due (the sections above inside it), the replay; of
+                kind ``ahead`` where the replay was enqueued before the
+                previous step's control was read
   read          a device-to-host read that ``core.step.host_reads`` counts,
                 of kind ``control`` or ``branch``
   maintain      upkeep between pivots, of kind ``perturb``, ``recompute`` or
@@ -72,7 +74,7 @@ class Span(NamedTuple):
     parent: int  # index of the enclosing span in the session, -1 at a root
     solve: int  # one id a solve_state call; -1 before the first
     pivot: int  # the Control.iters the step started from; -1 outside a pivot
-    kind: str = ""  # a read's kind (control, branch), a maintain's
+    kind: str = ""  # a read's kind (control, branch), a maintain's, a graph's (ahead)
 
     @property
     def label(self) -> str:

@@ -83,6 +83,7 @@ def test_the_cell_loads_by_name_and_keeps_to_the_contract():
     assert set(layer) == {
         "device_ops_per_pivot.window", "pricing_scan_roofline", "rank1_update_roofline.window",
         "device_idle_share.window", "head_idle_us_per_pivot.window", "graph_replays_per_pivot.window",
+        "graph_ahead_per_pivot.window",
         *NEW_READERS,
     }
     for name in layer:

@@ -175,7 +175,7 @@ def test_graph_steps_equal_eager_steps(dtype, card):
     s_e, eager = _steps(prob, opts, _eager_backend(), 300)
     step.reset_graph_steps()
     s_g, graph = _steps(prob, opts, get_backend("hopper"), 300)
-    assert step.graph_steps == {"captured": 2, "replayed": 299, "eager": 1}
+    assert step.graph_steps == {"captured": 2, "replayed": 299, "eager": 1, "ahead": 0}
     for a, b_ in zip(eager, graph):
         _equal(a, b_)
     assert torch.equal(s_e.B_inv, s_g.B_inv)
@@ -292,7 +292,7 @@ def test_capture_under_the_profiler(dtype, card):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         s_g, graph = _steps(prob, opts, get_backend("hopper"), 30)
         torch.cuda.synchronize()
-    assert step.graph_steps == {"captured": 2, "replayed": 29, "eager": 1}
+    assert step.graph_steps == {"captured": 2, "replayed": 29, "eager": 1, "ahead": 0}
     s_e, eager = _steps(prob, opts, _eager_backend(), 30)
     for a, b_ in zip(eager, graph):
         _equal(a, b_)
