@@ -45,6 +45,7 @@ import torch
 from simplex_tpu_torch.batch import step as _bs
 from simplex_tpu_torch.config import SimplexOptions
 from simplex_tpu_torch.core.state import Problem, SolverState
+from simplex_tpu_torch.core.step import _use_bland
 from simplex_tpu_torch.kernels import ops as _ops
 from simplex_tpu_torch.status import SolveStatus
 
@@ -75,7 +76,7 @@ def dual_select(prob: Problem, s: SolverState, opts: SimplexOptions, active) -> 
     dev = s.x_b.device
     eps_d = opts.resolve_eps()
     bounded = prob.u is not None
-    use_bland = _bs._use_bland(opts, s.degen)
+    use_bland = _use_bland(opts, s.degen)
 
     low = -s.x_b
     if bounded:

@@ -82,6 +82,7 @@ from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch.config import SimplexOptions
 from simplex_tpu_torch.core.linalg import inverse_newton_batched
 from simplex_tpu_torch.core.state import Problem, SolverState, steepest_gamma
+from simplex_tpu_torch.core.step import _use_bland
 from simplex_tpu_torch.kernels import ops as _ops
 from simplex_tpu_torch.status import SolveStatus
 
@@ -413,12 +414,6 @@ class BatchControl(NamedTuple):
 def active_mask(s: SolverState, max_iter: int, members=None) -> torch.Tensor:
     act = (s.status == RUNNING) & (s.iters < max_iter)
     return act if members is None else act & members
-
-
-def _use_bland(opts: SimplexOptions, degen: torch.Tensor) -> torch.Tensor:
-    if opts.bland_after > 0:
-        return degen >= opts.bland_after
-    return torch.zeros_like(degen, dtype=torch.bool)
 
 
 def weighted_active(opts: SimplexOptions, s: SolverState) -> bool:

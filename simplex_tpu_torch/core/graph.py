@@ -2,11 +2,11 @@
 
 The default step on dense A (Dantzig pricing over all of A, no shadow, no
 segments, no candidate buffer, eager rank-1 updates, no bounds, Bland's rule
-off; :func:`simplex_tpu_torch.core.step.graph_path`) has no host branch
-between its kernels, and its shapes are fixed. Run eagerly, its launches cost
-the host more time than the card spends on them. :class:`StepGraphs`, kept
-on the single-card hopper backend (``kernels.dispatch.get_backend``),
-records the eager step once with ``torch.cuda.CUDAGraph`` and replays it:
+off; :meth:`StepGraphs.captures`) has no host branch between its kernels,
+and its shapes are fixed. Run eagerly, its launches cost the host more time
+than the card spends on them. :class:`StepGraphs`, kept on the single-card
+hopper backend (``kernels.dispatch.get_backend``), records the eager step
+once with ``torch.cuda.CUDAGraph`` and replays it:
 pricing (both passes), the entering column and its exact reduced cost, the
 ftran GEMV, ``pivot_tail``, ``rank1_update``, the packing of the
 control words and their copy into a pinned host buffer of the graph's own.
@@ -59,6 +59,7 @@ from typing import Optional
 
 import torch
 
+from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch import spans
 from simplex_tpu_torch.core import step as _step
 from simplex_tpu_torch.core.state import SolverState
@@ -155,15 +156,38 @@ class _Key:
 
 class StepGraphs:
     """The captured default steps of one backend, by key (module docstring).
-    :meth:`step` runs one step; :meth:`ready` says whether the step from
-    a state would replay a captured graph ahead of its control read;
-    :meth:`control_block` gives ``step.read_control`` a replay's control
-    words; :meth:`detach` copies a state out of the slots."""
+    :meth:`step` runs a step that :meth:`takes`; :meth:`ready` says whether
+    the step from a state would replay a captured graph ahead of its control
+    read; :meth:`control_block` gives ``step.read_control`` a replay's
+    control words; :meth:`detach` copies a state out of the slots."""
 
     def __init__(self):
         self._keys: collections.OrderedDict = collections.OrderedDict()
         self._seen: collections.OrderedDict = collections.OrderedDict()  # keys that ran eagerly
         self._streams: dict = {}  # device -> capture stream
+
+    @staticmethod
+    def captures(prob, state, opts, ctl) -> bool:
+        """Whether the step is the default one (module docstring) that a
+        graph records, the device aside."""
+        return (
+            opts.pricing == "dantzig"
+            and opts.update_defer == 0
+            and not isinstance(prob.A, _sp.SparseA)
+            and prob.A_price is None
+            and prob.u is None
+            and state.U is None
+            and state.cand is None
+            and state.e is None
+            and state.at_upper is None
+            and not _step._partial_active(opts, prob)
+            and not _step.bland_on(opts, ctl.degen)
+        )
+
+    @staticmethod
+    def takes(prob, state, opts, ctl) -> bool:
+        """:meth:`captures` on CUDA tensors: the step runs from the graphs."""
+        return StepGraphs.captures(prob, state, opts, ctl) and prob.A.is_cuda and state.B_inv.is_cuda
 
     def step(self, prob, state, opts, backend, ctl) -> SolverState:
         """One default step: eager the first time its key is seen, then by

@@ -50,6 +50,7 @@ from simplex_tpu_torch.core.state import (
 )
 from simplex_tpu_torch.core.step import (
     Control,
+    bland_on,
     perturb_activate,
     perturb_clear,
     perturb_scale,
@@ -84,6 +85,24 @@ class SolveResult(NamedTuple):
     at_upper: Optional[np.ndarray] = None  # (n,) bounded solves only
 
 
+def _upkeep_due(opts: SimplexOptions, iters: int, degen: int, pert_rounds: int) -> tuple:
+    """The upkeep due before the step from a state with these control words,
+    in the loop's order: ``"perturb"`` (degen a positive multiple of
+    ``perturb_after``, rounds left; whether the state carries the
+    perturbation is the caller's test), ``"recompute"``, ``"refactorize"``
+    (iters a positive multiple of their period)."""
+    due = ()
+    pa = opts.perturb_after
+    if pa > 0 and pert_rounds < MAX_PERTURB_ROUNDS and degen >= pa and degen % pa == 0:
+        due = ("perturb",)
+    if iters > 0:
+        if opts.recompute_every > 0 and iters % opts.recompute_every == 0:
+            due += ("recompute",)
+        if opts.refactor_every > 0 and iters % opts.refactor_every == 0:
+            due += ("refactorize",)
+    return due
+
+
 def may_run_ahead(ctl: Control, opts: SimplexOptions, max_iter: int, replayed: bool) -> bool:
     """Whether the loop may enqueue the step from s_{k+1} before it reads
     s_{k+1}'s control, knowing only ``ctl`` (s_k's) and ``replayed``: step k
@@ -92,31 +111,25 @@ def may_run_ahead(ctl: Control, opts: SimplexOptions, max_iter: int, replayed: b
     StepGraphs.ready`).
 
     A step moves iters and degen by at most +1 (degen otherwise back to 0)
-    and leaves the perturbation's rounds, so the step from s_{k+1} is the one
-    the serial loop would run when, for either value: it stays within
-    ``max_iter``, Bland's rule stays off, and no upkeep falls between the two
-    steps (a perturbation trigger, a recompute or a refactorization at iters
-    k or k + 1). The status is the one word the host cannot foresee; a step
-    from an OPTIMAL, UNBOUNDED or SINGULAR state re-derives the same decision
-    and leaves the state as it is (zero eta and row, iters and degen kept),
-    so the loop still ends where the serial one does."""
+    and leaves the perturbation's rounds, so the step from s_{k+1} is the
+    serial loop's when, for either value, it stays within ``max_iter``,
+    Bland's rule stays off and no upkeep falls due (:func:`_upkeep_due`).
+    The host cannot foresee the status; a step from an OPTIMAL, UNBOUNDED
+    or SINGULAR state re-derives the same decision and leaves the state as
+    it is (zero eta and row, iters and degen kept), so the loop still ends
+    where the serial one does."""
     if not replayed or ctl.status != SolveStatus.RUNNING or ctl.iters + 2 > max_iter:
         return False
     degen = ctl.degen + 1
-    if opts.bland_after > 0 and degen >= opts.bland_after:
-        return False
-    pa = opts.perturb_after
-    if pa > 0 and ctl.pert_rounds < MAX_PERTURB_ROUNDS and degen >= pa and degen % pa == 0:
-        return False
-    for every in (opts.recompute_every, opts.refactor_every):
-        if every > 0 and ((ctl.iters > 0 and ctl.iters % every == 0) or (ctl.iters + 1) % every == 0):
-            return False
-    return True
+    return not (
+        bland_on(opts, degen)
+        or _upkeep_due(opts, ctl.iters, degen, ctl.pert_rounds)
+        or _upkeep_due(opts, ctl.iters + 1, degen, ctl.pert_rounds)
+    )
 
 
 def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
     perturb = opts.perturb_after > 0 and s.pert is not None
-    pa = opts.perturb_after
     defer = opts.resolve_defer() > 0
     graphs = getattr(backend, "step_graphs", None)
     ahead = None  # the step from s, enqueued before s's control was read
@@ -131,44 +144,24 @@ def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
             ahead = pivot_step(prob, new, opts, backend, guess)
         s = new
         ctl = read_control(s, opts, prob, backend)
-        running = ctl.status == SolveStatus.RUNNING
         touched = False
-        if (
-            perturb
-            and running
-            and ctl.pert_rounds < MAX_PERTURB_ROUNDS
-            and ctl.degen >= pa
-            and ctl.degen % pa == 0
-        ):
-            up = spans.start("maintain", "perturb")
-            s = perturb_activate(prob, s, backend, perturb_scale(opts, ctl.pert_rounds))
-            spans.stop(up)
-            touched = True
-        if (
-            opts.recompute_every > 0
-            and running
-            and ctl.iters > 0
-            and ctl.iters % opts.recompute_every == 0
-        ):
-            up = spans.start("maintain", "recompute")
-            s = recompute_xy(prob, s, defer)
-            spans.stop(up)
-            touched = True
-        if (
-            opts.refactor_every > 0
-            and running
-            and ctl.iters > 0
-            and ctl.iters % opts.refactor_every == 0
-        ):
-            up = spans.start("maintain", "refactorize")
-            s = refactorize(prob, s, backend, defer, opts.pricing)
-            spans.stop(up)
-            touched = True
+        if ctl.status == SolveStatus.RUNNING:
+            for kind in _upkeep_due(opts, ctl.iters, ctl.degen, ctl.pert_rounds):
+                if kind == "perturb" and not perturb:
+                    continue
+                up = spans.start("maintain", kind)
+                if kind == "perturb":
+                    s = perturb_activate(prob, s, backend, perturb_scale(opts, ctl.pert_rounds))
+                elif kind == "recompute":
+                    s = recompute_xy(prob, s, defer)
+                else:
+                    s = refactorize(prob, s, backend, defer, opts.pricing)
+                spans.stop(up)
+                touched = True
         if touched:
             # the next step branches on the state as it is now
             ctl = read_control(s, opts, prob, backend)
         spans.stop(span)
-    graphs = getattr(backend, "step_graphs", None)
     if graphs is not None:
         # no state leaves the loop in the step graphs' buffers
         s = graphs.detach(s)

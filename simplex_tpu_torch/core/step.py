@@ -80,10 +80,10 @@ branch not taken costs nothing:
 the step (pricing, ftran, ratio test and tail, update, weights), is a host
 span while spans are recorded (:mod:`simplex_tpu_torch.spans`).
 
-The default step on dense CUDA tensors (:func:`graph_path`) runs as one
-replay of a CUDA graph of the same launches (:mod:`simplex_tpu_torch.core.
-graph`), once its key has run one eager step; ``graph_steps`` counts the
-steps by how they ran.
+The default step on dense CUDA tensors runs as one replay of a CUDA graph
+of the same launches (:mod:`simplex_tpu_torch.core.graph`, which says which
+steps those are), once its key has run one eager step; ``graph_steps``
+counts the steps by how they ran.
 
 Matrix products run in full fp32 (the solver turns TF32 off), the
 counterpart of the JAX package's ``Precision.HIGHEST`` pins.
@@ -158,10 +158,20 @@ def _multi_active(opts: SimplexOptions, state: SolverState) -> bool:
     return opts.multi_price > 0 and opts.pricing == "dantzig" and state.cand is not None
 
 
+def bland_on(opts: SimplexOptions, degen: int) -> bool:
+    """Bland's rule on the host: ``degen`` degenerate pivots in a row reached
+    ``bland_after`` (0: never)."""
+    return opts.bland_after > 0 and degen >= opts.bland_after
+
+
 def _use_bland(opts: SimplexOptions, degen: torch.Tensor) -> torch.Tensor:
+    """:func:`bland_on` on the device, of ``degen``'s shape: a 0-d degen
+    off the rule gets the cached constant, a batched one its own zeros."""
     if opts.bland_after > 0:
         return degen >= opts.bland_after
-    return _const_flag(degen.device, False)
+    if degen.dim() == 0:
+        return _const_flag(degen.device, False)
+    return torch.zeros_like(degen, dtype=torch.bool)
 
 
 _flags: dict = {}
@@ -590,6 +600,13 @@ def _multi_pricing(prob, state, opts, ctl, bland):
     return p, min_e, cand.alpha.index_select(0, j).view(-1), state, npend
 
 
+def _flush(B_inv, U, R, npend):
+    """B_inv += U.T R in place (one GEMM; the JAX step flushes when an append
+    filled the buffer); returns ``(U, R, npend)`` zeroed."""
+    B_inv.addmm_(U.T, R)
+    return torch.zeros_like(U), torch.zeros_like(R), torch.zeros_like(npend)
+
+
 def _finish_unbounded(prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, defer, npend):
     """The unbounded step without multiple pricing, from its ftran on: the
     whole O(m) tail in one backend call (``pivot_tail``: one launch on the
@@ -615,12 +632,9 @@ def _finish_unbounded(prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, 
     if defer:
         B_inv = state.B_inv
         if npend + 1 >= opts.resolve_defer():
-            # flush B_inv += U.T R (the JAX step flushes when the append
-            # filled the buffer; a step that does not pivot is terminal and
-            # its zero pair leaves the true inverse unchanged)
-            B_inv.addmm_(U.T, R)
-            U, R = torch.zeros_like(U), torch.zeros_like(R)
-            npend_new = torch.zeros_like(npend_new)
+            # a step that does not pivot is terminal: its zero pair leaves
+            # the true inverse unchanged
+            U, R, npend_new = _flush(B_inv, U, R, npend_new)
     else:
         # a no-op when not pivoting: eta and row are zero then
         B_inv = backend.rank1_update(state.B_inv, t.eta, t.row)
@@ -640,35 +654,6 @@ def _finish_unbounded(prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, 
     )
 
 
-def graph_path(prob: Problem, state: SolverState, opts: SimplexOptions, backend, ctl: Control) -> bool:
-    """Whether this step is the default one that a CUDA graph of the
-    backend may replay (:mod:`simplex_tpu_torch.core.graph`), the device
-    aside: a backend that keeps step graphs (the single-card hopper one), a
-    dense A, Dantzig pricing over all of A (no shadow, no segments, no
-    candidate buffer), eager updates, no bounds, no devex / steepest-edge
-    leaves, and Bland's rule off on the host."""
-    return (
-        getattr(backend, "step_graphs", None) is not None
-        and opts.pricing == "dantzig"
-        and opts.update_defer == 0
-        and not isinstance(prob.A, _sp.SparseA)
-        and prob.A_price is None
-        and prob.u is None
-        and state.U is None
-        and state.cand is None
-        and state.e is None
-        and state.at_upper is None
-        and not _partial_active(opts, prob)
-        and not (opts.bland_after > 0 and ctl.degen >= opts.bland_after)
-    )
-
-
-def graph_engages(prob: Problem, state: SolverState, opts: SimplexOptions, backend, ctl: Control) -> bool:
-    """:func:`graph_path` on CUDA tensors: the step runs from the
-    backend's graphs."""
-    return graph_path(prob, state, opts, backend, ctl) and prob.A.is_cuda and state.B_inv.is_cuda
-
-
 def pivot_step(
     prob: Problem,
     state: SolverState,
@@ -681,15 +666,16 @@ def pivot_step(
     ``state.B_inv``, ``state.U`` and ``state.R`` in place and returns the
     new state.
 
-    Where :func:`graph_engages`, the step runs through the backend's
-    :class:`~simplex_tpu_torch.core.graph.StepGraphs`: its O(m) leaves and
-    scalars then lie in buffers that a later step writes again, and stay
-    valid through the next step only (``core.solver._pivot_loop`` copies
-    the state it returns out of them)."""
+    Where the backend's :class:`~simplex_tpu_torch.core.graph.StepGraphs`
+    take the step, it runs through them: its O(m) leaves and scalars then
+    lie in buffers that a later step writes again, and stay valid through
+    the next step only (``core.solver._pivot_loop`` copies the state it
+    returns out of them)."""
     if ctl is None:
         ctl = read_control(state, opts, prob, backend)
-    if graph_engages(prob, state, opts, backend, ctl):
-        return backend.step_graphs.step(prob, state, opts, backend, ctl)
+    graphs = getattr(backend, "step_graphs", None)
+    if graphs is not None and graphs.takes(prob, state, opts, ctl):
+        return graphs.step(prob, state, opts, backend, ctl)
     graph_steps["eager"] += 1
     return eager_step(prob, state, opts, backend, ctl)
 
@@ -701,8 +687,7 @@ def eager_step(
     records."""
     dtype = state.B_inv.dtype
     eps = opts.resolve_eps()
-    # the host's copy of the same comparison: ctl is this state's control
-    bland = opts.bland_after > 0 and ctl.degen >= opts.bland_after
+    bland = bland_on(opts, ctl.degen)
     use_bland = _const_flag(state.degen.device, bland)
     multi = _multi_active(opts, state)
     defer = opts.update_defer > 0 or multi
@@ -814,13 +799,9 @@ def eager_step(
         npend_new = state.npend + do_pivot.to(torch.int32)
         B_inv = state.B_inv
         if not multi and npend + 1 >= opts.resolve_defer():
-            # flush B_inv += U.T R (the JAX step flushes when the append
-            # filled the buffer; a step that does not pivot is terminal or
-            # a bound flip, and its zero pair leaves the true inverse
-            # unchanged)
-            B_inv.addmm_(U.T, R)
-            U, R = torch.zeros_like(U), torch.zeros_like(R)
-            npend_new = torch.zeros_like(npend_new)
+            # a step that does not pivot is terminal or a bound flip: its
+            # zero pair leaves the true inverse unchanged
+            U, R, npend_new = _flush(B_inv, U, R, npend_new)
     else:
         B_inv = backend.rank1_update(
             state.B_inv,

@@ -386,7 +386,7 @@ def _step(cx: Ctx, s: dict, ctl: Control) -> dict:
     ``s["U"]`` / ``s["R"]`` in place and returns the new state."""
     opts, dev, dtype = cx.opts, cx.device, cx.dtype
     eps = opts.resolve_eps()
-    bland = opts.bland_after > 0 and ctl.degen >= opts.bland_after
+    bland = _step_mod.bland_on(opts, ctl.degen)
     use_bland = _step_mod._const_flag(dev, bland)
     multi, defer = cx.K > 0, cx.L > 0
     npend = ctl.npend

@@ -78,6 +78,22 @@ def _ctl(iters=100, degen=0, pert_rounds=0, status=RUNNING):
     (dict(iters=99), dict(recompute_every=50), 1000, True, False),
     (dict(iters=100), dict(recompute_every=50), 1000, True, False),
     (dict(iters=101), dict(recompute_every=50), 1000, True, True),
+    # two triggers at once
+    (dict(iters=9, degen=4), dict(perturb_after=5, recompute_every=10), 1000, True, False),
+    (dict(iters=9, degen=5), dict(perturb_after=5, recompute_every=10), 1000, True, False),
+    (dict(iters=10, degen=5), dict(perturb_after=5, recompute_every=10), 1000, True, False),
+    (dict(iters=11, degen=4), dict(perturb_after=5, recompute_every=10), 1000, True, False),
+    (dict(iters=11, degen=5), dict(perturb_after=5, recompute_every=10), 1000, True, True),
+    (dict(iters=9, degen=4, pert_rounds=solver.MAX_PERTURB_ROUNDS),
+     dict(perturb_after=5, recompute_every=10), 1000, True, False),
+    (dict(iters=11, degen=4, pert_rounds=solver.MAX_PERTURB_ROUNDS),
+     dict(perturb_after=5, recompute_every=10), 1000, True, True),
+    (dict(iters=19), dict(recompute_every=10, refactor_every=20), 1000, True, False),
+    (dict(iters=20), dict(recompute_every=10, refactor_every=20), 1000, True, False),
+    (dict(iters=21), dict(recompute_every=10, refactor_every=20), 1000, True, True),
+    (dict(iters=19, degen=4), dict(perturb_after=5, recompute_every=10, refactor_every=20), 1000, True, False),
+    (dict(degen=47), dict(bland_after=48), 1000, True, False),  # perturbation and Bland at 48
+    (dict(degen=46), dict(bland_after=48), 1000, True, True),
     # step k ran eagerly or was captured (its output is no unread replay's)
     (dict(), {}, 1000, False, False),
     # a terminal state is not stepped by the loop at all

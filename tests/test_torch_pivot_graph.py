@@ -1,8 +1,8 @@
 """The default pivot step replayed as a CUDA graph (``core/graph.py``).
 
 On the CPU: the rule that decides where the graph engages
-(``step.graph_path`` / ``step.graph_engages``), and that no CPU solve
-replays. On the card (marker ``card``; these skip without CUDA, and import
+(``graph.StepGraphs.captures`` / ``graph.StepGraphs.takes``), and that no
+CPU solve replays. On the card (marker ``card``; these skip without CUDA, and import
 no JAX): the graph path against the eager path bit for bit, in float32 and
 float64, on a ``benchmark.generate.dense_canonical`` LP of 1024 x 2048 --
 over 300 pivots, in ``solve_state`` chunks with a restart, around Bland
@@ -65,11 +65,22 @@ def _cpu_case(backend="hopper", u=False, sparse=False, **kw):
     return prob, state, opts, be, step.read_control(state, opts, prob, be)
 
 
+def _captures(prob, state, opts, be, ctl):
+    """The rule on the backend's graphs; a backend without any captures nothing."""
+    graphs = getattr(be, "step_graphs", None)
+    return graphs is not None and graphs.captures(prob, state, opts, ctl)
+
+
+def _takes(prob, state, opts, be, ctl):
+    graphs = getattr(be, "step_graphs", None)
+    return graphs is not None and graphs.takes(prob, state, opts, ctl)
+
+
 def test_default_step_takes_the_graph_path():
     prob, state, opts, be, ctl = _cpu_case()
-    assert step.graph_path(prob, state, opts, be, ctl)
+    assert _captures(prob, state, opts, be, ctl)
     # CPU tensors: the path fits, the graph does not engage
-    assert not step.graph_engages(prob, state, opts, be, ctl)
+    assert not _takes(prob, state, opts, be, ctl)
 
 
 @pytest.mark.parametrize("case", [
@@ -87,21 +98,21 @@ def test_default_step_takes_the_graph_path():
 ], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
 def test_other_paths_launch_op_by_op(case):
     prob, state, opts, be, ctl = _cpu_case(**case)
-    assert not step.graph_path(prob, state, opts, be, ctl)
-    assert not step.graph_engages(prob, state, opts, be, ctl)
+    assert not _captures(prob, state, opts, be, ctl)
+    assert not _takes(prob, state, opts, be, ctl)
 
 
 def test_bland_step_launches_op_by_op():
     prob, state, opts, be, ctl = _cpu_case(bland_after=4)
-    assert step.graph_path(prob, state, opts, be, ctl._replace(degen=3))
-    assert not step.graph_path(prob, state, opts, be, ctl._replace(degen=4))
+    assert _captures(prob, state, opts, be, ctl._replace(degen=3))
+    assert not _captures(prob, state, opts, be, ctl._replace(degen=4))
 
 
 def test_partial_pricing_too_fine_to_segment_takes_the_graph_path():
     # segments under partial_min_segment leave segmented pricing off: the
     # step is then the default one
     prob, state, opts, be, ctl = _cpu_case(partial_pricing=4)
-    assert step.graph_path(prob, state, opts, be, ctl)
+    assert _captures(prob, state, opts, be, ctl)
 
 
 def test_only_the_single_card_hopper_backend_keeps_graphs():
