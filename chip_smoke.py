@@ -286,6 +286,9 @@ ROUTE_A, ROUTE_B, ROUTE_C = (1088, 4160), (4352, 16640), (1088, 67648)
 # tolerances, each with its reason
 PRICING_RTOL = 1e-5  # fp32 sums of 8192 terms taken in another order
 RANK1_ATOL = 1e-5  # the plain ger may fuse multiply-add; the kernel does not
+# the fused ftran's alpha against torch.mv: sums of m products in another
+# order, within this share of the sum of |terms|, by dtype
+RANK1_FTRAN_RTOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}
 RATIO_ATOL = 0.0  # same IEEE ops in the same order: bitwise equal
 # the deferred tail's row q adds the pending pairs by fmaf in pair order, the
 # plain version through a matrix product: row and y agree to rounding
@@ -841,15 +844,43 @@ RANK1_SHAPES = {
 }
 
 
+def check_rank1_ftran(tag, B, eta, row, a, updated) -> float:
+    """``rank1_update_ftran`` on a copy of ``B``: the update bit for bit
+    ``updated`` (``rank1_update``'s result); alpha within RANK1_FTRAN_RTOL
+    of the sum of |terms| of ``torch.mv`` on the updated matrix; a second
+    call's alpha bit for bit the first's. Returns the worst |alpha error|."""
+    import torch
+
+    from simplex_tpu_torch.kernels import hopper
+
+    B1, B2 = B.clone(), B.clone()
+    alpha = hopper.rank1_update_ftran(B1, eta, row, a)
+    again = hopper.rank1_update_ftran(B2, eta, row, a)
+    want = torch.mv(updated, a)
+    terms = torch.mv(updated.abs(), a.abs())
+    torch.cuda.synchronize()
+    check(torch.equal(bits(B1), bits(updated)), f"{tag}: the update differs from rank1_update's")
+    check(torch.equal(bits(alpha), bits(again)), f"{tag}: two calls give another alpha")
+    err = (alpha - want).abs()
+    rel = float((err / terms.clamp_min(torch.finfo(a.dtype).tiny)).max())
+    check(rel <= RANK1_FTRAN_RTOL[str(a.dtype)], f"{tag}: alpha {rel:.3e} of the sum of |terms| from torch.mv")
+    print(f"{tag}: the update bit for bit rank1_update's; alpha {rel:.3e} of the sum of |terms| from "
+          f"torch.mv, the same bits in two calls")
+    del B1, B2
+    return float(err.max())
+
+
 def phase_rank1(dev, dtype) -> dict:
     """``rank1_update`` in ``dtype`` against its plain version (``addr_``,
     which may fuse the multiply-add: within RANK1_ATOL, F64_RANK1_ATOL) at
     RANK1_SHAPES; bit for bit the unfused B +
     outer(eta, row) (fp32 on the row blocks, float64 everywhere); a row
     that aliases B_inv refused; the 2-D solve's row blocks of R = 2 and 4
-    ranks bit for bit the whole update's rows. Timed at m = 8192 (and on
+    ranks bit for bit the whole update's rows. ``rank1_update_ftran`` at
+    the same shapes (:func:`check_rank1_ftran`). Timed at m = 8192 (and on
     the row blocks in fp32) beside the plain version, ``Tensor.addr_`` and
-    the bound."""
+    the bound; the fused kernel beside its plain version, ``addr_`` then
+    ``torch.mv``, and its bound (``fused_ftran`` in the record)."""
     import torch
 
     from simplex_tpu_torch.kernels import hopper
@@ -890,6 +921,8 @@ def phase_rank1(dev, dtype) -> dict:
                     del blk, out
         else:
             print(f"rank1_update m={m}: max abs err {err:.3e}")
+        a = torch.randn(m, generator=g, device=dev, dtype=dtype)
+        worst = max(worst, check_rank1_ftran(f"rank1_update_ftran {dtype} m={m}", B, eta, row, a, got))
         if m == BENCH_M:
             small = eta * 1e-6
             # bytes: B_inv read and written, eta and row read; one multiply
@@ -903,6 +936,24 @@ def phase_rank1(dev, dtype) -> dict:
             }
             print(f"rank1_update {w8 * 8}-bit m={m}, ms: {rec['ms']:.4f} (plain {rec['plain_ms']:.4f}, addr_ "
                   f"{rec['library_ms']:.4f}), bound {rec['bound_ms']:.4f}")
+            alpha = torch.empty(m, device=dev, dtype=dtype)
+
+            def unfused():
+                B.addr_(small, row)
+                torch.mv(B, a, out=alpha)
+
+            # bytes: B_inv read and written, eta, row and a read, alpha
+            # written; a multiply and an add an element for each of the
+            # update and the product
+            rec["fused_ftran"] = r = {
+                "ms": time_ms(lambda: hopper.rank1_update_ftran(B, small, row, a, out=alpha)),
+                "plain_ms": time_ms(lambda: hopper.rank1_update_ftran_plain(B, small, row, a, out=alpha)),
+                **(bound(2.0 * w8 * m * m + 4 * w8 * m, 4.0 * m * m, PEAK_FP64_S) if f64
+                   else bound(2.0 * w8 * m * m + 4 * w8 * m, 4.0 * m * m)),
+                "library_ms": time_ms(unfused),
+            }
+            print(f"rank1_update_ftran {w8 * 8}-bit m={m}, ms: {r['ms']:.4f} (plain {r['plain_ms']:.4f}, addr_ "
+                  f"then mv {r['library_ms']:.4f}, the update alone {rec['ms']:.4f}), bound {r['bound_ms']:.4f}")
         del B, got
     rec["max_abs_err"] = worst
     if f64:
@@ -1822,6 +1873,71 @@ def highs(m: int, n: int):
 # results a later phase starts from: the default solves by (m, n), and the
 # general route's run on B
 KEPT: dict = {}
+# the last timed_solve's pivot steps by how they priced (carry_counts) and
+# its fused launches (hopper.rank1_layouts["ftran"])
+LOOP: dict = {}
+
+
+@contextlib.contextmanager
+def carry_counts():
+    """Counts the solver's pivot steps while the block runs: those that
+    priced for themselves ("heads": from a state without a carried pick,
+    or with Bland's rule on), those with Bland's rule on, and those that
+    handed the next step's pick on ("carried"; ``core.step``). Yields the
+    dict."""
+    from simplex_tpu_torch.core import solver, step
+
+    inner, seen = solver.pivot_step, {"heads": 0, "bland": 0, "carried": 0}
+
+    def counted(prob, state, opts, backend, ctl):
+        bland = step.bland_on(opts, ctl.degen)
+        seen["bland"] += int(bland)
+        seen["heads"] += int(state.carried is None or bland)
+        new = inner(prob, state, opts, backend, ctl)
+        seen["carried"] += int(new.carried is not None)
+        return new
+
+    solver.pivot_step = counted
+    try:
+        yield seen
+    finally:
+        solver.pivot_step = inner
+
+
+def carry_gates(tag, counts, steps) -> None:
+    """The last timed_solve's default steps (LOOP): each step with Bland's
+    rule off hands the next pick on through the fused kernel, and pricing
+    runs once for each step that priced itself and once for each pick
+    handed on (so a pick the next step ignored shows as a pricing pass
+    too many)."""
+    check(LOOP["carried"] == LOOP["ftran"] == steps - LOOP["bland"],
+          f"{tag}: {LOOP['carried']} picks carried, {LOOP['ftran']} fused launches in {steps} steps "
+          f"({LOOP['bland']} under Bland's rule)")
+    check(counts["pricing_scan"] == LOOP["heads"] + LOOP["carried"],
+          f"{tag}: pricing_scan {counts['pricing_scan']} in {steps} steps, {LOOP['heads']} of them priced "
+          f"for themselves, {LOOP['carried']} picks carried")
+
+
+@contextlib.contextmanager
+def without_fused_ftran():
+    """``solve`` on a hopper backend without ``rank1_update_ftran`` (and so
+    with no carried pick, and without step graphs) while the block runs:
+    every default step prices for itself and runs its ftran by cuBLAS's
+    GEMV, as the collective backends' steps do."""
+    from simplex_tpu_torch.core import solver
+
+    inner = solver.get_backend
+
+    def unfused(name):
+        backend = inner(name)
+        del backend.rank1_update_ftran, backend.step_graphs
+        return backend
+
+    solver.get_backend = unfused
+    try:
+        yield
+    finally:
+        solver.get_backend = inner
 
 
 def timed_solve(dev, m, n, opts):
@@ -1847,7 +1963,7 @@ def timed_solve_of(dev, A, b, c, opts, mesh=None):
     hopper.reset_launches()
     step.reset_host_reads()
     sharded.reset_collectives()
-    with count_calls(solver, "pivot_step") as steps:
+    with count_calls(solver, "pivot_step") as steps, carry_counts() as seen:
         t0 = time.perf_counter()
         if mesh is None:
             res = solve(A, b, c, options=opts, device=dev)
@@ -1855,6 +1971,8 @@ def timed_solve_of(dev, A, b, c, opts, mesh=None):
             res = solve_sharded(A, b, c, mesh, options=opts, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    LOOP.clear()
+    LOOP.update(seen, ftran=hopper.rank1_layouts["ftran"])
     return res, wall, dict(hopper.launches), steps[0], dict(step.host_reads)
 
 
@@ -1978,10 +2096,15 @@ def phase_solve(dev) -> dict:
         res, wall, counts, steps, reads = timed_solve(dev, BENCH_M, BENCH_N, opts)
     check(res.status == SolveStatus.MAX_ITER, f"{BENCH_M}x{BENCH_N}: {res.status!r}")
     check(res.iters == BENCH_WINDOW, f"{BENCH_M}x{BENCH_N}: {res.iters} pivots")
-    for name in ("pricing_scan", "ratio_eta", "rank1_update"):
-        check(counts[name] == BENCH_WINDOW, f"{name}: {counts[name]} launches in {BENCH_WINDOW} pivot steps")
+    # pricing once a step, and once more for the loop's head step (core.step: every
+    # step prices the next one; no upkeep falls in the window)
+    for name, want in (("pricing_scan", BENCH_WINDOW + 1), ("ratio_eta", BENCH_WINDOW), ("rank1_update", BENCH_WINDOW)):
+        check(counts[name] == want, f"{name}: {counts[name]} launches in {BENCH_WINDOW} pivot steps")
+    check(LOOP["heads"] == 1, f"{BENCH_M}x{BENCH_N} window: {LOOP['heads']} steps priced for themselves")
+    carry_gates(f"{BENCH_M}x{BENCH_N} window", counts, steps)
     check(counts["ratio_argmin"] == 0, f"ratio_argmin: {counts['ratio_argmin']} launches")
     KEPT["window"] = (res, wall, reads, loop[0])
+    KEPT["window, gemv"] = unfused_window(dev, f"{BENCH_M}x{BENCH_N} window", opts, res)
     resid = residual64(dev, BENCH_M, BENCH_N, res)
     print(
         f"random_dense_lp({BENCH_M}, {BENCH_N}, seed=0), max_iter={BENCH_WINDOW}: "
@@ -1991,6 +2114,28 @@ def phase_solve(dev) -> dict:
         f"host reads {reads}"
     )
     return counts
+
+
+def unfused_window(dev, tag, opts, fused) -> tuple:
+    """The bench instance's window again without the fused ftran
+    (:func:`without_fused_ftran`): the reference the sharded windows, whose
+    collective backends keep cuBLAS's GEMV, are held to bit for bit. Each
+    kernel once a pivot step; its basis and z beside the ``fused`` run's
+    (alpha's rounding differs, so the two may part after a near-tie).
+    Returns (result, host reads)."""
+    from simplex_tpu_torch.oracle.reference import relative_gap
+
+    with without_fused_ftran():
+        res, _, counts, steps, reads = timed_solve(dev, BENCH_M, BENCH_N, opts)
+    check(res.iters == fused.iters == steps, f"{tag}, GEMV: {res.iters} pivots in {steps} steps")
+    for name in ("pricing_scan", "ratio_eta", "rank1_update"):
+        check(counts[name] == steps, f"{tag}, GEMV: {name} {counts[name]} launches in {steps} pivot steps")
+    check(LOOP["carried"] == LOOP["ftran"] == 0, f"{tag}, GEMV: {LOOP['carried']} picks carried")
+    same = bool((res.basis == fused.basis).all())
+    print(f"{tag} with the ftran by cuBLAS's GEMV: {'the same basis as' if same else 'another basis than'} the "
+          f"fused ftran's; z {res.z!r} vs {fused.z!r} (rel gap {relative_gap(res.z, fused.z):.3e}); launches "
+          f"{counts}; host reads {reads}")
+    return res, reads
 
 
 def phase_pricing_rules(dev) -> dict:
@@ -2231,8 +2376,9 @@ def phase_device_ops(dev) -> None:
     )
     check(rec["device_us_per_pivot"] > 0, "the profiler saw no device time")
     check(ops <= MAX_DEVICE_OPS_PER_PIVOT, f"{ops:.2f} device ops a pivot on the default path")
-    for name in ("pricing_scan", "ratio_eta", "rank1_update"):
-        check(rec["launches_per_pivot"][name] == 1.0, f"{name}: {rec['launches_per_pivot'][name]} launches a pivot")
+    head = 1 + 1 / rec["pivots_traced"]  # the traced loop's head step prices itself too
+    for name, want in (("pricing_scan", head), ("ratio_eta", 1.0), ("rank1_update", 1.0)):
+        check(rec["launches_per_pivot"][name] == want, f"{name}: {rec['launches_per_pivot'][name]} launches a pivot")
 
 
 def phase_ratio_device_time(dev, dtype=None) -> dict:
@@ -2617,7 +2763,8 @@ def phase_trace(dev) -> dict:
     tag = f"trace {SMALL_M}x{SMALL_N}"
     paths[tag] = counts
     check(len(recs) == TRACE_PIVOTS and recs[-1].status == SolveStatus.RUNNING, f"{tag}: {len(recs)} records")
-    check(counts["pricing_scan"] == 2 * TRACE_PIVOTS, f"{tag}: pricing_scan {counts['pricing_scan']}")
+    # the trace's own pass a pivot, the step's pick of the next one, and the head step's own
+    check(counts["pricing_scan"] == 2 * TRACE_PIVOTS + 1, f"{tag}: pricing_scan {counts['pricing_scan']}")
     for name in ("ratio_eta", "rank1_update"):
         check(counts[name] == TRACE_PIVOTS, f"{tag}: {name} {counts[name]} launches")
     ks = (1, TRACE_PIVOTS // 4, TRACE_PIVOTS // 2, TRACE_PIVOTS)
@@ -2815,16 +2962,20 @@ def sparse_vs_dense(dev, paths, label, A, A_sp, b, c, opts, name) -> dict:
     ``opts``: status, z, pivots, seconds, host reads and device syncs a
     pivot of each; the sparse loop must stay within
     MAX_SPARSE_READS_PER_PIVOT; an f64 residual (window) or KKT check
-    (OPTIMAL, primal infeasibility within MAX_PRIMAL_INFEAS) of both.
-    Returns the two results."""
+    (OPTIMAL, primal infeasibility within MAX_PRIMAL_INFEAS) of both. The
+    sparse z is held to the dense solve's with the ftran by cuBLAS's GEMV
+    (:func:`without_fused_ftran`), the step the sparse A keeps; the default
+    dense solve, whose alpha the fused pass sums, may part from it after a
+    near-tie. Returns the two results."""
     import numpy as np
 
     from simplex_tpu_torch import SolveStatus
     from simplex_tpu_torch.oracle.reference import relative_gap
 
     runs = {}
-    for tag, mat in (("dense", A), ("sparse", A_sp)):
-        res, wall, counts, steps, reads, syncs = sync_counted_solve(dev, mat, b, c, opts)
+    for tag, mat in (("dense", A), ("dense, GEMV", A), ("sparse", A_sp)):
+        with without_fused_ftran() if tag == "dense, GEMV" else contextlib.nullcontext():
+            res, wall, counts, steps, reads, syncs = sync_counted_solve(dev, mat, b, c, opts)
         runs[tag] = res
         paths[f"{label} {name}, {tag} A"] = counts
         per = (reads["control"] + reads["branch"]) / max(1, res.iters)
@@ -2841,16 +2992,18 @@ def sparse_vs_dense(dev, paths, label, A, A_sp, b, c, opts, name) -> dict:
             check(per <= MAX_SPARSE_READS_PER_PIVOT, f"{label} sparse: {per:.4f} host reads a pivot")
             check(syncs / max(1, res.iters) <= MAX_SPARSE_READS_PER_PIVOT,
                   f"{label} sparse: {syncs} device syncs in {res.iters} pivots")
-    gap = relative_gap(runs["sparse"].z, runs["dense"].z)
-    same = np.array_equal(runs["sparse"].basis, runs["dense"].basis)
-    check(gap <= GAP_TOL, f"{label} {name}: sparse z {runs['sparse'].z} vs dense {runs['dense'].z}")
+    gemv = runs.pop("dense, GEMV")
+    gap = relative_gap(runs["sparse"].z, gemv.z)
+    same = np.array_equal(runs["sparse"].basis, gemv.basis)
+    check(gap <= GAP_TOL, f"{label} {name}: sparse z {runs['sparse'].z} vs dense (GEMV) {gemv.z}")
     if opts.max_iter:
         verdict = f"f64 residual of the sparse basis {residual64_of(dev, A, b, runs['sparse']):.3e}"
     else:
         verdict = "; ".join(f"{tag} answer " + kkt64_of(dev, A_sp, b, c, runs[tag], f"{label} {tag}",
                                                         MAX_PRIMAL_INFEAS)
                             for tag in ("sparse", "dense"))
-    print(f"{label} {name}: sparse vs dense z rel {gap:.3e}, same basis {same}; {verdict}")
+    print(f"{label} {name}: sparse vs dense (GEMV) z rel {gap:.3e}, same basis {same}; the fused dense solve's z "
+          f"rel {relative_gap(runs['dense'].z, gemv.z):.3e} from it; {verdict}")
     return runs
 
 
@@ -3586,9 +3739,11 @@ def bench_gates(tag: str, rec: dict, err: str) -> None:
         pivots = int(re.search(r"^(\d+) pivots in", err, re.M).group(1))
         check(pivots == BENCH_WINDOW, f"bench {tag}: {pivots} pivots")
         if tag == "single, default set":
-            # the default path: each of its kernels once a pivot step
-            for name in ("pricing_scan", "ratio_eta", "rank1_update"):
-                check(launches[name] == pivots, f"bench {tag}: {name} {launches[name]} in {pivots} pivots")
+            # the default path: each of its kernels once a pivot step, pricing once
+            # more for the head step of its one loop (core.step: every step prices
+            # the next one; no upkeep falls in the window, as in phase_solve)
+            for name, want in (("pricing_scan", pivots + 1), ("ratio_eta", pivots), ("rank1_update", pivots)):
+                check(launches[name] == want, f"bench {tag}: {name} {launches[name]} in {pivots} pivots")
         else:
             check(launches["ratio_eta"] >= pivots, f"bench {tag}: ratio_eta {launches['ratio_eta']}")
     elif tag in ("full, flagship", "parity", "general"):
@@ -3929,9 +4084,10 @@ def sharded_rank(rank: int, world: int, port: int, dev_type: str, out) -> None:
 
 
 def check_sharded_window(tag, run, single, single_reads) -> None:
-    """A sharded window against the single solve's: the same pivots, basis
-    and z; each kernel once a pivot step; two collectives a pivot step; the
-    single solve's host reads."""
+    """A sharded window against the single solve's with the ftran by
+    cuBLAS's GEMV (:func:`unfused_window`; the collective backends keep the
+    GEMV): the same pivots, basis and z; each kernel once a pivot step; two
+    collectives a pivot step; the single solve's host reads."""
     res, k = run["res"], run["steps"]
     check(res.status == single.status and res.iters == single.iters,
           f"{tag}: {res.status!r} after {res.iters} vs {single.status!r} after {single.iters}")
@@ -3963,13 +4119,14 @@ def phase_sharded(dev) -> dict:
     from simplex_tpu_torch.oracle.reference import relative_gap
 
     single, s_wall, s_reads, s_loop = KEPT["window"]
+    gemv, g_reads = KEPT["window, gemv"]
     paths = {}
     mesh = make_mesh(device=dev.type)  # a group of one, NCCL on the card
     try:
         run = sharded_run(dev, mesh, *instance(BENCH_M, BENCH_N), SimplexOptions(max_iter=BENCH_WINDOW))
     finally:
         dist.destroy_process_group()
-    check_sharded_window("sharded window, world 1 (nccl)", run, single, s_reads)
+    check_sharded_window("sharded window, world 1 (nccl)", run, gemv, g_reads)
     k = run["steps"]
     print(f"solve_sharded world 1 (nccl), {BENCH_M}x{BENCH_N} window: {run['res'].iters} pivots in "
           f"{run['wall']:.3f} s ({run['res'].iters / run['wall']:.1f} pivots/s end to end, the pivot loop "
@@ -4001,7 +4158,7 @@ def phase_sharded(dev) -> dict:
     check(not errors, "sharded ranks failed:\n" + "\n".join(errors))
     for rank in range(SHARD_RANKS):
         rec = recs[rank]
-        check_sharded_window(f"sharded window, world {SHARD_RANKS} (gloo), rank {rank}", rec["window"], single, s_reads)
+        check_sharded_window(f"sharded window, world {SHARD_RANKS} (gloo), rank {rank}", rec["window"], gemv, g_reads)
         paths[f"sharded window, world {SHARD_RANKS}, rank {rank}"] = rec["window"]["counts"]
     w = recs[0]["window"]
     print(f"solve_sharded world {SHARD_RANKS} (gloo, one card), window: {w['res'].iters} pivots in {w['wall']:.3f} s "
@@ -4235,20 +4392,22 @@ def phase_sharded_2d(dev) -> dict:
     finally:
         dist.destroy_process_group()
     counts, k = dict(hopper.launches), steps[0]
-    same = bool((res.basis == single.basis).all() and res.z == single.z)
+    gemv = KEPT["window, gemv"][0]  # the collective backends keep cuBLAS's GEMV
+    same = bool((res.basis == gemv.basis).all() and res.z == gemv.z)
     print(f"solve_sharded_2d 1x1 (nccl), {BENCH_M}x{BENCH_N} window: {res.status.name} after {res.iters} pivots in "
           f"{wall:.3f} s ({res.iters / wall:.1f} pivots/s end to end; the single solve {single.iters / s_wall:.1f}); "
-          f"{'the same basis and z as' if same else 'another basis or z than'} the single window "
-          f"(z {res.z!r} vs {single.z!r}); launches {counts} in {k} steps; collectives "
+          f"{'the same basis and z as' if same else 'another basis or z than'} the single window with the ftran "
+          f"by GEMV (z {res.z!r} vs {gemv.z!r}); launches {counts} in {k} steps; collectives "
           f"{ {n: v for n, v in sharded.collectives.items() if v} }")
-    check(res.iters == single.iters == BENCH_WINDOW, f"2-D window: {res.iters} pivots")
-    check(same, f"2-D window: basis or z {res.z!r} differs from the single window's {single.z!r}")
+    check(res.iters == gemv.iters == BENCH_WINDOW, f"2-D window: {res.iters} pivots")
+    check(same, f"2-D window: basis or z {res.z!r} differs from the single GEMV window's {gemv.z!r}")
     for name in ("pricing_scan", "rank1_update"):
         check(counts[name] == k, f"2-D window: {name} {counts[name]} launches in {k} pivot steps")
     paths["2-D window, 1x1 (nccl)"] = counts
     A, b, c = instance(SMALL_M, SMALL_N)
-    windows = {tag: solve(A, b, c, options=SimplexOptions(max_iter=TWO_D_WINDOW, **kw), device=dev)
-               for tag, kw in TWO_D_WINDOW_SETS.items()}
+    with without_fused_ftran():  # the single step as the 2-D ranks run it: ftran by GEMV
+        windows = {tag: solve(A, b, c, options=SimplexOptions(max_iter=TWO_D_WINDOW, **kw), device=dev)
+                   for tag, kw in TWO_D_WINDOW_SETS.items()}
 
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
@@ -4352,11 +4511,17 @@ F64_CORPUS_GAP = 1e-6  # tests/test_corpus.py's gate
 F64_TAIL_M = (17, 1024, 1025, BENCH_M, 9000)
 F64_TRACE_PIVOTS = 64
 F64_TAIL_OPTS = dict(TAIL_OPTS, eps=1e-9)  # the float64 default eps
-# the float64 default path's (pivots, z) under pricing's split layout
-# (measured on the H100): the stream layout is the same arithmetic bit for
-# bit, so the path must not move
-F64_SMALL_PATH = (2258, 1.815814615620253)  # random_dense_lp(2048, 4096)
-F64_BENCH_PATH = (17157, 1.8231971592987677)  # random_dense_lp(8192, 16384) to OPTIMAL
+# the float64 default path's (pivots, z) with the ftran by cuBLAS's GEMV
+# (without_fused_ftran) under pricing's split layout (measured on the
+# H100): the stream layout is the same arithmetic bit for bit, so the path
+# must not move
+F64_SMALL_GEMV_PATH = (2258, 1.815814615620253)  # random_dense_lp(2048, 4096)
+F64_BENCH_GEMV_PATH = (17157, 1.8231971592987677)  # random_dense_lp(8192, 16384) to OPTIMAL
+# the same with the next ftran fused into the rank-1 update (the default
+# path; measured on the H100): alpha is summed in a fixed order, so the
+# path must not move from run to run
+F64_SMALL_PATH = (2258, 1.815814615620253)
+F64_BENCH_PATH = (17531, 1.8231971586226519)
 
 
 def f64_options(**kw):
@@ -4505,9 +4670,12 @@ def phase_f64_ratio(dev) -> tuple:
 
 
 def f64_kernel_counts(tag, counts, steps) -> None:
-    """The default path's three kernels, each launched once a pivot step."""
-    for name in ("pricing_scan", "ratio_eta", "rank1_update"):
+    """The default path's three kernels: the ratio test and the update once
+    a pivot step, pricing once for each step that priced for itself and
+    once for each pick carried (:func:`carry_gates`)."""
+    for name in ("ratio_eta", "rank1_update"):
         check(counts[name] == steps, f"{tag}: {name} {counts[name]} launches in {steps} pivot steps")
+    carry_gates(tag, counts, steps)
 
 
 def phase_f64_solve(dev) -> dict:
@@ -4591,8 +4759,12 @@ def phase_f64_solve(dev) -> dict:
     gap = relative_gap(res.z, ref.z)
     check(res.status == SolveStatus.OPTIMAL and gap <= F64_GAP_TOL, f"f64 {SMALL_M}x{SMALL_N}: {res.status!r} gap {gap:.3e}")
     check((res.iters, res.z) == F64_SMALL_PATH,
-          f"f64 {SMALL_M}x{SMALL_N}: {res.iters} pivots, z {res.z!r}; the split layout's {F64_SMALL_PATH}")
+          f"f64 {SMALL_M}x{SMALL_N}: {res.iters} pivots, z {res.z!r}; pinned {F64_SMALL_PATH}")
     f64_kernel_counts(f"f64 {SMALL_M}x{SMALL_N}", counts, steps)
+    with without_fused_ftran():
+        gemv, _, _, _, _ = timed_solve(dev, SMALL_M, SMALL_N, f64_options())
+    check((gemv.iters, gemv.z) == F64_SMALL_GEMV_PATH,
+          f"f64 {SMALL_M}x{SMALL_N}, GEMV: {gemv.iters} pivots, z {gemv.z!r}; the split layout's {F64_SMALL_GEMV_PATH}")
     KEPT[("f64", SMALL_M, SMALL_N)] = res
     print(f"random_dense_lp({SMALL_M}, {SMALL_N}) f64: OPTIMAL z {res.z!r} HiGHS {ref.z!r} rel_gap {gap:.3e} "
           f"feas_err {res.feas_err:.3e} pivots {res.iters} wall {wall:.2f} s; launches {counts}")
@@ -4613,7 +4785,10 @@ def phase_f64_bench(dev) -> dict:
     check(res.status == SolveStatus.MAX_ITER and res.iters == BENCH_WINDOW, f"f64 window: {res.status!r} {res.iters}")
     f64_kernel_counts("f64 window", counts, steps)
     check(steps == BENCH_WINDOW, f"f64 window: {steps} pivot steps")
+    check(LOOP["heads"] == 1 and counts["pricing_scan"] == BENCH_WINDOW + 1,
+          f"f64 window: {LOOP['heads']} steps priced for themselves, pricing_scan {counts['pricing_scan']}")
     KEPT["f64 window"] = (res, wall, reads, loop[0])
+    KEPT["f64 window, gemv"] = unfused_window(dev, "f64 window", f64_options(max_iter=BENCH_WINDOW), res)
     print(f"random_dense_lp({BENCH_M}, {BENCH_N}) f64, max_iter={BENCH_WINDOW}: {res.iters} pivots in "
           f"{wall:.3f} s ({res.iters / wall:.1f} pivots/s end to end; the pivot loop alone "
           f"{res.iters / loop[0]:.1f}); launches {counts}; host reads {reads}")
@@ -4621,8 +4796,14 @@ def phase_f64_bench(dev) -> dict:
     res, wall, counts, steps, _ = timed_solve(dev, BENCH_M, BENCH_N, f64_options())
     check(res.status == SolveStatus.OPTIMAL, f"f64 full solve: {res.status!r}")
     check((res.iters, res.z) == F64_BENCH_PATH,
-          f"f64 full solve: {res.iters} pivots, z {res.z!r}; the split layout's {F64_BENCH_PATH}")
+          f"f64 full solve: {res.iters} pivots, z {res.z!r}; pinned {F64_BENCH_PATH}")
     f64_kernel_counts("f64 full solve", counts, steps)
+    with without_fused_ftran():
+        gemv, _, _, _, _ = timed_solve(dev, BENCH_M, BENCH_N, f64_options())
+    check((gemv.iters, gemv.z) == F64_BENCH_GEMV_PATH,
+          f"f64 full solve, GEMV: {gemv.iters} pivots, z {gemv.z!r}; the split layout's {F64_BENCH_GEMV_PATH}")
+    print(f"f64 full solve with the ftran by GEMV: {gemv.iters} pivots, z {gemv.z!r}; "
+          + kkt64(dev, BENCH_M, BENCH_N, gemv))
     fp32 = KEPT.get((BENCH_M, BENCH_N))
     print(f"full solve random_dense_lp({BENCH_M}, {BENCH_N}) f64: OPTIMAL z {res.z!r} after {res.iters} pivots "
           f"in {wall:.2f} s ({res.iters / wall:.1f} pivots/s); " + kkt64(dev, BENCH_M, BENCH_N, res)
@@ -4703,7 +4884,7 @@ def phase_f64_entry_points(dev) -> dict:
     cut = solve(A, b, c, options=f64_options(perturb_after=0, max_iter=k), device=dev)
     check(len(recs) == k and np.array_equal(recs[-1].basis, cut.basis) and cut.iters == k,
           f"f64 trace: {len(recs)} records; the basis against solve(max_iter={k})'s")
-    check(counts["pricing_scan"] == 2 * k and counts["ratio_eta"] == counts["rank1_update"] == k,
+    check(counts["pricing_scan"] == 2 * k + 1 and counts["ratio_eta"] == counts["rank1_update"] == k,
           f"f64 trace: launches {counts} in {k} pivots")
     print(f"f64 trace_pivots over {k} pivots: the basis of solve(max_iter={k}); launches {counts}")
     paths["f64 trace"] = counts
@@ -4923,6 +5104,7 @@ def phase_f64_sharded(dev) -> dict:
     if "f64 window" not in KEPT:
         phase_f64_bench(dev)
     single, s_wall, s_reads, s_loop = KEPT["f64 window"]
+    gemv, g_reads = KEPT["f64 window, gemv"]
     window = f64_options(max_iter=BENCH_WINDOW)
     paths = {}
     mesh = make_mesh(device=dev.type)
@@ -4930,7 +5112,7 @@ def phase_f64_sharded(dev) -> dict:
         run = sharded_run(dev, mesh, *instance(BENCH_M, BENCH_N), window)
     finally:
         dist.destroy_process_group()
-    check_sharded_window("f64 sharded window, world 1 (nccl)", run, single, s_reads)
+    check_sharded_window("f64 sharded window, world 1 (nccl)", run, gemv, g_reads)
     print(f"f64 solve_sharded world 1 (nccl), {BENCH_M}x{BENCH_N} window: {run['res'].iters} pivots in "
           f"{run['wall']:.3f} s ({run['res'].iters / run['wall']:.1f} pivots/s; the single float64 solve "
           f"{single.iters / s_wall:.1f}); same basis and z {run['res'].z!r}; collectives {dict(run['collectives'])}")
@@ -4949,12 +5131,12 @@ def phase_f64_sharded(dev) -> dict:
     finally:
         dist.destroy_process_group()
     counts, k = dict(hopper.launches), steps[0]
-    check(res.iters == single.iters == BENCH_WINDOW and bool((res.basis == single.basis).all()) and res.z == single.z,
-          f"f64 2-D window: {res.iters} pivots, z {res.z!r} vs the single window's {single.z!r}")
+    check(res.iters == gemv.iters == BENCH_WINDOW and bool((res.basis == gemv.basis).all()) and res.z == gemv.z,
+          f"f64 2-D window: {res.iters} pivots, z {res.z!r} vs the single GEMV window's {gemv.z!r}")
     for name in ("pricing_scan", "rank1_update"):
         check(counts[name] == k, f"f64 2-D window: {name} {counts[name]} launches in {k} pivot steps")
     print(f"f64 solve_sharded_2d 1x1 (nccl), {BENCH_M}x{BENCH_N} window: {res.iters} pivots in {wall:.3f} s "
-          f"({res.iters / wall:.1f} pivots/s); the same basis and z as the single float64 window; launches "
+          f"({res.iters / wall:.1f} pivots/s); the same basis and z as the single float64 GEMV window; launches "
           f"{counts} in {k} steps; collectives { {n: v for n, v in sharded.collectives.items() if v} }")
     paths["f64 2-D window, 1x1 (nccl)"] = counts
 
@@ -5055,8 +5237,9 @@ def f64_device_ops(dev) -> dict:
     )
     check(rec["device_us_per_pivot"] > 0, "the profiler saw no device time (f64)")
     check(ops <= MAX_DEVICE_OPS_PER_PIVOT, f"{ops:.2f} device ops a pivot on the f64 default path")
-    for name in ("pricing_scan", "ratio_eta", "rank1_update"):
-        check(rec["launches_per_pivot"][name] == 1.0, f"f64 {name}: {rec['launches_per_pivot'][name]} launches a pivot")
+    head = 1 + 1 / rec["pivots_traced"]  # the traced loop's head step prices itself too
+    for name, want in (("pricing_scan", head), ("ratio_eta", 1.0), ("rank1_update", 1.0)):
+        check(rec["launches_per_pivot"][name] == want, f"f64 {name}: {rec['launches_per_pivot'][name]} launches a pivot")
     return rec
 
 

@@ -2,35 +2,43 @@
 
 The default step on dense A (Dantzig pricing over all of A, no shadow, no
 segments, no candidate buffer, eager rank-1 updates, no bounds, Bland's rule
-off; :meth:`StepGraphs.captures`) has no host branch between its kernels,
+off; ``core.step.default_step``) has no host branch between its kernels,
 and its shapes are fixed. Run eagerly, its launches cost the host more time
 than the card spends on them. :class:`StepGraphs`, kept on the single-card
 hopper backend (``kernels.dispatch.get_backend``), records the eager step
-once with ``torch.cuda.CUDAGraph`` and replays it:
-pricing (both passes), the entering column and its exact reduced cost, the
-ftran GEMV, ``pivot_tail``, ``rank1_update``, the packing of the
-control words and their copy into a pinned host buffer of the graph's own.
-The same kernels get the same arguments, so a replay gives the eager step's
-results bit for bit.
+from a carried pick (``core.step``: the step before priced the state and
+ran its ftran) once with ``torch.cuda.CUDAGraph`` and replays it:
+``pivot_tail``, the next step's pricing (both passes), its entering column
+and exact reduced cost, ``rank1_update_ftran`` (this step's update with the
+next ftran fused in), the packing of the control words and their copy into
+a pinned host buffer of the graph's own. The same kernels get the same
+arguments, so a replay gives the eager step's results bit for bit. The
+step from a state without a pick (the head of each ``solve_state`` call,
+and the step after upkeep or after an eager step off the default path)
+runs eagerly: it prices, runs its ftran by ``torch.mv`` and carries the
+next pick, from which the replays go on.
 
 A graph holds addresses, so graphs are kept by key: the addresses, shapes
 and dtypes of A, c and B_inv, whether the state carries the perturbation,
 and the option scalars the launches bake in. B_inv is updated in place, as
 eagerly; a new B_inv (a restart, a re-inversion) is a new key. A key is
-captured only once it has run one eager step, so a short solve pays for no
-capture. At most ``MAX_KEYS`` keys are kept.
+captured at its first step from a carried pick, so only after an eager head
+step: a one-step solve pays for no capture. At most ``MAX_KEYS`` keys are
+kept.
 
 Buffers. Each key has two slots, each the three output blocks of
-``pivot_tail`` (x_b, y, c_b, basis, iters, status, degen: views of them), and
-two graphs: graph i reads slot i and writes slot 1 - i. So a state returned
-by step k (in one slot) stays valid through step k + 1, which writes the
-other; the benchmark's step recorder copies a step's input basis only after
-the step returns. A state that is not the last replay's output is copied
-into the slot it shares leaves with (else into the one the last replay did
-not write) before the replay. last_refac and the perturbation's rounds and
-flag, which the step passes through, are copied as int32 words into one
-block per key when they change; the graph's packing reads them there, so it
-is one concatenation. ``core.solver._pivot_loop`` hands no state back that
+``pivot_tail`` (x_b, y, c_b, basis, iters, status, degen: views of them) and
+the two blocks of the carried pick (p and min_e in a pricing block; alpha,
+c_p and e_p in one vector), and two graphs: graph i reads slot i and writes
+slot 1 - i. So a state returned by step k (in one slot), its pick included,
+stays valid through step k + 1, which writes the other; the benchmark's
+step recorder copies a step's input basis only after the step returns. A
+state that is not the last replay's output (the head step's) is copied,
+with its pick, into the slot it shares leaves with (else into the one the
+last replay did not write) before the replay. last_refac and the
+perturbation's rounds and flag, which the step passes through, are copied
+as int32 words into one block per key when they change; the graph's
+packing reads them there, so it is one concatenation. ``core.solver._pivot_loop`` hands no state back that
 shares memory with a slot (:meth:`StepGraphs.detach`).
 
 Control words. An event is recorded after each replay; ``step.read_control``
@@ -42,10 +50,11 @@ overwrite those of replay k, and replay k + 2 comes only after they are read.
 
 Counters: ``step.graph_steps`` (captured, replayed, eager, and ahead: replays
 from a replay's output whose control words the host has not read); a replay
-adds to ``hopper.launches`` and ``hopper.pricing_layouts`` the counts its capture
-recorded (a capture launches nothing, so the counts it made are taken back),
-so the counts a pivot are those of the eager step. While spans are recorded,
-a replay is a ``graph`` span (of kind ``ahead`` where it counts so) with a
+adds to ``hopper.launches``, ``hopper.pricing_layouts`` and
+``hopper.rank1_layouts`` the counts its capture recorded (a capture
+launches nothing, so the counts it made are taken back), so the counts a
+pivot are those of the eager step. While spans are recorded, a replay is a
+``graph`` span (of kind ``ahead`` where it counts so) with a
 ``launch:pivot_graph`` mark before it.
 """
 
@@ -59,15 +68,14 @@ from typing import Optional
 
 import torch
 
-from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch import spans
 from simplex_tpu_torch.core import step as _step
-from simplex_tpu_torch.core.state import SolverState
+from simplex_tpu_torch.core.state import CarriedPick, SolverState
 from simplex_tpu_torch.kernels import hopper
 
 MAX_KEYS = 2
 # the counters a replay adds to as the eager step would
-_COUNTERS = (hopper.launches, hopper.pricing_layouts)
+_COUNTERS = (hopper.launches, hopper.pricing_layouts, hopper.rank1_layouts)
 # the leaves a slot holds, and those of them the step reads
 _LEAVES = ("x_b", "y", "c_b", "basis", "iters", "status", "degen")
 _READ = ("x_b", "y", "c_b", "basis", "iters", "degen")
@@ -91,13 +99,18 @@ def _passed(state) -> tuple:
 
 class _Slot:
     """One set of the step's O(m) leaves and scalars: ``pivot_tail``'s
-    output blocks and the views the step's state takes of them."""
+    output blocks and the carried pick's (``core.step._next_pick``), and
+    the views the step's state takes of them."""
 
     def __init__(self, dev, dtype, m: int):
         self.blocks = hopper.tail_blocks(dev, dtype, m)
         t = hopper.tail_outputs(self.blocks, dtype)
         for name in _LEAVES:
             setattr(self, name, getattr(t, name))
+        words, vals = hopper.pricing_block(dev, dtype), torch.empty(m + 2, dtype=dtype, device=dev)
+        self.pick_blocks = (words, vals)
+        p, min_e = hopper.pricing_choice(words, dtype)
+        self.carried = CarriedPick(p=p, min_e=min_e, e_p=vals[m + 1], c_p=vals[m], alpha=vals[:m])
 
     def shares(self, state) -> bool:
         return any(getattr(state, name) is getattr(self, name) for name in _READ)
@@ -139,8 +152,9 @@ class _Key:
 
     def load(self, state, i: int) -> None:
         slot = self.slots[i]
-        for name in _READ:
-            src, dst = getattr(state, name), getattr(slot, name)
+        pairs = [(getattr(state, name), getattr(slot, name)) for name in _READ]
+        pairs += zip(state.carried, slot.carried)
+        for src, dst in pairs:
             if src is not dst:
                 dst.copy_(src)
         passed = _passed(state)
@@ -163,44 +177,26 @@ class StepGraphs:
 
     def __init__(self):
         self._keys: collections.OrderedDict = collections.OrderedDict()
-        self._seen: collections.OrderedDict = collections.OrderedDict()  # keys that ran eagerly
         self._streams: dict = {}  # device -> capture stream
 
     @staticmethod
-    def captures(prob, state, opts, ctl) -> bool:
-        """Whether the step is the default one (module docstring) that a
-        graph records, the device aside."""
-        return (
-            opts.pricing == "dantzig"
-            and opts.update_defer == 0
-            and not isinstance(prob.A, _sp.SparseA)
-            and prob.A_price is None
-            and prob.u is None
-            and state.U is None
-            and state.cand is None
-            and state.e is None
-            and state.at_upper is None
-            and not _step._partial_active(opts, prob)
-            and not _step.bland_on(opts, ctl.degen)
-        )
-
-    @staticmethod
     def takes(prob, state, opts, ctl) -> bool:
-        """:meth:`captures` on CUDA tensors: the step runs from the graphs."""
-        return StepGraphs.captures(prob, state, opts, ctl) and prob.A.is_cuda and state.B_inv.is_cuda
+        """The default step (``core.step.default_step``, which a graph
+        records) on CUDA tensors: the step runs from the graphs."""
+        return _step.default_step(prob, state, opts, ctl) and prob.A.is_cuda and state.B_inv.is_cuda
 
     def step(self, prob, state, opts, backend, ctl) -> SolverState:
-        """One default step: eager the first time its key is seen, then by
-        replay, captured on first need."""
+        """One default step: eager from a state without a carried pick (the
+        head step, which carries one), else by replay, captured on first
+        need."""
+        if state.carried is None:
+            _step.graph_steps["eager"] += 1
+            return _step.eager_step(prob, state, opts, backend, ctl)
         key = _key(prob, state, opts)
         entry = self._keys.get(key)
         if entry is not None:
             self._keys.move_to_end(key)
         else:
-            if key not in self._seen:
-                self._remember(self._seen, key, True)
-                _step.graph_steps["eager"] += 1
-                return _step.eager_step(prob, state, opts, backend, ctl)
             entry = _Key(prob, state, self._stream(state))
             self._remember(self._keys, key, entry)
         i = entry.source(state)
@@ -224,7 +220,7 @@ class StepGraphs:
         return SolverState(
             B_inv=state.B_inv, x_b=out.x_b, y=out.y, c_b=out.c_b, basis=out.basis,
             iters=out.iters, status=out.status, degen=out.degen,
-            last_refac=state.last_refac, pert=state.pert,
+            last_refac=state.last_refac, pert=state.pert, carried=out.carried,
         )
 
     def _stream(self, state) -> torch.cuda.Stream:
@@ -236,7 +232,6 @@ class StepGraphs:
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 # cuBLAS sets itself up on a stream's first product: not inside a capture
-                torch.mv(state.B_inv, state.y)
                 torch.dot(state.y, state.y)
         return stream
 
@@ -247,8 +242,9 @@ class StepGraphs:
             table.popitem(last=False)
 
     def _capture(self, entry: _Key, i: int, prob, state, opts, backend, ctl) -> None:
-        """Record the eager step from slot i into slot 1 - i and the packing
-        of its control words, on the key's capture stream."""
+        """Record the eager step from slot i (its leaves and carried pick)
+        into slot 1 - i and the packing of its control words, on the key's
+        capture stream."""
         src, dst = entry.slots[i], entry.slots[1 - i]
         stream = self._streams[state.B_inv.device]
         # the step's input as the graph reads it: the slot, and the words
@@ -259,7 +255,7 @@ class StepGraphs:
         if state.pert is not None:
             pert = type(state.pert)(w=state.pert.w, rounds=words[1], on=words[2])
         ins = SolverState(
-            B_inv=state.B_inv, last_refac=words[0], pert=pert,
+            B_inv=state.B_inv, last_refac=words[0], pert=pert, carried=src.carried,
             **{name: getattr(src, name) for name in _LEAVES},
         )
         cap = types.SimpleNamespace(**vars(backend))
@@ -273,7 +269,7 @@ class StepGraphs:
                 # thread-local: the profiler's own threads may call the runtime meanwhile
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    new = _step.eager_step(prob, ins, opts, cap, ctl)
+                    new = _step.eager_step(prob, ins, opts, cap, ctl, out=dst.pick_blocks)
                     packed = _step.pack_control(_step.control_fields(new, opts)[0])
                     host.copy_(packed, non_blocking=True)
                 finally:
@@ -323,7 +319,8 @@ class StepGraphs:
 
     def detach(self, state: SolverState) -> SolverState:
         """``state`` with every leaf that lies in a slot copied out, so
-        that no later replay writes it."""
+        that no later replay writes it, and without a carried pick."""
+        state = _step.drop_pick(state)
         held = {
             block.untyped_storage().data_ptr()
             for entry in self._keys.values() for slot in entry.slots for block in slot.blocks

@@ -51,6 +51,7 @@ from simplex_tpu_torch.core.state import (
 from simplex_tpu_torch.core.step import (
     Control,
     bland_on,
+    drop_pick,
     perturb_activate,
     perturb_clear,
     perturb_scale,
@@ -162,9 +163,9 @@ def _pivot_loop(prob, s, ctl, opts, max_iter, backend):
             # the next step branches on the state as it is now
             ctl = read_control(s, opts, prob, backend)
         spans.stop(span)
-    if graphs is not None:
-        # no state leaves the loop in the step graphs' buffers
-        s = graphs.detach(s)
+    # no state leaves the loop with a carried pick (a caller's change to
+    # it would leave the pick stale), nor in the step graphs' buffers
+    s = drop_pick(s) if graphs is None else graphs.detach(s)
     return s, ctl
 
 

@@ -24,11 +24,17 @@ pytrees. Leaves for an m x n problem:
                      x_N = where(at_upper, u, 0) and B x_b = b - A x_N
   cand               the multiple-pricing candidate buffer
   pert               the rhs perturbation
+  carried            the next default step's entering pick, made by the
+                     step that returned the state (``core.step``)
 
 U, R and npend are None when updates are eager, e and gamma under the
 Dantzig rule, at_upper when the problem has no upper bounds, cand when
 multiple pricing is off, pert when the perturbation is off (the JAX package
 carries dummy leaves there instead).
+
+``carried`` is None except on a state the default step returned, and
+holds for that state alone: every upkeep, and the solve loop on its way
+out, drops it.
 
 Scalars stay 0-d device tensors so a pivot step never waits on the host.
 The pivot step updates ``B_inv`` (the rank-1 update, the rank-L flush) and
@@ -39,7 +45,7 @@ returns is a new tensor.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -115,6 +121,19 @@ class CandBuffer:
     seg: torch.Tensor  # () int32 refill counter (segment rotation)
 
 
+class CarriedPick(NamedTuple):
+    """The entering pick of the step from a state, made by the default step
+    that returned the state: its pricing (Bland's rule off), the column's
+    exact reduced cost and cost, and its ftran, fused into that step's
+    rank-1 update (``core.step``)."""
+
+    p: torch.Tensor  # () int32 entering column
+    min_e: torch.Tensor  # () pricing's minimum
+    e_p: torch.Tensor  # () exact reduced cost y.A_p - c_p
+    c_p: torch.Tensor  # () c[p]
+    alpha: torch.Tensor  # (m,) B_inv A_p
+
+
 @dataclasses.dataclass
 class SolverState:
     B_inv: torch.Tensor
@@ -134,6 +153,7 @@ class SolverState:
     pert: Optional[PertState] = None
     e: Optional[torch.Tensor] = None
     gamma: Optional[torch.Tensor] = None
+    carried: Optional[CarriedPick] = None
 
 
 def _int(v: int, device) -> torch.Tensor:

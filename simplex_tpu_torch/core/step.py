@@ -80,10 +80,26 @@ branch not taken costs nothing:
 the step (pricing, ftran, ratio test and tail, update, weights), is a host
 span while spans are recorded (:mod:`simplex_tpu_torch.spans`).
 
-The default step on dense CUDA tensors runs as one replay of a CUDA graph
-of the same launches (:mod:`simplex_tpu_torch.core.graph`, which says which
-steps those are), once its key has run one eager step; ``graph_steps``
-counts the steps by how they ran.
+The default step (:func:`default_step`), where the backend offers
+``rank1_update_ftran``, carries the next step's pick: after its tail it
+prices the state it is about to return (Bland's rule off), takes the
+entering column and its exact reduced cost, and runs its rank-1 update with
+the next ftran fused into the same pass over B_inv, so the inverse is read
+once a pivot instead of twice. It hands that pick on in the state it
+returns (``carried``, a :class:`~simplex_tpu_torch.core.state.CarriedPick`),
+and the next step, if it is the default one too, starts at its tail. A
+step from a state without a pick (the first of each ``solve_state`` call,
+the one after upkeep or after a step off the default path) prices and runs
+its ftran by ``torch.mv`` as every other step does, then carries in the
+same way. The pick holds for the returned state alone: every upkeep drops
+it, as does a step with Bland's rule on, and the solve loop drops it on its
+way out. Other steps, and a backend without the fused op (the collective
+ones of ``dist/sharded.py``), launch what they launched before.
+
+The default step on dense CUDA tensors, from a carried pick, runs as one
+replay of a CUDA graph of the same launches
+(:mod:`simplex_tpu_torch.core.graph`); ``graph_steps`` counts the steps by
+how they ran.
 
 Matrix products run in full fp32 (the solver turns TF32 off), the
 counterpart of the JAX package's ``Precision.HIGHEST`` pins.
@@ -102,7 +118,13 @@ from simplex_tpu_torch import sparse as _sp
 from simplex_tpu_torch import spans
 from simplex_tpu_torch.config import SimplexOptions
 from simplex_tpu_torch.core.linalg import inverse_newton
-from simplex_tpu_torch.core.state import CandBuffer, Problem, SolverState, bounded_rhs
+from simplex_tpu_torch.core.state import (
+    CandBuffer,
+    CarriedPick,
+    Problem,
+    SolverState,
+    bounded_rhs,
+)
 from simplex_tpu_torch.kernels import ops as _ops
 from simplex_tpu_torch.status import SolveStatus
 
@@ -296,6 +318,45 @@ def read_control(
         if k in ctl:
             ctl[k] = bool(ctl[k])
     return Control(**ctl, pick=pick)
+
+
+def default_step(prob: Problem, state: SolverState, opts: SimplexOptions, ctl: Control) -> bool:
+    """Whether the step from ``state`` is the default one: Dantzig pricing
+    over all of a dense A (no shadow, no segments, no candidate buffer),
+    eager rank-1 updates, no bounds, Bland's rule off. It has no host branch
+    between its kernels, so a CUDA graph records it
+    (:meth:`~simplex_tpu_torch.core.graph.StepGraphs.takes`), and it
+    carries the next step's pick (:func:`carries`)."""
+    return (
+        opts.pricing == "dantzig"
+        and opts.update_defer == 0
+        and not isinstance(prob.A, _sp.SparseA)
+        and prob.A_price is None
+        and prob.u is None
+        and state.U is None
+        and state.cand is None
+        and state.e is None
+        and state.at_upper is None
+        and not _partial_active(opts, prob)
+        and not bland_on(opts, ctl.degen)
+    )
+
+
+def carries(prob: Problem, state: SolverState, opts: SimplexOptions, backend, ctl: Control) -> bool:
+    """Whether the step from ``state`` carries the next step's pick (module
+    docstring): it is the default step, the backend offers the fused
+    ``rank1_update_ftran``, and A, c and the state share one dtype, in
+    which the pick's buffers are written."""
+    return (
+        getattr(backend, "rank1_update_ftran", None) is not None
+        and prob.A.dtype == prob.c.dtype == state.B_inv.dtype
+        and default_step(prob, state, opts, ctl)
+    )
+
+
+def drop_pick(state: SolverState) -> SolverState:
+    """``state`` without a carried pick."""
+    return state if state.carried is None else dataclasses.replace(state, carried=None)
 
 
 def _partial_active(opts: SimplexOptions, prob: Problem) -> bool:
@@ -607,14 +668,46 @@ def _flush(B_inv, U, R, npend):
     return torch.zeros_like(U), torch.zeros_like(R), torch.zeros_like(npend)
 
 
-def _finish_unbounded(prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, defer, npend):
+def _next_pick(prob, t, B_inv, opts, backend, out=None) -> CarriedPick:
+    """The carrying step's last stage (module docstring): the next step's
+    pricing from the tail's output ``t`` with Bland's rule off, its
+    entering column and exact reduced cost, then the fused pass that
+    applies this step's update (``t.eta``, ``t.row``) to B_inv and sums
+    the next ftran from the values it writes. The results are new tensors,
+    or views of ``out`` = ``(words, vals)``: a ``hopper.pricing_block`` and
+    an (m + 2,) vector (alpha, c_p, e_p), the buffers of a CUDA graph's
+    slot. Each is computed as the next step would compute it."""
+    m = B_inv.shape[0]
+    if out is None:
+        out = (None, torch.empty(m + 2, dtype=B_inv.dtype, device=B_inv.device))
+    words, vals = out
+    span = spans.start("price")
+    p, min_e = backend.choose_entering(
+        t.y, prob.A, prob.c, opts.resolve_eps(), _const_flag(B_inv.device, False), t.basis,
+        **({} if words is None else {"out": words}),
+    )
+    A_p = backend.gather_column(prob.A, p)
+    c_p = torch.index_select(prob.c, 0, p.view(1), out=vals[m : m + 1]).view(())
+    e_p = torch.sub(torch.dot(t.y, A_p), c_p, out=vals[m + 1])
+    spans.stop(span)
+    span = spans.start("update")
+    alpha = backend.rank1_update_ftran(B_inv, t.eta, t.row, A_p, out=vals[:m])
+    spans.stop(span)
+    return CarriedPick(p=p, min_e=min_e, e_p=e_p, c_p=c_p, alpha=alpha)
+
+
+def _finish_unbounded(
+    prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, defer, npend, carry=False, out=None
+):
     """The unbounded step without multiple pricing, from its ftran on: the
     whole O(m) tail in one backend call (``pivot_tail``: one launch on the
-    hopper backend), then the inverse's update -- the rank-1 kernel, or,
-    under deferred updates, the pair the tail wrote into slot ``npend`` and
-    the flush when that filled the buffer. Under devex / steepest edge the
-    e / gamma update follows from what the tail returns (row q copied out
-    before the update, q, take) and ``u`` (:func:`_pre_pivot_u`)."""
+    hopper backend), then the inverse's update -- the rank-1 kernel; where
+    the step ``carry``s, the next step's pick and the update with its ftran
+    fused in (:func:`_next_pick`, into ``out``); or, under deferred
+    updates, the pair the tail wrote into slot ``npend`` and the flush when
+    that filled the buffer. Under devex / steepest edge the e / gamma
+    update follows from what the tail returns (row q copied out before the
+    update, q, take) and ``u`` (:func:`_pre_pivot_u`)."""
     extra = {}
     if defer:
         extra = dict(U=state.U, R=state.R, npend=npend, npend_t=state.npend)
@@ -627,18 +720,20 @@ def _finish_unbounded(prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, 
         bland_after=opts.bland_after, **extra,
     )
     spans.stop(span)
-    span = spans.start("update")
-    U, R, npend_new = state.U, state.R, t.npend
-    if defer:
-        B_inv = state.B_inv
-        if npend + 1 >= opts.resolve_defer():
-            # a step that does not pivot is terminal: its zero pair leaves
-            # the true inverse unchanged
-            U, R, npend_new = _flush(B_inv, U, R, npend_new)
+    U, R, npend_new, B_inv, carried = state.U, state.R, t.npend, state.B_inv, None
+    if carry:
+        # a no-op update when not pivoting: eta and row are zero then
+        carried = _next_pick(prob, t, B_inv, opts, backend, out)
     else:
-        # a no-op when not pivoting: eta and row are zero then
-        B_inv = backend.rank1_update(state.B_inv, t.eta, t.row)
-    spans.stop(span)
+        span = spans.start("update")
+        if defer:
+            if npend + 1 >= opts.resolve_defer():
+                # a step that does not pivot is terminal: its zero pair leaves
+                # the true inverse unchanged
+                U, R, npend_new = _flush(B_inv, U, R, npend_new)
+        else:
+            B_inv = backend.rank1_update(B_inv, t.eta, t.row)
+        spans.stop(span)
     e, gamma = state.e, state.gamma
     if _weighted_active(opts, state):
         span = spans.start("weights")
@@ -650,7 +745,7 @@ def _finish_unbounded(prob, state, opts, backend, alpha, u, min_e, e_p, c_p, p, 
         B_inv=B_inv, x_b=t.x_b, y=t.y, c_b=t.c_b, basis=t.basis, iters=t.iters,
         status=t.status, degen=t.degen, last_refac=state.last_refac,
         U=U, R=R, npend=npend_new, at_upper=None, cand=state.cand, pert=state.pert,
-        e=e, gamma=gamma,
+        e=e, gamma=gamma, carried=carried,
     )
 
 
@@ -681,10 +776,12 @@ def pivot_step(
 
 
 def eager_step(
-    prob: Problem, state: SolverState, opts: SimplexOptions, backend, ctl: Control
+    prob: Problem, state: SolverState, opts: SimplexOptions, backend, ctl: Control,
+    out: Optional[tuple] = None,
 ) -> SolverState:
     """:func:`pivot_step` op by op: the definition that a step graph
-    records."""
+    records. A carrying step writes the pick it hands on into ``out``
+    (:func:`_next_pick`) when given."""
     dtype = state.B_inv.dtype
     eps = opts.resolve_eps()
     bland = bland_on(opts, ctl.degen)
@@ -693,6 +790,14 @@ def eager_step(
     defer = opts.update_defer > 0 or multi
     bounded = prob.u is not None
     npend = ctl.npend
+    carry = carries(prob, state, opts, backend, ctl)
+    if carry and state.carried is not None:
+        # the step before priced this state and ran its ftran
+        p, min_e, e_p, c_p, alpha = state.carried
+        return _finish_unbounded(
+            prob, state, opts, backend, alpha, None, min_e, e_p, c_p, p,
+            defer=False, npend=npend, carry=True, out=out,
+        )
 
     # ---- pricing over the nonbasic columns (signed under bounds) ----
     span = spans.start("price")
@@ -733,7 +838,7 @@ def eager_step(
 
     if not multi and not bounded:
         return _finish_unbounded(
-            prob, state, opts, backend, alpha, u_se, min_e, e_p, c_p, p, defer, npend
+            prob, state, opts, backend, alpha, u_se, min_e, e_p, c_p, p, defer, npend, carry, out
         )
 
     # ---- ratio test (+ eta and the stepped x_b) ----
@@ -929,6 +1034,7 @@ def perturb_activate(
         state,
         x_b=state.x_b + delta,
         degen=torch.zeros_like(state.degen),
+        carried=None,
         pert=dataclasses.replace(
             pert,
             w=pert.w + w,
@@ -948,14 +1054,16 @@ def perturb_scale(opts: SimplexOptions, rounds: int) -> float:
 
 
 def perturb_clear(state: SolverState) -> SolverState:
-    """Drop the rhs shift. The caller must refactorize or recompute_xy next:
-    x_b still holds the shifted point until it is re-derived."""
+    """Drop the rhs shift (and a carried pick, as every upkeep does). The
+    caller must refactorize or recompute_xy next: x_b still holds the
+    shifted point until it is re-derived."""
     pert = state.pert
     return dataclasses.replace(
         state,
         pert=dataclasses.replace(
             pert, w=torch.zeros_like(pert.w), on=torch.zeros_like(pert.on)
         ),
+        carried=None,
     )
 
 
@@ -991,6 +1099,7 @@ def refactorize(
         x_b=B_inv @ _effective_rhs(prob, state, dtype),
         y=state.c_b @ B_inv,
         last_refac=state.iters.clone(),
+        carried=None,
     )
     if defer:
         new.U, new.R = torch.zeros_like(state.U), torch.zeros_like(state.R)
@@ -1013,4 +1122,4 @@ def recompute_xy(prob: Problem, state: SolverState, defer: bool = False) -> Solv
     if defer:
         x_b = x_b + state.U.T @ (state.R @ b)
         y = y + (state.c_b @ state.U.T) @ state.R
-    return _invalidate_candidates(dataclasses.replace(state, x_b=x_b, y=y))
+    return _invalidate_candidates(dataclasses.replace(state, x_b=x_b, y=y, carried=None))

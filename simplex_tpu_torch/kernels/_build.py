@@ -57,6 +57,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # outputs, stream
     ),
     "simplex_rank1_update": (_I, _P, _P, _P, _I, _I, _I, _P),
+    "simplex_rank1_update_ftran": (_I, _P, _P, _P, _P, _P, _I, _I, _P),
     "simplex_batch_pricing": (
         _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _I, _I,  # layout .. words
         _P, _P, _P, _P,  # mask, recs, p, min_e

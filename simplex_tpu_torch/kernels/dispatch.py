@@ -6,7 +6,8 @@
     entering column included; signed, too, under the bounded rule), the
     ratio tests (fused with the eta / x_b epilogue or with the step's whole
     O(m) tail, ``pivot_tail``; and the classic one alone) and the rank-1
-    update run through the CUDA kernels
+    update (alone, or with the next step's ftran fused in,
+    ``rank1_update_ftran``) run through the CUDA kernels
     (:mod:`simplex_tpu_torch.kernels.hopper`);
   * ``"torch"``  -- plain PyTorch ops everywhere
     (:mod:`simplex_tpu_torch.kernels.ops`), the kernels' reference.
@@ -59,6 +60,9 @@ def get_backend(name: str) -> types.SimpleNamespace:
         ),
         ratio_argmin_bounded=_ops.ratio_argmin_bounded,
         rank1_update=_hopper.rank1_update if fast else _ops.rank1_update,
+        # the update with the next step's ftran fused in: offered here, and
+        # so taken by the default step (core.step), on both backends
+        rank1_update_ftran=_hopper.rank1_update_ftran if fast else _ops.rank1_update_ftran,
         # the batched step (simplex_tpu_torch.batch): one launch a batch step
         # each on the hopper backend
         choose_entering_batched=(

@@ -15,6 +15,9 @@ Each wrapper stands beside its plain PyTorch version and a launch counter:
                                                  selects and scalar updates of
                                                  the step around it
   rank1_update       csrc/rank1_update.cu        pallas_ops.rank1_update
+  rank1_update_      csrc/rank1_update.cu        pallas_ops.rank1_update and,
+  ftran                                          fused into its pass, the
+                                                 next step's ftran product
   choose_entering_   csrc/batch_pricing.cu       pallas_ops.pricing_scan under
   batched                                        vmap (a batch grid axis)
   pivot_tail_        csrc/batch_tail.cu          pallas_ops.ratio_eta under
@@ -43,7 +46,9 @@ shapes the new one does not take, gives the same bits, and is reachable by
 name (``layout=``) only for the tools that hold the two against each other
 (``chip_smoke.py``, ``bench/kernels.py``). No option selects a layout, and
 a failed launch raises; ``pricing_layouts`` counts the calls each layout
-took.
+took. Likewise ``rank1_layouts`` counts the rank-1 launches by kind:
+``plain`` (:func:`rank1_update`) and ``ftran`` (:func:`rank1_update_ftran`,
+whose launches ``launches["rank1_update"]`` counts too).
 """
 
 from __future__ import annotations
@@ -68,6 +73,9 @@ launches = {
 # pricing_scan calls per layout that ran (pricing_layout) since the last
 # reset_launches(): a float64 call that falls back to "split" shows here
 pricing_layouts = {"split": 0, "stream": 0}
+# rank-1 launches by kind since the last reset_launches(): the update alone,
+# or with the next step's ftran fused in
+rank1_layouts = {"plain": 0, "ftran": 0}
 
 # pricing pass 1 splits the rows into chunks so that about this many blocks
 # of 1024 columns are in flight (8 per SM on a 132-SM H100)
@@ -81,7 +89,7 @@ _PRICING_STREAM_COLS, _PRICING_STREAM_CTAS = 256, 3
 
 
 def reset_launches() -> None:
-    for counter in (launches, pricing_layouts):
+    for counter in (launches, pricing_layouts, rank1_layouts):
         for name in counter:
             counter[name] = 0
 
@@ -267,7 +275,8 @@ def _pricing_workspace(
 
 
 def _pricing_call(
-    y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset, chunk_n=None, layout=None
+    y, A, c, eps, at_upper, basis, base_col, use_bland, p_offset, chunk_n=None, layout=None,
+    out=None,
 ):
     """Checks, then the plain version (CPU tensors) or the kernel's
     launches in the layout :func:`pricing_layout` picks. Returns ``(min_e,
@@ -276,7 +285,9 @@ def _pricing_call(
     row chunks are those of an (m, ``chunk_n``) pass (default: A's own
     width). ``layout`` names a layout the call must take (``"split"`` or
     ``"stream"``; ValueError where the call cannot), for the tools that
-    hold the two against each other; the solver never passes it."""
+    hold the two against each other; the solver never passes it. ``out``
+    (CUDA only) is the output block to write, as :func:`pricing_block`
+    makes it."""
     if A.dim() != 2 or A.shape[0] == 0 or A.shape[1] == 0:
         raise ValueError(f"A: want a non-empty matrix, got {tuple(A.shape)}")
     m, n = A.shape
@@ -306,6 +317,7 @@ def _pricing_call(
     if layout is not None and layout not in _LAYOUT_CODE:
         raise ValueError(f"pricing_scan: no layout {layout!r}")
     if dev.type == "cpu":
+        _require(out is None, "pricing_scan: out takes a CUDA block only")
         min_e, p_dantzig, p_neg = pricing_scan_plain(y, A, c, eps, at_upper, basis, base_col)
         p = None
         if use_bland is not None:
@@ -317,9 +329,15 @@ def _pricing_call(
     stream = _stream(dev)
     chunk_n = n if chunk_n is None else int(chunk_n)
     ws = _pricing_workspace(dev, stream, m, n, chunk_n, dt)
-    # min_e as a dt value, then argmin, first below -eps and the choice
     w = dt.itemsize // 4
-    out = torch.empty(w + 3, dtype=torch.int32, device=dev)
+    if out is None:
+        out = pricing_block(dev, dt)
+    else:
+        _require(
+            out.shape == (w + 3,) and out.dtype == torch.int32 and out.is_contiguous()
+            and out.device == dev and not any(_overlaps(out, t) for t in ins),
+            "out: want a pricing_block of the call's dtype on its device, apart from the inputs",
+        )
     align = 8 if A.dtype == torch.bfloat16 else 16
     aligned = A.data_ptr() % align == 0
     vec = n % 4 == 0 and lda % 4 == 0 and aligned
@@ -350,6 +368,19 @@ def _pricing_call(
     pricing_layouts[layout] += 1
     p_dantzig, p_neg, p = out[w:].unbind(0)
     return _value(out, dt), p_dantzig, p_neg, p
+
+
+def pricing_block(dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A new output block of one pricing call: min_e as a ``dtype`` value
+    (one or two int32 words), then argmin, first below -eps and the chosen
+    column."""
+    return torch.empty(dtype.itemsize // 4 + 3, dtype=torch.int32, device=dev)
+
+
+def pricing_choice(block: torch.Tensor, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(p, min_e)``: the views of a :func:`pricing_block` that
+    :func:`choose_entering` returns."""
+    return block[-1], _value(block, dtype)
 
 
 def pricing_scan(
@@ -395,7 +426,8 @@ def choose_entering_plain(y, A, c, eps, use_bland, basis=None, base_col: int = 0
 
 
 def choose_entering(
-    y, A, c, eps, use_bland, basis: Optional[torch.Tensor] = None, base_col: int = 0
+    y, A, c, eps, use_bland, basis: Optional[torch.Tensor] = None, base_col: int = 0,
+    out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same contract as :func:`simplex_tpu_torch.kernels.ops.choose_entering`
     in one :func:`pricing_scan` call: the basic-column mask, the choice
@@ -403,10 +435,15 @@ def choose_entering(
     and the ``base_col`` offset are made by the kernel, so no torch op runs
     before or after it. A sparse A (:class:`~simplex_tpu_torch.sparse.SparseA`)
     is priced by its SpMV and the masked argmin as plain ops: the kernel
-    reads dense A."""
+    reads dense A. ``out`` (dense A on CUDA only): the :func:`pricing_block`
+    the kernel writes, of which p and min_e are views (:func:`pricing_choice`),
+    for a CUDA graph whose results have to outlive its capture."""
     if isinstance(A, _sp.SparseA):
+        _require(out is None, "choose_entering: out takes dense A only")
         return _ops.choose_entering(y, A, c, eps, use_bland, basis, base_col)
-    min_e, _, _, p = _pricing_call(y, A, c, eps, None, basis, base_col, use_bland, base_col)
+    min_e, _, _, p = _pricing_call(
+        y, A, c, eps, None, basis, base_col, use_bland, base_col, out=out
+    )
     return p, min_e
 
 
@@ -786,7 +823,64 @@ def rank1_update(
     )
     _build.check(err, "rank1_update")
     launches["rank1_update"] += 1
+    rank1_layouts["plain"] += 1
     return B_inv
+
+
+def rank1_update_ftran_plain(B_inv, eta, binv_q, a, out=None) -> torch.Tensor:
+    """The update, then ``B_inv @ a`` (:func:`simplex_tpu_torch.kernels.ops.
+    rank1_update_ftran`)."""
+    return _ops.rank1_update_ftran(B_inv, eta, binv_q, a, out)
+
+
+def rank1_update_ftran(
+    B_inv: torch.Tensor, eta: torch.Tensor, binv_q: torch.Tensor, a: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`rank1_update` of a whole (m, m) inverse, IN PLACE, and the
+    product ``alpha = B_inv a`` of the updated inverse, in ONE launch: the
+    pass that writes B_inv sums alpha from the values it writes, so the
+    inverse is read once for both (the next step's ftran). The update
+    equals :func:`rank1_update`'s bit for bit; alpha is summed in a fixed
+    order (the same from call to call, and within rounding of
+    ``torch.mv``). B_inv (m, m), eta, binv_q and a (m,), all float32 or all
+    float64, no vector overlapping B_inv. Returns alpha, new or written into
+    ``out`` ((m,) contiguous, apart from every input). Counted under
+    ``launches["rank1_update"]`` and ``rank1_layouts["ftran"]``."""
+    _require(
+        B_inv.dim() == 2 and B_inv.shape[0] == B_inv.shape[1] > 0,
+        f"B_inv: want a non-empty square matrix, got {tuple(B_inv.shape)}",
+    )
+    m = B_inv.shape[0]
+    dt = _working_dtype(B_inv, "B_inv")
+    _require(B_inv.is_contiguous(), "B_inv: not contiguous")
+    _vector(eta, m, dt, "eta")
+    _vector(binv_q, m, dt, "binv_q")
+    _vector(a, m, dt, "a")
+    ins = (B_inv, eta, binv_q, a)
+    dev = _same_device(*ins) if out is None else _same_device(*ins, out)
+    _require(
+        not any(_overlaps(t, B_inv) for t in (eta, binv_q, a)),
+        "rank1_update_ftran: eta / binv_q / a overlap B_inv (pass a copy of the row)",
+    )
+    if out is not None:
+        _vector(out, m, dt, "out")
+        _require(not any(_overlaps(out, t) for t in ins), "out: overlaps an input")
+    if dev.type == "cpu":
+        return rank1_update_ftran_plain(B_inv, eta, binv_q, a, out)
+    if out is None:
+        out = torch.empty(m, dtype=dt, device=dev)
+    lib = _build.load_library()
+    vec = m % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (B_inv, binv_q, a))
+    spans.mark("launch:rank1_update")
+    err = lib.simplex_rank1_update_ftran(
+        _DTYPE_CODE[dt], B_inv.data_ptr(), eta.data_ptr(), binv_q.data_ptr(), a.data_ptr(),
+        out.data_ptr(), m, int(vec), _stream(dev),
+    )
+    _build.check(err, "rank1_update_ftran")
+    launches["rank1_update"] += 1
+    rank1_layouts["ftran"] += 1
+    return out
 
 
 

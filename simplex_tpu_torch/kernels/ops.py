@@ -503,6 +503,17 @@ def rank1_update(
     return B_inv.addr_(eta, binv_q)
 
 
+def rank1_update_ftran(
+    B_inv: torch.Tensor, eta: torch.Tensor, binv_q: torch.Tensor, a: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`rank1_update` in place, then ``alpha = B_inv @ a`` of the
+    updated inverse (into ``out`` when given): the next step's ftran, as
+    the step computes it without the fused kernel."""
+    rank1_update(B_inv, eta, binv_q)
+    return torch.mv(B_inv, a, out=out)
+
+
 # --------------------------------------------------------------------------
 # batched twins: a leading batch axis B, one instance a row
 # --------------------------------------------------------------------------

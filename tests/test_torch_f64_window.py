@@ -83,7 +83,7 @@ def test_the_cell_loads_by_name_and_keeps_to_the_contract():
     assert set(layer) == {
         "device_ops_per_pivot.window", "pricing_scan_roofline", "rank1_update_roofline.window",
         "device_idle_share.window", "head_idle_us_per_pivot.window", "graph_replays_per_pivot.window",
-        "graph_ahead_per_pivot.window",
+        "graph_ahead_per_pivot.window", "rank1_ftran_calls_per_pivot.window",
         *NEW_READERS,
     }
     for name in layer:
@@ -230,7 +230,8 @@ def test_a_replayed_chunk_counts_one_stream_call_a_pivot(card):
     eager_be = get_backend("hopper")
     eager_be.step_graphs = None
     eager = _chunk(prob, opts, eager_be, 60)
-    assert graph == eager == {"layouts": {"split": 0, "stream": 60}, "pricing_scan": 60}
+    # the head step prices itself, and every step prices the next one
+    assert graph == eager == {"layouts": {"split": 0, "stream": 61}, "pricing_scan": 61}
 
 
 @pytest.mark.card
@@ -238,7 +239,7 @@ def test_reset_launches_clears_the_layout_counter(card):
     opts = SimplexOptions(dtype=torch.float64)
     cfg = {"m": 1024, "n": 2048, "dtype": "float64", "column_block": 512}
     prob = solver.build_problem(*generate.dense_canonical(cfg, SEED, card), opts, card)
-    assert _chunk(prob, opts, get_backend("hopper"), 20)["layouts"]["stream"] == 20
+    assert _chunk(prob, opts, get_backend("hopper"), 20)["layouts"]["stream"] == 21
     hopper.reset_launches()
     assert hopper.pricing_layouts == {"split": 0, "stream": 0}
     assert all(v == 0 for v in hopper.launches.values())

@@ -1,7 +1,7 @@
 """The default pivot step replayed as a CUDA graph (``core/graph.py``).
 
 On the CPU: the rule that decides where the graph engages
-(``graph.StepGraphs.captures`` / ``graph.StepGraphs.takes``), and that no
+(``step.default_step`` / ``graph.StepGraphs.takes``), and that no
 CPU solve replays. On the card (marker ``card``; these skip without CUDA, and import
 no JAX): the graph path against the eager path bit for bit, in float32 and
 float64, on a ``benchmark.generate.dense_canonical`` LP of 1024 x 2048 --
@@ -68,7 +68,7 @@ def _cpu_case(backend="hopper", u=False, sparse=False, **kw):
 def _captures(prob, state, opts, be, ctl):
     """The rule on the backend's graphs; a backend without any captures nothing."""
     graphs = getattr(be, "step_graphs", None)
-    return graphs is not None and graphs.captures(prob, state, opts, ctl)
+    return graphs is not None and step.default_step(prob, state, opts, ctl)
 
 
 def _takes(prob, state, opts, be, ctl):
@@ -289,7 +289,8 @@ def test_counts_advance_as_eagerly(dtype, card):
     graph = _counts(prob, opts, get_backend("hopper"), 50)
     eager = _counts(prob, opts, _eager_backend(), 50)
     assert graph == eager
-    assert graph[0]["pricing_scan"] == graph[0]["ratio_eta"] == graph[0]["rank1_update"] == 50
+    # the head step prices itself, and every step prices the next one
+    assert graph[0]["ratio_eta"] == graph[0]["rank1_update"] == 50 and graph[0]["pricing_scan"] == 51
 
 
 @pytest.mark.card

@@ -147,11 +147,12 @@ def test_trace_sparse_matches_dense():
 
 def test_trace_min_reduced_cost_runs_the_pricing_call(monkeypatch):
     # one choose_entering call a pivot for min_reduced_cost, beside the
-    # step's own (the hopper wrapper, plain on CPU tensors)
+    # step's own (the hopper wrapper, plain on CPU tensors): each step
+    # prices the next one, and the first prices itself too (core.step)
     A, b, c = f32(*load_lp(SAMPLE))
     calls = []
     real = hopper.choose_entering
     # get_backend reads the wrapper off the module at each call
     monkeypatch.setattr(hopper, "choose_entering", lambda *a, **k: calls.append(1) or real(*a, **k))
     recs = list(trace_pivots(A, b, c, device="cpu"))
-    assert len(calls) == 2 * len(recs)
+    assert len(calls) == 2 * len(recs) + 1
